@@ -1,0 +1,594 @@
+"""Llama-style decoder LM with LoRA adapters, serving side.
+
+Ports ``rafiki_tpu/models/llama_lora.py`` for serving:
+
+- ``rope``, ``_parse_rope_scaling``, ``RMSNorm`` and ``LoRADense`` (plain
+  form: the int8 ``quantized`` and stacked ``n_adapters`` forms raise);
+- ``_masked_decode_attention``, the contiguous-cache decode attention;
+- ``_DecoderAttention`` — its decode branch, for contiguous rows and the
+  paged pool: rope'd K and raw V are written at ``(table[pos // page],
+  pos % page)`` before attention, and a paged module attends through
+  ``paged_decode_attention`` (s == 1) or ``paged_window_attention``
+  (s > 1). The train branch (flash attention) is a later slice;
+- ``_DecoderBlock`` (SwiGLU; the MoE FFN raises) and ``Llama``, whose
+  flax ``cache`` collection becomes the explicit per-layer tensors of
+  :meth:`Llama.init_cache`, written in place;
+- ``greedy_generate``, a Python loop of decode steps over a contiguous
+  cache;
+- the ``LlamaLoRA`` serving surface: ``load_parameters`` (from the JAX
+  template's ``dump_parameters()``), ``predict`` and
+  ``make_decode_engine``.
+
+Layouts follow the JAX package: kernels are ``(d_in, features)`` and a
+LoRA site computes ``x @ W + ((x @ A) @ B) * alpha / rank``. Parameters
+take the compute dtype at construction (bf16 when the model is bf16),
+except the norm scales and the embedding table, which stay f32 — the
+roundings the JAX module applies per call.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rafiki_tpu_torch.models.bert import HashTokenizer
+from rafiki_tpu_torch.ops.common import gqa_repeat_factor
+from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
+                                                  paged_decode_attention,
+                                                  paged_window_attention)
+from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
+                                                    TextDecodeEngine)
+from rafiki_tpu_torch.store.params import llama_params_from_jax
+from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
+
+RopeScaling = Tuple[float, float, float, float]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+         scaling: Optional[RopeScaling] = None) -> torch.Tensor:
+    """Rotary embedding over (b, s, heads, head_dim) with (b, s)
+    positions. ``scaling`` is Llama-3.1's frequency-dependent NTK scaling
+    ``(factor, low_freq_factor, high_freq_factor,
+    original_max_position_embeddings)``."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if scaling is not None:
+        factor, low_f, high_f, orig_len = scaling
+        # ratio = original_context / wavelength (wavelength = 2π/freq)
+        ratio = orig_len * freqs / (2.0 * math.pi)
+        smooth = torch.clamp((ratio - low_f) / max(high_f - low_f, 1e-9),
+                             0.0, 1.0)
+        scaled = freqs / factor
+        freqs = torch.where(
+            ratio < low_f, scaled,
+            torch.where(ratio > high_f, freqs,
+                        (1.0 - smooth) * scaled + smooth * freqs))
+    angles = positions[..., None].float() * freqs  # (b, s, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _parse_rope_scaling(value: Any) -> Optional[RopeScaling]:
+    """Knob value (JSON object string, dict, or "") → the scaling tuple
+    :func:`rope` consumes. HF config key names are accepted directly,
+    with the published Llama-3.1 defaults for the optional band
+    parameters."""
+    if not value:
+        return None
+    if isinstance(value, str):
+        value = json.loads(value)
+    c = dict(value)
+    kind = str(c.get("rope_type", c.get("type", "llama3"))).lower()
+    if kind == "default":
+        return None  # HF semantics: explicit 'default' = unscaled
+    if kind != "llama3":
+        # linear/dynamic/yarn use different position geometry; applying
+        # the llama3 formula to them would be silently wrong
+        raise ValueError(
+            f"unsupported rope_scaling type {kind!r} (only 'llama3' "
+            "frequency-dependent scaling is implemented)")
+    if "factor" not in c:
+        raise ValueError("rope_scaling requires a 'factor' key "
+                         f"(got {sorted(c)})")
+    return (float(c["factor"]),
+            float(c.get("low_freq_factor", 1.0)),
+            float(c.get("high_freq_factor", 4.0)),
+            float(c.get("original_max_position_embeddings", 8192)))
+
+
+def _weight(shape: Sequence[int], std: float, dtype: torch.dtype,
+            device: torch.device, gen: torch.Generator) -> nn.Parameter:
+    """A frozen parameter drawn from N(0, std²) (zeros for std 0) with
+    the caller's generator — serving weights never take gradients."""
+    t = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if std:
+        t.normal_(0.0, std, generator=gen)
+    else:
+        t.zero_()
+    return nn.Parameter(t, requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+    """f32 math, f32 ``scale``, output in the input's dtype."""
+
+    def __init__(self, dim: int, device: torch.device,
+                 eps: float = 1e-5) -> None:
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        norm = x32 * torch.rsqrt(
+            torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
+        return (norm * self.scale).to(x.dtype)
+
+
+class LoRADense(nn.Module):
+    """Frozen base kernel + low-rank adapter (classic LoRA):
+    ``y = x @ kernel + ((x @ lora_a) @ lora_b) * alpha / rank``.
+
+    Random init: kernel N(0, 1/d_in), lora_a N(0, 0.02²), lora_b zeros
+    (the JAX template draws the kernel from a truncated lecun normal; the
+    port only needs a seeded random base until weights are loaded)."""
+
+    def __init__(self, d_in: int, features: int, rank: int,
+                 dtype: torch.dtype, device: torch.device,
+                 gen: torch.Generator, alpha: float = 16.0,
+                 quantized: bool = False, n_adapters: int = 0) -> None:
+        super().__init__()
+        if quantized:
+            raise NotImplementedError(
+                "int8 base kernels (quantize_int8) are not ported yet")
+        if n_adapters:
+            raise NotImplementedError(
+                "multi-adapter LoRA sites are not ported yet")
+        self.rank = int(rank)
+        self.alpha = float(alpha)
+        self.kernel = _weight((d_in, features), 1.0 / math.sqrt(d_in),
+                              dtype, device, gen)
+        if self.rank > 0:
+            self.lora_a = _weight((d_in, self.rank), 0.02, dtype, device,
+                                  gen)
+            self.lora_b = _weight((self.rank, features), 0.0, dtype,
+                                  device, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel.to(x.dtype)
+        if self.rank > 0:
+            y = y + ((x @ self.lora_a.to(x.dtype))
+                     @ self.lora_b.to(x.dtype)) * (self.alpha / self.rank)
+        return y
+
+
+class Embed(nn.Module):
+    """Token embedding table (``tok_embed/embedding``), kept f32."""
+
+    def __init__(self, vocab_size: int, features: int,
+                 device: torch.device, gen: torch.Generator) -> None:
+        super().__init__()
+        self.embedding = _weight((vocab_size, features),
+                                 1.0 / math.sqrt(features), torch.float32,
+                                 device, gen)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)
+
+
+def _masked_decode_attention(q: torch.Tensor, kk: torch.Tensor,
+                             vv: torch.Tensor, t: torch.Tensor, dh: int,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """The contiguous decode attention: (b, s, H, dh) queries over
+    (b, length, H, dh) logical-order keys/values, each query token
+    masked to keys at-or-before its own position."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(dh)
+    k_pos = torch.arange(kk.shape[1], device=q.device)[None, None, None, :]
+    scores = torch.where(k_pos <= t.long()[:, None, :, None], scores, -1e30)
+    probs = torch.softmax(scores.float(), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), vv)
+
+
+class _DecoderAttention(nn.Module):
+    def __init__(self, hidden: int, n_heads: int, n_kv_heads: int,
+                 lora_rank: int, rope_theta: float,
+                 rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
+                 device: torch.device, gen: torch.Generator) -> None:
+        super().__init__()
+        self.n_heads = n_heads
+        self.n_kv_heads = n_kv_heads
+        self.rep = gqa_repeat_factor(n_heads, n_kv_heads)
+        self.rope_theta = rope_theta
+        self.rope_scaling = rope_scaling
+        dh = hidden // n_heads
+        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen)
+        self.wq = LoRADense(hidden, n_heads * dh, **kw)
+        self.wk = LoRADense(hidden, n_kv_heads * dh, **kw)
+        self.wv = LoRADense(hidden, n_kv_heads * dh, **kw)
+        self.wo = LoRADense(n_heads * dh, hidden, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Dict[str, torch.Tensor],
+                page_tables: Optional[torch.Tensor]) -> torch.Tensor:
+        b, s, d = x.shape
+        dh = d // self.n_heads
+        q = rope(self.wq(x).reshape(b, s, self.n_heads, dh), positions,
+                 self.rope_theta, self.rope_scaling)
+        k = rope(self.wk(x).reshape(b, s, self.n_kv_heads, dh), positions,
+                 self.rope_theta, self.rope_scaling)
+        v = self.wv(x).reshape(b, s, self.n_kv_heads, dh)
+        ck, cv = cache["k"], cache["v"]
+        t = positions  # (b, s): each slot's own write index per token
+        # write the whole window before attending: within-window
+        # causality then falls out of the per-row position mask
+        if page_tables is not None:
+            page_size = ck.shape[1]
+            widx = (torch.gather(page_tables, 1, (t // page_size).long()),
+                    t % page_size)
+        else:
+            widx = (torch.arange(b, device=x.device)[:, None].expand(b, s),
+                    t)
+        kv_cache_write(ck, widx[0], widx[1], k)
+        kv_cache_write(cv, widx[0], widx[1], v)
+        if page_tables is not None:
+            sm = 1.0 / math.sqrt(dh)
+            if s == 1:  # the generation hot loop
+                o = paged_decode_attention(q[:, 0], ck, cv, page_tables,
+                                           t[:, 0], sm)[:, None]
+            else:  # chunked-prefill windows: nondecreasing positions
+                o = paged_window_attention(q, ck, cv, page_tables, t, sm)
+        else:
+            o = _masked_decode_attention(
+                q, ck.repeat_interleave(self.rep, dim=2),
+                cv.repeat_interleave(self.rep, dim=2), t, dh, x.dtype)
+        return self.wo(o.reshape(b, s, self.n_heads * dh))
+
+
+class _DecoderBlock(nn.Module):
+    def __init__(self, hidden: int, n_heads: int, n_kv_heads: int,
+                 mlp_dim: int, lora_rank: int, rope_theta: float,
+                 rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
+                 device: torch.device, gen: torch.Generator,
+                 n_experts: int = 0) -> None:
+        super().__init__()
+        if n_experts:
+            raise NotImplementedError("the MoE FFN is not ported yet")
+        self.RMSNorm_0 = RMSNorm(hidden, device)
+        self.attn = _DecoderAttention(hidden, n_heads, n_kv_heads,
+                                      lora_rank, rope_theta, rope_scaling,
+                                      dtype, device, gen)
+        self.RMSNorm_1 = RMSNorm(hidden, device)
+        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen)
+        self.gate = LoRADense(hidden, mlp_dim, **kw)
+        self.up = LoRADense(hidden, mlp_dim, **kw)
+        self.down = LoRADense(mlp_dim, hidden, **kw)
+
+    def forward(self, x, positions, cache, page_tables):
+        x = x + self.attn(self.RMSNorm_0(x), positions, cache, page_tables)
+        y = self.RMSNorm_1(x)
+        y = F.silu(self.gate(y)) * self.up(y)  # SwiGLU
+        return x + self.down(y)
+
+
+def _check_kv_layout(max_len: int, kv_page_size: int, kv_pages: int
+                     ) -> None:
+    if kv_page_size > 0:
+        if max_len % kv_page_size:
+            raise ValueError(f"kv_page_size {kv_page_size} must divide "
+                             f"max_len {max_len}")
+        if kv_pages < 2:
+            raise ValueError("kv_page_size > 0 needs kv_pages >= 2 (page 0 "
+                             "is the scratch page; at least one usable "
+                             "page)")
+
+
+class Llama(nn.Module):
+    """Decoder-only LM. The defaults are Llama-3-8B's published config:
+    vocab 128256, context 8192, hidden 4096, depth 32, heads 32,
+    kv_heads 8, mlp_dim 14336 (its rope theta, 500000, is the caller's:
+    the JAX module defaults to 10000).
+
+    ``dtype`` is the compute dtype (None = float32). ``kv_page_size > 0``
+    makes the decode cache a paged pool of ``kv_pages`` pages (page 0 is
+    the serving engine's scratch page); ``with_kv_layout`` gives another
+    layout over the same weights. Weights are drawn from ``generator``
+    (a fresh one seeded 0 when None) on ``device`` (None = the CUDA
+    card, raising without one)."""
+
+    def __init__(self, vocab_size: int = 128256, max_len: int = 8192,
+                 hidden_dim: int = 4096, depth: int = 32,
+                 n_heads: int = 32, n_kv_heads: int = 8,
+                 mlp_dim: int = 14336, lora_rank: int = 0,
+                 dtype: Optional[torch.dtype] = None,
+                 rope_theta: float = 10000.0,
+                 rope_scaling: Optional[RopeScaling] = None,
+                 kv_page_size: int = 0, kv_pages: int = 0,
+                 n_experts: int = 0, quantized: bool = False,
+                 n_adapters: int = 0, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        if quantized:
+            raise NotImplementedError(
+                "int8 base kernels (quantize_int8) are not ported yet")
+        if n_adapters:
+            raise NotImplementedError(
+                "multi-adapter serving is not ported yet")
+        _check_kv_layout(max_len, kv_page_size, kv_pages)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.vocab_size = int(vocab_size)
+        self.max_len = int(max_len)
+        self.hidden_dim = int(hidden_dim)
+        self.depth = int(depth)
+        self.n_heads = int(n_heads)
+        self.n_kv_heads = int(n_kv_heads)
+        self.dtype = torch.float32 if dtype is None else dtype
+        self.kv_page_size = int(kv_page_size)
+        self.kv_pages = int(kv_pages)
+        self.tok_embed = Embed(vocab_size, hidden_dim, device, generator)
+        for i in range(depth):
+            self.add_module(f"block_{i}", _DecoderBlock(
+                hidden_dim, n_heads, n_kv_heads, mlp_dim, lora_rank,
+                rope_theta, rope_scaling, self.dtype, device, generator,
+                n_experts=n_experts))
+        self.final_norm = RMSNorm(hidden_dim, device)
+        self.lm_head = LoRADense(hidden_dim, vocab_size, 0, self.dtype,
+                                 device, generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.embedding.device
+
+    def with_kv_layout(self, kv_page_size: int, kv_pages: int) -> "Llama":
+        """This model over another decode-cache layout, sharing every
+        weight tensor (the JAX ``module.clone(kv_page_size=...,
+        kv_pages=...)``): only the cache shape and the attention
+        dispatch depend on the layout."""
+        _check_kv_layout(self.max_len, kv_page_size, kv_pages)
+        view = copy.copy(self)  # shallow: submodules and weights shared
+        view.kv_page_size = int(kv_page_size)
+        view.kv_pages = int(kv_pages)
+        return view
+
+    def init_cache(self, batch: int, device: DeviceLike = None
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer zeroed ``{"k", "v"}`` in the compute dtype:
+        ``(batch, max_len, n_kv, dh)`` rows, or ``(kv_pages, page_size,
+        n_kv, dh)`` when paged. The forward writes them in place."""
+        dev = self.device if device is None else torch.device(device)
+        dh = self.hidden_dim // self.n_heads
+        if self.kv_page_size > 0:
+            shape = (self.kv_pages, self.kv_page_size, self.n_kv_heads, dh)
+        else:
+            shape = (batch, self.max_len, self.n_kv_heads, dh)
+        return [{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+                for _ in range(self.depth)]
+
+    def forward(self, ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[List[Dict[str, torch.Tensor]]] = None,
+                page_tables: Optional[torch.Tensor] = None,
+                decode: bool = True,
+                return_hidden: bool = False) -> torch.Tensor:
+        """One decode-branch call: write the (b, s) window's K/V into
+        ``cache`` at ``positions`` (int32, default 0..s-1), attend, and
+        return (b, s, vocab) logits — or the final-norm activations with
+        ``return_hidden`` (prefill, which must not pay the lm_head).
+        Paged models need ``page_tables`` ((b, n_tables) int32)."""
+        if not decode:
+            raise NotImplementedError(
+                "the train branch (flash attention) is not ported yet")
+        if cache is None:
+            raise ValueError("decode needs the cache from init_cache()")
+        b, s = ids.shape
+        if self.kv_page_size > 0:
+            if page_tables is None:
+                raise ValueError(
+                    "kv_page_size > 0 decode requires the page_tables "
+                    "operand (the serving engine supplies it; plain "
+                    "generate paths must use a contiguous-cache model)")
+        else:
+            page_tables = None
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=ids.device).expand(b, s)
+        x = self.tok_embed(ids).to(self.dtype)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x, positions, cache[i],
+                                            page_tables)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x)
+
+
+def greedy_generate(module: Llama, prompt_ids: np.ndarray,
+                    prompt_lens: np.ndarray, max_new: int) -> torch.Tensor:
+    """Greedy decode over a contiguous cache, one token per step.
+
+    ``prompt_ids`` (b, P) left-aligned with PAD tails; each example
+    starts generating right after its own last prompt token, so pads
+    never enter the cache. Returns (b, max_new) generated ids (int64, on
+    the module's device)."""
+    dev = module.device
+    prompt = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)
+    plens = torch.as_tensor(np.asarray(prompt_lens, np.int64), device=dev)
+    b, p_len = prompt.shape
+    total = p_len + int(max_new)
+    cache = module.init_cache(b)
+    tok = prompt[:, 0]
+    outs = []
+    for t in range(total - 1):
+        logits = module(tok[:, None],
+                        positions=torch.full((b, 1), t, dtype=torch.int32,
+                                             device=dev),
+                        cache=cache)
+        nxt = logits[:, -1].float().argmax(-1)
+        # next input: the prompt token while it lasts, else our output
+        tok = torch.where((t + 1) < plens,
+                          prompt[:, min(t + 1, p_len - 1)], nxt)
+        outs.append(nxt)
+    # outs[t] is the prediction after consuming token t; example i's
+    # generation starts at t = plens[i] - 1
+    seq = torch.stack(outs, dim=1)  # (b, total - 1)
+    gather = (plens[:, None] - 1) + torch.arange(int(max_new),
+                                                 device=dev)[None, :]
+    return torch.gather(seq, 1, gather.clamp(0, total - 2))
+
+
+def _default_kv_pages(max_slots: int, max_len: int, page_size: int) -> int:
+    """Full-coverage pool: every slot can hold ``max_len`` (no saving, no
+    stalls) plus the scratch page."""
+    return 1 + max_slots * (max_len // page_size)
+
+
+class LlamaLoRA:
+    """Causal-LM template, serving surface: load the JAX template's
+    dumped weights, then ``predict`` or serve through a continuous-
+    batching engine. Knobs are the JAX template's (``hidden_dim``,
+    ``depth``, ``n_heads``, ``kv_ratio``, ``lora_rank``, ``max_len``,
+    ``vocab_size``, ``bf16``, ``rope_theta``, ``rope_scaling``); training,
+    the byte-BPE tokenizer and the int8/MoE knobs are later slices and
+    raise. ``device=None`` is the CUDA card."""
+
+    def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
+        self.device = resolve_device(device)
+        self.knobs: Dict[str, Any] = dict(knobs)
+        for key in ("tokenizer_path", "pretrained_path", "quantize_int8",
+                    "kv_cache_int8", "moe_experts"):
+            if self.knobs.get(key):
+                raise NotImplementedError(f"knob {key!r} is not ported yet")
+        self.tokenizer = HashTokenizer(int(self.knobs.get("vocab_size",
+                                                          1 << 14)))
+        self._model: Optional[Llama] = None
+        self._id2tok: Dict[int, str] = {}
+
+    def _dtype(self) -> torch.dtype:
+        # single source of truth for the bf16 knob → compute dtype
+        return torch.bfloat16 if self.knobs.get("bf16", True) \
+            else torch.float32
+
+    def _module(self) -> Llama:
+        """A freshly initialized model for these knobs (mlp = 4·hidden,
+        as in the JAX template), contiguous cache layout."""
+        k = self.knobs
+        hd = int(k["hidden_dim"])
+        heads = int(k["n_heads"])
+        return Llama(vocab_size=self.tokenizer.vocab_size,
+                     max_len=int(k["max_len"]), hidden_dim=hd,
+                     depth=int(k["depth"]), n_heads=heads,
+                     n_kv_heads=max(1, heads // int(k["kv_ratio"])),
+                     mlp_dim=4 * hd, lora_rank=int(k["lora_rank"]),
+                     dtype=self._dtype(),
+                     rope_theta=float(k.get("rope_theta", 10000.0)
+                                      or 10000.0),
+                     rope_scaling=_parse_rope_scaling(
+                         k.get("rope_scaling", "")),
+                     device=self.device)
+
+    def _serving_module_params(self, kv_page_size: int = 0,
+                               kv_pages: int = 0) -> Llama:
+        """The loaded model over the requested cache layout (the JAX
+        method returns (module, params); here the module holds them)."""
+        if self._model is None:
+            raise RuntimeError("model is not loaded (load_parameters)")
+        return self._model.with_kv_layout(kv_page_size, kv_pages)
+
+    def load_parameters(self, params: Dict[str, Any]) -> None:
+        """Load a JAX ``LlamaLoRA.dump_parameters()`` dict."""
+        meta = params["meta"]
+        if meta.get("bpe_merges") is not None:
+            raise NotImplementedError(
+                "the byte-BPE tokenizer is not ported yet")
+        self._id2tok = {int(k): v for k, v in meta["id2tok"].items()}
+        model = self._module()
+        model.load_state_dict(llama_params_from_jax(params["params"],
+                                                    model.dtype))
+        self._model = model
+
+    def predict(self, queries: Sequence[Any],
+                max_new_tokens: int = 8) -> List[str]:
+        """Greedy continuations, detokenized via the learned id→token
+        table (unknown ids render as ``<id>``). The JAX template pads the
+        batch to a power of two for its compile cache; eager PyTorch has
+        none to hit, so the batch runs as given."""
+        model = self._serving_module_params()
+        texts = [q if isinstance(q, str) else str(q) for q in queries]
+        max_len = int(self.knobs["max_len"])
+        # the KV cache holds max_len positions (prompt + generation)
+        max_new = min(max_new_tokens, max_len - 1)
+        ids, lens = self.tokenizer.encode_batch(texts,
+                                                max(1, max_len - max_new))
+        out = greedy_generate(model, ids, lens, max_new).cpu().numpy()
+        return [self._detok(row) for row in out]
+
+    def _detok(self, ids: Sequence[Any]) -> str:
+        """Render generated ids through the learned id→token table
+        (hashing is one-way; unknown ids render as ``<id>``)."""
+        return " ".join(self._id2tok.get(int(t), f"<{int(t)}>")
+                        for t in ids)
+
+    def make_decode_engine(self, max_slots: int = 8,
+                           max_new_tokens: int = 8,
+                           steps_per_sync: int = 4,
+                           prefill_chunk: int = 32,
+                           speculate_k: int = 0,
+                           system_prefix: str = "",
+                           draft_model: Optional["LlamaLoRA"] = None,
+                           kv_page_size: int = 0,
+                           kv_pages: int = 0,
+                           host_kv_pages: int = 0) -> TextDecodeEngine:
+        """Continuous-batching serving engine over this model's weights.
+        ``kv_page_size > 0`` serves from a paged KV pool of ``kv_pages``
+        pages (0 = full coverage); on a CUDA device every decode call
+        then runs the paged-attention kernels. Speculation, draft models,
+        system prefixes and the host KV tier are later slices."""
+        if system_prefix:
+            raise NotImplementedError(
+                "registered prefixes are not ported yet")
+        if draft_model is not None:
+            raise NotImplementedError(
+                "draft-model speculation is not ported yet")
+        if kv_page_size > 0 and not kv_pages:
+            kv_pages = _default_kv_pages(max_slots,
+                                         int(self.knobs["max_len"]),
+                                         int(kv_page_size))
+        module = self._serving_module_params(kv_page_size, kv_pages)
+        return self._build_text_engine(module, max_slots, max_new_tokens,
+                                       steps_per_sync, prefill_chunk,
+                                       speculate_k,
+                                       host_kv_pages=host_kv_pages)
+
+    def _build_text_engine(self, module: Llama, max_slots: int,
+                           max_new_tokens: int, steps_per_sync: int,
+                           prefill_chunk: int, speculate_k: int,
+                           host_kv_pages: int = 0) -> TextDecodeEngine:
+        """This model's tokenizer around a DecodeEngine."""
+        max_len = int(self.knobs["max_len"])
+
+        def encode(text: str) -> np.ndarray:
+            row, n = self.tokenizer.encode(str(text), max_len)
+            return np.asarray(row[:max(1, int(n))], np.int32)
+
+        core = DecodeEngine(module, max_slots=max_slots, max_len=max_len,
+                            steps_per_sync=steps_per_sync,
+                            prefill_chunk=prefill_chunk,
+                            speculate_k=speculate_k,
+                            host_kv_pages=int(host_kv_pages),
+                            device=self.device)
+        return TextDecodeEngine(core, encode, self._detok,
+                                max_new=min(max_new_tokens, max_len - 1))
