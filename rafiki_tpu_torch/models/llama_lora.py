@@ -1,6 +1,6 @@
-"""Llama-style decoder LM with LoRA adapters, serving side.
+"""Llama-style decoder LM with LoRA adapters: serving and fine-tuning.
 
-Ports ``rafiki_tpu/models/llama_lora.py`` for serving:
+Ports ``rafiki_tpu/models/llama_lora.py``:
 
 - ``rope``, ``_parse_rope_scaling``, ``RMSNorm`` and ``LoRADense`` (plain
   form: the int8 ``quantized`` and stacked ``n_adapters`` forms raise);
@@ -9,21 +9,30 @@ Ports ``rafiki_tpu/models/llama_lora.py`` for serving:
   paged pool: rope'd K and raw V are written at ``(table[pos // page],
   pos % page)`` before attention, and a paged module attends through
   ``paged_decode_attention`` (s == 1) or ``paged_window_attention``
-  (s > 1). The train branch (flash attention) is a later slice;
+  (s > 1); and its train branch (``decode=False``): causal
+  ``flash_attention`` with each row's keys past ``lens`` masked;
 - ``_DecoderBlock`` (SwiGLU; the MoE FFN raises) and ``Llama``, whose
   flax ``cache`` collection becomes the explicit per-layer tensors of
   :meth:`Llama.init_cache`, written in place;
 - ``greedy_generate``, a Python loop of decode steps over a contiguous
   cache;
-- the ``LlamaLoRA`` serving surface: ``load_parameters`` (from the JAX
-  template's ``dump_parameters()``), ``predict`` and
-  ``make_decode_engine``.
+- the functional training step of ``LlamaLoRA._lane_functions`` as
+  module-level functions over any ``Llama``: the trainable masks
+  (:func:`lora_trainable_names`), f32 master weights
+  (:func:`make_trainable`), :func:`merge`, ``lm_valid_mask`` /
+  ``lm_loss_terms``, :func:`adamw` and :func:`train_step`;
+- the ``LlamaLoRA`` template: ``train`` (the unsharded
+  ``_train_functional`` loop), ``evaluate``, ``dump_parameters``,
+  ``load_parameters`` (blobs move both ways with the JAX template),
+  ``predict`` and ``make_decode_engine``.
 
 Layouts follow the JAX package: kernels are ``(d_in, features)`` and a
 LoRA site computes ``x @ W + ((x @ A) @ B) * alpha / rank``. Parameters
 take the compute dtype at construction (bf16 when the model is bf16),
 except the norm scales and the embedding table, which stay f32 — the
-roundings the JAX module applies per call.
+roundings the JAX module applies per call. A trained leaf is the
+exception: :func:`make_trainable` keeps it f32 and ``LoRADense`` casts it
+per call, as JAX does for every leaf.
 """
 
 from __future__ import annotations
@@ -38,14 +47,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rafiki_tpu_torch.models.bert import HashTokenizer
+from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
+from rafiki_tpu_torch.data.loader import batch_iterator
+from rafiki_tpu_torch.model.base import TrainContext
+from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
+from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
 from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
-from rafiki_tpu_torch.store.params import llama_params_from_jax
+from rafiki_tpu_torch.store.params import (llama_params_from_jax,
+                                           llama_params_to_jax)
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 
 RopeScaling = Tuple[float, float, float, float]
@@ -220,8 +234,10 @@ class _DecoderAttention(nn.Module):
         self.wo = LoRADense(n_heads * dh, hidden, **kw)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Dict[str, torch.Tensor],
-                page_tables: Optional[torch.Tensor]) -> torch.Tensor:
+                cache: Optional[Dict[str, torch.Tensor]],
+                page_tables: Optional[torch.Tensor],
+                lens: Optional[torch.Tensor] = None,
+                decode: bool = True) -> torch.Tensor:
         b, s, d = x.shape
         dh = d // self.n_heads
         q = rope(self.wq(x).reshape(b, s, self.n_heads, dh), positions,
@@ -229,6 +245,17 @@ class _DecoderAttention(nn.Module):
         k = rope(self.wk(x).reshape(b, s, self.n_kv_heads, dh), positions,
                  self.rope_theta, self.rope_scaling)
         v = self.wv(x).reshape(b, s, self.n_kv_heads, dh)
+        if not decode:
+            # the train branch: causal flash attention over the window,
+            # keys past each row's length masked. K/V repeat to n_heads
+            # as jnp.repeat(k, rep, axis=2) does; autograd sums dK/dV
+            # back over the repeats
+            o = flash_attention(
+                q.transpose(1, 2),
+                k.repeat_interleave(self.rep, dim=2).transpose(1, 2),
+                v.repeat_interleave(self.rep, dim=2).transpose(1, 2),
+                causal=True, kv_lens=lens).transpose(1, 2)
+            return self.wo(o.reshape(b, s, self.n_heads * dh))
         ck, cv = cache["k"], cache["v"]
         t = positions  # (b, s): each slot's own write index per token
         # write the whole window before attending: within-window
@@ -275,8 +302,10 @@ class _DecoderBlock(nn.Module):
         self.up = LoRADense(hidden, mlp_dim, **kw)
         self.down = LoRADense(mlp_dim, hidden, **kw)
 
-    def forward(self, x, positions, cache, page_tables):
-        x = x + self.attn(self.RMSNorm_0(x), positions, cache, page_tables)
+    def forward(self, x, positions, cache, page_tables, lens=None,
+                decode=True):
+        x = x + self.attn(self.RMSNorm_0(x), positions, cache, page_tables,
+                          lens, decode)
         y = self.RMSNorm_1(x)
         y = F.silu(self.gate(y)) * self.up(y)  # SwiGLU
         return x + self.down(y)
@@ -383,19 +412,30 @@ class Llama(nn.Module):
                 cache: Optional[List[Dict[str, torch.Tensor]]] = None,
                 page_tables: Optional[torch.Tensor] = None,
                 decode: bool = True,
-                return_hidden: bool = False) -> torch.Tensor:
-        """One decode-branch call: write the (b, s) window's K/V into
-        ``cache`` at ``positions`` (int32, default 0..s-1), attend, and
-        return (b, s, vocab) logits — or the final-norm activations with
-        ``return_hidden`` (prefill, which must not pay the lm_head).
-        Paged models need ``page_tables`` ((b, n_tables) int32)."""
-        if not decode:
-            raise NotImplementedError(
-                "the train branch (flash attention) is not ported yet")
-        if cache is None:
-            raise ValueError("decode needs the cache from init_cache()")
+                return_hidden: bool = False,
+                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(b, s) ids → (b, s, vocab) logits, or the final-norm
+        activations with ``return_hidden`` (prefill, which must not pay
+        the lm_head).
+
+        ``decode=True`` (the default here; the JAX module's is False) is
+        one decode-branch call: write the window's K/V into ``cache`` at
+        ``positions`` (int32, default 0..s-1) and attend; paged models
+        need ``page_tables`` ((b, n_tables) int32). ``decode=False`` is
+        the train branch: no cache, causal flash attention with each
+        row's keys past ``lens`` (b,) masked (default: full rows)."""
         b, s = ids.shape
-        if self.kv_page_size > 0:
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=ids.device).expand(b, s)
+        if not decode:
+            if lens is None:
+                lens = torch.full((b,), s, dtype=torch.int32,
+                                  device=ids.device)
+            cache, page_tables = [None] * self.depth, None
+        elif cache is None:
+            raise ValueError("decode needs the cache from init_cache()")
+        elif self.kv_page_size > 0:
             if page_tables is None:
                 raise ValueError(
                     "kv_page_size > 0 decode requires the page_tables "
@@ -403,13 +443,10 @@ class Llama(nn.Module):
                     "generate paths must use a contiguous-cache model)")
         else:
             page_tables = None
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=ids.device).expand(b, s)
         x = self.tok_embed(ids).to(self.dtype)
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x, positions, cache[i],
-                                            page_tables)
+                                            page_tables, lens, decode)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -450,20 +487,178 @@ def greedy_generate(module: Llama, prompt_ids: np.ndarray,
     return torch.gather(seq, 1, gather.clamp(0, total - 2))
 
 
+# ---- the functional training step (JAX: LlamaLoRA._lane_functions) ----
+
+def lora_trainable_names(model: Llama, adapters_only: bool = False
+                         ) -> List[str]:
+    """``state_dict`` keys of the leaves a LoRA fine-tune trains: the
+    adapters, every norm scale and the LM head (JAX's
+    ``lora_trainable_mask``), or the adapters alone with
+    ``adapters_only`` (``adapter_only_mask``). The base kernels and the
+    embedding stay frozen."""
+    def trainable(path: str) -> bool:
+        if adapters_only:
+            return "lora_a" in path or "lora_b" in path
+        return ("lora_" in path or "norm" in path
+                or path.startswith("lm_head"))
+
+    return [name for name, _ in model.named_parameters()
+            if trainable(name.replace(".", "/").lower())]
+
+
+def make_trainable(model: Llama, names: Sequence[str]
+                   ) -> Dict[str, nn.Parameter]:
+    """In place: the named leaves become f32 master weights that take
+    gradients (JAX keeps every parameter f32 and casts per call; a leaf
+    kept in bf16 would round each Adam update away), every other leaf is
+    frozen in the compute dtype, so no gradient is allocated for the
+    base. Returns ``{name: parameter}`` of the trainable leaves."""
+    wanted = set(names)
+    out: Dict[str, nn.Parameter] = {}
+    for name, p in list(model.named_parameters()):
+        if name not in wanted:
+            p.requires_grad_(False)
+            continue
+        owner, leaf = name.rsplit(".", 1)
+        param = nn.Parameter(p.detach().float(), requires_grad=True)
+        setattr(model.get_submodule(owner), leaf, param)
+        out[name] = param
+    return out
+
+
+def merge(trainable: Dict[str, torch.Tensor], lora_scale: float
+          ) -> Dict[str, torch.Tensor]:
+    """The leaves the forward uses: every ``lora_b`` times ``lora_scale``
+    (the LoRA α/r rank-scale), the stored leaf unscaled. The export folds
+    the same product into the stored tree."""
+    return {name: t * lora_scale if "lora_b" in name else t
+            for name, t in trainable.items()}
+
+
+def lm_valid_mask(seq_len: int, lens: torch.Tensor,
+                  example_mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """(B, L) bool: positions whose next-token loss counts — before each
+    example's last real token, in unmasked examples."""
+    pos = torch.arange(seq_len, device=lens.device)[None, :]
+    valid = pos < (lens.long()[:, None] - 1)
+    if example_mask is not None:
+        valid = valid & (example_mask[:, None] > 0)
+    return valid
+
+
+def lm_loss_terms(logits: torch.Tensor, ids: torch.Tensor,
+                  lens: torch.Tensor,
+                  example_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked next-token cross-entropy on f32 logits: (sum of losses,
+    valid count). Targets are ``ids`` shifted left."""
+    b, length, vocab = logits.shape
+    targets = F.pad(ids[:, 1:], (0, 1)).long()
+    valid = lm_valid_mask(length, lens, example_mask)
+    losses = F.cross_entropy(logits.float().reshape(-1, vocab),
+                             targets.reshape(-1), reduction="none")
+    valid = valid.float()
+    return (losses.reshape(b, length) * valid).sum(), valid.sum()
+
+
+def lm_objective(model: Llama, trainable: Dict[str, torch.Tensor],
+                 lora_scale: float, batch: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Mean masked next-token loss of one batch (``ids``, ``lens`` and,
+    optionally, ``mask``) through the train branch, the trainable leaves
+    merged with the rank-scale."""
+    logits = torch.func.functional_call(
+        model, merge(trainable, lora_scale), (batch["ids"],),
+        {"decode": False, "lens": batch["lens"]})
+    total, count = lm_loss_terms(logits, batch["ids"], batch["lens"],
+                                 batch.get("mask"))
+    return total / count.clamp(min=1.0)
+
+
+def adamw(trainable: Dict[str, torch.Tensor], learning_rate: float
+          ) -> torch.optim.Optimizer:
+    """The JAX step's update, ``optax.chain(scale_by_adam(),
+    add_decayed_weights(1e-4))`` then ``−lr · u``: Adam with b1 0.9, b2
+    0.999, eps 1e-8 outside the square root, bias correction, and the
+    decay added to the update — which is ``AdamW`` with weight decay
+    1e-4."""
+    return torch.optim.AdamW(list(trainable.values()), lr=learning_rate,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def train_step(model: Llama, trainable: Dict[str, torch.Tensor],
+               opt: torch.optim.Optimizer, lora_scale: float,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One optimizer step on one batch; returns the batch loss (a
+    detached 0-d tensor: reading it synchronizes, so the caller
+    decides when)."""
+    opt.zero_grad(set_to_none=True)
+    loss = lm_objective(model, trainable, lora_scale, batch)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
+                    ) -> Dict[str, torch.Tensor]:
+    """A host batch (``ids``, ``lens``[, ``mask``]) as device tensors."""
+    out = {"ids": torch.as_tensor(batch["ids"]).long().to(device),
+           "lens": torch.as_tensor(batch["lens"]).int().to(device)}
+    if "mask" in batch:
+        out["mask"] = torch.as_tensor(batch["mask"]).to(device)
+    return out
+
+
 def _default_kv_pages(max_slots: int, max_len: int, page_size: int) -> int:
     """Full-coverage pool: every slot can hold ``max_len`` (no saving, no
     stalls) plus the scratch page."""
     return 1 + max_slots * (max_len // page_size)
 
 
+def _f32_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested-dict params tree as f32 numpy copies."""
+    return {k: _f32_tree(v) if isinstance(v, dict)
+            else np.array(v, dtype=np.float32) for k, v in tree.items()}
+
+
+def _same_shapes(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    """Same nested keys and leaf shapes (JAX ``same_tree_shapes``)."""
+    if not isinstance(b, dict) or a.keys() != b.keys():
+        return False
+    return all(_same_shapes(v, b[k]) if isinstance(v, dict)
+               else np.shape(v) == np.shape(b[k]) for k, v in a.items())
+
+
+def _replace_leaves(tree: Dict[str, Any],
+                    leaves: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``tree`` with the leaves named by ``state_dict`` key replaced (as
+    f32 numpy)."""
+    out = _f32_tree(tree)
+    for key, t in leaves.items():
+        node = out
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node[part]
+        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+    return out
+
+
 class LlamaLoRA:
-    """Causal-LM template, serving surface: load the JAX template's
-    dumped weights, then ``predict`` or serve through a continuous-
-    batching engine. Knobs are the JAX template's (``hidden_dim``,
-    ``depth``, ``n_heads``, ``kv_ratio``, ``lora_rank``, ``max_len``,
-    ``vocab_size``, ``bf16``, ``rope_theta``, ``rope_scaling``); training,
-    the byte-BPE tokenizer and the int8/MoE knobs are later slices and
-    raise. ``device=None`` is the CUDA card."""
+    """Causal-LM template: LoRA fine-tuning (``train``, ``evaluate``,
+    ``dump_parameters``) and serving (``load_parameters``, ``predict``,
+    ``make_decode_engine``). Knobs are the JAX template's (``hidden_dim``,
+    ``depth``, ``n_heads``, ``kv_ratio``, ``lora_rank``, ``lora_scale``,
+    ``learning_rate``, ``batch_size``, ``max_epochs``, ``max_len``,
+    ``vocab_size``, ``bf16``, ``adapters_only``, ``rope_theta``,
+    ``rope_scaling``, ...); the byte-BPE tokenizer and the int8/MoE knobs
+    are later slices and raise. ``device=None`` is the CUDA card.
+
+    Parameters live as the JAX template keeps them: ``_params``, nested
+    dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
+    returns), and ``_model``, the compute-dtype ``Llama`` built from them
+    for serving and evaluation."""
 
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
@@ -474,6 +669,7 @@ class LlamaLoRA:
                 raise NotImplementedError(f"knob {key!r} is not ported yet")
         self.tokenizer = HashTokenizer(int(self.knobs.get("vocab_size",
                                                           1 << 14)))
+        self._params: Optional[Dict[str, Any]] = None
         self._model: Optional[Llama] = None
         self._id2tok: Dict[int, str] = {}
 
@@ -509,16 +705,163 @@ class LlamaLoRA:
         return self._model.with_kv_layout(kv_page_size, kv_pages)
 
     def load_parameters(self, params: Dict[str, Any]) -> None:
-        """Load a JAX ``LlamaLoRA.dump_parameters()`` dict."""
+        """Load a ``dump_parameters()`` dict — the port's or the JAX
+        template's: the format is one."""
         meta = params["meta"]
         if meta.get("bpe_merges") is not None:
             raise NotImplementedError(
                 "the byte-BPE tokenizer is not ported yet")
         self._id2tok = {int(k): v for k, v in meta["id2tok"].items()}
+        self._set_params(params["params"])
+
+    def _set_params(self, tree: Dict[str, Any]) -> None:
+        """Keep ``tree`` (f32 copies) and build the serving model from
+        it, matmul leaves cast to the compute dtype once."""
+        self._params = _f32_tree(tree)
         model = self._module()
-        model.load_state_dict(llama_params_from_jax(params["params"],
+        model.load_state_dict(llama_params_from_jax(self._params,
                                                     model.dtype))
         self._model = model
+
+    def dump_parameters(self) -> Dict[str, Any]:
+        """``{"params": f32 numpy tree, "meta": {"id2tok": ...}}`` — the
+        JAX template's format, loadable by either template."""
+        if self._params is None:
+            raise RuntimeError("model is not trained/loaded")
+        return {"params": _f32_tree(self._params),
+                "meta": {"id2tok": {str(k): v
+                                    for k, v in self._id2tok.items()}}}
+
+    # ---- training ----
+    def _encode_lm(self, texts: Sequence[str]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """BOS-prefixed token rows. Also grows the id→token table used
+        to detokenize generations (hashing is one-way)."""
+        max_len = int(self.knobs["max_len"])
+        ids = np.zeros((len(texts), max_len), np.int32)
+        lens = np.zeros((len(texts),), np.int32)
+        for i, t in enumerate(texts):
+            row, n = self.tokenizer.encode(t, max_len)  # CLS slot = BOS
+            ids[i], lens[i] = row, n
+            # mirror the tokenizer's own splitting so ids align with words
+            for tok_str, tok_id in zip(_TOKEN_RE.findall(t.lower()),
+                                       row[1:n]):
+                self._id2tok[int(tok_id)] = tok_str
+        return ids, lens
+
+    def _check_trainable_knobs(self) -> None:
+        """The JAX template routes every knob set that ``gang_blockers``
+        names to its sharded mesh loop, which is not ported; so are the
+        remat schedules."""
+        k = self.knobs
+
+        def on(name: str, default: int = 0) -> bool:
+            return int(k.get(name, default) or default) > default
+
+        blockers = [name for name, default in (
+            ("model_parallel", 1), ("sequence_parallel", 1),
+            ("pipeline_stages", 1), ("grad_accum", 1), ("moe_experts", 0),
+            ("loss_chunk", 0)) if on(name, default)]
+        if k.get("pretrained_path"):
+            blockers.append("pretrained_path")
+        if k.get("remat"):
+            blockers.append("remat")
+        if str(k.get("remat_policy") or "none") != "none":
+            blockers.append("remat_policy")
+        if blockers:
+            raise NotImplementedError(
+                f"knob(s) {blockers} need the sharded / rematerialized "
+                "train path, which is not ported yet")
+
+    def train(self, dataset_path: str,
+              ctx: Optional[TrainContext] = None) -> None:
+        """LoRA fine-tune on a ``.jsonl`` text corpus: the JAX template's
+        functional loop (``_train_functional``). The init is the loaded
+        weights when their shapes match, else ``ctx.shared_params`` under
+        the ``share_params`` knob, else the port's seeded init. Batches
+        come from ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens``
+        are logged per epoch. At the end ``_params`` holds the trained
+        tree with ``lora_scale`` folded into ``lora_b``."""
+        self._check_trainable_knobs()
+        ctx = ctx or TrainContext()
+        ds = load_text_classification_dataset(dataset_path)
+        ids, lens = self._encode_lm(ds.texts)
+        model = self._module()
+        names = lora_trainable_names(
+            model, bool(self.knobs.get("adapters_only", False)))
+        fresh = llama_params_to_jax(model.state_dict())
+        base = fresh
+        if self._params is not None and _same_shapes(fresh, self._params):
+            base = self._params  # re-train / load_parameters
+        shared = (ctx.shared_params or {}).get("params")
+        if self.knobs.get("share_params") and shared is not None and \
+                _same_shapes(fresh, shared):
+            base = shared
+        base = _f32_tree(base)
+        trainable = make_trainable(model, names)
+        model.load_state_dict(llama_params_from_jax(base, model.dtype,
+                                                    trainable))
+        lr = float(self.knobs["learning_rate"])
+        scale = float(self.knobs.get("lora_scale", 1.0))
+        opt = adamw(trainable, lr)
+        batch_size = int(self.knobs["batch_size"])
+        # JAX gang_epochs: the budget-scaled epoch count, quick_train cap
+        epochs = max(1, round(int(self.knobs["max_epochs"])
+                              * float(ctx.budget_scale)))
+        if self.knobs.get("quick_train"):
+            epochs = min(epochs, 2)
+        ctx.logger.define_plot("LM loss", ["loss"], x_axis="epoch")
+
+        def folded() -> Dict[str, Any]:
+            return _replace_leaves(base, merge(
+                {n: t.detach() for n, t in trainable.items()}, scale))
+
+        for epoch in range(epochs):
+            losses = [train_step(model, trainable, opt, scale,
+                                 batch_to_device(batch, self.device))
+                      for batch in batch_iterator(
+                          {"ids": ids, "lens": lens}, batch_size,
+                          seed=epoch)]
+            mean_loss = (float(np.mean([float(l) for l in losses]))
+                         if losses else float("nan"))
+            ctx.logger.log(epoch=epoch, loss=mean_loss,
+                           tokens=int(ids.shape[0] * ids.shape[1]))
+            if ctx.checkpoint is not None:
+                self._params = folded()
+                ctx.checkpoint(self.dump_parameters,
+                               frac_done=(epoch + 1) / epochs,
+                               tree={"params": self._params})
+            if ctx.should_continue is not None and \
+                    not ctx.should_continue(epoch, -mean_loss):
+                break
+        del opt, model
+        self._set_params(folded())
+
+    def evaluate(self, dataset_path: str) -> float:
+        """Inverse perplexity exp(−nll) in (0, 1]; higher is better.
+        Buckets of 32 rows; pad rows have ``lens = 0``, so no loss
+        position of theirs counts."""
+        model = self._serving_module_params()
+        ds = load_text_classification_dataset(dataset_path)
+        ids, lens = self._encode_lm(ds.texts)
+        total, count = 0.0, 0.0
+        bucket = 32
+        with torch.no_grad():
+            for i in range(0, len(ids), bucket):
+                ib, lb = ids[i:i + bucket], lens[i:i + bucket]
+                pad = bucket - len(ib)
+                if pad:
+                    ib = np.concatenate([ib, np.zeros((pad, ids.shape[1]),
+                                                      ib.dtype)])
+                    lb = np.concatenate([lb, np.zeros((pad,), lb.dtype)])
+                batch = batch_to_device({"ids": ib, "lens": lb},
+                                        self.device)
+                logits = model(batch["ids"], decode=False,
+                               lens=batch["lens"])
+                s, c = lm_loss_terms(logits, batch["ids"], batch["lens"])
+                total += float(s)
+                count += float(c)
+        return float(np.exp(-total / max(count, 1.0)))
 
     def predict(self, queries: Sequence[Any],
                 max_new_tokens: int = 8) -> List[str]:

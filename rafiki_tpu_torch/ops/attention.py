@@ -1,0 +1,345 @@
+"""Fused causal / padded attention with a flash-style backward.
+
+Ports ``rafiki_tpu/ops/attention.py``:
+
+- :func:`flash_attention` ← ``flash_attention``: (b, h, s, d) tensors,
+  differentiable in q, k and v through a ``torch.autograd.Function``
+  that saves ``(q, k, v, out, lse)`` (``_flash_attention_full`` /
+  ``_flash_attention_varlen``'s residuals).
+- :func:`flash_attention_fwd` ← Pallas ``_attn_fwd_kernel`` (B3).
+- :func:`flash_attention_bwd_dq` ← Pallas ``_attn_bwd_dq_kernel`` (B5).
+- :func:`flash_attention_bwd_dkv` ← Pallas ``_attn_bwd_dkv_kernel`` (B6).
+- :func:`_attention_reference` ← the same-named XLA oracle; with
+  :func:`_flash_fwd_reference` and :func:`_flash_bwd_reference` these are
+  the kernels' plain versions.
+
+Semantics kept from the JAX module: masked scores are ``NEG_INF``; key
+``j`` is hidden from every row when ``j >= kv_lens[b]`` and, with
+``causal``, from row ``i`` when ``j > i`` (positions from 0 in both
+sequences); a row with no visible key outputs exact zeros and carries
+``LSE_MASKED``, so its gradient is exactly zero. ``delta = rowsum(dO·O)``
+is computed in plain torch, outside the kernels, as JAX computes it in
+XLA. The LSE travels as one f32 per row, (b, h, s_q): JAX's replication
+over 128 lanes is TPU tiling and has no counterpart.
+
+Each wrapper takes the plain version for tensors on the CPU and launches
+its CUDA kernel (``csrc/flash_attention.cu``, built by ``ops/_build.py``
+at first use) for any other device, or raises; it counts kernel launches
+in a plain integer attribute, ``launches``. JAX's short-sequence routing
+to XLA (``XLA_SHORT_SEQ``) was a TPU measurement and has no counterpart:
+every CUDA call takes the kernel. The head-tiled forward (``block_h > 1``,
+Pallas ``_attn_fwd_mh_kernel``) is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from rafiki_tpu_torch.ops import _build
+from rafiki_tpu_torch.ops.common import KERNEL_DTYPES as _DTYPE_CODES
+from rafiki_tpu_torch.ops.common import check_launch as _raise_on
+from rafiki_tpu_torch.ops.common import runs_kernel as _runs_kernel
+
+NEG_INF = -1e30  # rafiki_tpu/ops/attention.py NEG_INF
+#: LSE of a row whose every key is masked: exp(s - 1e30) == 0 for any
+#: finite score, so such rows contribute exactly zero gradient
+LSE_MASKED = 1e30
+#: head dims the kernels are compiled for: every hidden_dim / n_heads the
+#: LlamaLoRA knobs give (8..128) and Llama-3-8B's 128
+HEAD_DIMS = (8, 16, 32, 64, 128)
+
+Tensor = torch.Tensor
+
+
+def _prep_lens(kv_lens, b: int, s_kv: int, device: torch.device) -> Tensor:
+    """(b,) valid-key counts as int32 on ``device``, clipped to
+    [0, s_kv]; None → every key valid."""
+    if kv_lens is None:
+        return torch.full((b,), s_kv, dtype=torch.int32, device=device)
+    lens = torch.as_tensor(kv_lens, device=device).to(torch.int32)
+    if tuple(lens.shape) != (b,):
+        raise ValueError(f"kv_lens must be ({b},), got {tuple(lens.shape)}")
+    return lens.clamp(0, s_kv)
+
+
+def _visible(s_q: int, s_kv: int, lens: Tensor, causal: bool) -> Tensor:
+    """(b, 1, s_q, s_kv) bool: which keys each row sees."""
+    k_pos = torch.arange(s_kv, device=lens.device)
+    vis = (k_pos[None, :] < lens.long()[:, None])[:, None, None, :]
+    if causal:
+        q_pos = torch.arange(s_q, device=lens.device)
+        vis = vis & (k_pos[None, :] <= q_pos[:, None])[None, None]
+    return vis
+
+
+def _scores(q: Tensor, k: Tensor, sm_scale: float) -> Tensor:
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+
+
+# ---------------------------------------------------------------- plain
+
+def _attention_reference(q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
+                         causal: bool, kv_lens=None) -> Tensor:
+    """Masked f32 softmax attention. A row whose every key is masked
+    outputs exact zeros, like the kernels' ``LSE_MASKED`` path."""
+    b, _, s_q, _ = q.shape
+    s_kv = k.shape[2]
+    lens = _prep_lens(kv_lens, b, s_kv, q.device)
+    vis = _visible(s_q, s_kv, lens, causal)
+    s = torch.where(vis, _scores(q, k, sm_scale), NEG_INF)
+    p = torch.softmax(s, dim=-1) * vis.any(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _flash_fwd_reference(q: Tensor, k: Tensor, v: Tensor, lens: Tensor,
+                         sm_scale: float, causal: bool
+                         ) -> Tuple[Tensor, Tensor]:
+    """Plain B3: ``(out in q's dtype, lse (b, h, s_q) f32)``."""
+    s_q, s_kv = q.shape[2], k.shape[2]
+    vis = _visible(s_q, s_kv, lens, causal)
+    s = torch.where(vis, _scores(q, k, sm_scale), NEG_INF)
+    any_vis = vis.any(-1)  # (b, 1, s_q)
+    lse = torch.where(any_vis, torch.logsumexp(s, dim=-1), LSE_MASKED)
+    p = torch.exp(s - lse[..., None]) * vis
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return out, lse
+
+
+def _bwd_terms(q, k, v, do, lse, delta, lens, sm_scale, causal):
+    """The backward's per-pair terms in f32: ``p = exp(s·scale − lse)``
+    and ``ds = p·(dO·Vᵀ − delta)·scale``, zero where masked."""
+    s_q, s_kv = q.shape[2], k.shape[2]
+    vis = _visible(s_q, s_kv, lens, causal)
+    p = torch.exp(torch.where(vis, _scores(q, k, sm_scale), NEG_INF)
+                  - lse.float()[..., None]) * vis
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    return p, ds
+
+
+def _flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, sm_scale,
+                            causal) -> Tensor:
+    """Plain B5: dQ = Σ_k ds·K, in q's dtype."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, lens, sm_scale, causal)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens, sm_scale,
+                             causal) -> Tuple[Tensor, Tensor]:
+    """Plain B6: dK = Σ_q dsᵀ·Q, dV = Σ_q pᵀ·dO, in k's / v's dtype."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, lens, sm_scale, causal)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float()).to(v.dtype)
+    return dk, dv
+
+
+def _delta(do: Tensor, out: Tensor) -> Tensor:
+    """``rowsum(dO · O)`` in f32, (b, h, s_q)."""
+    return (do.float() * out.float()).sum(-1)
+
+
+def _flash_bwd_reference(q, k, v, out, lse, do, lens, sm_scale, causal
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain backward from the forward's residuals: (dq, dk, dv)."""
+    delta = _delta(do, out)
+    dq = _flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, sm_scale,
+                                 causal)
+    dk, dv = _flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens,
+                                      sm_scale, causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- kernels
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.library("flash_attention")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i32] * 5 + [f32, ptr]  # b, h, s_q, s_kv, causal, scale, stream
+    lib.rt_flash_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
+    lib.rt_flash_fwd.restype = i32
+    lib.rt_flash_bwd_dq.argtypes = [i32, i32] + [ptr] * 8 + tail
+    lib.rt_flash_bwd_dq.restype = i32
+    lib.rt_flash_bwd_dkv.argtypes = [i32, i32] + [ptr] * 9 + tail
+    lib.rt_flash_bwd_dkv.restype = i32
+    return lib
+
+
+def _check_operands(q: Tensor, k: Tensor, v: Tensor, lens: Tensor,
+                    **extra: Tensor) -> None:
+    """Validate what the kernels take (they check nothing themselves)."""
+    dev = q.device
+    for name, t in {"q": q, "k": k, "v": v, "kv_lens": lens,
+                    **extra}.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got "
+                             f"{t.device}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} is not compiled; the "
+                         f"kernels take {HEAD_DIMS}")
+    if lens.dtype != torch.int32:
+        raise TypeError("kv_lens must be int32")
+
+
+def _geometry(q: Tensor, k: Tensor, causal: bool, sm_scale: float):
+    b, h, s_q, _ = q.shape
+    return (b, h, s_q, k.shape[2], int(bool(causal)), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, kv_lens: Tensor,
+                        sm_scale: float, causal: bool,
+                        with_lse: bool = True
+                        ) -> Tuple[Tensor, Optional[Tensor]]:
+    """B3: ``(out, lse)`` for (b, h, s, d) q/k/v and (b,) int32
+    ``kv_lens`` (already clipped to [0, s_kv]). ``lse`` is (b, h, s_q)
+    f32, or None without ``with_lse`` (the evaluation forward, which
+    skips the residual write as JAX's serving path does)."""
+    if not _runs_kernel(q):
+        out, lse = _flash_fwd_reference(q, k, v, kv_lens, sm_scale, causal)
+        return out, (lse if with_lse else None)
+    lib = _library()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kv_lens = kv_lens.contiguous()  # held while the kernel may read it
+    _check_operands(q, k, v, kv_lens)
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        err = lib.rt_flash_fwd(
+            _DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            *_geometry(q, k, causal, sm_scale))
+    _raise_on(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def _bwd_operands(q, k, v, do, lse, delta, kv_lens):
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    _check_operands(q, k, v, kv_lens, do=do, lse=lse, delta=delta)
+    if do.dtype != q.dtype:
+        raise TypeError(f"dO must be {q.dtype}, got {do.dtype}")
+    return q, k, v, do, lse, delta, kv_lens.contiguous()
+
+
+def flash_attention_bwd_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                           lse: Tensor, delta: Tensor, kv_lens: Tensor,
+                           sm_scale: float, causal: bool) -> Tensor:
+    """B5: dQ from the forward's ``lse`` and ``delta = rowsum(dO·O)``
+    (both (b, h, s_q) f32)."""
+    if not _runs_kernel(q):
+        return _flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_lens,
+                                       sm_scale, causal)
+    lib = _library()
+    q, k, v, do, lse, delta, kv_lens = _bwd_operands(q, k, v, do, lse,
+                                                     delta, kv_lens)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.rt_flash_bwd_dq(
+            _DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            kv_lens.data_ptr(), dq.data_ptr(),
+            *_geometry(q, k, causal, sm_scale))
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                            lse: Tensor, delta: Tensor, kv_lens: Tensor,
+                            sm_scale: float, causal: bool
+                            ) -> Tuple[Tensor, Tensor]:
+    """B6: (dK, dV). A key tile wholly past ``kv_len`` writes zeros."""
+    if not _runs_kernel(q):
+        return _flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_lens,
+                                        sm_scale, causal)
+    lib = _library()
+    q, k, v, do, lse, delta, kv_lens = _bwd_operands(q, k, v, do, lse,
+                                                     delta, kv_lens)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.rt_flash_bwd_dkv(
+            _DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            kv_lens.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_geometry(q, k, causal, sm_scale))
+    _raise_on(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+# ---------------------------------------------------------------- public
+
+class _FlashAttention(torch.autograd.Function):
+    """B3 forward, B5 + B6 backward; ``kv_lens`` is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens, sm_scale, causal):
+        out, lse = flash_attention_fwd(q, k, v, lens, sm_scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse, lens)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, lens = ctx.saved_tensors
+        delta = _delta(do, out)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, lens,
+                                    ctx.sm_scale, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens,
+                                         ctx.sm_scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor,
+                    sm_scale: Optional[float] = None, causal: bool = False,
+                    kv_lens=None, block_h: Optional[int] = None) -> Tensor:
+    """Fused attention over (batch, heads, seq, head_dim) tensors, f32 or
+    bf16; returns q's dtype.
+
+    ``kv_lens`` (optional int [batch]) masks each example's keys past its
+    valid length. Differentiable in q, k and v; without a gradient to
+    take (``torch.no_grad`` or no input requiring one) the forward skips
+    the LSE write. ``block_h > 1`` (the head-tiled forward) is not
+    ported."""
+    if block_h is not None and block_h > 1:
+        raise NotImplementedError(
+            "block_h > 1 (the head-tiled forward, Pallas "
+            "_attn_fwd_mh_kernel) is not ported yet")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q (b, h, s_q, d) and k/v (b, h, s_kv, d) "
+                         f"disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    scale = sm_scale if sm_scale is not None else \
+        1.0 / math.sqrt(q.shape[-1])
+    lens = _prep_lens(kv_lens, q.shape[0], k.shape[2], q.device)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, lens, scale, causal)
+    return flash_attention_fwd(q, k, v, lens, scale, causal,
+                               with_lse=False)[0]

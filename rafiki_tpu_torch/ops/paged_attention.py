@@ -32,11 +32,12 @@ from typing import Optional
 import torch
 
 from rafiki_tpu_torch.ops import _build
+from rafiki_tpu_torch.ops.attention import NEG_INF
+from rafiki_tpu_torch.ops.common import KERNEL_DTYPES as _DTYPE_CODES
+from rafiki_tpu_torch.ops.common import check_launch as _raise_on
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
+from rafiki_tpu_torch.ops.common import runs_kernel as _runs_kernel
 
-NEG_INF = -1e30  # rafiki_tpu/ops/attention.py NEG_INF
-#: kernel element types (q, pools and output share one)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows (window tokens x GQA rep) one window-kernel block carries
 _WINDOW_ROWS = 128
 
@@ -54,12 +55,6 @@ def kv_cache_write(cache: torch.Tensor, idx0: torch.Tensor,
     not matter."""
     return cache.index_put_((idx0.long(), idx1.long()),
                             values.to(cache.dtype))
-
-
-def _runs_kernel(t: torch.Tensor) -> bool:
-    """The dispatch rule: CPU tensors take the plain version, every other
-    device the CUDA kernel."""
-    return t.device.type != "cpu"
 
 
 def _check_int8(k_scale, v_scale) -> None:
@@ -120,11 +115,6 @@ def _cuda_operands(q, k_pool, v_pool, page_tables, positions):
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("k_pool/v_pool must be contiguous")
     return q.contiguous(), page_tables.contiguous(), positions.contiguous()
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

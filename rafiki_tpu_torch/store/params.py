@@ -18,7 +18,7 @@ JAX layouts (``(d_in, features)`` kernels). The Flax-msgpack byte codec
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Collection, Dict, Mapping
 
 import numpy as np
 import torch
@@ -39,19 +39,23 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def llama_params_from_jax(tree: Mapping[str, Any],
-                          dtype: torch.dtype = torch.float32
+                          dtype: torch.dtype = torch.float32,
+                          trainable: Collection[str] = ()
                           ) -> Dict[str, torch.Tensor]:
     """JAX params pytree → the port ``Llama``'s ``state_dict`` (CPU
     tensors; ``load_state_dict`` moves them to the model's device).
 
     With a bf16 ``dtype`` the matmul weights are cast to bf16 here, once —
     the same rounding the JAX module applies on every call
-    (``kernel.astype(x.dtype)``). Norm scales and the embedding table stay
-    f32 (the embedding output is cast after the lookup, as in JAX)."""
+    (``kernel.astype(x.dtype)``) to a frozen leaf. Leaves named in
+    ``trainable`` (``state_dict`` keys) stay f32: they are the master
+    weights a fine-tune updates, cast per call by ``LoRADense``. Norm
+    scales and the embedding table stay f32 (the embedding output is cast
+    after the lookup, as in JAX)."""
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree).items():
         t = torch.from_numpy(np.array(leaf, dtype=np.float32))
-        if key.rsplit(".", 1)[-1] in MATMUL_LEAVES:
+        if key.rsplit(".", 1)[-1] in MATMUL_LEAVES and key not in trainable:
             t = t.to(dtype)
         out[key] = t
     return out

@@ -1,0 +1,240 @@
+"""Port parity: ``rafiki_tpu_torch.ops.attention`` against the JAX module.
+
+On the CPU the port's ``flash_attention`` runs its plain versions (the
+forward, B3's, and the backward, B5's and B6's) through the same
+``torch.autograd.Function`` that launches the kernels on a card. The JAX
+side runs its Pallas kernels in the interpreter (``interpret=True``), as
+``tests/test_ops.py`` does. Inputs are drawn with numpy from a seed and
+handed to both.
+
+Tolerances: f32 at rtol 1e-5 with an absolute floor of 1e-5 (the two
+sides sum in another order; near-zero gradient entries need the floor).
+bf16 inputs and outputs at 2^-7 of the largest reference magnitude plus
+1e-3: each side rounds its f32 result to bf16 once, and a rounding that
+falls the other way moves an entry by one bf16 step, at most 2^-8 of its
+magnitude, on either side.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rafiki_tpu.ops import attention as jattn
+from rafiki_tpu_torch.ops import _build
+from rafiki_tpu_torch.ops import attention as tattn
+
+torch.set_num_threads(1)
+
+# (b, h, s, d, causal, kv_lens, dtype); b*h <= 4 and s <= 160 keep the
+# Pallas interpreter quick. 100 and 160 are not multiples of the kernels'
+# 128 tiles; a 0 in kv_lens is a row with no visible key.
+CASES = {
+    "causal-lens0-f32": (2, 2, 160, 16, True, [160, 0], "float32"),
+    "full-lens-f32": (2, 2, 100, 32, False, [37, 100], "float32"),
+    "causal-nolens-f32": (1, 4, 100, 8, True, None, "float32"),
+    "causal-lens-bf16": (2, 2, 160, 16, True, [150, 1], "bfloat16"),
+}
+
+
+def _inputs(b, h, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, h, s, d)).astype(np.float32)
+            for _ in range(4)]  # q, k, v, and the output cotangent
+    if dtype == "bfloat16":  # both sides see the same bf16 values
+        arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+    return arrs
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+def _torch(a, dtype, grad=False):
+    return torch.from_numpy(a).to(getattr(torch, dtype)) \
+        .requires_grad_(grad)
+
+
+def _close(got, want, dtype, what):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=what)
+    else:
+        tol = 1e-3 + 2.0 ** -7 * np.abs(want).max()
+        assert np.abs(got - want).max() <= tol, what
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+def test_forward_lse_and_grads_match_pallas_interpret(case):
+    b, h, s, d, causal, lens, dtype = CASES[case]
+    q, k, v, g = _inputs(b, h, s, d, dtype)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    jq, jk, jv, jg = (_jax(a, dtype) for a in (q, k, v, g))
+    scale = 1.0 / np.sqrt(d)
+
+    def jfwd(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, causal=causal,
+                                     interpret=True, kv_lens=jl)
+
+    want, vjp = jax.vjp(jfwd, jq, jk, jv)
+    want_grads = vjp(jg)
+    _, lse_pad = jattn._flash_attention_fwd_impl(
+        jq, jk, jv, jl, scale, causal, 128, 128, True, with_lse=True)
+    want_lse = np.asarray(lse_pad)[:, :s, 0].reshape(b, h, s)
+
+    tq, tk, tv = (_torch(a, dtype, grad=True) for a in (q, k, v))
+    tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got = tattn.flash_attention(tq, tk, tv, causal=causal, kv_lens=tlens)
+    assert got.dtype == tq.dtype
+    got.backward(_torch(g, dtype))
+    _close(got.detach().float(), want, dtype, "out")
+    _, got_lse = tattn.flash_attention_fwd(
+        tq.detach(), tk.detach(), tv.detach(),
+        tattn._prep_lens(tlens, b, s, tq.device), scale, causal)
+    _close(got_lse, want_lse, "float32", "lse")
+    for name, t, w in zip("qkv", (tq, tk, tv), want_grads):
+        assert t.grad.dtype == t.dtype
+        _close(t.grad.float(), w, dtype, f"d{name}")
+    if lens is not None and 0 in lens:  # the LSE_MASKED rows
+        row = lens.index(0)
+        assert np.all(np.asarray(got_lse[row]) == tattn.LSE_MASKED)
+        assert torch.all(got[row] == 0)
+        for t in (tq, tk, tv):
+            assert torch.all(t.grad[row] == 0)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_reference_matches_jax_reference(causal):
+    q, k, v, _ = _inputs(3, 2, 40, 16, "float32", seed=1)
+    lens = [40, 0, 9]
+    want = jattn._attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.3, causal,
+        jnp.asarray(lens, jnp.int32))
+    got = tattn._attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 0.3,
+        causal, torch.tensor(lens))
+    _close(got, want, "float32", "reference")
+
+
+def test_plain_backward_matches_autograd_of_the_reference():
+    """``_flash_bwd_reference`` from the forward's residuals equals
+    autograd through the masked softmax (f32, rtol 1e-5)."""
+    q, k, v, g = _inputs(2, 2, 50, 8, "float32", seed=2)
+    lens = torch.tensor([50, 13], dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn._attention_reference(tq, tk, tv, 0.5, True, lens)
+    out.backward(torch.from_numpy(g))
+    o, lse = tattn._flash_fwd_reference(tq.detach(), tk.detach(),
+                                        tv.detach(), lens, 0.5, True)
+    dq, dk, dv = tattn._flash_bwd_reference(
+        tq.detach(), tk.detach(), tv.detach(), o, lse, torch.from_numpy(g),
+        lens, 0.5, True)
+    for got, t in zip((dq, dk, dv), (tq, tk, tv)):
+        _close(got, t.grad, "float32", "plain bwd")
+
+
+def test_no_grad_forward_skips_the_lse_and_cpu_never_counts_launches():
+    q, k, v, _ = _inputs(1, 2, 20, 8, "float32", seed=3)
+    before = (tattn.flash_attention_fwd.launches,
+              tattn.flash_attention_bwd_dq.launches,
+              tattn.flash_attention_bwd_dkv.launches)
+    with torch.no_grad():
+        out = tattn.flash_attention(*(torch.from_numpy(a)
+                                      for a in (q, k, v)), causal=True)
+    assert out.shape == (1, 2, 20, 8)
+    lens = torch.tensor([20], dtype=torch.int32)
+    o, lse = tattn.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), lens, 0.5, True,
+        with_lse=False)
+    assert lse is None and o.shape == out.shape
+    assert (tattn.flash_attention_fwd.launches,
+            tattn.flash_attention_bwd_dq.launches,
+            tattn.flash_attention_bwd_dkv.launches) == before
+
+
+def test_unported_and_bad_arguments_raise():
+    x = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(NotImplementedError, match="block_h"):
+        tattn.flash_attention(x, x, x, block_h=2)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(x, torch.zeros(1, 2, 8, 16),
+                              torch.zeros(1, 2, 8, 16))
+    with pytest.raises(ValueError):
+        tattn.flash_attention(x, x, x, kv_lens=[1, 2])
+
+
+# ---- the kernel path: CUDA tensors launch or raise, never the plain path
+
+@pytest.fixture()
+def kernel_path(monkeypatch):
+    """Route CPU tensors down the kernel path (as a CUDA tensor would
+    go), with every plain version booby-trapped."""
+    def plain_ran(*a, **k):
+        raise AssertionError("a plain version ran on the kernel path")
+
+    monkeypatch.setattr(tattn, "_runs_kernel", lambda t: True)
+    for name in ("_flash_fwd_reference", "_flash_bwd_dq_reference",
+                 "_flash_bwd_dkv_reference", "_attention_reference"):
+        monkeypatch.setattr(tattn, name, plain_ran)
+    tattn._library.cache_clear()
+    yield
+    tattn._library.cache_clear()
+
+
+def _wrapper_calls():
+    x = torch.zeros(1, 2, 8, 16)
+    lse = torch.zeros(1, 2, 8)
+    lens = torch.full((1,), 8, dtype=torch.int32)
+    return {
+        "flash_attention_fwd": lambda: tattn.flash_attention_fwd(
+            x, x, x, lens, 0.25, True),
+        "flash_attention_bwd_dq": lambda: tattn.flash_attention_bwd_dq(
+            x, x, x, x, lse, lse, lens, 0.25, True),
+        "flash_attention_bwd_dkv": lambda: tattn.flash_attention_bwd_dkv(
+            x, x, x, x, lse, lse, lens, 0.25, True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_wrapper_calls()))
+def test_kernel_wrappers_raise_without_the_library(kernel_path, monkeypatch,
+                                                   name):
+    """No nvcc (or a failed build): the wrapper raises; the launch
+    counter does not move."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "lib_path",
+                        lambda lib: Path("/nonexistent") / f"lib{lib}.so")
+    fn = getattr(tattn, name)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _wrapper_calls()[name]()
+    assert fn.launches == before
+
+
+class _FakeLib:
+    """Accepts the ctypes declarations; any call would be a bug."""
+
+    def __getattr__(self, name):
+        return _FakeFn()
+
+
+class _FakeFn:
+    def __call__(self, *a):
+        raise AssertionError("a kernel was launched on CPU operands")
+
+
+@pytest.mark.parametrize("name", list(_wrapper_calls()))
+def test_kernel_wrappers_reject_non_cuda_tensors(kernel_path, monkeypatch,
+                                                 name):
+    monkeypatch.setattr(_build, "library", lambda lib: _FakeLib())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _wrapper_calls()[name]()

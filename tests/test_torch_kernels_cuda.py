@@ -7,7 +7,8 @@ on a machine that has PyTorch and a card but no Flax::
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 The CPU parity of the plain versions with the JAX Pallas kernels is
-``tests/test_torch_paged_attention.py``.
+``tests/test_torch_paged_attention.py`` (B1/B2) and
+``tests/test_torch_attention.py`` (B3/B5/B6).
 """
 
 import numpy as np
@@ -74,3 +75,103 @@ def test_kernels_match_plain_versions_on_card(dtype):
                                        v_pool.float(), tab, wpos, sm)
     torch.cuda.synchronize()
     assert (got_w.float() - ref_w).abs().max().item() <= tol(ref_w)
+
+
+def _flash_tol(dtype, ref):
+    """Per-element tolerance: f32: 1e-5 + 1e-5·|ref| (sums in another
+    order); bf16: one rounding of the output to bf16 (at most 2^-8 of the
+    element's magnitude) plus 1e-3 for the f32 sums. Each element is held
+    to its own magnitude, so a key that many rows see (kv_len 1: key 0
+    sums every row of dO into dv) does not loosen the check on the rest."""
+    if dtype == torch.float32:
+        return 1e-5 + 1e-5 * ref.abs()
+    return 1e-3 + 2.0 ** -8 * ref.abs()
+
+
+def _within(got, ref, dtype):
+    return bool(torch.all((got.float() - ref).abs() <= _flash_tol(dtype,
+                                                                  ref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 8), ("float32", 16),
+                                     ("float32", 32), ("float32", 64),
+                                     ("float32", 128), ("bfloat16", 16),
+                                     ("bfloat16", 128)])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_kernels_match_plain_versions_on_card(dtype, d, causal):
+    """B3, B5 and B6 against their plain versions run in f32 on the same
+    inputs: ragged s (200, not a multiple of the 64-row tiles), kv_lens
+    with a 0 (the LSE_MASKED row: zeros out, zero gradients) and a 1.
+    B5/B6 get the plain forward's lse and delta, so each kernel is held
+    alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    dt = getattr(torch, dtype)
+    b, h, s = 4, 3, 200
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, h, s, d)).astype(np.float32)).to(dev).to(dt) for _ in range(4))
+    lens = torch.tensor([200, 0, 1, 77], dtype=torch.int32, device=dev)
+    sm = 1.0 / np.sqrt(d)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref_o, ref_lse = fa._flash_fwd_reference(*f32[:3], lens, sm, causal)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, sm, causal)
+    assert fa.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    assert _within(out, ref_o, dt)
+    assert torch.all(lse[1] == fa.LSE_MASKED) and torch.all(out[1] == 0)
+    live = ref_lse < 1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
+    out2, none = fa.flash_attention_fwd(q, k, v, lens, sm, causal,
+                                        with_lse=False)
+    assert none is None and torch.equal(out2, out)
+
+    delta = fa._delta(f32[3], ref_o)
+    ref_dq = fa._flash_bwd_dq_reference(*f32, ref_lse, delta, lens, sm,
+                                        causal)
+    ref_dk, ref_dv = fa._flash_bwd_dkv_reference(*f32, ref_lse, delta,
+                                                 lens, sm, causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens, sm,
+                                   causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens,
+                                        sm, causal)
+    torch.cuda.synchronize()
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.dtype == dt
+        err = (got.float() - ref).abs().max().item()
+        assert _within(got, ref, dt), (name, err)
+        assert torch.all(got[1] == 0), name
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card():
+    """The autograd path on the card runs B3 once and B5/B6 once each,
+    and its gradients equal the plain version's autograd (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (2, 4, 130, 32)).astype(np.float32)).to(dev) for _ in range(4))
+    lens = torch.tensor([130, 60], dtype=torch.int32, device=dev)
+    counts = [fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True, kv_lens=lens).backward(g)
+    assert [fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches] == [c + 1 for c in counts]
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa._attention_reference(*refs, 1.0 / np.sqrt(32), True,
+                            lens).backward(g)
+    for a, r in zip(leaves, refs):
+        assert _within(a.grad, r.grad, torch.float32)

@@ -176,8 +176,12 @@ def test_kv_layout_view_shares_weights(port_lm):
 def test_unported_branches_raise():
     m = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
               n_kv_heads=1, mlp_dim=16, device="cpu")
+    # the train branch is ported; the sharded train path is not
+    assert m(torch.zeros(1, 2, dtype=torch.long), decode=False).shape == \
+        (1, 2, 16)
     with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 2, dtype=torch.long), decode=False)
+        LlamaLoRA(device="cpu", **{**KNOBS, "model_parallel": 2}).train(
+            "unread.jsonl")
     for kw in ({"quantized": True}, {"n_adapters": 2}, {"n_experts": 4}):
         with pytest.raises(NotImplementedError):
             Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1,
