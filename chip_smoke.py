@@ -5,8 +5,10 @@ Run from a checkout of the repository, with one Hopper card (sm_90a) and
 the CUDA toolkit's ``nvcc``::
 
     python3 chip_smoke.py            # the full check, Llama-3-8B depth 32
-    python3 chip_smoke.py --depth 8  # the serving leg at a cut depth
-    python3 chip_smoke.py --train-depth 8  # the training leg, cut
+    python3 chip_smoke.py --depth 8  # the Llama serving leg at a cut depth
+    python3 chip_smoke.py --train-depth 8  # the Llama training leg, cut
+
+ViT-B/16 and BERT-base always run at full width and depth.
 
 Phases; each raises on failure, so the script exits non-zero:
 
@@ -43,8 +45,36 @@ Phases; each raises on failure, so the script exits non-zero:
    each must have launched depth x steps times; the loss must fall.
 8. The ``LlamaLoRA`` template end to end at its largest knobs: train on
    a seeded ``.jsonl`` corpus, evaluate, dump, reload, evaluate, predict.
+9. B7 (``matmul_bias``) against its plain version at ViT-B/16's serving
+   shape, (64·196, 768) x (768, 768) + (768,), bf16 and f32; kernel /
+   plain / ``torch.addmm`` times and the least time.
+10. The flash kernels on the classifier paths: B3/B5/B6 non-causal at
+    ViT-B/16's shape (b 64, 12 heads, s 197, d 64, bf16) with times, and
+    with BERT's padded keys (s 128); B4 at block_h 4 on the ViT shape
+    against its plain version and bit for bit against B3; B3/B5/B6 at
+    every compiled head dim (8 .. 192) on a small ragged shape, f32 and
+    bf16, causal and not.
+11. f32 exactness of a small ViT (head dim 96) and a small BERT (head dim
+    24) through the kernels against the plain attention and plain
+    ``matmul_bias``: logits and 4 AdamW steps' losses within 1e-5
+    relative.
+12. ViT-B/16 serving (bf16, random weights from a seed, 1000 classes):
+    ``ViTBase16.predict`` over 256 seeded 224 x 224 x 3 images (4 buckets
+    of 64; B7 = 4 and B3 = 48 launches), the p50 latency of a 1-image
+    predict, then the same with the ``block_h`` default at 4 (B4 = 48, B3
+    = 0, the same probabilities), then dump → reload → predict.
+13. ViT-B/16 training: ``ViTBase16.train`` on a seeded 512-image npz,
+    batch 64, one epoch of 8 steps (B7 = 8; B3, B5, B6 = 96); step time,
+    images/s, peak memory, one profiled step's device-time split; the
+    loss must fall; dump → reload → predict.
+14. BERT-base (vocab 32768, ``max_len`` 128, bf16): ``BertClassifier``
+    trains 8 steps at batch 64 on a seeded corpus (B3, B5, B6 = 96), then
+    predicts 256 texts (B3 = 48); the loss must fall; dump → reload →
+    predict.
 
-The last lines are the ``kernels`` JSON line and then the device line
+Each path's launch counts are zeroed just before it and read just after;
+the ``kernels`` line gives each kernel's sum over the paths and the
+per-path counts. The last lines are the ``kernels`` JSON line and then the device line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing a result.
 """
@@ -68,15 +98,19 @@ SOURCES = {
     "paged_decode_attention": "rafiki_tpu_torch/csrc/paged_attention.cu",
     "paged_window_attention": "rafiki_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_fwd": "rafiki_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd_mh": "rafiki_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "rafiki_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv": "rafiki_tpu_torch/csrc/flash_attention.cu",
+    "matmul_bias": "rafiki_tpu_torch/csrc/patch_embed.cu",
 }
 REPLACES = {
     "paged_decode_attention": "rafiki_tpu/ops/paged_attention.py:177",
     "paged_window_attention": "rafiki_tpu/ops/paged_attention.py:337",
     "flash_attention_fwd": "rafiki_tpu/ops/attention.py:98",
+    "flash_attention_fwd_mh": "rafiki_tpu/ops/attention.py:156",
     "flash_attention_bwd_dq": "rafiki_tpu/ops/attention.py:222",
     "flash_attention_bwd_dkv": "rafiki_tpu/ops/attention.py:275",
+    "matmul_bias": "rafiki_tpu/ops/patch_embed.py:19",
 }
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
          "flash_attention_bwd_dkv")
@@ -420,24 +454,24 @@ def visible_pairs(lens, s):
     return sum(sum(min(i + 1, int(n)) for i in range(s)) for n in lens)
 
 
-def flash_case(torch, fa, q, k, v, do, lens, sm):
+def flash_case(torch, fa, q, k, v, do, lens, sm, causal=True):
     """Run B3, B5 and B6 once and their plain versions in f32 on the same
     inputs; B5/B6 take the plain forward's lse and delta, so each kernel
     is held alone. Returns, per output, (max abs error, largest error
     over its element's tolerance), whether the rows with no visible key
     are exact, and the plain lse and delta."""
     f32 = [t.float() for t in (q, k, v, do)]
-    ref_o, ref_lse = fa._flash_fwd_reference(*f32[:3], lens, sm, True)
+    ref_o, ref_lse = fa._flash_fwd_reference(*f32[:3], lens, sm, causal)
     delta = fa._delta(f32[3], ref_o)
     ref_dq = fa._flash_bwd_dq_reference(*f32, ref_lse, delta, lens, sm,
-                                        True)
+                                        causal)
     ref_dk, ref_dv = fa._flash_bwd_dkv_reference(*f32, ref_lse, delta,
-                                                 lens, sm, True)
-    out, lse = fa.flash_attention_fwd(q, k, v, lens, sm, True)
+                                                 lens, sm, causal)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, sm, causal)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, lens, sm,
-                                   True)
+                                   causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, lens,
-                                        sm, True)
+                                        sm, causal)
     torch.cuda.synchronize()
     floor, rel = FLASH_TOL[str(q.dtype).split(".")[-1]]
     live = ref_lse < 1e29
@@ -650,22 +684,36 @@ def train_exactness_phase(torch, np, ll, fa, dev):
     del model, trainable, init, k_params, p_params
 
 
+#: the port's kernels by their CUDA function names (a profiler row's name)
+KERNEL_FUNCTIONS = {
+    "flash_attention_fwd": "flash_fwd_kernel",
+    "flash_attention_fwd_mh": "flash_fwd_mh_kernel",
+    "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+    "matmul_bias": "matmul_bias_kernel",
+}
+
+
 def _kernel_time_split(torch, prof):
-    """Device time by class from a profiler run: (total, attention,
-    matmul, top kernels), in ms, over the device's kernel rows only (a
-    CPU operator's row, and a ``record_function`` range drawn on the
-    device, repeat the time of the kernels under them)."""
+    """Device time by class from a profiler run, in ms, over the device's
+    kernel rows only (a CPU operator's row, and a ``record_function``
+    range drawn on the device, repeat the time of the kernels under
+    them): the total, each port kernel's, cuBLAS's, the rest, and the
+    largest rows."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False)]
     total = sum(t for _, t in rows)
-    attn = sum(t for n, t in rows if "flash_" in n)
+    ours = {name: sum(t for n, t in rows if fn + "<" in n or n.endswith(fn))
+            for name, fn in KERNEL_FUNCTIONS.items()}
     mm = sum(t for n, t in rows if any(w in n.lower() for w in (
         "gemm", "xmma", "nvjet", "cutlass", "cublas")))
     top = sorted(rows, key=lambda r: -r[1])[:12]
-    return total, attn, mm, [(n[:90], t) for n, t in top]
+    return {"device_ms": total, "kernels_ms": ours, "cublas_ms": mm,
+            "other_ms": total - sum(ours.values()) - mm,
+            "top_kernels": [(n[:90], t) for n, t in top]}
 
 
 def training_phase(torch, np, ll, fa, depth, dev):
@@ -709,12 +757,15 @@ def training_phase(torch, np, ll, fa, depth, dev):
             float(ll.train_step(model, trainable, opt, 1.0, batch))
             prof_wall = (time.perf_counter() - t) * 1e3
         try:
-            total, attn, mm, top = _kernel_time_split(torch, prof)
-            profile_line = {"wall_ms": prof_wall, "device_ms": total,
-                            "flash_ms": attn, "matmul_ms": mm,
-                            "other_ms": total - attn - mm,
-                            "device_idle_share": 1 - total / prof_wall,
-                            "top_kernels": top}
+            split = _kernel_time_split(torch, prof)
+            attn = sum(split["kernels_ms"].values())
+            profile_line = {"wall_ms": prof_wall,
+                            "device_ms": split["device_ms"],
+                            "flash_ms": attn, "matmul_ms": split["cublas_ms"],
+                            "other_ms": split["other_ms"],
+                            "device_idle_share":
+                                1 - split["device_ms"] / prof_wall,
+                            "top_kernels": split["top_kernels"]}
         except Exception as exc:  # reading the trace: a measurement
             profile_line = {"failed": repr(exc)}
         return dict(b=b, depth=depth, init_s=init_s, losses=losses,
@@ -812,6 +863,624 @@ def template_phase(torch, np, ll, TrainContext, dev):
         raise AssertionError(f"bad predictions: {preds}")
 
 
+# ---------------------------------------------------------------- ViT / BERT
+
+#: training knobs: one epoch of 8 steps, the first two warming up (step
+#: 0 at lr 0, as optax's schedule gives). At lr 3e-4 without warmup the
+#: ViT-B/16 leg diverged from its random weights (loss 3.0 -> 6.0 by
+#: step 3 on an H100); these rates with the warmup make both losses fall
+VIT_KNOBS = {"patch_size": 16, "hidden_dim": 768, "depth": 12,
+             "n_heads": 12, "batch_size": 64, "max_epochs": 1,
+             "learning_rate": 5e-5, "weight_decay": 1e-4,
+             "warmup_frac": 0.25, "bf16": True, "remat": False,
+             "quick_train": False, "share_params": False}
+BERT_KNOBS = {"vocab_size": 32768, "hidden_dim": 768, "depth": 12,
+              "n_heads": 12, "max_len": 128, "batch_size": 64,
+              "max_epochs": 1, "learning_rate": 2e-5, "weight_decay": 1e-4,
+              "warmup_frac": 0.25, "bf16": True, "quick_train": False,
+              "share_params": False}
+VIT_IMAGE = (224, 224, 3)
+#: per-element tolerance of B7 against its plain version run in f32:
+#: bf16, one rounding of the output plus 1e-3; f32, the sums alone
+MATMUL_TOL = FLASH_TOL
+
+
+def matmul_bias_phase(torch, np, pe, dev):
+    """Phase 9: B7 against its plain version at ViT-B/16's serving shape,
+    (64·196, 768) x (768, 768) + (768,), in bf16 and f32."""
+    p, n = VIT_KNOBS["patch_size"], VIT_KNOBS["hidden_dim"]
+    rng = np.random.default_rng(SEED + 9)
+    images = torch.from_numpy(rng.uniform(-1, 1, (64, *VIT_IMAGE)).astype(
+        np.float32)).to(dev)
+    x32 = pe.extract_patches(images, p)
+    x32 = x32.reshape(-1, x32.shape[-1]).contiguous()
+    m, k = x32.shape
+    w32 = torch.from_numpy((rng.standard_normal((k, n)) / math.sqrt(k))
+                           .astype(np.float32)).to(dev)
+    b32 = torch.from_numpy(0.02 * rng.standard_normal(n).astype(
+        np.float32)).to(dev)
+    errs = {}
+    for name, dt in (("bfloat16", torch.bfloat16),
+                     ("float32", torch.float32)):
+        x, w, b = (t.to(dt) for t in (x32, w32, b32))
+        got = pe.matmul_bias(x, w, b)
+        ref = pe._matmul_bias_reference(x.float(), w.float(), b.float())
+        torch.cuda.synchronize()
+        errs[name] = elementwise_err(got, ref, *MATMUL_TOL[name])
+    x, w, b = (t.to(torch.bfloat16) for t in (x32, w32, b32))
+    n_bytes = 2 * (m * k + k * n + n + m * n)
+    flops = 2 * m * n * k
+    bnd, by = bound_ms(n_bytes, flops, "bfloat16")
+    result = dict(
+        max_abs_err=errs["bfloat16"][0], err_over_tol=errs["bfloat16"][1],
+        tol="per element: 1e-3 + 2^-8 * |plain|",
+        ms=time_ms(torch, lambda: pe.matmul_bias(x, w, b)),
+        plain_ms=time_ms(torch, lambda: pe._matmul_bias_reference(x, w, b)),
+        library_ms=time_ms(torch, lambda: torch.addmm(b, x, w)),
+        library_covers="torch.addmm in bf16 (cuBLAS)",
+        bound_ms=bnd, bound_by=by, bytes=n_bytes, flops=flops,
+        shapes=f"x ({m}, {k}) bf16 (64 ViT-B/16 images' patches), "
+               f"w ({k}, {n}), b ({n},)")
+    emit({"phase": "matmul_bias", "errors": {
+        dt: {"max_abs_err": a, "err_over_tol": r}
+        for dt, (a, r) in errs.items()},
+        "tol": "per element: bf16 1e-3 + 2^-8 * |plain|, f32 1e-5 + "
+               "1e-5 * |plain|", **result})
+    for dt, (err, over) in errs.items():
+        if not over <= 1.0:
+            raise AssertionError(f"B7 {dt} disagrees with its plain version:"
+                                 f" max abs error {err}, {over} x tolerance")
+    return {"matmul_bias": result}
+
+
+def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
+                           bert_shape=(64, 12, 128, 64)):
+    """Phase 10: the flash kernels on the ViT and BERT paths. B3/B5/B6
+    non-causal at ViT-B/16's shape (b 64, 12 heads, s 197, d 64, bf16) and
+    with BERT's padded keys (s 128); B4 at block_h 4 on the ViT shape
+    against its plain version and against B3 (bit-identical); B3/B5/B6 at
+    every compiled head dim on a small ragged shape, f32 and bf16."""
+    rng = np.random.default_rng(SEED + 10)
+
+    def rand(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(dtype)
+
+    bf16 = torch.bfloat16
+    b, h, s, d = vit_shape
+    q, k, v, do = (rand((b, h, s, d), bf16) for _ in range(4))
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    sm = 1.0 / math.sqrt(d)
+    vit_errs, vit_exact, lse, delta = flash_case(torch, fa, q, k, v, do,
+                                                 full, sm, causal=False)
+
+    # B4 at block_h 4: the serving forward (no LSE) and the training one
+    out3, lse3 = fa.flash_attention_fwd(q, k, v, full, sm, False)
+    out4, lse4 = fa.flash_attention_fwd_mh(q, k, v, full, sm, False, 4)
+    ref_o, _ = fa._flash_fwd_reference(q.float(), k.float(), v.float(), full,
+                                       sm, False)
+    torch.cuda.synchronize()
+    b4_err = elementwise_err(out4, ref_o, *FLASH_TOL["bfloat16"])
+    b4_identical = bool(torch.equal(out4, out3) and torch.equal(lse4, lse3))
+
+    pairs = b * h * s * s
+    qkv_bytes = b * h * s * d * 2  # one of q / k / v / out / dO, bf16
+    rows = b * h * s * 4           # one f32 per row: lse or delta
+    work = {
+        "flash_attention_fwd": (4 * qkv_bytes + rows, 4 * d * pairs),
+        "flash_attention_fwd_mh": (4 * qkv_bytes, 4 * d * pairs),
+        "flash_attention_bwd_dq": (5 * qkv_bytes + 2 * rows, 6 * d * pairs),
+        "flash_attention_bwd_dkv": (6 * qkv_bytes + 2 * rows,
+                                    8 * d * pairs),
+    }
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, full, sm, False),
+            lambda: fa._flash_fwd_reference(q, k, v, full, sm, False)),
+        "flash_attention_fwd_mh": (
+            lambda: fa.flash_attention_fwd_mh(q, k, v, full, sm, False, 4,
+                                              with_lse=False),
+            lambda: fa._flash_fwd_reference(q, k, v, full, sm, False)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, full,
+                                              sm, False),
+            lambda: fa._flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               full, sm, False)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, full,
+                                               sm, False),
+            lambda: fa._flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                full, sm, False)),
+    }
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=sm))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=sm)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, leaves, do, retain_graph=True))
+    del o_lib, leaves
+    library = {"flash_attention_fwd": lib_fwd,
+               "flash_attention_fwd_mh": lib_fwd,
+               "flash_attention_bwd_dq": lib_bwd,
+               "flash_attention_bwd_dkv": None}
+    worst_kv = max(("dk", "dv"), key=lambda n: vit_errs[n][1])
+    checked = {"flash_attention_fwd": vit_errs["out"],
+               "flash_attention_fwd_mh": b4_err,
+               "flash_attention_bwd_dq": vit_errs["dq"],
+               "flash_attention_bwd_dkv": vit_errs[worst_kv]}
+    shapes = f"q/k/v/dO ({b}, {h}, {s}, {d}) bf16, non-causal, no mask"
+    vit = {}
+    for name, (kern, plain) in calls.items():
+        n_bytes, flops = work[name]
+        bnd, by = bound_ms(n_bytes, flops, "bfloat16")
+        vit[name] = dict(
+            max_abs_err=checked[name][0], err_over_tol=checked[name][1],
+            tol="per element: 1e-3 + 2^-8 * |plain|",
+            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            library_ms=library[name], bound_ms=bnd, bound_by=by,
+            bytes=n_bytes, flops=flops, shapes=shapes)
+    vit["flash_attention_fwd_mh"].update(
+        shapes=shapes + ", block_h 4, no LSE (the serving forward)",
+        identical_to_b3=b4_identical)
+    vit["flash_attention_bwd_dq"]["library_covers"] = \
+        "SDPA backward: dq, dk and dv in one call (B5 + B6)"
+    del q, k, v, do, lse, delta, out3, out4, lse3, lse4, ref_o
+
+    # BERT-base's padded keys: b 64, 12 heads, s 128, d 64
+    bb, _, bs, bd = bert_shape
+    lens_np = rng.integers(6, bs + 1, size=bb).astype(np.int32)
+    lens_np[:2] = (bs, 1)
+    bert_in = [rand(bert_shape, bf16) for _ in range(4)]
+    bert_errs, bert_exact, _, _ = flash_case(
+        torch, fa, *bert_in, torch.from_numpy(lens_np).to(dev),
+        1.0 / math.sqrt(bd), causal=False)
+    del bert_in
+
+    # every compiled head dim: b 2 (kv_lens 150 and 0, or 1), 3 heads,
+    # s 150, both masks
+    sweep = {}
+    for d_ in fa.HEAD_DIMS:
+        for dt in ("float32", "bfloat16"):
+            for causal in (False, True):
+                lens = torch.tensor([150, 0 if causal else 1],
+                                    dtype=torch.int32, device=dev)
+                ins = [rand((2, 3, 150, d_), getattr(torch, dt))
+                       for _ in range(4)]
+                e, exact, _, _ = flash_case(torch, fa, *ins, lens,
+                                            1.0 / math.sqrt(d_), causal)
+                sweep[f"d{d_} {dt} {'causal' if causal else 'full'}"] = (
+                    max(r for _, r in e.values()), exact)
+
+    def named(e):
+        return {n: {"max_abs_err": a, "err_over_tol": r}
+                for n, (a, r) in e.items()}
+
+    emit({"phase": "classifier_flash_kernels",
+          "vit": {"errors": named(vit_errs), "masked_rows_exact": vit_exact,
+                  "b4": {"max_abs_err": b4_err[0],
+                         "err_over_tol": b4_err[1],
+                         "identical_to_b3": b4_identical}, **vit},
+          "bert": {"errors": named(bert_errs), "kv_lens": lens_np.tolist(),
+                   "masked_rows_exact": bert_exact},
+          "head_dim_sweep_worst_err_over_tol": {
+              key: r for key, (r, _) in sweep.items()},
+          "tol": f"per element: bf16 1e-3 + 2^-8 * |plain|, f32 1e-5 + "
+                 f"1e-5 * |plain|; lse {LSE_TOL}"})
+    failed = [f"vit {w}" for w, (_, r) in vit_errs.items() if r > 1.0]
+    failed += [f"bert {w}" for w, (_, r) in bert_errs.items() if r > 1.0]
+    failed += [key for key, (r, exact) in sweep.items()
+               if r > 1.0 or not exact]
+    if b4_err[1] > 1.0:
+        failed.append("b4")
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{failed}")
+    if not b4_identical:
+        raise AssertionError("B4 is not bit-identical to B3")
+    if not bert_exact:
+        raise AssertionError("a BERT row with no visible key is not exact")
+    return vit
+
+
+def all_launches(fa, pe):
+    out = flash_launches(fa)
+    out["flash_attention_fwd_mh"] = fa.flash_attention_fwd_mh.launches
+    out["matmul_bias"] = pe.matmul_bias.launches
+    return out
+
+
+def zero_all_launches(fa, pe):
+    zero_flash_launches(fa)
+    fa.flash_attention_fwd_mh.launches = 0
+    pe.matmul_bias.launches = 0
+
+
+def classifier_exactness_phase(torch, np, vit, bert, fa, pe, lp, optim, dev):
+    """Phase 11: a small ViT (head dim 96) and a small BERT (head dim 24)
+    in f32 through the kernels, against the same modules with the plain
+    attention and plain matmul_bias: logits, then the per-step losses of
+    4 AdamW steps from the same weights, within 1e-5 relative."""
+    rng = np.random.default_rng(SEED + 11)
+    steps = 4
+
+    def plain_attention(q, k, v, sm_scale=None, causal=False, kv_lens=None,
+                        block_h=None):
+        scale = sm_scale or 1.0 / math.sqrt(q.shape[-1])
+        return fa._attention_reference(q, k, v, scale, causal, kv_lens)
+
+    cases = {
+        "vit": (lambda gen: vit.ViT(
+            patch_size=16, hidden_dim=384, depth=2, n_heads=4, mlp_dim=1536,
+            n_classes=10, image_shape=(64, 64, 3), device=dev,
+            generator=gen),
+            (torch.from_numpy(rng.uniform(-1, 1, (8, 64, 64, 3)).astype(
+                np.float32)).to(dev),)),
+        "bert": (lambda gen: bert.Bert(
+            vocab_size=1024, max_len=64, hidden_dim=192, depth=2, n_heads=8,
+            mlp_dim=768, n_classes=4, device=dev, generator=gen),
+            (torch.from_numpy(rng.integers(2, 1024, (8, 64))).to(dev),
+             torch.tensor([64, 1, 30, 5, 64, 17, 2, 50], dtype=torch.int32,
+                          device=dev))),
+    }
+    y = torch.from_numpy(rng.integers(0, 4, 8)).to(dev)
+    mask = torch.ones(8, device=dev)
+    report = {}
+    for name, (make, inputs) in cases.items():
+        model = make(torch.Generator(device=dev).manual_seed(SEED))
+        init = {n: p.detach().clone() for n, p in model.state_dict().items()}
+
+        def run():
+            model.load_state_dict(init)
+            with torch.no_grad():
+                logits = model(*inputs)
+            opt, sched = optim.adamw(model.parameters(), 3e-5, 1, steps,
+                                     1e-4)
+            losses = []
+            for _ in range(steps):
+                opt.zero_grad(set_to_none=True)
+                loss = lp.masked_ce(model(*inputs), y, mask)
+                loss.backward()
+                opt.step()
+                sched.step()
+                losses.append(float(loss.detach()))
+            return logits, losses
+
+        zero_all_launches(fa, pe)
+        k_logits, k_losses = run()
+        k_launches = all_launches(fa, pe)
+        saved = (vit.flash_attention, bert.flash_attention, pe.matmul_bias)
+        vit.flash_attention = bert.flash_attention = plain_attention
+        pe.matmul_bias = pe._matmul_bias_reference  # local to this check
+        try:
+            p_logits, p_losses = run()
+        finally:
+            vit.flash_attention, bert.flash_attention, pe.matmul_bias = saved
+        plain_launches = {n: c - k_launches[n]
+                          for n, c in all_launches(fa, pe).items()}
+        logit_rel = ((k_logits - p_logits).abs().max()
+                     / p_logits.abs().max()).item()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses,
+                                                           p_losses))
+        report[name] = {"logits_max_rel": logit_rel,
+                        "kernel_losses": k_losses, "plain_losses": p_losses,
+                        "max_loss_rel": loss_rel,
+                        "kernel_launches": k_launches,
+                        "plain_run_launches": plain_launches}
+        del model, init
+    emit({"phase": "classifier_f32_exactness", "steps": steps,
+          "vit": "patch 16, 64x64x3, hidden 384, 4 heads (d 96), depth 2",
+          "bert": "hidden 192, 8 heads (d 24), depth 2, s 64, padded keys",
+          **report})
+    for name, r in report.items():
+        if r["logits_max_rel"] > 1e-5 or r["max_loss_rel"] > 1e-5:
+            raise AssertionError(f"{name}: kernels and plain versions "
+                                 f"differ: {r}")
+        want = {"flash_attention_fwd": 2 + 2 * steps,  # eval + train
+                "flash_attention_bwd_dq": 2 * steps,
+                "flash_attention_bwd_dkv": 2 * steps,
+                "matmul_bias": (1 + steps) if name == "vit" else 0,
+                "flash_attention_fwd_mh": 0}
+        if r["kernel_launches"] != want or \
+                max(r["plain_run_launches"].values()) != 0:
+            raise AssertionError(f"{name} launch counts: {r}, want {want}")
+
+
+def vit_blob(torch, vit, store, dev, n_classes):
+    """A seeded ViT-B/16 as a template blob (random weights, seed 0)."""
+    k = VIT_KNOBS
+    net = vit.ViT(patch_size=k["patch_size"], hidden_dim=k["hidden_dim"],
+                  depth=k["depth"], n_heads=k["n_heads"],
+                  mlp_dim=4 * k["hidden_dim"], n_classes=n_classes,
+                  image_shape=VIT_IMAGE, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    blob = {"params": store.params_to_jax(net.state_dict()),
+            "meta": {"n_classes": n_classes, "image_shape": list(VIT_IMAGE),
+                     "prep_version": 2}}
+    del net
+    return blob
+
+
+def _profile_call(torch, fn):
+    """``fn()`` once under ``torch.profiler``: its wall time, the device
+    time by class and the device's idle share of the call. Only reading
+    the trace is guarded; an error of ``fn`` propagates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    try:
+        split = _kernel_time_split(torch, prof)
+        return dict(wall_ms=wall, **split,
+                    device_idle_share=1 - split["device_ms"] / wall)
+    except Exception as exc:  # reading the trace: a measurement
+        return {"wall_ms": wall, "failed": repr(exc)}
+
+
+def _serve(torch, np, m, queries, fa, pe):
+    """One timed ``predict`` over ``queries`` with the launch counts zeroed
+    just before and read just after."""
+    torch.cuda.synchronize()
+    zero_all_launches(fa, pe)
+    t0 = time.perf_counter()
+    probs = np.asarray(m.predict(queries))
+    wall = time.perf_counter() - t0
+    return probs, wall, all_launches(fa, pe)
+
+
+def vit_serving_phase(torch, np, vit, store, fa, pe, dev):
+    """Phase 12, the ViT serving path: ViT-B/16 (bf16, random weights
+    from seed 0, 1000 classes) behind ``ViTBase16.predict``: 256 seeded
+    224 x 224 x 3 images (4 buckets of 64), the p50 latency of a 1-image
+    predict over 20 calls, then the same 256 with the block_h default at
+    4 (B4), then dump → reload → predict."""
+    n_img, buckets = 256, 4
+    m = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    m.load_parameters(vit_blob(torch, vit, store, dev, 1000))
+    rng = np.random.default_rng(SEED + 12)
+    images = list(rng.integers(0, 256, (n_img, *VIT_IMAGE), dtype=np.uint8))
+    m.warmup()  # builds the serving net; one bucket
+    torch.cuda.reset_peak_memory_stats()
+    probs, wall, launches = _serve(torch, np, m, images, fa, pe)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lat = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        m.predict([images[i]])
+        lat.append(time.perf_counter() - t0)
+    profiled = _profile_call(torch, lambda: m.predict(images[:64]))
+    try:
+        fa.ATTN_BLOCK_H = 4  # the fleet-wide default, as the env sets it
+        probs4, wall4, launches4 = _serve(torch, np, m, images, fa, pe)
+    finally:
+        fa.ATTN_BLOCK_H = 1
+    fresh = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    fresh.load_parameters(m.dump_parameters())
+    reloaded = np.asarray(fresh.predict(images[:64]))
+    del fresh
+    emit({"phase": "vit_serving", "model": "ViT-B/16", "dtype": "bfloat16",
+          "images": n_img, "buckets": buckets, "wall_s": wall,
+          "images_per_s": n_img / wall,
+          "p50_latency_1_image_s": float(np.median(lat)),
+          "latencies_1_image_s": lat, "peak_mem_gb": peak,
+          "launches": launches, "profiled_64_images": profiled,
+          "block_h4": {"wall_s": wall4, "images_per_s": n_img / wall4,
+                       "launches": launches4,
+                       "probs_identical": bool(np.array_equal(probs4,
+                                                              probs)),
+                       "probs_max_abs_diff":
+                           float(np.abs(probs4 - probs).max())},
+          "reload_identical": bool(np.array_equal(reloaded, probs[:64]))})
+    if probs.shape != (n_img, 1000) or not np.isfinite(probs).all() or \
+            np.abs(probs.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError(f"bad probabilities: {probs.shape}")
+    depth = VIT_KNOBS["depth"]
+    if launches["matmul_bias"] != buckets or \
+            launches["flash_attention_fwd"] != depth * buckets or \
+            launches["flash_attention_fwd_mh"] != 0:
+        raise AssertionError(f"ViT serving launches {launches}")
+    if launches4["flash_attention_fwd_mh"] != depth * buckets or \
+            launches4["flash_attention_fwd"] != 0 or \
+            launches4["matmul_bias"] != buckets:
+        raise AssertionError(f"block_h 4 launches {launches4}")
+    if not np.array_equal(probs4, probs):
+        raise AssertionError("block_h 4 changed the probabilities")
+    if not np.array_equal(reloaded, probs[:64]):
+        raise AssertionError("dump → reload → predict differs")
+    return {"vit_serving": launches, "vit_serving_block_h4": launches4}
+
+
+def write_images(np, path, n, seed, n_classes=10):
+    """A learnable ``.npz`` image set: each class a fixed low-frequency
+    7 x 7 x 3 pattern upsampled to 224 x 224, plus noise, as uint8."""
+    rng = np.random.default_rng(seed)
+    coarse = np.random.default_rng(7).normal(0, 1, (n_classes, 7, 7, 3))
+    h, w, _ = VIT_IMAGE
+    reps = -(-max(h, w) // 7)
+    templates = np.repeat(np.repeat(coarse, reps, axis=1), reps, axis=2)[
+        :, :h, :w].astype(np.float32)
+    labels = rng.integers(0, n_classes, n).astype(np.int64)
+    x = templates[labels]
+    x += 0.5 * rng.standard_normal(x.shape, dtype=np.float32)
+    images = np.clip((x + 4.5) * (255 / 9.0), 0, 255).astype(np.uint8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, images=images, labels=labels,
+             n_classes=np.asarray(n_classes))
+    return str(path), images
+
+
+def _train_timed(torch, template, path, ctx, lp, fa, pe, profile_step):
+    """``template.train(path)`` with every step timed (synchronized) and
+    its loss read, one step under ``torch.profiler``, and the launch
+    counts zeroed just before and read just after. ``train_epoch`` is
+    rebound for this run only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, step_s, prof_line = [], [], {}
+    real_epoch = lp.train_epoch
+
+    def timed_epoch(step, state, batches):
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if len(losses) == profile_step:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, loss = step(state, batch)
+                    value = float(loss)  # syncs
+                wall = (time.perf_counter() - t) * 1e3
+                try:
+                    split = _kernel_time_split(torch, prof)
+                    prof_line.update(wall_ms=wall, **split,
+                                     device_idle_share=1 - split["device_ms"]
+                                     / wall)
+                except Exception as exc:  # reading the trace only
+                    prof_line.update(failed=repr(exc))
+            else:
+                state, loss = step(state, batch)
+                value = float(loss)
+            step_s.append(time.perf_counter() - t)
+            losses.append(value)
+            return state, loss
+        return real_epoch(timed, state, batches)
+
+    lp.train_epoch = timed_epoch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_all_launches(fa, pe)
+        t0 = time.perf_counter()
+        template.train(path, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches(fa, pe)
+    finally:
+        lp.train_epoch = real_epoch
+    return dict(losses=losses, step_s=step_s, wall_s=wall,
+                launches=launches, profiled_step=prof_line,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _idle(r, steady):
+    """1 - the profiled step's device time over the mean steady step's
+    wall time (the profiler lengthens the step it records)."""
+    device_ms = r["profiled_step"].get("device_ms")
+    if device_ms is None:
+        return None
+    return 1 - device_ms / (1e3 * float(sum(steady) / len(steady)))
+
+
+def _check_training(name, r, want):
+    """Launch counts, finite losses, and a falling loss: each step sees a
+    new batch, so the mean of the last two steps must be below that of
+    the first two."""
+    if r["launches"] != want:
+        raise AssertionError(f"{name} launches {r['launches']} != {want}")
+    losses = r["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if not sum(losses[-2:]) < sum(losses[:2]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+
+
+def vit_training_phase(torch, np, vit, lp, TrainContext, fa, pe, dev):
+    """Phase 13, the ViT training path: ``ViTBase16.train`` at ViT-B/16
+    (bf16 compute, f32 params) on a seeded 512-image npz, batch 64, one
+    epoch of 8 steps; step 7 under the profiler; then dump → reload →
+    predict."""
+    steps, batch = 8, VIT_KNOBS["batch_size"]
+    path, images = write_images(np, ROOT / "build" / "chip_smoke" /
+                                "vit_train.npz", steps * batch, SEED + 13)
+    m = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    ctx = TrainContext()
+    r = _train_timed(torch, m, path, ctx, lp, fa, pe, profile_step=steps - 1)
+    steady = r["step_s"][1:-1]  # not the first, not the profiled one
+    queries = list(images[:64])
+    probs = np.asarray(m.predict(queries))
+    fresh = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    fresh.load_parameters(m.dump_parameters())
+    reloaded = np.asarray(fresh.predict(queries))
+    del fresh, m
+    emit({"phase": "vit_training", "model": "ViT-B/16",
+          "dtype": "bfloat16 compute, f32 params", "batch": batch,
+          "steps": steps, "knobs": VIT_KNOBS, "losses": r["losses"],
+          "epoch_loss": ctx.logger.get_values("loss"), "step_s": r["step_s"],
+          "steady_step_s": float(np.mean(steady)),
+          "images_per_s": batch / float(np.mean(steady)),
+          "wall_s": r["wall_s"], "peak_mem_gb": r["peak_mem_gb"],
+          "launches": r["launches"], "profiled_step": r["profiled_step"],
+          "device_idle_share_of_steady_step": _idle(r, steady),
+          "reload_identical": bool(np.array_equal(reloaded, probs))})
+    depth = VIT_KNOBS["depth"]
+    _check_training("ViT", r, {
+        "flash_attention_fwd": depth * steps,
+        "flash_attention_bwd_dq": depth * steps,
+        "flash_attention_bwd_dkv": depth * steps,
+        "flash_attention_fwd_mh": 0, "matmul_bias": steps})
+    if not np.array_equal(reloaded, probs):
+        raise AssertionError("ViT dump → reload → predict differs")
+    return {"vit_training": r["launches"]}
+
+
+def bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev):
+    """Phase 14, the BERT path: ``BertClassifier`` at BERT-base (bf16
+    compute, f32 params, vocab 32768, max_len 128) trains one epoch of 8
+    steps at batch 64 on a seeded corpus, then predicts 256 texts (4
+    buckets); dump → reload → predict."""
+    steps, batch = 8, BERT_KNOBS["batch_size"]
+    work = ROOT / "build" / "chip_smoke"
+    train = write_corpus(np, work / "bert_train.jsonl", steps * batch,
+                         SEED + 14, max_words=200)
+    val = write_corpus(np, work / "bert_val.jsonl", 256, SEED + 15,
+                       max_words=200)
+    m = bert.BertClassifier(device=dev, **BERT_KNOBS)
+    ctx = TrainContext()
+    r = _train_timed(torch, m, train, ctx, lp, fa, pe, profile_step=steps - 1)
+    steady = r["step_s"][1:-1]
+    with open(val) as f:
+        texts = [json.loads(line)["text"] for line in list(f)[1:]]
+    probs, wall, launches = _serve(torch, np, m, texts, fa, pe)
+    score = m.evaluate(val)
+    fresh = bert.BertClassifier(device=dev, **BERT_KNOBS)
+    fresh.load_parameters(m.dump_parameters())
+    reloaded = np.asarray(fresh.predict(texts))
+    _, lens = m._encode(texts)
+    del fresh, m
+    emit({"phase": "bert", "model": "BERT-base", "dtype":
+          "bfloat16 compute, f32 params", "batch": batch, "steps": steps,
+          "knobs": BERT_KNOBS, "losses": r["losses"], "step_s": r["step_s"],
+          "steady_step_s": float(np.mean(steady)),
+          "train_examples_per_s": batch / float(np.mean(steady)),
+          "train_peak_mem_gb": r["peak_mem_gb"],
+          "train_launches": r["launches"],
+          "profiled_step": r["profiled_step"],
+          "device_idle_share_of_steady_step": _idle(r, steady),
+          "predict_texts": len(texts),
+          "predict_wall_s": wall, "texts_per_s": len(texts) / wall,
+          "predict_launches": launches, "mean_len": float(lens.mean()),
+          "val_accuracy": score,
+          "reload_identical": bool(np.array_equal(reloaded, probs))})
+    depth = BERT_KNOBS["depth"]
+    _check_training("BERT", r, {
+        "flash_attention_fwd": depth * steps,
+        "flash_attention_bwd_dq": depth * steps,
+        "flash_attention_bwd_dkv": depth * steps,
+        "flash_attention_fwd_mh": 0, "matmul_bias": 0})
+    if launches["flash_attention_fwd"] != depth * 4 or \
+            sum(launches.values()) != depth * 4:
+        raise AssertionError(f"BERT serving launches {launches}")
+    if probs.shape != (256, 4) or not np.isfinite(probs).all():
+        raise AssertionError(f"bad probabilities {probs.shape}")
+    if not np.array_equal(reloaded, probs):
+        raise AssertionError("BERT dump → reload → predict differs")
+    return {"bert_training": r["launches"], "bert_serving": launches}
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=32,
@@ -834,13 +1503,19 @@ def main(argv=None):
     import numpy as np
     import torch.nn.functional as F
 
+    from rafiki_tpu_torch.model import loop as lp
+    from rafiki_tpu_torch.model import optim
     from rafiki_tpu_torch.model.base import TrainContext
+    from rafiki_tpu_torch.models import bert
     from rafiki_tpu_torch.models import llama_lora as ll
+    from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.models.bert import HashTokenizer
     from rafiki_tpu_torch.ops import _build
     from rafiki_tpu_torch.ops import attention as fa
     from rafiki_tpu_torch.ops import paged_attention as pa
+    from rafiki_tpu_torch.ops import patch_embed as pe
     from rafiki_tpu_torch.serving import decode_engine as de
+    from rafiki_tpu_torch.store import params as store_params
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -849,37 +1524,68 @@ def main(argv=None):
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     sources, build_s, ptxas = build_kernels(_build)
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sources": sources,
           "build_s": build_s, "ptxas": ptxas})
+    if args.depth != 32 or args.train_depth != 32:
+        print(f"chip_smoke: Llama legs cut to depth {args.depth} (serving)"
+              f" and {args.train_depth} (training) of 32", flush=True)
 
     dev = torch.device("cuda")
+    # the paths' launch counts assume the per-head forward (B3) whatever
+    # RAFIKI_ATTN_BLOCK_H says; the ViT serving leg sets 4 for its B4 run
+    fa.ATTN_BLOCK_H = 1
+    paths = {}  # main path -> {kernel: launches}
     kres = kernel_phase(torch, np, F, pa, dev)
     exactness_phase(torch, np, ll, de, dev)
     torch.cuda.empty_cache()
-    launches = serving_phase(torch, np, ll, de, pa, HashTokenizer,
-                             args.depth, dev)
+    paths["llama_serving"] = serving_phase(torch, np, ll, de, pa,
+                                           HashTokenizer, args.depth, dev)
     torch.cuda.empty_cache()
     kres.update(flash_phase(torch, np, F, fa, dev))
     torch.cuda.empty_cache()
     train_exactness_phase(torch, np, ll, fa, dev)
     torch.cuda.empty_cache()
-    launches.update(training_phase(torch, np, ll, fa, args.train_depth,
-                                   dev))
+    paths["llama_training"] = training_phase(torch, np, ll, fa,
+                                             args.train_depth, dev)
     torch.cuda.empty_cache()
     template_phase(torch, np, ll, TrainContext, dev)
+    torch.cuda.empty_cache()
+    kres.update(matmul_bias_phase(torch, np, pe, dev))
+    classifier = classifier_flash_phase(torch, np, F, fa, dev)
+    kres["flash_attention_fwd_mh"] = classifier["flash_attention_fwd_mh"]
+    torch.cuda.empty_cache()
+    classifier_exactness_phase(torch, np, vit, bert, fa, pe, lp, optim, dev)
+    torch.cuda.empty_cache()
+    paths.update(vit_serving_phase(torch, np, vit, store_params, fa, pe,
+                                   dev))
+    torch.cuda.empty_cache()
+    paths.update(vit_training_phase(torch, np, vit, lp, TrainContext, fa,
+                                    pe, dev))
+    torch.cuda.empty_cache()
+    paths.update(bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev))
 
+    by_path = {name: {path: counts[name] for path, counts in paths.items()
+                      if counts.get(name)}
+               for name in kres}
+    emit({"phase": "done", "seconds_after_start": time.perf_counter()
+          - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": r["max_abs_err"], "tol": r["tol"], "ms": r["ms"],
          "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "card": smi,
-         **{key: r[key] for key in ("err_over_tol", "library_covers")
-            if key in r}}
+         "library_ms": r["library_ms"], "card": smi, "shapes": r["shapes"],
+         **{key: r[key] for key in ("err_over_tol", "library_covers",
+                                    "identical_to_b3") if key in r}}
         for name, r in kres.items()]})
+    missing = [name for name in kres if not by_path[name]]
+    if missing:
+        raise AssertionError(f"kernels no main path launched: {missing}")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

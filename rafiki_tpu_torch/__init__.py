@@ -16,9 +16,11 @@ Rules the port keeps:
 - a kernel wrapper runs its plain PyTorch version only for tensors that
   lie on the CPU; a CUDA tensor launches the kernel or raises.
 
-This first slice covers paged Llama serving: the decoder's decode branch,
-the continuous-batching ``DecodeEngine`` over a paged KV pool, and the two
-paged-attention kernels it runs.
+Slices ported so far: paged Llama serving (the decoder's decode branch,
+the continuous-batching ``DecodeEngine`` over a paged KV pool, kernels
+B1/B2); LoRA training of the Llama template (the flash-attention forward
+and backward, B3/B5/B6); and the ViT and BERT classifiers, serving and
+training (the head-tiled forward B4 and the patch projection B7).
 """
 
 __version__ = "0.1.0"

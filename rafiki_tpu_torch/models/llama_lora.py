@@ -50,6 +50,8 @@ from torch import nn
 from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
 from rafiki_tpu_torch.model.base import TrainContext
+from rafiki_tpu_torch.model.loop import epoch_count
+from rafiki_tpu_torch.model.template_utils import same_tree_shapes
 from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
 from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
@@ -58,8 +60,8 @@ from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_window_attention)
 from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
-from rafiki_tpu_torch.store.params import (llama_params_from_jax,
-                                           llama_params_to_jax)
+from rafiki_tpu_torch.store.params import (f32_tree, llama_params_from_jax,
+                                           params_to_jax)
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 
 RopeScaling = Tuple[float, float, float, float]
@@ -617,25 +619,11 @@ def _default_kv_pages(max_slots: int, max_len: int, page_size: int) -> int:
     return 1 + max_slots * (max_len // page_size)
 
 
-def _f32_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """A nested-dict params tree as f32 numpy copies."""
-    return {k: _f32_tree(v) if isinstance(v, dict)
-            else np.array(v, dtype=np.float32) for k, v in tree.items()}
-
-
-def _same_shapes(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
-    """Same nested keys and leaf shapes (JAX ``same_tree_shapes``)."""
-    if not isinstance(b, dict) or a.keys() != b.keys():
-        return False
-    return all(_same_shapes(v, b[k]) if isinstance(v, dict)
-               else np.shape(v) == np.shape(b[k]) for k, v in a.items())
-
-
 def _replace_leaves(tree: Dict[str, Any],
                     leaves: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """``tree`` with the leaves named by ``state_dict`` key replaced (as
     f32 numpy)."""
-    out = _f32_tree(tree)
+    out = f32_tree(tree)
     for key, t in leaves.items():
         node = out
         *path, leaf = key.split(".")
@@ -717,7 +705,7 @@ class LlamaLoRA:
     def _set_params(self, tree: Dict[str, Any]) -> None:
         """Keep ``tree`` (f32 copies) and build the serving model from
         it, matmul leaves cast to the compute dtype once."""
-        self._params = _f32_tree(tree)
+        self._params = f32_tree(tree)
         model = self._module()
         model.load_state_dict(llama_params_from_jax(self._params,
                                                     model.dtype))
@@ -728,7 +716,7 @@ class LlamaLoRA:
         JAX template's format, loadable by either template."""
         if self._params is None:
             raise RuntimeError("model is not trained/loaded")
-        return {"params": _f32_tree(self._params),
+        return {"params": f32_tree(self._params),
                 "meta": {"id2tok": {str(k): v
                                     for k, v in self._id2tok.items()}}}
 
@@ -789,15 +777,16 @@ class LlamaLoRA:
         model = self._module()
         names = lora_trainable_names(
             model, bool(self.knobs.get("adapters_only", False)))
-        fresh = llama_params_to_jax(model.state_dict())
+        fresh = params_to_jax(model.state_dict())
         base = fresh
-        if self._params is not None and _same_shapes(fresh, self._params):
+        if self._params is not None and \
+                same_tree_shapes(fresh, self._params):
             base = self._params  # re-train / load_parameters
         shared = (ctx.shared_params or {}).get("params")
         if self.knobs.get("share_params") and shared is not None and \
-                _same_shapes(fresh, shared):
+                same_tree_shapes(fresh, shared):
             base = shared
-        base = _f32_tree(base)
+        base = f32_tree(base)
         trainable = make_trainable(model, names)
         model.load_state_dict(llama_params_from_jax(base, model.dtype,
                                                     trainable))
@@ -805,11 +794,7 @@ class LlamaLoRA:
         scale = float(self.knobs.get("lora_scale", 1.0))
         opt = adamw(trainable, lr)
         batch_size = int(self.knobs["batch_size"])
-        # JAX gang_epochs: the budget-scaled epoch count, quick_train cap
-        epochs = max(1, round(int(self.knobs["max_epochs"])
-                              * float(ctx.budget_scale)))
-        if self.knobs.get("quick_train"):
-            epochs = min(epochs, 2)
+        epochs = epoch_count(self.knobs, ctx)  # JAX gang_epochs
         ctx.logger.define_plot("LM loss", ["loss"], x_axis="epoch")
 
         def folded() -> Dict[str, Any]:

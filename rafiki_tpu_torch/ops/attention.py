@@ -7,6 +7,9 @@ Ports ``rafiki_tpu/ops/attention.py``:
   that saves ``(q, k, v, out, lse)`` (``_flash_attention_full`` /
   ``_flash_attention_varlen``'s residuals).
 - :func:`flash_attention_fwd` ← Pallas ``_attn_fwd_kernel`` (B3).
+- :func:`flash_attention_fwd_mh` ← Pallas ``_attn_fwd_mh_kernel`` (B4),
+  the head-tiled forward that ``block_h > 1`` selects; its plain version
+  is B3's.
 - :func:`flash_attention_bwd_dq` ← Pallas ``_attn_bwd_dq_kernel`` (B5).
 - :func:`flash_attention_bwd_dkv` ← Pallas ``_attn_bwd_dkv_kernel`` (B6).
 - :func:`_attention_reference` ← the same-named XLA oracle; with
@@ -27,15 +30,19 @@ its CUDA kernel (``csrc/flash_attention.cu``, built by ``ops/_build.py``
 at first use) for any other device, or raises; it counts kernel launches
 in a plain integer attribute, ``launches``. JAX's short-sequence routing
 to XLA (``XLA_SHORT_SEQ``) was a TPU measurement and has no counterpart:
-every CUDA call takes the kernel. The head-tiled forward (``block_h > 1``,
-Pallas ``_attn_fwd_mh_kernel``) is not ported and raises.
+every CUDA call takes the kernel. ``ATTN_BLOCK_H`` (``RAFIKI_ATTN_BLOCK_H``)
+and :func:`_env_block_h` are the port's copies of the JAX module's
+fleet-wide ``block_h`` default and its per-shape fallback; as in JAX, the
+backward of a head-tiled forward is B5/B6.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -50,8 +57,16 @@ NEG_INF = -1e30  # rafiki_tpu/ops/attention.py NEG_INF
 #: finite score, so such rows contribute exactly zero gradient
 LSE_MASKED = 1e30
 #: head dims the kernels are compiled for: every hidden_dim / n_heads the
-#: LlamaLoRA knobs give (8..128) and Llama-3-8B's 128
-HEAD_DIMS = (8, 16, 32, 64, 128)
+#: LlamaLoRA, ViT and BERT knobs give (8..192) and Llama-3-8B's 128
+HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192)
+#: fleet-wide default of :func:`flash_attention`'s ``block_h`` for callers
+#: that pass none: ``RAFIKI_ATTN_BLOCK_H=4`` puts every template on the
+#: head-tiled forward (B4) without code edits; 1 = per-head B3
+ATTN_BLOCK_H = max(1, int(os.environ.get("RAFIKI_ATTN_BLOCK_H", "1")))
+
+# (block_h, heads) pairs already warned about by _env_block_h: once per
+# shape, not per call
+_ENV_BLOCK_H_WARNED = set()
 
 Tensor = torch.Tensor
 
@@ -75,6 +90,23 @@ def _visible(s_q: int, s_kv: int, lens: Tensor, causal: bool) -> Tensor:
         q_pos = torch.arange(s_q, device=lens.device)
         vis = vis & (k_pos[None, :] <= q_pos[:, None])[None, None]
     return vis
+
+
+def _env_block_h(heads: int) -> int:
+    """``ATTN_BLOCK_H`` resolved against this call's head count: a value
+    that does not divide it falls back to 1, with one warning per
+    ``(block_h, heads)`` shape (an explicit ``block_h`` raises instead)."""
+    block_h = ATTN_BLOCK_H
+    if block_h > 1 and heads % block_h:
+        key = (block_h, heads)
+        if key not in _ENV_BLOCK_H_WARNED:
+            _ENV_BLOCK_H_WARNED.add(key)
+            logging.getLogger(__name__).warning(
+                "RAFIKI_ATTN_BLOCK_H=%d does not divide the local head "
+                "count (%d); falling back to block_h=1 for this shape",
+                block_h, heads)
+        return 1
+    return block_h
 
 
 def _scores(q: Tensor, k: Tensor, sm_scale: float) -> Tensor:
@@ -163,6 +195,9 @@ def _library() -> ctypes.CDLL:
     tail = [i32] * 5 + [f32, ptr]  # b, h, s_q, s_kv, causal, scale, stream
     lib.rt_flash_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
     lib.rt_flash_fwd.restype = i32
+    lib.rt_flash_fwd_mh.argtypes = ([i32, i32] + [ptr] * 6 + tail[:-1]
+                                    + [i32, ptr])  # block_h before stream
+    lib.rt_flash_fwd_mh.restype = i32
     lib.rt_flash_bwd_dq.argtypes = [i32, i32] + [ptr] * 8 + tail
     lib.rt_flash_bwd_dq.restype = i32
     lib.rt_flash_bwd_dkv.argtypes = [i32, i32] + [ptr] * 9 + tail
@@ -196,6 +231,31 @@ def _geometry(q: Tensor, k: Tensor, causal: bool, sm_scale: float):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _launch_fwd(what: str, q: Tensor, k: Tensor, v: Tensor,
+                kv_lens: Tensor, sm_scale: float, causal: bool,
+                with_lse: bool, *block_h: int
+                ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Check the operands, allocate ``(out, lse)`` and launch B3
+    (``rt_flash_fwd``) or, given ``block_h``, B4 (``rt_flash_fwd_mh``,
+    which takes it before the stream)."""
+    lib = _library()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kv_lens = kv_lens.contiguous()  # held while the kernel may read it
+    _check_operands(q, k, v, kv_lens)
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    *geom, stream = _geometry(q, k, causal, sm_scale)
+    entry = lib.rt_flash_fwd_mh if block_h else lib.rt_flash_fwd
+    with torch.cuda.device(q.device):
+        err = entry(_DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
+                    out.data_ptr(), lse.data_ptr() if with_lse else None,
+                    *geom, *block_h, stream)
+    _raise_on(err, what)
+    return out, lse
+
+
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, kv_lens: Tensor,
                         sm_scale: float, causal: bool,
                         with_lse: bool = True
@@ -207,25 +267,36 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, kv_lens: Tensor,
     if not _runs_kernel(q):
         out, lse = _flash_fwd_reference(q, k, v, kv_lens, sm_scale, causal)
         return out, (lse if with_lse else None)
-    lib = _library()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    kv_lens = kv_lens.contiguous()  # held while the kernel may read it
-    _check_operands(q, k, v, kv_lens)
-    out = torch.empty_like(q)
-    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    with torch.cuda.device(q.device):
-        err = lib.rt_flash_fwd(
-            _DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            *_geometry(q, k, causal, sm_scale))
-    _raise_on(err, "flash_attention_fwd")
+    out, lse = _launch_fwd("flash_attention_fwd", q, k, v, kv_lens,
+                           sm_scale, causal, with_lse)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_mh(q: Tensor, k: Tensor, v: Tensor,
+                           kv_lens: Tensor, sm_scale: float, causal: bool,
+                           block_h: int, with_lse: bool = True
+                           ) -> Tuple[Tensor, Optional[Tensor]]:
+    """B4: :func:`flash_attention_fwd`'s function with ``block_h``
+    consecutive heads of one example per block (``block_h`` divides the
+    head count); the plain version is B3's."""
+    h = q.shape[1]
+    if block_h < 1 or h % block_h:
+        raise ValueError(f"block_h={block_h} must be >= 1 and divide heads "
+                         f"({h})")
+    if not _runs_kernel(q):
+        out, lse = _flash_fwd_reference(q, k, v, kv_lens, sm_scale, causal)
+        return out, (lse if with_lse else None)
+    out, lse = _launch_fwd("flash_attention_fwd_mh", q, k, v, kv_lens,
+                           sm_scale, causal, with_lse, int(block_h))
+    flash_attention_fwd_mh.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_mh.launches = 0
 
 
 def _bwd_operands(q, k, v, do, lse, delta, kv_lens):
@@ -293,12 +364,21 @@ flash_attention_bwd_dkv.launches = 0
 
 # ---------------------------------------------------------------- public
 
+def _forward(q, k, v, lens, sm_scale, causal, block_h, with_lse):
+    """B3, or B4 for ``block_h > 1``."""
+    if block_h > 1:
+        return flash_attention_fwd_mh(q, k, v, lens, sm_scale, causal,
+                                      block_h, with_lse)
+    return flash_attention_fwd(q, k, v, lens, sm_scale, causal, with_lse)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """B3 forward, B5 + B6 backward; ``kv_lens`` is not differentiable."""
+    """B3 (or B4) forward, B5 + B6 backward; ``kv_lens`` is not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lens, sm_scale, causal):
-        out, lse = flash_attention_fwd(q, k, v, lens, sm_scale, causal)
+    def forward(ctx, q, k, v, lens, sm_scale, causal, block_h):
+        out, lse = _forward(q, k, v, lens, sm_scale, causal, block_h, True)
         ctx.save_for_backward(q, k, v, out, lse, lens)
         ctx.sm_scale, ctx.causal = sm_scale, causal
         return out
@@ -311,7 +391,7 @@ class _FlashAttention(torch.autograd.Function):
                                     ctx.sm_scale, ctx.causal)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens,
                                          ctx.sm_scale, ctx.causal)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
@@ -323,23 +403,28 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     ``kv_lens`` (optional int [batch]) masks each example's keys past its
     valid length. Differentiable in q, k and v; without a gradient to
     take (``torch.no_grad`` or no input requiring one) the forward skips
-    the LSE write. ``block_h > 1`` (the head-tiled forward) is not
-    ported."""
-    if block_h is not None and block_h > 1:
-        raise NotImplementedError(
-            "block_h > 1 (the head-tiled forward, Pallas "
-            "_attn_fwd_mh_kernel) is not ported yet")
+    the LSE write. ``block_h > 1`` runs the head-tiled forward (B4) with
+    that many heads of one example per block; it must divide the head
+    count. ``block_h=None`` takes ``ATTN_BLOCK_H``, falling back to 1
+    where that does not divide the heads."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q (b, h, s_q, d) and k/v (b, h, s_kv, d) "
                          f"disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if block_h is None:
+        block_h = _env_block_h(q.shape[1])
+    if block_h < 1:
+        raise ValueError(f"block_h={block_h} must be >= 1")
+    if block_h > 1 and q.shape[1] % block_h:
+        raise ValueError(
+            f"block_h={block_h} must divide heads ({q.shape[1]}): a head "
+            "tile spanning two examples would mix their kv_lens")
     scale = sm_scale if sm_scale is not None else \
         1.0 / math.sqrt(q.shape[-1])
     lens = _prep_lens(kv_lens, q.shape[0], k.shape[2], q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, lens, scale, causal)
-    return flash_attention_fwd(q, k, v, lens, scale, causal,
-                               with_lse=False)[0]
+        return _FlashAttention.apply(q, k, v, lens, scale, causal, block_h)
+    return _forward(q, k, v, lens, scale, causal, block_h, False)[0]

@@ -1,8 +1,19 @@
-"""Weight bridge between the JAX package's Llama params and the port.
+"""Weight bridge between the JAX package's flax params and the port.
 
-The JAX ``params`` pytree, as ``LlamaLoRA.dump_parameters()["params"]``
+A JAX ``params`` pytree, as a template's ``dump_parameters()["params"]``
 returns it (nested dicts of numpy arrays), names its leaves by flax module
-path::
+path. The port's modules name their submodules the same way, so a leaf's
+``state_dict`` key is its path joined with ``.``, and the arrays keep the
+JAX layouts (``(d_in, features)`` kernels): :func:`params_from_jax` and
+:func:`params_to_jax` map one to the other, exactly, for any template.
+ViT and BERT keep every leaf f32 and cast per call, as JAX does, e.g.::
+
+    patch_embed/{kernel,bias}, cls, pos_embed, final_norm/{scale,bias},
+    head/{kernel,bias}, block_{i}/LayerNorm_{0,1}/{scale,bias},
+    block_{i}/attn/{qkv,proj}/{kernel,bias}, block_{i}/Dense_{0,1}/...
+    (BERT: tok_embed/embedding, block_{i}/{qkv,proj}/...)
+
+Llama's leaves are::
 
     block_{i}/attn/{wq,wk,wv,wo}/{kernel,lora_a,lora_b}
     block_{i}/{gate,up,down}/{kernel,lora_a,lora_b}
@@ -10,9 +21,8 @@ path::
     block_{i}/RMSNorm_1/scale   (MLP norm)
     final_norm/scale, lm_head/kernel, tok_embed/embedding
 
-The port's ``Llama`` names its submodules the same way, so a leaf's
-``state_dict`` key is its path joined with ``.``, and the arrays keep the
-JAX layouts (``(d_in, features)`` kernels). The Flax-msgpack byte codec
+and :func:`llama_params_from_jax` casts its matmul leaves to the compute
+dtype once, at load. The Flax-msgpack byte codec
 (``rafiki_tpu/store/param_store.py``) waits for the worker slice.
 """
 
@@ -38,6 +48,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def f32_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A nested-dict params tree as f32 numpy copies."""
+    return {k: f32_tree(v) if isinstance(v, Mapping)
+            else np.array(v, dtype=np.float32) for k, v in tree.items()}
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX params pytree → a ``state_dict`` of f32 CPU tensors
+    (``load_state_dict`` moves them to the model's device)."""
+    return {key: torch.from_numpy(np.array(leaf, dtype=np.float32))
+            for key, leaf in _flatten(tree).items()}
+
+
 def llama_params_from_jax(tree: Mapping[str, Any],
                           dtype: torch.dtype = torch.float32,
                           trainable: Collection[str] = ()
@@ -52,17 +75,14 @@ def llama_params_from_jax(tree: Mapping[str, Any],
     weights a fine-tune updates, cast per call by ``LoRADense``. Norm
     scales and the embedding table stay f32 (the embedding output is cast
     after the lookup, as in JAX)."""
-    out: Dict[str, torch.Tensor] = {}
-    for key, leaf in _flatten(tree).items():
-        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    out = params_from_jax(tree)
+    for key, t in out.items():
         if key.rsplit(".", 1)[-1] in MATMUL_LEAVES and key not in trainable:
-            t = t.to(dtype)
-        out[key] = t
+            out[key] = t.to(dtype)
     return out
 
 
-def llama_params_to_jax(state: Mapping[str, torch.Tensor]
-                        ) -> Dict[str, Any]:
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse: a port ``state_dict`` → the JAX nested-dict params
     pytree of float32 numpy arrays (bf16 weights widen exactly)."""
     tree: Dict[str, Any] = {}

@@ -37,6 +37,11 @@ CASES = {
     "full-lens-f32": (2, 2, 100, 32, False, [37, 100], "float32"),
     "causal-nolens-f32": (1, 4, 100, 8, True, None, "float32"),
     "causal-lens-bf16": (2, 2, 160, 16, True, [150, 1], "bfloat16"),
+    # the ViT / BERT paths: non-causal, padded keys (with a 0), head dims
+    # of their knob grids
+    "full-lens0-d12-f32": (2, 2, 100, 12, False, [100, 0], "float32"),
+    "full-nolens-d48-f32": (1, 2, 70, 48, False, None, "float32"),
+    "full-lens-d24-bf16": (2, 2, 130, 24, False, [3, 130], "bfloat16"),
 }
 
 
@@ -159,14 +164,118 @@ def test_no_grad_forward_skips_the_lse_and_cpu_never_counts_launches():
 
 
 def test_unported_and_bad_arguments_raise():
+    """Bad arguments raise; ``block_h`` keeps JAX's checks: below 1, or an
+    explicit value that does not divide the heads, is a ValueError."""
     x = torch.zeros(1, 4, 8, 16)
-    with pytest.raises(NotImplementedError, match="block_h"):
-        tattn.flash_attention(x, x, x, block_h=2)
+    with pytest.raises(ValueError, match="block_h"):
+        tattn.flash_attention(x, x, x, block_h=3)
+    with pytest.raises(ValueError, match="block_h"):
+        tattn.flash_attention(x, x, x, block_h=0)
     with pytest.raises(ValueError):
         tattn.flash_attention(x, torch.zeros(1, 2, 8, 16),
                               torch.zeros(1, 2, 8, 16))
     with pytest.raises(ValueError):
         tattn.flash_attention(x, x, x, kv_lens=[1, 2])
+
+
+# ---- the head-tiled forward (B4) and the block_h default
+
+@pytest.fixture()
+def mh_calls(monkeypatch):
+    """Record every ``flash_attention_fwd_mh`` call's block_h (the B4
+    route), passing the call through."""
+    calls = []
+    real = tattn.flash_attention_fwd_mh
+
+    def recorder(*a, **k):
+        calls.append(a[6])
+        return real(*a, **k)
+
+    monkeypatch.setattr(tattn, "flash_attention_fwd_mh", recorder)
+    return calls
+
+
+@pytest.mark.parametrize("block_h,causal,lens", [
+    (2, False, [100, 0]), (4, True, None), (4, False, [17, 100])],
+    ids=["h2-full-lens0", "h4-causal", "h4-full-lens"])
+def test_block_h_matches_pallas_mh_interpret(mh_calls, block_h, causal,
+                                             lens):
+    """``block_h > 1`` takes the B4 route: out and the q/k/v gradients
+    (B5/B6 on B4's LSE) against the JAX multi-head kernel in the
+    interpreter, f32 rtol 1e-5."""
+    b, h, s, d = 2, 4, 100, 16
+    q, k, v, g = _inputs(b, h, s, d, "float32", seed=4)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+
+    def jfwd(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, causal=causal,
+                                     interpret=True, kv_lens=jl,
+                                     block_h=block_h)
+
+    want, vjp = jax.vjp(jfwd, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    leaves = [_torch(a, "float32", grad=True) for a in (q, k, v)]
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got = tattn.flash_attention(*leaves, causal=causal, kv_lens=tl,
+                                block_h=block_h)
+    got.backward(torch.from_numpy(g))
+    assert mh_calls == [block_h]
+    _close(got.detach(), want, "float32", "out")
+    for name, t, w in zip("qkv", leaves, want_grads):
+        _close(t.grad, w, "float32", f"d{name}")
+    with torch.no_grad():  # the evaluation forward takes B4 too
+        tattn.flash_attention(*(t.detach() for t in leaves), causal=causal,
+                              kv_lens=tl, block_h=block_h)
+    assert mh_calls == [block_h, block_h]
+
+
+def test_block_h_env_default_applies(monkeypatch, mh_calls):
+    """``ATTN_BLOCK_H`` (``RAFIKI_ATTN_BLOCK_H``) reaches callers that pass
+    no block_h; block_h=1 explicitly keeps B3."""
+    monkeypatch.setattr(tattn, "ATTN_BLOCK_H", 2)
+    q = torch.from_numpy(_inputs(1, 4, 32, 16, "float32", seed=7)[0])
+    out = tattn.flash_attention(q, q, q)
+    assert mh_calls == [2]
+    ref = tattn._attention_reference(q, q, q, 0.25, False)
+    _close(out, ref, "float32", "out")
+    tattn.flash_attention(q, q, q, block_h=1)
+    assert mh_calls == [2]
+
+
+def test_block_h_env_default_falls_back_on_indivisible(monkeypatch,
+                                                       mh_calls, caplog):
+    """An env default that does not divide this call's head count falls
+    back to block_h=1 with one warning per shape, not one per call; an
+    explicit indivisible block_h raises (above)."""
+    import logging
+
+    monkeypatch.setattr(tattn, "ATTN_BLOCK_H", 3)
+    monkeypatch.setattr(tattn, "_ENV_BLOCK_H_WARNED", set())
+    q = torch.from_numpy(_inputs(1, 4, 32, 16, "float32", seed=9)[0])
+    ref = tattn._attention_reference(q, q, q, 0.25, False)
+    with caplog.at_level(logging.WARNING,
+                         logger="rafiki_tpu_torch.ops.attention"):
+        out = tattn.flash_attention(q, q, q)
+        out2 = tattn.flash_attention(q, q, q)
+    assert mh_calls == []
+    _close(out, ref, "float32", "out")
+    _close(out2, ref, "float32", "out2")
+    warned = [r for r in caplog.records
+              if "RAFIKI_ATTN_BLOCK_H" in r.getMessage()]
+    assert len(warned) == 1
+
+
+def test_block_h_wrapper_checks_and_cpu_launch_count():
+    q = torch.from_numpy(_inputs(1, 4, 20, 8, "float32", seed=3)[0])
+    lens = torch.tensor([20], dtype=torch.int32)
+    before = tattn.flash_attention_fwd_mh.launches
+    out, lse = tattn.flash_attention_fwd_mh(q, q, q, lens, 0.5, True, 2)
+    want = tattn.flash_attention_fwd(q, q, q, lens, 0.5, True)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    assert tattn.flash_attention_fwd_mh.launches == before
+    for bad in (0, 3):
+        with pytest.raises(ValueError, match="block_h"):
+            tattn.flash_attention_fwd_mh(q, q, q, lens, 0.5, True, bad)
 
 
 # ---- the kernel path: CUDA tensors launch or raise, never the plain path

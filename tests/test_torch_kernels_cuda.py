@@ -7,8 +7,9 @@ on a machine that has PyTorch and a card but no Flax::
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 The CPU parity of the plain versions with the JAX Pallas kernels is
-``tests/test_torch_paged_attention.py`` (B1/B2) and
-``tests/test_torch_attention.py`` (B3/B5/B6).
+``tests/test_torch_paged_attention.py`` (B1/B2),
+``tests/test_torch_attention.py`` (B3/B4/B5/B6) and
+``tests/test_torch_patch_embed.py`` (B7).
 """
 
 import numpy as np
@@ -97,7 +98,10 @@ def _within(got, ref, dtype):
 @pytest.mark.parametrize("dtype,d", [("float32", 8), ("float32", 16),
                                      ("float32", 32), ("float32", 64),
                                      ("float32", 128), ("bfloat16", 16),
-                                     ("bfloat16", 128)])
+                                     ("bfloat16", 128), ("float32", 12),
+                                     ("float32", 24), ("float32", 48),
+                                     ("float32", 96), ("float32", 192),
+                                     ("bfloat16", 48), ("bfloat16", 192)])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_kernels_match_plain_versions_on_card(dtype, d, causal):
     """B3, B5 and B6 against their plain versions run in f32 on the same
@@ -175,3 +179,74 @@ def test_flash_attention_autograd_on_card():
                             lens).backward(g)
     for a, r in zip(leaves, refs):
         assert _within(a.grad, r.grad, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_h,causal", [(2, False), (4, True),
+                                            (12, False)])
+def test_head_tiled_forward_on_card(dtype, block_h, causal):
+    """B4 against its plain version (B3's, run in f32) and against B3
+    itself: it runs B3's tile body per head in B3's order, so out and LSE
+    are bit-identical to B3's. Ragged s (150) and kv_lens with a 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    dt = getattr(torch, dtype)
+    b, h, s, d = 3, 12, 150, 64
+    rng = np.random.default_rng(13)
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, h, s, d)).astype(np.float32)).to(dev).to(dt) for _ in range(3))
+    lens = torch.tensor([150, 0, 61], dtype=torch.int32, device=dev)
+    sm = 1.0 / np.sqrt(d)
+    before = (fa.flash_attention_fwd_mh.launches,
+              fa.flash_attention_fwd.launches)
+    out, lse = fa.flash_attention_fwd_mh(q, k, v, lens, sm, causal, block_h)
+    assert (fa.flash_attention_fwd_mh.launches,
+            fa.flash_attention_fwd.launches) == (before[0] + 1, before[1])
+    out3, lse3 = fa.flash_attention_fwd(q, k, v, lens, sm, causal)
+    ref_o, ref_lse = fa._flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), lens, sm, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out3) and torch.equal(lse, lse3)
+    assert _within(out, ref_o, dt)
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == fa.LSE_MASKED)
+    out2, none = fa.flash_attention_fwd_mh(q, k, v, lens, sm, causal,
+                                           block_h, with_lse=False)
+    assert none is None and torch.equal(out2, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 768, 96), (130, 75, 33),
+                                   (777, 768, 768), (64 * 196, 768, 768)])
+def test_matmul_bias_on_card(dtype, m, k, n):
+    """B7 against its plain version run in f32 on the same inputs, ragged
+    against the 64 x 64 x 32 tiles: per element, f32 1e-5 + 1e-5·|ref|
+    (sums in another order), bf16 one rounding of the output (2^-8 of its
+    magnitude) plus 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import patch_embed as pe
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(m + n)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.uniform(-1, 1, (m, k)).astype(
+        np.float32)).to(dev).to(dt)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k)).astype(
+        np.float32)).to(dev).to(dt)
+    b = torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).to(dev).to(dt)
+    before = pe.matmul_bias.launches
+    got = pe.matmul_bias(x, w, b)
+    assert pe.matmul_bias.launches == before + 1
+    ref = pe._matmul_bias_reference(x.float(), w.float(), b.float())
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (m, n)
+    assert _within(got, ref, dt)
+    with pytest.raises(TypeError):
+        pe.matmul_bias(x, w.float() if dt != torch.float32 else
+                       w.to(torch.bfloat16), b)

@@ -19,7 +19,7 @@ from rafiki_tpu_torch.models.llama_lora import (Llama, LlamaLoRA,
                                                 _parse_rope_scaling,
                                                 greedy_generate, rope)
 from rafiki_tpu_torch.store.params import (llama_params_from_jax,
-                                           llama_params_to_jax)
+                                           params_to_jax)
 
 from test_decode_engine import KNOBS
 
@@ -51,11 +51,11 @@ def test_param_bridge_round_trip_exact(trained_lm, port_lm):
     model holds exactly the JAX leaves under the same names."""
     tree = trained_lm.dump_parameters()["params"]
     want = _flat(tree)
-    back = _flat(llama_params_to_jax(llama_params_from_jax(tree)))
+    back = _flat(params_to_jax(llama_params_from_jax(tree)))
     assert back.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
-    loaded = _flat(llama_params_to_jax(port_lm._model.state_dict()))
+    loaded = _flat(params_to_jax(port_lm._model.state_dict()))
     assert loaded.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(loaded[k], want[k], err_msg=k)

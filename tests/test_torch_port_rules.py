@@ -15,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from rafiki_tpu_torch.models.bert import Bert, BertClassifier
 from rafiki_tpu_torch.models.llama_lora import Llama, LlamaLoRA
+from rafiki_tpu_torch.models.vit import ViT, ViTBase16
 from rafiki_tpu_torch.ops import _build
+from rafiki_tpu_torch.ops import attention as fa
 from rafiki_tpu_torch.ops import paged_attention as pa
+from rafiki_tpu_torch.ops import patch_embed as pe
 from rafiki_tpu_torch.serving.decode_engine import DecodeEngine
 from rafiki_tpu_torch.utils.device import resolve_device
 
@@ -141,3 +145,78 @@ def test_plain_path_is_taken_only_for_cpu_tensors():
     assert pa._runs_kernel(torch.zeros(1, device="meta"))
     out = pa.paged_decode_attention(*_operands(False))
     assert out.shape == (2, 4, 8) and np.isfinite(out.numpy()).all()
+
+
+def test_vit_and_bert_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: ViTBase16(patch_size=4, hidden_dim=8),
+                 lambda: BertClassifier(vocab_size=64),
+                 lambda: ViT(patch_size=4, hidden_dim=8, depth=1,
+                             n_heads=2, mlp_dim=8, n_classes=2,
+                             image_shape=(8, 8, 3)),
+                 lambda: Bert(vocab_size=64, max_len=8, hidden_dim=8,
+                              depth=1, n_heads=2, mlp_dim=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # asked for explicitly, the CPU is fine
+    assert ViTBase16(device="cpu").device.type == "cpu"
+    assert BertClassifier(device="cpu").device.type == "cpu"
+
+
+@pytest.fixture()
+def b4_b7_kernel_path(monkeypatch):
+    """Route CPU tensors down B4's and B7's kernel paths, with their plain
+    versions booby-trapped."""
+    def plain_ran(*a, **k):
+        raise AssertionError("the plain version ran on the kernel path")
+
+    for mod in (fa, pe):
+        monkeypatch.setattr(mod, "_runs_kernel", lambda t: True)
+        mod._library.cache_clear()
+    monkeypatch.setattr(fa, "_flash_fwd_reference", plain_ran)
+    monkeypatch.setattr(pe, "_matmul_bias_reference", plain_ran)
+    yield
+    for mod in (fa, pe):
+        mod._library.cache_clear()
+
+
+def _b4_b7_calls():
+    x = torch.zeros(1, 4, 8, 16)
+    lens = torch.full((1,), 8, dtype=torch.int32)
+    return {
+        "matmul_bias": (pe.matmul_bias, lambda: pe.matmul_bias(
+            torch.zeros(6, 5), torch.zeros(5, 3), torch.zeros(3))),
+        "flash_attention_fwd_mh": (fa.flash_attention_fwd_mh, lambda:
+                                   fa.flash_attention_fwd_mh(
+                                       x, x, x, lens, 0.25, False, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_b4_b7_calls()))
+def test_b4_b7_wrappers_raise_without_the_library(b4_b7_kernel_path,
+                                                  monkeypatch, name):
+    """No nvcc (or a failed build): the wrapper raises; the launch counter
+    does not move."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "lib_path",
+                        lambda lib: Path("/nonexistent") / f"lib{lib}.so")
+    fn, call = _b4_b7_calls()[name]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call()
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("name", list(_b4_b7_calls()))
+def test_b4_b7_wrappers_reject_non_cuda_tensors(b4_b7_kernel_path,
+                                                monkeypatch, name):
+    monkeypatch.setattr(_build, "library", lambda lib: _FakeLib())
+    fn, call = _b4_b7_calls()[name]
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert fn.launches == before
