@@ -15,9 +15,14 @@ Ports ``rafiki_tpu/ops/paged_attention.py``:
 
 Both wrappers keep the JAX signatures and layouts. A tensor on the CPU
 runs the plain version; any other device launches the hand-written CUDA
-kernel in ``csrc/paged_attention.cu`` (built by ``ops/_build.py`` at first
-use) or raises — there is no silent fallback. Each wrapper counts its
-kernel launches in a plain integer attribute, ``launches``.
+kernels in ``csrc/paged_attention.cu`` (built by ``ops/_build.py`` at first
+use) or raises — there is no silent fallback. The kernels split each
+slot's pages over several blocks (:func:`_split_plan`, from shapes alone)
+and merge the splits' partial softmax states in a second, deterministic
+pass; :func:`_paged_split_reference` is the plain model of that split and
+merge, held against the JAX kernels on the CPU. Each wrapper counts its
+calls that launch the kernels in a plain integer attribute, ``launches``
+(one per call, merge pass or not).
 
 The int8 KV pool (``k_scale``/``v_scale``) is accepted by the signatures
 and raises ``NotImplementedError`` in this slice.
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,8 +43,18 @@ from rafiki_tpu_torch.ops.common import check_launch as _raise_on
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.common import runs_kernel as _runs_kernel
 
-#: query rows (window tokens x GQA rep) one window-kernel block carries
-_WINDOW_ROWS = 128
+#: query rows (window tokens x GQA rep) one kernel block carries at most:
+#: eight 16-row warp fragments; the f32 body also keeps its rows in shared
+#: memory, so it takes half
+_TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+#: keys per pipeline stage of the kernels: a split is a whole number of them
+_TILE_KEYS = 64
+#: head dims and page sizes the kernels are compiled for
+_HEAD_DIMS = (64, 128)
+_PAGE_SIZES = (8, 16, 32, 64)
+#: blocks the split plan aims for: a few per SM of an H100 (132 SMs), so
+#: every SM keeps loads in flight through the whole call
+_TARGET_BLOCKS = 4 * 132
 
 
 def kv_cache_write(cache: torch.Tensor, idx0: torch.Tensor,
@@ -82,15 +97,93 @@ def _check_shapes(q, k_pool, v_pool, page_tables, positions, s) -> None:
                          f"{tuple(positions.shape)}")
 
 
+def _split_plan(b: int, n_kv: int, n_qtiles: int, n_tables: int,
+                page_size: int, rows_per_tile: int) -> Tuple[int, int]:
+    """``(pages_per_split, n_splits)`` of a kernel launch, from shapes
+    alone (the host never reads positions back from the card).
+
+    - A split is a whole number of 64-key tiles (at least one), so no
+      tile straddles two splits; the splits cover all ``n_tables``
+      columns, the last one possibly short.
+    - The grid (kv heads x slots x query tiles x splits) aims for
+      ``_TARGET_BLOCKS`` blocks.
+    - Each split writes ``rows_per_tile`` f32 partial rows of dh + 2 and
+      the merge reads them back: a split keeps at least 4 keys per row, so
+      that traffic stays under half of the split's K/V bytes. A window
+      tile of 128 rows therefore takes splits of 512 keys or more, and a
+      decode tile (rep rows) is held only by the 64-key tile.
+
+    A decode call and a window of one give the same arguments, hence the
+    same plan."""
+    tile_pages = max(1, _TILE_KEYS // page_size)
+    n_tiles = -(-n_tables // tile_pages)
+    base = b * n_kv * n_qtiles
+    want = -(-_TARGET_BLOCKS // max(1, base))
+    min_tiles = max(1, -(-4 * rows_per_tile // _TILE_KEYS))
+    n_splits = max(1, min(want, n_tiles // min_tiles))
+    tiles_per_split = -(-n_tiles // n_splits)
+    n_splits = -(-n_tiles // tiles_per_split)
+    return tiles_per_split * tile_pages, n_splits
+
+
+class _Plan(NamedTuple):
+    block_q: int          # window tokens per query tile
+    pages_per_split: int
+    n_splits: int
+    blocks: int           # blocks of the split kernel's grid
+
+
+def _launch_plan(b: int, s: int, n_heads: int, n_kv: int, n_tables: int,
+                 page_size: int, dtype: torch.dtype) -> _Plan:
+    """The query tiling and split plan of one call (``s == 1`` for the
+    decode kernel, which therefore plans exactly as a window of one)."""
+    rep = n_heads // n_kv
+    block_q = min(s, max(1, _TILE_ROWS[dtype] // rep))
+    n_qtiles = -(-s // block_q)
+    pps, n_splits = _split_plan(b, n_kv, n_qtiles, n_tables, page_size,
+                                block_q * rep)
+    return _Plan(block_q, pps, n_splits, n_kv * b * n_qtiles * n_splits)
+
+
+def _check_kernel_shapes(dh: int, page_size: int, rep: int,
+                         dtype: torch.dtype) -> None:
+    """What the CUDA kernels are compiled for; anything else raises."""
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"the paged-attention kernels take head_dim in "
+                         f"{_HEAD_DIMS}, got {dh}")
+    if page_size not in _PAGE_SIZES:
+        raise ValueError(f"the paged-attention kernels take page_size in "
+                         f"{_PAGE_SIZES}, got {page_size}")
+    if rep > _TILE_ROWS[dtype]:
+        raise ValueError(f"the paged-attention kernels take at most "
+                         f"{_TILE_ROWS[dtype]} query heads per kv head for "
+                         f"{dtype}, got {rep}")
+
+
+def _workspace(q: torch.Tensor, n_rows: int, n_splits: int, dh: int):
+    """The split partials (acc, then (m, l)) in f32, or ``(None, None)``
+    with one split: the kernels allocate nothing themselves."""
+    if n_splits == 1:
+        return None, None
+    return (torch.empty((n_rows, n_splits, dh), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((n_rows, n_splits, 2), dtype=torch.float32,
+                        device=q.device))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rt_paged_decode_attention.argtypes = (
-        [i32] + [ptr] * 6 + [i32] * 6 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
     lib.rt_paged_decode_attention.restype = i32
     lib.rt_paged_window_attention.argtypes = (
-        [i32] + [ptr] * 6 + [i32] * 8 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 8 + [i32] * 10 + [ctypes.c_float, ptr])
     lib.rt_paged_window_attention.restype = i32
     return lib
 
@@ -149,14 +242,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     q, page_tables, positions = _cuda_operands(q, k_pool, v_pool,
                                                page_tables, positions)
     b, n_heads, dh = q.shape
+    _, page, n_kv, _ = k_pool.shape
+    _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
+    plan = _launch_plan(b, 1, n_heads, n_kv, page_tables.shape[1], page,
+                        q.dtype)
     out = torch.empty_like(q)
+    acc, ml = _workspace(q, b * n_heads, plan.n_splits, dh)
     with torch.cuda.device(q.device):
         err = lib.rt_paged_decode_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, n_heads, k_pool.shape[2], dh,
-            k_pool.shape[1], page_tables.shape[1], float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), _ptr(acc), _ptr(ml), b, n_heads, n_kv, dh, page,
+            page_tables.shape[1], plan.pages_per_split, plan.n_splits,
+            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -195,16 +293,20 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     q, page_tables, positions = _cuda_operands(q, k_pool, v_pool,
                                                page_tables, positions)
     b, s, n_heads, dh = q.shape
+    _, page, n_kv, _ = k_pool.shape
+    _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
+    plan = _launch_plan(b, s, n_heads, n_kv, page_tables.shape[1], page,
+                        q.dtype)
     out = torch.empty_like(q)
-    rep = n_heads // k_pool.shape[2]
-    block_q = min(s, max(1, _WINDOW_ROWS // rep))
+    acc, ml = _workspace(q, b * s * n_heads, plan.n_splits, dh)
     with torch.cuda.device(q.device):
         err = lib.rt_paged_window_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, s, n_heads, k_pool.shape[2], dh,
-            k_pool.shape[1], page_tables.shape[1], block_q,
-            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), _ptr(acc), _ptr(ml), b, s, n_heads, n_kv, dh,
+            page, page_tables.shape[1], plan.block_q, plan.pages_per_split,
+            plan.n_splits, float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_window_attention")
     paged_window_attention.launches += 1
     return out
@@ -213,19 +315,17 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_window_attention.launches = 0
 
 
-def _paged_window_reference(q: torch.Tensor, k_pool: torch.Tensor,
-                            v_pool: torch.Tensor, page_tables: torch.Tensor,
-                            positions: torch.Tensor,
-                            sm_scale: float) -> torch.Tensor:
-    """Plain window version: gather the pages back into logical order
-    and run the per-row masked softmax in f32."""
+def _masked_scores(q, k_pool, v_pool, page_tables, positions, sm_scale):
+    """The pages gathered into logical order and the f32 scores of every
+    (query row, key), masked to ``NEG_INF`` past each row's position:
+    ``(scores (b, h, s, length), v (b, length, h, dh))``."""
     b, s, n_heads, dh = q.shape
     _, page_size, n_kv, _ = k_pool.shape
     rep = gqa_repeat_factor(n_heads, n_kv)
     length = page_tables.shape[1] * page_size
     tabs = page_tables.long()
 
-    def rows(pool):  # (b, length, n_kv, dh) logical view
+    def rows(pool):  # (b, length, n_heads, dh) logical view
         return pool[tabs].reshape(b, length, n_kv, dh).float() \
             .repeat_interleave(rep, dim=2)
 
@@ -233,9 +333,69 @@ def _paged_window_reference(q: torch.Tensor, k_pool: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * sm_scale
     k_pos = torch.arange(length, device=q.device)[None, None, None, :]
     t = positions.long()[:, None, :, None]  # (b, 1, s, 1)
-    scores = torch.where(k_pos <= t, scores, NEG_INF)
+    return torch.where(k_pos <= t, scores, NEG_INF), v
+
+
+def _paged_window_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, page_tables: torch.Tensor,
+                            positions: torch.Tensor,
+                            sm_scale: float) -> torch.Tensor:
+    """Plain window version: gather the pages back into logical order
+    and run the per-row masked softmax in f32."""
+    scores, v = _masked_scores(q, k_pool, v_pool, page_tables, positions,
+                               sm_scale)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def _split_partials(q, k_pool, v_pool, page_tables, positions, sm_scale,
+                    pages_per_split):
+    """Each split's online-softmax state over its keys, as the kernels
+    leave it: ``(m, l, acc)``, stacked over splits in order, with ``m``
+    and ``l`` (n_splits, b, h, s, 1) and ``acc`` (n_splits, b, h, s, dh),
+    all f32. A row that sees no key of a split keeps the finite
+    ``NEG_INF`` as its max there, and its ``l`` counts the masked keys
+    (each weighs exp(0) = 1), as the JAX kernels' running state does."""
+    scores, v = _masked_scores(q, k_pool, v_pool, page_tables, positions,
+                               sm_scale)
+    step = pages_per_split * k_pool.shape[1]
+    ms, ls, accs = [], [], []
+    for k0 in range(0, scores.shape[-1], step):
+        sc = scores[..., k0:k0 + step]
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd", p,
+                                 v[:, k0:k0 + step]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def _merge_partials(m: torch.Tensor, l: torch.Tensor,
+                    acc: torch.Tensor) -> torch.Tensor:
+    """The merge pass: ``M = max m``, each split weighted by
+    ``exp(m - M)`` (exactly 0 for a split whose ``m`` is ``NEG_INF``,
+    since split 0 holds key 0, which every row sees), ``sum acc·w /
+    max(sum l·w, 1e-30)``. Returns (b, h, s, dh) f32."""
+    w = torch.exp(m - m.amax(dim=0))
+    return (acc * w).sum(dim=0) / (l * w).sum(dim=0).clamp_min(1e-30)
+
+
+def _paged_split_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_tables: torch.Tensor,
+                           positions: torch.Tensor, sm_scale: float,
+                           pages_per_split: int) -> torch.Tensor:
+    """Plain model of the kernels' split over pages and their merge, in
+    f32, for a window ``q`` (b, s, n_heads, dh) with positions (b, s) (a
+    decode call is the window of one): the table's columns cut into
+    splits of ``pages_per_split`` pages, each split's softmax state
+    (:func:`_split_partials`), then :func:`_merge_partials`. The tests
+    hold it against the JAX kernels; nothing on the serving path calls
+    it."""
+    out = _merge_partials(*_split_partials(q, k_pool, v_pool, page_tables,
+                                           positions, sm_scale,
+                                           pages_per_split))
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,

@@ -19,51 +19,70 @@ import torch
 from rafiki_tpu_torch.ops import paged_attention as pa
 
 
+def _paged_tol(dtype, ref):
+    """Per-element tolerance of B1/B2 against their plain versions run in
+    f32, as for the flash kernels: f32 1e-5 + 1e-5·|ref| (sums in another
+    order); bf16 one rounding of the output (2^-8 of the element's
+    magnitude) plus 1e-3."""
+    if dtype == torch.float32:
+        return 1e-5 + 1e-5 * ref.abs()
+    return 1e-3 + 2.0 ** -8 * ref.abs()
+
+
+def _paged_within(got, ref, dtype):
+    return bool(torch.all((got.float() - ref).abs() <= _paged_tol(dtype,
+                                                                  ref)))
+
+
+def _paged_pools(rng, last, n_kv, dh, page, n_tab, dt, dev):
+    """Pools with 1e3 / -1e3 garbage on scratch page 0, and a table row
+    per slot whose live pages are distinct random pages, dead entries on
+    page 0."""
+    n_live = last // page + 1
+    n_pages = 1 + int(n_live.sum())
+    tables = np.zeros((len(last), n_tab), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    used = 0
+    for i, n in enumerate(n_live):
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    shape = (n_pages, page, n_kv, dh)
+    k_pool = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dt)
+    v_pool = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dt)
+    k_pool[0] = 1e3
+    v_pool[0] = -1e3
+    return k_pool, v_pool, torch.from_numpy(tables).to(dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_versions_on_card(dtype):
     """On a CUDA card: both kernels against their plain versions (run in
     f32) at GQA rep 4, dh 128, page 16, with garbage on page 0 and a
     window whose overhang repeats; a window of one is bit-identical to
-    the step. Tolerance 1e-5 at f32 (sums in another order); at bf16
-    1e-3 + 2^-8·max|ref| (one rounding of the output to bf16, at most
-    2^-8 of its magnitude, plus the f32 noise)."""
+    the step. Per-element tolerance (``_paged_tol``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
-
-    def tol(ref):
-        if dt == torch.float32:
-            return 1e-5
-        return 1e-3 + 2.0 ** -8 * ref.abs().max().item()
     b, n_heads, n_kv, dh, page = 4, 32, 8, 128, 16
     last = np.array([0, 17, 300, 511], np.int32)
-    n_live = last // page + 1
     rng = np.random.default_rng(5)
-    n_pages = 1 + int(n_live.sum())
-    tables = np.zeros((b, 32), np.int32)
-    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
-    used = 0
-    for i, n in enumerate(n_live):
-        tables[i, :n] = perm[used:used + n]
-        used += n
     dev = torch.device("cuda")
+    k_pool, v_pool, tab = _paged_pools(rng, last, n_kv, dh, page, 32, dt,
+                                       dev)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    k_pool = put(rng.standard_normal((n_pages, page, n_kv, dh))).to(dt)
-    v_pool = put(rng.standard_normal((n_pages, page, n_kv, dh))).to(dt)
-    k_pool[0] = 1e3
-    v_pool[0] = -1e3
-    tab = put(tables)
     sm = 1.0 / np.sqrt(dh)
     q = put(rng.standard_normal((b, n_heads, dh))).to(dt)
     pos = put(last)
     got = pa.paged_decode_attention(q, k_pool, v_pool, tab, pos, sm)
     ref = pa._paged_attention_reference(q.float(), k_pool.float(),
                                         v_pool.float(), tab, pos, sm)
-    assert (got.float() - ref).abs().max().item() <= tol(ref)
+    assert _paged_within(got, ref, dt)
     win1 = pa.paged_window_attention(q[:, None], k_pool, v_pool, tab,
                                      pos[:, None], sm)[:, 0]
     assert torch.equal(win1, got)
@@ -75,7 +94,80 @@ def test_kernels_match_plain_versions_on_card(dtype):
     ref_w = pa._paged_window_reference(qw.float(), k_pool.float(),
                                        v_pool.float(), tab, wpos, sm)
     torch.cuda.synchronize()
-    assert (got_w.float() - ref_w).abs().max().item() <= tol(ref_w)
+    assert _paged_within(got_w, ref_w, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_sweep_on_card(dtype, dh, page, rep):
+    """B1 and B2 against their plain versions across the shapes the split
+    plan must handle: positions 63 / 64 / 127 / 128 / 2047 (on and beside
+    64-key tiles, one slot 32 pages past the rest), a live-width table 3
+    columns wider than the longest slot (not a multiple of any split),
+    windows of 1, 7, 32, 33 and 128 tokens ending at each slot's position
+    (ragged query tiles, rows that see no key of the tile's last split);
+    a window of one equals the decode step bit for bit, and a second call
+    on the same inputs gives the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    n_kv, dev = 2, torch.device("cuda")
+    n_heads = n_kv * rep
+    last = np.array([63, 64, 127, 128, 2047], np.int32)
+    rng = np.random.default_rng(dh + page + rep)
+    n_tab = int(last.max()) // page + 4
+    k_pool, v_pool, tab = _paged_pools(rng, last, n_kv, dh, page, n_tab, dt,
+                                       dev)
+    sm = 1.0 / np.sqrt(dh)
+    pools = (k_pool, v_pool, tab)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(last), n_heads, dh)).astype(np.float32)).to(dev).to(dt)
+    pos = torch.from_numpy(last).to(dev)
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, *pools[:2], tab, pos, sm)
+    again = pa.paged_decode_attention(q, *pools[:2], tab, pos, sm)
+    assert pa.paged_decode_attention.launches == before + 2
+    ref = pa._paged_attention_reference(q.float(), k_pool.float(),
+                                        v_pool.float(), tab, pos, sm)
+    win1 = pa.paged_window_attention(q[:, None], k_pool, v_pool, tab,
+                                     pos[:, None], sm)[:, 0]
+    torch.cuda.synchronize()
+    assert _paged_within(got, ref, dt)
+    assert torch.equal(again, got) and torch.equal(win1, got)
+    for c in (1, 7, 32, 33, 128):
+        wpos = np.maximum(0, last[:, None] - np.arange(c - 1, -1, -1)[None])
+        wpos = torch.from_numpy(wpos.astype(np.int32)).to(dev)
+        qw = torch.from_numpy(rng.standard_normal(
+            (len(last), c, n_heads, dh)).astype(np.float32)).to(dev).to(dt)
+        got_w = pa.paged_window_attention(qw, k_pool, v_pool, tab, wpos, sm)
+        again_w = pa.paged_window_attention(qw, k_pool, v_pool, tab, wpos,
+                                            sm)
+        ref_w = pa._paged_window_reference(qw.float(), k_pool.float(),
+                                           v_pool.float(), tab, wpos, sm)
+        torch.cuda.synchronize()
+        assert _paged_within(got_w, ref_w, dt), c
+        assert torch.equal(again_w, got_w), c
+
+
+@pytest.mark.cuda
+def test_paged_kernels_refuse_unsupported_shapes_on_card():
+    """Head dims and page sizes the kernels are not compiled for raise
+    ValueError on the card; nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    tab = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = pa.paged_decode_attention.launches
+    for dh, page in ((96, 16), (64, 4)):
+        q = torch.zeros(1, 4, dh, device=dev)
+        pool = torch.zeros(2, page, 2, dh, device=dev)
+        with pytest.raises(ValueError):
+            pa.paged_decode_attention(q, pool, pool, tab, pos, 0.5)
+    assert pa.paged_decode_attention.launches == before
 
 
 def _flash_tol(dtype, ref):

@@ -7,10 +7,21 @@ same numpy inputs (from a seed) feed both. Tolerance: 1e-5 absolute at
 f32 — the two sides sum in different orders (the kernel merges page
 partials by LSE, the plain version soft-maxes the gathered row).
 
+The CUDA kernels split each slot's pages over blocks and merge the
+splits' softmax states: ``_split_plan`` (shapes in, plan out) and the
+plain model of that split and merge, ``_paged_split_reference``, are held
+here — the model against the JAX kernels, over splits of 1, 2 and 3
+pages, positions on and beside split boundaries, and window rows that see
+no key of a split.
+
 The CUDA kernels themselves run only on the card:
 ``tests/test_torch_kernels_cuda.py`` holds them against these plain
 versions there.
 """
+
+import contextlib
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -163,3 +174,205 @@ def test_int8_pools_raise_not_implemented():
         pa.paged_window_attention(q[:, None], pool, pool, tab,
                                   pos[:, None], 1.0, k_scale=scale,
                                   v_scale=scale)
+
+
+# ------------------------------------------------- the split over pages
+
+@pytest.mark.parametrize("shape", [
+    (8, 8, 1, 128, 16, 4),     # Llama-3-8B decode, max_len 2048
+    (8, 8, 1, 128, 16, 128),   # its 32-token prefill window (rep 4)
+    (8, 8, 1, 9, 16, 4),       # a live-width table of 9 columns
+    (8, 8, 2, 7, 8, 128),      # two query tiles, 7 columns of 8
+    (1, 1, 1, 5, 64, 4),       # one block per split, 64-token pages
+    (64, 32, 1, 3, 32, 16),    # the card already full: one split
+])
+def test_split_plan_covers_the_table_from_shapes(shape):
+    """``_split_plan`` takes shapes only and returns the same plan every
+    time; its splits are whole 64-key tiles that cover the ``n_tables``
+    columns exactly (the last one may be short, none is empty); a split
+    keeps at least 4 keys per query row, unless the table is one tile;
+    and the grid reaches ``_TARGET_BLOCKS`` unless the table runs out of
+    tiles first."""
+    b, n_kv, n_qtiles, n_tables, page, rows = shape
+    pps, n_splits = pa._split_plan(*shape)
+    assert (pps, n_splits) == pa._split_plan(*shape)
+    tile_pages = max(1, pa._TILE_KEYS // page)
+    assert pps % tile_pages == 0 and n_splits >= 1
+    assert (n_splits - 1) * pps < n_tables <= n_splits * pps
+    n_tiles = -(-n_tables // tile_pages)
+    if n_tiles > 1:
+        assert pps * page >= min(4 * rows, n_tiles * tile_pages * page // 2)
+    blocks = b * n_kv * n_qtiles * n_splits
+    assert blocks >= pa._TARGET_BLOCKS or pps == tile_pages or \
+        pps * page >= 4 * rows or n_splits == 1
+
+
+class _RecordingLib:
+    """Stands in for the CUDA library: records each entry's arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+@pytest.fixture()
+def recording_kernel_path(monkeypatch):
+    """CPU tensors down the kernel path, into a recording library."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(pa, "_runs_kernel", lambda t: True)
+    monkeypatch.setattr(pa, "_library", lambda: lib)
+    monkeypatch.setattr(pa, "_cuda_operands",
+                        lambda q, k, v, tab, pos: (q, tab, pos))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+def test_decode_and_window_of_one_launch_one_plan(recording_kernel_path):
+    """The decode wrapper and a window of one pass the kernels the same
+    plan (pages per split, splits) and shapes, and one launch each; the
+    workspace exists exactly when there is more than one split."""
+    lib = recording_kernel_path
+    b, n_heads, n_kv, dh, page, n_tab = 8, 32, 8, 64, 16, 128
+    q = torch.zeros(b, n_heads, dh, dtype=torch.bfloat16)
+    pool = torch.zeros(3, page, n_kv, dh, dtype=torch.bfloat16)
+    tab = torch.zeros(b, n_tab, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    launches = (pa.paged_decode_attention.launches,
+                pa.paged_window_attention.launches)
+    pa.paged_decode_attention(q, pool, pool, tab, pos, 0.125)
+    pa.paged_window_attention(q[:, None], pool, pool, tab, pos[:, None],
+                              0.125)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_window_attention.launches) == (launches[0] + 1,
+                                                    launches[1] + 1)
+    dec = lib.calls["rt_paged_decode_attention"]
+    win = lib.calls["rt_paged_window_attention"]
+    # decode: (b, n_heads, n_kv, dh, page, n_tables, pps, splits, scale);
+    # window: (b, s, n_heads, n_kv, dh, page, n_tables, block_q, pps,
+    # splits, scale)
+    assert dec[9:15] == (b, n_heads, n_kv, dh, page, n_tab)
+    assert win[9:19] == (b, 1, n_heads, n_kv, dh, page, n_tab, 1) + dec[15:17]
+    assert dec[15:17] == pa._split_plan(b, n_kv, 1, n_tab, page,
+                                        n_heads // n_kv)
+    assert dec[15:17][1] > 1
+    assert all(p is not None for p in dec[7:9] + win[7:9])
+    assert dec[17] == win[19] == 0.125
+
+
+@pytest.mark.parametrize("what,dh,page", [("head_dim", 96, 16),
+                                          ("page_size", 64, 4),
+                                          ("page_size", 128, 128)])
+def test_kernel_path_refuses_unsupported_shapes(recording_kernel_path,
+                                                what, dh, page):
+    """A head dim or page size the kernels are not compiled for raises
+    ValueError naming the supported values; nothing launches."""
+    q = torch.zeros(2, 4, dh)
+    pool = torch.zeros(3, page, 2, dh)
+    tab = torch.zeros(2, 2, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    for call in (lambda: pa.paged_decode_attention(q, pool, pool, tab, pos,
+                                                   0.5),
+                 lambda: pa.paged_window_attention(q[:, None], pool, pool,
+                                                   tab, pos[:, None], 0.5)):
+        with pytest.raises(ValueError, match=what):
+            call()
+    assert not recording_kernel_path.calls
+
+
+#: decode positions on and beside the split boundaries of 1, 2 and 3
+#: pages of 4 tokens (keys 4, 8, 12, 24 open a split)
+_SPLIT_POSITIONS = np.array([0, 3, 4, 5, 7, 8, 9, 11, 12, 13, 23, 24, 31],
+                            np.int32)
+#: windows: an idle row at 0; rows 9..11 that see no key of the split
+#: opening at 12 (1 or 3 pages) while the tile's last row does; overhang
+#: repeating the last entry; a window across the 24 boundary
+_SPLIT_WINDOWS = np.array([[0, 0, 0, 0, 0],
+                           [9, 10, 11, 12, 13],
+                           [3, 4, 5, 6, 6],
+                           [21, 22, 23, 24, 25],
+                           [13, 14, 15, 16, 17]], np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(n_kv, window):
+    """Inputs and the JAX kernel's output, once per (rep, kind)."""
+    n_heads, dh = 4, 8
+    if window:  # a 7-column live-width table: not a multiple of 2 or 3
+        positions, n_tab = _SPLIT_WINDOWS, 7
+        rng, k_pool, v_pool, tables = _pool_case(7, n_heads, n_kv, dh,
+                                                 positions[:, -1], n_tab)
+        q = rng.standard_normal(positions.shape + (n_heads, dh)).astype(
+            np.float32)
+        want = jax_window(q, k_pool, v_pool, tables, positions,
+                          sm_scale=1.0 / np.sqrt(dh), interpret=True)
+    else:
+        positions, n_tab = _SPLIT_POSITIONS, 8
+        rng, k_pool, v_pool, tables = _pool_case(6, n_heads, n_kv, dh,
+                                                 positions, n_tab)
+        q = rng.standard_normal((len(positions), n_heads, dh)).astype(
+            np.float32)
+        want = jax_decode(q, k_pool, v_pool, tables, positions,
+                          sm_scale=1.0 / np.sqrt(dh), interpret=True)
+    return q, k_pool, v_pool, tables, positions, np.asarray(want)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+@pytest.mark.parametrize("n_kv", [4, 2, 1], ids=["rep1", "rep2", "rep4"])
+def test_split_reference_matches_jax_decode(n_kv, pages_per_split):
+    """The split-and-merge model against the JAX decode kernel: GQA rep
+    1/2/4, splits of 1, 2 and 3 pages (3 does not divide the 8 columns),
+    positions on and beside the split boundaries, garbage on page 0."""
+    q, k_pool, v_pool, tables, positions, want = _split_case(n_kv, False)
+    got = pa._paged_split_reference(
+        _t(q[:, None]), _t(k_pool), _t(v_pool), _t(tables),
+        _t(positions[:, None]), 1.0 / np.sqrt(q.shape[-1]),
+        pages_per_split)[:, 0].numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.abs(got).max() < 10  # the page-0 garbage never leaked in
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+@pytest.mark.parametrize("n_kv", [4, 2, 1], ids=["rep1", "rep2", "rep4"])
+def test_split_reference_matches_jax_window(n_kv, pages_per_split):
+    """The model against the JAX window kernel on a 7-column table:
+    window rows that see no key of a split their tile's last row reaches,
+    an idle row, an overhang, a window across a split boundary."""
+    q, k_pool, v_pool, tables, positions, want = _split_case(n_kv, True)
+    got = pa._paged_split_reference(
+        _t(q), _t(k_pool), _t(v_pool), _t(tables), _t(positions),
+        1.0 / np.sqrt(q.shape[-1]), pages_per_split).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 3])
+def test_masked_split_contributes_exactly_zero(pages_per_split):
+    """A split in which a row sees no key: its max is the finite NEG_INF,
+    its sum counts the masked keys (each weighs exp(0) = 1, and its acc
+    holds their V — scratch garbage included), and the merge weighs it by
+    exactly 0."""
+    q, k_pool, v_pool, tables, positions, _ = _split_case(1, True)
+    m, l, acc = pa._split_partials(
+        _t(q), _t(k_pool), _t(v_pool), _t(tables), _t(positions),
+        1.0 / np.sqrt(q.shape[-1]), pages_per_split)
+    step = pages_per_split * PAGE
+    first_key = torch.arange(m.shape[0])[:, None, None, None] * step
+    blind = first_key > _t(positions).long()[None, :, None, :]  # (sp,b,1,s)
+    blind = blind.expand(m.shape[:-1])
+    assert blind.any() and (~blind).any()
+    assert torch.all(m[..., 0][blind] == pa.NEG_INF)
+    keys = torch.tensor([min(step, tables.shape[1] * PAGE - k0)
+                         for k0 in range(0, tables.shape[1] * PAGE, step)],
+                        dtype=torch.float32)
+    assert torch.equal(l[..., 0][blind],
+                       keys[:, None, None, None].expand(blind.shape)[blind])
+    weight = torch.exp(m - m.amax(dim=0))[..., 0]
+    assert torch.all(weight[blind] == 0)
+    assert torch.all(weight[~blind] > 0)
