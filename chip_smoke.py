@@ -14,7 +14,8 @@ Phases; each raises on failure, so the script exits non-zero:
 
 1. Device and build: the card's name and power limit, TF32 off, every
    ``rafiki_tpu_torch/csrc/*.cu`` built with ``nvcc`` (in parallel, timed,
-   with ptxas's register/shared-memory report).
+   with ptxas's register/shared-memory report parsed per kernel: phases
+   5, 9 and 10 print B3's, B4's and B7's).
 2. B1/B2 against their plain versions at Llama-3-8B attention shapes
    (8 slots, 32 query / 8 kv heads, head dim 128, page 16, bf16 pools,
    max_len 2048): each element within 1e-3 + 2^-8·|plain| of the plain
@@ -36,7 +37,9 @@ Phases; each raises on failure, so the script exits non-zero:
    shapes (b 4, 32 heads with K/V repeated from 8, s 1024, head dim 128,
    bf16, causal, kv_lens 1024/700/1/0): the errors of out, lse, dq, dk
    and dv against the plain versions run in f32, kernel / plain /
-   library times, the least time; plus an f32 case at head dim 16.
+   library times, the least time; B3's plan (tensor-core or FMA body,
+   padded head dim, copy width, stages), ptxas registers and a second
+   call bit-identical; plus an f32 case at head dim 16.
 6. f32 training exactness: the full-width Llama at depth 2 in f32
    (nonzero LoRA) takes 4 functional train steps through the kernels,
    then the same 4 steps from the same weights with the attention bound
@@ -50,11 +53,15 @@ Phases; each raises on failure, so the script exits non-zero:
    a seeded ``.jsonl`` corpus, evaluate, dump, reload, evaluate, predict.
 9. B7 (``matmul_bias``) against its plain version at ViT-B/16's serving
    shape, (64·196, 768) x (768, 768) + (768,), bf16 and f32; kernel /
-   plain / ``torch.addmm`` times and the least time.
+   plain / ``torch.addmm`` times and the least time; the plan (body,
+   tile, copy width, blocks), ptxas registers, a second call
+   bit-identical.
 10. The flash kernels on the classifier paths: B3/B5/B6 non-causal at
     ViT-B/16's shape (b 64, 12 heads, s 197, d 64, bf16) with times, and
     with BERT's padded keys (s 128); B4 at block_h 4 on the ViT shape
-    against its plain version and bit for bit against B3; B3/B5/B6 at
+    against its plain version and bit for bit against B3, a second call
+    bit-identical, its time beside B3's in the same (no-LSE) call, both
+    plans and ptxas registers; B3/B5/B6 at
     every compiled head dim (8 .. 192) on a small ragged shape, f32 and
     bf16, causal and not.
 11. f32 exactness of a small ViT (head dim 96) and a small BERT (head dim
@@ -124,8 +131,9 @@ def emit(obj):
 
 
 def build_kernels(build):
-    """One nvcc per source, all started together; returns ptxas's
-    per-kernel resource lines and the wall time."""
+    """One nvcc per source, all started together; returns the sources,
+    the wall time and ptxas's per-kernel resources
+    (:func:`ptxas_resources`)."""
     sources = sorted(build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
@@ -133,9 +141,45 @@ def build_kernels(build):
             lambda s: build.build(s.stem, extra_flags=("-Xptxas", "-v")),
             sources))
     seconds = time.perf_counter() - t0
-    report = [ln.strip() for log in logs for ln in log.splitlines()
-              if "registers" in ln or "spill" in ln]
-    return [s.name for s in sources], seconds, report
+    return [s.name for s in sources], seconds, ptxas_resources(
+        "\n".join(logs))
+
+
+def ptxas_resources(log):
+    """``-Xptxas -v``'s report, per compiled kernel: its mangled name,
+    registers per thread, spill stores and loads (bytes) and static
+    shared memory (bytes; a kernel's dynamic shared memory is its plan's,
+    set at launch)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"mangled": ln.split("'")[1], "registers": None,
+                   "spill_bytes": None, "static_smem": 0}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur["spill_bytes"] = nums[1] + nums[2]  # stores + loads
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                cur["static_smem"] = int(words[words.index("smem") - 2])
+    return out
+
+
+def kernel_resources(ptxas, mangled_part):
+    """The ptxas entries whose mangled name contains ``mangled_part``
+    (e.g. ``16flash_fwd_kernelI13__nv_bfloat16Li64E``: the B3 bf16 body at
+    d = 64)."""
+    return [{k: v for k, v in e.items() if k != "mangled"}
+            for e in ptxas if mangled_part in e["mangled"]]
+
+
+#: the mangled-name parts of the kernels phases 5, 9 and 10 report
+B3_BF16 = "16flash_fwd_kernelI13__nv_bfloat16Li{d}E"
+B4_BF16 = "19flash_fwd_mh_kernelI13__nv_bfloat16Li{d}E"
+B7_MMA = "22matmul_bias_mma_kernelILb1EE"
 
 
 #: clock cycles (~1 ms on an H100) the card spins before each timed call:
@@ -542,10 +586,11 @@ def flash_case(torch, fa, q, k, v, do, lens, sm, causal=True):
     return errs, masked_exact, ref_lse, delta
 
 
-def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128)):
+def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128),
+                ptxas=()):
     """Phase 5: B3, B5 and B6 against their plain versions at Llama-3-8B
     attention shapes (b, heads, kv heads, s, head dim), and an f32 case
-    at a template head dim."""
+    at a template head dim; ``ptxas`` is the build's report."""
     b, h, n_kv, s, d = shape
     lens_np = np.array([s, s * 700 // 1024, 1, 0], np.int32)
     rng = np.random.default_rng(SEED + 5)
@@ -637,6 +682,17 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128)):
             bytes=n_bytes, flops=flops, visible_pairs=pairs, shapes=shapes)
     results["flash_attention_bwd_dq"]["library_covers"] = \
         "SDPA backward: dq, dk and dv in one call (B5 + B6)"
+    # B3's plan and resources at this head dim, and a second call's bits
+    first = fa.flash_attention_fwd(q, k, v, lens, sm, True)
+    second = fa.flash_attention_fwd(q, k, v, lens, sm, True)
+    torch.cuda.synchronize()
+    b3_same = all(torch.equal(a, b) for a, b in zip(first, second))
+    results["flash_attention_fwd"].update(
+        plan=fa._flash_plan(d, q.dtype)._asdict(),
+        ptxas=kernel_resources(ptxas, B3_BF16.format(d=d)),
+        bit_identical_second_call=b3_same)
+    del first, second
+
     def named(e):
         return {n: {"max_abs_err": a, "err_over_tol": r}
                 for n, (a, r) in e.items()}
@@ -658,6 +714,9 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128)):
     if not (masked_exact and masked16):
         raise AssertionError("a row with no visible key is not exactly "
                              "zero / LSE_MASKED")
+    if not b3_same:
+        raise AssertionError("B3: a second call on the same inputs gave "
+                             "other bits")
     return results
 
 
@@ -747,7 +806,7 @@ KERNEL_FUNCTIONS = {
     "flash_attention_fwd_mh": "flash_fwd_mh_kernel",
     "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
     "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
-    "matmul_bias": "matmul_bias_kernel",
+    "matmul_bias": ("matmul_bias_mma_kernel", "matmul_bias_fma_kernel"),
 }
 
 
@@ -763,8 +822,10 @@ def _kernel_time_split(torch, prof):
             if e.device_type == cuda and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False)]
     total = sum(t for _, t in rows)
-    ours = {name: sum(t for n, t in rows if fn + "<" in n or n.endswith(fn))
-            for name, fn in KERNEL_FUNCTIONS.items()}
+    ours = {name: sum(t for n, t in rows if any(
+        f + "<" in n or f + "(" in n or n.endswith(f)
+        for f in ((fn,) if isinstance(fn, str) else fn)))
+        for name, fn in KERNEL_FUNCTIONS.items()}
     mm = sum(t for n, t in rows if any(w in n.lower() for w in (
         "gemm", "xmma", "nvjet", "cutlass", "cublas")))
     top = sorted(rows, key=lambda r: -r[1])[:12]
@@ -942,9 +1003,10 @@ VIT_IMAGE = (224, 224, 3)
 MATMUL_TOL = FLASH_TOL
 
 
-def matmul_bias_phase(torch, np, pe, dev):
+def matmul_bias_phase(torch, np, pe, dev, ptxas=()):
     """Phase 9: B7 against its plain version at ViT-B/16's serving shape,
-    (64·196, 768) x (768, 768) + (768,), in bf16 and f32."""
+    (64·196, 768) x (768, 768) + (768,), in bf16 and f32; ``ptxas`` is the
+    build's report."""
     p, n = VIT_KNOBS["patch_size"], VIT_KNOBS["hidden_dim"]
     rng = np.random.default_rng(SEED + 9)
     images = torch.from_numpy(rng.uniform(-1, 1, (64, *VIT_IMAGE)).astype(
@@ -965,6 +1027,11 @@ def matmul_bias_phase(torch, np, pe, dev):
         torch.cuda.synchronize()
         errs[name] = elementwise_err(got, ref, *MATMUL_TOL[name])
     x, w, b = (t.to(torch.bfloat16) for t in (x32, w32, b32))
+    first = pe.matmul_bias(x, w, b)
+    second = pe.matmul_bias(x, w, b)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, second))
+    del first, second
     n_bytes = 2 * (m * k + k * n + n + m * n)
     flops = 2 * m * n * k
     bnd, by = bound_ms(n_bytes, flops, "bfloat16")
@@ -976,6 +1043,9 @@ def matmul_bias_phase(torch, np, pe, dev):
         library_ms=time_ms(torch, lambda: torch.addmm(b, x, w)),
         library_covers="torch.addmm in bf16 (cuBLAS)",
         bound_ms=bnd, bound_by=by, bytes=n_bytes, flops=flops,
+        plan=pe._matmul_plan(m, n, k, torch.bfloat16)._asdict(),
+        ptxas=kernel_resources(ptxas, B7_MMA),
+        bit_identical_second_call=same,
         shapes=f"x ({m}, {k}) bf16 (64 ViT-B/16 images' patches), "
                f"w ({k}, {n}), b ({n},)")
     emit({"phase": "matmul_bias", "errors": {
@@ -987,16 +1057,20 @@ def matmul_bias_phase(torch, np, pe, dev):
         if not over <= 1.0:
             raise AssertionError(f"B7 {dt} disagrees with its plain version:"
                                  f" max abs error {err}, {over} x tolerance")
+    if not same:
+        raise AssertionError("B7: a second call on the same inputs gave "
+                             "other bits")
     return {"matmul_bias": result}
 
 
 def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
-                           bert_shape=(64, 12, 128, 64)):
+                           bert_shape=(64, 12, 128, 64), ptxas=()):
     """Phase 10: the flash kernels on the ViT and BERT paths. B3/B5/B6
     non-causal at ViT-B/16's shape (b 64, 12 heads, s 197, d 64, bf16) and
     with BERT's padded keys (s 128); B4 at block_h 4 on the ViT shape
     against its plain version and against B3 (bit-identical); B3/B5/B6 at
-    every compiled head dim on a small ragged shape, f32 and bf16."""
+    every compiled head dim on a small ragged shape, f32 and bf16;
+    ``ptxas`` is the build's report."""
     rng = np.random.default_rng(SEED + 10)
 
     def rand(shape, dtype):
@@ -1016,9 +1090,12 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
     out4, lse4 = fa.flash_attention_fwd_mh(q, k, v, full, sm, False, 4)
     ref_o, _ = fa._flash_fwd_reference(q.float(), k.float(), v.float(), full,
                                        sm, False)
+    again4, _ = fa.flash_attention_fwd_mh(q, k, v, full, sm, False, 4)
     torch.cuda.synchronize()
     b4_err = elementwise_err(out4, ref_o, *FLASH_TOL["bfloat16"])
     b4_identical = bool(torch.equal(out4, out3) and torch.equal(lse4, lse3))
+    b4_same = bool(torch.equal(again4, out4))
+    del again4
 
     pairs = b * h * s * s
     qkv_bytes = b * h * s * d * 2  # one of q / k / v / out / dO, bf16
@@ -1076,9 +1153,17 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=library[name], bound_ms=bnd, bound_by=by,
             bytes=n_bytes, flops=flops, shapes=shapes)
+    # B3 at the same shape and the same (serving, no-LSE) forward: what
+    # the head tile buys
+    plan = fa._flash_plan(d, bf16)._asdict()
     vit["flash_attention_fwd_mh"].update(
         shapes=shapes + ", block_h 4, no LSE (the serving forward)",
-        identical_to_b3=b4_identical)
+        identical_to_b3=b4_identical, bit_identical_second_call=b4_same,
+        b3_same_call_ms=time_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, full, sm, False, with_lse=False)),
+        plan=plan, ptxas=kernel_resources(ptxas, B4_BF16.format(d=d)))
+    vit["flash_attention_fwd"].update(
+        plan=plan, ptxas=kernel_resources(ptxas, B3_BF16.format(d=d)))
     vit["flash_attention_bwd_dq"]["library_covers"] = \
         "SDPA backward: dq, dk and dv in one call (B5 + B6)"
     del q, k, v, do, lse, delta, out3, out4, lse3, lse4, ref_o
@@ -1134,6 +1219,9 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
                              f"{failed}")
     if not b4_identical:
         raise AssertionError("B4 is not bit-identical to B3")
+    if not b4_same:
+        raise AssertionError("B4: a second call on the same inputs gave "
+                             "other bits")
     if not bert_exact:
         raise AssertionError("a BERT row with no visible key is not exact")
     return vit
@@ -1585,7 +1673,9 @@ def main(argv=None):
     sources, build_s, ptxas = build_kernels(_build)
     emit({"phase": "build", "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sources": sources,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "kernels_compiled": len(ptxas),
+          "spilling": [e["mangled"] for e in ptxas if e["spill_bytes"]],
+          "most_registers": max((e["registers"] or 0) for e in ptxas)})
     if args.depth != 32 or args.train_depth != 32:
         print(f"chip_smoke: Llama legs cut to depth {args.depth} (serving)"
               f" and {args.train_depth} (training) of 32", flush=True)
@@ -1601,7 +1691,7 @@ def main(argv=None):
     paths["llama_serving"] = serving_phase(torch, np, ll, de, pa,
                                            HashTokenizer, args.depth, dev)
     torch.cuda.empty_cache()
-    kres.update(flash_phase(torch, np, F, fa, dev))
+    kres.update(flash_phase(torch, np, F, fa, dev, ptxas=ptxas))
     torch.cuda.empty_cache()
     train_exactness_phase(torch, np, ll, fa, dev)
     torch.cuda.empty_cache()
@@ -1610,8 +1700,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     template_phase(torch, np, ll, TrainContext, dev)
     torch.cuda.empty_cache()
-    kres.update(matmul_bias_phase(torch, np, pe, dev))
-    classifier = classifier_flash_phase(torch, np, F, fa, dev)
+    kres.update(matmul_bias_phase(torch, np, pe, dev, ptxas))
+    classifier = classifier_flash_phase(torch, np, F, fa, dev, ptxas=ptxas)
     kres["flash_attention_fwd_mh"] = classifier["flash_attention_fwd_mh"]
     torch.cuda.empty_cache()
     classifier_exactness_phase(torch, np, vit, bert, fa, pe, lp, optim, dev)
@@ -1639,8 +1729,8 @@ def main(argv=None):
          "library_ms": r["library_ms"], "card": smi, "shapes": r["shapes"],
          **{key: r[key] for key in ("err_over_tol", "library_covers",
                                     "identical_to_b3", "plan", "gb_per_s",
-                                    "bound_share",
-                                    "bit_identical_second_call")
+                                    "bound_share", "b3_same_call_ms",
+                                    "ptxas", "bit_identical_second_call")
             if key in r}}
         for name, r in kres.items()]})
     missing = [name for name in kres if not by_path[name]]

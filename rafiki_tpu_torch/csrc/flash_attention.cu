@@ -26,45 +26,92 @@
 // operations per byte the function must move (keys below kv_len and the
 // rows that see a key read once, outputs written in full): below the
 // H100's ~295 bf16 operations per byte, so the ideal bound is bytes. At
-// ViT-B/16's (s 197, d 64, no mask) it is ~100 for B3/B4: bytes again.
-// This f32-FMA design is far from either bound: its arithmetic runs on the
-// CUDA cores at about a fifteenth of the bf16 tensor-core rate, so it
-// takes tens of times its bound, and the operations it executes are what
-// limit it in practice.
+// ViT-B/16's (s 197, d 64, no mask) it is ~100 for B3/B4: bytes again. A
+// block reads each K/V tile once per 64-row query tile, so the bytes that
+// reach the SMs are s / 64 times the bound's; the grid runs a head's query
+// tiles together, so the L2 serves the repeats.
 //
-// What this design does about it, in its simple first form: one block of
-// 256 threads walks the sequential TPU grid axis as a loop (key tiles for
-// B3/B4/B5, query tiles for B6), so nothing carries between blocks and no
-// atomics are needed (results are deterministic). Each 64-row tile of K and
-// V (B3/B5) or of Q and dO (B6) is read from device memory once per block
-// into shared memory, widened to f32, and serves all 64 rows of the block:
-// each thread holds a 4 x 4 register tile of scores (rows ty + 16 i,
-// columns tx + 16 j) fed by 128-bit shared-memory loads along the head dim,
-// and a 4 x ceil(d/16) tile of the f32 accumulator. The online softmax
-// (B3) and the p / ds terms (B5/B6) stay in registers; p or ds passes
-// through shared memory once to feed the second product. All arithmetic is
-// f32 FMA on the CUDA cores: tensor cores (mma / wgmma), TMA and a GQA-native
-// K/V walk are later work.
+// The bf16 forward (fwd_heads_wgmma; B3 and B4 share it) runs on the
+// tensor cores as Hopper's warpgroup products (wgmma):
 //
-// B4 runs B3's tile body once per head of its tile, in B3's order, so its
-// output and LSE equal B3's bit for bit. On the TPU a head tile batches
-// block_h heads into one program to amortize per-program overhead at short
-// sequences; here it only makes the grid block_h times smaller and reads
-// kv_len once, and whether that pays is what chip_smoke.py measures.
+// - One warpgroup (4 warps) per 64-row query tile. Q, and 64-key K and V
+//   tiles in a ring of 3 stages (2 above d = 64), arrive by cp.async in the
+//   layout wgmma's 128-byte swizzle reads: 64-column blocks of 128-byte
+//   rows, 8 rows to a 1024-byte atom whose 16-byte chunk c of row r sits
+//   at c ^ (r & 7). The head dim is padded with zero columns to whole
+//   blocks (8 .. 48 to 64, 96 to 128; the templates' main paths, 64 and
+//   128, need none), written once per block: cp.async never touches them.
+//   Copies are 16 bytes, or 8 where a row is not whole 16-byte chunks
+//   (d = 12: 24 bytes); a row past s_q or s_kv is zero-filled (src-size 0).
+// - S = Q.K^T is one wgmma m64n64k16 per 16 of the padded head dim, both
+//   operands K-major from shared memory, into 32 f32 registers a thread.
+//   The scale goes onto the f32 scores, as the plain version applies it
+//   after the product: folded into log2(e), inside exp2's argument as one
+//   fused multiply-add. Only a tile that crosses kv_len or a warp's causal
+//   diagonal is masked (-1e30).
+// - The online softmax stays in registers: each thread holds 2 rows x 16
+//   keys of a tile, quad shuffles give the rows' max and sum. The
+//   roundings are spelled out (__fmul_rn, __fmaf_rn): left to the compiler,
+//   B3's and B4's kernels contract them differently.
+// - O += P.V is wgmma m64n{64,128,192}k16 with P from registers as the A
+//   operand (its fragment layout is the score's) and V N-major (the
+//   transpose bit), P as two bf16 terms hi + lo: one bf16 rounding of P
+//   errs by up to 2^-9 of a weight, above the per-element tolerance 1e-3 +
+//   2^-8 |out| on a few-key row whose output is near 0 (ops/attention.py
+//   _flash_mma_reference models both and the CPU tests show the one-term
+//   form failing); the pair costs one more product per step.
+// - No atomics and no cross-block state: two calls give the same bits.
+//
+// What limits it (A/B runs on an H100 80GB HBM3 at 700 W, PERF.md): at
+// ViT-B/16's shape neither the tensor cores nor shared memory: a third
+// fewer products, or half the shared-memory reads per product, moved it by
+// a few percent at most. What is left is each warp's serial chain per
+// 64-key tile: S products, wait, softmax on the CUDA cores, P.V products,
+// wait, with few warps an SM and a short key loop (197 keys: 4 tiles) to
+// hide it in. Overlapping one warpgroup's softmax with another's products
+// (two consumer warpgroups, TMA loads from a producer warp) is the next
+// step.
+//
+// B4 runs the same body for block_h heads of one example per block, the
+// heads in order, each (head, query tile) with the same instructions in the
+// same key order as B3's block, so its output and LSE equal B3's bit for
+// bit. The ring runs on across the heads, so the next head's first tiles
+// load while this head's last tile computes; it reads kv_len once; a
+// later head's Q is loaded after the block drains its copies.
+// chip_smoke.py times B4 beside B3 in the same call: on an H100 at
+// ViT-B/16's shape it buys little or nothing (PERF.md), since B3's grid of
+// block_h times as many blocks fills the SMs as well. B4 stays as the port
+// of the JAX kernel and of the block_h knob that selects it.
+//
+// The f32 kernels (the exactness legs; TF32 would break their tolerance)
+// keep the first design: one block of 256 threads walks the sequential TPU
+// grid axis as a loop (key tiles for B3/B4/B5, query tiles for B6), so
+// nothing carries between blocks and no atomics are needed. Each 64-row
+// tile of K and V (B3/B5) or of Q and dO (B6) is read into shared memory,
+// widened to f32, and serves all 64 rows of the block: each thread holds a
+// 4 x 4 register tile of scores (rows ty + 16 i, columns tx + 16 j) fed by
+// 128-bit shared-memory loads along the head dim, and a 4 x ceil(d/16) tile
+// of the f32 accumulator; p or ds passes through shared memory once to feed
+// the second product. B5/B6 run this f32 FMA design in bf16 too: their
+// tensor-core redesign (and TMA, wgmma, a GQA-native K/V walk) is later
+// work.
 //
 // Head dims: every d that the ViT, BERT and Llama templates give (8 .. 192,
 // all multiples of 4, as the 128-bit loads need; tile_pv masks the columns
-// of a d that is not a multiple of 16). Shared memory is f32 tiles with rows
-// padded by 4 floats where a tile is read as the B operand of tile_dot
-// (16 distinct rows per 8-thread phase, so the pad spreads them over the
-// banks). A tile read only as the A operand needs no pad (its 8-thread
-// phase reads one row: a broadcast), so B6 keeps its K and V tiles unpadded:
-// at d = 192 that brings B6 to exactly the 227 KB (232,448 B) a block may
-// take, where the padded plan needed 234,496 B. B3 takes 166 KB and B5
-// 218 KB at d = 192.
+// of a d that is not a multiple of 16). The f32 tiles pad rows by 4 floats
+// where a tile is read as the B operand of tile_dot (16 distinct rows per
+// 8-thread phase, so the pad spreads them over the banks). A tile read only
+// as the A operand needs no pad (its 8-thread phase reads one row: a
+// broadcast), so B6 keeps its K and V tiles unpadded: at d = 192 that
+// brings B6 to exactly the 227 KB (232,448 B) a block may take, where the
+// padded plan needed 234,496 B. B5 takes 218 KB at d = 192; the bf16
+// forward 121 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -298,34 +345,545 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q,
   }
 }
 
-// B3: block (bh = blockIdx.x, query tile blockIdx.y).
+// ---------------------------------------------------------------- bf16 B3, B4
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMmaWarps = 4;  // 16 query rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (16 or 8) global -> shared, or as many zero bytes when !live
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool live) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(live ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(live ? 8 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two f32 values as two bf16 pairs, hi + lo (.x is the low half of each
+// word): together they carry each value to about 2^-17 of itself, where
+// one bf16 alone errs by up to 2^-9.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __bfloat162float(h.x),
+                                                 x1 - __bfloat162float(h.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Shared memory written by the threads (cp.async, stores) made visible to
+// the tensor cores' reads, which go through the async proxy.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma shared-memory matrix descriptor, 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lead,
+                                              uint32_t stride) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// S (64 x 64, f32) += Q (64 x 16, K-major) . K^T (K-major), both in
+// shared memory.
+__device__ __forceinline__ void wgmma_s64(float (&d)[32], uint64_t desc_a,
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// O (64 x DP, f32) += P (64 x 16, bf16 registers) . V (16 x DP, N-major
+// in shared memory), DP = 64, 128 or 192.
+__device__ __forceinline__ void wgmma_o64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_o128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_o192(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+// The forward's plan for head dim D (ops/attention.py _flash_plan mirrors
+// it; rt_flash_fwd_plan reports it): Q, K and V tiles of 64 rows, the head
+// dim padded with zero columns to whole 64-column blocks of 128-byte rows
+// (DP), 16-byte copies (8-byte where a row is not whole 16-byte chunks:
+// d = 12), a ring of 3 K/V stages (2 above d = 64); + 1024 bytes to align
+// the swizzle atoms.
+template <int D>
+struct WgFwd {
+  static constexpr int kDP = (D + 63) / 64 * 64;
+  static constexpr int kCopy = (2 * D) % 16 == 0 ? 16 : 8;
+  static constexpr int kCopyElems = kCopy / 2;
+  static constexpr int kTileElems = kBK * kDP;
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr size_t kSmem =
+      static_cast<size_t>(1 + 2 * kStages) * kTileElems * sizeof(bf16) + 1024;
+  static_assert(D % kCopyElems == 0, "rows of whole copies");
+  static_assert(kSmem <= kMaxSmem, "the ring exceeds a block's memory");
+};
+
+// Where element (row r, column c) of a 64-row tile lands: 64-column blocks
+// of 128-byte rows, 8 rows to a 1024-byte atom whose 16-byte chunk ch of
+// row r sits at ch ^ (r & 7), the layout wgmma's 128-byte swizzle reads.
+__device__ __forceinline__ int wg_off(int r, int c) {
+  const int cb = c & 63;
+  return (c >> 6) * (kBK * 64) + r * 64 + (((cb >> 3) ^ (r & 7)) << 3) +
+         (cb & 7);
+}
+
+// Issue the cp.async copies of rows [r0, r0 + 64) of one head's (rows, D)
+// slab into a tile; rows at or past n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void wg_load(bf16* dst,
+                                        const bf16* __restrict__ src, int r0,
+                                        int n_rows) {
+  using C = WgFwd<D>;
+  constexpr int kCopies = D / C::kCopyElems;  // per row
+  for (int c = threadIdx.x; c < kBK * kCopies; c += kMmaThreads) {
+    const int row = c / kCopies;
+    const int e = (c - row * kCopies) * C::kCopyElems;
+    const bool live = r0 + row < n_rows;
+    const size_t off = live ? static_cast<size_t>(r0 + row) * D + e : 0;
+    cp_async<C::kCopy>(dst + wg_off(row, e), src + off, live);
+  }
+}
+
+// One warpgroup's 64 query rows of one head: the f32 accumulator and the
+// online-softmax state (base 2). A wgmma accumulator places a thread's
+// values so: warp w holds rows 16 w + lane / 4 and + 8, columns 8 j + 2
+// (lane % 4), + 1 in registers 4 j ..; a register A operand takes the same
+// layout per 16 columns, so P goes from S to P.V without a shuffle.
+template <int D>
+struct WgRows {
+  static constexpr int DP = WgFwd<D>::kDP;
+  float o[DP / 2];
+  float m[2], l[2];
+  int lane, r_lo;
+
+  __device__ __forceinline__ void reset(int q0) {
+    lane = threadIdx.x & 31;
+    r_lo = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+  }
+
+  // One 64-key tile starting at key k0, Q, K and V from shared memory.
+  __device__ __forceinline__ void tile(const bf16* q_s, const bf16* k_s,
+                                       const bf16* v_s, int k0, int kv_len,
+                                       const Geom& g) {
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      // K-major Q and K: a 16-deep step is 32 bytes into the 128-byte
+      // rows of a column block, the 8-row atoms 1024 bytes apart
+      const int off = (kk >> 2) * (kBK * 64) + (kk & 3) * 16;
+      wgmma_s64(s, smem_desc(q_s + off, 16, 1024),
+                smem_desc(k_s + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    // mask, scale, and the online softmax of rows lo and hi. Only a tile
+    // that crosses kv_len, or (causal) the warp's diagonal, is masked; the
+    // scale goes into exp2's argument as one fused multiply-add, the max
+    // taken on the unscaled scores (rounding keeps the order, the scale is
+    // positive). The roundings are spelled out (__fmul_rn, __fmaf_rn): left
+    // to the compiler, B3's and B4's kernels contract them differently, and
+    // B4 must give B3's bits.
+    const float sl2 = __fmul_rn(g.scale, kLog2e);
+    const int w0 = r_lo - (lane >> 2);  // the warp's first row
+    if (k0 + kBK > kv_len || (g.causal && k0 + kBK - 1 > w0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kpos = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const int qpos = r_lo + ((i >> 1) & 1) * 8;
+        if (kpos >= kv_len || (g.causal && kpos > qpos)) s[i] = kNegInf;
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float al[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], __fmul_rn(quad_max(mx[h]), sl2));
+      al[h] = exp2f(m[h] - mn);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(__fmaf_rn(s[i], sl2, -m[(i >> 1) & 1]));
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // this thread's columns; summed at the end
+      l[h] = __fmaf_rn(l[h], al[h], sum[h]);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= al[(i >> 1) & 1];
+    // O += P . V, 16 keys per step, P as register A operands hi + lo; V
+    // N-major: a step is 16 rows (2048 bytes) on, the 8-row atoms 1024
+    // bytes apart, the 64-column blocks 8192 bytes apart
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[8 * ks + 0], s[8 * ks + 1], ph[0], pl[0]);
+      split_bf16(s[8 * ks + 2], s[8 * ks + 3], ph[1], pl[1]);
+      split_bf16(s[8 * ks + 4], s[8 * ks + 5], ph[2], pl[2]);
+      split_bf16(s[8 * ks + 6], s[8 * ks + 7], ph[3], pl[3]);
+      const uint64_t dv = smem_desc(v_s + ks * 16 * 64, kBK * 64 * 2, 1024);
+      if constexpr (DP == 64) {
+        wgmma_o64(o, ph, dv);
+        wgmma_o64(o, pl, dv);
+      } else if constexpr (DP == 128) {
+        wgmma_o128(o, ph, dv);
+        wgmma_o128(o, pl, dv);
+      } else {
+        wgmma_o192(o, ph, dv);
+        wgmma_o192(o, pl, dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+
+  // Normalize and write rows lo and hi of head bh (those inside s_q); a
+  // row that saw no key (l = 0) writes zeros and LSE_MASKED.
+  __device__ __forceinline__ void store(bf16* __restrict__ out,
+                                        float* __restrict__ lse, int bh,
+                                        const Geom& g) {
+    const int col = (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float l_all = quad_sum(l[h]);
+      const int row = r_lo + h * 8;
+      if (row >= g.s_q) continue;
+      const float inv = 1.f / fmaxf(l_all, 1e-30f);
+      bf16* dst = out + (static_cast<size_t>(bh) * g.s_q + row) * D;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd)
+        // d is even: a column pair is wholly inside d or wholly past it
+        if (DP == D || nd * 8 + col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8 + col) =
+              __floats2bfloat162_rn(o[4 * nd + 2 * h] * inv,
+                                    o[4 * nd + 2 * h + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[static_cast<size_t>(bh) * g.s_q + row] =
+            l_all > 0.f ? __fmaf_rn(m[h], kLn2, logf(l_all)) : kLseMasked;
+    }
+  }
+};
+
+// Query rows [q0, q0 + 64) of heads bh0 .. bh0 + n_heads - 1, all of one
+// example (one kv_len), one head after another, the ring of K/V tiles
+// running on across the heads; B3 is n_heads = 1. Layouts: q/out (b*h,
+// s_q, D); k/v (b*h, s_kv, D); lse (b*h, s_q) f32 or null. Q goes through
+// shared memory (wgmma's A operand): the first head's with the first tile,
+// a later head's (B4) after the block drains its copies.
+template <int D>
+__device__ __forceinline__ void fwd_heads_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, int kv_len, bf16* __restrict__ out,
+    float* __restrict__ lse, int bh0, int n_heads, int q0, const Geom& g,
+    unsigned char* smem_raw) {
+  using C = WgFwd<D>;
+  constexpr int S = C::kStages;
+  // the swizzle atoms need 1024-byte alignment
+  bf16* q_s = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* ring = q_s + C::kTileElems;
+  if constexpr (C::kDP > D) {
+    // the padded head-dim columns of the Q tile and of every stage: zero
+    // once (cp.async never writes them; the loop's first fence and barrier
+    // publish them)
+    constexpr int kPad = C::kDP - D;
+    for (int i = threadIdx.x; i < (1 + 2 * S) * kBK * kPad;
+         i += kMmaThreads) {
+      const int row = i / kPad;  // over the Q tile's and every stage's rows
+      q_s[(row / kBK) * C::kTileElems +
+          wg_off(row % kBK, D + (i - row * kPad))] = __float2bfloat16(0.f);
+    }
+  }
+  auto stage_k = [&](int st) { return ring + st * 2 * C::kTileElems; };
+  auto stage_v = [&](int st) {
+    return ring + st * 2 * C::kTileElems + C::kTileElems;
+  };
+  int kv_end = kv_len;
+  if (g.causal) kv_end = min(kv_end, q0 + kBQ);
+  const int n_kt = (kv_end + kBK - 1) / kBK;
+  const int total = n_heads * n_kt;
+  const size_t head_q = static_cast<size_t>(g.s_q) * D;
+  const size_t head_kv = static_cast<size_t>(g.s_kv) * D;
+  auto issue = [&](int t) {
+    const int j = t / n_kt;
+    const int st = t % S;
+    const int k0 = (t - j * n_kt) * kBK;
+    wg_load<D>(stage_k(st), k + (bh0 + j) * head_kv, k0, g.s_kv);
+    wg_load<D>(stage_v(st), v + (bh0 + j) * head_kv, k0, g.s_kv);
+  };
+  if (total > 0) wg_load<D>(q_s, q + bh0 * head_q, q0, g.s_q);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < total) issue(t);
+    cp_async_commit();
+  }
+  WgRows<D> rows;
+  for (int j = 0; j < n_heads; ++j) {
+    const int bh = bh0 + j;
+    rows.reset(q0);
+    if (j > 0 && n_kt > 0) {
+      __syncthreads();  // the last head's products have read its Q
+      wg_load<D>(q_s, q + bh * head_q, q0, g.s_q);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int t = j * n_kt + kt;
+      cp_async_wait<S - 2>();
+      fence_async_shared();
+      __syncthreads();  // tile t has landed, and tile t - 1 is consumed
+      if (t + S - 1 < total) issue(t + S - 1);
+      cp_async_commit();
+      const int st = t % S;
+      rows.tile(q_s, stage_k(st), stage_v(st), kt * kBK, kv_len, g);
+    }
+    rows.store(out, lse, bh, g);
+  }
+  cp_async_wait<0>();
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Fwd {  // the f32 body: 256 threads, f32 tiles
+  static constexpr int kThreadsPerBlock = kThreads;
+  static constexpr size_t kSmem = Smem<D>::fwd;
+};
+// d = 64 and 128 (the templates' main paths) take the wgmma body
+template <int D>
+struct Fwd<bf16, D> {  // the bf16 body: a warpgroup, the bf16 ring
+  static constexpr int kThreadsPerBlock = kMmaThreads;
+  static constexpr size_t kSmem = WgFwd<D>::kSmem;
+};
+
+// The forward's grid is one dimension, query tiles fastest: block i runs
+// query tile i % n_qt of head (or head tile) i / n_qt, so the blocks that
+// read one head's K/V run together and its repeats come from L2. (With
+// heads fastest, a head's next query tile ran b * h blocks later, after
+// the other heads' K/V had pushed its own out of L2: ViT-B/16's 39 MB and
+// Llama's 64 MB of K/V do not stay beside the streamed q and out.)
+__device__ __forceinline__ int fwd_n_qt(const Geom& g) {
+  return (g.s_q + kBQ - 1) / kBQ;
+}
+
+// B3: block (head bh, query tile qt), i = bh * n_qt + qt. The explicit
+// minimum of one block per SM changes ptxas's choice for the bf16 body: at
+// d = 128 it takes 204 registers instead of 178 (two blocks per SM either
+// way), and Llama-3-8B's B3 ran faster in an A/B on an H100.
+template <typename T, int D>
+__global__ void __launch_bounds__(Fwd<T, D>::kThreadsPerBlock, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lens,
                      T* __restrict__ out, float* __restrict__ lse, Geom g) {
   extern __shared__ float4 smem4[];
-  const int bh = blockIdx.x;
-  fwd_tile<T, D>(q, k, v, lens[bh / g.h], out, lse, bh, blockIdx.y * kBQ, g,
-                 reinterpret_cast<float*>(smem4));
+  const int n_qt = fwd_n_qt(g);
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - bh * n_qt) * kBQ;
+  if constexpr (std::is_same<T, bf16>::value)
+    fwd_heads_wgmma<D>(q, k, v, lens[bh / g.h], out, lse, bh, 1, q0, g,
+                       reinterpret_cast<unsigned char*>(smem4));
+  else
+    fwd_tile<T, D>(q, k, v, lens[bh / g.h], out, lse, bh, q0, g,
+                   reinterpret_cast<float*>(smem4));
 }
 
-// B4: block (head tile blockIdx.x, query tile blockIdx.y) runs heads
-// [blockIdx.x * block_h, + block_h), all of one example (h % block_h == 0),
-// one after another through B3's tile body.
+// B4: block (head tile ht, query tile qt), i = ht * n_qt + qt, runs heads
+// [ht * block_h, + block_h), all of one example (h % block_h == 0), one
+// after another through B3's body.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Fwd<T, D>::kThreadsPerBlock, 1)
     flash_fwd_mh_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lens,
                         T* __restrict__ out, float* __restrict__ lse,
                         int block_h, Geom g) {
   extern __shared__ float4 smem4[];
-  const int bh0 = blockIdx.x * block_h;
+  const int n_qt = fwd_n_qt(g);
+  const int ht = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - ht * n_qt) * kBQ;
+  const int bh0 = ht * block_h;
   const int kv_len = lens[bh0 / g.h];  // the whole tile is one example
-  for (int j = 0; j < block_h; ++j) {
-    if (j > 0) __syncthreads();  // the previous head's tiles are consumed
-    fwd_tile<T, D>(q, k, v, kv_len, out, lse, bh0 + j, blockIdx.y * kBQ, g,
-                   reinterpret_cast<float*>(smem4));
+  if constexpr (std::is_same<T, bf16>::value) {
+    fwd_heads_wgmma<D>(q, k, v, kv_len, out, lse, bh0, block_h, q0, g,
+                       reinterpret_cast<unsigned char*>(smem4));
+  } else {
+    for (int j = 0; j < block_h; ++j) {
+      if (j > 0) __syncthreads();  // the previous head's tiles are consumed
+      fwd_tile<T, D>(q, k, v, kv_len, out, lse, bh0 + j, q0, g,
+                     reinterpret_cast<float*>(smem4));
+    }
   }
 }
 
@@ -553,18 +1111,19 @@ int run(Which which, int bh, const Geom& g, const Ptrs& p,
   const dim3 block(kThreads);
   const int n_qt = (g.s_q + kBQ - 1) / kBQ;
   cudaError_t err;
+  using F = Fwd<T, D>;
   if (which == kFwd) {
     auto kern = flash_fwd_kernel<T, D>;
-    if ((err = allow_smem(kern, Smem<D>::fwd)) != cudaSuccess)
+    if ((err = allow_smem(kern, F::kSmem)) != cudaSuccess)
       return static_cast<int>(err);
-    kern<<<dim3(bh, n_qt), block, Smem<D>::fwd, stream>>>(
+    kern<<<bh * n_qt, F::kThreadsPerBlock, F::kSmem, stream>>>(
         q, k, v, p.lens, static_cast<T*>(p.out),
         static_cast<float*>(p.lse_out), g);
   } else if (which == kFwdMh) {
     auto kern = flash_fwd_mh_kernel<T, D>;
-    if ((err = allow_smem(kern, Smem<D>::fwd)) != cudaSuccess)
+    if ((err = allow_smem(kern, F::kSmem)) != cudaSuccess)
       return static_cast<int>(err);
-    kern<<<dim3(bh / p.block_h, n_qt), block, Smem<D>::fwd, stream>>>(
+    kern<<<bh / p.block_h * n_qt, F::kThreadsPerBlock, F::kSmem, stream>>>(
         q, k, v, p.lens, static_cast<T*>(p.out),
         static_cast<float*>(p.lse_out), p.block_h, g);
   } else if (which == kDq) {
@@ -582,6 +1141,38 @@ int run(Which which, int bh, const Geom& g, const Ptrs& p,
                      static_cast<T*>(p.dk), static_cast<T*>(p.dv), g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's plan for (T, D): body (1 bf16 wgmma, 0 f32 FMA), padded
+// head dim, copy bytes, ring stages, threads, dynamic shared memory.
+template <typename T, int D>
+int plan(int* o) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    using C = WgFwd<D>;
+    o[0] = 1, o[1] = C::kDP, o[2] = C::kCopy, o[3] = C::kStages;
+  } else {
+    o[0] = 0, o[1] = D, o[2] = 4, o[3] = 1;
+  }
+  o[4] = Fwd<T, D>::kThreadsPerBlock;
+  o[5] = static_cast<int>(Fwd<T, D>::kSmem);
+  return 0;
+}
+
+template <typename T>
+int plan_by_dim(int d, int* o) {
+  switch (d) {
+    case 8: return plan<T, 8>(o);
+    case 12: return plan<T, 12>(o);
+    case 16: return plan<T, 16>(o);
+    case 24: return plan<T, 24>(o);
+    case 32: return plan<T, 32>(o);
+    case 48: return plan<T, 48>(o);
+    case 64: return plan<T, 64>(o);
+    case 96: return plan<T, 96>(o);
+    case 128: return plan<T, 128>(o);
+    case 192: return plan<T, 192>(o);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -630,6 +1221,16 @@ extern "C" int rt_flash_fwd(int dtype, int d, const void* q, const void* k,
          static_cast<const int*>(kv_lens), out, lse, nullptr, nullptr, 1};
   return dispatch(kFwd, dtype, d, b, h, Geom{h, s_q, s_kv, causal, sm_scale},
                   p, stream);
+}
+
+// The plan rt_flash_fwd and rt_flash_fwd_mh run for (dtype, d), into
+// out[6]: body (1 = bf16 wgmma, 0 = f32 FMA), padded head dim, copy bytes,
+// ring stages, threads per block, dynamic shared memory in bytes.
+// ops/attention.py _flash_plan is its host-side mirror.
+extern "C" int rt_flash_fwd_plan(int dtype, int d, int* out) {
+  if (dtype == 0) return plan_by_dim<float>(d, out);
+  if (dtype == 1) return plan_by_dim<bf16>(d, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // B4: rt_flash_fwd's function, block_h heads per block (block_h >= 1 and

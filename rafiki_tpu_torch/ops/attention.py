@@ -15,6 +15,12 @@ Ports ``rafiki_tpu/ops/attention.py``:
 - :func:`_attention_reference` ← the same-named XLA oracle; with
   :func:`_flash_fwd_reference` and :func:`_flash_bwd_reference` these are
   the kernels' plain versions.
+- :func:`_flash_plan` is how the forward runs for a head dim and dtype
+  (the bf16 tensor-core body or the f32 FMA one, padded head dim, copy
+  width, ring stages, threads, shared memory); :func:`_flash_mma_reference`
+  is the plain model of the bf16 body's numerics, held against
+  :func:`_flash_fwd_reference` by the tests. Nothing on a model's path
+  calls either.
 
 Semantics kept from the JAX module: masked scores are ``NEG_INF``; key
 ``j`` is hidden from every row when ``j >= kv_lens[b]`` and, with
@@ -43,7 +49,7 @@ import functools
 import logging
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,6 +69,9 @@ HEAD_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192)
 #: that pass none: ``RAFIKI_ATTN_BLOCK_H=4`` puts every template on the
 #: head-tiled forward (B4) without code edits; 1 = per-head B3
 ATTN_BLOCK_H = max(1, int(os.environ.get("RAFIKI_ATTN_BLOCK_H", "1")))
+
+#: query rows and keys per tile of every forward body
+_TILE = 64
 
 # (block_h, heads) pairs already warned about by _env_block_h: once per
 # shape, not per call
@@ -142,6 +151,50 @@ def _flash_fwd_reference(q: Tensor, k: Tensor, v: Tensor, lens: Tensor,
     return out, lse
 
 
+def _flash_mma_reference(q: Tensor, k: Tensor, v: Tensor, lens: Tensor,
+                         sm_scale: float, causal: bool, p_terms: int = 2
+                         ) -> Tuple[Tensor, Tensor]:
+    """Plain model of the bf16 forward's numerics (``fwd_heads_wgmma``):
+    64-key tiles in order, each 64-row query tile walking the tiles below
+    ``min(kv_len, its causal horizon)``; f32 scores of q·k times
+    ``sm_scale·log2(e)``; an online softmax in base 2; P carried into P·V
+    as ``p_terms`` bf16 terms (2: hi + lo, the kernel's; 1: one rounding)
+    against V's values, summed in f32; out normalized once and rounded to
+    q's dtype, LSE ``m·ln 2 + ln l``. ``(out, lse)`` as the kernels give
+    them."""
+    b, h, s_q, _ = q.shape
+    s_kv = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    q_pos = torch.arange(s_q, device=q.device)
+    # the keys a row's query tile walks: (b, 1, s_q, 1)
+    end = lens.long()[:, None].expand(b, s_q)
+    if causal:
+        end = torch.minimum(end, (q_pos // _TILE + 1)[None] * _TILE)
+    end = end[:, None, :, None]
+    m = torch.full((b, h, s_q, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    scale_log2 = sm_scale / math.log(2.0)
+    for k0 in range(0, s_kv, _TILE):
+        k_pos = torch.arange(k0, min(k0 + _TILE, s_kv), device=q.device)
+        vis = _visible(s_q, s_kv, lens, causal)[..., k0:k0 + _TILE]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k_pos]) * scale_log2
+        s = torch.where(vis, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        p_v = p.to(torch.bfloat16).float()
+        if p_terms == 2:
+            p_v = p_v + (p - p_v).to(torch.bfloat16).float()
+        walked = k0 < end
+        acc = torch.where(walked, acc * alpha + p_v @ vf[:, :, k_pos], acc)
+        l = torch.where(walked, l * alpha + p.sum(-1, keepdim=True), l)
+        m = torch.where(walked, m_new, m)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    lse = torch.where(l > 0, m * math.log(2.0) + torch.log(l), LSE_MASKED)
+    return out, lse[..., 0]
+
+
 def _bwd_terms(q, k, v, do, lse, delta, lens, sm_scale, causal):
     """The backward's per-pair terms in f32: ``p = exp(s·scale − lse)``
     and ``ds = p·(dO·Vᵀ − delta)·scale``, zero where masked."""
@@ -188,10 +241,60 @@ def _flash_bwd_reference(q, k, v, out, lse, do, lens, sm_scale, causal
 
 # ---------------------------------------------------------------- kernels
 
+class FlashPlan(NamedTuple):
+    """How B3 and B4 run for one head dim and dtype: the body (``"wgmma"``:
+    bf16 on the tensor cores; ``"fma"``: f32 on the CUDA cores), the head
+    dim it computes with (padded with zero columns), the bytes per
+    device-to-shared copy, the K/V ring's stages, threads per block, and
+    dynamic shared memory per block in bytes. Both bodies take 64 query
+    rows (B4: per head) and keys in tiles of 64."""
+    body: str
+    head_dim: int
+    copy_bytes: int
+    stages: int
+    threads: int
+    smem_bytes: int
+
+
+def _flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """The forward's plan, as ``rt_flash_fwd_plan`` reports it from the
+    compiled kernels (the card's tests hold the two equal). bf16: one
+    warpgroup on wgmma, Q and the K/V tiles in 128-byte swizzled layouts,
+    the head dim padded with zero columns to whole 64-column blocks,
+    16-byte ``cp.async`` copies where a row is whole 16-byte chunks, else
+    8-byte (d = 12), 3 K/V stages up to d = 64 and 2 above. f32: the
+    first design's f32 tiles (q and k padded by 4 floats, v, and the p
+    tile)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not compiled; the kernels take "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        dp = -(-d // 64) * 64
+        stages = 3 if d <= 64 else 2
+        # a Q tile and the K/V ring, + 1024 bytes to align the swizzle
+        return FlashPlan("wgmma", dp, 16 if (2 * d) % 16 == 0 else 8,
+                         stages, 128, (1 + 2 * stages) * _TILE * dp * 2 + 1024)
+    if dtype == torch.float32:
+        return FlashPlan("fma", d, 4, 1, 256,
+                         (2 * _TILE * (d + 4) + _TILE * d
+                          + _TILE * (_TILE + 1)) * 4)
+    raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+
+
+def _compiled_plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """The plan the built library runs, from ``rt_flash_fwd_plan``."""
+    out = (ctypes.c_int * 6)()
+    _raise_on(_library().rt_flash_fwd_plan(_DTYPE_CODES[dtype], d, out),
+              "rt_flash_fwd_plan")
+    return FlashPlan(("fma", "wgmma")[out[0]], *out[1:])
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rt_flash_fwd_plan.argtypes = [i32, i32, ptr]
+    lib.rt_flash_fwd_plan.restype = i32
     tail = [i32] * 5 + [f32, ptr]  # b, h, s_q, s_kv, causal, scale, stream
     lib.rt_flash_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
     lib.rt_flash_fwd.restype = i32
@@ -239,7 +342,10 @@ def _launch_fwd(what: str, q: Tensor, k: Tensor, v: Tensor,
     (``rt_flash_fwd``) or, given ``block_h``, B4 (``rt_flash_fwd_mh``,
     which takes it before the stream)."""
     lib = _library()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 body copies q, k and v rows in 16-byte (8 for d = 12)
+    # pieces: a view that starts off that alignment gets a fresh copy
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0
+               else t.contiguous().clone() for t in (q, k, v))
     kv_lens = kv_lens.contiguous()  # held while the kernel may read it
     _check_operands(q, k, v, kv_lens)
     out = torch.empty_like(q)

@@ -6,9 +6,11 @@ Ports ``rafiki_tpu/ops/patch_embed.py``:
   (B, H/P · W/P, P·P·C), the same patch and channel order.
 - :func:`matmul_bias` ← ``matmul_bias``, whose Pallas kernel
   ``_matmul_bias_kernel`` (B7) becomes ``csrc/patch_embed.cu``
-  ``matmul_bias_kernel``: f32 products and sums, the result rounded once
-  to x's dtype. :func:`_matmul_bias_reference` is its plain version, the
-  JAX wrapper's XLA fallback.
+  ``matmul_bias_mma_kernel`` (bf16, ``wgmma`` tensor cores) or
+  ``matmul_bias_fma_kernel`` (f32): f32 products and sums, the result
+  rounded once to x's dtype. :func:`_matmul_plan` picks the body and its
+  copy width from the shapes; :func:`_matmul_bias_reference` is the plain
+  version, the JAX wrapper's XLA fallback.
 - :func:`patch_embed` ← the ``jax.custom_vjp`` ``patch_embed``: a
   ``torch.autograd.Function`` whose forward runs :func:`matmul_bias` and
   whose backward is ``_pe_bwd`` in plain torch (f32 ``dw``, ``db`` and
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -55,11 +58,44 @@ def _matmul_bias_reference(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return (x.float() @ w.float() + b.float()).to(x.dtype)
 
 
+class MatmulPlan(NamedTuple):
+    """How ``rt_matmul_bias`` runs one call: its body (``"wgmma"``: bf16 on
+    the tensor cores; ``"fma"``: f32 on the CUDA cores), the width in bytes
+    of its device-to-shared copies, the block's output tile (rows,
+    columns, k depth per stage) and the grid's block count."""
+    body: str
+    copy_bytes: int
+    tile: tuple
+    blocks: int
+
+
+#: output tile (rows, columns, k depth) of each body
+_TILES = {"wgmma": (128, 192, 64), "fma": (64, 64, 32)}
+
+
+def _matmul_plan(m: int, n: int, k: int, dtype: torch.dtype,
+                 aligned: bool = True) -> MatmulPlan:
+    """B7's plan from shapes: f32 takes the FMA body (TF32 would break the
+    f32 tolerance); bf16 takes the tensor-core body, fed by 16-byte
+    ``cp.async`` copies when every row is 16-byte aligned (k and n
+    multiples of 8, and ``aligned``: x, w and out start on 16 bytes), else
+    by element copies into the same ring."""
+    if dtype == torch.float32:
+        body, copy = "fma", 4
+    elif dtype == torch.bfloat16:
+        body = "wgmma"
+        copy = 16 if aligned and k % 8 == 0 and n % 8 == 0 else 2
+    else:
+        raise TypeError(f"matmul_bias takes float32 or bfloat16, got {dtype}")
+    tm, tn, tk = _TILES[body]
+    return MatmulPlan(body, copy, (tm, tn, tk), -(-m // tm) * -(-n // tn))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.library("patch_embed")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rt_matmul_bias.argtypes = [i32] + [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.rt_matmul_bias.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
     lib.rt_matmul_bias.restype = i32
     return lib
 
@@ -94,10 +130,12 @@ def matmul_bias(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     _check_operands(x, w, b)
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    plan = _matmul_plan(m, n, k, x.dtype, all(
+        t.data_ptr() % 16 == 0 for t in (x, w, out)))
     with torch.cuda.device(x.device):
         err = lib.rt_matmul_bias(
             _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), m, n, k,
+            out.data_ptr(), m, n, k, plan.copy_bytes,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "matmul_bias")
     matmul_bias.launches += 1

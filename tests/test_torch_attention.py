@@ -347,3 +347,100 @@ def test_kernel_wrappers_reject_non_cuda_tensors(kernel_path, monkeypatch,
     monkeypatch.setattr(_build, "library", lambda lib: _FakeLib())
     with pytest.raises(ValueError, match="CUDA tensor"):
         _wrapper_calls()[name]()
+
+
+# ---- the forward's plan and the bf16 body's numerics
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+def test_flash_plan_per_head_dim(d):
+    """bf16 runs the wgmma body at every head dim: one warpgroup of 128
+    threads, the head dim padded with zero columns to whole 64-column
+    blocks of 128-byte rows (the 128-byte swizzle's), copies of 16 bytes
+    where a row is whole 16-byte chunks (8 for d = 12's 24-byte rows), a Q
+    tile and 3 K/V stages up to d = 64, 2 above, plus 1024 bytes to align
+    the swizzle atoms, inside a block's shared memory. f32 keeps the FMA
+    body of 256 threads."""
+    plan = tattn._flash_plan(d, torch.bfloat16)
+    assert (plan.body, plan.threads) == ("wgmma", 128)
+    assert plan.head_dim % 64 == 0 and d <= plan.head_dim < d + 64
+    assert (2 * d) % plan.copy_bytes == 0
+    assert plan.copy_bytes == (8 if d == 12 else 16)
+    assert plan.stages == (3 if d <= 64 else 2)
+    assert plan.smem_bytes == (1 + 2 * plan.stages) * 64 * plan.head_dim \
+        * 2 + 1024 <= 232448
+    f32 = tattn._flash_plan(d, torch.float32)
+    assert (f32.body, f32.head_dim, f32.threads) == ("fma", d, 256)
+    assert f32.smem_bytes <= 232448
+
+
+def test_flash_plan_refuses_what_is_not_compiled():
+    with pytest.raises(ValueError, match="head dim"):
+        tattn._flash_plan(40, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tattn._flash_plan(64, torch.float16)
+
+
+def _few_key_inputs(b, h, s, d, seed):
+    """bf16 q, k, v whose first keys' values cancel (v1 = -v0, v2 =
+    -v0/2, |v| about 4): a row that sees 1..3 keys outputs a small
+    difference of large weighted values, where an error in the weights
+    shows in full."""
+    rng = np.random.default_rng(seed)
+    q, k = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    v = torch.from_numpy(4 * rng.standard_normal((b, h, s, d)).astype(
+        np.float32))
+    v[:, :, 1] = -v[:, :, 0]
+    v[:, :, 2] = -0.5 * v[:, :, 0]
+    return q, k, v.to(torch.bfloat16)
+
+
+def _over_tol(got, ref):
+    """Largest |got - ref| over its element's bf16 tolerance, 1e-3 +
+    2^-8·|ref| (chip_smoke.py's FLASH_TOL, as the card holds the
+    kernels)."""
+    return ((got.float() - ref).abs() / (1e-3 + 2.0 ** -8 * ref.abs())) \
+        .max().item()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_mma_model_meets_the_tolerance_on_few_key_rows(causal):
+    """The bf16 body's numerics (P as hi + lo bf16 terms) hold every
+    element within the card's per-element tolerance of the plain forward
+    on rows of 1, 2 and 3 keys whose values cancel, and the LSE within
+    1e-4; one bf16 rounding of P does not (as in the paged kernels'
+    split model)."""
+    q, k, v = _few_key_inputs(4, 2, 130, 16, seed=20)
+    lens = torch.tensor([2, 3, 1, 130], dtype=torch.int32)
+    sm = 0.25
+    ref_o, ref_lse = tattn._flash_fwd_reference(q.float(), k.float(),
+                                                v.float(), lens, sm, causal)
+    out, lse = tattn._flash_mma_reference(q, k, v, lens, sm, causal)
+    assert out.dtype == torch.bfloat16
+    assert _over_tol(out, ref_o) <= 1.0
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    one, _ = tattn._flash_mma_reference(q, k, v, lens, sm, causal,
+                                        p_terms=1)
+    assert _over_tol(one, ref_o) > 1.0
+
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_mma_model_matches_the_plain_forward(d, causal):
+    """At every compiled head dim: ragged s (197, ViT's, with a last tile
+    of 5 rows and keys), kv_lens with a 0 (exact zeros and LSE_MASKED), a
+    1 and a partial tile; the model within the bf16 tolerance of the
+    plain forward, its LSE within 1e-4."""
+    b, h, s = 4, 2, 197
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([197, 0, 1, 77], dtype=torch.int32)
+    sm = 1.0 / np.sqrt(d)
+    ref_o, ref_lse = tattn._flash_fwd_reference(q.float(), k.float(),
+                                                v.float(), lens, sm, causal)
+    out, lse = tattn._flash_mma_reference(q, k, v, lens, sm, causal)
+    assert _over_tol(out, ref_o) <= 1.0
+    live = ref_lse < 1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == tattn.LSE_MASKED)

@@ -316,9 +316,9 @@ def test_head_tiled_forward_on_card(dtype, block_h, causal):
                                    (777, 768, 768), (64 * 196, 768, 768)])
 def test_matmul_bias_on_card(dtype, m, k, n):
     """B7 against its plain version run in f32 on the same inputs, ragged
-    against the 64 x 64 x 32 tiles: per element, f32 1e-5 + 1e-5·|ref|
-    (sums in another order), bf16 one rounding of the output (2^-8 of its
-    magnitude) plus 1e-3."""
+    against the tiles (bf16 128 x 192 x 64, f32 64 x 64 x 32): per
+    element, f32 1e-5 + 1e-5·|ref| (sums in another order), bf16 one
+    rounding of the output (2^-8 of its magnitude) plus 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rafiki_tpu_torch.ops import patch_embed as pe
@@ -342,3 +342,120 @@ def test_matmul_bias_on_card(dtype, m, k, n):
     with pytest.raises(TypeError):
         pe.matmul_bias(x, w.float() if dt != torch.float32 else
                        w.to(torch.bfloat16), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (127, 768, 768, 0), (128, 768, 768, 0), (129, 768, 768, 0),
+    (64 * 196, 768, 768, 0), (129, 75, 33, 0), (200, 76, 36, 0),
+    (64, 768, 100, 0), (130, 768, 768, 1)],
+    ids=["m127", "m128", "m129", "vit", "k75-n33", "k76-n36", "n100",
+         "offset-view"])
+def test_matmul_bias_bf16_plans_on_card(m, k, n, offset):
+    """B7's bf16 tensor-core body at and around its 128-row tile, at
+    ViT's shape, and on rows that are not 16-byte aligned (k or n not a
+    multiple of 8, or x starting 2 bytes into its storage: the
+    element-copy variant): each element within 1e-3 + 2^-8·|plain| of
+    the plain version run in f32, and a second call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import patch_embed as pe
+
+    rng = np.random.default_rng(m + k + n)
+    dev = torch.device("cuda")
+    flat = torch.from_numpy(rng.uniform(-1, 1, m * k + offset).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    x = flat[offset:].view(m, k)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    aligned = k % 8 == 0 and n % 8 == 0 and offset == 0
+    got = pe.matmul_bias(x, w, b)
+    again = pe.matmul_bias(x, w, b)
+    ref = pe._matmul_bias_reference(x.float(), w.float(), b.float())
+    torch.cuda.synchronize()
+    assert pe._matmul_plan(m, n, k, torch.bfloat16, x.data_ptr() % 16 == 0
+                           ).copy_bytes == (16 if aligned else 2)
+    assert _within(got, ref, torch.bfloat16)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 16, 24, 32, 48, 64, 96, 128, 192])
+@pytest.mark.parametrize("s", [197, 200])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_forward_bf16_every_head_dim_on_card(d, s, causal):
+    """B3's bf16 tensor-core body at every compiled head dim: s 197
+    (ViT's: a last tile of 5 rows and keys) and 200, kv_lens 0 (zeros
+    and LSE_MASKED, exactly), 1, a partial tile (77) and all; out per
+    element within 1e-3 + 2^-8·|plain| of the plain version run in f32,
+    the live LSE within 1e-4; a second call, and the call without LSE,
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    b, h = 4, 3
+    rng = np.random.default_rng(d + s)
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, h, s, d)).astype(np.float32)).to(dev).to(torch.bfloat16)
+        for _ in range(3))
+    lens = torch.tensor([s, 0, 1, 77], dtype=torch.int32, device=dev)
+    sm = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, sm, causal)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, lens, sm, causal)
+    out3, _ = fa.flash_attention_fwd(q, k, v, lens, sm, causal,
+                                     with_lse=False)
+    ref_o, ref_lse = fa._flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), lens, sm, causal)
+    torch.cuda.synchronize()
+    assert _within(out, ref_o, torch.bfloat16)
+    live = ref_lse < 1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == fa.LSE_MASKED)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    assert torch.equal(out3, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_h", [2, 3, 4, 6, 12])
+def test_head_tiled_forward_bit_identical_to_b3_on_card(block_h, dtype):
+    """B4 at every block_h that divides 12 heads equals B3 bit for bit
+    (out and LSE), causal and not, at ViT's s 197 and d 64 with kv_lens
+    0 and a partial tile; a second B4 call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    dt = getattr(torch, dtype)
+    b, h, s, d = 3, 12, 197, 64
+    rng = np.random.default_rng(block_h)
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, h, s, d)).astype(np.float32)).to(dev).to(dt) for _ in range(3))
+    lens = torch.tensor([197, 0, 100], dtype=torch.int32, device=dev)
+    for causal in (False, True):
+        out4, lse4 = fa.flash_attention_fwd_mh(q, k, v, lens, 0.125, causal,
+                                               block_h)
+        again, _ = fa.flash_attention_fwd_mh(q, k, v, lens, 0.125, causal,
+                                             block_h)
+        out3, lse3 = fa.flash_attention_fwd(q, k, v, lens, 0.125, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(out4, out3) and torch.equal(lse4, lse3), causal
+        assert torch.equal(again, out4), causal
+
+
+@pytest.mark.cuda
+def test_compiled_flash_plan_matches_the_host_plan_on_card():
+    """The plan the built library reports for every head dim and dtype
+    (``rt_flash_fwd_plan``) is ``_flash_plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    for d in fa.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            assert fa._compiled_plan(d, dt) == fa._flash_plan(d, dt), (d, dt)

@@ -130,3 +130,79 @@ def test_cpu_never_counts_launches_and_shapes_are_checked():
         tpe.matmul_bias(torch.ones(3, 4), torch.ones(5, 5), torch.ones(5))
     with pytest.raises(ValueError):
         tpe.matmul_bias(torch.ones(3, 4), torch.ones(4, 5), torch.ones(4))
+
+
+# ---- B7's plan from shapes, and the wrapper handing it to the kernel
+
+@pytest.mark.parametrize("m,n,k,dtype,aligned,want", [
+    (64 * 196, 768, 768, torch.bfloat16, True, ("wgmma", 16, 392)),
+    (128, 768, 768, torch.bfloat16, True, ("wgmma", 16, 4)),
+    (129, 768, 768, torch.bfloat16, True, ("wgmma", 16, 8)),
+    (130, 33, 75, torch.bfloat16, True, ("wgmma", 2, 2)),
+    (127, 36, 768, torch.bfloat16, True, ("wgmma", 2, 1)),
+    (127, 768, 76, torch.bfloat16, True, ("wgmma", 2, 4)),
+    (128, 768, 768, torch.bfloat16, False, ("wgmma", 2, 4)),
+    (64 * 196, 768, 768, torch.float32, True, ("fma", 4, 196 * 12)),
+], ids=["vit", "m128", "m129", "k75-n33", "n36", "k76", "offset",
+        "f32"])
+def test_matmul_plan_from_shapes(m, n, k, dtype, aligned, want):
+    """bf16 runs the tensor-core (wgmma) body, fed by 16-byte copies only
+    when every row is 16-byte aligned (k and n multiples of 8, and the
+    operands start on 16 bytes), else by element copies; f32 keeps the
+    FMA body and its 64 x 64 tiles. The block count is the grid's."""
+    plan = tpe._matmul_plan(m, n, k, dtype, aligned)
+    assert (plan.body, plan.copy_bytes, plan.blocks) == want
+    tm, tn, _ = plan.tile
+    assert plan.blocks == -(-m // tm) * -(-n // tn)
+
+
+def test_matmul_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        tpe._matmul_plan(8, 8, 8, torch.float16)
+
+
+class _RecordingLib:
+    """Stands in for the built library: records each launch's arguments
+    and reports success."""
+
+    def __init__(self):
+        self.calls = []
+        self.rt_matmul_bias = self._launch
+
+    def _launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("m,k,n,offset,copy", [
+    (130, 768, 768, 0, 16), (130, 75, 33, 0, 2), (130, 768, 768, 1, 2)],
+    ids=["aligned", "ragged", "offset-view"])
+def test_wrapper_hands_the_plan_to_the_kernel(monkeypatch, m, k, n, offset,
+                                              copy):
+    """On the kernel path the wrapper launches once with the plan's copy
+    width (a view that starts 2 bytes into its storage takes element
+    copies) and counts the launch."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(tpe, "_runs_kernel", lambda t: True)
+    monkeypatch.setattr(tpe, "_library", lambda: lib)
+    monkeypatch.setattr(tpe, "_check_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    x = torch.zeros(m * k + offset, dtype=torch.bfloat16)[offset:] \
+        .view(m, k)
+    w = torch.zeros(k, n, dtype=torch.bfloat16)
+    b = torch.zeros(n, dtype=torch.bfloat16)
+    before = tpe.matmul_bias.launches
+    out = tpe.matmul_bias(x, w, b)
+    assert out.shape == (m, n) and tpe.matmul_bias.launches == before + 1
+    (args,) = lib.calls
+    assert args[0] == 1 and args[5:9] == (m, n, k, copy)
+
+
+class _NullContext:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
