@@ -15,7 +15,7 @@ Phases; each raises on failure, so the script exits non-zero:
 1. Device and build: the card's name and power limit, TF32 off, every
    ``rafiki_tpu_torch/csrc/*.cu`` built with ``nvcc`` (in parallel, timed,
    with ptxas's register/shared-memory report parsed per kernel: phases
-   5, 9 and 10 print B3's, B4's and B7's).
+   5, 9 and 10 print B3's, B4's, B5's, B6's and B7's).
 2. B1/B2 against their plain versions at Llama-3-8B attention shapes
    (8 slots, 32 query / 8 kv heads, head dim 128, page 16, bf16 pools,
    max_len 2048): each element within 1e-3 + 2^-8·|plain| of the plain
@@ -37,9 +37,12 @@ Phases; each raises on failure, so the script exits non-zero:
    shapes (b 4, 32 heads with K/V repeated from 8, s 1024, head dim 128,
    bf16, causal, kv_lens 1024/700/1/0): the errors of out, lse, dq, dk
    and dv against the plain versions run in f32, kernel / plain /
-   library times, the least time; B3's plan (tensor-core or FMA body,
-   padded head dim, copy width, stages), ptxas registers and a second
-   call bit-identical; plus an f32 case at head dim 16.
+   library times, the least time; B3's, B5's and B6's plans (tensor-core
+   or FMA body, padded head dim, copy width, stages), ptxas registers
+   and spills (the bf16 B5/B6 at d 64 and 128 must not spill) and a
+   second call bit-identical; B5 and B6 again on full-length rows beside
+   SDPA's backward with ``is_causal=True`` (the second yardstick); plus
+   an f32 case at head dim 16.
 6. f32 training exactness: the full-width Llama at depth 2 in f32
    (nonzero LoRA) takes 4 functional train steps through the kernels,
    then the same 4 steps from the same weights with the attention bound
@@ -58,7 +61,8 @@ Phases; each raises on failure, so the script exits non-zero:
    bit-identical.
 10. The flash kernels on the classifier paths: B3/B5/B6 non-causal at
     ViT-B/16's shape (b 64, 12 heads, s 197, d 64, bf16) with times, and
-    with BERT's padded keys (s 128); B4 at block_h 4 on the ViT shape
+    with BERT's padded keys (s 128), B5/B6 timed there beside SDPA's
+    masked backward; B4 at block_h 4 on the ViT shape
     against its plain version and bit for bit against B3, a second call
     bit-identical, its time beside B3's in the same (no-LSE) call, both
     plans and ptxas registers; B3/B5/B6 at
@@ -81,6 +85,11 @@ Phases; each raises on failure, so the script exits non-zero:
     trains 8 steps at batch 64 on a seeded corpus (B3, B5, B6 = 96), then
     predicts 256 texts (B3 = 48); the loss must fall; dump → reload →
     predict.
+15. Paged serving at the smallest head dim: a head-dim-8 Llama (hidden
+    32, 4 heads, 2 kv heads, ``max_len`` 32, f32, random weights from a
+    seed) behind ``DecodeEngine`` at pages 8 and 4 on the card must emit
+    exactly the tokens of the same model and requests on the CPU; B1 and
+    B2 must launch.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -179,6 +188,8 @@ def kernel_resources(ptxas, mangled_part):
 #: the mangled-name parts of the kernels phases 5, 9 and 10 report
 B3_BF16 = "16flash_fwd_kernelI13__nv_bfloat16Li{d}E"
 B4_BF16 = "19flash_fwd_mh_kernelI13__nv_bfloat16Li{d}E"
+B5_BF16 = "23flash_bwd_dq_mma_kernelILi{d}E"
+B6_BF16 = "24flash_bwd_dkv_mma_kernelILi{d}E"
 B7_MMA = "22matmul_bias_mma_kernelILb1EE"
 
 
@@ -307,7 +318,7 @@ def kernel_phase(torch, np, F, pa, dev):
             q[:, :, None, :], kl, vl, attn_mask=mask1, scale=sm,
             enable_gqa=True),
         ref, out, n_bytes, flops,
-        pa._launch_plan(b, 1, n_heads, n_kv, width, page, bf16))
+        pa._launch_plan(b, 1, n_heads, n_kv, width, page, bf16, dh))
     results["paged_decode_attention"]["shapes"] = (
         f"q ({b}, {n_heads}, {dh}) bf16; pool {shape} bf16; table ({b}, "
         f"{width}); positions {last.tolist()}")
@@ -333,7 +344,7 @@ def kernel_phase(torch, np, F, pa, dev):
             qw.transpose(1, 2), kl, vl, attn_mask=mask2, scale=sm,
             enable_gqa=True),
         refw, outw, n_bytes, flops,
-        pa._launch_plan(b, c, n_heads, n_kv, width, page, bf16))
+        pa._launch_plan(b, c, n_heads, n_kv, width, page, bf16, dh))
     results["paged_window_attention"]["shapes"] = (
         f"q ({b}, {c}, {n_heads}, {dh}) bf16; pool {shape} bf16; table "
         f"({b}, {width}); window ends {last.tolist()}")
@@ -692,6 +703,65 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128),
         ptxas=kernel_resources(ptxas, B3_BF16.format(d=d)),
         bit_identical_second_call=b3_same)
     del first, second
+    # B5's and B6's plans and resources, and a second call's bits
+    bwd_plan = fa._flash_bwd_plan(d, q.dtype)
+    bwd_same = {}
+    for name in FLASH[1:]:
+        first = kernel_calls[name]()
+        second = kernel_calls[name]()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        bwd_same[name] = all(torch.equal(a, b_)
+                             for a, b_ in zip(first, second))
+        del first, second
+    for name, part, mangled in (("flash_attention_bwd_dq", "dq", B5_BF16),
+                                ("flash_attention_bwd_dkv", "dkv",
+                                 B6_BF16)):
+        results[name].update(
+            plan=getattr(bwd_plan, part)._asdict(),
+            ptxas=kernel_resources(ptxas, mangled.format(d=d)),
+            bit_identical_second_call=bwd_same[name])
+    spills = {f"{name} d{d_}": e["spill_bytes"]
+              for d_ in (64, 128)
+              for name, mangled in (("B5", B5_BF16), ("B6", B6_BF16))
+              for e in kernel_resources(ptxas, mangled.format(d=d_))
+              if e["spill_bytes"]}
+
+    # the second library yardstick: SDPA's backward with is_causal=True on
+    # full-length rows (every kv_len s), B5 and B6 on the same inputs
+    full_lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    out_f, lse_f = fa.flash_attention_fwd(q, k, v, full_lens, sm, True)
+    delta_f = fa._delta(do, out_f)
+    del out_f
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sm)
+    lib_causal = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, leaves, do, retain_graph=True))
+    del o_lib, leaves
+    pairs_f = b * h * s * (s + 1) // 2
+    rows_f = b * h * s
+    full_work = {  # every row and key live: bytes and operations
+        "flash_attention_bwd_dq": (rows_f * d * 2 * 5 + rows_f * 4 * 2,
+                                   6 * d * pairs_f),
+        "flash_attention_bwd_dkv": (rows_f * d * 2 * 6 + rows_f * 4 * 2,
+                                    8 * d * pairs_f)}
+    full_calls = {
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse_f, delta_f, full_lens, sm, True),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse_f, delta_f, full_lens, sm, True)}
+    for name, call in full_calls.items():
+        bnd, by = bound_ms(*full_work[name], "bfloat16")
+        results[name]["full_length"] = dict(
+            ms=time_ms(torch, call), bound_ms=bnd, bound_by=by,
+            library_ms=lib_causal if name == "flash_attention_bwd_dq"
+            else None,
+            library_covers="SDPA backward, is_causal=True, no mask: dq, dk "
+                           "and dv in one call (B5 + B6)",
+            shapes=f"q/k/v/dO ({b}, {h}, {s}, {d}) bf16, causal, every "
+                   f"kv_len {s}")
+    del lse_f, delta_f
 
     def named(e):
         return {n: {"max_abs_err": a, "err_over_tol": r}
@@ -717,6 +787,13 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128),
     if not b3_same:
         raise AssertionError("B3: a second call on the same inputs gave "
                              "other bits")
+    if not all(bwd_same.values()):
+        raise AssertionError(f"B5/B6: a second call on the same inputs gave "
+                             f"other bits: {bwd_same}")
+    if any(results[n]["plan"]["body"] != "wgmma" for n in FLASH[1:]):
+        raise AssertionError("B5/B6 bf16 did not plan the tensor-core body")
+    if spills:
+        raise AssertionError(f"the bf16 B5/B6 spill: {spills}")
     return results
 
 
@@ -804,8 +881,10 @@ KERNEL_FUNCTIONS = {
     "paged_merge": "paged_merge_kernel",
     "flash_attention_fwd": "flash_fwd_kernel",
     "flash_attention_fwd_mh": "flash_fwd_mh_kernel",
-    "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
-    "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",
+                               "flash_bwd_dq_mma_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",
+                                "flash_bwd_dkv_mma_kernel"),
     "matmul_bias": ("matmul_bias_mma_kernel", "matmul_bias_fma_kernel"),
 }
 
@@ -1166,6 +1245,10 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
         plan=plan, ptxas=kernel_resources(ptxas, B3_BF16.format(d=d)))
     vit["flash_attention_bwd_dq"]["library_covers"] = \
         "SDPA backward: dq, dk and dv in one call (B5 + B6)"
+    for name, part in (("flash_attention_bwd_dq", "dq"),
+                       ("flash_attention_bwd_dkv", "dkv")):
+        vit[name].update(plan=getattr(fa._flash_bwd_plan(d, bf16),
+                                      part)._asdict())
     del q, k, v, do, lse, delta, out3, out4, lse3, lse4, ref_o
 
     # BERT-base's padded keys: b 64, 12 heads, s 128, d 64
@@ -1173,10 +1256,29 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
     lens_np = rng.integers(6, bs + 1, size=bb).astype(np.int32)
     lens_np[:2] = (bs, 1)
     bert_in = [rand(bert_shape, bf16) for _ in range(4)]
-    bert_errs, bert_exact, _, _ = flash_case(
-        torch, fa, *bert_in, torch.from_numpy(lens_np).to(dev),
-        1.0 / math.sqrt(bd), causal=False)
-    del bert_in
+    blens = torch.from_numpy(lens_np).to(dev)
+    bsm = 1.0 / math.sqrt(bd)
+    bert_errs, bert_exact, blse, bdelta = flash_case(
+        torch, fa, *bert_in, blens, bsm, causal=False)
+    # B5 and B6 at BERT's shape beside SDPA's backward with the same mask
+    bmask = fa._visible(bs, bs, blens, False)
+    leaves = [t.detach().clone().requires_grad_() for t in bert_in[:3]]
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=bmask,
+                                           scale=bsm)
+    bert_bwd = {
+        "flash_attention_bwd_dq": time_ms(
+            torch, lambda: fa.flash_attention_bwd_dq(
+                *bert_in, blse, bdelta, blens, bsm, False)),
+        "flash_attention_bwd_dkv": time_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv(
+                *bert_in, blse, bdelta, blens, bsm, False)),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, leaves, bert_in[3], retain_graph=True)),
+        "library_covers": "SDPA backward with the same boolean mask: dq, "
+                          "dk and dv in one call (B5 + B6)",
+        "shapes": f"q/k/v/dO {tuple(bert_shape)} bf16, non-causal, kv_lens "
+                  f"{bs}, 1 and 6..{bs}"}
+    del bert_in, o_lib, leaves, blse, bdelta
 
     # every compiled head dim: b 2 (kv_lens 150 and 0, or 1), 3 heads,
     # s 150, both masks
@@ -1203,7 +1305,8 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
                          "err_over_tol": b4_err[1],
                          "identical_to_b3": b4_identical}, **vit},
           "bert": {"errors": named(bert_errs), "kv_lens": lens_np.tolist(),
-                   "masked_rows_exact": bert_exact},
+                   "masked_rows_exact": bert_exact,
+                   "backward_ms": bert_bwd},
           "head_dim_sweep_worst_err_over_tol": {
               key: r for key, (r, _) in sweep.items()},
           "tol": f"per element: bf16 1e-3 + 2^-8 * |plain|, f32 1e-5 + "
@@ -1224,6 +1327,9 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
                              "other bits")
     if not bert_exact:
         raise AssertionError("a BERT row with no visible key is not exact")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        vit[name]["bert_ms"] = bert_bwd[name]
+    vit["flash_attention_bwd_dq"]["bert_library_ms"] = bert_bwd["library_ms"]
     return vit
 
 
@@ -1625,6 +1731,75 @@ def bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev):
     return {"bert_training": r["launches"], "bert_serving": launches}
 
 
+def hd8_serving_phase(torch, np, ll, de, pa, dev):
+    """Phase 15: a head-dim-8 Llama (hidden 32, 4 heads, 2 kv heads,
+    max_len 32, f32, LoRA rank 4 with nonzero adapters, random weights
+    from a seed: the LlamaLoRA knob grid's smallest head dim) served
+    paged through ``DecodeEngine`` on the card at pages 8 and 4 must give
+    exactly the tokens of the same model and requests served on the CPU
+    (the plain versions); B1 and B2 must launch."""
+    knobs = dict(vocab_size=1024, max_len=32, hidden_dim=32, depth=2,
+                 n_heads=4, n_kv_heads=2, mlp_dim=128, lora_rank=4)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    host = ll.Llama(device=cpu, generator=gen, **knobs)
+    randomize_lora_b(host, gen)
+    card = ll.Llama(device=dev, **knobs)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(SEED + 16)
+    reqs = [(i, rng.integers(1, 1024, size=int(rng.integers(2, 15)))
+             .astype(np.int32), 8) for i in range(8)]
+
+    def serve(model, device, page):
+        """Half the requests, two steps, the rest (admission mid-flight),
+        then steps until every request is done."""
+        eng = de.DecodeEngine(model.with_kv_layout(page, 1 + 4 * 32 // page),
+                              max_slots=4, max_len=32, steps_per_sync=4,
+                              prefill_chunk=8, device=device)
+        done = {}
+        for n in range(600):
+            for rid, prompt, max_new in reqs[:4] if n == 0 else \
+                    reqs[4:] if n == 2 else ():
+                eng.submit(rid, prompt, max_new)
+            eng.step()
+            done.update({rid: [int(t) for t in toks]
+                         for rid, toks in eng.poll()})
+            if len(done) == len(reqs):
+                break
+        return done
+
+    out, total = {}, {"paged_decode_attention": 0,
+                      "paged_window_attention": 0}
+    for page in (8, 4):
+        want = serve(host, cpu, page)
+        torch.cuda.synchronize()
+        pa.paged_decode_attention.launches = 0
+        pa.paged_window_attention.launches = 0
+        got = serve(card, dev, page)
+        torch.cuda.synchronize()
+        launches = {"paged_decode_attention":
+                        pa.paged_decode_attention.launches,
+                    "paged_window_attention":
+                        pa.paged_window_attention.launches}
+        for name, n in launches.items():
+            total[name] += n
+        out[f"page_{page}"] = {
+            "requests": len(reqs), "completed": len(got),
+            "token_identical": got == want and len(got) == len(reqs),
+            "mismatched_requests": sorted(r for r in want
+                                          if got.get(r) != want[r]),
+            "launches": launches}
+    emit({"phase": "hd8_paged_serving", "knobs": knobs, "dtype": "float32",
+          **out})
+    for page, r in out.items():
+        if not r["token_identical"]:
+            raise AssertionError(f"head-dim-8 paged serving at {page} "
+                                 f"differs from the CPU: {r}")
+        if min(r["launches"].values()) <= 0:
+            raise AssertionError(f"a paged kernel never launched at {page}: "
+                                 f"{r['launches']}")
+    return total
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1703,6 +1878,15 @@ def main(argv=None):
     kres.update(matmul_bias_phase(torch, np, pe, dev, ptxas))
     classifier = classifier_flash_phase(torch, np, F, fa, dev, ptxas=ptxas)
     kres["flash_attention_fwd_mh"] = classifier["flash_attention_fwd_mh"]
+    lib_vit = classifier["flash_attention_bwd_dq"]["library_ms"]
+    lib_bert = classifier["flash_attention_bwd_dq"]["bert_library_ms"]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        c = classifier[name]
+        kres[name]["classifier_shapes"] = {
+            "vit": {"ms": c["ms"], "bound_ms": c["bound_ms"],
+                    "library_ms": lib_vit, "shapes": c["shapes"]},
+            "bert": {"ms": c["bert_ms"], "library_ms": lib_bert},
+            "library_covers": "SDPA backward: dq, dk and dv in one call"}
     torch.cuda.empty_cache()
     classifier_exactness_phase(torch, np, vit, bert, fa, pe, lp, optim, dev)
     torch.cuda.empty_cache()
@@ -1713,6 +1897,9 @@ def main(argv=None):
                                     pe, dev))
     torch.cuda.empty_cache()
     paths.update(bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev))
+    torch.cuda.empty_cache()
+    paths["llama_hd8_serving"] = hd8_serving_phase(torch, np, ll, de, pa,
+                                                   dev)
 
     by_path = {name: {path: counts[name] for path, counts in paths.items()
                       if counts.get(name)}
@@ -1730,7 +1917,8 @@ def main(argv=None):
          **{key: r[key] for key in ("err_over_tol", "library_covers",
                                     "identical_to_b3", "plan", "gb_per_s",
                                     "bound_share", "b3_same_call_ms",
-                                    "ptxas", "bit_identical_second_call")
+                                    "ptxas", "bit_identical_second_call",
+                                    "full_length", "classifier_shapes")
             if key in r}}
         for name, r in kres.items()]})
     missing = [name for name in kres if not by_path[name]]

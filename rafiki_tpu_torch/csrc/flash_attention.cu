@@ -83,6 +83,32 @@
 // block_h times as many blocks fills the SMs as well. B4 stays as the port
 // of the JAX kernel and of the block_h knob that selects it.
 //
+// The bf16 backward (bwd_dq_wgmma, bwd_dkv_wgmma) runs on the same
+// machinery, one warpgroup per block:
+//
+// - B5: a 64-row query tile; Q, dO and the rows' lse and delta stay
+//   resident, 64-key K/V tiles stream through the cp.async ring. Per tile,
+//   S = Q.K^T and dP = dO.V^T (wgmma, K-major operands), P = exp2(S scale
+//   log2 e - lse log2 e) as one fused argument and dS = P (dP - delta)
+//   scale in registers, then dQ += dS.K with dS as register A operands and
+//   K N-major: the forward's P.V step.
+// - B6: a 64-key tile; K and V stay resident, 64-row Q/dO tiles and their
+//   lse/delta rows stream through the ring. Per tile, transposed with the
+//   keys as M: S^T = K.Q^T, dP^T = V.dO^T, P^T and dS^T in registers (lse
+//   and delta index the columns), dV += P^T.dO and dK += dS^T.Q. Causal
+//   tiles start at the query tile of k0; a key tile wholly past kv_len
+//   writes zeros. Above d = 128 B6 keeps the FMA body below: dK's and dV's
+//   accumulators alone (96 f32 registers each a thread at d = 192) leave
+//   no room for S^T and dP^T in 255 registers.
+// - P and dS each enter their products as two bf16 terms hi + lo: one
+//   rounding fails the per-element tolerance 1e-3 + 2^-8 |plain| by 1.3-
+//   4.7x on plain random inputs at every head dim (ops/attention.py
+//   _flash_bwd_mma_reference models both; the CPU tests hold the choice).
+// - Only tiles that cross kv_len, s_q (B6) or a warp's causal diagonal are
+//   masked. A head's tiles run on consecutive blocks, so its repeated K/V
+//   (B5) or Q/dO (B6) reads hit L2; B5's causal tiles run longest first.
+// - No atomics and no cross-block state: two calls give the same bits.
+//
 // The f32 kernels (the exactness legs; TF32 would break their tolerance)
 // keep the first design: one block of 256 threads walks the sequential TPU
 // grid axis as a loop (key tiles for B3/B4/B5, query tiles for B6), so
@@ -92,9 +118,7 @@
 // 4 x 4 register tile of scores (rows ty + 16 i, columns tx + 16 j) fed by
 // 128-bit shared-memory loads along the head dim, and a 4 x ceil(d/16) tile
 // of the f32 accumulator; p or ds passes through shared memory once to feed
-// the second product. B5/B6 run this f32 FMA design in bf16 too: their
-// tensor-core redesign (and TMA, wgmma, a GQA-native K/V walk) is later
-// work.
+// the second product. bf16 B6 at d = 192 runs this body too.
 //
 // Head dims: every d that the ViT, BERT and Llama templates give (8 .. 192,
 // all multiples of 4, as the 128-bit loads need; tile_pv masks the columns
@@ -105,7 +129,7 @@
 // broadcast), so B6 keeps its K and V tiles unpadded: at d = 192 that
 // brings B6 to exactly the 227 KB (232,448 B) a block may take, where the
 // padded plan needed 234,496 B. B5 takes 218 KB at d = 192; the bf16
-// forward 121 KB.
+// forward 121 KB, the bf16 B5 145 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -356,7 +380,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// BYTES (16 or 8) global -> shared, or as many zero bytes when !live
+// BYTES (16, 8 or 4) global -> shared, or as many zero bytes when !live
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool live) {
@@ -365,10 +389,15 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                      smem_addr(dst)),
                  "l"(src), "r"(live ? 16 : 0)
                  : "memory");
-  else
+  else if constexpr (BYTES == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                      smem_addr(dst)),
                  "l"(src), "r"(live ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(live ? 4 : 0)
                  : "memory");
 }
 
@@ -608,6 +637,43 @@ __device__ __forceinline__ void wg_load(bf16* dst,
   }
 }
 
+// Zero the padded head-dim columns [D, kDP) of n consecutive 64-row tiles
+// from base, once per block: cp.async never writes them, and the block's
+// first fence and barrier publish them to the tensor cores.
+template <int D>
+__device__ __forceinline__ void wg_zero_pad(bf16* base, int n_tiles) {
+  using C = WgFwd<D>;
+  if constexpr (C::kDP > D) {
+    constexpr int kPad = C::kDP - D;
+    for (int i = threadIdx.x; i < n_tiles * kBK * kPad; i += kMmaThreads) {
+      const int row = i / kPad;  // over every tile's rows
+      base[(row / kBK) * C::kTileElems +
+           wg_off(row % kBK, D + (i - row * kPad))] = __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The first 1024-aligned byte of a block's dynamic shared memory (the
+// swizzle atoms need that alignment; the plans add 1024 bytes for it).
+__device__ __forceinline__ bf16* wg_base(unsigned char* smem_raw) {
+  return reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+}
+
+// O (64 x DP, f32) += A (64 x 16, bf16 registers) . B (16 x DP, N-major in
+// shared memory).
+template <int DP>
+__device__ __forceinline__ void wgmma_o(float (&d)[DP / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc_b) {
+  if constexpr (DP == 64)
+    wgmma_o64(d, a, desc_b);
+  else if constexpr (DP == 128)
+    wgmma_o128(d, a, desc_b);
+  else
+    wgmma_o192(d, a, desc_b);
+}
+
 // One warpgroup's 64 query rows of one head: the f32 accumulator and the
 // online-softmax state (base 2). A wgmma accumulator places a thread's
 // values so: warp w holds rows 16 w + lane / 4 and + 8, columns 8 j + 2
@@ -753,22 +819,9 @@ __device__ __forceinline__ void fwd_heads_wgmma(
     unsigned char* smem_raw) {
   using C = WgFwd<D>;
   constexpr int S = C::kStages;
-  // the swizzle atoms need 1024-byte alignment
-  bf16* q_s = reinterpret_cast<bf16*>(
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* q_s = wg_base(smem_raw);
   bf16* ring = q_s + C::kTileElems;
-  if constexpr (C::kDP > D) {
-    // the padded head-dim columns of the Q tile and of every stage: zero
-    // once (cp.async never writes them; the loop's first fence and barrier
-    // publish them)
-    constexpr int kPad = C::kDP - D;
-    for (int i = threadIdx.x; i < (1 + 2 * S) * kBK * kPad;
-         i += kMmaThreads) {
-      const int row = i / kPad;  // over the Q tile's and every stage's rows
-      q_s[(row / kBK) * C::kTileElems +
-          wg_off(row % kBK, D + (i - row * kPad))] = __float2bfloat16(0.f);
-    }
-  }
+  wg_zero_pad<D>(q_s, 1 + 2 * S);  // the Q tile and every stage
   auto stage_k = [&](int st) { return ring + st * 2 * C::kTileElems; };
   auto stage_v = [&](int st) {
     return ring + st * 2 * C::kTileElems + C::kTileElems;
@@ -1079,6 +1132,370 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- bf16 B5, B6
+// The backward's tensor-core plan for head dim D (ops/attention.py
+// _flash_bwd_plan mirrors it; rt_flash_bwd_plan reports it): the forward's
+// tiles, padding and copies; a ring of 3 stages up to d = 64, 2 above.
+// B5 keeps Q and dO resident and streams K/V; B6 keeps K and V resident
+// and streams Q, dO and the rows' lse and delta. B6 runs the FMA body above
+// d = 128: its dK and dV accumulators (d / 2 f32 registers each a thread),
+// with S^T and dP^T, do not fit 255 registers at d = 192.
+template <int D>
+struct WgBwd {
+  using F = WgFwd<D>;
+  static constexpr int kDP = F::kDP;
+  static constexpr int kTileElems = F::kTileElems;
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr size_t kTiles =
+      static_cast<size_t>(2 + 2 * kStages) * kTileElems * sizeof(bf16);
+  static constexpr size_t kDqSmem = kTiles + 1024;
+  static constexpr size_t kDkvSmem =
+      kTiles + static_cast<size_t>(kStages) * 2 * kBQ * sizeof(float) + 1024;
+  static constexpr bool kDkvMma = kDP <= 128;
+  static_assert(kDqSmem <= kMaxSmem && kDkvSmem <= kMaxSmem,
+                "the backward's ring exceeds a block's memory");
+};
+
+// dQ for rows [q0, q0 + 64) of head bh: per 64-key tile S = Q.K^T and
+// dP = dO.V^T (wgmma, both operands K-major), P = exp2(S scale log2 e -
+// lse log2 e) and dS = P (dP - delta) scale in registers, then dQ += dS.K
+// with dS from registers as hi + lo bf16 A operands and K N-major (the
+// forward's P.V step). Layouts as the forward's; lse and delta (b*h, s_q).
+template <int D>
+__device__ __forceinline__ void bwd_dq_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    int kv_len, bf16* __restrict__ dq, int bh, int q0, const Geom& g,
+    unsigned char* smem_raw) {
+  using C = WgBwd<D>;
+  constexpr int S = C::kStages;
+  constexpr int DP = C::kDP;
+  constexpr int T = C::kTileElems;
+  bf16* q_s = wg_base(smem_raw);
+  bf16* do_s = q_s + T;
+  bf16* ring = do_s + T;  // stage st: K at ring + 2 T st, V after it
+  wg_zero_pad<D>(q_s, 2 + 2 * S);
+  const int lane = threadIdx.x & 31;
+  const int r_lo = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int w0 = r_lo - (lane >> 2);  // the warp's first row
+  int kv_end = kv_len;
+  if (g.causal) kv_end = min(kv_end, q0 + kBQ);
+  const int n_kt = (kv_end + kBK - 1) / kBK;
+  const size_t head_q = static_cast<size_t>(bh) * g.s_q;
+  const bf16* kb = k + static_cast<size_t>(bh) * g.s_kv * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * g.s_kv * D;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  if (n_kt > 0) {
+    auto issue = [&](int t) {
+      bf16* st = ring + (t % S) * 2 * T;
+      wg_load<D>(st, kb, t * kBK, g.s_kv);
+      wg_load<D>(st + T, vb, t * kBK, g.s_kv);
+    };
+    wg_load<D>(q_s, q + head_q * D, q0, g.s_q);
+    wg_load<D>(do_s, dout + head_q * D, q0, g.s_q);
+#pragma unroll
+    for (int t = 0; t < S - 1; ++t) {
+      if (t < n_kt) issue(t);
+      cp_async_commit();
+    }
+    // this thread's rows lo and hi: lse in base 2 (a row past s_q takes
+    // LSE_MASKED: p = 0), delta
+    float l2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + 8 * h;
+      const bool in = row < g.s_q;
+      l2[h] = (in ? lse[head_q + row] : kLseMasked) * kLog2e;
+      dl[h] = in ? delta[head_q + row] : 0.f;
+    }
+    const float sl2 = g.scale * kLog2e;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      cp_async_wait<S - 2>();
+      fence_async_shared();
+      __syncthreads();  // tile kt has landed, and tile kt - 1 is consumed
+      if (kt + S - 1 < n_kt) issue(kt + S - 1);
+      cp_async_commit();
+      const bf16* k_s = ring + (kt % S) * 2 * T;
+      const bf16* v_s = k_s + T;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk >> 2) * (kBK * 64) + (kk & 3) * 16;
+        wgmma_s64(s, smem_desc(q_s + off, 16, 1024),
+                  smem_desc(k_s + off, 16, 1024));
+        wgmma_s64(dp, smem_desc(do_s + off, 16, 1024),
+                  smem_desc(v_s + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      // P and dS in registers; only a tile that crosses kv_len or (causal)
+      // the warp's diagonal is masked
+      const int k0 = kt * kBK;
+      const bool edge =
+          k0 + kBK > kv_len || (g.causal && k0 + kBK - 1 > w0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = exp2f(fmaf(s[i], sl2, -l2[h]));
+        if (edge) {
+          const int kpos = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+          const int qpos = r_lo + 8 * h;
+          if (kpos >= kv_len || (g.causal && kpos > qpos)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dl[h]) * g.scale;
+      }
+      // dQ += dS . K, 16 keys per step: K N-major, a step 16 rows on
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_bf16(dp[8 * ks + 2 * j], dp[8 * ks + 2 * j + 1], hi[j],
+                     lo[j]);
+        const uint64_t dk = smem_desc(k_s + ks * 16 * 64, kBK * 64 * 2, 1024);
+        wgmma_o<DP>(acc, hi, dk);
+        wgmma_o<DP>(acc, lo, dk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    cp_async_wait<0>();
+  }
+  // rows lo and hi inside s_q; a row that sees no key writes zeros
+  const int col = (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= g.s_q) continue;
+    bf16* dst = dq + (head_q + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd)
+      if (DP == D || nd * 8 + col < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8 + col) =
+            __floats2bfloat162_rn(acc[4 * nd + 2 * h],
+                                  acc[4 * nd + 2 * h + 1]);
+  }
+}
+
+// dK and dV for keys [k0, k0 + 64) of head bh, computed transposed with the
+// keys as wgmma's M: per 64-row query tile S^T = K.Q^T and dP^T = V.dO^T,
+// P^T and dS^T in registers (lse and delta index the columns), then dV +=
+// P^T.dO and dK += dS^T.Q with A from registers (hi + lo) and dO, Q
+// N-major. Causal: the query tiles from k0 / 64 on; a key tile wholly past
+// kv_len writes zeros.
+template <int D>
+__device__ __forceinline__ void bwd_dkv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    int kv_len, bf16* __restrict__ dk, bf16* __restrict__ dv, int bh,
+    int k0, const Geom& g, unsigned char* smem_raw) {
+  using C = WgBwd<D>;
+  constexpr int S = C::kStages;
+  constexpr int DP = C::kDP;
+  constexpr int T = C::kTileElems;
+  bf16* k_s = wg_base(smem_raw);
+  bf16* v_s = k_s + T;
+  bf16* ring = v_s + T;  // stage st: Q at ring + 2 T st, dO after it
+  // stage st's lse and delta rows: rows_s + 2 * kBQ * st, + kBQ
+  float* rows_s = reinterpret_cast<float*>(ring + 2 * S * T);
+  wg_zero_pad<D>(k_s, 2 + 2 * S);
+  const int lane = threadIdx.x & 31;
+  const int kr_lo = k0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int kw_last = kr_lo - (lane >> 2) + 15;  // the warp's last key
+  const int col = (lane & 3) * 2;
+  const size_t head_q = static_cast<size_t>(bh) * g.s_q;
+  const size_t head_kv = static_cast<size_t>(bh) * g.s_kv;
+  float adk[DP / 2], adv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) adk[i] = adv[i] = 0.f;
+  // causal: the first query row that sees key k0 is row k0
+  const int qt0 = g.causal ? k0 / kBQ : 0;
+  const int n_qt = k0 < kv_len ? (g.s_q + kBQ - 1) / kBQ - qt0 : 0;
+  if (n_qt > 0) {
+    const bf16* qb = q + head_q * D;
+    const bf16* dob = dout + head_q * D;
+    auto issue = [&](int t) {
+      const int st = t % S;
+      const int q0 = (qt0 + t) * kBQ;
+      wg_load<D>(ring + st * 2 * T, qb, q0, g.s_q);
+      wg_load<D>(ring + st * 2 * T + T, dob, q0, g.s_q);
+      // rows past s_q are zero-filled; the mask hides them
+      float* ls = rows_s + st * 2 * kBQ;
+      for (int r = threadIdx.x; r < 2 * kBQ; r += kMmaThreads) {
+        const int row = q0 + (r & (kBQ - 1));
+        const bool live = row < g.s_q;
+        const float* src = (r < kBQ ? lse : delta) + (live ? head_q + row : 0);
+        cp_async<4>(ls + r, src, live);
+      }
+    };
+    wg_load<D>(k_s, k + head_kv * D, k0, g.s_kv);
+    wg_load<D>(v_s, v + head_kv * D, k0, g.s_kv);
+#pragma unroll
+    for (int t = 0; t < S - 1; ++t) {
+      if (t < n_qt) issue(t);
+      cp_async_commit();
+    }
+    const float sl2 = g.scale * kLog2e;
+    for (int t = 0; t < n_qt; ++t) {
+      cp_async_wait<S - 2>();
+      fence_async_shared();
+      __syncthreads();  // tile t has landed, and tile t - 1 is consumed
+      if (t + S - 1 < n_qt) issue(t + S - 1);
+      cp_async_commit();
+      const int st = t % S;
+      const bf16* q_s = ring + st * 2 * T;
+      const bf16* do_s = q_s + T;
+      const float* lse_s = rows_s + st * 2 * kBQ;
+      const float* delta_s = lse_s + kBQ;
+      const int q0 = (qt0 + t) * kBQ;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk >> 2) * (kBK * 64) + (kk & 3) * 16;
+        wgmma_s64(s, smem_desc(k_s + off, 16, 1024),
+                  smem_desc(q_s + off, 16, 1024));
+        wgmma_s64(dp, smem_desc(v_s + off, 16, 1024),
+                  smem_desc(do_s + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      // P^T and dS^T: row (key) kr_lo + 8 h, column (query) q0 + 8 j + col
+      // + e in register 4 j + 2 h + e. Masked only where the tile crosses
+      // kv_len, s_q or (causal) the warp's diagonal.
+      const bool edge = k0 + kBK > kv_len || q0 + kBQ > g.s_q ||
+                        (g.causal && q0 < kw_last);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(lse_s + 8 * j +
+                                                           col);
+        const float2 dj = *reinterpret_cast<const float2*>(delta_s + 8 * j +
+                                                           col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = (e ? lj.y : lj.x) * kLog2e;
+          const float de = e ? dj.y : dj.x;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(s[i], sl2, -l2));
+            if (edge) {
+              const int kpos = kr_lo + 8 * h;
+              const int qpos = q0 + 8 * j + col + e;
+              if (kpos >= kv_len || qpos >= g.s_q ||
+                  (g.causal && kpos > qpos))
+                p = 0.f;
+            }
+            s[i] = p;
+            dp[i] = p * (dp[i] - de) * g.scale;
+          }
+        }
+      }
+      // dV += P^T . dO and dK += dS^T . Q, 16 queries per step
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBQ / 16; ++ks) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          split_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1], ph[j], pl[j]);
+          split_bf16(dp[8 * ks + 2 * j], dp[8 * ks + 2 * j + 1], dh[j],
+                     dl[j]);
+        }
+        const uint64_t d_do =
+            smem_desc(do_s + ks * 16 * 64, kBK * 64 * 2, 1024);
+        const uint64_t d_q = smem_desc(q_s + ks * 16 * 64, kBK * 64 * 2, 1024);
+        wgmma_o<DP>(adv, ph, d_do);
+        wgmma_o<DP>(adv, pl, d_do);
+        wgmma_o<DP>(adk, dh, d_q);
+        wgmma_o<DP>(adk, dl, d_q);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    cp_async_wait<0>();
+  }
+  // key rows lo and hi inside s_kv
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kr_lo + 8 * h;
+    if (row >= g.s_kv) continue;
+    bf16* ok = dk + (head_kv + row) * D;
+    bf16* ov = dv + (head_kv + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd)
+      if (DP == D || nd * 8 + col < D) {
+        *reinterpret_cast<__nv_bfloat162*>(ok + nd * 8 + col) =
+            __floats2bfloat162_rn(adk[4 * nd + 2 * h],
+                                  adk[4 * nd + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(ov + nd * 8 + col) =
+            __floats2bfloat162_rn(adv[4 * nd + 2 * h],
+                                  adv[4 * nd + 2 * h + 1]);
+      }
+  }
+}
+
+// B5 bf16: block i runs query tile n_qt - 1 - i % n_qt of head i / n_qt:
+// a head's tiles on consecutive blocks (its K/V repeats hit L2), the
+// causal ones with the most key tiles first.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ lens,
+                            bf16* __restrict__ dq, Geom g) {
+  extern __shared__ float4 smem4[];
+  const int n_qt = fwd_n_qt(g);
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (blockIdx.x - bh * n_qt)) * kBQ;
+  bwd_dq_wgmma<D>(q, k, v, dout, lse, delta, lens[bh / g.h], dq, bh, q0, g,
+                  reinterpret_cast<unsigned char*>(smem4));
+}
+
+// B6 bf16: block i runs key tile i % n_kt of head i / n_kt (its Q/dO
+// repeats hit L2; causal, key tile 0 walks the most query tiles).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ lens,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             Geom g) {
+  extern __shared__ float4 smem4[];
+  const int n_kt = (g.s_kv + kBK - 1) / kBK;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x - bh * n_kt) * kBK;
+  bwd_dkv_wgmma<D>(q, k, v, dout, lse, delta, lens[bh / g.h], dk, dv, bh, k0,
+                   g, reinterpret_cast<unsigned char*>(smem4));
+}
+
+// Which body B5 and B6 run for (T, D): bf16 the tensor-core bodies (B6 up to
+// d = 128), f32 the FMA ones.
+template <typename T, int D>
+struct Bwd {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr bool kDqMma = kBf16;
+  static constexpr bool kDkvMma = kBf16 && WgBwd<D>::kDkvMma;
+};
+
 // ---------------------------------------------------------------- launch
 
 // Above 48 KB, dynamic shared memory must be asked for per kernel.
@@ -1127,18 +1544,38 @@ int run(Which which, int bh, const Geom& g, const Ptrs& p,
         q, k, v, p.lens, static_cast<T*>(p.out),
         static_cast<float*>(p.lse_out), p.block_h, g);
   } else if (which == kDq) {
-    auto kern = flash_bwd_dq_kernel<T, D>;
-    if ((err = allow_smem(kern, Smem<D>::dq)) != cudaSuccess)
-      return static_cast<int>(err);
-    kern<<<dim3(bh, n_qt), block, Smem<D>::dq, stream>>>(
-        q, k, v, dout, lse, delta, p.lens, static_cast<T*>(p.out), g);
+    if constexpr (Bwd<T, D>::kDqMma) {
+      auto kern = flash_bwd_dq_mma_kernel<D>;
+      constexpr size_t smem = WgBwd<D>::kDqSmem;
+      if ((err = allow_smem(kern, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      kern<<<bh * n_qt, kMmaThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, p.lens, static_cast<T*>(p.out), g);
+    } else {
+      auto kern = flash_bwd_dq_kernel<T, D>;
+      if ((err = allow_smem(kern, Smem<D>::dq)) != cudaSuccess)
+        return static_cast<int>(err);
+      kern<<<dim3(bh, n_qt), block, Smem<D>::dq, stream>>>(
+          q, k, v, dout, lse, delta, p.lens, static_cast<T*>(p.out), g);
+    }
   } else {
-    auto kern = flash_bwd_dkv_kernel<T, D>;
-    if ((err = allow_smem(kern, Smem<D>::dkv)) != cudaSuccess)
-      return static_cast<int>(err);
-    kern<<<dim3(bh, (g.s_kv + kBK - 1) / kBK), block, Smem<D>::dkv,
-           stream>>>(q, k, v, dout, lse, delta, p.lens,
-                     static_cast<T*>(p.dk), static_cast<T*>(p.dv), g);
+    const int n_kt = (g.s_kv + kBK - 1) / kBK;
+    if constexpr (Bwd<T, D>::kDkvMma) {
+      auto kern = flash_bwd_dkv_mma_kernel<D>;
+      constexpr size_t smem = WgBwd<D>::kDkvSmem;
+      if ((err = allow_smem(kern, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      kern<<<bh * n_kt, kMmaThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, p.lens, static_cast<T*>(p.dk),
+          static_cast<T*>(p.dv), g);
+    } else {
+      auto kern = flash_bwd_dkv_kernel<T, D>;
+      if ((err = allow_smem(kern, Smem<D>::dkv)) != cudaSuccess)
+        return static_cast<int>(err);
+      kern<<<dim3(bh, n_kt), block, Smem<D>::dkv, stream>>>(
+          q, k, v, dout, lse, delta, p.lens, static_cast<T*>(p.dk),
+          static_cast<T*>(p.dv), g);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1158,19 +1595,48 @@ int plan(int* o) {
   return 0;
 }
 
+// The backward's plans for (T, D), B5's into o[0..5] and B6's into
+// o[6..11], as plan() reports the forward's: the FMA bodies copy one
+// element at a time.
+template <typename T, int D>
+int bwd_plan(int* o) {
+  using W = WgBwd<D>;
+  using F = WgFwd<D>;
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  if constexpr (Bwd<T, D>::kDqMma) {
+    o[0] = 1, o[1] = W::kDP, o[2] = F::kCopy, o[3] = W::kStages;
+    o[4] = kMmaThreads, o[5] = static_cast<int>(W::kDqSmem);
+  } else {
+    o[0] = 0, o[1] = D, o[2] = kElem, o[3] = 1;
+    o[4] = kThreads, o[5] = static_cast<int>(Smem<D>::dq);
+  }
+  if constexpr (Bwd<T, D>::kDkvMma) {
+    o[6] = 1, o[7] = W::kDP, o[8] = F::kCopy, o[9] = W::kStages;
+    o[10] = kMmaThreads, o[11] = static_cast<int>(W::kDkvSmem);
+  } else {
+    o[6] = 0, o[7] = D, o[8] = kElem, o[9] = 1;
+    o[10] = kThreads, o[11] = static_cast<int>(Smem<D>::dkv);
+  }
+  return 0;
+}
+
 template <typename T>
-int plan_by_dim(int d, int* o) {
+int plan_by_dim(int d, bool backward, int* o) {
   switch (d) {
-    case 8: return plan<T, 8>(o);
-    case 12: return plan<T, 12>(o);
-    case 16: return plan<T, 16>(o);
-    case 24: return plan<T, 24>(o);
-    case 32: return plan<T, 32>(o);
-    case 48: return plan<T, 48>(o);
-    case 64: return plan<T, 64>(o);
-    case 96: return plan<T, 96>(o);
-    case 128: return plan<T, 128>(o);
-    case 192: return plan<T, 192>(o);
+#define RT_PLAN_CASE(DIM) \
+  case DIM:               \
+    return backward ? bwd_plan<T, DIM>(o) : plan<T, DIM>(o);
+    RT_PLAN_CASE(8)
+    RT_PLAN_CASE(12)
+    RT_PLAN_CASE(16)
+    RT_PLAN_CASE(24)
+    RT_PLAN_CASE(32)
+    RT_PLAN_CASE(48)
+    RT_PLAN_CASE(64)
+    RT_PLAN_CASE(96)
+    RT_PLAN_CASE(128)
+    RT_PLAN_CASE(192)
+#undef RT_PLAN_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1228,8 +1694,17 @@ extern "C" int rt_flash_fwd(int dtype, int d, const void* q, const void* k,
 // ring stages, threads per block, dynamic shared memory in bytes.
 // ops/attention.py _flash_plan is its host-side mirror.
 extern "C" int rt_flash_fwd_plan(int dtype, int d, int* out) {
-  if (dtype == 0) return plan_by_dim<float>(d, out);
-  if (dtype == 1) return plan_by_dim<bf16>(d, out);
+  if (dtype == 0) return plan_by_dim<float>(d, false, out);
+  if (dtype == 1) return plan_by_dim<bf16>(d, false, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plans rt_flash_bwd_dq (out[0..5]) and rt_flash_bwd_dkv (out[6..11])
+// run for (dtype, d), each as rt_flash_fwd_plan reports the forward's.
+// ops/attention.py _flash_bwd_plan is its host-side mirror.
+extern "C" int rt_flash_bwd_plan(int dtype, int d, int* out) {
+  if (dtype == 0) return plan_by_dim<float>(d, true, out);
+  if (dtype == 1) return plan_by_dim<bf16>(d, true, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -32,16 +32,23 @@
 //   split past a tile's live horizon (positions[tile_last] / page_size)
 //   returns at once and writes nothing; the merge derives the same horizon
 //   from positions and reads only the live splits.
-// - Asynchronous page loads. Keys arrive in tiles of 64 (64 / page_size
-//   pages; the block reads each page id from the table itself, and dead
-//   entries are never read). A tile is copied with 16-byte cp.async.cg
-//   copies into a ring of shared-memory stages (3 for bf16, 2 for f32), so
-//   the next tiles load while this one computes. Each key row of one kv
-//   head is dh x element-size contiguous bytes; its 16-byte chunks land
+// - Asynchronous page loads. Keys arrive in tiles of 64; each key row
+//   looks up its own page (token >> log2 page_size) in the table, so a tile
+//   may hold 64 pages of one token or half a page of 128 (the block reads
+//   each page id itself, and dead entries are never read). A tile is
+//   copied with 16-byte cp.async copies (8-byte where a row is not whole
+//   16-byte chunks: bf16 d = 12) into a ring of shared-memory stages (3 for
+//   bf16, 2 for f32), so the next tiles load while this one computes. Each
+//   key row of one kv head is dh x element-size contiguous bytes; in shared
+//   memory it is padded to whole 128-byte lines, its 16-byte chunks
 //   XOR-swizzled by (key & 7), so the ldmatrix reads of 8 keys at one chunk
-//   hit 8 different bank groups although the keys come from up to 8 pages.
-//   Chunks of pages past the live range are zero-filled (cp.async's
-//   src-size 0) and masked.
+//   hit 8 different bank groups whatever pages the keys come from. Rows of
+//   pages past the live range are zero-filled (cp.async's src-size 0) and
+//   masked.
+// - Head dims off the tile: the products run over dh padded with zero
+//   columns to the mma k-step of 16 (bf16) or to 32 lanes (f32); the block
+//   zeroes those columns of every stage once, and cp.async never writes
+//   them. q's padded columns are zero registers; out writes dh columns.
 // - Tensor cores for bf16 pools. Each warp owns a 16-row query fragment:
 //   Q in registers as mma.sync m16n8k16 A operands, K read with ldmatrix, S
 //   = Q.K^T in f32 registers, the per-row causal mask, an online softmax in
@@ -71,12 +78,17 @@
 //   one split the split kernel writes the output itself. No atomics: the
 //   same inputs give the same bits on every run.
 //
-// Supported: head_dim 64 or 128, page_size 8, 16, 32 or 64, window tiles of
-// at most 128 query rows (64 for f32). The wrapper raises for anything else.
+// Supported: head_dim 8, 12, 16, 24, 32, 48, 64, 96, 128 or 192 (the flash
+// kernels' HEAD_DIMS), page_size a power of two from 1 to 128 (a split is a
+// whole number of pages and of 64-key tiles: pages_per_split a multiple of
+// max(1, 64 / page_size)), window tiles of at most 128 query rows (f32: 64,
+// 32 above d = 128). The wrapper raises for anything else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,6 +98,7 @@ constexpr int kTileKeys = 64;  // keys per ring stage
 constexpr int kFragRows = 16;  // query rows of one warp (the mma M)
 constexpr int kMaxWarps = 8;
 constexpr int kMergeRows = 8;  // rows (one per warp) of a merge block
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may take
 
 struct Geometry {
   int s;                // window length (1 for the decode kernel)
@@ -96,7 +109,7 @@ struct Geometry {
   int n_tables;         // table columns (may be a live-width slice)
   int rep;              // n_heads / n_kv
   int block_q;          // window tokens per query tile
-  int pages_per_split;  // a multiple of kTileKeys / page_size
+  int pages_per_split;  // a multiple of max(1, kTileKeys / page_size)
   int n_splits;         // ceil(n_tables / pages_per_split)
   float scale_log2;     // sm_scale * log2(e)
 };
@@ -106,13 +119,20 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, or 16 zero bytes when !live
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
+// BYTES (16 or 8) global -> shared, or as many zero bytes when !live
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool live) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(live ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(live ? 8 : 0)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -187,17 +207,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // Compile-time shape of one configuration: element type T, head dim D, and
 // G key groups (warps that share one 16-row fragment, each taking 64 / G
-// keys of every tile).
+// keys of every tile). The products run over kDC columns (D padded with
+// zeros to the bf16 mma k-step of 16, or to the f32 body's 32 lanes); a
+// stage row holds kDS elements (D padded to whole 128-byte lines, 8
+// swizzled 16-byte chunks each).
 template <typename T, int D, int G>
 struct Cfg {
+  static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int kKeysPerWarp = kTileKeys / G;
+  static constexpr int kDC = kBf16 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32;
+  static constexpr int kDS = kBf16 ? (D + 63) / 64 * 64 : kDC;
   static constexpr int kChunkElems = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kChunks = D / kChunkElems;  // 16-byte chunks per row
-  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;
-  static constexpr int kTileElems = kTileKeys * D;  // one K or V stage
-  static constexpr int kDumpStride = D + 4;  // f32 row of the merge scratch
+  static constexpr int kChunks = kDS / kChunkElems;  // 16-byte chunks a row
+  // bytes per copy: 16, or 8 where a pool row is not whole 16-byte chunks
+  static constexpr int kCopy = (D * sizeof(T)) % 16 == 0 ? 16 : 8;
+  static constexpr int kCopyElems = kCopy / static_cast<int>(sizeof(T));
+  static constexpr int kStages = kBf16 ? 3 : 2;
+  static constexpr int kTileElems = kTileKeys * kDS;  // one K or V stage
+  static constexpr int kDumpStride = kDC + 4;  // f32 row of the merge scratch
   static_assert(kChunks % 8 == 0, "the (key & 7) swizzle needs 8 chunks");
   static_assert(kKeysPerWarp % 16 == 0, "P.V takes 16 keys per mma");
+  static_assert(D % kCopyElems == 0 && D % 4 == 0, "rows of whole copies");
 };
 
 // Element offset of (key, element e) in a swizzled stage tile.
@@ -205,35 +235,57 @@ template <typename T, int D, int G>
 __device__ __forceinline__ int swz(int key, int e) {
   using C = Cfg<T, D, G>;
   const int ch = e / C::kChunkElems;
-  return key * D + ((ch ^ (key & 7)) * C::kChunkElems) +
+  return key * C::kDS + ((ch ^ (key & 7)) * C::kChunkElems) +
          (e - ch * C::kChunkElems);
 }
 
-// Issue the cp.async copies of one 64-key tile (pages page0 ..) of kv head
-// kh into a stage; pages at or past page_end are zero-filled, and their
-// table entries are not read.
+// Zero the padded columns [D, kDC) of every stage's K and V rows, once per
+// block: cp.async never writes them, and the first barrier of the page walk
+// publishes them.
+template <typename T, int D, int G>
+__device__ __forceinline__ void zero_pad(T* ring) {
+  using C = Cfg<T, D, G>;
+  if constexpr (C::kDC > D) {
+    constexpr int kPad = C::kDC - D;
+    for (int i = threadIdx.x; i < C::kStages * 2 * kTileKeys * kPad;
+         i += blockDim.x) {
+      const int row = i / kPad;  // over every stage's K and V rows
+      ring[(row / kTileKeys) * C::kTileElems +
+           swz<T, D, G>(row % kTileKeys, D + (i - row * kPad))] =
+          from_f32<T>(0.f);
+    }
+  }
+}
+
+// Issue the cp.async copies of the 64-key tile whose first key is at
+// position key0 (of kv head kh) into a stage: each key row looks up its own
+// page, so a tile may span many small pages or half of one of 128 keys;
+// rows of pages at or past page_end are zero-filled, and their table
+// entries are not read.
 template <typename T, int D, int G>
 __device__ __forceinline__ void load_tile(T* k_s, T* v_s,
                                           const T* __restrict__ k_pool,
                                           const T* __restrict__ v_pool,
                                           const int* __restrict__ table,
-                                          int page0, int page_end, int kh,
+                                          int key0, int page_end, int kh,
                                           const Geometry& g) {
   using C = Cfg<T, D, G>;
-  for (int c = threadIdx.x; c < kTileKeys * C::kChunks; c += blockDim.x) {
-    const int key = c / C::kChunks;
-    const int ch = c - key * C::kChunks;
-    const int pg = page0 + (key >> g.page_shift);
+  constexpr int kCopies = D / C::kCopyElems;  // per key row
+  for (int c = threadIdx.x; c < kTileKeys * kCopies; c += blockDim.x) {
+    const int key = c / kCopies;
+    const int e = (c - key * kCopies) * C::kCopyElems;
+    const int tok = key0 + key;  // position in the slot's sequence
+    const int pg = tok >> g.page_shift;
     const bool live = pg < page_end;
     size_t off = 0;
     if (live) {
       const size_t page = static_cast<size_t>(table[pg]);
-      const size_t tok = (page << g.page_shift) + (key & (g.page_size - 1));
-      off = (tok * g.n_kv + kh) * D + ch * C::kChunkElems;
+      const size_t row = (page << g.page_shift) + (tok & (g.page_size - 1));
+      off = (row * g.n_kv + kh) * D + e;
     }
-    const int dst = key * D + ((ch ^ (key & 7)) * C::kChunkElems);
-    cp_async_16(k_s + dst, k_pool + off, live);
-    cp_async_16(v_s + dst, v_pool + off, live);
+    const int dst = swz<T, D, G>(key, e);
+    cp_async<C::kCopy>(k_s + dst, k_pool + off, live);
+    cp_async<C::kCopy>(v_s + dst, v_pool + off, live);
   }
 }
 
@@ -262,8 +314,10 @@ struct MmaBody {
   using T = __nv_bfloat16;
   using C = Cfg<T, D, G>;
   static constexpr int kNT = C::kKeysPerWarp / 8;  // 8-key n tiles of S
-  uint32_t qa[D / 16][4];
-  float acc[D / 8][4];
+  static constexpr int kDC = C::kDC;
+  static constexpr int kDS = C::kDS;
+  uint32_t qa[kDC / 16][4];
+  float acc[kDC / 8][4];
   float m_lo, m_hi, l_lo, l_hi;
   int t_lo, t_hi, key0, lane;
 
@@ -282,18 +336,22 @@ struct MmaBody {
     const T* q_lo = r_lo < rw.rows ? q + rw.index(r_lo, g) * D : nullptr;
     const T* q_hi = r_hi < rw.rows ? q + rw.index(r_hi, g) * D : nullptr;
     const int col = (lane & 3) * 2;
+    // a column pair (even d) lies wholly inside d or wholly in the padding
+    auto pair = [&](const T* row, int c) {
+      return row != nullptr && (kDC == D || c < D)
+                 ? *reinterpret_cast<const uint32_t*>(row + c)
+                 : 0u;
+    };
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kDC / 16; ++kk) {
       const int c = kk * 16 + col;
-      qa[kk][0] = q_lo ? *reinterpret_cast<const uint32_t*>(q_lo + c) : 0u;
-      qa[kk][1] = q_hi ? *reinterpret_cast<const uint32_t*>(q_hi + c) : 0u;
-      qa[kk][2] =
-          q_lo ? *reinterpret_cast<const uint32_t*>(q_lo + c + 8) : 0u;
-      qa[kk][3] =
-          q_hi ? *reinterpret_cast<const uint32_t*>(q_hi + c + 8) : 0u;
+      qa[kk][0] = pair(q_lo, c);
+      qa[kk][1] = pair(q_hi, c);
+      qa[kk][2] = pair(q_lo, c + 8);
+      qa[kk][3] = pair(q_hi, c + 8);
     }
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+    for (int nd = 0; nd < kDC / 8; ++nd)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[nd][j] = 0.f;
     m_lo = m_hi = kNegInf;
@@ -311,13 +369,13 @@ struct MmaBody {
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kDC / 16; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < kNT; nt += 2) {
         uint32_t b[4];
         const int key = key0 + (nt + (mi >> 1)) * 8 + (lane & 7);
         const int ch = kk * 2 + (mi & 1);
-        ldmatrix_x4(b, k_s + key * D + ((ch ^ (key & 7)) * 8));
+        ldmatrix_x4(b, k_s + key * kDS + ((ch ^ (key & 7)) * 8));
         mma_bf16(sc[nt], qa[kk], b[0], b[1]);
         mma_bf16(sc[nt + 1], qa[kk], b[2], b[3]);
       }
@@ -358,7 +416,7 @@ struct MmaBody {
     l_lo = l_lo * al_lo + s_lo;  // this thread's columns; summed at the end
     l_hi = l_hi * al_hi + s_hi;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
+    for (int nd = 0; nd < kDC / 8; ++nd) {
       acc[nd][0] *= al_lo;
       acc[nd][1] *= al_lo;
       acc[nd][2] *= al_hi;
@@ -374,10 +432,10 @@ struct MmaBody {
       split_bf16(sc[2 * ks + 1][2], sc[2 * ks + 1][3], ph[3], pl[3]);
       const int key = key0 + ks * 16 + (mi & 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
+      for (int nd = 0; nd < kDC / 8; nd += 2) {
         uint32_t b[4];
         const int ch = nd + (mi >> 1);
-        ldmatrix_x4_trans(b, v_s + key * D + ((ch ^ (key & 7)) * 8));
+        ldmatrix_x4_trans(b, v_s + key * kDS + ((ch ^ (key & 7)) * 8));
         mma_bf16(acc[nd], ph, b[0], b[1]);
         mma_bf16(acc[nd], pl, b[0], b[1]);
         mma_bf16(acc[nd + 1], ph, b[2], b[3]);
@@ -394,7 +452,7 @@ struct MmaBody {
     const int r_hi = r_lo + 8;
     const int col = (lane & 3) * 2;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
+    for (int nd = 0; nd < kDC / 8; ++nd) {
       float* lo = dump + r_lo * C::kDumpStride + nd * 8 + col;
       float* hi = dump + r_hi * C::kDumpStride + nd * 8 + col;
       lo[0] = acc[nd][0];
@@ -414,14 +472,16 @@ struct MmaBody {
 // The f32 body: one warp, fragment rows f * 16 .., keys key0 .. of every
 // tile. S goes through the warp's shared scratch p_s (16 x keys); lane r
 // (and r + 16, which repeats it) keeps row r's running max and sum; lane j
-// accumulates elements j * D / 32 .. of every row of acc.
+// accumulates elements j * kDC / 32 .. of every row of acc (those past D
+// stay zero: V's padded columns are).
 template <int D, int G>
 struct FmaBody {
   using T = float;
   using C = Cfg<T, D, G>;
   static constexpr int kKW = C::kKeysPerWarp;
-  static constexpr int kDPL = D / 32;  // acc elements per lane and row
-  static constexpr int kQStride = D + 4;
+  static constexpr int kDS = C::kDS;
+  static constexpr int kDPL = C::kDC / 32;  // acc elements per lane and row
+  static constexpr int kQStride = C::kDC + 4;
   float acc[kFragRows][kDPL];
   float m, l;
   int key0, lane, f;
@@ -430,7 +490,7 @@ struct FmaBody {
   float* a_s;        // this warp's 16 rescale factors
   const int* t_s;    // the block's row horizons
 
-  // Shared layout past the ring: q_s [F * 16][D + 4], p_s [W][16][kKW],
+  // Shared layout past the ring: q_s [F * 16][kDC + 4], p_s [W][16][kKW],
   // a_s [W][16], t_s [F * 16] (ints).
   static __host__ __device__ size_t extra_floats(int n_frag, int n_warps) {
     return static_cast<size_t>(n_frag) * kFragRows * kQStride +
@@ -485,7 +545,7 @@ struct FmaBody {
       for (int c = 0; c < D / 4; ++c) {
         const float4 qv = *reinterpret_cast<const float4*>(qr + c * 4);
         const float4 kv = *reinterpret_cast<const float4*>(
-            k_s + key * D + ((c ^ (key & 7)) * 4));
+            k_s + key * kDS + ((c ^ (key & 7)) * 4));
         dot = fmaf(qv.x, kv.x, dot);
         dot = fmaf(qv.y, kv.y, dot);
         dot = fmaf(qv.z, kv.z, dot);
@@ -524,11 +584,10 @@ struct FmaBody {
     const int d0 = lane * kDPL;
     for (int k = 0; k < kKW; ++k) {
       const int key = key0 + k;
-      const float* vr =
-          v_s + key * D + (((d0 >> 2) ^ (key & 7)) << 2) + (d0 & 3);
       float v[kDPL];
 #pragma unroll
-      for (int i = 0; i < kDPL; ++i) v[i] = vr[i];
+      for (int i = 0; i < kDPL; ++i)  // 3 or 6 a lane cross 16-byte chunks
+        v[i] = v_s[swz<T, D, G>(key, d0 + i)];
 #pragma unroll
       for (int rr = 0; rr < kFragRows; ++rr) {
         const float p = p_s[rr * kKW + k];
@@ -614,8 +673,11 @@ __device__ __forceinline__ void split_attend(
   const int page_begin = sp * g.pages_per_split;
   if (page_begin >= n_live) return;  // past the horizon: the merge skips it
   const int page_end = min(page_begin + g.pages_per_split, n_live);
-  const int tile_pages = kTileKeys >> g.page_shift;
-  const int n_tiles = (page_end - page_begin + tile_pages - 1) / tile_pages;
+  // the split's keys in 64-key tiles (a page of 128 spans two); only the
+  // last live split may end inside a tile, whose rest is zero-filled
+  const int key_begin = page_begin << g.page_shift;
+  const int n_tiles =
+      (((page_end - page_begin) << g.page_shift) + kTileKeys - 1) / kTileKeys;
   const int kend = n_live << g.page_shift;
 
   const int n_warps = blockDim.x >> 5;
@@ -625,6 +687,7 @@ __device__ __forceinline__ void split_attend(
   float* extra = reinterpret_cast<float*>(smem + ring_bytes<T, D, G>(n_warps));
   const int* table = tables + static_cast<size_t>(rw.b) * g.n_tables;
 
+  zero_pad<T, D, G>(ring);
   typename BodyOf<T, D, G>::type body;
   body.init(q, w % n_frag, w / n_frag, rw, g, extra);
 
@@ -636,7 +699,7 @@ __device__ __forceinline__ void split_attend(
   for (int st = 0; st < C::kStages - 1; ++st) {
     if (st < n_tiles)
       load_tile<T, D, G>(stage_k(st), stage_v(st), k_pool, v_pool, table,
-                         page_begin + st * tile_pages, page_end, rw.kh, g);
+                         key_begin + st * kTileKeys, page_end, rw.kh, g);
     cp_async_commit();
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -645,12 +708,11 @@ __device__ __forceinline__ void split_attend(
     const int nxt = it + C::kStages - 1;
     if (nxt < n_tiles)
       load_tile<T, D, G>(stage_k(nxt % C::kStages), stage_v(nxt % C::kStages),
-                         k_pool, v_pool, table, page_begin + nxt * tile_pages,
+                         k_pool, v_pool, table, key_begin + nxt * kTileKeys,
                          page_end, rw.kh, g);
     cp_async_commit();
     const int st = it % C::kStages;
-    body.tile(stage_k(st), stage_v(st),
-              (page_begin + it * tile_pages) << g.page_shift, kend, g);
+    body.tile(stage_k(st), stage_v(st), key_begin + it * kTileKeys, kend, g);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it as the merge scratch
@@ -742,23 +804,26 @@ __global__ void __launch_bounds__(kMergeRows * 32)
   const float* ml = part_ml + static_cast<size_t>(row) * g.n_splits * 2;
   float mx = kNegInf;
   for (int sp = 0; sp < n_live_splits; ++sp) mx = fmaxf(mx, ml[2 * sp]);
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = (D + 31) / 32;  // lane takes elements lane + 32 i
   float sum = 0.f;
   float a[kDPL];
 #pragma unroll
   for (int i = 0; i < kDPL; ++i) a[i] = 0.f;
   const float* acc =
-      part_acc + static_cast<size_t>(row) * g.n_splits * D + lane * kDPL;
+      part_acc + static_cast<size_t>(row) * g.n_splits * D + lane;
   for (int sp = 0; sp < n_live_splits; ++sp) {
     const float wgt = exp2f(ml[2 * sp] - mx);
     sum += ml[2 * sp + 1] * wgt;
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i) a[i] += acc[sp * D + i] * wgt;
+    for (int i = 0; i < kDPL; ++i)
+      if (D % 32 == 0 || lane + 32 * i < D)
+        a[i] += acc[sp * D + 32 * i] * wgt;
   }
   const float den = fmaxf(sum, 1e-30f);
-  T* o = out + static_cast<size_t>(row) * D + lane * kDPL;
+  T* o = out + static_cast<size_t>(row) * D + lane;
 #pragma unroll
-  for (int i = 0; i < kDPL; ++i) o[i] = from_f32<T>(a[i] / den);
+  for (int i = 0; i < kDPL; ++i)
+    if (D % 32 == 0 || lane + 32 * i < D) o[32 * i] = from_f32<T>(a[i] / den);
 }
 
 template <typename T, int D, int G>
@@ -768,8 +833,9 @@ int launch_split(bool window, int batch, const Geometry& g, const T* q,
                  float* part_ml, cudaStream_t stream) {
   const int n_frag = (g.block_q * g.rep + kFragRows - 1) / kFragRows;
   const int n_warps = n_frag * G;
-  if (n_warps > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T, D, G>(n_frag, n_warps);
+  if (n_warps > kMaxWarps || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kernel =
       window ? paged_window_kernel<T, D, G> : paged_decode_kernel<T, D, G>;
   if (smem > 48 * 1024) {
@@ -817,11 +883,12 @@ int dispatch(bool window, int dtype, int batch, int dh, const Geometry& g,
              const void* tables, const void* positions, void* out,
              void* part_acc, void* part_ml, void* stream) {
   const int ps = g.page_size;
-  const int tile_pages = ps > 0 ? kTileKeys / ps : 0;
+  // a split is whole pages and whole 64-key tiles
+  const int unit_pages = ps > 0 && ps < kTileKeys ? kTileKeys / ps : 1;
   const bool ok =
-      (ps == 8 || ps == 16 || ps == 32 || ps == 64) &&
-      (1 << g.page_shift) == ps && (dh == 64 || dh == 128) &&
-      g.pages_per_split > 0 && g.pages_per_split % tile_pages == 0 &&
+      ps >= 1 && ps <= 128 && (ps & (ps - 1)) == 0 &&
+      (1 << g.page_shift) == ps && g.pages_per_split > 0 &&
+      g.pages_per_split % unit_pages == 0 &&
       g.n_splits >= 1 &&
       static_cast<long long>(g.n_splits) * g.pages_per_split >= g.n_tables &&
       (g.n_splits == 1 || (part_acc != nullptr && part_ml != nullptr));
@@ -831,19 +898,29 @@ int dispatch(bool window, int dtype, int batch, int dh, const Geometry& g,
   float* pacc = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && dh == 64)
-    return launch<float, 64>(window, batch, g, q, k_pool, v_pool, tab, pos,
-                             out, pacc, pml, st);
-  if (dtype == 0 && dh == 128)
-    return launch<float, 128>(window, batch, g, q, k_pool, v_pool, tab, pos,
-                              out, pacc, pml, st);
-  if (dtype == 1 && dh == 64)
-    return launch<__nv_bfloat16, 64>(window, batch, g, q, k_pool, v_pool,
-                                     tab, pos, out, pacc, pml, st);
-  if (dtype == 1 && dh == 128)
-    return launch<__nv_bfloat16, 128>(window, batch, g, q, k_pool, v_pool,
-                                      tab, pos, out, pacc, pml, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+#define RT_PAGED_CASE(DIM)                                                  \
+  case DIM:                                                                 \
+    return dtype == 0                                                       \
+               ? launch<float, DIM>(window, batch, g, q, k_pool, v_pool,    \
+                                    tab, pos, out, pacc, pml, st)           \
+               : launch<__nv_bfloat16, DIM>(window, batch, g, q, k_pool,    \
+                                            v_pool, tab, pos, out, pacc,    \
+                                            pml, st);
+    RT_PAGED_CASE(8)
+    RT_PAGED_CASE(12)
+    RT_PAGED_CASE(16)
+    RT_PAGED_CASE(24)
+    RT_PAGED_CASE(32)
+    RT_PAGED_CASE(48)
+    RT_PAGED_CASE(64)
+    RT_PAGED_CASE(96)
+    RT_PAGED_CASE(128)
+    RT_PAGED_CASE(192)
+#undef RT_PAGED_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Geometry make_geometry(int s, int n_heads, int n_kv, int page_size,
@@ -865,7 +942,7 @@ Geometry make_geometry(int s, int n_heads, int n_kv, int page_size,
 // (b * n_heads, n_splits, 2) are f32 workspaces, unused (may be null) with
 // one split. Returns the first nonzero cudaGetLastError() of the split
 // launch and the merge launch (0 on success); cudaErrorInvalidValue for a
-// head dim, page size or plan the kernels do not take.
+// head dim, page size, plan or query tile the kernels do not take.
 extern "C" int rt_paged_decode_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* positions, void* out, void* part_acc,

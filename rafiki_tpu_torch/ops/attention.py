@@ -17,10 +17,11 @@ Ports ``rafiki_tpu/ops/attention.py``:
   the kernels' plain versions.
 - :func:`_flash_plan` is how the forward runs for a head dim and dtype
   (the bf16 tensor-core body or the f32 FMA one, padded head dim, copy
-  width, ring stages, threads, shared memory); :func:`_flash_mma_reference`
-  is the plain model of the bf16 body's numerics, held against
-  :func:`_flash_fwd_reference` by the tests. Nothing on a model's path
-  calls either.
+  width, ring stages, threads, shared memory), :func:`_flash_bwd_plan` how
+  B5 and B6 run; :func:`_flash_mma_reference` and
+  :func:`_flash_bwd_mma_reference` are plain models of the bf16 bodies'
+  numerics, held against the plain versions by the tests. Nothing on a
+  model's path calls any of them.
 
 Semantics kept from the JAX module: masked scores are ``NEG_INF``; key
 ``j`` is hidden from every row when ``j >= kv_lens[b]`` and, with
@@ -223,6 +224,46 @@ def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens, sm_scale,
     return dk, dv
 
 
+def _bf16_terms(x: Tensor, n: int) -> Tensor:
+    """``x`` as the kernels carry it into a product: one bf16 rounding
+    (``n == 1``) or hi + lo bf16 terms (``n == 2``), back in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi if n == 1 else hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _flash_bwd_mma_reference(q, k, v, do, lse, delta, lens, sm_scale,
+                             causal, p_terms: int = 2, ds_terms: int = 2
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain model of the bf16 backward's numerics (``bwd_dq_wgmma`` and
+    ``bwd_dkv_wgmma``): f32 scores q·kᵀ and dO·vᵀ from the bf16 operands;
+    ``p = exp2(s·scale·log2 e − lse·log2 e)``, zero where masked; ``ds =
+    p·(dp − delta)·scale``; p and ds carried into their products as
+    ``p_terms`` / ``ds_terms`` bf16 terms (2: hi + lo, the kernels'; 1:
+    one rounding) against bf16 K, Q and dO, summed in f32 tile by tile in
+    the kernels' order: dQ over 64-key tiles, dK and dV over 64-row query
+    tiles. ``(dq, dk, dv)`` rounded to q's dtype."""
+    s_q, s_kv = q.shape[2], k.shape[2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    vis = _visible(s_q, s_kv, lens, causal)
+    log2e = 1.0 / math.log(2.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.exp2(s * (sm_scale * log2e)
+                   - (lse.float() * log2e)[..., None])
+    p = torch.where(vis, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    p, ds = _bf16_terms(p, p_terms), _bf16_terms(ds, ds_terms)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, s_kv, _TILE):
+        dq = dq + ds[..., k0:k0 + _TILE] @ kf[:, :, k0:k0 + _TILE]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, s_q, _TILE):
+        rows = slice(q0, q0 + _TILE)
+        dv = dv + p[:, :, rows].transpose(-1, -2) @ dof[:, :, rows]
+        dk = dk + ds[:, :, rows].transpose(-1, -2) @ qf[:, :, rows]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _delta(do: Tensor, out: Tensor) -> Tensor:
     """``rowsum(dO · O)`` in f32, (b, h, s_q)."""
     return (do.float() * out.float()).sum(-1)
@@ -281,6 +322,44 @@ def _flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
     raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
 
 
+class FlashBwdPlan(NamedTuple):
+    """How B5 (``dq``) and B6 (``dkv``) run for one head dim and dtype,
+    each as a :class:`FlashPlan` (an FMA body copies one element at a
+    time, so its copy width is the element size)."""
+    dq: FlashPlan
+    dkv: FlashPlan
+
+
+def _fma_bwd_plans(d: int, elem: int) -> FlashBwdPlan:
+    """The first design's f32 tiles: B5 q, dO, k, v (padded by 4 floats),
+    the ds tile, lse and delta; B6 k and v unpadded, q and dO padded, the
+    pᵀ and dsᵀ tiles, lse and delta."""
+    pt, rows = _TILE * (_TILE + 1), 2 * _TILE
+    dq = (4 * _TILE * (d + 4) + pt + rows) * 4
+    dkv = (2 * _TILE * d + 2 * _TILE * (d + 4) + 2 * pt + rows) * 4
+    return FlashBwdPlan(FlashPlan("fma", d, elem, 1, 256, dq),
+                        FlashPlan("fma", d, elem, 1, 256, dkv))
+
+
+def _flash_bwd_plan(d: int, dtype: torch.dtype) -> FlashBwdPlan:
+    """The backward's plans, as ``rt_flash_bwd_plan`` reports them from the
+    compiled kernels (the card's tests hold the two equal). bf16: one
+    warpgroup on wgmma with the forward's padded tiles and copies, 3 ring
+    stages up to d = 64 and 2 above; B5 holds Q and dO with a ring of K/V
+    stages, B6 holds K and V with a ring of Q/dO stages and their lse and
+    delta rows (f32), each + 1024 bytes to align the swizzle. B6 above
+    d = 128, and f32 everywhere, run the FMA bodies."""
+    fwd = _flash_plan(d, dtype)
+    if dtype == torch.float32:
+        return _fma_bwd_plans(d, 4)
+    tiles = (2 + 2 * fwd.stages) * _TILE * fwd.head_dim * 2 + 1024
+    dq = fwd._replace(smem_bytes=tiles)
+    if fwd.head_dim > 128:
+        return FlashBwdPlan(dq, _fma_bwd_plans(d, 2).dkv)
+    return FlashBwdPlan(dq, fwd._replace(
+        smem_bytes=tiles + fwd.stages * 2 * _TILE * 4))
+
+
 def _compiled_plan(d: int, dtype: torch.dtype) -> FlashPlan:
     """The plan the built library runs, from ``rt_flash_fwd_plan``."""
     out = (ctypes.c_int * 6)()
@@ -289,12 +368,23 @@ def _compiled_plan(d: int, dtype: torch.dtype) -> FlashPlan:
     return FlashPlan(("fma", "wgmma")[out[0]], *out[1:])
 
 
+def _compiled_bwd_plan(d: int, dtype: torch.dtype) -> FlashBwdPlan:
+    """The backward's plans the built library runs, from
+    ``rt_flash_bwd_plan``."""
+    out = (ctypes.c_int * 12)()
+    _raise_on(_library().rt_flash_bwd_plan(_DTYPE_CODES[dtype], d, out),
+              "rt_flash_bwd_plan")
+    return FlashBwdPlan(*(FlashPlan(("fma", "wgmma")[out[i]],
+                                    *out[i + 1:i + 6]) for i in (0, 6)))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_flash_fwd_plan.argtypes = [i32, i32, ptr]
-    lib.rt_flash_fwd_plan.restype = i32
+    for plan in (lib.rt_flash_fwd_plan, lib.rt_flash_bwd_plan):
+        plan.argtypes = [i32, i32, ptr]
+        plan.restype = i32
     tail = [i32] * 5 + [f32, ptr]  # b, h, s_q, s_kv, causal, scale, stream
     lib.rt_flash_fwd.argtypes = [i32, i32] + [ptr] * 6 + tail
     lib.rt_flash_fwd.restype = i32
@@ -328,6 +418,14 @@ def _check_operands(q: Tensor, k: Tensor, v: Tensor, lens: Tensor,
         raise TypeError("kv_lens must be int32")
 
 
+def _aligned(*ts: Tensor) -> Tuple[Tensor, ...]:
+    """Contiguous operands for the bf16 bodies, which copy rows in 16-byte
+    (8 for d = 12) pieces: a view that starts off that alignment gets a
+    fresh copy."""
+    return tuple(t.contiguous() if t.data_ptr() % 16 == 0
+                 else t.contiguous().clone() for t in ts)
+
+
 def _geometry(q: Tensor, k: Tensor, causal: bool, sm_scale: float):
     b, h, s_q, _ = q.shape
     return (b, h, s_q, k.shape[2], int(bool(causal)), float(sm_scale),
@@ -342,10 +440,7 @@ def _launch_fwd(what: str, q: Tensor, k: Tensor, v: Tensor,
     (``rt_flash_fwd``) or, given ``block_h``, B4 (``rt_flash_fwd_mh``,
     which takes it before the stream)."""
     lib = _library()
-    # the bf16 body copies q, k and v rows in 16-byte (8 for d = 12)
-    # pieces: a view that starts off that alignment gets a fresh copy
-    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0
-               else t.contiguous().clone() for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     kv_lens = kv_lens.contiguous()  # held while the kernel may read it
     _check_operands(q, k, v, kv_lens)
     out = torch.empty_like(q)
@@ -406,7 +501,7 @@ flash_attention_fwd_mh.launches = 0
 
 
 def _bwd_operands(q, k, v, do, lse, delta, kv_lens):
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = _aligned(q, k, v, do)
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
     _check_operands(q, k, v, kv_lens, do=do, lse=lse, delta=delta)

@@ -37,21 +37,18 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rafiki_tpu_torch.ops import _build
-from rafiki_tpu_torch.ops.attention import NEG_INF
+from rafiki_tpu_torch.ops.attention import HEAD_DIMS, NEG_INF
 from rafiki_tpu_torch.ops.common import KERNEL_DTYPES as _DTYPE_CODES
 from rafiki_tpu_torch.ops.common import check_launch as _raise_on
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.common import runs_kernel as _runs_kernel
 
-#: query rows (window tokens x GQA rep) one kernel block carries at most:
-#: eight 16-row warp fragments; the f32 body also keeps its rows in shared
-#: memory, so it takes half
-_TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 #: keys per pipeline stage of the kernels: a split is a whole number of them
 _TILE_KEYS = 64
-#: head dims and page sizes the kernels are compiled for
-_HEAD_DIMS = (64, 128)
-_PAGE_SIZES = (8, 16, 32, 64)
+#: page sizes the kernels take: every power of two up to 128, the divisors
+#: of the LlamaLoRA knobs' max_len (head dims: the flash kernels' HEAD_DIMS,
+#: every head dim the templates' knobs give)
+_PAGE_SIZES = tuple(1 << i for i in range(8))
 #: blocks the split plan aims for: a few per SM of an H100 (132 SMs), so
 #: every SM keeps loads in flight through the whole call
 _TARGET_BLOCKS = 4 * 132
@@ -97,14 +94,26 @@ def _check_shapes(q, k_pool, v_pool, page_tables, positions, s) -> None:
                          f"{tuple(positions.shape)}")
 
 
+def _tile_rows(dtype: torch.dtype, dh: int) -> int:
+    """Query rows (window tokens x GQA rep) one kernel block carries at
+    most: eight 16-row warp fragments; the f32 body also keeps its rows in
+    shared memory, so it takes half, and a quarter above dh = 128 (its K/V
+    ring alone is 192 KB at dh = 192)."""
+    if dtype == torch.bfloat16:
+        return 128
+    return 64 if dh <= 128 else 32
+
+
 def _split_plan(b: int, n_kv: int, n_qtiles: int, n_tables: int,
                 page_size: int, rows_per_tile: int) -> Tuple[int, int]:
     """``(pages_per_split, n_splits)`` of a kernel launch, from shapes
     alone (the host never reads positions back from the card).
 
-    - A split is a whole number of 64-key tiles (at least one), so no
-      tile straddles two splits; the splits cover all ``n_tables``
-      columns, the last one possibly short.
+    - A split is a whole number of units (at least one) of
+      ``max(64, page_size)`` keys: whole 64-key tiles and whole pages, so
+      no tile straddles two splits and a page of 128 keys (two tiles) is
+      never cut; the splits cover all ``n_tables`` columns, the last one
+      possibly short.
     - The grid (kv heads x slots x query tiles x splits) aims for
       ``_TARGET_BLOCKS`` blocks.
     - Each split writes ``rows_per_tile`` f32 partial rows of dh + 2 and
@@ -115,15 +124,16 @@ def _split_plan(b: int, n_kv: int, n_qtiles: int, n_tables: int,
 
     A decode call and a window of one give the same arguments, hence the
     same plan."""
-    tile_pages = max(1, _TILE_KEYS // page_size)
-    n_tiles = -(-n_tables // tile_pages)
+    unit_pages = max(1, _TILE_KEYS // page_size)
+    unit_keys = unit_pages * page_size
+    n_units = -(-n_tables // unit_pages)
     base = b * n_kv * n_qtiles
     want = -(-_TARGET_BLOCKS // max(1, base))
-    min_tiles = max(1, -(-4 * rows_per_tile // _TILE_KEYS))
-    n_splits = max(1, min(want, n_tiles // min_tiles))
-    tiles_per_split = -(-n_tiles // n_splits)
-    n_splits = -(-n_tiles // tiles_per_split)
-    return tiles_per_split * tile_pages, n_splits
+    min_units = max(1, -(-4 * rows_per_tile // unit_keys))
+    n_splits = max(1, min(want, n_units // min_units))
+    units_per_split = -(-n_units // n_splits)
+    n_splits = -(-n_units // units_per_split)
+    return units_per_split * unit_pages, n_splits
 
 
 class _Plan(NamedTuple):
@@ -134,11 +144,11 @@ class _Plan(NamedTuple):
 
 
 def _launch_plan(b: int, s: int, n_heads: int, n_kv: int, n_tables: int,
-                 page_size: int, dtype: torch.dtype) -> _Plan:
+                 page_size: int, dtype: torch.dtype, dh: int) -> _Plan:
     """The query tiling and split plan of one call (``s == 1`` for the
     decode kernel, which therefore plans exactly as a window of one)."""
     rep = n_heads // n_kv
-    block_q = min(s, max(1, _TILE_ROWS[dtype] // rep))
+    block_q = min(s, max(1, _tile_rows(dtype, dh) // rep))
     n_qtiles = -(-s // block_q)
     pps, n_splits = _split_plan(b, n_kv, n_qtiles, n_tables, page_size,
                                 block_q * rep)
@@ -148,16 +158,17 @@ def _launch_plan(b: int, s: int, n_heads: int, n_kv: int, n_tables: int,
 def _check_kernel_shapes(dh: int, page_size: int, rep: int,
                          dtype: torch.dtype) -> None:
     """What the CUDA kernels are compiled for; anything else raises."""
-    if dh not in _HEAD_DIMS:
+    if dh not in HEAD_DIMS:
         raise ValueError(f"the paged-attention kernels take head_dim in "
-                         f"{_HEAD_DIMS}, got {dh}")
+                         f"{HEAD_DIMS}, got {dh}")
     if page_size not in _PAGE_SIZES:
         raise ValueError(f"the paged-attention kernels take page_size in "
                          f"{_PAGE_SIZES}, got {page_size}")
-    if rep > _TILE_ROWS[dtype]:
-        raise ValueError(f"the paged-attention kernels take at most "
-                         f"{_TILE_ROWS[dtype]} query heads per kv head for "
-                         f"{dtype}, got {rep}")
+    rows = _tile_rows(dtype, dh)
+    if rep > rows:
+        raise ValueError(f"the paged-attention kernels take at most {rows} "
+                         f"query heads per kv head for {dtype} at head_dim "
+                         f"{dh}, got {rep}")
 
 
 def _workspace(q: torch.Tensor, n_rows: int, n_splits: int, dh: int):
@@ -207,6 +218,9 @@ def _cuda_operands(q, k_pool, v_pool, page_tables, positions):
         raise TypeError("page_tables and positions must be int32")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("k_pool/v_pool must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("k_pool/v_pool must start 16-byte aligned (the "
+                         "kernels copy pool rows in 16- or 8-byte pieces)")
     return q.contiguous(), page_tables.contiguous(), positions.contiguous()
 
 
@@ -245,7 +259,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _, page, n_kv, _ = k_pool.shape
     _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
     plan = _launch_plan(b, 1, n_heads, n_kv, page_tables.shape[1], page,
-                        q.dtype)
+                        q.dtype, dh)
     out = torch.empty_like(q)
     acc, ml = _workspace(q, b * n_heads, plan.n_splits, dh)
     with torch.cuda.device(q.device):
@@ -296,7 +310,7 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _, page, n_kv, _ = k_pool.shape
     _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
     plan = _launch_plan(b, s, n_heads, n_kv, page_tables.shape[1], page,
-                        q.dtype)
+                        q.dtype, dh)
     out = torch.empty_like(q)
     acc, ml = _workspace(q, b * s * n_heads, plan.n_splits, dh)
     with torch.cuda.device(q.device):

@@ -444,3 +444,103 @@ def test_mma_model_matches_the_plain_forward(d, causal):
     live = ref_lse < 1e29
     assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
     assert torch.all(out[1] == 0) and torch.all(lse[1] == tattn.LSE_MASKED)
+
+
+# ---- the backward's plan and the bf16 bodies' numerics
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+def test_flash_bwd_plan_per_head_dim(d):
+    """bf16: B5 runs the wgmma body at every head dim and B6 up to d = 128
+    (above, dK's and dV's accumulators leave no registers for S and dP),
+    both with the forward's padded tiles, copies and ring depth: B5's
+    shared memory Q, dO and the K/V ring, B6's K, V and the Q/dO ring with
+    the rows' f32 lse and delta, each + 1024 bytes, inside a block. f32
+    (and bf16 B6 at d = 192) keeps the FMA bodies of 256 threads."""
+    fwd = tattn._flash_plan(d, torch.bfloat16)
+    plan = tattn._flash_bwd_plan(d, torch.bfloat16)
+    tiles = (2 + 2 * fwd.stages) * 64 * fwd.head_dim * 2
+    assert plan.dq == fwd._replace(smem_bytes=tiles + 1024)
+    if d <= 128:
+        assert plan.dkv == fwd._replace(
+            smem_bytes=tiles + fwd.stages * 2 * 64 * 4 + 1024)
+    else:
+        assert (plan.dkv.body, plan.dkv.head_dim, plan.dkv.copy_bytes,
+                plan.dkv.threads) == ("fma", d, 2, 256)
+    f32 = tattn._flash_bwd_plan(d, torch.float32)
+    for p in (*plan, *f32):
+        assert p.smem_bytes <= 232448
+    for p in f32:
+        assert (p.body, p.head_dim, p.copy_bytes, p.threads) == \
+            ("fma", d, 4, 256)
+    assert f32.dkv.smem_bytes == (2 * 64 * d + 2 * 64 * (d + 4)
+                                  + 2 * 64 * 65 + 128) * 4
+    with pytest.raises(ValueError, match="head dim"):
+        tattn._flash_bwd_plan(40, torch.bfloat16)
+
+
+def _bwd_case(q, k, v, do, lens, sm, causal):
+    """The plain backward in f32 on the plain forward's lse and delta, as
+    the card's tests feed the kernels."""
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = tattn._flash_fwd_reference(*f32[:3], lens, sm, causal)
+    delta = tattn._delta(f32[3], out)
+    dq = tattn._flash_bwd_dq_reference(*f32, lse, delta, lens, sm, causal)
+    dk, dv = tattn._flash_bwd_dkv_reference(*f32, lse, delta, lens, sm,
+                                            causal)
+    return lse, delta, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bwd_mma_model_matches_the_plain_backward(d, causal):
+    """The bf16 backward's numerics (P and dS as hi + lo bf16 terms) at
+    every compiled head dim: s 130 (a last tile of 2 rows and keys),
+    kv_lens 0 (exact zero gradients), 1, 77 (not a multiple of 64) and
+    all; dq, dk and dv each within 1e-3 + 2^-8·|plain| of the plain
+    backward run in f32."""
+    b, h, s = 4, 2, 130
+    rng = np.random.default_rng(d + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    lens = torch.tensor([130, 0, 1, 77], dtype=torch.int32)
+    sm = 1.0 / np.sqrt(d)
+    lse, delta, refs = _bwd_case(q, k, v, do, lens, sm, causal)
+    got = tattn._flash_bwd_mma_reference(q, k, v, do, lse, delta, lens, sm,
+                                         causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        assert g.dtype == torch.bfloat16
+        assert _over_tol(g, r) <= 1.0, name
+        assert torch.all(g[1] == 0), name
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bwd_mma_model_needs_two_terms_of_p_and_ds(causal):
+    """What decides the precision: rows of 1..3 keys, the first three keys
+    identical (a row that sees only them has dq = 0 up to rounding: its
+    dS sums to zero), and a long example. Two terms of each meet the
+    tolerance; one rounding of dS fails on the few-key rows' dq (26x the
+    tolerance), one rounding of P on dv."""
+    rng = np.random.default_rng(21)
+    b, h, s, d = 4, 2, 130, 16
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d))
+                                    .astype(np.float32)) for _ in range(4))
+    k[:, :, 1] = k[:, :, 0]
+    k[:, :, 2] = k[:, :, 0]
+    k, v = 2 * k, 2 * v
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    lens = torch.tensor([3, 2, 1, 130], dtype=torch.int32)
+    lse, delta, (rdq, rdk, rdv) = _bwd_case(q, k, v, do, lens, 0.25, causal)
+
+    def model(p_terms, ds_terms):
+        return tattn._flash_bwd_mma_reference(q, k, v, do, lse, delta, lens,
+                                              0.25, causal, p_terms,
+                                              ds_terms)
+
+    dq, dk, dv = model(2, 2)
+    assert max(_over_tol(dq, rdq), _over_tol(dk, rdk),
+               _over_tol(dv, rdv)) <= 1.0
+    dq1, _, _ = model(2, 1)
+    assert _over_tol(dq1[:3], rdq[:3]) > 10.0
+    _, _, dv1 = model(1, 2)
+    assert _over_tol(dv1, rdv) > 1.0

@@ -99,18 +99,20 @@ def test_kernels_match_plain_versions_on_card(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rep", [1, 4, 8])
-@pytest.mark.parametrize("page", [8, 16, 32])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("page", [1, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_kernels_sweep_on_card(dtype, dh, page, rep):
     """B1 and B2 against their plain versions across the shapes the split
     plan must handle: positions 63 / 64 / 127 / 128 / 2047 (on and beside
-    64-key tiles, one slot 32 pages past the rest), a live-width table 3
+    64-key tiles, one slot far past the rest), a live-width table 3
     columns wider than the longest slot (not a multiple of any split),
     windows of 1, 7, 32, 33 and 128 tokens ending at each slot's position
     (ragged query tiles, rows that see no key of the tile's last split);
-    a window of one equals the decode step bit for bit, and a second call
-    on the same inputs gives the same bits (no atomics)."""
+    head dims padded to the mma step (8, 16 and 32) and not, pages of one
+    token (64 to a tile) up to 128 (two tiles to a page); a window of one
+    equals the decode step bit for bit, and a second call on the same
+    inputs gives the same bits (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
@@ -153,16 +155,57 @@ def test_paged_kernels_sweep_on_card(dtype, dh, page, rep):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 12, 16, 24, 32, 48, 64, 96, 128, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_every_head_dim_on_card(dtype, dh):
+    """B1 and B2 at every head dim of HEAD_DIMS (bf16 d = 12's 24-byte rows
+    take 8-byte copies; f32 above d = 128 takes 32-row query tiles), GQA
+    rep 8, pages of 4 and 128: the decode step and windows of 1, 33 and
+    128 tokens against the plain versions run in f32, per element."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    n_kv, rep, dev = 2, 8, torch.device("cuda")
+    last = np.array([0, 63, 200, 700], np.int32)
+    sm = 1.0 / np.sqrt(dh)
+    for page in (4, 128):
+        rng = np.random.default_rng(dh + page)
+        k_pool, v_pool, tab = _paged_pools(
+            rng, last, n_kv, dh, page, int(last.max()) // page + 2, dt, dev)
+        q = torch.from_numpy(rng.standard_normal(
+            (len(last), n_kv * rep, dh)).astype(np.float32)).to(dev).to(dt)
+        pos = torch.from_numpy(last).to(dev)
+        got = pa.paged_decode_attention(q, k_pool, v_pool, tab, pos, sm)
+        ref = pa._paged_attention_reference(q.float(), k_pool.float(),
+                                            v_pool.float(), tab, pos, sm)
+        torch.cuda.synchronize()
+        assert _paged_within(got, ref, dt), page
+        for c in (1, 33, 128):
+            wpos = np.maximum(0, last[:, None] - np.arange(c - 1, -1, -1))
+            wpos = torch.from_numpy(wpos.astype(np.int32)).to(dev)
+            qw = torch.from_numpy(rng.standard_normal(
+                (len(last), c, n_kv * rep, dh)).astype(np.float32)).to(
+                dev).to(dt)
+            got_w = pa.paged_window_attention(qw, k_pool, v_pool, tab, wpos,
+                                              sm)
+            ref_w = pa._paged_window_reference(qw.float(), k_pool.float(),
+                                               v_pool.float(), tab, wpos, sm)
+            torch.cuda.synchronize()
+            assert _paged_within(got_w, ref_w, dt), (page, c)
+
+
+@pytest.mark.cuda
 def test_paged_kernels_refuse_unsupported_shapes_on_card():
-    """Head dims and page sizes the kernels are not compiled for raise
-    ValueError on the card; nothing launches."""
+    """Head dims and page sizes the kernels are not compiled for (a head
+    dim off HEAD_DIMS, a page that is not a power of two from 1 to 128)
+    raise ValueError on the card; nothing launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     tab = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     before = pa.paged_decode_attention.launches
-    for dh, page in ((96, 16), (64, 4)):
+    for dh, page in ((40, 16), (64, 3), (64, 256)):
         q = torch.zeros(1, 4, dh, device=dev)
         pool = torch.zeros(2, page, 2, dh, device=dev)
         with pytest.raises(ValueError):
@@ -451,7 +494,8 @@ def test_head_tiled_forward_bit_identical_to_b3_on_card(block_h, dtype):
 @pytest.mark.cuda
 def test_compiled_flash_plan_matches_the_host_plan_on_card():
     """The plan the built library reports for every head dim and dtype
-    (``rt_flash_fwd_plan``) is ``_flash_plan``'s."""
+    (``rt_flash_fwd_plan``) is ``_flash_plan``'s, and the backward's
+    (``rt_flash_bwd_plan``) is ``_flash_bwd_plan``'s."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rafiki_tpu_torch.ops import attention as fa
@@ -459,3 +503,66 @@ def test_compiled_flash_plan_matches_the_host_plan_on_card():
     for d in fa.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             assert fa._compiled_plan(d, dt) == fa._flash_plan(d, dt), (d, dt)
+            assert fa._compiled_bwd_plan(d, dt) == \
+                fa._flash_bwd_plan(d, dt), (d, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 16, 24, 32, 48, 64, 96, 128, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_backward_every_head_dim_on_card(d, dtype, causal):
+    """B5 and B6 at every compiled head dim (bf16 on the tensor-core
+    bodies, f32 on the FMA ones): s_q 150 (not a multiple of the 64-row
+    tiles), s_kv 150 causal and 131 not, kv_lens 0, 1, 63, 64, 65 and
+    all; each element of dq, dk and dv within its tolerance of the plain
+    version run in f32 on the same lse and delta, the rows and keys no
+    query sees exactly zero, and a second call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rafiki_tpu_torch.ops import attention as fa
+
+    dt = getattr(torch, dtype)
+    h, s_q = 2, 150
+    s_kv = s_q if causal else 131
+    lens_np = np.array([0, 1, 63, 64, 65, s_kv], np.int32)
+    b = len(lens_np)
+    rng = np.random.default_rng(d + 7 * causal)
+    dev = torch.device("cuda")
+
+    def rand(s):
+        return torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+            np.float32)).to(dev).to(dt)
+
+    q, do = rand(s_q), rand(s_q)
+    k, v = rand(s_kv), rand(s_kv)
+    lens = torch.from_numpy(lens_np).to(dev)
+    sm = 1.0 / np.sqrt(d)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref_o, lse = fa._flash_fwd_reference(*f32[:3], lens, sm, causal)
+    delta = fa._delta(f32[3], ref_o)
+    ref_dq = fa._flash_bwd_dq_reference(*f32, lse, delta, lens, sm, causal)
+    ref_dk, ref_dv = fa._flash_bwd_dkv_reference(*f32, lse, delta, lens, sm,
+                                                 causal)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, lens, sm, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens, sm,
+                                        causal)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, lens, sm,
+                                    causal)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens, sm,
+                                          causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.dtype == dt
+        err = (got.float() - ref).abs().max().item()
+        assert _within(got, ref, dt), (name, err)
+        assert torch.all(got[0] == 0), name  # kv_len 0
+    assert torch.all(dk[:, :, 65:][2:5] == 0) and torch.all(dv[1, :, 1:] == 0)
+    assert torch.equal(dq2, dq) and torch.equal(dk2, dk) and \
+        torch.equal(dv2, dv)

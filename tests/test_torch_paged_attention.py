@@ -185,6 +185,10 @@ def test_int8_pools_raise_not_implemented():
     (8, 8, 2, 7, 8, 128),      # two query tiles, 7 columns of 8
     (1, 1, 1, 5, 64, 4),       # one block per split, 64-token pages
     (64, 32, 1, 3, 32, 16),    # the card already full: one split
+    (4, 2, 1, 32, 1, 4),       # head dim 8 served at page 1 (max_len 32)
+    (4, 2, 1, 8, 4, 4),        # ... at page 4
+    (2, 2, 1, 16, 128, 4),     # pages of 128 keys: two tiles each
+    (1, 1, 2, 5, 128, 128),    # ... a window, 5 columns
 ])
 def test_split_plan_covers_the_table_from_shapes(shape):
     """``_split_plan`` takes shapes only and returns the same plan every
@@ -198,6 +202,7 @@ def test_split_plan_covers_the_table_from_shapes(shape):
     assert (pps, n_splits) == pa._split_plan(*shape)
     tile_pages = max(1, pa._TILE_KEYS // page)
     assert pps % tile_pages == 0 and n_splits >= 1
+    assert (pps * page) % pa._TILE_KEYS == 0  # whole tiles, whole pages
     assert (n_splits - 1) * pps < n_tables <= n_splits * pps
     n_tiles = -(-n_tables // tile_pages)
     if n_tiles > 1:
@@ -267,9 +272,9 @@ def test_decode_and_window_of_one_launch_one_plan(recording_kernel_path):
     assert dec[17] == win[19] == 0.125
 
 
-@pytest.mark.parametrize("what,dh,page", [("head_dim", 96, 16),
-                                          ("page_size", 64, 4),
-                                          ("page_size", 128, 128)])
+@pytest.mark.parametrize("what,dh,page", [("head_dim", 40, 16),
+                                          ("page_size", 64, 3),
+                                          ("page_size", 128, 256)])
 def test_kernel_path_refuses_unsupported_shapes(recording_kernel_path,
                                                 what, dh, page):
     """A head dim or page size the kernels are not compiled for raises
@@ -285,6 +290,59 @@ def test_kernel_path_refuses_unsupported_shapes(recording_kernel_path,
         with pytest.raises(ValueError, match=what):
             call()
     assert not recording_kernel_path.calls
+
+
+def test_kernel_shapes_take_every_head_dim_and_page():
+    """The kernels take every head dim of the flash kernels' HEAD_DIMS
+    (all the templates' knobs give) and every power-of-two page from 1 to
+    128 (the divisors of the LlamaLoRA knobs' max_len), in both dtypes;
+    a head dim off that list, a page that is not such a power of two, or
+    more query heads per kv head than a block's rows raise ValueError."""
+    from rafiki_tpu_torch.ops.attention import HEAD_DIMS
+
+    assert pa._PAGE_SIZES == (1, 2, 4, 8, 16, 32, 64, 128)
+    for dt in (torch.float32, torch.bfloat16):
+        for dh in HEAD_DIMS:
+            for page in pa._PAGE_SIZES:
+                pa._check_kernel_shapes(dh, page, 4, dt)
+            pa._check_kernel_shapes(dh, 16, pa._tile_rows(dt, dh), dt)
+            with pytest.raises(ValueError, match="query heads"):
+                pa._check_kernel_shapes(dh, 16, pa._tile_rows(dt, dh) + 1,
+                                        dt)
+        for dh in (4, 40, 100, 256):
+            with pytest.raises(ValueError, match="head_dim"):
+                pa._check_kernel_shapes(dh, 16, 4, dt)
+        for page in (0, 3, 6, 12, 256):
+            with pytest.raises(ValueError, match="page_size"):
+                pa._check_kernel_shapes(64, page, 4, dt)
+    assert pa._tile_rows(torch.float32, 192) == 32
+
+
+@pytest.mark.parametrize("page", [1, 4, 128])
+def test_split_plan_model_at_small_and_large_pages(page):
+    """The split model with the plan ``_split_plan`` gives (forced to
+    several splits: one slot, one kv head) equals the plain window version
+    at pages of 1 token (64 pages to a tile), 4, and 128 (a page spans two
+    tiles and a split is whole pages); positions reach past a tile and a
+    page."""
+    rng = np.random.default_rng(page)
+    n_heads, n_kv, dh, s = 4, 2, 8, 3
+    length = 512
+    n_tab = length // page
+    n_pages = 1 + n_tab
+    k_pool, v_pool = (_t(rng.standard_normal(
+        (n_pages, page, n_kv, dh)).astype(np.float32)) for _ in range(2))
+    tables = _t(rng.permutation(np.arange(1, n_pages)).astype(
+        np.int32)[None])
+    positions = _t(np.array([[130, 300, 511]], np.int32))
+    q = _t(rng.standard_normal((1, s, n_heads, dh)).astype(np.float32))
+    pps, n_splits = pa._split_plan(1, n_kv, 1, n_tab, page, s * 2)
+    assert n_splits > 1 and (pps * page) % pa._TILE_KEYS == 0
+    got = pa._paged_split_reference(q, k_pool, v_pool, tables, positions,
+                                    0.35, pps)
+    want = pa._paged_window_reference(q, k_pool, v_pool, tables, positions,
+                                      0.35)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
 #: decode positions on and beside the split boundaries of 1, 2 and 3
