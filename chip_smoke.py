@@ -21,7 +21,13 @@ Phases; each raises on failure, so the script exits non-zero:
    max_len 2048): each element within 1e-3 + 2^-8·|plain| of the plain
    version run in f32, a window of one and a second call bit-identical,
    the split plan (splits, blocks), kernel / plain / library times, the
-   least time the card could take, the rate (GB/s) and share of it.
+   least time the card could take, the rate (GB/s) and share of it. Then
+   the same for their int8 instances (``paged_attention_int8.cu``) over
+   the pools quantized row by row (int8 rows, one f32 scale each): bf16
+   queries held to the bf16 tolerance and timed beside SDPA on the K/V
+   gathered and dequantized to bf16, f32 queries to 1e-5 + 1e-5·|plain|,
+   a second call bit-identical, and ptxas's registers and spills of the
+   int8 bodies (those at d 64 and 128 must not spill).
 3. f32 exactness: the full-width Llama at depth 2 in f32 (random weights
    from a seed, nonzero LoRA) behind a paged ``DecodeEngine`` must emit
    exactly the tokens of ``greedy_generate`` over a contiguous cache.
@@ -32,6 +38,7 @@ Phases; each raises on failure, so the script exits non-zero:
    The kernels' launch counters are zeroed just before and read just
    after; both kernels must have launched. One decode-only engine call
    runs under ``torch.profiler``: its device busy share and top kernels.
+   Phase 16 runs right after it, once phase 4's model is freed.
 
 5. Flash kernels against their plain versions at Llama-3-8B attention
    shapes (b 4, 32 heads with K/V repeated from 8, s 1024, head dim 128,
@@ -90,6 +97,15 @@ Phases; each raises on failure, so the script exits non-zero:
     seed) behind ``DecodeEngine`` at pages 8 and 4 on the card must emit
     exactly the tokens of the same model and requests on the CPU; B1 and
     B2 must launch.
+16. int8 serving (``quantize_int8`` + ``kv_cache_int8``): phase 4's model
+    and request mix with int8 base kernels (per-channel f32 scales) and an
+    int8 KV pool (one f32 scale per row); every request must complete and
+    both int8 kernels launch. Reports decode tokens/s, TTFT, the weight
+    and pool bytes beside a bf16 deployment's, and the device time of the
+    per-forward int8 -> bf16 weight converts.
+17. Phase 15's model and requests with int8 base kernels and an int8 KV
+    pool, f32 queries through the int8 kernels: token-identical to the
+    CPU at pages 8 and 4.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -116,6 +132,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCES = {
     "paged_decode_attention": "rafiki_tpu_torch/csrc/paged_attention.cu",
     "paged_window_attention": "rafiki_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_attention_int8":
+        "rafiki_tpu_torch/csrc/paged_attention_int8.cu",
+    "paged_window_attention_int8":
+        "rafiki_tpu_torch/csrc/paged_attention_int8.cu",
     "flash_attention_fwd": "rafiki_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_fwd_mh": "rafiki_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "rafiki_tpu_torch/csrc/flash_attention.cu",
@@ -125,6 +145,9 @@ SOURCES = {
 REPLACES = {
     "paged_decode_attention": "rafiki_tpu/ops/paged_attention.py:177",
     "paged_window_attention": "rafiki_tpu/ops/paged_attention.py:337",
+    # the quantized=True branch of the same Pallas kernels
+    "paged_decode_attention_int8": "rafiki_tpu/ops/paged_attention.py:177",
+    "paged_window_attention_int8": "rafiki_tpu/ops/paged_attention.py:337",
     "flash_attention_fwd": "rafiki_tpu/ops/attention.py:98",
     "flash_attention_fwd_mh": "rafiki_tpu/ops/attention.py:156",
     "flash_attention_bwd_dq": "rafiki_tpu/ops/attention.py:222",
@@ -185,7 +208,9 @@ def kernel_resources(ptxas, mangled_part):
             for e in ptxas if mangled_part in e["mangled"]]
 
 
-#: the mangled-name parts of the kernels phases 5, 9 and 10 report
+#: the mangled-name parts of the kernels phases 2, 5, 9 and 10 report
+#: (int8_t is ``signed char``, mangled ``a``; ``q`` is ``f`` or the bf16)
+PAGED_INT8 = "19paged_{kind}_kernelI{q}aLi{d}E"
 B3_BF16 = "16flash_fwd_kernelI13__nv_bfloat16Li{d}E"
 B4_BF16 = "19flash_fwd_mh_kernelI13__nv_bfloat16Li{d}E"
 B5_BF16 = "23flash_bwd_dq_mma_kernelILi{d}E"
@@ -231,11 +256,27 @@ def bound_ms(n_bytes, flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, np, F, pa, dev):
+def int8_resources(ptxas, dims=(64, 128)):
+    """ptxas's registers and spills of the int8 instances of B1 and B2 at
+    head dims ``dims``, both query types, both key-group counts."""
+    out = {}
+    for d in dims:
+        for qname, qm in (("bf16", "13__nv_bfloat16"), ("f32", "f")):
+            for kind in ("decode", "window"):
+                out[f"{kind} {qname} d{d}"] = kernel_resources(
+                    ptxas, PAGED_INT8.format(kind=kind, q=qm, d=d))
+    return out
+
+
+def kernel_phase(torch, np, F, pa, ll, dev, ptxas=()):
     """Phase 2: B1 and B2 against their plain versions, each element
     within its own tolerance (``FLASH_TOL``), a window of one and a second
     call bit-identical to the first, and each launch's split plan, rate
-    and share of its bound."""
+    and share of its bound; then the same for their int8 instances, on
+    the pools quantized row by row (bf16 queries, timed, beside SDPA on
+    the K/V gathered and dequantized to bf16; and f32 queries, held to
+    the f32 tolerance), with ptxas's registers and spills of the int8
+    bodies (those at d 64 and 128 must not spill)."""
     b, n_heads, n_kv, dh, page, max_len = 8, 32, 8, 128, 16, 2048
     rng = np.random.default_rng(SEED)
     last = np.array([0, 17, 300, 555, 1023, 1500, 1900, 2047], np.int32)
@@ -348,9 +389,88 @@ def kernel_phase(torch, np, F, pa, dev):
     results["paged_window_attention"]["shapes"] = (
         f"q ({b}, {c}, {n_heads}, {dh}) bf16; pool {shape} bf16; table "
         f"({b}, {width}); window ends {last.tolist()}")
+    # --- the int8 instances: the same shapes over the pools quantized
+    # row by row as the model's cache write does (scratch page 0's 1e3
+    # garbage included), 264 bytes a token and kv head (two 128-byte
+    # rows, two f32 scales)
+    kq, ks = ll._quantize_int8(k_pool, -1)
+    vq, vs = ll._quantize_int8(v_pool, -1)
+    kl8 = (kq[tab.long()].float() * ks[tab.long()][..., None]).to(bf16) \
+        .reshape(b, length, n_kv, dh).transpose(1, 2)
+    vl8 = (vq[tab.long()].float() * vs[tab.long()][..., None]).to(bf16) \
+        .reshape(b, length, n_kv, dh).transpose(1, 2)
+    kv_token_bytes = n_kv * (2 * dh + 2 * 4)
+    i8 = (kq, vq, tab)
+    win1_8 = pa.paged_window_attention(q[:, None], kq, vq, tab, pos[:, None],
+                                       sm, ks, vs)[:, 0]
+    out8 = pa.paged_decode_attention(q, *i8, pos, sm, ks, vs)
+    ref8 = pa._paged_attention_reference(q.float(), *i8, pos, sm, ks, vs)
+    torch.cuda.synchronize()
+    window_of_one_identical_int8 = bool(torch.equal(win1_8, out8))
+    keys = (last.astype(np.int64) + 1)
+    n_bytes = int(keys.sum()) * kv_token_bytes + 2 * q.numel() * 2
+    flops = 4 * n_heads * dh * int(keys.sum())
+    results["paged_decode_attention_int8"] = measure(
+        lambda: pa.paged_decode_attention(q, *i8, pos, sm, ks, vs),
+        lambda: pa._paged_attention_reference(q, *i8, pos, sm, ks, vs),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kl8, vl8, attn_mask=mask1, scale=sm,
+            enable_gqa=True),
+        ref8, out8, n_bytes, flops,
+        pa._launch_plan(b, 1, n_heads, n_kv, width, page, bf16, dh))
+    outw8 = pa.paged_window_attention(qw, *i8, wp, sm, ks, vs)
+    refw8 = pa._paged_window_reference(qw.float(), *i8, wp, sm, ks, vs)
+    keys = wpos[:, -1].astype(np.int64) + 1
+    n_bytes = int(keys.sum()) * kv_token_bytes + 2 * qw.numel() * 2
+    flops = 4 * n_heads * dh * int((wpos.astype(np.int64) + 1).sum())
+    results["paged_window_attention_int8"] = measure(
+        lambda: pa.paged_window_attention(qw, *i8, wp, sm, ks, vs),
+        lambda: pa._paged_window_reference(qw, *i8, wp, sm, ks, vs),
+        lambda: F.scaled_dot_product_attention(
+            qw.transpose(1, 2), kl8, vl8, attn_mask=mask2, scale=sm,
+            enable_gqa=True),
+        refw8, outw8, n_bytes, flops,
+        pa._launch_plan(b, c, n_heads, n_kv, width, page, bf16, dh))
+    lib_covers = ("SDPA on K/V gathered and dequantized to bf16 beforehand "
+                  "(gather and dequantization not timed), with the same "
+                  "mask")
+    resources = int8_resources(ptxas)
+    for name, kind in (("paged_decode_attention_int8", "decode"),
+                       ("paged_window_attention_int8", "window")):
+        r = results[name]
+        r["library_covers"] = lib_covers
+        r["ptxas"] = {k: v for k, v in resources.items()
+                      if k.startswith(kind)}
+        r["shapes"] = results[name[:-5]]["shapes"].replace(
+            "bf16; table", "int8 + f32 scales (n_pages, page, n_kv); table")
+    # f32 queries over the same int8 pools: the exactness legs' body
+    q32, qw32 = q.float(), qw.float()
+    f32_floor, f32_rel = FLASH_TOL["float32"]
+    f32_int8 = {}
+    for name, kernel, plain in (
+            ("paged_decode_attention_int8",
+             lambda: pa.paged_decode_attention(q32, *i8, pos, sm, ks, vs),
+             lambda: pa._paged_attention_reference(q32, *i8, pos, sm, ks,
+                                                   vs)),
+            ("paged_window_attention_int8",
+             lambda: pa.paged_window_attention(qw32, *i8, wp, sm, ks, vs),
+             lambda: pa._paged_window_reference(qw32, *i8, wp, sm, ks,
+                                                vs))):
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err, over = elementwise_err(got, ref, f32_floor, f32_rel)
+        f32_int8[name] = {"max_abs_err": err, "err_over_tol": over,
+                          "tol": "per element: 1e-5 + 1e-5 * |plain|",
+                          "bit_identical_second_call":
+                              bool(torch.equal(got, again)),
+                          "ms": time_ms(torch, kernel)}
+        results[name]["f32_queries"] = f32_int8[name]
     emit({"phase": "kernels",
-          "window_of_one_identical": window_of_one_identical, **results})
-    for name, r in results.items():
+          "window_of_one_identical": window_of_one_identical,
+          "window_of_one_identical_int8": window_of_one_identical_int8,
+          **results})
+    for name, r in list(results.items()) + [
+            (f"{n} (f32 queries)", r) for n, r in f32_int8.items()]:
         if not r["err_over_tol"] <= 1.0:
             raise AssertionError(
                 f"{name} disagrees with its plain version: max abs error "
@@ -359,9 +479,14 @@ def kernel_phase(torch, np, F, pa, dev):
         if not r["bit_identical_second_call"]:
             raise AssertionError(f"{name}: a second call on the same inputs "
                                  f"gave other bits")
-    if not window_of_one_identical:
+    if not (window_of_one_identical and window_of_one_identical_int8):
         raise AssertionError("a window of one is not bit-identical to the "
                              "decode kernel")
+    spills = {k: e["spill_bytes"] for k, es in resources.items() for e in es
+              if e["spill_bytes"]}
+    if spills or not all(resources.values()):
+        raise AssertionError(f"the int8 B1/B2 bodies at d 64/128 spill or "
+                             f"were not reported: {spills or resources}")
     return results
 
 
@@ -420,16 +545,42 @@ def exactness_phase(torch, np, ll, de, dev):
     del eng, model
 
 
-def serving_phase(torch, np, ll, de, pa, HashTokenizer, depth, dev):
-    """Phase 4, the main path: Llama-3-8B widths behind the engines."""
+def int8_bytes(model, cache):
+    """The int8 deployment's device bytes beside a bf16 one's of the same
+    widths: the weights (int8 base kernels and their f32 scales, against
+    bf16 kernels; embedding, norms and adapters as they are) and the KV
+    pool (int8 rows and f32 scales, against bf16 rows)."""
+    weights = bf16_weights = 0
+    for name, p in model.named_parameters():
+        n = p.numel() * p.element_size()
+        weights += n
+        leaf = name.rsplit(".", 1)[-1]
+        bf16_weights += (p.numel() * 2 if leaf == "qkernel"
+                         else 0 if leaf == "qscale" else n)
+    pool = sum(t.numel() * t.element_size() for c in cache
+               for t in c.values())
+    bf16_pool = sum(c[k].numel() * 2 for c in cache for k in ("k", "v"))
+    return {"weight_bytes": weights, "bf16_weight_bytes": bf16_weights,
+            "weight_share_of_bf16": weights / bf16_weights,
+            "pool_bytes": pool, "bf16_pool_bytes": bf16_pool,
+            "pool_share_of_bf16": pool / bf16_pool}
+
+
+def serving_phase(torch, np, ll, de, pa, HashTokenizer, depth, dev,
+                  int8=False):
+    """Phase 4, the main path: Llama-3-8B widths behind the engines; with
+    ``int8``, phase 16: the same with int8 base kernels and an int8 KV
+    pool (``quantize_int8`` + ``kv_cache_int8``), whose launches count as
+    the int8 kernels'."""
     vocab, max_len, page, slots, max_new = 128256, 2048, 16, 8, 64
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = ll.Llama(vocab_size=vocab, max_len=max_len, depth=depth,
                      lora_rank=16, dtype=torch.bfloat16,
                      rope_theta=500000.0, kv_page_size=page,
                      kv_pages=1 + slots * (max_len // page), device=dev,
-                     generator=gen)
+                     generator=gen, quantized=int8, kv_int8=int8)
     randomize_lora_b(model, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -499,14 +650,42 @@ def serving_phase(torch, np, ll, de, pa, HashTokenizer, depth, dev):
     # the profiled call (the profiler's start and trace processing
     # included) is left out of the wall time and of its tokens
     wall = time.perf_counter() - t_start - (profiled or {}).get("call_s", 0)
-    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
-                "paged_window_attention": pa.paged_window_attention.launches}
+    suffix = "_int8" if int8 else ""
+    launches = {
+        "paged_decode_attention" + suffix:
+            pa.paged_decode_attention.launches,
+        "paged_window_attention" + suffix:
+            pa.paged_window_attention.launches}
     stats = core.stats_snapshot()
     n_tokens = {rid: len(text.split()) for rid, text in done.items()}
     ids_ok = all(0 <= int(t[1:-1]) < vocab
                  for text in done.values() for t in text.split())
-    emit({"phase": "serving", "model": "Llama-3-8B widths", "depth": depth,
-          "dtype": "bfloat16", "init_s": init_s, "requests": slots,
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    extra = {}
+    if int8:
+        # what each forward's int8 -> bf16 weight converts cost on the
+        # device: every quantized kernel converted once and dropped, as
+        # one decode step's forward does; its bound reads each int8
+        # kernel once and writes its bf16 copy once
+        qkernels = [m.qkernel for m in model.modules()
+                    if isinstance(m, ll.LoRADense) and m.quantized]
+
+        def convert_all():
+            for k in qkernels:
+                k.to(torch.bfloat16)
+
+        n_elems = sum(k.numel() for k in qkernels)
+        extra = dict(int8_bytes(model, core._cache),
+                     weight_convert_ms_per_forward=time_ms(
+                         torch, convert_all, iters=5),
+                     weight_convert_bound_ms=bound_ms(
+                         3 * n_elems, 0, "bfloat16")[0],
+                     quantized_kernels=len(qkernels))
+    emit({"phase": "int8_serving" if int8 else "serving",
+          "model": "Llama-3-8B widths", "depth": depth,
+          "dtype": "bfloat16", "kv_cache": "int8" if int8 else "bfloat16",
+          "weights": "int8" if int8 else "bfloat16",
+          "init_s": init_s, "requests": slots,
           "prompt_tokens": [int(n) for n in plens], "max_new": max_new,
           "engine_calls": n_steps, "wall_s": wall,
           "calls_with_prefill_s": prefill_s, "decode_only_calls_s": decode_s,
@@ -516,13 +695,13 @@ def serving_phase(torch, np, ll, de, pa, HashTokenizer, depth, dev):
                                else None),
           "mean_ttft_s": float(np.mean([t_first[r] - t_submit[r]
                                         for r in t_submit])),
-          "launches": launches, "peak_mem_gb":
-              torch.cuda.max_memory_allocated() / 1e9, "engine": stats})
+          "launches": launches, "peak_mem_gb": peak_gb, "engine": stats,
+          **extra})
     if profiled is not None:
         if "device_idle_share" in profiled:
             profiled["device_busy_share"] = 1 - profiled["device_idle_share"]
-        emit({"phase": "serving_decode_profile", "steps_per_call": core.K,
-              **profiled})
+        emit({"phase": f"{'int8_' if int8 else ''}serving_decode_profile",
+              "steps_per_call": core.K, **profiled})
     if sorted(done) != list(range(slots)) or any(
             n != max_new for n in n_tokens.values()) or not ids_ok:
         raise AssertionError(f"bad completions: {n_tokens}")
@@ -1279,6 +1458,21 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
         "shapes": f"q/k/v/dO {tuple(bert_shape)} bf16, non-causal, kv_lens "
                   f"{bs}, 1 and 6..{bs}"}
     del bert_in, o_lib, leaves, blse, bdelta
+    # their least time there: each input read once (K and V only up to
+    # each example's kv_len), each output written once; every row sees
+    # its example's kv_len keys
+    bh = bert_shape[1]
+    rows_b = bb * bh * bs * bd * 2           # q, dO, dq, dk or dv, bf16
+    kv_vis = int(lens_np.sum()) * bh * bd * 2  # the visible K (or V) rows
+    bpairs = bh * bs * int(lens_np.sum())
+    for name, n_bytes, flops in (
+            ("flash_attention_bwd_dq", 3 * rows_b + 2 * kv_vis
+             + 2 * bb * bh * bs * 4, 6 * bd * bpairs),
+            ("flash_attention_bwd_dkv", 4 * rows_b + 2 * kv_vis
+             + 2 * bb * bh * bs * 4, 8 * bd * bpairs)):
+        bnd, by = bound_ms(n_bytes, flops, "bfloat16")
+        bert_bwd[name + "_bound"] = {"bound_ms": bnd, "bound_by": by,
+                                     "bytes": n_bytes, "flops": flops}
 
     # every compiled head dim: b 2 (kv_lens 150 and 0, or 1), 3 heads,
     # s 150, both masks
@@ -1329,6 +1523,7 @@ def classifier_flash_phase(torch, np, F, fa, dev, vit_shape=(64, 12, 197, 64),
         raise AssertionError("a BERT row with no visible key is not exact")
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         vit[name]["bert_ms"] = bert_bwd[name]
+        vit[name]["bert_bound"] = bert_bwd[name + "_bound"]
     vit["flash_attention_bwd_dq"]["bert_library_ms"] = bert_bwd["library_ms"]
     return vit
 
@@ -1731,15 +1926,19 @@ def bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev):
     return {"bert_training": r["launches"], "bert_serving": launches}
 
 
-def hd8_serving_phase(torch, np, ll, de, pa, dev):
+def hd8_serving_phase(torch, np, ll, de, pa, dev, int8=False):
     """Phase 15: a head-dim-8 Llama (hidden 32, 4 heads, 2 kv heads,
     max_len 32, f32, LoRA rank 4 with nonzero adapters, random weights
     from a seed: the LlamaLoRA knob grid's smallest head dim) served
     paged through ``DecodeEngine`` on the card at pages 8 and 4 must give
     exactly the tokens of the same model and requests served on the CPU
-    (the plain versions); B1 and B2 must launch."""
+    (the plain versions); B1 and B2 must launch. With ``int8``, phase 17:
+    the same model with int8 base kernels and an int8 KV pool, through
+    the int8 kernels with f32 queries."""
     knobs = dict(vocab_size=1024, max_len=32, hidden_dim=32, depth=2,
-                 n_heads=4, n_kv_heads=2, mlp_dim=128, lora_rank=4)
+                 n_heads=4, n_kv_heads=2, mlp_dim=128, lora_rank=4,
+                 quantized=int8, kv_int8=int8)
+    suffix = "_int8" if int8 else ""
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(SEED)
     host = ll.Llama(device=cpu, generator=gen, **knobs)
@@ -1768,8 +1967,8 @@ def hd8_serving_phase(torch, np, ll, de, pa, dev):
                 break
         return done
 
-    out, total = {}, {"paged_decode_attention": 0,
-                      "paged_window_attention": 0}
+    out, total = {}, {"paged_decode_attention" + suffix: 0,
+                      "paged_window_attention" + suffix: 0}
     for page in (8, 4):
         want = serve(host, cpu, page)
         torch.cuda.synchronize()
@@ -1777,9 +1976,9 @@ def hd8_serving_phase(torch, np, ll, de, pa, dev):
         pa.paged_window_attention.launches = 0
         got = serve(card, dev, page)
         torch.cuda.synchronize()
-        launches = {"paged_decode_attention":
+        launches = {"paged_decode_attention" + suffix:
                         pa.paged_decode_attention.launches,
-                    "paged_window_attention":
+                    "paged_window_attention" + suffix:
                         pa.paged_window_attention.launches}
         for name, n in launches.items():
             total[name] += n
@@ -1789,8 +1988,8 @@ def hd8_serving_phase(torch, np, ll, de, pa, dev):
             "mismatched_requests": sorted(r for r in want
                                           if got.get(r) != want[r]),
             "launches": launches}
-    emit({"phase": "hd8_paged_serving", "knobs": knobs, "dtype": "float32",
-          **out})
+    emit({"phase": f"hd8{suffix}_paged_serving", "knobs": knobs,
+          "dtype": "float32", **out})
     for page, r in out.items():
         if not r["token_identical"]:
             raise AssertionError(f"head-dim-8 paged serving at {page} "
@@ -1860,11 +2059,14 @@ def main(argv=None):
     # RAFIKI_ATTN_BLOCK_H says; the ViT serving leg sets 4 for its B4 run
     fa.ATTN_BLOCK_H = 1
     paths = {}  # main path -> {kernel: launches}
-    kres = kernel_phase(torch, np, F, pa, dev)
+    kres = kernel_phase(torch, np, F, pa, ll, dev, ptxas)
     exactness_phase(torch, np, ll, de, dev)
     torch.cuda.empty_cache()
     paths["llama_serving"] = serving_phase(torch, np, ll, de, pa,
                                            HashTokenizer, args.depth, dev)
+    torch.cuda.empty_cache()  # phase 4's model is gone: free its memory
+    paths["llama_int8_serving"] = serving_phase(
+        torch, np, ll, de, pa, HashTokenizer, args.depth, dev, int8=True)
     torch.cuda.empty_cache()
     kres.update(flash_phase(torch, np, F, fa, dev, ptxas=ptxas))
     torch.cuda.empty_cache()
@@ -1885,7 +2087,8 @@ def main(argv=None):
         kres[name]["classifier_shapes"] = {
             "vit": {"ms": c["ms"], "bound_ms": c["bound_ms"],
                     "library_ms": lib_vit, "shapes": c["shapes"]},
-            "bert": {"ms": c["bert_ms"], "library_ms": lib_bert},
+            "bert": {"ms": c["bert_ms"], "library_ms": lib_bert,
+                     **c["bert_bound"]},
             "library_covers": "SDPA backward: dq, dk and dv in one call"}
     torch.cuda.empty_cache()
     classifier_exactness_phase(torch, np, vit, bert, fa, pe, lp, optim, dev)
@@ -1900,10 +2103,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths["llama_hd8_serving"] = hd8_serving_phase(torch, np, ll, de, pa,
                                                    dev)
+    paths["llama_hd8_int8_serving"] = hd8_serving_phase(
+        torch, np, ll, de, pa, dev, int8=True)
 
     by_path = {name: {path: counts[name] for path, counts in paths.items()
                       if counts.get(name)}
                for name in kres}
+    for name in ("paged_decode_attention", "paged_window_attention"):
+        kres[name]["int8_launches_by_path"] = by_path[name + "_int8"]
     emit({"phase": "done", "seconds_after_start": time.perf_counter()
           - t_start})
     emit({"kernels": [
@@ -1918,7 +2125,8 @@ def main(argv=None):
                                     "identical_to_b3", "plan", "gb_per_s",
                                     "bound_share", "b3_same_call_ms",
                                     "ptxas", "bit_identical_second_call",
-                                    "full_length", "classifier_shapes")
+                                    "full_length", "classifier_shapes",
+                                    "f32_queries", "int8_launches_by_path")
             if key in r}}
         for name, r in kres.items()]})
     missing = [name for name in kres if not by_path[name]]

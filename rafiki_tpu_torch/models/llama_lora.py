@@ -2,12 +2,15 @@
 
 Ports ``rafiki_tpu/models/llama_lora.py``:
 
-- ``rope``, ``_parse_rope_scaling``, ``RMSNorm`` and ``LoRADense`` (plain
-  form: the int8 ``quantized`` and stacked ``n_adapters`` forms raise);
+- ``rope``, ``_parse_rope_scaling``, ``RMSNorm`` and ``LoRADense`` (its
+  plain form and the int8 ``quantized`` form, whose base kernel is int8
+  ``qkernel`` with per-output-channel f32 ``qscale``; the stacked
+  ``n_adapters`` form raises), and ``quantize_llama_params``;
 - ``_masked_decode_attention``, the contiguous-cache decode attention;
 - ``_DecoderAttention`` — its decode branch, for contiguous rows and the
   paged pool: rope'd K and raw V are written at ``(table[pos // page],
-  pos % page)`` before attention, and a paged module attends through
+  pos % page)`` before attention (with ``kv_int8``, as int8 rows and one
+  f32 absmax scale per row), and a paged module attends through
   ``paged_decode_attention`` (s == 1) or ``paged_window_attention``
   (s > 1); and its train branch (``decode=False``): causal
   ``flash_attention`` with each row's keys past ``lens`` masked;
@@ -24,7 +27,8 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
 - the ``LlamaLoRA`` template: ``train`` (the unsharded
   ``_train_functional`` loop), ``evaluate``, ``dump_parameters``,
   ``load_parameters`` (blobs move both ways with the JAX template),
-  ``predict`` and ``make_decode_engine``.
+  ``predict`` and ``make_decode_engine``, with the int8 serving knobs
+  ``quantize_int8`` and ``kv_cache_int8``.
 
 Layouts follow the JAX package: kernels are ``(d_in, features)`` and a
 LoRA site computes ``x @ W + ((x @ A) @ B) * alpha / rank``. Parameters
@@ -153,29 +157,93 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(x.dtype)
 
 
+def _quantize_int8(x: torch.Tensor, dim: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as int8 with one f32 scale per slice along ``dim``, symmetric
+    absmax: ``scale = max(max|x|, 1e-8) / 127``, then ``round(x / scale)``
+    (half to even, as ``jnp.round``) clipped to ±127, in f32 on x's
+    device. ``dim=0``: a (d_in, features) kernel per output channel
+    (JAX's ``quantize_llama_params``); ``dim=-1``: K/V vectors per row
+    (the ``q8`` of JAX's ``_DecoderAttention``)."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=dim, keepdim=True),
+                        min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale.squeeze(dim)
+
+
+def quantize_llama_params(params: Dict[str, Any],
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """Ports ``quantize_llama_params``: an f32 params tree → the
+    ``quantized=True`` module's tree. Every LoRADense base ``kernel`` (a
+    2-d leaf) becomes an int8 ``qkernel`` (torch.int8) with its f32
+    ``qscale`` (:func:`_quantize_int8` per output channel); every other
+    leaf (adapters, norms, the embedding) passes through as it is.
+
+    Leaf by leaf on ``device`` (None: where each leaf lies; numpy leaves
+    on the CPU): one kernel at a time is widened to f32 there, so an 8B
+    tree never has a second f32 copy of itself on the host."""
+    dev = None if device is None else torch.device(device)
+
+    def walk(tree: Any) -> Any:
+        if not isinstance(tree, dict):
+            return tree
+        out: Dict[str, Any] = {}
+        for name, sub in tree.items():
+            if (isinstance(sub, dict) and "kernel" in sub
+                    and getattr(sub["kernel"], "ndim", 0) == 2):
+                k = sub["kernel"]
+                if not isinstance(k, torch.Tensor):
+                    k = torch.from_numpy(np.array(k, dtype=np.float32))
+                q, scale = _quantize_int8(k if dev is None else k.to(dev),
+                                          0)
+                out[name] = {"qkernel": q, "qscale": scale,
+                             **{kk: vv for kk, vv in sub.items()
+                                if kk != "kernel"}}
+            else:
+                out[name] = walk(sub)
+        return out
+
+    return walk(params)
+
+
 class LoRADense(nn.Module):
     """Frozen base kernel + low-rank adapter (classic LoRA):
     ``y = x @ kernel + ((x @ lora_a) @ lora_b) * alpha / rank``.
 
     Random init: kernel N(0, 1/d_in), lora_a N(0, 0.02²), lora_b zeros
     (the JAX template draws the kernel from a truncated lecun normal; the
-    port only needs a seeded random base until weights are loaded)."""
+    port only needs a seeded random base until weights are loaded).
+
+    ``quantized=True`` (serving only) holds the base as ``qkernel`` int8
+    (d_in, features) and ``qscale`` f32 (features,) — a random base drawn
+    as above and quantized — and computes ``(x @ qkernel.to(x.dtype)) *
+    qscale.to(x.dtype)``: the scale on the output, in x's dtype, as JAX
+    does. A plain product, as JAX leaves it to XLA; in eager PyTorch the
+    ``.to(x.dtype)`` materializes the kernel in x's dtype on every call
+    (XLA fuses that convert into the dot)."""
 
     def __init__(self, d_in: int, features: int, rank: int,
                  dtype: torch.dtype, device: torch.device,
                  gen: torch.Generator, alpha: float = 16.0,
                  quantized: bool = False, n_adapters: int = 0) -> None:
         super().__init__()
-        if quantized:
-            raise NotImplementedError(
-                "int8 base kernels (quantize_int8) are not ported yet")
         if n_adapters:
             raise NotImplementedError(
                 "multi-adapter LoRA sites are not ported yet")
         self.rank = int(rank)
         self.alpha = float(alpha)
-        self.kernel = _weight((d_in, features), 1.0 / math.sqrt(d_in),
-                              dtype, device, gen)
+        self.quantized = bool(quantized)
+        if self.quantized:
+            base = _weight((d_in, features), 1.0 / math.sqrt(d_in),
+                           torch.float32, device, gen)
+            q, scale = _quantize_int8(base, 0)
+            del base
+            self.qkernel = nn.Parameter(q, requires_grad=False)
+            self.qscale = nn.Parameter(scale, requires_grad=False)
+        else:
+            self.kernel = _weight((d_in, features), 1.0 / math.sqrt(d_in),
+                                  dtype, device, gen)
         if self.rank > 0:
             self.lora_a = _weight((d_in, self.rank), 0.02, dtype, device,
                                   gen)
@@ -183,7 +251,10 @@ class LoRADense(nn.Module):
                                   device, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel.to(x.dtype)
+        if self.quantized:
+            y = (x @ self.qkernel.to(x.dtype)) * self.qscale.to(x.dtype)
+        else:
+            y = x @ self.kernel.to(x.dtype)
         if self.rank > 0:
             y = y + ((x @ self.lora_a.to(x.dtype))
                      @ self.lora_b.to(x.dtype)) * (self.alpha / self.rank)
@@ -217,11 +288,20 @@ def _masked_decode_attention(q: torch.Tensor, kk: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), vv)
 
 
+def _dequant_rows(c: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 cache rows times their scales in f32, the PRODUCT cast to
+    ``dtype`` (casting the scales first would drop the precision their
+    f32 storage pays for)."""
+    return (c.float() * scale[..., None]).to(dtype)
+
+
 class _DecoderAttention(nn.Module):
     def __init__(self, hidden: int, n_heads: int, n_kv_heads: int,
                  lora_rank: int, rope_theta: float,
                  rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
-                 device: torch.device, gen: torch.Generator) -> None:
+                 device: torch.device, gen: torch.Generator,
+                 quantized: bool = False) -> None:
         super().__init__()
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
@@ -229,7 +309,8 @@ class _DecoderAttention(nn.Module):
         self.rope_theta = rope_theta
         self.rope_scaling = rope_scaling
         dh = hidden // n_heads
-        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen)
+        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen,
+                  quantized=quantized)
         self.wq = LoRADense(hidden, n_heads * dh, **kw)
         self.wk = LoRADense(hidden, n_kv_heads * dh, **kw)
         self.wv = LoRADense(hidden, n_kv_heads * dh, **kw)
@@ -259,6 +340,7 @@ class _DecoderAttention(nn.Module):
                 causal=True, kv_lens=lens).transpose(1, 2)
             return self.wo(o.reshape(b, s, self.n_heads * dh))
         ck, cv = cache["k"], cache["v"]
+        kv_int8 = "k_scale" in cache  # the int8 cache's extra leaves
         t = positions  # (b, s): each slot's own write index per token
         # write the whole window before attending: within-window
         # causality then falls out of the per-row position mask
@@ -269,16 +351,30 @@ class _DecoderAttention(nn.Module):
         else:
             widx = (torch.arange(b, device=x.device)[:, None].expand(b, s),
                     t)
-        kv_cache_write(ck, widx[0], widx[1], k)
-        kv_cache_write(cv, widx[0], widx[1], v)
+        if kv_int8:
+            (qk, sk), (qv, sv) = (_quantize_int8(k, -1),
+                                  _quantize_int8(v, -1))
+            writes = [(ck, qk), (cv, qv), (cache["k_scale"], sk),
+                      (cache["v_scale"], sv)]
+            scales = {"k_scale": cache["k_scale"],
+                      "v_scale": cache["v_scale"]}
+        else:
+            writes, scales = [(ck, k), (cv, v)], {}
+        for leaf, val in writes:
+            kv_cache_write(leaf, widx[0], widx[1], val)
         if page_tables is not None:
+            # the kernels scale an int8 pool's rows inside the softmax
             sm = 1.0 / math.sqrt(dh)
             if s == 1:  # the generation hot loop
                 o = paged_decode_attention(q[:, 0], ck, cv, page_tables,
-                                           t[:, 0], sm)[:, None]
+                                           t[:, 0], sm, **scales)[:, None]
             else:  # chunked-prefill windows: nondecreasing positions
-                o = paged_window_attention(q, ck, cv, page_tables, t, sm)
+                o = paged_window_attention(q, ck, cv, page_tables, t, sm,
+                                           **scales)
         else:
+            if kv_int8:
+                ck = _dequant_rows(ck, scales["k_scale"], x.dtype)
+                cv = _dequant_rows(cv, scales["v_scale"], x.dtype)
             o = _masked_decode_attention(
                 q, ck.repeat_interleave(self.rep, dim=2),
                 cv.repeat_interleave(self.rep, dim=2), t, dh, x.dtype)
@@ -290,16 +386,17 @@ class _DecoderBlock(nn.Module):
                  mlp_dim: int, lora_rank: int, rope_theta: float,
                  rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
                  device: torch.device, gen: torch.Generator,
-                 n_experts: int = 0) -> None:
+                 n_experts: int = 0, quantized: bool = False) -> None:
         super().__init__()
         if n_experts:
             raise NotImplementedError("the MoE FFN is not ported yet")
         self.RMSNorm_0 = RMSNorm(hidden, device)
         self.attn = _DecoderAttention(hidden, n_heads, n_kv_heads,
                                       lora_rank, rope_theta, rope_scaling,
-                                      dtype, device, gen)
+                                      dtype, device, gen, quantized)
         self.RMSNorm_1 = RMSNorm(hidden, device)
-        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen)
+        kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen,
+                  quantized=quantized)
         self.gate = LoRADense(hidden, mlp_dim, **kw)
         self.up = LoRADense(hidden, mlp_dim, **kw)
         self.down = LoRADense(mlp_dim, hidden, **kw)
@@ -334,9 +431,12 @@ class Llama(nn.Module):
     ``dtype`` is the compute dtype (None = float32). ``kv_page_size > 0``
     makes the decode cache a paged pool of ``kv_pages`` pages (page 0 is
     the serving engine's scratch page); ``with_kv_layout`` gives another
-    layout over the same weights. Weights are drawn from ``generator``
-    (a fresh one seeded 0 when None) on ``device`` (None = the CUDA
-    card, raising without one)."""
+    layout over the same weights. ``quantized`` holds every LoRADense
+    base as int8 with per-channel scales (serving only, the tree
+    :func:`quantize_llama_params` gives); ``kv_int8`` makes the decode
+    cache int8 with one f32 absmax scale per K/V row. Weights are drawn
+    from ``generator`` (a fresh one seeded 0 when None) on ``device``
+    (None = the CUDA card, raising without one)."""
 
     def __init__(self, vocab_size: int = 128256, max_len: int = 8192,
                  hidden_dim: int = 4096, depth: int = 32,
@@ -347,13 +447,11 @@ class Llama(nn.Module):
                  rope_scaling: Optional[RopeScaling] = None,
                  kv_page_size: int = 0, kv_pages: int = 0,
                  n_experts: int = 0, quantized: bool = False,
-                 n_adapters: int = 0, device: DeviceLike = None,
+                 n_adapters: int = 0, kv_int8: bool = False,
+                 device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
-        if quantized:
-            raise NotImplementedError(
-                "int8 base kernels (quantize_int8) are not ported yet")
         if n_adapters:
             raise NotImplementedError(
                 "multi-adapter serving is not ported yet")
@@ -369,15 +467,18 @@ class Llama(nn.Module):
         self.dtype = torch.float32 if dtype is None else dtype
         self.kv_page_size = int(kv_page_size)
         self.kv_pages = int(kv_pages)
+        self.quantized = bool(quantized)
+        self.kv_int8 = bool(kv_int8)
         self.tok_embed = Embed(vocab_size, hidden_dim, device, generator)
         for i in range(depth):
             self.add_module(f"block_{i}", _DecoderBlock(
                 hidden_dim, n_heads, n_kv_heads, mlp_dim, lora_rank,
                 rope_theta, rope_scaling, self.dtype, device, generator,
-                n_experts=n_experts))
+                n_experts=n_experts, quantized=self.quantized))
         self.final_norm = RMSNorm(hidden_dim, device)
         self.lm_head = LoRADense(hidden_dim, vocab_size, 0, self.dtype,
-                                 device, generator)
+                                 device, generator,
+                                 quantized=self.quantized)
 
     @property
     def device(self) -> torch.device:
@@ -387,7 +488,8 @@ class Llama(nn.Module):
         """This model over another decode-cache layout, sharing every
         weight tensor (the JAX ``module.clone(kv_page_size=...,
         kv_pages=...)``): only the cache shape and the attention
-        dispatch depend on the layout."""
+        dispatch depend on the layout; ``quantized`` and ``kv_int8``
+        carry over."""
         _check_kv_layout(self.max_len, kv_page_size, kv_pages)
         view = copy.copy(self)  # shallow: submodules and weights shared
         view.kv_page_size = int(kv_page_size)
@@ -398,16 +500,27 @@ class Llama(nn.Module):
                    ) -> List[Dict[str, torch.Tensor]]:
         """Per-layer zeroed ``{"k", "v"}`` in the compute dtype:
         ``(batch, max_len, n_kv, dh)`` rows, or ``(kv_pages, page_size,
-        n_kv, dh)`` when paged. The forward writes them in place."""
+        n_kv, dh)`` when paged. With ``kv_int8`` the two are int8, and
+        ``"k_scale"``/``"v_scale"`` hold each row's f32 scale, the same
+        shape without ``dh``. The forward writes them in place."""
         dev = self.device if device is None else torch.device(device)
         dh = self.hidden_dim // self.n_heads
         if self.kv_page_size > 0:
-            shape = (self.kv_pages, self.kv_page_size, self.n_kv_heads, dh)
+            rows = (self.kv_pages, self.kv_page_size, self.n_kv_heads)
         else:
-            shape = (batch, self.max_len, self.n_kv_heads, dh)
-        return [{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
-                for _ in range(self.depth)]
+            rows = (batch, self.max_len, self.n_kv_heads)
+        kv_dtype = torch.int8 if self.kv_int8 else self.dtype
+
+        def layer() -> Dict[str, torch.Tensor]:
+            c = {name: torch.zeros(rows + (dh,), dtype=kv_dtype, device=dev)
+                 for name in ("k", "v")}
+            if self.kv_int8:
+                c.update({name: torch.zeros(rows, dtype=torch.float32,
+                                            device=dev)
+                          for name in ("k_scale", "v_scale")})
+            return c
+
+        return [layer() for _ in range(self.depth)]
 
     def forward(self, ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -640,25 +753,30 @@ class LlamaLoRA:
     ``depth``, ``n_heads``, ``kv_ratio``, ``lora_rank``, ``lora_scale``,
     ``learning_rate``, ``batch_size``, ``max_epochs``, ``max_len``,
     ``vocab_size``, ``bf16``, ``adapters_only``, ``rope_theta``,
-    ``rope_scaling``, ...); the byte-BPE tokenizer and the int8/MoE knobs
-    are later slices and raise. ``device=None`` is the CUDA card.
+    ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``, ...); the
+    byte-BPE tokenizer, ``pretrained_path`` and the MoE knob are later
+    slices and raise. ``device=None`` is the CUDA card.
 
     Parameters live as the JAX template keeps them: ``_params``, nested
     dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
     returns), and ``_model``, the compute-dtype ``Llama`` built from them
-    for serving and evaluation."""
+    for evaluation and serving. With ``quantize_int8`` serving takes
+    ``_qmodel`` instead, the int8 model of :func:`quantize_llama_params`,
+    built once per loaded tree (JAX's cached ``_qparams``), and ``_model``
+    is built only when ``evaluate`` asks for it, so an int8 deployment
+    holds no compute-dtype copy of its weights on the card."""
 
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
         self.knobs: Dict[str, Any] = dict(knobs)
-        for key in ("tokenizer_path", "pretrained_path", "quantize_int8",
-                    "kv_cache_int8", "moe_experts"):
+        for key in ("tokenizer_path", "pretrained_path", "moe_experts"):
             if self.knobs.get(key):
                 raise NotImplementedError(f"knob {key!r} is not ported yet")
         self.tokenizer = HashTokenizer(int(self.knobs.get("vocab_size",
                                                           1 << 14)))
         self._params: Optional[Dict[str, Any]] = None
         self._model: Optional[Llama] = None
+        self._qmodel: Optional[Llama] = None  # the int8 serving model
         self._id2tok: Dict[int, str] = {}
 
     def _dtype(self) -> torch.dtype:
@@ -666,9 +784,11 @@ class LlamaLoRA:
         return torch.bfloat16 if self.knobs.get("bf16", True) \
             else torch.float32
 
-    def _module(self) -> Llama:
+    def _module(self, quantized: bool = False) -> Llama:
         """A freshly initialized model for these knobs (mlp = 4·hidden,
-        as in the JAX template), contiguous cache layout."""
+        as in the JAX template), contiguous cache layout; int8 base
+        kernels with ``quantized``, an int8 cache with the
+        ``kv_cache_int8`` knob."""
         k = self.knobs
         hd = int(k["hidden_dim"])
         heads = int(k["n_heads"])
@@ -682,15 +802,42 @@ class LlamaLoRA:
                                       or 10000.0),
                      rope_scaling=_parse_rope_scaling(
                          k.get("rope_scaling", "")),
+                     quantized=quantized,
+                     kv_int8=bool(k.get("kv_cache_int8", False)),
                      device=self.device)
 
     def _serving_module_params(self, kv_page_size: int = 0,
                                kv_pages: int = 0) -> Llama:
         """The loaded model over the requested cache layout (the JAX
-        method returns (module, params); here the module holds them)."""
-        if self._model is None:
+        method returns (module, params); here the module holds them):
+        the int8 model when the ``quantize_int8`` knob is set, quantized
+        once per loaded tree and then cached."""
+        if not self.knobs.get("quantize_int8"):
+            return self._float_model().with_kv_layout(kv_page_size,
+                                                      kv_pages)
+        if self._qmodel is None:
+            self._require_params()
+            model = self._module(quantized=True)
+            model.load_state_dict(llama_params_from_jax(
+                quantize_llama_params(self._params, model.device),
+                model.dtype))
+            self._qmodel = model
+        return self._qmodel.with_kv_layout(kv_page_size, kv_pages)
+
+    def _require_params(self) -> None:
+        if self._params is None:
             raise RuntimeError("model is not loaded (load_parameters)")
-        return self._model.with_kv_layout(kv_page_size, kv_pages)
+
+    def _float_model(self) -> Llama:
+        """The compute-dtype model of the f32 tree (evaluate's, and
+        serving's without ``quantize_int8``), built at first use."""
+        if self._model is None:
+            self._require_params()
+            model = self._module()
+            model.load_state_dict(llama_params_from_jax(self._params,
+                                                        model.dtype))
+            self._model = model
+        return self._model
 
     def load_parameters(self, params: Dict[str, Any]) -> None:
         """Load a ``dump_parameters()`` dict — the port's or the JAX
@@ -703,13 +850,13 @@ class LlamaLoRA:
         self._set_params(params["params"])
 
     def _set_params(self, tree: Dict[str, Any]) -> None:
-        """Keep ``tree`` (f32 copies) and build the serving model from
-        it, matmul leaves cast to the compute dtype once."""
+        """Keep ``tree`` (f32 copies) and drop the models of the previous
+        tree; build the compute-dtype model from it (matmul leaves cast
+        once) unless ``quantize_int8`` serves the int8 one instead."""
         self._params = f32_tree(tree)
-        model = self._module()
-        model.load_state_dict(llama_params_from_jax(self._params,
-                                                    model.dtype))
-        self._model = model
+        self._model = self._qmodel = None
+        if not self.knobs.get("quantize_int8"):
+            self._float_model()
 
     def dump_parameters(self) -> Dict[str, Any]:
         """``{"params": f32 numpy tree, "meta": {"id2tok": ...}}`` — the
@@ -825,8 +972,9 @@ class LlamaLoRA:
     def evaluate(self, dataset_path: str) -> float:
         """Inverse perplexity exp(−nll) in (0, 1]; higher is better.
         Buckets of 32 rows; pad rows have ``lens = 0``, so no loss
-        position of theirs counts."""
-        model = self._serving_module_params()
+        position of theirs counts. The f32 tree's model, int8 knobs or
+        not (JAX's evaluate takes ``_params``)."""
+        model = self._float_model()
         ds = load_text_classification_dataset(dataset_path)
         ids, lens = self._encode_lm(ds.texts)
         total, count = 0.0, 0.0
@@ -851,9 +999,10 @@ class LlamaLoRA:
     def predict(self, queries: Sequence[Any],
                 max_new_tokens: int = 8) -> List[str]:
         """Greedy continuations, detokenized via the learned id→token
-        table (unknown ids render as ``<id>``). The JAX template pads the
-        batch to a power of two for its compile cache; eager PyTorch has
-        none to hit, so the batch runs as given."""
+        table (unknown ids render as ``<id>``), through the serving model
+        (int8 under the int8 knobs). The JAX template pads the batch to a
+        power of two for its compile cache; eager PyTorch has none to
+        hit, so the batch runs as given."""
         model = self._serving_module_params()
         texts = [q if isinstance(q, str) else str(q) for q in queries]
         max_len = int(self.knobs["max_len"])
@@ -883,8 +1032,9 @@ class LlamaLoRA:
         """Continuous-batching serving engine over this model's weights.
         ``kv_page_size > 0`` serves from a paged KV pool of ``kv_pages``
         pages (0 = full coverage); on a CUDA device every decode call
-        then runs the paged-attention kernels. Speculation, draft models,
-        system prefixes and the host KV tier are later slices."""
+        then runs the paged-attention kernels (their int8 instances under
+        ``kv_cache_int8``). Speculation, draft models, system prefixes and
+        the host KV tier are later slices."""
         if system_prefix:
             raise NotImplementedError(
                 "registered prefixes are not ported yet")

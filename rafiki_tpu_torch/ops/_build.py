@@ -4,9 +4,10 @@ Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded through ``ctypes`` — seconds to build, where a source
 that includes PyTorch's headers takes minutes. The build happens at first
 use, into ``build/rafiki_tpu_torch/`` beside the package (a directory
-``.gitignore`` lists), and again whenever the source is newer than the
-library. Nothing here is imported or compiled when a module is imported:
-the CPU tests import every module on hosts without ``nvcc``.
+``.gitignore`` lists), and again whenever the source or a header of
+``csrc/`` (``*.cuh``, which sources share) is newer than the library.
+Nothing here is imported or compiled when a module is imported: the CPU
+tests import every module on hosts without ``nvcc``.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and a
 kernel wrapper that asked for the library raises with it.
@@ -74,14 +75,16 @@ def build(name: str, extra_flags: Sequence[str] = ()) -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built first if it is missing or
-    older than its source."""
+    older than its source or a shared header."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         out = lib_path(name)
         src = CSRC / f"{name}.cu"
-        if not out.is_file() or out.stat().st_mtime < src.stat().st_mtime:
+        newest = max(f.stat().st_mtime
+                     for f in (src, *CSRC.glob("*.cuh")))
+        if not out.is_file() or out.stat().st_mtime < newest:
             build(name)
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib

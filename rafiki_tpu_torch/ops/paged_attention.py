@@ -15,8 +15,9 @@ Ports ``rafiki_tpu/ops/paged_attention.py``:
 
 Both wrappers keep the JAX signatures and layouts. A tensor on the CPU
 runs the plain version; any other device launches the hand-written CUDA
-kernels in ``csrc/paged_attention.cu`` (built by ``ops/_build.py`` at first
-use) or raises — there is no silent fallback. The kernels split each
+kernels of ``csrc/paged_attention.cuh`` (the libraries of
+``paged_attention.cu`` and ``paged_attention_int8.cu``, built by
+``ops/_build.py`` at first use) or raises — there is no silent fallback. The kernels split each
 slot's pages over several blocks (:func:`_split_plan`, from shapes alone)
 and merge the splits' partial softmax states in a second, deterministic
 pass; :func:`_paged_split_reference` is the plain model of that split and
@@ -24,8 +25,13 @@ merge, held against the JAX kernels on the CPU. Each wrapper counts its
 calls that launch the kernels in a plain integer attribute, ``launches``
 (one per call, merge pass or not).
 
-The int8 KV pool (``k_scale``/``v_scale``) is accepted by the signatures
-and raises ``NotImplementedError`` in this slice.
+An int8 pool (the ``kv_cache_int8`` branch, ``quantized=True`` in the
+Pallas kernels) comes with ``k_scale``/``v_scale``, one f32 absmax scale
+per (page, slot, kv head) row: the plain versions dequantize each row as
+the JAX oracles do (``int8 · scale`` in f32), and on the card the int8
+instances of the same kernels (``csrc/paged_attention_int8.cu``) scale the
+rows inside the softmax math. :func:`_paged_int8_mma_reference` is the
+plain model of their bf16-query numerics.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rafiki_tpu_torch.ops import _build
-from rafiki_tpu_torch.ops.attention import HEAD_DIMS, NEG_INF
+from rafiki_tpu_torch.ops.attention import HEAD_DIMS, NEG_INF, _bf16_terms
 from rafiki_tpu_torch.ops.common import KERNEL_DTYPES as _DTYPE_CODES
 from rafiki_tpu_torch.ops.common import check_launch as _raise_on
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
@@ -69,13 +75,8 @@ def kv_cache_write(cache: torch.Tensor, idx0: torch.Tensor,
                             values.to(cache.dtype))
 
 
-def _check_int8(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet")
-
-
-def _check_shapes(q, k_pool, v_pool, page_tables, positions, s) -> None:
+def _check_shapes(q, k_pool, v_pool, page_tables, positions, s,
+                  k_scale=None, v_scale=None) -> None:
     b, n_heads, dh = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"k_pool/v_pool must share one (n_pages, "
@@ -92,6 +93,14 @@ def _check_shapes(q, k_pool, v_pool, page_tables, positions, s) -> None:
     if tuple(positions.shape) != want:
         raise ValueError(f"positions must be {want}, got "
                          f"{tuple(positions.shape)}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is not None:
+        rows = tuple(k_pool.shape[:3])
+        if tuple(k_scale.shape) != rows or tuple(v_scale.shape) != rows:
+            raise ValueError(f"k_scale/v_scale must be (n_pages, page_size, "
+                             f"n_kv) = {rows}, got {tuple(k_scale.shape)} / "
+                             f"{tuple(v_scale.shape)}")
 
 
 def _tile_rows(dtype: torch.dtype, dh: int) -> int:
@@ -187,40 +196,62 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.library("paged_attention")
+def _library(int8: bool = False) -> ctypes.CDLL:
+    """The kernels' library: ``paged_attention`` (pools of q's type) or
+    ``paged_attention_int8`` (int8 pools and their scales). Both export
+    the same two entries."""
+    lib = _build.library("paged_attention_int8" if int8
+                         else "paged_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rt_paged_decode_attention.argtypes = (
-        [i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 10 + [i32] * 8 + [ctypes.c_float, ptr])
     lib.rt_paged_decode_attention.restype = i32
     lib.rt_paged_window_attention.argtypes = (
-        [i32] + [ptr] * 8 + [i32] * 10 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 10 + [i32] * 10 + [ctypes.c_float, ptr])
     lib.rt_paged_window_attention.restype = i32
     return lib
 
 
-def _cuda_operands(q, k_pool, v_pool, page_tables, positions):
+def _cuda_operands(q, k_pool, v_pool, page_tables, positions, k_scale,
+                   v_scale):
     """Validate what the kernel takes (it checks nothing itself) and
-    return contiguous q/tables/positions. The pools must already be
-    contiguous: they are the live cache, never copied."""
+    return contiguous q/tables/positions. The pools and scales must
+    already be contiguous: they are the live cache, never copied."""
     dev = q.device
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_tables", page_tables),
-                    ("positions", positions)):
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("page_tables", page_tables), ("positions", positions)]
+    if k_scale is not None:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in named:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, got "
                              f"{t.device}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(f"q/k_pool/v_pool must share float32 or bfloat16, "
-                        f"got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if k_scale is None:
+        if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
+                or v_pool.dtype != q.dtype:
+            raise TypeError(f"q/k_pool/v_pool must share float32 or "
+                            f"bfloat16 (or the pools be int8 with "
+                            f"k_scale/v_scale), got {q.dtype}/"
+                            f"{k_pool.dtype}/{v_pool.dtype}")
+    else:
+        if q.dtype not in _DTYPE_CODES or k_pool.dtype != torch.int8 \
+                or v_pool.dtype != torch.int8:
+            raise TypeError(f"with k_scale/v_scale the pools must be int8 "
+                            f"and q float32 or bfloat16, got {q.dtype}/"
+                            f"{k_pool.dtype}/{v_pool.dtype}")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError(f"k_scale/v_scale must be float32, got "
+                            f"{k_scale.dtype}/{v_scale.dtype}")
+        if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
+            raise ValueError("k_scale/v_scale must be contiguous")
     if page_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("page_tables and positions must be int32")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("k_pool/v_pool must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("k_pool/v_pool must start 16-byte aligned (the "
-                         "kernels copy pool rows in 16- or 8-byte pieces)")
+                         "kernels copy pool rows in 16-, 8- or 4-byte "
+                         "pieces)")
     return q.contiguous(), page_tables.contiguous(), positions.contiguous()
 
 
@@ -234,7 +265,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     - ``q``: (b, n_heads, dh) — this step's query vector per slot.
     - ``k_pool``/``v_pool``: (n_pages, page_size, n_kv_heads, dh), the
-      per-layer pool, float32 or bfloat16.
+      per-layer pool: float32 or bfloat16 (q's type on the card), or int8
+      with ``k_scale``/``v_scale``, the f32 absmax scales of its rows,
+      (n_pages, page_size, n_kv_heads) each (both or neither).
     - ``page_tables``: (b, n_tables) int32 logical→pool page map; dead
       entries point at a valid page (the engine keeps them at 0, its
       scratch page). The table may be a live-width slice narrower than
@@ -244,17 +277,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     Returns (b, n_heads, dh) in ``q``'s dtype; q head h reads kv head
     ``h // rep``."""
-    _check_int8(k_scale, v_scale)
     if q.dim() != 3:
         raise ValueError(f"q must be (b, n_heads, dh), got "
                          f"{tuple(q.shape)}")
-    _check_shapes(q, k_pool, v_pool, page_tables, positions, None)
+    _check_shapes(q, k_pool, v_pool, page_tables, positions, None, k_scale,
+                  v_scale)
     if not _runs_kernel(q):
         return _paged_attention_reference(q, k_pool, v_pool, page_tables,
-                                          positions, sm_scale)
-    lib = _library()
-    q, page_tables, positions = _cuda_operands(q, k_pool, v_pool,
-                                               page_tables, positions)
+                                          positions, sm_scale, k_scale,
+                                          v_scale)
+    lib = _library(k_scale is not None)
+    q, page_tables, positions = _cuda_operands(
+        q, k_pool, v_pool, page_tables, positions, k_scale, v_scale)
     b, n_heads, dh = q.shape
     _, page, n_kv, _ = k_pool.shape
     _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
@@ -265,8 +299,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.rt_paged_decode_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), _ptr(acc), _ptr(ml), b, n_heads, n_kv, dh, page,
+            v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            _ptr(acc), _ptr(ml), b, n_heads, n_kv, dh, page,
             page_tables.shape[1], plan.pages_per_split, plan.n_splits,
             float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_decode_attention")
@@ -286,8 +321,9 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Multi-token window attention straight off a paged KV pool.
 
     - ``q``: (b, s, n_heads, dh) — a window of s query vectors per slot.
-    - pools and ``page_tables``: as in :func:`paged_decode_attention`;
-      the window's own K/V rows are already written into the pool.
+    - pools, scales and ``page_tables``: as in
+      :func:`paged_decode_attention`; the window's own K/V rows are
+      already written into the pool.
     - ``positions``: (b, s) int32 absolute positions, NONDECREASING along
       each row (the engine repeats the last real entry into overhang
       rows); row i sees keys ``k_pos <= positions[b, i]``.
@@ -295,17 +331,17 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Returns (b, s, n_heads, dh) in ``q``'s dtype. With s == 1 the kernel
     computes bit for bit what :func:`paged_decode_attention` computes
     (both run one block body)."""
-    _check_int8(k_scale, v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be (b, s, n_heads, dh), got "
                          f"{tuple(q.shape)}")
-    _check_shapes(q, k_pool, v_pool, page_tables, positions, q.shape[1])
+    _check_shapes(q, k_pool, v_pool, page_tables, positions, q.shape[1],
+                  k_scale, v_scale)
     if not _runs_kernel(q):
         return _paged_window_reference(q, k_pool, v_pool, page_tables,
-                                       positions, sm_scale)
-    lib = _library()
-    q, page_tables, positions = _cuda_operands(q, k_pool, v_pool,
-                                               page_tables, positions)
+                                       positions, sm_scale, k_scale, v_scale)
+    lib = _library(k_scale is not None)
+    q, page_tables, positions = _cuda_operands(
+        q, k_pool, v_pool, page_tables, positions, k_scale, v_scale)
     b, s, n_heads, dh = q.shape
     _, page, n_kv, _ = k_pool.shape
     _check_kernel_shapes(dh, page, n_heads // n_kv, q.dtype)
@@ -316,9 +352,10 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.rt_paged_window_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), _ptr(acc), _ptr(ml), b, s, n_heads, n_kv, dh,
-            page, page_tables.shape[1], plan.block_q, plan.pages_per_split,
+            v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            _ptr(acc), _ptr(ml), b, s, n_heads, n_kv, dh, page,
+            page_tables.shape[1], plan.block_q, plan.pages_per_split,
             plan.n_splits, float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_window_attention")
@@ -329,41 +366,58 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_window_attention.launches = 0
 
 
-def _masked_scores(q, k_pool, v_pool, page_tables, positions, sm_scale):
+def _rows(pool, scale, tabs, rep):
+    """A pool gathered into logical order, (b, length, n_heads, dh) f32,
+    each row times its scale when the pool is int8 (the JAX oracles'
+    ``rows(k).astype(f32) * rows(k_scale)[..., None]``), the kv heads
+    repeated ``rep`` times."""
+    b, n_tab = tabs.shape
+    _, page_size, n_kv, dh = pool.shape
+    x = pool[tabs].reshape(b, n_tab * page_size, n_kv, dh).float()
+    if scale is not None:
+        x = x * scale[tabs].reshape(b, n_tab * page_size, n_kv)[..., None]
+    return x.repeat_interleave(rep, dim=2)
+
+
+def _position_mask(positions, length):
+    """(b, 1, s, length): key ``k`` is visible to row ``i`` when ``k <=
+    positions[b, i]``."""
+    k_pos = torch.arange(length, device=positions.device)
+    return k_pos[None, None, None, :] <= positions.long()[:, None, :, None]
+
+
+def _masked_scores(q, k_pool, v_pool, page_tables, positions, sm_scale,
+                   k_scale=None, v_scale=None):
     """The pages gathered into logical order and the f32 scores of every
     (query row, key), masked to ``NEG_INF`` past each row's position:
-    ``(scores (b, h, s, length), v (b, length, h, dh))``."""
-    b, s, n_heads, dh = q.shape
-    _, page_size, n_kv, _ = k_pool.shape
-    rep = gqa_repeat_factor(n_heads, n_kv)
-    length = page_tables.shape[1] * page_size
+    ``(scores (b, h, s, length), v (b, length, h, dh))``. int8 pools are
+    dequantized row by row in f32 first."""
+    rep = gqa_repeat_factor(q.shape[2], k_pool.shape[2])
     tabs = page_tables.long()
-
-    def rows(pool):  # (b, length, n_heads, dh) logical view
-        return pool[tabs].reshape(b, length, n_kv, dh).float() \
-            .repeat_interleave(rep, dim=2)
-
-    k, v = rows(k_pool), rows(v_pool)
+    k = _rows(k_pool, k_scale, tabs, rep)
+    v = _rows(v_pool, v_scale, tabs, rep)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * sm_scale
-    k_pos = torch.arange(length, device=q.device)[None, None, None, :]
-    t = positions.long()[:, None, :, None]  # (b, 1, s, 1)
-    return torch.where(k_pos <= t, scores, NEG_INF), v
+    mask = _position_mask(positions, k.shape[1])
+    return torch.where(mask, scores, NEG_INF), v
 
 
 def _paged_window_reference(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, page_tables: torch.Tensor,
-                            positions: torch.Tensor,
-                            sm_scale: float) -> torch.Tensor:
+                            positions: torch.Tensor, sm_scale: float,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Plain window version: gather the pages back into logical order
-    and run the per-row masked softmax in f32."""
+    (dequantizing an int8 pool's rows in f32) and run the per-row masked
+    softmax in f32."""
     scores, v = _masked_scores(q, k_pool, v_pool, page_tables, positions,
-                               sm_scale)
+                               sm_scale, k_scale, v_scale)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
 def _split_partials(q, k_pool, v_pool, page_tables, positions, sm_scale,
-                    pages_per_split):
+                    pages_per_split, k_scale=None, v_scale=None):
     """Each split's online-softmax state over its keys, as the kernels
     leave it: ``(m, l, acc)``, stacked over splits in order, with ``m``
     and ``l`` (n_splits, b, h, s, 1) and ``acc`` (n_splits, b, h, s, dh),
@@ -371,7 +425,7 @@ def _split_partials(q, k_pool, v_pool, page_tables, positions, sm_scale,
     ``NEG_INF`` as its max there, and its ``l`` counts the masked keys
     (each weighs exp(0) = 1), as the JAX kernels' running state does."""
     scores, v = _masked_scores(q, k_pool, v_pool, page_tables, positions,
-                               sm_scale)
+                               sm_scale, k_scale, v_scale)
     step = pages_per_split * k_pool.shape[1]
     ms, ls, accs = [], [], []
     for k0 in range(0, scores.shape[-1], step):
@@ -398,7 +452,10 @@ def _merge_partials(m: torch.Tensor, l: torch.Tensor,
 def _paged_split_reference(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_tables: torch.Tensor,
                            positions: torch.Tensor, sm_scale: float,
-                           pages_per_split: int) -> torch.Tensor:
+                           pages_per_split: int,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain model of the kernels' split over pages and their merge, in
     f32, for a window ``q`` (b, s, n_heads, dh) with positions (b, s) (a
     decode call is the window of one): the table's columns cut into
@@ -408,15 +465,71 @@ def _paged_split_reference(q: torch.Tensor, k_pool: torch.Tensor,
     it."""
     out = _merge_partials(*_split_partials(q, k_pool, v_pool, page_tables,
                                            positions, sm_scale,
-                                           pages_per_split))
+                                           pages_per_split, k_scale,
+                                           v_scale))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _paged_int8_mma_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor,
+                              page_tables: torch.Tensor,
+                              positions: torch.Tensor, sm_scale: float,
+                              pages_per_split: int, p_terms: int = 2,
+                              dequant_bf16: bool = False) -> torch.Tensor:
+    """Plain model of the int8 kernels' bf16-query numerics, for a window
+    ``q`` (b, s, n_heads, dh) bf16 over int8 pools: per split, the f32
+    scores ``k_scale_j · (q · int8_j)`` (bf16 × int8 products are exact,
+    the sums f32) times ``sm_scale``; the split's softmax state; P·V as
+    ``Σ_j terms(p_j · v_scale_j) · int8_j``, with ``p_j · v_scale_j``
+    carried as ``p_terms`` bf16 terms (2: hi + lo, the kernel's; 1: one
+    rounding); the splits merged as :func:`_merge_partials` does and the
+    output rounded once to q's dtype.
+
+    ``dequant_bf16`` models the design the kernel avoids: K and V
+    dequantized in f32 and rounded to bf16 before the products (P still
+    hi + lo). The tests hold this model, and not that one, within the
+    bf16 tolerance of the plain version."""
+    rep = gqa_repeat_factor(q.shape[2], k_pool.shape[2])
+    tabs = page_tables.long()
+    if dequant_bf16:
+        k = _rows(k_pool, k_scale, tabs, rep).bfloat16().float()
+        v = _rows(v_pool, v_scale, tabs, rep).bfloat16().float()
+        ks = vs = torch.ones(k.shape[:3], device=q.device)
+    else:
+        k = _rows(k_pool, None, tabs, rep)
+        v = _rows(v_pool, None, tabs, rep)
+        ks = _rows(k_scale[..., None], None, tabs, rep)[..., 0]
+        vs = _rows(v_scale[..., None], None, tabs, rep)[..., 0]
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k)
+    scores = raw * ks.permute(0, 2, 1)[:, :, None, :] * sm_scale
+    scores = torch.where(_position_mask(positions, k.shape[1]), scores,
+                         NEG_INF)
+    step = pages_per_split * k_pool.shape[1]
+    ms, ls, accs = [], [], []
+    for k0 in range(0, scores.shape[-1], step):
+        sc = scores[..., k0:k0 + step]
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        pv = _bf16_terms(p * vs[:, k0:k0 + step].permute(0, 2, 1)[:, :, None],
+                         p_terms)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd", pv,
+                                 v[:, k0:k0 + step]))
+    out = _merge_partials(torch.stack(ms), torch.stack(ls),
+                          torch.stack(accs))
     return out.transpose(1, 2).to(q.dtype)
 
 
 def _paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                page_tables: torch.Tensor,
-                               positions: torch.Tensor,
-                               sm_scale: float) -> torch.Tensor:
+                               positions: torch.Tensor, sm_scale: float,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Plain single-token version: the window version at s == 1."""
     return _paged_window_reference(q[:, None], k_pool, v_pool, page_tables,
-                                   positions[:, None], sm_scale)[:, 0]
+                                   positions[:, None], sm_scale, k_scale,
+                                   v_scale)[:, 0]

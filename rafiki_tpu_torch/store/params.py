@@ -22,8 +22,11 @@ Llama's leaves are::
     final_norm/scale, lm_head/kernel, tok_embed/embedding
 
 and :func:`llama_params_from_jax` casts its matmul leaves to the compute
-dtype once, at load. The Flax-msgpack byte codec
-(``rafiki_tpu/store/param_store.py``) waits for the worker slice.
+dtype once, at load. The int8 serving tree of ``quantize_llama_params``
+names a quantized site's base ``qkernel`` (int8) and ``qscale`` (f32)
+instead of ``kernel``: both keep their types through the bridge. The
+Flax-msgpack byte codec (``rafiki_tpu/store/param_store.py``) waits for
+the worker slice.
 """
 
 from __future__ import annotations
@@ -54,11 +57,20 @@ def f32_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
             else np.array(v, dtype=np.float32) for k, v in tree.items()}
 
 
+def _leaf_tensor(leaf: Any) -> torch.Tensor:
+    """One leaf as a tensor: int8 stays int8 (a ``qkernel``), everything
+    else becomes f32. A torch tensor stays on its device; an array
+    becomes a CPU tensor of its own."""
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+        np.array(leaf))
+    return t if t.dtype == torch.int8 else t.float()
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX params pytree → a ``state_dict`` of f32 CPU tensors
+    """JAX params pytree → a ``state_dict`` of f32 tensors (int8 leaves
+    stay int8), on the CPU unless a leaf already is a tensor elsewhere
     (``load_state_dict`` moves them to the model's device)."""
-    return {key: torch.from_numpy(np.array(leaf, dtype=np.float32))
-            for key, leaf in _flatten(tree).items()}
+    return {key: _leaf_tensor(leaf) for key, leaf in _flatten(tree).items()}
 
 
 def llama_params_from_jax(tree: Mapping[str, Any],

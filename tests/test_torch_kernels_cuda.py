@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from rafiki_tpu_torch.models.llama_lora import _quantize_int8
 from rafiki_tpu_torch.ops import paged_attention as pa
+from rafiki_tpu_torch.ops.attention import HEAD_DIMS
 
 
 def _paged_tol(dtype, ref):
@@ -210,6 +212,92 @@ def test_paged_kernels_refuse_unsupported_shapes_on_card():
         pool = torch.zeros(2, page, 2, dh, device=dev)
         with pytest.raises(ValueError):
             pa.paged_decode_attention(q, pool, pool, tab, pos, 0.5)
+    assert pa.paged_decode_attention.launches == before
+
+
+def _int8_pools(rng, last, n_kv, dh, page, n_tab, dev):
+    """``_paged_pools``' layout as an int8 cache: rows quantized from f32
+    by the model's cache writer (int8 and one f32 absmax scale per row),
+    scratch page 0 holding 127s and -127s at huge scales."""
+    k, v, tab = _paged_pools(rng, last, n_kv, dh, page, n_tab,
+                             torch.float32, dev)
+    kq, ks = _quantize_int8(k, -1)
+    vq, vs = _quantize_int8(v, -1)
+    return kq, vq, ks, vs, tab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_paged_kernels_on_card(dtype, dh, page):
+    """The int8 instances of B1 and B2 (int8 pools, f32 row scales, f32 or
+    bf16 queries) against their plain versions run in f32, at every head
+    dim and page: positions on and beside 64-key tiles and one far past
+    the rest, windows of 1, 7 and 33 tokens, GQA rep 4; per-element
+    tolerance (``_paged_tol``); a second call bit-identical and a window of
+    one equal to the decode step bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt, dev = getattr(torch, dtype), torch.device("cuda")
+    n_kv, n_heads = 2, 8
+    last = np.array([63, 64, 127, 128, 700], np.int32)
+    rng = np.random.default_rng(dh * 1000 + page)
+    n_tab = int(last.max()) // page + 2
+    kq, vq, ks, vs, tab = _int8_pools(rng, last, n_kv, dh, page, n_tab, dev)
+    sm = 1.0 / np.sqrt(dh)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(last), n_heads, dh)).astype(np.float32)).to(dev).to(dt)
+    pos = torch.from_numpy(last).to(dev)
+    pools = (kq, vq, tab)
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, *pools, pos, sm, ks, vs)
+    again = pa.paged_decode_attention(q, *pools, pos, sm, ks, vs)
+    assert pa.paged_decode_attention.launches == before + 2
+    ref = pa._paged_attention_reference(q.float(), *pools, pos, sm, ks, vs)
+    win1 = pa.paged_window_attention(q[:, None], *pools, pos[:, None], sm,
+                                     ks, vs)[:, 0]
+    torch.cuda.synchronize()
+    assert got.dtype == dt and _paged_within(got, ref, dt)
+    assert torch.equal(got, again) and torch.equal(win1, got)
+    for c in (7, 33):
+        wpos = np.maximum(0, last[:, None] - np.arange(c - 1, -1, -1)[None])
+        wpos = torch.from_numpy(wpos.astype(np.int32)).to(dev)
+        qw = torch.from_numpy(rng.standard_normal(
+            (len(last), c, n_heads, dh)).astype(np.float32)).to(dev).to(dt)
+        got_w = pa.paged_window_attention(qw, *pools, wpos, sm, ks, vs)
+        again_w = pa.paged_window_attention(qw, *pools, wpos, sm, ks, vs)
+        ref_w = pa._paged_window_reference(qw.float(), *pools, wpos, sm, ks,
+                                           vs)
+        torch.cuda.synchronize()
+        assert _paged_within(got_w, ref_w, dt), c
+        assert torch.equal(got_w, again_w), c
+
+
+@pytest.mark.cuda
+def test_int8_paged_kernels_refuse_bad_operands_on_card():
+    """No fallback: an int8 pool without scales, scales of another type,
+    a pool whose rows are not contiguous, or a pool that does not start
+    16-byte aligned raise; nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    last = np.array([5, 40], np.int32)
+    kq, vq, ks, vs, tab = _int8_pools(rng, last, 2, 64, 16, 4, dev)
+    q = torch.zeros(2, 4, 64, dtype=torch.bfloat16, device=dev)
+    pos = torch.from_numpy(last).to(dev)
+    before = pa.paged_decode_attention.launches
+    bad = [((kq, vq), {}),  # int8 rows read as bf16: no scales
+           ((kq, vq), {"k_scale": ks.double(), "v_scale": vs.double()}),
+           ((kq.transpose(0, 1).contiguous().transpose(0, 1), vq),
+            {"k_scale": ks, "v_scale": vs}),
+           ((kq.flatten()[1:1 + kq.numel() - 64 * 16 * 2].view(
+               -1, 16, 2, 64), vq[:-1]),
+            {"k_scale": ks[:-1], "v_scale": vs[:-1]})]
+    for (k, v), kw in bad:
+        with pytest.raises((TypeError, ValueError)):
+            pa.paged_decode_attention(q, k, v, tab, pos, 0.125, **kw)
     assert pa.paged_decode_attention.launches == before
 
 

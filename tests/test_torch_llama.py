@@ -182,9 +182,25 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError):
         LlamaLoRA(device="cpu", **{**KNOBS, "model_parallel": 2}).train(
             "unread.jsonl")
-    for kw in ({"quantized": True}, {"n_adapters": 2}, {"n_experts": 4}):
+    for kw in ({"n_adapters": 2}, {"n_experts": 4}):
         with pytest.raises(NotImplementedError):
             Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1,
                   n_heads=2, n_kv_heads=1, mlp_dim=16, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        LlamaLoRA(device="cpu", **{**KNOBS, "quantize_int8": True})
+    for knob in ("moe_experts", "tokenizer_path", "pretrained_path"):
+        with pytest.raises(NotImplementedError, match=knob):
+            LlamaLoRA(device="cpu", **{**KNOBS, knob: 4})
+    # the int8 serving forms are ported: int8 base kernels with their
+    # scales, an int8 cache with its scale leaves, and the knobs
+    q = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
+              n_kv_heads=1, mlp_dim=16, quantized=True, kv_int8=True,
+              device="cpu")
+    assert q.block_0.attn.wq.qkernel.dtype == torch.int8
+    assert q.lm_head.qscale.dtype == torch.float32
+    cache = q.init_cache(1)
+    assert q(torch.zeros(1, 2, dtype=torch.long), cache=cache).shape == \
+        (1, 2, 16)
+    assert cache[0]["k"].dtype == torch.int8 and cache[0]["k_scale"].shape \
+        == (1, 8, 1)
+    m8 = LlamaLoRA(device="cpu", **{**KNOBS, "quantize_int8": True,
+                                    "kv_cache_int8": True})
+    assert m8._module(quantized=True).quantized and m8._module().kv_int8

@@ -7,6 +7,12 @@ same numpy inputs (from a seed) feed both. Tolerance: 1e-5 absolute at
 f32 — the two sides sum in different orders (the kernel merges page
 partials by LSE, the plain version soft-maxes the gathered row).
 
+int8 pools (``k_scale``/``v_scale``, the ``kv_cache_int8`` branch) are
+held the same way at pages 1, 4, 16 and 128 and head dims 8 and 128, and
+``_paged_int8_mma_reference``, the plain model of the int8 kernels'
+bf16-query numerics, against the plain version within the bf16
+tolerance.
+
 The CUDA kernels split each slot's pages over blocks and merge the
 splits' softmax states: ``_split_plan`` (shapes in, plan out) and the
 plain model of that split and merge, ``_paged_split_reference``, are held
@@ -161,19 +167,159 @@ def test_kv_cache_write_in_place():
     np.testing.assert_array_equal(ct.numpy(), cache)
 
 
-def test_int8_pools_raise_not_implemented():
-    q = torch.zeros(1, 2, 8)
-    pool = torch.zeros(3, PAGE, 1, 8)
-    tab = torch.zeros(1, 2, dtype=torch.int32)
-    pos = torch.zeros(1, dtype=torch.int32)
-    scale = torch.ones(3, PAGE, 1)
-    with pytest.raises(NotImplementedError):
-        pa.paged_decode_attention(q, pool, pool, tab, pos, 1.0,
-                                  k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError):
-        pa.paged_window_attention(q[:, None], pool, pool, tab,
-                                  pos[:, None], 1.0, k_scale=scale,
-                                  v_scale=scale)
+# ------------------------------------------------------ int8 pools
+
+def _q8(u):
+    """K/V rows as the JAX cache writes them: int8 and one f32 absmax
+    scale per row."""
+    scale = np.maximum(np.abs(u).max(-1), 1e-8) / np.float32(127)
+    q = np.clip(np.round(u / scale[..., None]), -127, 127)
+    return q.astype(np.int8), scale.astype(np.float32)
+
+
+def _int8_case(seed, page, dh, last, n_kv=2, n_heads=4, s=None,
+               magnitude=(1.0, 1.0)):
+    """An int8 pool quantized from f32 rows (K and V of the two
+    ``magnitude`` standard deviations), with
+    garbage rows and huge scales on scratch page 0, a table 1 column past
+    the longest slot, and q of (b, n_heads, dh) or, with ``s``, a window
+    (b, s, n_heads, dh) ending at each slot's position whose last row
+    repeats (overhang); positions (b,) or (b, s)."""
+    rng = np.random.default_rng(seed)
+    n_live = last // page + 1
+    n_pages = 1 + int(n_live.sum()) + 2
+    shape = (n_pages, page, n_kv, dh)
+    kq, ks = _q8(magnitude[0] * rng.standard_normal(shape).astype(
+        np.float32))
+    vq, vs = _q8(magnitude[1] * rng.standard_normal(shape).astype(
+        np.float32))
+    ks[0], vs[0] = 1e3, -1e3
+    tables = np.zeros((len(last), int(n_live.max()) + 1), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    used = 0
+    for i, n in enumerate(n_live):
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    if s is None:
+        q = rng.standard_normal((len(last), n_heads, dh))
+        pos = last
+    else:
+        q = rng.standard_normal((len(last), s, n_heads, dh))
+        pos = np.maximum(0, last[:, None] - np.arange(s - 2, -2, -1)[None])
+        pos[:, -1] = pos[:, -2]
+    return (q.astype(np.float32), kq, vq, ks, vs, tables,
+            pos.astype(np.int32))
+
+
+#: positions per page size: on and beside page and 64-key tile bounds
+_INT8_LAST = {1: [0, 5, 63, 64], 4: [3, 17, 64, 70], 16: [0, 31, 100, 130],
+              128: [5, 127, 128, 300]}
+
+
+@pytest.mark.parametrize("dh", [8, 128])
+@pytest.mark.parametrize("page", [1, 4, 16, 128])
+def test_int8_decode_matches_jax_kernel(page, dh):
+    """int8 pools with their scales: the plain decode version (each row
+    dequantized in f32) against the JAX decode kernel with
+    ``k_scale``/``v_scale``, f32 within 1e-5 + 1e-5·|ref|; the scratch
+    page's garbage never leaks in."""
+    last = np.array(_INT8_LAST[page], np.int32)
+    q, kq, vq, ks, vs, tab, pos = _int8_case(page + dh, page, dh, last)
+    sm = 1.0 / np.sqrt(dh)
+    want = np.asarray(jax_decode(q, kq, vq, tab, pos, sm_scale=sm,
+                                 k_scale=ks, v_scale=vs, interpret=True))
+    got = pa.paged_decode_attention(_t(q), _t(kq), _t(vq), _t(tab), _t(pos),
+                                    sm, _t(ks), _t(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert np.abs(got).max() < 10
+
+
+@pytest.mark.parametrize("dh", [8, 128])
+@pytest.mark.parametrize("page", [1, 4, 16, 128])
+def test_int8_window_matches_jax_kernel(page, dh):
+    """The same for 5-token windows ending at each slot's position, the
+    last row an overhang repeat, and for the split model over the plan's
+    splits (forced to several: one kv head, a small batch)."""
+    last = np.array(_INT8_LAST[page], np.int32)
+    q, kq, vq, ks, vs, tab, pos = _int8_case(page * dh, page, dh, last, s=5)
+    sm = 1.0 / np.sqrt(dh)
+    want = np.asarray(jax_window(q, kq, vq, tab, pos, sm_scale=sm,
+                                 k_scale=ks, v_scale=vs, interpret=True))
+    args = (_t(q), _t(kq), _t(vq), _t(tab), _t(pos), sm)
+    got = pa.paged_window_attention(*args, _t(ks), _t(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    n_tab = tab.shape[1]
+    unit = max(1, pa._TILE_KEYS // page)
+    split = pa._paged_split_reference(*args, unit, _t(ks), _t(vs)).numpy()
+    assert -(-n_tab // unit) > 1 or page == 128
+    np.testing.assert_allclose(split, want, atol=1e-5, rtol=1e-5)
+
+
+def test_int8_scales_come_together_with_the_rows_shape():
+    """As in JAX: k_scale without v_scale (or the reverse) raises
+    ValueError, and so do scales that are not (n_pages, page_size,
+    n_kv)."""
+    q, kq, vq, ks, vs, tab, pos = _int8_case(0, 4, 8, np.array([5, 9]))
+    args = (_t(q), _t(kq), _t(vq), _t(tab), _t(pos), 0.5)
+    for kw in ({"k_scale": _t(ks)}, {"v_scale": _t(vs)}):
+        with pytest.raises(ValueError, match="together"):
+            pa.paged_decode_attention(*args, **kw)
+    with pytest.raises(ValueError, match="k_scale/v_scale"):
+        pa.paged_decode_attention(*args, _t(ks[:, :2]), _t(vs[:, :2]))
+    wargs = (_t(q[:, None]),) + args[1:4] + (_t(pos[:, None]), 0.5)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_window_attention(*wargs, k_scale=_t(ks))
+
+
+def _over_bf16_tol(got, ref):
+    return ((got.float() - ref).abs()
+            / (1e-3 + 2.0 ** -8 * ref.abs())).max().item()
+
+
+@pytest.mark.parametrize("dh", [8, 12, 64, 128, 192])
+@pytest.mark.parametrize("page", [1, 16, 128])
+def test_int8_mma_model_within_bf16_tolerance(page, dh):
+    """The int8 kernels' bf16-query numerics (scores ``k_scale·(q·int8)``
+    in f32, ``p·v_scale`` as hi + lo bf16 terms against the int8 values,
+    bf16 staging of the int8 values exact) over the split plan the
+    kernels take, against the plain version in f32: every element within
+    1e-3 + 2^-8·|ref| (one rounding of the output)."""
+    last = np.array([0, 1, 63, 64, 300], np.int32)
+    q, kq, vq, ks, vs, tab, pos = _int8_case(dh, page, dh, last,
+                                             n_heads=8, s=3,
+                                             magnitude=(3.0, 20.0))
+    qb = _t(q).bfloat16()
+    args = (_t(kq), _t(vq), _t(tab), _t(pos))
+    sm = 1.0 / np.sqrt(dh)
+    ref = pa._paged_window_reference(qb.float(), *args[:2], args[2],
+                                     args[3], sm, _t(ks), _t(vs))
+    plan = pa._launch_plan(len(last), 3, 8, 2, tab.shape[1], page,
+                           torch.bfloat16, dh)
+    got = pa._paged_int8_mma_reference(qb, *args[:2], _t(ks), _t(vs),
+                                       *args[2:], sm, plan.pages_per_split)
+    assert got.dtype == torch.bfloat16
+    assert _over_bf16_tol(got, ref) <= 1.0
+
+
+def test_int8_mma_model_needs_unrounded_rows_and_two_terms():
+    """What decides the design: with K and V dequantized in f32 and
+    rounded to bf16 before the products (the obvious way onto the tensor
+    cores) the output misses the tolerance by far, and so does P·v_scale
+    carried as one bf16 term; the kernel's factored scales with hi + lo
+    meet it."""
+    last = np.array([0, 1, 2, 40, 200], np.int32)
+    q, kq, vq, ks, vs, tab, pos = _int8_case(3, 16, 64, last, s=3,
+                                             magnitude=(3.0, 20.0))
+    qb = _t(q).bfloat16()
+    args = (_t(kq), _t(vq), _t(ks), _t(vs), _t(tab), _t(pos), 0.125, 4)
+    ref = pa._paged_window_reference(qb.float(), _t(kq), _t(vq), _t(tab),
+                                     _t(pos), 0.125, _t(ks), _t(vs))
+    assert _over_bf16_tol(pa._paged_int8_mma_reference(qb, *args), ref) \
+        <= 1.0
+    assert _over_bf16_tol(pa._paged_int8_mma_reference(
+        qb, *args, dequant_bf16=True), ref) > 10.0
+    assert _over_bf16_tol(pa._paged_int8_mma_reference(
+        qb, *args, p_terms=1), ref) > 2.0
 
 
 # ------------------------------------------------- the split over pages
@@ -213,10 +359,16 @@ def test_split_plan_covers_the_table_from_shapes(shape):
 
 
 class _RecordingLib:
-    """Stands in for the CUDA library: records each entry's arguments."""
+    """Stands in for the CUDA libraries: records each entry's arguments,
+    and which library (int8 pools or not) was asked for."""
 
     def __init__(self):
         self.calls = {}
+        self.int8 = None
+
+    def library(self, int8):
+        self.int8 = int8
+        return self
 
     def __getattr__(self, name):
         def entry(*args):
@@ -230,9 +382,10 @@ def recording_kernel_path(monkeypatch):
     """CPU tensors down the kernel path, into a recording library."""
     lib = _RecordingLib()
     monkeypatch.setattr(pa, "_runs_kernel", lambda t: True)
-    monkeypatch.setattr(pa, "_library", lambda: lib)
+    monkeypatch.setattr(pa, "_library",
+                        lambda int8=False: lib.library(int8))
     monkeypatch.setattr(pa, "_cuda_operands",
-                        lambda q, k, v, tab, pos: (q, tab, pos))
+                        lambda q, k, v, tab, pos, ks, vs: (q, tab, pos))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -260,16 +413,42 @@ def test_decode_and_window_of_one_launch_one_plan(recording_kernel_path):
                                                     launches[1] + 1)
     dec = lib.calls["rt_paged_decode_attention"]
     win = lib.calls["rt_paged_window_attention"]
-    # decode: (b, n_heads, n_kv, dh, page, n_tables, pps, splits, scale);
-    # window: (b, s, n_heads, n_kv, dh, page, n_tables, block_q, pps,
-    # splits, scale)
-    assert dec[9:15] == (b, n_heads, n_kv, dh, page, n_tab)
-    assert win[9:19] == (b, 1, n_heads, n_kv, dh, page, n_tab, 1) + dec[15:17]
-    assert dec[15:17] == pa._split_plan(b, n_kv, 1, n_tab, page,
+    # (dtype, q, k_pool, v_pool, k_scale, v_scale, tables, positions, out,
+    # part_acc, part_ml), then decode: (b, n_heads, n_kv, dh, page,
+    # n_tables, pps, splits, scale); window: (b, s, n_heads, n_kv, dh,
+    # page, n_tables, block_q, pps, splits, scale)
+    assert lib.int8 is False and dec[4:6] == win[4:6] == (None, None)
+    assert dec[11:17] == (b, n_heads, n_kv, dh, page, n_tab)
+    assert win[11:21] == (b, 1, n_heads, n_kv, dh, page, n_tab, 1) + \
+        dec[17:19]
+    assert dec[17:19] == pa._split_plan(b, n_kv, 1, n_tab, page,
                                         n_heads // n_kv)
-    assert dec[15:17][1] > 1
-    assert all(p is not None for p in dec[7:9] + win[7:9])
-    assert dec[17] == win[19] == 0.125
+    assert dec[17:19][1] > 1
+    assert all(p is not None for p in dec[9:11] + win[9:11])
+    assert dec[19] == win[21] == 0.125
+
+
+def test_int8_pools_launch_the_int8_library_with_the_same_plan(
+        recording_kernel_path):
+    """An int8 pool and its scales go to the int8 library's entries with
+    the plan and shapes a bf16 pool gets: the ring holds the same tiles,
+    so the split plan does not change."""
+    lib = recording_kernel_path
+    b, n_heads, n_kv, dh, page, n_tab = 8, 32, 8, 128, 16, 128
+    q = torch.zeros(b, 1, n_heads, dh, dtype=torch.bfloat16)
+    pool = torch.zeros(3, page, n_kv, dh, dtype=torch.int8)
+    scale = torch.ones(3, page, n_kv)
+    tab = torch.zeros(b, n_tab, dtype=torch.int32)
+    pos = torch.zeros(b, 1, dtype=torch.int32)
+    pa.paged_window_attention(q, pool.bfloat16(), pool.bfloat16(), tab, pos,
+                              0.125)
+    plain = lib.calls.pop("rt_paged_window_attention")
+    assert lib.int8 is False
+    pa.paged_window_attention(q, pool, pool, tab, pos, 0.125, scale, scale)
+    got = lib.calls["rt_paged_window_attention"]
+    assert lib.int8 is True
+    assert got[4:6] == (scale.data_ptr(), scale.data_ptr())
+    assert got[11:] == plain[11:]
 
 
 @pytest.mark.parametrize("what,dh,page", [("head_dim", 40, 16),
