@@ -7,6 +7,7 @@ the CUDA toolkit's ``nvcc``::
     python3 chip_smoke.py            # the full check, Llama-3-8B depth 32
     python3 chip_smoke.py --depth 8  # the Llama serving leg at a cut depth
     python3 chip_smoke.py --train-depth 8  # the Llama training leg, cut
+    python3 chip_smoke.py --worker-depth 8  # the Llama worker leg, cut
 
 ViT-B/16 and BERT-base always run at full width and depth.
 
@@ -106,6 +107,34 @@ Phases; each raises on failure, so the script exits non-zero:
 17. Phase 15's model and requests with int8 base kernels and an int8 KV
     pool, f32 queries through the int8 kernels: token-identical to the
     CPU at pages 8 and 4.
+18. The inference worker, Llama: ``LlamaLoRA`` at Llama-3-8B widths
+    (hidden 4096, 32 heads, kv_ratio 4, MLP 4 x hidden, vocab 128256, rope
+    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 32 unless
+    ``--worker-depth`` cuts it) from a seeded f32 blob written through the
+    port's param-store codec to a ``mem://`` store (encode, decode and
+    boot timed, host peak RSS); an ``InferenceWorker`` (decode loop, 8
+    slots, 64 new tokens, 4 steps a sync, page 16) serves phase 4's 8
+    texts, 4 streaming, queued on the port's ``InProcQueueHub`` before its
+    loop starts. Every reply without error, stream deltas a prefix of the
+    final text, B1/B2 launched, and the texts token-identical to a direct
+    ``make_decode_engine`` run of the same template and requests; TTFT
+    p50/p95 (worker histograms; client clock for streams), output and
+    decode-only tokens/s, requests/s and the loop's share outside
+    ``engine.step``, beside the direct engine's.
+19. The inference worker, ViT-B/16 (phase 12's blob): 256 seeded images
+    in 4 messages of 64 through the micro-batcher, identical to
+    ``ViTBase16.predict`` (B7 = 4, B3 = 48 launches); then 3 rounds of
+    closed-loop 1-image requests: p50/p95 at concurrency 1 beside the
+    direct 1-image ``predict`` of the same round, requests/s at
+    concurrency 16 with the messages in each micro-batch, beside phase
+    12's direct ``predict``.
+20. Phase 15's head-dim-8 Llama in f32 as ``LlamaLoRA`` knobs, served
+    paged at page 8 by a worker on the card and one on the CPU: the same
+    messages give identical texts and identical ``engine_*`` counters in
+    the published stats; B1/B2 launch.
+
+The worker phases run in the order 20, 19, 18: phase 18 holds a 35 GB
+blob on the host, and runs last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -1699,6 +1728,8 @@ def vit_serving_phase(torch, np, vit, store, fa, pe, dev):
         m.predict([images[i]])
         lat.append(time.perf_counter() - t0)
     profiled = _profile_call(torch, lambda: m.predict(images[:64]))
+    DIRECT_VIT.update(images_per_s=n_img / wall,
+                      p50_latency_1_image_s=float(np.median(lat)))
     try:
         fa.ATTN_BLOCK_H = 4  # the fleet-wide default, as the env sets it
         probs4, wall4, launches4 = _serve(torch, np, m, images, fa, pe)
@@ -2000,6 +2031,467 @@ def hd8_serving_phase(torch, np, ll, de, pa, dev, int8=False):
     return total
 
 
+# ---- the inference worker (phases 18-20): the port's own hub and wire,
+# ---- as the unchanged predictor drives them
+
+def _nest(state):
+    """A ``state_dict`` as the JAX nested-dict params tree, its tensors
+    left where they are (the codec copies each to the host as it writes
+    it)."""
+    tree = {}
+    for key, t in state.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    return tree
+
+
+def _client(hub, unpack, mid, out, timeout=900.0):
+    """Collect message ``mid``'s replies off the hub: stream deltas (the
+    client clock of the first one) and the final predictions."""
+    deltas, t_first = {}, None
+    while True:
+        raw = hub.pop_prediction(mid, timeout)
+        if raw is None:
+            out[mid] = {"error": "no reply"}
+            return
+        msg = unpack(raw)
+        if "delta" in msg:
+            t_first = t_first or time.perf_counter()
+            for qi, d in msg["delta"].items():
+                deltas[qi] = deltas.get(qi, "") + d
+            continue
+        out[mid] = dict(msg, t_done=time.perf_counter(), t_first=t_first,
+                        deltas=deltas)
+        return
+
+
+def _serve_messages(hub, queues, worker, msgs):
+    """Push every message, then start the worker's loop: its first
+    iteration admits them in push order. Returns the replies by id, the
+    loop's start and end on the host clock."""
+    import threading
+
+    for m in msgs:
+        hub.push_query(worker.worker_id, queues.pack_message(m))
+    out = {}
+    clients = [threading.Thread(target=_client,
+                                args=(hub, queues.unpack_message, m["id"],
+                                      out)) for m in msgs]
+    for c in clients:
+        c.start()
+    loop = threading.Thread(target=worker.run,
+                            kwargs={"poll_timeout": 0.01})
+    t_run = time.perf_counter()
+    loop.start()
+    for c in clients:
+        c.join()
+    t_end = time.perf_counter()
+    worker.stop()
+    loop.join()
+    return out, t_run, t_end
+
+
+def _time_steps(eng):
+    """Wrap ``eng.step`` to record each call's seconds, whether it ran a
+    prefill chunk, and the tokens it generated; returns the record."""
+    rec, step = [], eng.step
+
+    def timed():
+        before = eng.stats_snapshot()
+        t0 = time.perf_counter()
+        n = step()
+        dt = time.perf_counter() - t0
+        after = eng.stats_snapshot()
+        rec.append((dt, after["prefill_calls"] > before["prefill_calls"],
+                    after["tokens_generated"] - before["tokens_generated"]))
+        return n
+
+    eng.step = timed
+    return rec
+
+
+def _decode_tok_per_s(rec):
+    """Tokens over seconds of the calls that ran no prefill chunk."""
+    s = sum(dt for dt, pre, _ in rec if not pre)
+    return sum(n for _, pre, n in rec if not pre) / s if s else None
+
+
+def _first_diff(a, b):
+    """First differing token position of two detokenized texts."""
+    ta, tb = a.split(), b.split()
+    return next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                min(len(ta), len(tb)) if len(ta) != len(tb) else None)
+
+
+def _peak_rss_gb():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+#: phase 18's LlamaLoRA widths: Llama-3-8B's, MLP 4 x hidden as the
+#: template builds it
+WORKER_LLAMA = {"vocab_size": VOCAB, "hidden_dim": 4096, "n_heads": 32,
+                "kv_ratio": 4, "lora_rank": 16, "max_len": 2048}
+
+
+def llama_worker_phase(torch, np, ll, ps, queues, wi, pa, depth, dev):
+    """Phase 18: Llama-3-8B widths (LlamaLoRA knobs: hidden 4096, 32
+    heads, kv_ratio 4, MLP 4 x hidden, vocab 128256, rope theta 500000,
+    LoRA rank 16, bf16, max_len 2048) served by an ``InferenceWorker``
+    from a seeded f32 param-store blob: decode loop, 8 slots, 64 new
+    tokens, 4 steps a sync, page 16. Phase 4's 8 texts, 4 of them
+    streaming, are queued before the loop starts; every reply must come
+    without error, each stream's deltas must join to a prefix of its final
+    text (the predictor emits the rest as the tail), B1 and B2 must
+    launch, and the texts must equal a direct
+    ``make_decode_engine`` run of the same template and requests."""
+    import gc
+
+    w = WORKER_LLAMA
+    slots, max_new, hidden = 8, 64, w["hidden_dim"]
+    knobs = dict(w, depth=depth, bf16=True, rope_theta=500000.0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    net = ll.Llama(vocab_size=w["vocab_size"], max_len=w["max_len"],
+                   hidden_dim=hidden, depth=depth, n_heads=w["n_heads"],
+                   n_kv_heads=w["n_heads"] // w["kv_ratio"],
+                   mlp_dim=4 * hidden, lora_rank=w["lora_rank"],
+                   dtype=torch.float32, rope_theta=500000.0, device=dev,
+                   generator=gen)
+    randomize_lora_b(net, gen)
+    n_params = sum(p.numel() for p in net.parameters())
+    tree = {"params": _nest(net.state_dict()), "meta": {"id2tok": {}}}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    store = ps.ParamStore.from_uri("mem://")
+    t0 = time.perf_counter()
+    store.save("llama8b", tree)
+    encode_s = time.perf_counter() - t0
+    del net, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    blob = store.backend.get("llama8b")
+    t0 = time.perf_counter()
+    decoded = ps.params_from_bytes(blob)
+    decode_s = time.perf_counter() - t0
+    del decoded, blob
+
+    hub = queues.InProcQueueHub()
+    t0 = time.perf_counter()
+    worker = wi.InferenceWorker(
+        ll.LlamaLoRA, "llama8b", knobs, store, hub, "w0", decode_loop=True,
+        max_slots=slots, max_new_tokens=max_new, steps_per_sync=4,
+        kv_page_size=16, device=dev)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 2)  # phase 4's texts
+    plens = rng.integers(64, 1025, size=slots)
+    texts = [" ".join(f"w{int(w)}" for w in rng.integers(0, 10**6,
+                                                         size=n - 1))
+             for n in plens]
+    msgs = [{"id": f"m{i}", "queries": [t], "stream": i % 2 == 0,
+             "trace_id": f"t{i}"} for i, t in enumerate(texts)]
+    steps = _time_steps(worker.engine)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_window_attention.launches = 0
+    out, t_run, t_end = _serve_messages(hub, queues, worker, msgs)
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
+                "paged_window_attention": pa.paged_window_attention.launches}
+    wall = t_end - t_run
+    stats = hub.get_worker_stats("w0")
+    step_s = worker._h_step.sum
+    via = {
+        "wall_s": wall, "requests_per_s": slots / wall,
+        "output_tok_per_s": stats["engine_tokens_generated"] / wall,
+        "decode_tok_per_s": _decode_tok_per_s(steps),
+        "ttft_p50_s": worker._h_ttft.quantile(0.5),
+        "ttft_p95_s": worker._h_ttft.quantile(0.95),
+        "stream_ttft_client_s": sorted(
+            r["t_first"] - t_run for r in out.values() if r.get("t_first")),
+        "engine_step_s": step_s,
+        "share_outside_step": 1 - step_s / wall,
+        "engine": {k[7:]: v for k, v in stats.items()
+                   if k.startswith("engine_")}}
+    got = {m["id"]: (out[m["id"]].get("predictions") or [None])[0]
+           for m in msgs}
+    errors = {mid: r["error"] for mid, r in out.items() if r.get("error")}
+    # the predictor's contract: deltas arrive append-only ahead of the
+    # final message, which carries the tail a slot finished with
+    streams_ok = all(
+        set(out[m["id"]]["deltas"]) == {"0"}
+        and (got[m["id"]] or "").startswith(out[m["id"]]["deltas"]["0"])
+        for m in msgs if m["stream"])
+
+    # the direct engine over the same template, the worker's engine freed
+    model = worker.model
+    del worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = model.make_decode_engine(max_slots=slots, max_new_tokens=max_new,
+                                   steps_per_sync=4, kv_page_size=16)
+    steps = _time_steps(eng)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for m in msgs:
+        eng.submit((m["id"], 0), m["queries"][0])
+    done, t_first = {}, {}
+    while len(done) < slots:
+        eng.step()
+        now = time.perf_counter()
+        for (mid, _), _d in eng.poll_partial():
+            t_first.setdefault(mid, now)
+        for (mid, _), text in eng.poll():
+            done[mid] = text
+            t_first.setdefault(mid, now)
+    direct_wall = time.perf_counter() - t_start
+    dstats = eng.stats_snapshot()
+    ttfts = np.array([t_first[m["id"]] - t_start for m in msgs])
+    direct = {"wall_s": direct_wall, "requests_per_s": slots / direct_wall,
+              "output_tok_per_s": dstats["tokens_generated"] / direct_wall,
+              "decode_tok_per_s": _decode_tok_per_s(steps),
+              "ttft_p50_s": float(np.percentile(ttfts, 50)),
+              "ttft_p95_s": float(np.percentile(ttfts, 95))}
+    mismatched = {mid: _first_diff(got[mid] or "", done[mid])
+                  for mid in done if got[mid] != done[mid]}
+    del eng, model
+    emit({"phase": "llama_worker", "model": "Llama-3-8B widths (LlamaLoRA)",
+          "depth": depth, "params": n_params, "blob_bytes":
+          len(store.backend.get("llama8b")), "init_s": init_s,
+          "encode_s": encode_s, "decode_s": decode_s, "boot_s": boot_s,
+          "host_peak_rss_gb": _peak_rss_gb(), "requests": slots,
+          "streams": sum(m["stream"] for m in msgs),
+          "prompt_tokens": [int(n) for n in plens], "max_new": max_new,
+          "through_worker": via, "direct_engine": direct,
+          "launches": launches, "errors": errors,
+          "streams_join_to_final": streams_ok,
+          "token_identical_to_direct": not mismatched,
+          "first_differing_token": mismatched})
+    if errors or any(v is None for v in got.values()):
+        raise AssertionError(f"worker replies failed: {errors}")
+    if not streams_ok:
+        raise AssertionError("stream deltas do not join to a prefix of "
+                             "the final text")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the worker path never "
+                             f"launched: {launches}")
+    if mismatched:
+        raise AssertionError(f"worker texts differ from the direct engine "
+                             f"(first differing token): {mismatched}")
+    return launches
+
+
+def _closed_loop(hub, queues, worker, images, n_clients, per_client,
+                 batches):
+    """``n_clients`` closed-loop clients, each sending ``per_client``
+    1-image requests one after another: every request's latency (push to
+    reply, host clock), the wall time, the replies' class counts, the
+    worker's mean time a served message spent in its batch (unpacked to
+    replied: ``request_seconds``), and the messages in each micro-batch
+    the worker served meanwhile (``batches`` is appended to by the
+    worker's wrapped ``_serve_batch``)."""
+    import threading
+
+    wid, e2e = worker.worker_id, worker._h_e2e
+    n0, s0, b0 = e2e.count, e2e.sum, len(batches)
+    lat, widths = [], []
+
+    def client(c):
+        for j in range(per_client):
+            mid = f"c{n0}_{c}_{j}"
+            img = images[(c * per_client + j) % len(images)]
+            t0 = time.perf_counter()
+            hub.push_query(wid, queues.pack_message(
+                {"id": mid, "queries": img[None]}))
+            reply = queues.unpack_message(hub.pop_prediction(mid, 300.0))
+            lat.append(time.perf_counter() - t0)
+            widths.append(len(reply["predictions"][0]))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    in_batch = (e2e.sum - s0) / max(1, e2e.count - n0)
+    return lat, wall, widths, in_batch, batches[b0:]
+
+
+#: phase 12's direct predict figures, reported beside phase 19's
+DIRECT_VIT = {}
+
+#: phase 19's closed-loop rounds: each times the worker at concurrency 1
+#: and 16 and the direct 1-image ``predict``, so the spread on the host
+#: shows beside every figure
+VIT_WORKER_ROUNDS = 3
+
+
+def vit_worker_phase(torch, np, vit, store_params, ps, queues, wi, fa, pe,
+                     dev):
+    """Phase 19: ViT-B/16 (1000 classes, bf16, phase 12's seeded blob)
+    served by an ``InferenceWorker`` through the micro-batcher: 256
+    seeded images in 4 messages of 64, queued before the loop starts,
+    must give exactly ``ViTBase16.predict``'s probabilities on the same
+    images (B7 and B3 must launch); then ``VIT_WORKER_ROUNDS`` rounds of
+    closed-loop 1-image requests, p50/p95 latency at concurrency 1 and
+    requests/s at concurrency 16 with the messages in each micro-batch,
+    and the direct 1-image ``predict`` while the worker's loop idles,
+    beside phase 12's direct ``predict``."""
+    import threading
+
+    store = ps.ParamStore.from_uri("mem://")
+    store.save("vit", vit_blob(torch, vit, store_params, dev, 1000))
+    hub = queues.InProcQueueHub()
+    t0 = time.perf_counter()
+    worker = wi.InferenceWorker(vit.ViTBase16, "vit", VIT_KNOBS, store,
+                                hub, "v0", decode_loop=False, device=dev)
+    boot_s = time.perf_counter() - t0
+    batches, serve_batch = [], worker._serve_batch
+
+    def counted(messages):
+        batches.append(len(messages))
+        return serve_batch(messages)
+
+    worker._serve_batch = counted
+    rng = np.random.default_rng(SEED + 19)
+    images = rng.integers(0, 256, (256, *VIT_IMAGE), dtype=np.uint8)
+    msgs = [{"id": f"v{i}", "queries": images[64 * i:64 * (i + 1)]}
+            for i in range(4)]
+    for m in msgs:
+        hub.push_query("v0", queues.pack_message(m))
+    torch.cuda.synchronize()
+    zero_all_launches(fa, pe)
+    loop = threading.Thread(target=worker.run,
+                            kwargs={"poll_timeout": 0.01})
+    t0 = time.perf_counter()
+    loop.start()
+    replies = [queues.unpack_message(hub.pop_prediction(m["id"], 600.0))
+               for m in msgs]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = all_launches(fa, pe)
+    got = np.concatenate([np.asarray(r["predictions"], np.float32)
+                          for r in replies])
+    in_batch_256 = worker._h_e2e.sum / max(1, worker._h_e2e.count)
+    batches_256 = list(batches)
+    rounds, widths = [], set()
+    for _ in range(VIT_WORKER_ROUNDS):
+        lat1, _, w1, in_batch1, b1 = _closed_loop(hub, queues, worker,
+                                                  images, 1, 40, batches)
+        lat16, wall16, w16, in_batch16, b16 = _closed_loop(
+            hub, queues, worker, images, 16, 16, batches)
+        widths |= set(w1) | set(w16)
+        # the same 1-image predict, called directly while the loop idles
+        direct1 = []
+        for i in range(20):
+            t1 = time.perf_counter()
+            worker.model.predict([images[i]])
+            direct1.append(time.perf_counter() - t1)
+        p50_1, direct_p50 = np.percentile(lat1, 50), np.median(direct1)
+        rounds.append({
+            "concurrency_1": {"requests": len(lat1), "p50_s": float(p50_1),
+                              "p95_s": float(np.percentile(lat1, 95)),
+                              "in_batch_mean_s": in_batch1,
+                              "batch_msgs_max": max(b1)},
+            "direct_1_image_p50_s": float(direct_p50),
+            "worker_minus_direct_p50_s": float(p50_1 - direct_p50),
+            "concurrency_16": {"requests": len(lat16), "wall_s": wall16,
+                               "requests_per_s": len(lat16) / wall16,
+                               "p50_s": float(np.percentile(lat16, 50)),
+                               "p95_s": float(np.percentile(lat16, 95)),
+                               "in_batch_mean_s": in_batch16,
+                               "batches": len(b16),
+                               "batch_msgs_mean": float(np.mean(b16)),
+                               "batch_msgs_max": max(b16)}})
+    worker.stop()
+    loop.join()
+    want = np.asarray(worker.model.predict(list(images)), np.float32)
+    over = [r["worker_minus_direct_p50_s"] for r in rounds]
+    emit({"phase": "vit_worker", "model": "ViT-B/16", "dtype": "bfloat16",
+          "boot_s": boot_s, "images": len(images), "messages": len(msgs),
+          "wall_256_s": wall, "images_per_s": len(images) / wall,
+          "in_batch_256_s": in_batch_256, "batches_256": batches_256,
+          "identical_to_predict": bool(np.array_equal(got, want)),
+          "max_abs_diff": float(np.abs(got - want).max()),
+          "launches": launches, "rounds": rounds,
+          "worker_minus_direct_p50_s_range": [min(over), max(over)],
+          "direct_predict_phase_12": DIRECT_VIT,
+          "errors": [r["error"] for r in replies if r.get("error")]})
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("worker ViT predictions differ from predict")
+    if widths != {1000}:
+        raise AssertionError(f"closed-loop replies malformed: {widths}")
+    depth = VIT_KNOBS["depth"]
+    if launches["matmul_bias"] != 4 or \
+            launches["flash_attention_fwd"] != 4 * depth:
+        raise AssertionError(f"ViT worker launches {launches}")
+    return launches
+
+
+def worker_exactness_phase(torch, np, ll, store_params, ps, queues, wi, pa,
+                           dev):
+    """Phase 20: phase 15's head-dim-8 Llama (f32, as LlamaLoRA knobs)
+    from one blob, served paged at page 8 by a worker on the card and one
+    on the CPU (the plain versions): the same messages must give
+    identical texts and identical engine_* counters in the published
+    stats; B1 and B2 must launch on the card."""
+    knobs = dict(vocab_size=1024, hidden_dim=32, depth=2, n_heads=4,
+                 kv_ratio=2, lora_rank=4, max_len=32, bf16=False)
+    gen = torch.Generator().manual_seed(SEED)
+    net = ll.Llama(vocab_size=1024, max_len=32, hidden_dim=32, depth=2,
+                   n_heads=4, n_kv_heads=2, mlp_dim=128, lora_rank=4,
+                   device="cpu", generator=gen)
+    randomize_lora_b(net, gen)
+    store = ps.ParamStore.from_uri("mem://")
+    store.save("hd8", {"params": store_params.params_to_jax(
+        net.state_dict()), "meta": {"id2tok": {}}})
+    rng = np.random.default_rng(SEED + 20)
+    msgs = [{"id": f"h{i}", "stream": i % 2 == 1, "queries": [
+        " ".join(f"w{int(w)}" for w in rng.integers(
+            0, 10**6, size=int(rng.integers(1, 14))))
+        for _ in range(1 + i % 2)]} for i in range(8)]
+    res = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        hub = queues.InProcQueueHub()
+        worker = wi.InferenceWorker(
+            ll.LlamaLoRA, "hd8", knobs, store, hub, name, decode_loop=True,
+            max_slots=4, max_new_tokens=8, steps_per_sync=4,
+            kv_page_size=8, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            pa.paged_decode_attention.launches = 0
+            pa.paged_window_attention.launches = 0
+        out, _, _ = _serve_messages(hub, queues, worker, msgs)
+        stats = hub.get_worker_stats(name)
+        res[name] = {"texts": {mid: r.get("predictions")
+                               for mid, r in out.items()},
+                     "engine": {k: v for k, v in stats.items()
+                                if k.startswith("engine_")}}
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
+                "paged_window_attention": pa.paged_window_attention.launches}
+    same_texts = res["card"]["texts"] == res["cpu"]["texts"]
+    same_engine = res["card"]["engine"] == res["cpu"]["engine"]
+    emit({"phase": "worker_f32_exactness", "knobs": knobs, "page": 8,
+          "messages": len(msgs), "texts_identical": same_texts,
+          "engine_counters_identical": same_engine,
+          "engine": res["card"]["engine"], "launches": launches})
+    if not same_texts or any(v is None for v in res["card"]["texts"]
+                             .values()):
+        raise AssertionError(f"card and CPU workers differ: {res}")
+    if not same_engine:
+        raise AssertionError(f"engine counters differ: {res}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a paged kernel never launched: {launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=32,
@@ -2008,6 +2500,9 @@ def main(argv=None):
     ap.add_argument("--train-depth", type=int, default=32,
                     help="decoder depth of the training leg (widths are "
                          "never cut)")
+    ap.add_argument("--worker-depth", type=int, default=32,
+                    help="decoder depth of the Llama worker leg, phase 18 "
+                         "(widths are never cut)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2034,7 +2529,10 @@ def main(argv=None):
     from rafiki_tpu_torch.ops import paged_attention as pa
     from rafiki_tpu_torch.ops import patch_embed as pe
     from rafiki_tpu_torch.serving import decode_engine as de
+    from rafiki_tpu_torch.serving import queues
+    from rafiki_tpu_torch.store import param_store as ps
     from rafiki_tpu_torch.store import params as store_params
+    from rafiki_tpu_torch.worker import inference as wi
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2050,9 +2548,10 @@ def main(argv=None):
           "build_s": build_s, "kernels_compiled": len(ptxas),
           "spilling": [e["mangled"] for e in ptxas if e["spill_bytes"]],
           "most_registers": max((e["registers"] or 0) for e in ptxas)})
-    if args.depth != 32 or args.train_depth != 32:
+    if (args.depth, args.train_depth, args.worker_depth) != (32, 32, 32):
         print(f"chip_smoke: Llama legs cut to depth {args.depth} (serving)"
-              f" and {args.train_depth} (training) of 32", flush=True)
+              f", {args.train_depth} (training) and {args.worker_depth} "
+              "(worker) of 32", flush=True)
 
     dev = torch.device("cuda")
     # the paths' launch counts assume the per-head forward (B3) whatever
@@ -2105,6 +2604,16 @@ def main(argv=None):
                                                    dev)
     paths["llama_hd8_int8_serving"] = hd8_serving_phase(
         torch, np, ll, de, pa, dev, int8=True)
+    torch.cuda.empty_cache()
+    # phase 18 runs last, so its 35 GB of host memory cannot weigh on the
+    # other phases' host-clock timings
+    paths["llama_hd8_worker"] = worker_exactness_phase(
+        torch, np, ll, store_params, ps, queues, wi, pa, dev)
+    paths["vit_worker"] = vit_worker_phase(torch, np, vit, store_params, ps,
+                                           queues, wi, fa, pe, dev)
+    torch.cuda.empty_cache()
+    paths["llama_worker"] = llama_worker_phase(
+        torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)
 
     by_path = {name: {path: counts[name] for path, counts in paths.items()
                       if counts.get(name)}

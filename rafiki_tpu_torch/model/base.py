@@ -1,14 +1,22 @@
-"""What the system injects into a trial's ``train`` call.
+"""What the system injects into a trial's ``train`` call, and how a
+worker materializes an uploaded model class.
 
-The port's own copy of ``TrainContext`` from ``rafiki_tpu/model/base.py``.
-The port's templates take their device at construction, so the JAX
-context's ``devices`` (a trial's sub-mesh) and ``profile_dir`` (a
-``jax.profiler`` trace) have no field here.
+The port's own copy of ``TrainContext`` and ``load_model_class`` from
+``rafiki_tpu/model/base.py``. The port's templates take their device at
+construction, so the JAX context's ``devices`` (a trial's sub-mesh) and
+``profile_dir`` (a ``jax.profiler`` trace) have no field here. The port
+has no ``BaseModel``: ``load_model_class`` accepts any class with the
+serving surface a worker calls (``load_parameters`` and ``predict``).
 """
 
 from __future__ import annotations
 
+import hashlib
+import importlib.util
+import sys
+import tempfile
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 from rafiki_tpu_torch.model.log import ModelLogger
@@ -30,3 +38,46 @@ class TrainContext:
     #: self.dump_parameters, frac_done=(e + 1) / epochs, tree=...)`` at
     #: epoch boundaries with a zero-argument blob factory
     checkpoint: Optional[Any] = None
+
+
+_MODULE_DIR: Optional[Path] = None
+
+
+def _module_dir() -> Path:
+    global _MODULE_DIR
+    if _MODULE_DIR is None:
+        _MODULE_DIR = Path(tempfile.mkdtemp(prefix="rafiki_torch_models_"))
+    return _MODULE_DIR
+
+
+def load_model_class(model_bytes: bytes, class_name: str,
+                     module_hint: str = "rafiki_model") -> type:
+    """Materialize a model class from serialized module source.
+
+    The module is written to a private temp directory and imported under
+    a content-hashed name, so repeated loads of the same bytes share a
+    module and different models never collide."""
+    digest = hashlib.sha256(model_bytes).hexdigest()[:16]
+    mod_name = f"_rafiki_torch_model_{module_hint}_{digest}"
+    if mod_name in sys.modules:
+        mod = sys.modules[mod_name]
+    else:
+        path = _module_dir() / f"{mod_name}.py"
+        path.write_bytes(model_bytes)
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        assert spec is not None and spec.loader is not None
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except Exception:
+            del sys.modules[mod_name]
+            raise
+    clazz = getattr(mod, class_name, None)
+    if not (isinstance(clazz, type)
+            and all(callable(getattr(clazz, m, None))
+                    for m in ("load_parameters", "predict"))):
+        raise ValueError(f"{class_name!r} is not a model template (a class "
+                         "with load_parameters and predict) in the "
+                         "uploaded module")
+    return clazz

@@ -27,8 +27,9 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
 - the ``LlamaLoRA`` template: ``train`` (the unsharded
   ``_train_functional`` loop), ``evaluate``, ``dump_parameters``,
   ``load_parameters`` (blobs move both ways with the JAX template),
-  ``predict`` and ``make_decode_engine``, with the int8 serving knobs
-  ``quantize_int8`` and ``kv_cache_int8``.
+  ``predict``, ``warmup``, ``make_decode_engine`` and
+  ``estimate_serving_device_bytes`` (the worker's admission budget), with
+  the int8 serving knobs ``quantize_int8`` and ``kv_cache_int8``.
 
 Layouts follow the JAX package: kernels are ``(d_in, features)`` and a
 LoRA site computes ``x @ W + ((x @ A) @ B) * alpha / rank``. Parameters
@@ -850,10 +851,12 @@ class LlamaLoRA:
         self._set_params(params["params"])
 
     def _set_params(self, tree: Dict[str, Any]) -> None:
-        """Keep ``tree`` (f32 copies) and drop the models of the previous
-        tree; build the compute-dtype model from it (matmul leaves cast
-        once) unless ``quantize_int8`` serves the int8 one instead."""
-        self._params = f32_tree(tree)
+        """Keep ``tree`` (f32 copies, but read-only f32 leaves — views
+        into a param-store blob — as they are) and drop the models of the
+        previous tree; build the compute-dtype model from it (matmul
+        leaves cast once) unless ``quantize_int8`` serves the int8 one
+        instead."""
+        self._params = f32_tree(tree, copy=False)
         self._model = self._qmodel = None
         if not self.knobs.get("quantize_int8"):
             self._float_model()
@@ -1012,6 +1015,123 @@ class LlamaLoRA:
                                                 max(1, max_len - max_new))
         out = greedy_generate(model, ids, lens, max_new).cpu().numpy()
         return [self._detok(row) for row in out]
+
+    def warmup(self) -> None:
+        """Run the serving generate once before traffic arrives (JAX
+        compiles it here; the port builds the serving model and, on the
+        card, its kernels)."""
+        if self._params is None:
+            return
+        self.predict(["warmup"])
+
+    def _param_bytes(self) -> int:
+        """Bytes of the JAX serving tree: the loaded f32 tree, or its int8
+        form under ``quantize_int8`` (each 2-d LoRADense ``kernel`` an
+        int8 ``qkernel`` plus its f32 ``qscale``, as
+        :func:`quantize_llama_params` makes it); unloaded, the f32 init
+        of these knobs."""
+        if self._params is None:
+            k = self.knobs
+            hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+            kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
+            rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
+            sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd),
+                     (hd, 4 * hd), (hd, 4 * hd), (4 * hd, hd)]
+            block = sum(i * o + rank * (i + o) for i, o in sites) + 2 * hd
+            n = int(k["depth"]) * block + 2 * vocab * hd + hd
+            return 4 * n
+        int8 = bool(self.knobs.get("quantize_int8"))
+
+        def walk(tree: Dict[str, Any]) -> int:
+            total = 0
+            for name, sub in tree.items():
+                if isinstance(sub, dict):
+                    total += walk(sub)
+                elif int8 and name == "kernel" and np.ndim(sub) == 2:
+                    total += int(np.size(sub)) + 4 * int(np.shape(sub)[1])
+                else:
+                    total += 4 * int(np.size(sub))
+            return total
+
+        return walk(self._params)
+
+    def estimate_serving_device_bytes(self, max_slots: int = 8,
+                                      n_extra_adapters: int = 0,
+                                      draft: Optional["LlamaLoRA"] = None,
+                                      kv_page_size: int = 0,
+                                      kv_pages: int = 0,
+                                      host_kv_pages: int = 0
+                                      ) -> Dict[str, int]:
+        """Per-device memory budget of a continuous-batching deployment,
+        term by term as the JAX template's (admission control compares
+        ``total`` with the card's memory before any engine is built):
+
+        - ``params``: the JAX serving tree's bytes (:meth:`_param_bytes`);
+        - ``kv_cache``: max_slots x max_len positions per layer, or the
+          paged pool's kv_pages x kv_page_size (kv_pages 0 = full
+          coverage), x kv heads x head dim x 2 (K and V) x depth, at the
+          compute dtype, or int8 plus one f32 scale per row under
+          ``kv_cache_int8``;
+        - ``adapters``: extra tenants' f32 LoRA tensors (7 sites a block);
+        - ``draft``: a draft model's params and cache;
+        - ``working``: a 32-token prefill chunk and one (slots, vocab)
+          f32 logits buffer;
+        - ``host_kv_cache`` (``host_kv_pages > 0``): the host page tier's
+          bytes, host memory, left out of ``total``.
+
+        The compute dtype is read as the JAX estimator reads it (``bf16``
+        absent counts as f32), so the two give equal figures."""
+        k = self.knobs
+        if int(host_kv_pages) and int(kv_page_size) <= 0:
+            raise ValueError("host_kv_pages requires kv_page_size > 0 "
+                             "(pages are the host tier's transfer unit)")
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        kv_heads = max(1, heads // int(k["kv_ratio"]))
+        dh = hd // heads
+        L, depth = int(k["max_len"]), int(k["depth"])
+        act_bytes = 2 if bool(k.get("bf16", False)) else 4
+        per_pos = kv_heads * dh
+        if int(kv_page_size) > 0:
+            if L % int(kv_page_size):
+                raise ValueError(f"kv_page_size {kv_page_size} must "
+                                 f"divide max_len {L}")
+            if kv_pages and int(kv_pages) < 2:
+                raise ValueError("paged KV needs kv_pages >= 2 (scratch "
+                                 "page + at least one usable page)")
+            n_pages = int(kv_pages) or _default_kv_pages(
+                max_slots, L, int(kv_page_size))
+            n_pos = n_pages * int(kv_page_size)
+        else:
+            n_pos = max_slots * L
+        int8_kv = bool(k.get("kv_cache_int8", False))
+
+        def kv_bytes(positions: int) -> int:
+            if int8_kv:  # int8 rows + one f32 scale per (pos, head)
+                return positions * depth * 2 * (per_pos + 4 * kv_heads)
+            return positions * depth * 2 * per_pos * act_bytes
+
+        adapters_dev = 0
+        if n_extra_adapters:
+            rank = int(k.get("lora_rank", 0) or 0)
+            sites = [(hd, heads * dh), (hd, kv_heads * dh),
+                     (hd, kv_heads * dh), (heads * dh, hd), (hd, 4 * hd),
+                     (hd, 4 * hd), (4 * hd, hd)]
+            adapters_dev = n_extra_adapters * depth * sum(
+                (i * rank + rank * o) * 4 for i, o in sites)
+        draft_dev = 0
+        if draft is not None:
+            d = draft.estimate_serving_device_bytes(max_slots=max_slots)
+            draft_dev = d["params"] + d["kv_cache"]
+        working = (max_slots * 32 * hd * act_bytes
+                   + max_slots * self.tokenizer.vocab_size * 4)
+        out = {"params": self._param_bytes(), "kv_cache": kv_bytes(n_pos),
+               "adapters": adapters_dev, "draft": draft_dev,
+               "working": working}
+        out["total"] = sum(out.values())
+        if int(host_kv_pages):
+            out["host_kv_cache"] = kv_bytes(int(host_kv_pages)
+                                            * int(kv_page_size))
+        return out
 
     def _detok(self, ids: Sequence[Any]) -> str:
         """Render generated ids through the learned id→token table

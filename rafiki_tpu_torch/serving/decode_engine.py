@@ -12,6 +12,10 @@ Ports the core of ``rafiki_tpu/serving/decode_engine.py``:
   ``_release_slot_pages``, and the live-width table slice
   (``_live_table_width``/``_ptab_arg``);
 - ``_chunked_prefill`` with its narrow small-C call for short remainders;
+- the request-lifecycle hook ``span_sink`` (``_span``,
+  ``_mark_progress``): ``admitted``, ``prefill``, ``first_token``,
+  ``decode_mark`` (every ``SPAN_DECODE_MARK_EVERY`` generated tokens) and
+  ``done``, with the JAX engine's attributes at the JAX engine's points;
 - ``_make_step`` → :func:`_decode_steps`: K greedy decode steps as a
   Python loop with on-device input selection and ONE host sync (the
   emitted tokens) per call;
@@ -25,16 +29,21 @@ paged engine's every decode call goes through the hand-written kernels
 (``paged_decode_attention`` for the s == 1 steps,
 ``paged_window_attention`` for prefill windows).
 
-Left for later slices, raising ``NotImplementedError``: sampling
-(``temperature > 0`` needs threefry parity), speculation
-(``speculate_k >= 2``, ``draft``), the host KV tier
+Left for later slices, raising :class:`NotPorted` (a
+``NotImplementedError`` that is also a ``ValueError``, so a serving worker
+answers such a request with an error reply naming it and serves on):
+sampling (``temperature > 0`` needs threefry parity; ``top_k``, ``top_p``
+and ``seed`` are taken and, as in JAX, ignored by greedy decoding),
+stream resume (``forced_prefix``), adapters other than 0 (multi-adapter
+engines), speculation (``speculate_k >= 2``, ``draft``), the host KV tier
 (``host_kv_pages > 0``), registered/imported/exported prefixes and KV
-shipment (``poll_kv``, ``stage_kv_blob``), multi-adapter engines, and
-SLO preemption (classes still order admission).
+shipment (``poll_kv``, ``stage_kv_blob``), and SLO preemption (classes
+still order admission; no ``preempted`` span is emitted).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -60,10 +69,21 @@ class _Slot:
     n_consumed: int = 0         # tokens fed to the model so far
     generated: List[int] = field(default_factory=list)
     n_streamed: int = 0         # generated tokens already poll_partial'd
+    first_tokened: bool = False  # first_token span already emitted
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
+#: generated tokens between two ``decode_mark`` spans
+SPAN_DECODE_MARK_EVERY = 32
+
+
+class NotPorted(NotImplementedError, ValueError):
+    """A request or option this slice of the port does not serve yet.
+    A ``ValueError`` too: the worker's submit path answers it with an
+    error reply instead of losing its serve thread."""
+
+
+def _not_ported(what: str) -> NotPorted:
+    return NotPorted(f"{what} is not ported yet")
 
 
 class DecodeEngine:
@@ -154,18 +174,31 @@ class DecodeEngine:
             "admission_stalls": 0,
             "queued_interactive": 0, "queued_batch": 0,
             "queued_background": 0})
+        #: optional request-lifecycle hook ``(event, request_id, attrs)``;
+        #: the inference worker wires it into its traces and latency
+        #: histograms. None costs one attribute read per emission site.
+        self.span_sink: Optional[Callable[[str, Any, Dict[str, Any]],
+                                          None]] = None
 
     # ---- submission / results (thread-safe: loop thread vs callers) ----
     def submit(self, request_id: Any, prompt_ids: np.ndarray,
-               max_new: int, temperature: float = 0.0,
-               eos_id: Optional[int] = None, slo: str = "") -> None:
+               max_new: int, temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0, seed: int = 0,
+               eos_id: Optional[int] = None, adapter_id: int = 0,
+               slo: str = "") -> None:
         """Queue a greedy request. ``prompt_ids``: 1-D valid tokens
         (>= 1); prompt + generation are truncated to fit the cache.
-        ``eos_id`` ends the request when emitted (the EOS is dropped
-        from the reply). ``slo`` orders admission (interactive, batch,
-        background)."""
+        ``temperature <= 0`` is greedy, which ignores ``top_k``, ``top_p``
+        and ``seed`` (as the JAX engine's greedy program does); sampling
+        raises :class:`NotPorted`. ``eos_id`` ends the request when
+        emitted (the EOS is dropped from the reply). ``adapter_id`` must
+        be 0: this engine serves one adapter. ``slo`` orders admission
+        (interactive, batch, background)."""
         if float(temperature) > 0:
             raise _not_ported("sampling (temperature > 0)")
+        if int(adapter_id) != 0:
+            raise _not_ported(f"adapter_id {int(adapter_id)} "
+                              "(multi-adapter serving)")
         prompt = np.asarray(prompt_ids, np.int32).ravel()
         max_new = max(1, min(int(max_new), self.L - 1))
         prompt = prompt[:max(1, self.L - max_new)]
@@ -209,6 +242,31 @@ class DecodeEngine:
         with self._lock:
             return bool(self._cq) or any(s is not None
                                          for s in self._slots)
+
+    def _span(self, event: str, request_id: Any, **attrs: Any) -> None:
+        """Emit a lifecycle event to the wired sink. A sink that raises
+        is logged and detached: observability never kills the step
+        loop."""
+        sink = self.span_sink
+        if sink is None:
+            return
+        try:
+            sink(event, request_id, attrs)
+        except Exception:  # noqa: BLE001 — see the docstring
+            logging.getLogger(__name__).warning(
+                "span sink failed on %s", event, exc_info=True)
+            self.span_sink = None
+
+    def _mark_progress(self, slot: _Slot, n0: int, n1: int) -> None:
+        """first_token / periodic decode_mark spans for a slot that grew
+        from ``n0`` to ``n1`` generated tokens this call."""
+        if self.span_sink is None:
+            return
+        if not slot.first_tokened:
+            slot.first_tokened = True
+            self._span("first_token", slot.request_id)
+        if n0 // SPAN_DECODE_MARK_EVERY != n1 // SPAN_DECODE_MARK_EVERY:
+            self._span("decode_mark", slot.request_id, tokens=n1)
 
     def reset_stats(self) -> None:
         """Zero the served-traffic counters, keeping the pool gauges."""
@@ -396,7 +454,7 @@ class DecodeEngine:
     def step(self) -> int:
         """Admit queued requests into free slots, run K decode steps for
         every live slot, harvest completions. Returns the live count."""
-        admitted = False
+        admitted_info: List[Tuple[Any, int, int, str]] = []
         with self._lock:
             while True:
                 nxt = self._cq.peek()
@@ -420,16 +478,24 @@ class DecodeEngine:
                     self._res_total += n_res
                 _, slot = self._cq.pop()
                 self._seat_slot(i, slot)
-                admitted = True
+                admitted_info.append((slot.request_id, i,
+                                      len(slot.prompt), slot.slo))
             depths = self._cq.depths()
             live = [i for i in range(self.B) if self._slots[i] is not None]
             self.stats.max_set("max_concurrent", len(live))
         for c, d in depths.items():
             self.stats.set(f"queued_{c}", d)
+        # spans outside the engine lock: the sink takes its own locks
+        for rid, row, plen, cls in admitted_info:
+            self._span("admitted", rid, slot=row, prompt_tokens=plen,
+                       slo=cls, resumed=False)
         if not live:
             return 0
+        admitted = bool(admitted_info)
         if admitted and self.C > 1:
             self._chunked_prefill()
+            for rid, _row, plen, _cls in admitted_info:
+                self._span("prefill", rid, prompt_tokens=plen)
         if admitted or self._prompt_dev is None:
             self._prompt_dev = self._dev(self._prompt_buf, torch.int64)
         if self.paged:
@@ -468,6 +534,7 @@ class DecodeEngine:
             if len(slot.generated) > n0:
                 self.stats.inc("tokens_generated",
                                len(slot.generated) - n0)
+                self._mark_progress(slot, n0, len(slot.generated))
             slot.n_consumed += n_real
             self._pos[i] = pos0 + n_real
             if (eos_hit or len(slot.generated) >= slot.max_new
@@ -489,6 +556,8 @@ class DecodeEngine:
             with self._lock:
                 self._done.extend(finished)
                 self.stats.inc("requests_done", len(finished))
+            for rid, toks in finished:
+                self._span("done", rid, tokens=len(toks))
         return len(live)
 
 
@@ -536,6 +605,13 @@ class TextDecodeEngine:
     ``encode(text) -> 1-D int32 ids`` and ``decode(ids) -> text`` come
     from the owning model template (``LlamaLoRA.make_decode_engine``)."""
 
+    #: the inference worker forwards a request's ``slo`` only to engines
+    #: that declare it. Stream resume (``supports_resume``) and KV
+    #: shipment (``supports_kv_ship``) are not declared: the worker
+    #: answers a ``forced_prefix`` with an error reply and refuses a
+    #: prefill/decode role at boot.
+    supports_slo = True
+
     def __init__(self, engine: DecodeEngine,
                  encode: Callable[[str], np.ndarray],
                  decode: Callable[[List[int]], str],
@@ -548,11 +624,19 @@ class TextDecodeEngine:
 
     def submit(self, request_id: Any, text: str,
                max_new: Optional[int] = None, temperature: float = 0.0,
-               eos_id: Optional[int] = None, slo: str = "") -> None:
+               top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+               eos_id: Optional[int] = None, adapter_id: int = 0,
+               forced_prefix: str = "", slo: str = "") -> None:
+        """The JAX wrapper's signature; ``forced_prefix`` (stream resume)
+        raises :class:`NotPorted`, the rest is :meth:`DecodeEngine.submit`."""
+        if forced_prefix:
+            raise _not_ported("stream resume (forced_prefix)")
         self.engine.submit(request_id, self._encode(text),
                            self.max_new if max_new is None
                            else int(max_new),
-                           temperature=temperature, eos_id=eos_id, slo=slo)
+                           temperature=temperature, top_k=top_k,
+                           top_p=top_p, seed=seed, eos_id=eos_id,
+                           adapter_id=adapter_id, slo=slo)
 
     def poll(self) -> List[Tuple[Any, str]]:
         done = [(rid, self._decode(ids)) for rid, ids in self.engine.poll()]
@@ -595,3 +679,13 @@ class TextDecodeEngine:
 
     def stats_snapshot(self) -> Dict[str, int]:
         return self.engine.stats_snapshot()
+
+    @property
+    def span_sink(self):
+        return self.engine.span_sink
+
+    @span_sink.setter
+    def span_sink(self, sink) -> None:
+        # request ids pass through submit untouched, so the token
+        # engine's lifecycle events carry the caller's ids directly
+        self.engine.span_sink = sink

@@ -25,12 +25,13 @@ and :func:`llama_params_from_jax` casts its matmul leaves to the compute
 dtype once, at load. The int8 serving tree of ``quantize_llama_params``
 names a quantized site's base ``qkernel`` (int8) and ``qscale`` (f32)
 instead of ``kernel``: both keep their types through the bridge. The
-Flax-msgpack byte codec (``rafiki_tpu/store/param_store.py``) waits for
-the worker slice.
+trees come from, and go to, the Flax-msgpack byte codec of
+``store/param_store.py``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Collection, Dict, Mapping
 
 import numpy as np
@@ -51,18 +52,36 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def f32_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """A nested-dict params tree as f32 numpy copies."""
-    return {k: f32_tree(v) if isinstance(v, Mapping)
+def _frozen_f32(v: Any) -> bool:
+    """A read-only f32 array: a view into an immutable blob (what
+    ``params_from_bytes`` gives), safe to hold without a copy."""
+    return isinstance(v, np.ndarray) and v.dtype == np.float32 \
+        and not v.flags.writeable
+
+
+def f32_tree(tree: Mapping[str, Any], copy: bool = True) -> Dict[str, Any]:
+    """A nested-dict params tree as f32 numpy copies; with ``copy=False``
+    read-only f32 leaves are kept as they are (an 8B tree read from a
+    blob is not copied again on the host)."""
+    return {k: f32_tree(v, copy) if isinstance(v, Mapping)
+            else v if not copy and _frozen_f32(v)
             else np.array(v, dtype=np.float32) for k, v in tree.items()}
 
 
 def _leaf_tensor(leaf: Any) -> torch.Tensor:
     """One leaf as a tensor: int8 stays int8 (a ``qkernel``), everything
     else becomes f32. A torch tensor stays on its device; an array
-    becomes a CPU tensor of its own."""
-    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
-        np.array(leaf))
+    becomes a CPU tensor of its own, except a read-only f32 array, which
+    the tensor views (the callers only read it: a cast, or
+    ``load_state_dict``'s copy)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf
+    elif _frozen_f32(leaf):
+        with warnings.catch_warnings():  # "not writable": only read
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(leaf)
+    else:
+        t = torch.from_numpy(np.array(leaf))
     return t if t.dtype == torch.int8 else t.float()
 
 

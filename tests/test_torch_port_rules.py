@@ -1,7 +1,8 @@
 """The port's standing rules, enforced.
 
 - Nothing under ``rafiki_tpu_torch/``, and not ``chip_smoke.py``, imports
-  JAX, Flax, optax or the JAX package.
+  JAX, Flax, optax or the JAX package, nor msgpack or ml_dtypes (the card's
+  machine has neither: the port's codec is its own).
 - Entry points resolve ``device=None`` to the CUDA card and raise when
   there is none, instead of serving from the CPU.
 - A kernel wrapper given a tensor that is not on the CPU launches its
@@ -28,7 +29,8 @@ from rafiki_tpu_torch.utils.device import resolve_device
 from test_decode_engine import KNOBS
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu", "msgpack",
+             "ml_dtypes")
 
 
 def _port_sources():
