@@ -133,8 +133,30 @@ Phases; each raises on failure, so the script exits non-zero:
     messages give identical texts and identical ``engine_*`` counters in
     the published stats; B1/B2 launch.
 
-The worker phases run in the order 20, 19, 18: phase 18 holds a 35 GB
-blob on the host, and runs last.
+21. A ViT-B/16 tuning job at full width: the port's ``TrainWorker`` with
+    BOHB (``make_advisor("auto")``, seed 0) runs 8 trials over the ViT
+    knob space with patch 16, hidden 768, depth 12, 12 heads and bf16
+    pinned (the advisor searches learning rate, weight decay, warmup,
+    batch size and the policies) on a seeded 512-image train npz and a
+    256-image val npz, with a sqlite ``MetaStore`` and a ``file://`` param
+    store. Every trial must complete, B7/B3/B5/B6 launch, the winner
+    (``get_best_trials_of_train_job``) show a falling per-epoch loss; an
+    ``InferenceWorker`` serves the winner's blob: the 256 val images'
+    probabilities equal to ``predict``, accuracy within 1 % of the trial's
+    score, B7/B3 launched. Per trial: knobs, budget, warm start, score,
+    train / eval / save seconds and the worker's time outside them.
+22. A ``LlamaLoRA`` tuning job at its knob space's largest point (hidden
+    512, depth 8, max_len 128, 8 heads, batch 32, bf16; 3 trials, BOHB)
+    with train admission live (each trial's ``estimate_device_budget``
+    beside its measured peak); B3/B5/B6 must launch. The winner is served
+    by an ``InferenceWorker`` decode loop (page 16): texts token-identical
+    to a direct engine over the same blob, B1/B2 launched, and the
+    serving estimate's ``params`` term equal to the bytes the served
+    model holds (printed beside ``torch.cuda.memory_allocated()``, as in
+    phase 18).
+
+The worker phases run in the order 20, 19, 21, 22, 18: phase 18 holds a
+35 GB blob on the host, and runs last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -2181,6 +2203,7 @@ def llama_worker_phase(torch, np, ll, ps, queues, wi, pa, depth, dev):
     del decoded, blob
 
     hub = queues.InProcQueueHub()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     worker = wi.InferenceWorker(
         ll.LlamaLoRA, "llama8b", knobs, store, hub, "w0", decode_loop=True,
@@ -2188,6 +2211,17 @@ def llama_worker_phase(torch, np, ll, ps, queues, wi, pa, depth, dev):
         kv_page_size=16, device=dev)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    estimate = worker.model.estimate_serving_device_bytes(
+        max_slots=slots, kv_page_size=16)
+    serving_memory = {
+        "estimate_params_gb": estimate["params"] / 1e9,
+        "held_params_gb": sum(
+            t.numel() * t.element_size() for t in worker.model
+            ._serving_module_params().state_dict().values()) / 1e9,
+        "estimate_kv_cache_gb": estimate["kv_cache"] / 1e9,
+        "estimate_total_gb": estimate["total"] / 1e9,
+        "allocated_after_boot_gb": torch.cuda.memory_allocated() / 1e9,
+        "allocated_before_boot_gb": before / 1e9}
     rng = np.random.default_rng(SEED + 2)  # phase 4's texts
     plens = rng.integers(64, 1025, size=slots)
     texts = [" ".join(f"w{int(w)}" for w in rng.integers(0, 10**6,
@@ -2263,7 +2297,8 @@ def llama_worker_phase(torch, np, ll, ps, queues, wi, pa, depth, dev):
           "depth": depth, "params": n_params, "blob_bytes":
           len(store.backend.get("llama8b")), "init_s": init_s,
           "encode_s": encode_s, "decode_s": decode_s, "boot_s": boot_s,
-          "host_peak_rss_gb": _peak_rss_gb(), "requests": slots,
+          "host_peak_rss_gb": _peak_rss_gb(),
+          "serving_memory": serving_memory, "requests": slots,
           "streams": sum(m["stream"] for m in msgs),
           "prompt_tokens": [int(n) for n in plens], "max_new": max_new,
           "through_worker": via, "direct_engine": direct,
@@ -2492,6 +2527,344 @@ def worker_exactness_phase(torch, np, ll, store_params, ps, queues, wi, pa,
     return launches
 
 
+# ------------------------------------------------------------ tuning legs
+
+#: phase 21's pins: ViT-B/16 itself; the advisor searches learning_rate,
+#: weight_decay, warmup_frac, batch_size and the policies
+VIT_TUNE_PINS = {"patch_size": 16, "hidden_dim": 768, "depth": 12,
+                 "n_heads": 12, "bf16": True}
+VIT_TUNE_TRIALS = 8
+VIT_TUNE_IMAGES = (512, 256)  # train, val
+#: phase 22's pins: LlamaLoRA's knob space at its largest point; the
+#: sharded and rematerialized train paths (model_parallel > 1,
+#: remat_policy) are a later slice, so they are pinned off
+LLAMA_TUNE_PINS = {"hidden_dim": 512, "depth": 8, "max_len": 128,
+                   "n_heads": 8, "batch_size": 32, "bf16": True,
+                   "model_parallel": 1, "remat_policy": "none"}
+LLAMA_TUNE_TRIALS = 3
+LLAMA_TUNE_TEXTS = (512, 128)  # train, val
+
+
+def _tuning_job(torch, ms, ps, adv, wt, template, name, pins, trials,
+                train, val, work, dev, on_train=None):
+    """One tuning job through the port's ``TrainWorker``: BOHB
+    (``make_advisor("auto")``, seed 0) over ``template``'s knob space with
+    ``pins`` as the job's knob overrides, a sqlite ``MetaStore`` and a
+    ``file://`` param store under ``work``. Every trial's train and
+    evaluate are timed (synchronized), as are its wall time in
+    ``run_trial`` and its parameter save. Returns the worker's trial
+    count, the per-trial records, the meta store, the store and the train
+    job's id."""
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    meta = ms.MetaStore(str(work / "meta.db"))
+    job = meta.create_train_job("smoke", name, 1, "TUNING",
+                                {"TRIAL_COUNT": trials}, "train", "val")
+    sub = meta.create_sub_train_job(job["id"], name)["id"]
+    store = ps.ParamStore.from_uri(f"file://{work / 'params'}")
+    records, cur = [], [None]
+
+    def timed(fn, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        cur[0][key] = time.perf_counter() - t0
+        return out
+
+    class Timed(template):
+        def train(self, dataset_path, ctx=None):
+            cur[0]["warm_start"] = bool(ctx.shared_params is not None
+                                        and self.knobs.get("share_params"))
+            if on_train is not None:
+                on_train(self, cur[0])
+            timed(lambda: template.train(self, dataset_path, ctx),
+                  "train_s")
+            if on_train is not None:
+                on_train(self, cur[0])
+            cur[0]["epochs"] = len(ctx.logger.get_values("loss"))
+
+        def evaluate(self, dataset_path):
+            return timed(lambda: template.evaluate(self, dataset_path),
+                         "eval_s")
+
+    Timed.__name__ = template.__name__
+    real_save = store.save
+
+    def timed_save(key, params):
+        if key.startswith("ckpt-") or cur[0] is None:
+            return real_save(key, params)
+        return timed(lambda: real_save(key, params), "save_s")
+
+    store.save = timed_save
+    worker = wt.TrainWorker(
+        Timed, adv.make_advisor(template.get_knob_config(), "auto",
+                                total_trials=trials, seed=0),
+        train, val, param_store=store, meta_store=meta,
+        sub_train_job_id=sub, model_id=name, worker_id="tw0",
+        knob_overrides=pins, device=dev)
+    real_run_trial = worker.run_trial
+
+    def timed_run_trial(proposal):
+        cur[0] = {"trial_no": proposal.trial_no,
+                  "budget_scale": proposal.budget_scale,
+                  "warm_start_trial": proposal.warm_start_trial_id}
+        records.append(cur[0])
+        t0 = time.perf_counter()
+        score = real_run_trial(proposal)
+        cur[0]["trial_s"] = time.perf_counter() - t0
+        cur[0]["score"] = score
+        return score
+
+    worker.run_trial = timed_run_trial
+    n = worker.run()
+    cur[0] = None
+    searched = {k for k, knob in template.get_knob_config().items()
+                if not knob.is_constant and k not in pins}
+    for rec, row in zip(records, meta.get_trials_of_sub_train_job(sub)):
+        rec["status"] = row["status"]
+        rec["searched"] = {k: v for k, v in row["knobs"].items()
+                           if k in searched}
+        rec["outside_train_eval_s"] = rec["trial_s"] - rec.get(
+            "train_s", 0.0) - rec.get("eval_s", 0.0)
+        if row["status"] != "COMPLETED":
+            rec["error"] = (row["error"] or "")[-400:]
+    return n, records, meta, store, job["id"]
+
+
+def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
+                     dev):
+    """Phase 21: a ViT-B/16 tuning job at full width, then its winner
+    served. ``TrainWorker`` runs ``VIT_TUNE_TRIALS`` trials (BOHB, seed 0,
+    ``VIT_TUNE_PINS`` over every proposal) on a seeded learnable 512-image
+    train npz and a 256-image val npz (224 x 224 x 3, 10 classes, phase
+    13's generator); every trial must complete and B7, B3, B5 and B6
+    launch. The best trial, taken from the meta store as the JAX admin's
+    deploy takes it (``get_best_trials_of_train_job``), must show a
+    falling per-epoch loss; an ``InferenceWorker`` boots from its blob and
+    answers the 256 val images in 4 messages of 64: probabilities equal
+    to ``ViTBase16.predict`` after ``load_parameters`` of the same blob,
+    accuracy within 1 % (2 of 256) of the trial's score, B7 and B3
+    launched."""
+    import threading
+
+    work = ROOT / "build" / "chip_smoke" / "vit_tuning"
+    n_train, n_val = VIT_TUNE_IMAGES
+    data = ROOT / "build" / "chip_smoke"
+    train, _ = write_images(np, data / "vit_tune_train.npz", n_train,
+                            SEED + 21)
+    val, val_images = write_images(np, data / "vit_tune_val.npz", n_val,
+                                   SEED + 22)
+    labels = np.load(val)["labels"]
+    zero_all_launches(fa, pe)
+    t0 = time.perf_counter()
+    n, records, meta, store, job = _tuning_job(
+        torch, ms, ps, adv, wt, vit.ViTBase16, "vit-b16", VIT_TUNE_PINS,
+        VIT_TUNE_TRIALS, train, val, work, dev)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    tuning = all_launches(fa, pe)
+    for rec in records:
+        if rec.get("train_s"):
+            rec["train_images_per_s"] = rec["epochs"] * n_train / \
+                rec["train_s"]
+    best = meta.get_best_trials_of_train_job(job, 1)[0]
+    losses = [r["data"]["loss"] for r in meta.get_trial_logs(best["id"])
+              if "loss" in r["data"]]
+    blob_bytes = len(store.backend.get(best["id"]))
+
+    hub = queues.InProcQueueHub()
+    t0 = time.perf_counter()
+    worker = wi.InferenceWorker(vit.ViTBase16, best["id"], best["knobs"],
+                                store, hub, "tv0", decode_loop=False,
+                                device=dev)
+    boot_s = time.perf_counter() - t0
+    msgs = [{"id": f"tv{i}", "queries": val_images[64 * i:64 * (i + 1)]}
+            for i in range(n_val // 64)]
+    for m in msgs:
+        hub.push_query("tv0", queues.pack_message(m))
+    torch.cuda.synchronize()
+    zero_all_launches(fa, pe)
+    loop = threading.Thread(target=worker.run,
+                            kwargs={"poll_timeout": 0.01})
+    loop.start()
+    replies = [queues.unpack_message(hub.pop_prediction(m["id"], 600.0))
+               for m in msgs]
+    torch.cuda.synchronize()
+    serving = all_launches(fa, pe)
+    worker.stop()
+    loop.join()
+    got = np.concatenate([np.asarray(r["predictions"], np.float32)
+                          for r in replies])
+    direct = vit.ViTBase16(device=dev, **best["knobs"])
+    direct.load_parameters(store.load(best["id"]))
+    want = np.asarray(direct.predict(list(val_images)), np.float32)
+    accuracy = float(np.mean(np.argmax(got, -1) == labels))
+    errored = [r for r in records if r["status"] != "COMPLETED"]
+    emit({"phase": "vit_tuning", "model": "ViT-B/16", "pins": VIT_TUNE_PINS,
+          "advisor": "bohb", "trials": n, "images": [n_train, n_val],
+          "job_s": job_s, "per_trial": records,
+          "outside_train_eval_s": sum(r["outside_train_eval_s"]
+                                      for r in records),
+          "train_eval_s": sum(r.get("train_s", 0) + r.get("eval_s", 0)
+                              for r in records),
+          "blob_bytes": blob_bytes,
+          "save_s": [r.get("save_s") for r in records],
+          "winner": {"trial_no": best["trial_no"], "score": best["score"],
+                     "knobs": records[best["trial_no"]]["searched"],
+                     "epoch_losses": losses},
+          "tuning_launches": tuning, "serving_launches": serving,
+          "served": {"boot_s": boot_s, "accuracy": accuracy,
+                     "identical_to_predict": bool(np.array_equal(got,
+                                                                 want)),
+                     "errors": [r["error"] for r in replies
+                                if r.get("error")]}})
+    if errored or n != VIT_TUNE_TRIALS:
+        raise AssertionError(f"tuning trials did not complete: {errored}")
+    for name in ("matmul_bias", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if tuning[name] <= 0:
+            raise AssertionError(f"{name} never launched while tuning: "
+                                 f"{tuning}")
+    if serving["matmul_bias"] <= 0 or serving["flash_attention_fwd"] <= 0:
+        raise AssertionError(f"the served winner launched {serving}")
+    if not losses or not losses[-1] < losses[0]:
+        raise AssertionError(f"the winner's loss did not fall: {losses}")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("the served winner differs from predict")
+    if abs(accuracy - best["score"]) > 0.01:
+        raise AssertionError(f"served accuracy {accuracy} != trial score "
+                             f"{best['score']}")
+    return {"vit_tuning": tuning, "vit_tuned_worker": serving}
+
+
+def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
+                       dev):
+    """Phase 22: a ``LlamaLoRA`` tuning job at the knob space's largest
+    point (``LLAMA_TUNE_PINS``: hidden 512, depth 8, max_len 128, 8 heads,
+    batch 32, bf16), ``LLAMA_TUNE_TRIALS`` trials (BOHB, seed 0) on phase
+    8's corpus generator, with train admission live: each trial's
+    ``estimate_device_budget(1)`` beside its measured peak. B3, B5 and B6
+    must launch. The winner is served by an ``InferenceWorker`` decode
+    loop (paged, page 16, 8 slots, 16 new tokens): its texts must be
+    token-identical to a direct ``make_decode_engine`` run of the same
+    blob, B1 and B2 launched; the serving estimate's ``params`` term is
+    printed beside the bytes the served model holds and
+    ``torch.cuda.memory_allocated()`` after boot."""
+    work = ROOT / "build" / "chip_smoke" / "llama_tuning"
+    data = ROOT / "build" / "chip_smoke"
+    n_train, n_val = LLAMA_TUNE_TEXTS
+    train = write_corpus(np, data / "tune_train.jsonl", n_train, SEED + 8)
+    val = write_corpus(np, data / "tune_val.jsonl", n_val, SEED + 9)
+
+    def memory(model, rec):
+        if "estimate" not in rec:  # before train
+            rec["estimate"] = model.estimate_device_budget(1)
+            rec["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    zero_flash_launches(fa)
+    t0 = time.perf_counter()
+    n, records, meta, store, job = _tuning_job(
+        torch, ms, ps, adv, wt, ll.LlamaLoRA, "llama-lora",
+        LLAMA_TUNE_PINS, LLAMA_TUNE_TRIALS, train, val, work, dev,
+        on_train=memory)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    tuning = flash_launches(fa)
+    for rec in records:
+        if "estimate" in rec:
+            rec["estimate_gb"] = {k: v / 1e9
+                                  for k, v in rec.pop("estimate").items()}
+    best = meta.get_best_trials_of_train_job(job, 1)[0]
+    knobs = best["knobs"]
+
+    rng = np.random.default_rng(SEED + 22)
+    with open(val) as f:
+        rows = [json.loads(line) for line in f][1:]
+    texts = [" ".join(rows[int(i)]["text"].split()[:40])
+             for i in rng.choice(len(rows), 8, replace=False)]
+    msgs = [{"id": f"tl{i}", "queries": [t]} for i, t in enumerate(texts)]
+    slots, max_new = 8, 16
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    hub = queues.InProcQueueHub()
+    t0 = time.perf_counter()
+    worker = wi.InferenceWorker(
+        ll.LlamaLoRA, best["id"], knobs, store, hub, "tl0",
+        decode_loop=True, max_slots=slots, max_new_tokens=max_new,
+        steps_per_sync=4, kv_page_size=16, device=dev)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    estimate = worker.model.estimate_serving_device_bytes(
+        max_slots=slots, kv_page_size=16)
+    held = sum(t.numel() * t.element_size() for t in
+               worker.model._serving_module_params().state_dict().values())
+    after_boot = torch.cuda.memory_allocated()
+    pa.paged_decode_attention.launches = 0
+    pa.paged_window_attention.launches = 0
+    out, t_run, t_end = _serve_messages(hub, queues, worker, msgs)
+    torch.cuda.synchronize()
+    serving = {"paged_decode_attention": pa.paged_decode_attention.launches,
+               "paged_window_attention": pa.paged_window_attention.launches}
+    got = {m["id"]: (out[m["id"]].get("predictions") or [None])[0]
+           for m in msgs}
+    del worker
+    direct_model = ll.LlamaLoRA(device=dev, **knobs)
+    direct_model.load_parameters(store.load(best["id"]))
+    eng = direct_model.make_decode_engine(max_slots=slots,
+                                          max_new_tokens=max_new,
+                                          steps_per_sync=4, kv_page_size=16)
+    for m in msgs:
+        eng.submit((m["id"], 0), m["queries"][0])
+    done = {}
+    while len(done) < len(msgs):
+        eng.step()
+        done.update({mid: text for (mid, _), text in eng.poll()})
+    mismatched = {mid: _first_diff(got[mid] or "", done[mid])
+                  for mid in done if got[mid] != done[mid]}
+    del eng, direct_model
+    errors = {mid: r["error"] for mid, r in out.items() if r.get("error")}
+    emit({"phase": "llama_tuning", "model": "LlamaLoRA", "pins":
+          LLAMA_TUNE_PINS, "advisor": "bohb", "trials": n, "texts":
+          [n_train, n_val], "job_s": job_s, "per_trial": records,
+          "winner": {"trial_no": best["trial_no"], "score": best["score"],
+                     "knobs": records[best["trial_no"]]["searched"]},
+          "tuning_launches": tuning, "serving_launches": serving,
+          "served": {"boot_s": boot_s, "wall_s": t_end - t_run,
+                     "requests": len(msgs), "max_new": max_new,
+                     "errors": errors,
+                     "token_identical_to_direct": not mismatched,
+                     "first_differing_token": mismatched},
+          "serving_memory": {
+              "estimate_params_gb": estimate["params"] / 1e9,
+              "held_params_gb": held / 1e9,
+              "estimate_kv_cache_gb": estimate["kv_cache"] / 1e9,
+              "estimate_total_gb": estimate["total"] / 1e9,
+              "allocated_after_boot_gb": after_boot / 1e9,
+              "allocated_before_boot_gb": before / 1e9}})
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if tuning[name] <= 0:
+            raise AssertionError(f"{name} never launched while tuning: "
+                                 f"{tuning}")
+    if min(serving.values()) <= 0:
+        raise AssertionError(f"a paged kernel never launched: {serving}")
+    if errors or any(v is None for v in got.values()):
+        raise AssertionError(f"worker replies failed: {errors}")
+    if mismatched:
+        raise AssertionError(f"served texts differ from the direct engine: "
+                             f"{mismatched}")
+    if estimate["params"] != held:
+        raise AssertionError(f"params term {estimate['params']} != the "
+                             f"{held} bytes the served model holds")
+    return {"llama_tuning": tuning, "llama_tuned_worker": serving}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=32,
@@ -2517,6 +2890,7 @@ def main(argv=None):
     import numpy as np
     import torch.nn.functional as F
 
+    from rafiki_tpu_torch import advisor as adv
     from rafiki_tpu_torch.model import loop as lp
     from rafiki_tpu_torch.model import optim
     from rafiki_tpu_torch.model.base import TrainContext
@@ -2530,9 +2904,11 @@ def main(argv=None):
     from rafiki_tpu_torch.ops import patch_embed as pe
     from rafiki_tpu_torch.serving import decode_engine as de
     from rafiki_tpu_torch.serving import queues
+    from rafiki_tpu_torch.store import meta_store as ms
     from rafiki_tpu_torch.store import param_store as ps
     from rafiki_tpu_torch.store import params as store_params
     from rafiki_tpu_torch.worker import inference as wi
+    from rafiki_tpu_torch.worker import train as wt
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2611,6 +2987,12 @@ def main(argv=None):
         torch, np, ll, store_params, ps, queues, wi, pa, dev)
     paths["vit_worker"] = vit_worker_phase(torch, np, vit, store_params, ps,
                                            queues, wi, fa, pe, dev)
+    torch.cuda.empty_cache()
+    paths.update(vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues,
+                                  wi, fa, pe, dev))
+    torch.cuda.empty_cache()
+    paths.update(llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues,
+                                    wi, fa, pa, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)

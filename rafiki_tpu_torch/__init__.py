@@ -8,7 +8,8 @@ kernel on a ported path becomes a hand-written CUDA kernel under
 
 Rules the port keeps:
 
-- it imports ``torch`` and ``numpy``, never ``jax``/``flax``/``optax`` and
+- it imports ``torch`` and ``numpy`` (and scipy where the JAX advisors
+  do), never ``jax``/``flax``/``optax`` and
   nothing from ``rafiki_tpu`` — what it needs of a JAX-free reference
   module it keeps as its own copy;
 - entry points run on the CUDA card unless the caller passes
@@ -19,8 +20,10 @@ Rules the port keeps:
 Slices ported so far: paged Llama serving (the decoder's decode branch,
 the continuous-batching ``DecodeEngine`` over a paged KV pool, kernels
 B1/B2); LoRA training of the Llama template (the flash-attention forward
-and backward, B3/B5/B6); and the ViT and BERT classifiers, serving and
-training (the head-tiled forward B4 and the patch projection B7).
+and backward, B3/B5/B6); the ViT and BERT classifiers, serving and
+training (the head-tiled forward B4 and the patch projection B7); int8
+Llama serving; the inference worker; and tuning (knobs, advisors, the
+meta store, the train worker and ``tune_model``).
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,16 @@
-"""What the system injects into a trial's ``train`` call, and how a
-worker materializes an uploaded model class.
+"""What the system injects into a trial's ``train`` call, how a
+template's knobs are checked, and how a worker materializes an uploaded
+model class.
 
-The port's own copy of ``TrainContext`` and ``load_model_class`` from
+The port's own copy of ``TrainContext``, ``BaseModel.validate_knobs``
+(here :func:`validate_template_knobs`, which the templates' own
+``validate_knobs`` class methods call) and ``load_model_class`` from
 ``rafiki_tpu/model/base.py``. The port's templates take their device at
-construction, so the JAX context's ``devices`` (a trial's sub-mesh) and
-``profile_dir`` (a ``jax.profiler`` trace) have no field here. The port
-has no ``BaseModel``: ``load_model_class`` accepts any class with the
-serving surface a worker calls (``load_parameters`` and ``predict``).
+construction, so the JAX context's ``devices`` (a trial's sub-mesh) has
+no field here; ``profile_dir`` is where the train worker writes the
+trial's ``torch.profiler`` trace. The port has no ``BaseModel``:
+``load_model_class`` accepts any class with the serving surface a worker
+calls (``load_parameters`` and ``predict``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from rafiki_tpu_torch.model.knob import Knobs, validate_knobs
 from rafiki_tpu_torch.model.log import ModelLogger
 
 Params = Dict[str, Any]  # nested dicts of numpy arrays (JAX's layout)
@@ -32,12 +37,24 @@ class TrainContext:
     shared_params: Optional[Params] = None
     #: per-trial structured metric logger
     logger: ModelLogger = field(default_factory=ModelLogger)
+    #: trial identity, for checkpoints and log correlation
+    trial_id: Optional[str] = None
     #: called with (epoch, score) between epochs; False stops training
     should_continue: Optional[Any] = None
+    #: when set, the train worker records a ``torch.profiler`` trace of
+    #: ``train`` here; templates may drop their own artifacts here too
+    profile_dir: Optional[str] = None
     #: preemption safety: templates call ``ctx.checkpoint(
     #: self.dump_parameters, frac_done=(e + 1) / epochs, tree=...)`` at
     #: epoch boundaries with a zero-argument blob factory
     checkpoint: Optional[Any] = None
+
+
+def validate_template_knobs(model_class: type, knobs: Knobs) -> None:
+    """Raise ValueError unless ``knobs`` is a full, in-domain assignment
+    of ``model_class.get_knob_config()`` (JAX's
+    ``BaseModel.validate_knobs``)."""
+    validate_knobs(model_class.get_knob_config(), knobs)
 
 
 _MODULE_DIR: Optional[Path] = None

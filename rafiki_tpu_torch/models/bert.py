@@ -20,8 +20,8 @@ in f32, output in ``dtype``); the embedding table is cast to ``dtype``
 before the lookup; ``final_norm`` runs on the f32 activations and
 ``head`` in f32; ``gelu`` is the tanh approximation. The seeded init
 matches flax's distributions, not its bits. The port trains on its one
-device (``device=None`` is the CUDA card); knob search waits for the
-port's knob module.
+device (``device=None`` is the CUDA card); ``get_knob_config`` is the
+JAX template's search space, knob for knob.
 """
 
 from __future__ import annotations
@@ -37,7 +37,11 @@ from torch import nn
 
 from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
-from rafiki_tpu_torch.model.base import TrainContext
+from rafiki_tpu_torch.model.base import (TrainContext,
+                                         validate_template_knobs)
+from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
+                                         FloatKnob, IntegerKnob, KnobConfig,
+                                         PolicyKnob)
 from rafiki_tpu_torch.model.loop import epoch_count, fit, masked_ce
 from rafiki_tpu_torch.model.template_utils import (bucketed_forward,
                                                    same_tree_shapes)
@@ -169,6 +173,31 @@ class BertClassifier:
     ``share_params``); ``device=None`` is the CUDA card. ``_params`` holds
     the f32 numpy tree in the flax layout, ``_net`` the ``Bert`` built
     from it for serving."""
+
+    @staticmethod
+    def get_knob_config() -> KnobConfig:
+        return {
+            "max_epochs": FixedKnob(8),
+            "vocab_size": FixedKnob(1 << 15),
+            # all hidden_dim choices divide by all n_heads choices
+            "hidden_dim": CategoricalKnob([96, 192, 384, 768],
+                                          shape_relevant=True),
+            "depth": IntegerKnob(2, 12, shape_relevant=True),
+            "n_heads": CategoricalKnob([4, 8, 12], shape_relevant=True),
+            "max_len": CategoricalKnob([32, 64, 128], shape_relevant=True),
+            "learning_rate": FloatKnob(1e-5, 1e-2, is_exp=True),
+            "weight_decay": FloatKnob(1e-5, 1e-1, is_exp=True),
+            "warmup_frac": FloatKnob(0.0, 0.2),
+            "batch_size": CategoricalKnob([16, 32, 64, 128],
+                                          shape_relevant=True),
+            "bf16": CategoricalKnob([True, False]),
+            "quick_train": PolicyKnob("QUICK_TRAIN"),
+            "share_params": PolicyKnob("SHARE_PARAMS"),
+        }
+
+    @classmethod
+    def validate_knobs(cls, knobs: Dict[str, Any]) -> None:
+        validate_template_knobs(cls, knobs)
 
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)

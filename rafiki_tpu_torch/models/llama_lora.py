@@ -54,7 +54,11 @@ from torch import nn
 
 from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
-from rafiki_tpu_torch.model.base import TrainContext
+from rafiki_tpu_torch.model.base import (TrainContext,
+                                         validate_template_knobs)
+from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
+                                         FloatKnob, IntegerKnob, KnobConfig,
+                                         PolicyKnob)
 from rafiki_tpu_torch.model.loop import epoch_count
 from rafiki_tpu_torch.model.template_utils import same_tree_shapes
 from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
@@ -63,9 +67,10 @@ from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
-from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
+from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine, NotPorted,
                                                     TextDecodeEngine)
-from rafiki_tpu_torch.store.params import (f32_tree, llama_params_from_jax,
+from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
+                                           llama_params_from_jax,
                                            params_to_jax)
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -767,6 +772,63 @@ class LlamaLoRA:
     is built only when ``evaluate`` asks for it, so an int8 deployment
     holds no compute-dtype copy of its weights on the card."""
 
+    @staticmethod
+    def get_knob_config() -> KnobConfig:
+        """The JAX template's search space, knob for knob (its JSON is
+        JAX's). The knobs of later slices (parallelism, MoE, remat
+        schedules, the BPE tokenizer, pretrained weights) keep their
+        domains: a proposal that sets one raises when it trains."""
+        return {
+            "max_epochs": FixedKnob(6),
+            "vocab_size": FixedKnob(1 << 14),
+            "hidden_dim": CategoricalKnob([64, 128, 256, 512],
+                                          shape_relevant=True),
+            "depth": IntegerKnob(2, 8, shape_relevant=True),
+            "n_heads": CategoricalKnob([4, 8], shape_relevant=True),
+            "kv_ratio": CategoricalKnob([1, 2, 4], shape_relevant=True),
+            "lora_rank": CategoricalKnob([4, 8, 16], shape_relevant=True),
+            "max_len": CategoricalKnob([32, 64, 128], shape_relevant=True),
+            "model_parallel": CategoricalKnob([1, 2, 4],
+                                              shape_relevant=True),
+            "learning_rate": FloatKnob(1e-4, 3e-2, is_exp=True,
+                                       traceable=True),
+            # the LoRA rank-scale, folded into lora_b at export
+            "lora_scale": FloatKnob(0.25, 4.0, is_exp=True,
+                                    traceable=True),
+            "batch_size": CategoricalKnob([8, 16, 32], shape_relevant=True),
+            "bf16": CategoricalKnob([True, False]),
+            "remat": FixedKnob(False),
+            "remat_policy": CategoricalKnob(["none", "full", "policy"]),
+            "overlap_collectives": CategoricalKnob([False, True]),
+            "adapters_only": PolicyKnob("ADAPTERS_ONLY"),
+            "sequence_parallel": FixedKnob(1),
+            "pipeline_stages": FixedKnob(1),
+            "pipeline_microbatches": FixedKnob(0),
+            "loss_chunk": FixedKnob(0),
+            "moe_experts": FixedKnob(0),
+            "moe_top_k": FixedKnob(1),
+            "quick_train": PolicyKnob("QUICK_TRAIN"),
+            "share_params": PolicyKnob("SHARE_PARAMS"),
+            "quantize_int8": FixedKnob(False),
+            "grad_accum": FixedKnob(1),
+            "kv_cache_int8": FixedKnob(False),
+            "rope_theta": FixedKnob(10000.0),
+            "rope_scaling": FixedKnob(""),
+            "tokenizer_path": FixedKnob(""),
+            "pretrained_path": FixedKnob(""),
+        }
+
+    @classmethod
+    def validate_knobs(cls, knobs: Dict[str, Any]) -> None:
+        validate_template_knobs(cls, knobs)
+
+    @classmethod
+    def make_gang_spec(cls, *args: Any, **kwargs: Any) -> Any:
+        """JAX's gang contract (K trials as lanes of one compiled step,
+        ``tuning/gang.py``): the port has no gang engine yet."""
+        raise NotPorted("the gang engine (GangEngine, make_gang_spec) is "
+                        "not ported yet")
+
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
         self.knobs: Dict[str, Any] = dict(knobs)
@@ -911,6 +973,55 @@ class LlamaLoRA:
                 f"knob(s) {blockers} need the sharded / rematerialized "
                 "train path, which is not ported yet")
 
+    def estimate_device_budget(self, n_devices: int = 1,
+                               gang_size: int = 0) -> Dict[str, int]:
+        """Device memory of one train step of these knobs on the port's
+        one card (JAX's ``estimate_device_budget`` budgets a TPU mesh of
+        ``n_devices``; the port trains on one device, so the argument is
+        accepted and ignored). Knobs :meth:`train` refuses raise the same
+        error here; ``gang_size >= 1`` raises ``NotPorted`` (no gang
+        engine yet). Bytes by term:
+
+        - ``params``: trainable leaves (adapters, norms, LM head) as f32
+          master weights; frozen leaves as :meth:`train` holds them (base
+          kernels in the compute dtype, the embedding f32);
+        - ``grads``: one f32 gradient per trainable leaf;
+        - ``opt``: AdamW's two f32 moments per trainable leaf;
+        - ``activations``: what the backward keeps, per block
+          (q, k, v, attention out ~4·hidden and the SwiGLU ~3·mlp a token,
+          with their cotangents) over batch_size × max_len tokens, plus
+          the f32 logits and their cotangent;
+        - ``transient``: the compute-dtype cast of the largest trainable
+          leaf (the LM head), made per call when that dtype is not f32."""
+        if gang_size >= 1:
+            raise NotPorted("the gang engine (gang_size >= 1) is not "
+                            "ported yet")
+        self._check_trainable_knobs()
+        k = self.knobs
+        act = torch.finfo(self._dtype()).bits // 8
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
+        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
+        depth, mlp = int(k["depth"]), 4 * hd
+        adapters_only = bool(k.get("adapters_only", False))
+        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd), (hd, mlp),
+                 (hd, mlp), (mlp, hd)]
+        lora = depth * sum(rank * (i + o) for i, o in sites)
+        norms = (2 * depth + 1) * hd
+        head = hd * vocab
+        trainable = lora if adapters_only else lora + norms + head
+        frozen_act = depth * sum(i * o for i, o in sites) + \
+            (head if adapters_only else 0)
+        frozen_f32 = vocab * hd + (norms if adapters_only else 0)
+        tokens = int(k["batch_size"]) * int(k["max_len"])
+        per_block = tokens * (4 * hd + 3 * mlp) * act * 2  # + cotangent
+        out = {"params": 4 * trainable + act * frozen_act + 4 * frozen_f32,
+               "grads": 4 * trainable, "opt": 2 * 4 * trainable,
+               "activations": depth * per_block + tokens * vocab * 4 * 2,
+               "transient": 0 if adapters_only or act == 4 else head * act}
+        out["total"] = sum(out.values())
+        return out
+
     def train(self, dataset_path: str,
               ctx: Optional[TrainContext] = None) -> None:
         """LoRA fine-tune on a ``.jsonl`` text corpus: the JAX template's
@@ -1025,35 +1136,46 @@ class LlamaLoRA:
         self.predict(["warmup"])
 
     def _param_bytes(self) -> int:
-        """Bytes of the JAX serving tree: the loaded f32 tree, or its int8
-        form under ``quantize_int8`` (each 2-d LoRADense ``kernel`` an
-        int8 ``qkernel`` plus its f32 ``qscale``, as
-        :func:`quantize_llama_params` makes it); unloaded, the f32 init
-        of these knobs."""
-        if self._params is None:
-            k = self.knobs
-            hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
-            kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
-            rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
-            sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd),
-                     (hd, 4 * hd), (hd, 4 * hd), (4 * hd, hd)]
-            block = sum(i * o + rank * (i + o) for i, o in sites) + 2 * hd
-            n = int(k["depth"]) * block + 2 * vocab * hd + hd
-            return 4 * n
+        """Bytes of the weights the port serves from on its device: the
+        matmul leaves (``kernel``, ``lora_a``, ``lora_b``) in the compute
+        dtype, or under ``quantize_int8`` each 2-d base ``kernel`` as an
+        int8 ``qkernel`` plus its f32 ``qscale`` (the adapters still in
+        the compute dtype); the embedding and the norm scales f32. From
+        the loaded tree's shapes, else from the knobs' (JAX counts its
+        f32 tree, which it keeps on the device; the port keeps that tree
+        on the host)."""
+        act = torch.finfo(self._dtype()).bits // 8
         int8 = bool(self.knobs.get("quantize_int8"))
 
-        def walk(tree: Dict[str, Any]) -> int:
-            total = 0
-            for name, sub in tree.items():
-                if isinstance(sub, dict):
-                    total += walk(sub)
-                elif int8 and name == "kernel" and np.ndim(sub) == 2:
-                    total += int(np.size(sub)) + 4 * int(np.shape(sub)[1])
-                else:
-                    total += 4 * int(np.size(sub))
-            return total
+        def leaf_bytes(name: str, shape: Sequence[int]) -> int:
+            n = int(np.prod(shape))
+            if name not in MATMUL_LEAVES:
+                return 4 * n
+            if int8 and name == "kernel" and len(shape) == 2:
+                return n + 4 * int(shape[1])
+            return act * n
 
-        return walk(self._params)
+        if self._params is not None:
+            def walk(tree: Dict[str, Any]) -> int:
+                return sum(walk(sub) if isinstance(sub, dict)
+                           else leaf_bytes(name, np.shape(sub))
+                           for name, sub in tree.items())
+
+            return walk(self._params)
+        k = self.knobs
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
+        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
+        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd),
+                 (hd, 4 * hd), (hd, 4 * hd), (4 * hd, hd)]
+        block = 2 * leaf_bytes("scale", (hd,)) + sum(
+            leaf_bytes("kernel", (i, o))
+            + (leaf_bytes("lora_a", (i, rank))
+               + leaf_bytes("lora_b", (rank, o)) if rank else 0)
+            for i, o in sites)
+        return (int(k["depth"]) * block + leaf_bytes("kernel", (hd, vocab))
+                + leaf_bytes("embedding", (vocab, hd))
+                + leaf_bytes("scale", (hd,)))
 
     def estimate_serving_device_bytes(self, max_slots: int = 8,
                                       n_extra_adapters: int = 0,
@@ -1066,21 +1188,23 @@ class LlamaLoRA:
         term by term as the JAX template's (admission control compares
         ``total`` with the card's memory before any engine is built):
 
-        - ``params``: the JAX serving tree's bytes (:meth:`_param_bytes`);
+        - ``params``: the bytes of the weights the port holds on its
+          device (:meth:`_param_bytes`), where JAX counts its f32 tree;
         - ``kv_cache``: max_slots x max_len positions per layer, or the
           paged pool's kv_pages x kv_page_size (kv_pages 0 = full
           coverage), x kv heads x head dim x 2 (K and V) x depth, at the
           compute dtype, or int8 plus one f32 scale per row under
           ``kv_cache_int8``;
         - ``adapters``: extra tenants' f32 LoRA tensors (7 sites a block);
-        - ``draft``: a draft model's params and cache;
+        - ``draft``: a draft model's ``params`` and cache, as above;
         - ``working``: a 32-token prefill chunk and one (slots, vocab)
           f32 logits buffer;
         - ``host_kv_cache`` (``host_kv_pages > 0``): the host page tier's
           bytes, host memory, left out of ``total``.
 
-        The compute dtype is read as the JAX estimator reads it (``bf16``
-        absent counts as f32), so the two give equal figures."""
+        Every term but ``params`` reads the compute dtype as the JAX
+        estimator reads it (``bf16`` absent counts as f32), so those terms
+        equal JAX's."""
         k = self.knobs
         if int(host_kv_pages) and int(kv_page_size) <= 0:
             raise ValueError("host_kv_pages requires kv_page_size > 0 "

@@ -23,8 +23,8 @@ channels from the first input, the port's ``ViT`` takes ``image_shape``.
 Its seeded init matches flax's distributions, not its bits.
 
 The JAX template trains data-parallel over a TPU sub-mesh; the port trains
-on its one device (``device=None`` is the CUDA card). Knob search
-(``get_knob_config``) waits for the port's knob module.
+on its one device (``device=None`` is the CUDA card). ``get_knob_config``
+is the JAX template's search space, knob for knob.
 """
 
 from __future__ import annotations
@@ -40,7 +40,11 @@ from torch.utils.checkpoint import checkpoint
 
 from rafiki_tpu_torch.data.dataset import load_image_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
-from rafiki_tpu_torch.model.base import TrainContext
+from rafiki_tpu_torch.model.base import (TrainContext,
+                                         validate_template_knobs)
+from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
+                                         FloatKnob, IntegerKnob, KnobConfig,
+                                         PolicyKnob)
 from rafiki_tpu_torch.model.loop import epoch_count, fit, masked_ce
 from rafiki_tpu_torch.model.template_utils import (bucketed_forward,
                                                    conform_images,
@@ -174,6 +178,32 @@ class ViTBase16:
     dicts of f32 numpy arrays in the flax layout (what
     ``dump_parameters`` returns), and a ``ViT`` built from them on the
     device for serving (``_net``)."""
+
+    @staticmethod
+    def get_knob_config() -> KnobConfig:
+        return {
+            "max_epochs": FixedKnob(5),
+            "patch_size": CategoricalKnob([4, 7, 14, 16],
+                                          shape_relevant=True),
+            # every hidden_dim divides by every n_heads choice
+            "hidden_dim": CategoricalKnob([96, 192, 384, 768],
+                                          shape_relevant=True),
+            "depth": IntegerKnob(2, 12, shape_relevant=True),
+            "n_heads": CategoricalKnob([4, 8, 12], shape_relevant=True),
+            "learning_rate": FloatKnob(1e-5, 1e-2, is_exp=True),
+            "weight_decay": FloatKnob(1e-5, 1e-1, is_exp=True),
+            "warmup_frac": FloatKnob(0.0, 0.3),
+            "batch_size": CategoricalKnob([16, 32, 64, 128],
+                                          shape_relevant=True),
+            "bf16": CategoricalKnob([True, False]),
+            "remat": FixedKnob(False),
+            "quick_train": PolicyKnob("QUICK_TRAIN"),
+            "share_params": PolicyKnob("SHARE_PARAMS"),
+        }
+
+    @classmethod
+    def validate_knobs(cls, knobs: Dict[str, Any]) -> None:
+        validate_template_knobs(cls, knobs)
 
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)

@@ -8,8 +8,8 @@ and a small ViT through the micro-batcher. Texts must be identical
 ViT tests (rtol 1e-4, atol 1e-5). Also held here: the error replies and
 that the worker serves on after them, expiry and drain, the engine's
 span events against the JAX engine's, ``estimate_serving_device_bytes``
-against JAX's key by key, admission, and the options that refuse to
-boot.
+against JAX's term by term (its ``params`` against the bytes the port's
+serving model holds), admission, and the options that refuse to boot.
 """
 
 import json
@@ -341,7 +341,12 @@ def test_engine_span_events_equal_the_jax_engine(tmp_path):
                      "done"]
 
 
-# ---- the serving budget against JAX's, key by key
+# ---- the serving budget: JAX's terms, and the port's own params term
+
+def _held_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("q8", [False, True], ids=["w32", "w8"])
@@ -350,6 +355,9 @@ def test_engine_span_events_equal_the_jax_engine(tmp_path):
                          ids=["contiguous", "paged8", "paged4x9"])
 def test_estimate_serving_device_bytes_equals_jax(trained_lm, bf16, q8, kv8,
                                                   layout):
+    """Every term but ``params`` equals JAX's; ``params`` is the bytes of
+    the weights the port's serving model holds (JAX counts its f32 tree,
+    which it keeps on the device; the port keeps it on the host)."""
     page, pages = layout
     knobs = dict(KNOBS, bf16=bf16, quantize_int8=q8, kv_cache_int8=kv8)
     dump = trained_lm.dump_parameters()
@@ -358,6 +366,9 @@ def test_estimate_serving_device_bytes_equals_jax(trained_lm, bf16, q8, kv8,
         if loaded:
             jm.load_parameters(dump)
             pm.load_parameters(dump)
+            held = _held_bytes(pm._serving_module_params())
+        else:
+            held = _held_bytes(pm._module(quantized=q8))
         for extra in (0, 2):
             for host in ((0, 6) if page else (0,)):
                 kw = dict(max_slots=3, n_extra_adapters=extra,
@@ -365,10 +376,19 @@ def test_estimate_serving_device_bytes_equals_jax(trained_lm, bf16, q8, kv8,
                           host_kv_pages=host)
                 want = jm.estimate_serving_device_bytes(**kw)
                 got = pm.estimate_serving_device_bytes(**kw)
-                assert got == want, (loaded, kw)
-    draft = JLlamaLoRA(**knobs), LlamaLoRA(device="cpu", **knobs)
-    assert pm.estimate_serving_device_bytes(draft=draft[1]) == \
-        jm.estimate_serving_device_bytes(draft=draft[0])
+                assert got["params"] == held, (loaded, kw)
+                assert {k: v for k, v in got.items()
+                        if k not in ("params", "total")} == \
+                    {k: v for k, v in want.items()
+                     if k not in ("params", "total")}, (loaded, kw)
+                assert got["total"] == sum(
+                    v for k, v in got.items()
+                    if k not in ("total", "host_kv_cache"))
+    jd, pd = JLlamaLoRA(**knobs), LlamaLoRA(device="cpu", **knobs)
+    got = pm.estimate_serving_device_bytes(draft=pd)["draft"]
+    assert got == _held_bytes(pd._module(quantized=q8)) + \
+        jm.estimate_serving_device_bytes(draft=jd)["draft"] - \
+        jd.estimate_serving_device_bytes()["params"]
 
 
 def test_estimate_refuses_what_the_engine_refuses():
