@@ -144,11 +144,14 @@ Phases; each raises on failure, so the script exits non-zero:
     ``InferenceWorker`` serves the winner's blob: the 256 val images'
     probabilities equal to ``predict``, accuracy within 1 % of the trial's
     score, B7/B3 launched. Per trial: knobs, budget, warm start, score,
-    train / eval / save seconds and the worker's time outside them.
+    train / eval / save seconds and the worker's time outside them. Then
+    trial 0 runs again alone under ``profile_dir``, and its
+    ``torch.profiler`` trace splits its train around the steps.
 22. A ``LlamaLoRA`` tuning job at its knob space's largest point (hidden
     512, depth 8, max_len 128, 8 heads, batch 32, bf16; 3 trials, BOHB)
     with train admission live (each trial's ``estimate_device_budget``
-    beside its measured peak); B3/B5/B6 must launch. The winner is served
+    beside its measured peak); every trial must complete, no trial's peak
+    rise above its estimate, and B3/B5/B6 launch. The winner is served
     by an ``InferenceWorker`` decode loop (page 16): texts token-identical
     to a direct engine over the same blob, B1/B2 launched, and the
     serving estimate's ``params`` term equal to the bytes the served
@@ -2546,12 +2549,15 @@ LLAMA_TUNE_TEXTS = (512, 128)  # train, val
 
 
 def _tuning_job(torch, ms, ps, adv, wt, template, name, pins, trials,
-                train, val, work, dev, on_train=None):
+                train, val, work, dev, on_train=None, max_trials=None,
+                profile_dir=None):
     """One tuning job through the port's ``TrainWorker``: BOHB
-    (``make_advisor("auto")``, seed 0) over ``template``'s knob space with
-    ``pins`` as the job's knob overrides, a sqlite ``MetaStore`` and a
-    ``file://`` param store under ``work``. Every trial's train and
-    evaluate are timed (synchronized), as are its wall time in
+    (``make_advisor("auto")``, seed 0, ``trials`` in its budget) over
+    ``template``'s knob space with ``pins`` as the job's knob overrides,
+    a sqlite ``MetaStore`` and a ``file://`` param store under ``work``;
+    the worker stops after ``max_trials`` and, with ``profile_dir``,
+    records each trial's train with ``torch.profiler``. Every trial's
+    train and evaluate are timed (synchronized), as are its wall time in
     ``run_trial`` and its parameter save. Returns the worker's trial
     count, the per-trial records, the meta store, the store and the train
     job's id."""
@@ -2604,7 +2610,7 @@ def _tuning_job(torch, ms, ps, adv, wt, template, name, pins, trials,
                                 total_trials=trials, seed=0),
         train, val, param_store=store, meta_store=meta,
         sub_train_job_id=sub, model_id=name, worker_id="tw0",
-        knob_overrides=pins, device=dev)
+        knob_overrides=pins, profile_dir=profile_dir, device=dev)
     real_run_trial = worker.run_trial
 
     def timed_run_trial(proposal):
@@ -2619,7 +2625,7 @@ def _tuning_job(torch, ms, ps, adv, wt, template, name, pins, trials,
         return score
 
     worker.run_trial = timed_run_trial
-    n = worker.run()
+    n = worker.run(max_trials=max_trials)
     cur[0] = None
     searched = {k for k, knob in template.get_knob_config().items()
                 if not knob.is_constant and k not in pins}
@@ -2632,6 +2638,65 @@ def _tuning_job(torch, ms, ps, adv, wt, template, name, pins, trials,
         if row["status"] != "COMPLETED":
             rec["error"] = (row["error"] or "")[-400:]
     return n, records, meta, store, job["id"]
+
+
+def _busy_s(intervals):
+    """Seconds covered by the union of (start, end) microsecond
+    intervals."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
+def train_trace_split(path):
+    """Where a profiled trial's ``train`` went, from its
+    ``torch.profiler`` Chrome trace (``profiled_train``'s ``train`` range,
+    ``fit``'s ``fit.step`` ranges): the time before the first step, and
+    of it the time inside torch operators (the module's build and
+    weights; the rest is Python and numpy: the dataset's load and
+    prep); the first step's host time beside the later steps' mean; the
+    time after the last step (the epoch-end loss read, which waits for
+    the queued steps, and the trained weights' copy to the host); and
+    the card's busy time (kernels, copies, fills) over the whole train
+    and before the first step, or None where the trace holds no device
+    events."""
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"]
+
+    def ranges(name):
+        return sorted((e for e in spans if e.get("name") == name and
+                       e.get("cat") == "user_annotation"),
+                      key=lambda e: e["ts"])
+
+    train, steps = ranges("train"), ranges("fit.step")
+    if len(train) != 1 or not steps:
+        raise AssertionError(f"{path}: {len(train)} train ranges, "
+                             f"{len(steps)} fit.step ranges")
+    t0 = train[0]["ts"]
+    t1 = t0 + train[0]["dur"]
+    s0 = steps[0]["ts"]
+    s1 = steps[-1]["ts"] + steps[-1]["dur"]
+    ops = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+           if e.get("cat") == "cpu_op" and t0 <= e["ts"] < s0]
+    gpu = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and t0 <= e["ts"] < t1]
+    later = [e["dur"] / 1e6 for e in steps[1:]]
+    return {"train_s": (t1 - t0) / 1e6, "steps": len(steps),
+            "before_first_step_s": (s0 - t0) / 1e6,
+            "torch_ops_before_first_step_s": _busy_s(ops),
+            "first_step_host_s": steps[0]["dur"] / 1e6,
+            "later_step_host_s_mean": (sum(later) / len(later)
+                                       if later else None),
+            "after_last_step_s": (t1 - s1) / 1e6,
+            "device_busy_s": _busy_s(gpu) if gpu else None,
+            "device_busy_before_first_step_s":
+                _busy_s([(a, min(b, s0)) for a, b in gpu if a < s0])
+                if gpu else None}
 
 
 def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
@@ -2647,7 +2712,10 @@ def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
     answers the 256 val images in 4 messages of 64: probabilities equal
     to ``ViTBase16.predict`` after ``load_parameters`` of the same blob,
     accuracy within 1 % (2 of 256) of the trial's score, B7 and B3
-    launched."""
+    launched. Last, the job's first trial runs again alone under
+    ``profile_dir``: its ``torch.profiler`` trace splits the trial's
+    train into the time before the first step, the steps and the time
+    after them (``train_trace_split``)."""
     import threading
 
     work = ROOT / "build" / "chip_smoke" / "vit_tuning"
@@ -2703,6 +2771,18 @@ def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
     want = np.asarray(direct.predict(list(val_images)), np.float32)
     accuracy = float(np.mean(np.argmax(got, -1) == labels))
     errored = [r for r in records if r["status"] != "COMPLETED"]
+    # the same advisor's first proposal (trial 0's knobs and budget), run
+    # alone with the profiler on; its times are not the job's
+    prof_work = work.parent / "vit_tuning_profiled"
+    pn, prof_records, _, _, _ = _tuning_job(
+        torch, ms, ps, adv, wt, vit.ViTBase16, "vit-b16", VIT_TUNE_PINS,
+        VIT_TUNE_TRIALS, train, val, prof_work, dev, max_trials=1,
+        profile_dir=str(prof_work / "traces"))
+    traces = sorted((prof_work / "traces").rglob("trace.json"))
+    profiled = {"trial": prof_records[0] if prof_records else None,
+                "trace_bytes": traces[0].stat().st_size if traces else 0,
+                "split": train_trace_split(traces[0]) if len(traces) == 1
+                else None}
     emit({"phase": "vit_tuning", "model": "ViT-B/16", "pins": VIT_TUNE_PINS,
           "advisor": "bohb", "trials": n, "images": [n_train, n_val],
           "job_s": job_s, "per_trial": records,
@@ -2720,9 +2800,14 @@ def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
                      "identical_to_predict": bool(np.array_equal(got,
                                                                  want)),
                      "errors": [r["error"] for r in replies
-                                if r.get("error")]}})
+                                if r.get("error")]},
+          "profiled_trial": profiled})
     if errored or n != VIT_TUNE_TRIALS:
         raise AssertionError(f"tuning trials did not complete: {errored}")
+    if pn != 1 or prof_records[0]["status"] != "COMPLETED" or \
+            profiled["split"] is None:
+        raise AssertionError(f"the profiled trial: {pn} run, "
+                             f"{len(traces)} traces: {prof_records}")
     for name in ("matmul_bias", "flash_attention_fwd",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         if tuning[name] <= 0:
@@ -2746,8 +2831,9 @@ def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
     point (``LLAMA_TUNE_PINS``: hidden 512, depth 8, max_len 128, 8 heads,
     batch 32, bf16), ``LLAMA_TUNE_TRIALS`` trials (BOHB, seed 0) on phase
     8's corpus generator, with train admission live: each trial's
-    ``estimate_device_budget(1)`` beside its measured peak. B3, B5 and B6
-    must launch. The winner is served by an ``InferenceWorker`` decode
+    ``estimate_device_budget(1)`` beside its measured peak. Every trial
+    must complete, no trial's peak may rise above its estimate, and B3,
+    B5 and B6 must launch. The winner is served by an ``InferenceWorker`` decode
     loop (paged, page 16, 8 slots, 16 new tokens): its texts must be
     token-identical to a direct ``make_decode_engine`` run of the same
     blob, B1 and B2 launched; the serving estimate's ``params`` term is
@@ -2780,6 +2866,9 @@ def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
         if "estimate" in rec:
             rec["estimate_gb"] = {k: v / 1e9
                                   for k, v in rec.pop("estimate").items()}
+        if "peak_gb" in rec:
+            rec["peak_increase_gb"] = rec["peak_gb"] - \
+                rec["allocated_before_gb"]
     best = meta.get_best_trials_of_train_job(job, 1)[0]
     knobs = best["knobs"]
 
@@ -2847,6 +2936,14 @@ def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
               "estimate_total_gb": estimate["total"] / 1e9,
               "allocated_after_boot_gb": after_boot / 1e9,
               "allocated_before_boot_gb": before / 1e9}})
+    errored = [r for r in records if r["status"] != "COMPLETED"]
+    if errored or n != LLAMA_TUNE_TRIALS:
+        raise AssertionError(f"tuning trials did not complete: {errored}")
+    over = [r for r in records
+            if r["peak_increase_gb"] > r["estimate_gb"]["total"]]
+    if over:
+        raise AssertionError(f"a trial's peak rose above its train "
+                             f"estimate: {over}")
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         if tuning[name] <= 0:

@@ -46,12 +46,13 @@ def check_gang_size(model_class: type, gang_size: int) -> bool:
     """True when ``gang_size`` asks for the gang engine and the template
     has none, so trials run one after another (JAX's fallback, with its
     warning); raises ``NotPorted`` for a template whose JAX counterpart
-    has a gang spec (``make_gang_spec``): the port has no gang engine."""
+    has a gang spec (``GANG_SPEC_NOT_PORTED``): the port has no gang
+    engine. The one place the port refuses a gang."""
     from rafiki_tpu_torch.serving.decode_engine import NotPorted
 
     if gang_size < 1:
         return False
-    if callable(getattr(model_class, "make_gang_spec", None)):
+    if getattr(model_class, "GANG_SPEC_NOT_PORTED", False):
         raise NotPorted(f"the gang engine for {model_class.__name__} "
                         "(gang_size >= 1) is not ported yet")
     return True
@@ -61,18 +62,19 @@ def profiled_train(model: Any, dataset_path: str, ctx: TrainContext,
                    profile_dir: Optional[str]) -> None:
     """``model.train(dataset_path, ctx)``, recorded by ``torch.profiler``
     (CPU and CUDA activity) into a Chrome trace under ``profile_dir``
-    when one is given."""
+    when one is given, the call as a ``train`` range."""
     if not profile_dir:
         model.train(dataset_path, ctx)
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        model.train(dataset_path, ctx)
+        with record_function("train"):
+            model.train(dataset_path, ctx)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 

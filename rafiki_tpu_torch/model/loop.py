@@ -58,18 +58,21 @@ def fit(model: torch.nn.Module,
     batch)`` per batch. The knobs ``learning_rate``, ``weight_decay`` and
     ``warmup_frac`` (default 0.1) set the optimizer. After each epoch the
     mean loss is logged; with ``ctx.checkpoint``, ``snapshot()`` publishes
-    the current weights and returns the blob factory to pass it."""
+    the current weights and returns the blob factory to pass it. Each
+    step is a ``fit.step`` range in a ``torch.profiler`` trace."""
     total_steps = epochs * steps_per_epoch
     warmup = int(total_steps * float(knobs.get("warmup_frac", 0.1)))
     opt, sched = adamw(model.parameters(), float(knobs["learning_rate"]),
                        warmup, total_steps, float(knobs["weight_decay"]))
 
     def step(state, batch):
-        opt.zero_grad(set_to_none=True)
-        loss = objective(model, batch)
-        loss.backward()
-        opt.step()
-        sched.step()
+        # a named range in a torch.profiler trace (profile_dir)
+        with torch.profiler.record_function("fit.step"):
+            opt.zero_grad(set_to_none=True)
+            loss = objective(model, batch)
+            loss.backward()
+            opt.step()
+            sched.step()
         return state, loss.detach()
 
     ctx.logger.define_plot("Loss over epochs", ["loss"], x_axis="epoch")

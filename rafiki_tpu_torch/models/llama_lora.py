@@ -59,6 +59,7 @@ from rafiki_tpu_torch.model.base import (TrainContext,
 from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
                                          FloatKnob, IntegerKnob, KnobConfig,
                                          PolicyKnob)
+from rafiki_tpu_torch.model.dev import check_gang_size
 from rafiki_tpu_torch.model.loop import epoch_count
 from rafiki_tpu_torch.model.template_utils import same_tree_shapes
 from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
@@ -67,7 +68,7 @@ from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
-from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine, NotPorted,
+from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
 from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
                                            llama_params_from_jax,
@@ -772,6 +773,11 @@ class LlamaLoRA:
     is built only when ``evaluate`` asks for it, so an int8 deployment
     holds no compute-dtype copy of its weights on the card."""
 
+    #: the JAX template has a gang spec (``make_gang_spec``, K trials as
+    #: lanes of one compiled step); the port has no gang engine yet, so
+    #: ``gang_size >= 1`` is refused (``model.dev.check_gang_size``)
+    GANG_SPEC_NOT_PORTED = True
+
     @staticmethod
     def get_knob_config() -> KnobConfig:
         """The JAX template's search space, knob for knob (its JSON is
@@ -821,13 +827,6 @@ class LlamaLoRA:
     @classmethod
     def validate_knobs(cls, knobs: Dict[str, Any]) -> None:
         validate_template_knobs(cls, knobs)
-
-    @classmethod
-    def make_gang_spec(cls, *args: Any, **kwargs: Any) -> Any:
-        """JAX's gang contract (K trials as lanes of one compiled step,
-        ``tuning/gang.py``): the port has no gang engine yet."""
-        raise NotPorted("the gang engine (GangEngine, make_gang_spec) is "
-                        "not ported yet")
 
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
@@ -976,31 +975,38 @@ class LlamaLoRA:
     def estimate_device_budget(self, n_devices: int = 1,
                                gang_size: int = 0) -> Dict[str, int]:
         """Device memory of one train step of these knobs on the port's
-        one card (JAX's ``estimate_device_budget`` budgets a TPU mesh of
-        ``n_devices``; the port trains on one device, so the argument is
-        accepted and ignored). Knobs :meth:`train` refuses raise the same
-        error here; ``gang_size >= 1`` raises ``NotPorted`` (no gang
-        engine yet). Bytes by term:
+        one card, at its peak: the start of the backward. JAX's
+        signature: ``n_devices`` (a TPU mesh there) is accepted and
+        ignored, the port trains on one device; ``gang_size >= 1`` is
+        refused by :func:`check_gang_size`. Knobs :meth:`train` refuses
+        raise the same error here. Bytes by term:
 
         - ``params``: trainable leaves (adapters, norms, LM head) as f32
           master weights; frozen leaves as :meth:`train` holds them (base
           kernels in the compute dtype, the embedding f32);
         - ``grads``: one f32 gradient per trainable leaf;
         - ``opt``: AdamW's two f32 moments per trainable leaf;
-        - ``activations``: what the backward keeps, per block
-          (q, k, v, attention out ~4·hidden and the SwiGLU ~3·mlp a token,
-          with their cotangents) over batch_size × max_len tokens, plus
-          the f32 logits and their cotangent;
+        - ``activations``: what autograd saves for the backward over
+          batch_size × max_len tokens. A token of one block: each
+          RMSNorm's f32 input and rsqrt, and its normalized output where
+          the scale trains (not under ``adapters_only``); the
+          attention input, q, the K/V repeated to every head, the
+          attention output and its reshaped copy, the MLP input and the
+          SwiGLU's gate, silu, up and product in the compute dtype;
+          rope's f32 cos and sin for q and k; the f32 LSE; each LoRA
+          site's rank-wide ``x @ lora_a``. After the blocks: the final
+          norm's, the LM head's input, and the loss's f32 log-probs with
+          their cotangent and the logits' f32 cotangent, the three alive
+          together when the backward starts;
         - ``transient``: the compute-dtype cast of the largest trainable
           leaf (the LM head), made per call when that dtype is not f32."""
-        if gang_size >= 1:
-            raise NotPorted("the gang engine (gang_size >= 1) is not "
-                            "ported yet")
+        check_gang_size(type(self), gang_size)
         self._check_trainable_knobs()
         k = self.knobs
         act = torch.finfo(self._dtype()).bits // 8
         hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
-        kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
+        dh = hd // heads
+        kv = max(1, heads // int(k["kv_ratio"])) * dh
         rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
         depth, mlp = int(k["depth"]), 4 * hd
         adapters_only = bool(k.get("adapters_only", False))
@@ -1014,10 +1020,13 @@ class LlamaLoRA:
             (head if adapters_only else 0)
         frozen_f32 = vocab * hd + (norms if adapters_only else 0)
         tokens = int(k["batch_size"]) * int(k["max_len"])
-        per_block = tokens * (4 * hd + 3 * mlp) * act * 2  # + cotangent
+        rms = (4 if adapters_only else 8) * hd + 4  # frozen scale: no norm
+        per_block = (2 * rms + act * (7 * hd + 4 * mlp) + 8 * dh
+                     + 4 * heads + act * len(sites) * rank)
+        final = rms + act * hd + 3 * 4 * vocab
         out = {"params": 4 * trainable + act * frozen_act + 4 * frozen_f32,
                "grads": 4 * trainable, "opt": 2 * 4 * trainable,
-               "activations": depth * per_block + tokens * vocab * 4 * 2,
+               "activations": tokens * (depth * per_block + final),
                "transient": 0 if adapters_only or act == 4 else head * act}
         out["total"] = sum(out.values())
         return out

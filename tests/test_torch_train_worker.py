@@ -632,6 +632,49 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
             m.estimate_device_budget(1)
 
 
+
+@pytest.mark.parametrize("extra", [
+    {"bf16": True, "kv_ratio": 2},
+    {"bf16": True, "kv_ratio": 1, "adapters_only": True},
+    {"bf16": False, "kv_ratio": 4},
+], ids=["bf16", "bf16-adapters-only", "f32"])
+def test_train_budget_covers_what_the_step_saves(extra):
+    """The train estimate's ``activations`` and ``transient`` (the LM
+    head's compute-dtype cast) hold every non-parameter tensor one train
+    step saves for its backward, plus the loss's two f32 cotangents; and
+    over-count the saved bytes by at most 10 %."""
+    from rafiki_tpu_torch.models import llama_lora as pll
+
+    knobs = dict(LM_KNOBS, model_parallel=1, remat_policy="none",
+                 hidden_dim=64, depth=2, max_len=32, n_heads=4,
+                 batch_size=8, lora_rank=4, **extra)
+    m = LlamaLoRA(device="cpu", **knobs)
+    model = m._module()
+    trainable = pll.make_trainable(model, pll.lora_trainable_names(
+        model, bool(knobs.get("adapters_only"))))
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, 500, (8, 32)))
+    lens = torch.full((8,), 32, dtype=torch.int32)
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        pll.lm_objective(model, trainable, 1.0,
+                         {"ids": ids, "lens": lens})
+    for p in model.parameters():
+        saved.pop(p.untyped_storage().data_ptr(), None)
+    got = sum(saved.values())
+    cotangents = 2 * 4 * 8 * 32 * m.tokenizer.vocab_size
+    est = m.estimate_device_budget(1)
+    act = est["activations"] + est["transient"]
+    assert got + cotangents <= act <= 1.1 * got + cotangents, \
+        (got, cotangents, act)
+
+
 TOY_MODULE = '''
 import numpy as np
 from rafiki_tpu_torch.model.knob import FixedKnob, FloatKnob, PolicyKnob
