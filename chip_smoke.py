@@ -48,9 +48,9 @@ Phases; each raises on failure, so the script exits non-zero:
    library times, the least time; B3's, B5's and B6's plans (tensor-core
    or FMA body, padded head dim, copy width, stages), ptxas registers
    and spills (the bf16 B5/B6 at d 64 and 128 must not spill) and a
-   second call bit-identical; B5 and B6 again on full-length rows beside
-   SDPA's backward with ``is_causal=True`` (the second yardstick); plus
-   an f32 case at head dim 16.
+   second call bit-identical; B3, B5 and B6 again on full-length rows
+   beside SDPA's forward and backward with ``is_causal=True`` (the second
+   yardstick); plus an f32 case at head dim 16.
 6. f32 training exactness: the full-width Llama at depth 2 in f32
    (nonzero LoRA) takes 4 functional train steps through the kernels,
    then the same 4 steps from the same weights with the attention bound
@@ -158,8 +158,26 @@ Phases; each raises on failure, so the script exits non-zero:
     model holds (printed beside ``torch.cuda.memory_allocated()``, as in
     phase 18).
 
-The worker phases run in the order 20, 19, 21, 22, 18: phase 18 holds a
-35 GB blob on the host, and runs last.
+23. The stack: a ViT-B/16 train -> tune -> deploy -> predict job through
+    the port's own control plane, every service a real process. The port's
+    kvd, ``ServicesManager(platform=None)`` over the card the device probe
+    finds (one slot), ``Admin``, ``AdminApp`` and a port ``Client`` over
+    HTTP; phase 21's pins, images, BOHB and 8 trials, with ``profile`` on;
+    every trial must complete and B7/B3/B5/B6 launch in the spawned train
+    worker (counted in its traces); the finalized job frees the slot for
+    the inference worker; phase 19's 256 images through the Predictor's
+    ``/predict`` must equal a direct ``predict`` of the best trial's
+    parameters from the param store; closed-loop 1-image clients at
+    concurrency 1 and 16 over HTTP beside phase 19's; B7/B3 must launch in
+    the spawned inference worker (its published ``kernel_launches``); then
+    no child process may be left alive and the slot must be free. Prints
+    the job's wall time and trials per hour, the first proposal beside
+    phase 21's, per trial wall and train seconds, worker boot and deploy
+    seconds, the Predictor's requests/s and p50 / p95, and the kvd's
+    ``STATS``.
+
+The worker phases run in the order 20, 19, 21, 22, 23, 18: phase 18 holds
+a 35 GB blob on the host, and runs last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -961,12 +979,15 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128),
               for e in kernel_resources(ptxas, mangled.format(d=d_))
               if e["spill_bytes"]}
 
-    # the second library yardstick: SDPA's backward with is_causal=True on
-    # full-length rows (every kv_len s), B5 and B6 on the same inputs
+    # the second library yardstick: SDPA with is_causal=True on
+    # full-length rows (every kv_len s), forward and backward, B3, B5 and
+    # B6 on the same inputs
     full_lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     out_f, lse_f = fa.flash_attention_fwd(q, k, v, full_lens, sm, True)
     delta_f = fa._delta(do, out_f)
     del out_f
+    lib_causal_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sm))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sm)
     lib_causal = time_ms(torch, lambda: torch.autograd.grad(
@@ -975,23 +996,33 @@ def flash_phase(torch, np, F, fa, dev, shape=(4, 32, 8, 1024, 128),
     pairs_f = b * h * s * (s + 1) // 2
     rows_f = b * h * s
     full_work = {  # every row and key live: bytes and operations
+        "flash_attention_fwd": (rows_f * d * 2 * 4 + rows_f * 4,
+                                4 * d * pairs_f),
         "flash_attention_bwd_dq": (rows_f * d * 2 * 5 + rows_f * 4 * 2,
                                    6 * d * pairs_f),
         "flash_attention_bwd_dkv": (rows_f * d * 2 * 6 + rows_f * 4 * 2,
                                     8 * d * pairs_f)}
     full_calls = {
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(
+            q, k, v, full_lens, sm, True),
         "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
             q, k, v, do, lse_f, delta_f, full_lens, sm, True),
         "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse_f, delta_f, full_lens, sm, True)}
+    full_library = {
+        "flash_attention_fwd": (lib_causal_fwd, "SDPA forward, "
+                                "is_causal=True, no mask"),
+        "flash_attention_bwd_dq": (lib_causal, "SDPA backward, "
+                                   "is_causal=True, no mask: dq, dk and dv "
+                                   "in one call (B5 + B6)"),
+        "flash_attention_bwd_dkv": (None, "in B5's line (one SDPA backward "
+                                    "call covers B5 + B6)")}
     for name, call in full_calls.items():
         bnd, by = bound_ms(*full_work[name], "bfloat16")
         results[name]["full_length"] = dict(
             ms=time_ms(torch, call), bound_ms=bnd, bound_by=by,
-            library_ms=lib_causal if name == "flash_attention_bwd_dq"
-            else None,
-            library_covers="SDPA backward, is_causal=True, no mask: dq, dk "
-                           "and dv in one call (B5 + B6)",
+            library_ms=full_library[name][0],
+            library_covers=full_library[name][1],
             shapes=f"q/k/v/dO ({b}, {h}, {s}, {d}) bf16, causal, every "
                    f"kv_len {s}")
     del lse_f, delta_f
@@ -2364,6 +2395,9 @@ def _closed_loop(hub, queues, worker, images, n_clients, per_client,
 #: phase 12's direct predict figures, reported beside phase 19's
 DIRECT_VIT = {}
 
+#: phase 19's closed-loop figures, reported beside phase 23's
+VIT_WORKER = {}
+
 #: phase 19's closed-loop rounds: each times the worker at concurrency 1
 #: and 16 and the direct 1-image ``predict``, so the spread on the host
 #: shows beside every figure
@@ -2449,6 +2483,7 @@ def vit_worker_phase(torch, np, vit, store_params, ps, queues, wi, fa, pe,
                                "batch_msgs_max": max(b16)}})
     worker.stop()
     loop.join()
+    VIT_WORKER["rounds"] = rounds
     want = np.asarray(worker.model.predict(list(images)), np.float32)
     over = [r["worker_minus_direct_p50_s"] for r in rounds]
     emit({"phase": "vit_worker", "model": "ViT-B/16", "dtype": "bfloat16",
@@ -2538,6 +2573,8 @@ VIT_TUNE_PINS = {"patch_size": 16, "hidden_dim": 768, "depth": 12,
                  "n_heads": 12, "bf16": True}
 VIT_TUNE_TRIALS = 8
 VIT_TUNE_IMAGES = (512, 256)  # train, val
+#: phase 21's job time and first proposal, reported beside phase 23's
+VIT_TUNING = {}
 #: phase 22's pins: LlamaLoRA's knob space at its largest point; the
 #: sharded and rematerialized train paths (model_parallel > 1,
 #: remat_policy) are a later slice, so they are pinned off
@@ -2742,6 +2779,8 @@ def vit_tuning_phase(torch, np, vit, ms, ps, adv, wt, queues, wi, fa, pe,
     losses = [r["data"]["loss"] for r in meta.get_trial_logs(best["id"])
               if "loss" in r["data"]]
     blob_bytes = len(store.backend.get(best["id"]))
+    VIT_TUNING.update(job_s=job_s, first_knobs=meta.get_trials_of_train_job(
+        job)[0]["knobs"])
 
     hub = queues.InProcQueueHub()
     t0 = time.perf_counter()
@@ -2962,6 +3001,328 @@ def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
     return {"llama_tuning": tuning, "llama_tuned_worker": serving}
 
 
+# ---- the stack (phase 23): the port's own control plane on the card
+
+#: phase 23's closed-loop rounds over HTTP, as phase 19's rounds
+STACK_ROUNDS = 2
+#: the kernels a ViT-B/16 trial runs, by wrapper name
+STACK_TRAIN_KERNELS = ("matmul_bias", "flash_attention_fwd",
+                       "flash_attention_fwd_mh", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv")
+
+
+def trace_kernel_launches(path):
+    """Each port kernel's launches in a ``torch.profiler`` Chrome trace:
+    its device kernel events, matched by CUDA function name
+    (``KERNEL_FUNCTIONS``)."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    out = {}
+    for name in STACK_TRAIN_KERNELS:
+        fn = KERNEL_FUNCTIONS[name]
+        fns = (fn,) if isinstance(fn, str) else fn
+        out[name] = sum(1 for n in names if any(
+            f + "<" in n or f + "(" in n or n.endswith(f) for f in fns))
+    return out
+
+
+def _http_closed_loop(Client, url, images, n_clients, per_client):
+    """``n_clients`` closed-loop clients over HTTP, each sending
+    ``per_client`` 1-image ``/predict`` requests through its own port
+    ``Client``, one after another: every request's latency (the client's
+    clock), the wall time and the replies' widths."""
+    import threading
+
+    lat, widths, errors = [], [], []
+
+    def client(c):
+        cli = Client(timeout=300.0)
+        try:
+            for j in range(per_client):
+                img = images[(c * per_client + j) % len(images)]
+                t0 = time.perf_counter()
+                preds = cli.predict(url, [img])
+                lat.append(time.perf_counter() - t0)
+                widths.append(len(preds[0]))
+        except Exception as e:  # surfaced by the phase's gate
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return lat, time.perf_counter() - t0, widths, errors
+
+
+def _alive(pid):
+    """True while ``pid`` is a live (not zombie) process."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def stack_phase(torch, np, vit, dev):
+    """Phase 23: a ViT-B/16 train -> tune -> deploy -> predict job through
+    the port's own control plane. The stack boots on the card: the port's
+    kvd, ``ServicesManager(platform=None)`` over the card the device probe
+    finds (one slot), the admin lease, ``Admin`` with its monitor,
+    ``AdminApp``, and a port ``Client`` over HTTP. The client logs in,
+    uploads ``ViTBase16`` and phase 21's seeded 512 / 256 images as
+    datasets, and creates a train job with phase 21's pins (full-width
+    ViT-B/16, bf16), BOHB (``"advisor": "auto"``, the service's seed 0),
+    ``TRIAL_COUNT`` 8 and ``profile`` on: the admin spawns an advisor
+    service and a train worker onto the slot. Every trial must complete;
+    each trial's ``torch.profiler`` trace gives its train seconds and
+    its kernels' launches (B7, B3, B5 and B6 must launch in the train
+    worker). The monitor finalizes the job and frees the slot; the best
+    trial is deployed (``create_inference_job``: an inference worker on
+    the slot and a Predictor), phase 19's 256 seeded images go through
+    ``/predict`` in 4 requests of 64 and must equal a direct ``predict``
+    of the same trial's parameters, loaded from the param store, on the
+    card. Then ``STACK_ROUNDS`` rounds of closed-loop 1-image clients at
+    concurrency 1 and 16 over HTTP, beside phase 19's worker-only
+    figures. The inference worker's published stats must show B7 and B3
+    launched. Last, the inference job and the stack stop: no child
+    process may be left alive and the slot must be free."""
+    import shutil
+
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.app import AdminApp
+    from rafiki_tpu_torch.admin.services_manager import ServicesManager
+    from rafiki_tpu_torch.advisor import make_advisor
+    from rafiki_tpu_torch.client import Client
+    from rafiki_tpu_torch.model.knob import FixedKnob
+    from rafiki_tpu_torch.serving.queues import KVQueueHub
+    from rafiki_tpu_torch.store.meta_store import MetaStore
+    from rafiki_tpu_torch.store.param_store import ParamStore
+
+    work = ROOT / "build" / "chip_smoke" / "stack"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    n_train, n_val = VIT_TUNE_IMAGES
+    train, _ = write_images(np, work / "train.npz", n_train, SEED + 21)
+    val, _ = write_images(np, work / "val.npz", n_val, SEED + 22)
+    # phase 19's seeded images
+    images = np.random.default_rng(SEED + 19).integers(
+        0, 256, (256, *VIT_IMAGE), dtype=np.uint8)
+
+    t_phase = time.perf_counter()
+
+    def progress(step):
+        print(f"stack: {step} at {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    t0 = time.perf_counter()
+    meta = MetaStore(str(work / "meta.db"))
+    manager = ServicesManager(meta, str(work / "stack"), platform=None,
+                              slot_size=1, slot_timeout=300.0)
+    manager.acquire_lease()
+    manager.start_lease_heartbeat()
+    manager.start_data_plane()
+    admin = Admin(meta, manager)
+    admin.start_monitor(interval_s=0.3)
+    app = AdminApp(admin)
+    host, port = app.start()
+    stack_boot_s = time.perf_counter() - t0
+    client = Client(f"http://{host}:{port}", timeout=600.0)
+    progress("booted")
+    rec = {"phase": "stack", "model": "ViT-B/16", "pins": VIT_TUNE_PINS,
+           "advisor": "bohb", "images": [n_train, n_val],
+           "platform": manager.platform,
+           "devices": [d.name for d in manager.devices],
+           "slots": manager.allocator.n_slots, "stack_boot_s": stack_boot_s}
+    launches = {name: 0 for name in STACK_TRAIN_KERNELS}
+    stopped = False
+    try:
+        client.login("superadmin@rafiki", "rafiki")
+        model = client.create_model("vit-b16", "IMAGE_CLASSIFICATION",
+                                    vit.ViTBase16)
+        ds_tr = client.create_dataset("train", "IMAGE_CLASSIFICATION",
+                                      train)
+        ds_va = client.create_dataset("val", "IMAGE_CLASSIFICATION", val)
+        t0 = time.perf_counter()
+        job = client.create_train_job(
+            "smoke-stack", "IMAGE_CLASSIFICATION", ds_tr["id"],
+            ds_va["id"], budget={"TRIAL_COUNT": VIT_TUNE_TRIALS},
+            model_ids=[model["id"]],
+            train_args={"advisor": "auto", "knob_overrides": VIT_TUNE_PINS,
+                        "profile": True})
+        progress("train job created")
+        job = client.wait_until_train_job_finished(job["id"], timeout=900,
+                                                   poll_s=0.25)
+        job_s = time.perf_counter() - t0
+        progress(f"train job {job['status']}")
+        trials = client.get_trials_of_train_job(job["id"])
+        free_after_train = manager.allocator.free_count()
+        workers = [r for r in meta.get_services()
+                   if r["service_type"] == "TRAIN_WORKER"]
+        per_trial = []
+        for t in trials:
+            traces = sorted((work / "stack" / "profiles").rglob(
+                f"{t['id']}/**/trace.json"))
+            split = train_trace_split(traces[0]) if traces else None
+            counts = trace_kernel_launches(traces[0]) if traces else {}
+            for name, n in counts.items():
+                launches[name] += n
+            per_trial.append({
+                "trial_no": t["trial_no"], "status": t["status"],
+                "budget_scale": t["budget_scale"], "score": t["score"],
+                "wall_s": (t["stopped_at"] or 0) - (t["started_at"] or 0),
+                "train_s": split["train_s"] if split else None,
+                "steps": split["steps"] if split else None,
+                "launches": counts,
+                "error": (t["error"] or "")[-400:] or None})
+        train_launches = dict(launches)
+        space = {k: (FixedKnob(VIT_TUNE_PINS[k]) if k in VIT_TUNE_PINS
+                     else knob)
+                 for k, knob in vit.ViTBase16.get_knob_config().items()}
+        expected_first = make_advisor(space, "auto",
+                                      total_trials=VIT_TUNE_TRIALS,
+                                      seed=0).propose().knobs
+        first = trials[0]["knobs"] if trials else None
+        rec.update(
+            job_s=job_s, trials=len(trials),
+            trials_per_hour=len(trials) * 3600.0 / job_s,
+            phase_21_job_s=VIT_TUNING.get("job_s"),
+            train_worker_boot_s=(
+                min(t["started_at"] for t in trials) - workers[0][
+                    "created_at"] if trials and workers else None),
+            first_proposal=first,
+            first_proposal_phase_21=VIT_TUNING.get("first_knobs"),
+            first_equals_phase_21=first == VIT_TUNING.get("first_knobs"),
+            first_equals_the_advisor_over_the_pinned_space=(
+                first == expected_first),
+            per_trial=per_trial, train_worker_launches=train_launches,
+            free_slots_after_train=free_after_train)
+
+        progress("traces read")
+        best = client.get_best_trials_of_train_job(job["id"], 1)[0]
+        t0 = time.perf_counter()
+        ijob = client.create_inference_job(job["id"], max_workers=1)
+        create_s = time.perf_counter() - t0
+        url = ijob["predictor_url"]
+        wid = f"iw-{ijob['id'][:8]}-0"
+        hub = KVQueueHub(manager.kv_host, manager.kv_port)
+        while hub.get_worker_stats(wid) is None:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the inference worker never came up")
+            time.sleep(0.05)
+        worker_boot_s = time.perf_counter() - t0
+        client.predict(url, [images[0]])
+        deploy_s = time.perf_counter() - t0
+        progress("deployed")
+        t0 = time.perf_counter()
+        served = []
+        for i in range(4):
+            served += client.predict(url, list(images[64 * i:64 * (i + 1)]))
+        wall_256 = time.perf_counter() - t0
+        progress("256 images served")
+        got = np.asarray(served, np.float32)
+        direct = vit.ViTBase16(device=dev, **best["knobs"])
+        direct.load_parameters(ParamStore.from_uri(
+            manager.param_store_uri).load(best["id"]))
+        want = np.asarray(direct.predict(list(images)), np.float32)
+        del direct
+        torch.cuda.empty_cache()
+        rounds, http_errors, widths = [], [], set()
+        for _ in range(STACK_ROUNDS):
+            lat1, _, w1, e1 = _http_closed_loop(Client, url, images, 1, 40)
+            lat16, wall16, w16, e16 = _http_closed_loop(Client, url,
+                                                        images, 16, 16)
+            http_errors += e1 + e16
+            widths |= set(w1) | set(w16)
+            rounds.append({
+                "concurrency_1": {
+                    "requests": len(lat1),
+                    "p50_s": float(np.percentile(lat1, 50)) if lat1
+                    else None,
+                    "p95_s": float(np.percentile(lat1, 95)) if lat1
+                    else None},
+                "concurrency_16": {
+                    "requests": len(lat16), "wall_s": wall16,
+                    "requests_per_s": len(lat16) / wall16,
+                    "p50_s": float(np.percentile(lat16, 50)) if lat16
+                    else None,
+                    "p95_s": float(np.percentile(lat16, 95)) if lat16
+                    else None}})
+        t_end = time.time()
+        progress("closed loops done")
+        # the worker republishes its stats within 50 loop iterations
+        deadline = time.perf_counter() + 120
+        while True:
+            stats = hub.get_worker_stats(wid) or {}
+            if stats.get("published_at", 0) > t_end or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        worker_launches = {k: int(v) for k, v in
+                           (stats.get("kernel_launches") or {}).items()}
+        for name in STACK_TRAIN_KERNELS:
+            launches[name] += worker_launches.get(name, 0)
+        health = client.get_inference_job_health(ijob["id"])
+        rec.update(
+            deploy={"create_inference_job_s": create_s,
+                    "worker_boot_s": worker_boot_s,
+                    "first_answer_s": deploy_s},
+            served={"images": len(images), "requests": 4,
+                    "wall_s": wall_256,
+                    "images_per_s": len(images) / wall_256,
+                    "identical_to_predict": bool(
+                        got.shape == want.shape and np.array_equal(got,
+                                                                   want)),
+                    "max_abs_diff": float(np.abs(got - want).max())
+                    if got.shape == want.shape else None},
+            rounds=rounds, phase_19_rounds=VIT_WORKER.get("rounds"),
+            http_errors=http_errors[:5], reply_widths=sorted(widths),
+            inference_worker_launches=worker_launches,
+            predictor={k: health.get(k) for k in (
+                "requests_served", "queries_served", "latency_p50_s",
+                "latency_p95_s", "e2e_hist_p50_s", "e2e_hist_p95_s")},
+            kvd_stats=manager.kvd_stats(max_age_s=0.0))
+        client.stop_inference_job(ijob["id"])
+        rec["free_slots_after_stop"] = manager.allocator.free_count()
+    finally:
+        pids = [int(r["pid"]) for r in meta.get_services() if r["pid"]]
+        app.stop()
+        stopped = True
+    rec["children"] = len(pids)
+    rec["children_alive_after_stop"] = [p for p in pids if _alive(p)]
+    rec["launches"] = launches
+    emit(rec)
+    errored = [t for t in per_trial if t["status"] != "COMPLETED"]
+    if errored or len(per_trial) != VIT_TUNE_TRIALS:
+        raise AssertionError(f"stack trials did not complete: {errored}")
+    if not rec["served"]["identical_to_predict"]:
+        raise AssertionError("the Predictor's replies differ from the "
+                             "direct predict of the best trial")
+    if http_errors or widths != {10}:
+        raise AssertionError(f"closed-loop requests failed: "
+                             f"{http_errors[:3]} widths {widths}")
+    missing = [n for n in ("matmul_bias", "flash_attention_fwd",
+                           "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")
+               if train_launches.get(n, 0) <= 0]
+    missing += [f"{n} (inference worker)" for n in ("matmul_bias",
+                                                    "flash_attention_fwd")
+                if worker_launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels that never launched in the stack's "
+                             f"workers: {missing}")
+    if rec["children_alive_after_stop"] or not stopped:
+        raise AssertionError(f"children left alive: "
+                             f"{rec['children_alive_after_stop']}")
+    if rec["free_slots_after_stop"] != manager.allocator.n_slots or \
+            manager.allocator.free_count() != manager.allocator.n_slots:
+        raise AssertionError("a device slot was not freed")
+    return {"stack": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=32,
@@ -3090,6 +3451,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues,
                                     wi, fa, pa, dev))
+    torch.cuda.empty_cache()
+    paths.update(stack_phase(torch, np, vit, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)

@@ -1,11 +1,12 @@
 """What the system injects into a trial's ``train`` call, how a
-template's knobs are checked, and how a worker materializes an uploaded
-model class.
+template's knobs are checked, and how a model class travels to a worker.
 
 The port's own copy of ``TrainContext``, ``BaseModel.validate_knobs``
 (here :func:`validate_template_knobs`, which the templates' own
-``validate_knobs`` class methods call) and ``load_model_class`` from
-``rafiki_tpu/model/base.py``. The port's templates take their device at
+``validate_knobs`` class methods call), ``serialize_model_class`` and
+``load_model_class`` from ``rafiki_tpu/model/base.py``: a class is
+uploaded as the UTF-8 source of its defining module and imported again
+from that source by the admin and by each worker. The port's templates take their device at
 construction, so the JAX context's ``devices`` (a trial's sub-mesh) has
 no field here; ``profile_dir`` is where the train worker writes the
 trial's ``torch.profiler`` trace. The port has no ``BaseModel``:
@@ -55,6 +56,15 @@ def validate_template_knobs(model_class: type, knobs: Knobs) -> None:
     of ``model_class.get_knob_config()`` (JAX's
     ``BaseModel.validate_knobs``)."""
     validate_knobs(model_class.get_knob_config(), knobs)
+
+
+def serialize_model_class(model_class: type) -> bytes:
+    """Capture a model class as the UTF-8 source of its defining
+    module."""
+    import inspect
+
+    src = inspect.getsource(sys.modules[model_class.__module__])
+    return src.encode("utf-8")
 
 
 _MODULE_DIR: Optional[Path] = None

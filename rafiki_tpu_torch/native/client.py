@@ -1,24 +1,48 @@
-"""Python client for the kv/queue data-plane server.
+"""Python client and lifecycle helpers for the native kv/queue server.
 
-The port's own copy of ``KVClient`` and ``CLIENT_STATS`` from
-``rafiki_tpu/native/client.py`` (``_encode``, ``KVClient``): RESP framing
-over one socket, the reconnect-with-backoff layer for verbs whose replay
-is idempotent, the dedup pushes a reconnecting caller uses, and the
-process-wide reconnect/retry counters. The server binary itself
-(``KVServer``, ``ensure_built``) belongs to the JAX package's native
-build and is not copied: the port talks to a running server.
+The port's own copy of ``rafiki_tpu/native/client.py``: ``ensure_built``,
+``KVServer``, ``KVClient`` (RESP framing over one socket, the
+reconnect-with-backoff layer for verbs whose replay is idempotent, the
+dedup pushes a reconnecting caller uses), ``CLIENT_STATS`` and
+``wait_for_server``. The server is the port's own copy of the JAX
+package's ``kv_server.cc`` (``rafiki_tpu_torch/native/kv_server.cc``):
+``ensure_built`` compiles it with ``g++`` at first use into
+``build/rafiki_tpu_torch/rafiki-kvd`` (a directory ``.gitignore`` lists),
+again whenever the source is newer, writing a temporary name and
+renaming it so a process that already runs the old binary keeps a valid
+file. The JAX build's sanitizer flavours and its BPE library are not
+ported.
+
+Crash survival: :class:`KVServer` can spawn the kvd with a
+``--data-dir`` so every mutating command lands in a CRC-checksummed WAL
+(compacted into an atomic-rename snapshot); a respawned kvd replays it.
+``retry_window_s`` arms the client's reconnect layer; reconnects and
+retries count into :data:`CLIENT_STATS` (``hub_reconnects_total`` /
+``hub_rpc_retries_total``), which the predictor re-exports on its
+``/metrics``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import shutil
 import socket
+import subprocess
 import threading
 import time
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 from rafiki_tpu_torch.obs.metrics import StatsMap
 
+SOURCE = Path(__file__).resolve().parent / "kv_server.cc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
+    "rafiki_tpu_torch"
+CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-pthread")
+
+#: process-wide client-resilience counters, re-exported on every
+#: /metrics surface that talks to the kvd (one socket layer, one truth)
 CLIENT_STATS = StatsMap({"hub_reconnects_total": 0,
                          "hub_rpc_retries_total": 0})
 
@@ -30,6 +54,91 @@ _RETRYABLE = frozenset({
     "PING", "GET", "SET", "DEL", "EXISTS", "KEYS", "EXPIRE", "TTL",
     "LLEN", "LPUSHD", "RPUSHD", "LPOP", "RPOP", "STATS", "FLUSHALL"})
 
+_build_lock = threading.Lock()
+
+
+def ensure_built(force: bool = False) -> Path:
+    """Compile ``kv_server.cc`` into ``build/rafiki_tpu_torch/rafiki-kvd``
+    when the binary is missing or older than the source (or ``force``);
+    returns its path. ``g++`` writes a temporary name that is then
+    renamed over the binary. Raises ``RuntimeError`` when there is no
+    ``g++`` or the compile fails."""
+    out = BUILD_DIR / "rafiki-kvd"
+    with _build_lock:
+        if not force and out.exists() and \
+                out.stat().st_mtime >= SOURCE.stat().st_mtime:
+            return out
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if not cxx:
+            raise RuntimeError("g++ not found; cannot build rafiki-kvd "
+                               f"from {SOURCE}")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
+                               str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed building {SOURCE.name} "
+                               f"(exit {proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+        return out
+
+
+class KVServer:
+    """Spawn/own a rafiki-kvd process (test + single-host deployments).
+
+    ``data_dir`` arms WAL + snapshot persistence: the server replays it
+    at boot, so a respawn on the same dir (and, for live clients, the
+    same port) restores every durable blob, queue, and dedup id. A
+    boot that refuses a corrupt WAL (server exit code 4) surfaces here
+    as a RuntimeError carrying the server's structured JSON error."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 data_dir: Optional[str] = None,
+                 fsync: Optional[str] = None,
+                 wal_rotate_bytes: Optional[int] = None) -> None:
+        binary = ensure_built()
+        cmd = [str(binary), "--host", host, "--port", str(port)]
+        if data_dir:
+            cmd += ["--data-dir", str(data_dir)]
+        if fsync:
+            if fsync not in ("always", "everysec", "no"):
+                raise ValueError(f"bad fsync policy {fsync!r} "
+                                 "(always|everysec|no)")
+            cmd += ["--fsync", fsync]
+        if wal_rotate_bytes:
+            cmd += ["--wal-rotate-bytes", str(int(wal_rotate_bytes))]
+        self.data_dir = str(data_dir) if data_dir else None
+        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      text=True)
+        line = self._proc.stdout.readline()  # "... listening on H:P"
+        if "listening on" not in line:
+            # a corrupt WAL prints a structured JSON error and exits 4
+            # instead of serving wrong state — surface that verbatim
+            self._proc.wait(timeout=5)
+            raise RuntimeError(f"rafiki-kvd failed to start: {line!r} "
+                               f"(rc={self._proc.returncode})")
+        hp = line.rsplit(" ", 1)[-1].strip()
+        self.host, _, port_s = hp.partition(":")
+        self.port = int(port_s)
+
+    def stop(self) -> None:
+        try:
+            KVClient(self.host, self.port).shutdown()
+        except OSError:
+            pass
+        try:
+            self._proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+
+    def __enter__(self) -> "KVServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
 
 
 def _encode(args: List[bytes]) -> bytes:
@@ -75,7 +184,7 @@ class KVClient:
         self.retry_window_s = float(retry_window_s)
         self._lock = threading.Lock()
         self._sock: Optional[socket.socket] = None
-        self._buf = b""
+        self._buf = bytearray()
         self._connect()  # constructor contract: raises if unreachable
 
     # ---- connection lifecycle ----
@@ -85,7 +194,7 @@ class KVClient:
         sock.settimeout(self._op_timeout_s)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock = sock
-        self._buf = b""
+        self._buf = bytearray()
 
     def _teardown(self) -> None:
         if self._sock is not None:
@@ -95,9 +204,20 @@ class KVClient:
                 logging.getLogger(__name__).debug(
                     "kv socket close failed: %s", e)
             self._sock = None
-        self._buf = b""
+        self._buf = bytearray()
+
+    def drop_conn(self) -> None:
+        """Force-close the socket (chaos / tests): the next command
+        finds a dead transport and exercises the reconnect layer."""
+        with self._lock:
+            self._teardown()
 
     # ---- framing ----
+    # Linear in the reply's size: the buffer grows in place, and a bulk
+    # reply longer than what is buffered is received straight into its
+    # own buffer. (The JAX client rebuilds an immutable buffer on every
+    # 64 KB chunk, so a reply of n bytes costs O(n^2): a 128 MB GET takes
+    # about 1.5 minutes there.)
     def _recv_more(self) -> None:
         if self._sock is None:
             raise ConnectionError("kv client not connected")
@@ -107,16 +227,35 @@ class KVClient:
         self._buf += chunk
 
     def _read_line(self) -> bytes:
-        while b"\r\n" not in self._buf:
+        start = 0
+        while True:
+            i = self._buf.find(b"\r\n", start)
+            if i >= 0:
+                break
+            start = max(0, len(self._buf) - 1)
             self._recv_more()
-        line, self._buf = self._buf.split(b"\r\n", 1)
+        line = bytes(self._buf[:i])
+        del self._buf[:i + 2]
         return line
 
     def _read_n(self, n: int) -> bytes:
-        while len(self._buf) < n:
-            self._recv_more()
-        out, self._buf = self._buf[:n], self._buf[n:]
-        return out
+        have = len(self._buf)
+        if have >= n:
+            out = bytes(self._buf[:n])
+            del self._buf[:n]
+            return out
+        if self._sock is None:
+            raise ConnectionError("kv client not connected")
+        out = bytearray(n)
+        out[:have] = self._buf
+        self._buf = bytearray()
+        view = memoryview(out)
+        while have < n:
+            got = self._sock.recv_into(view[have:], n - have)
+            if not got:
+                raise ConnectionError("kv server closed connection")
+            have += got
+        return bytes(out)
 
     def _read_reply(self):
         line = self._read_line()
@@ -206,6 +345,9 @@ class KVClient:
                 return self._reconnect_and_retry(enc, verb, e)
 
     # ---- api ----
+    def ping(self) -> bool:
+        return self._cmd("PING") == "PONG"
+
     def set(self, key: str, value: bytes) -> None:
         self._cmd("SET", key, value)
 
@@ -221,6 +363,15 @@ class KVClient:
     def keys(self, pattern: str = "*") -> List[str]:
         return sorted(k.decode() for k in self._cmd("KEYS", pattern))
 
+    def incr(self, key: str) -> int:
+        return int(self._cmd("INCR", key))
+
+    def lpush(self, key: str, *values: bytes) -> int:
+        return int(self._cmd("LPUSH", key, *values))
+
+    def rpush(self, key: str, *values: bytes) -> int:
+        return int(self._cmd("RPUSH", key, *values))
+
     def lpush_dedup(self, key: str, dedup_id: str, *values: bytes) -> int:
         """Deduplicated LPUSH: the server keeps a bounded recent-set of
         ``dedup_id``s (persisted in the WAL), so a RETRY of this exact
@@ -228,6 +379,12 @@ class KVClient:
         double-delivers. The id is client-minted (uuid per logical
         push)."""
         return int(self._cmd("LPUSHD", key, dedup_id, *values))
+
+    def rpush_dedup(self, key: str, dedup_id: str, *values: bytes) -> int:
+        return int(self._cmd("RPUSHD", key, dedup_id, *values))
+
+    def lpop(self, key: str) -> Optional[bytes]:
+        return self._cmd("LPOP", key)
 
     def rpop(self, key: str) -> Optional[bytes]:
         return self._cmd("RPOP", key)
@@ -240,6 +397,11 @@ class KVClient:
         vs Redis: the key need not exist yet and the TTL survives
         DEL/recreation until it fires — see kv_server.cc."""
         self._cmd("EXPIRE", key, seconds)
+
+    def ttl(self, key: str) -> int:
+        """Redis semantics: -2 missing key, -1 no expiry, else whole
+        seconds remaining."""
+        return int(self._cmd("TTL", key))
 
     def brpop(self, keys, timeout: float
               ) -> Optional[Tuple[str, bytes]]:
@@ -267,7 +429,7 @@ class KVClient:
                     if self._sock is None:
                         raise ConnectionError("kv client not connected")
                     # held across the blocking pop on purpose: the
-                    # socket is single-flight 
+                    # socket is single-flight
                     reply = self._send_recv(enc)
                 except (OSError, ConnectionError) as e:
                     if self.retry_window_s <= 0:
@@ -294,9 +456,59 @@ class KVClient:
             k, v = reply
             return k.decode(), v
 
+    def stats(self) -> Dict[str, object]:
+        """The kvd's ``STATS`` verb (persistence health): wal_bytes,
+        snapshot_bytes, snapshot_age_s, last_fsync_age_s,
+        replay_seconds, replayed_records, wal_truncated_bytes,
+        compactions, dedup_ids, keys, lists, fsync_policy."""
+        raw = self._cmd("STATS")
+        out: Dict[str, object] = {}
+        for line in (raw or b"").decode().splitlines():
+            key, _, val = line.partition(" ")
+            if not key:
+                continue
+            try:
+                out[key] = int(val)
+            except ValueError:
+                try:
+                    out[key] = float(val)
+                except ValueError:
+                    out[key] = val
+        return out
+
+    def compact(self) -> None:
+        """Force a WAL compaction into a fresh snapshot (operator /
+        test hook; the server also rotates automatically past
+        ``--wal-rotate-bytes``)."""
+        self._cmd("COMPACT")
+
+    def flushall(self) -> None:
+        self._cmd("FLUSHALL")
+
+    def shutdown(self) -> None:
+        try:
+            self._cmd("SHUTDOWN")
+        except (ConnectionError, RuntimeError):
+            pass
+
     def close(self) -> None:
         try:
             if self._sock is not None:
                 self._sock.close()
         except OSError:
             pass
+
+
+def wait_for_server(host: str, port: int, timeout: float = 10.0) -> KVClient:
+    """Connect with retries until the server answers PING."""
+    deadline = time.monotonic() + timeout
+    last: Optional[Exception] = None
+    while time.monotonic() < deadline:
+        try:
+            c = KVClient(host, port, connect_timeout=1.0)
+            if c.ping():
+                return c
+        except OSError as e:
+            last = e
+            time.sleep(0.05)
+    raise TimeoutError(f"kv server at {host}:{port} not up: {last}")

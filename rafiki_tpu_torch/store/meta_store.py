@@ -1,25 +1,26 @@
-"""MetaStore: the system's metadata on SQLite — the trial surface.
+"""MetaStore: the system's metadata on SQLite.
 
 The port's own copy of ``rafiki_tpu/store/meta_store.py``: the whole
 ``_SCHEMA`` (so a database file the port creates is one the JAX admin
 opens, and the reverse), the connection setup and trial-column
 migrations of ``MetaStore.__init__`` with the SQLite half of
 ``store/db.py`` (``SqliteAdapter``: WAL, ``busy_timeout``, sqlite rows as
-dicts), and the methods a train worker and its deploy step call:
-``create_train_job``, ``create_sub_train_job``, ``create_trial``,
-``get_trial``, ``update_trial``,
-``mark_trial_completed`` / ``mark_trial_errored`` (fenced on RUNNING),
-``heartbeat_trial``, ``claim_trial_for_resume``,
-``get_trials_of_sub_train_job``, ``get_best_trials_of_train_job``,
-``add_trial_log`` and
-``get_trial_logs``. Users, models, datasets, inference jobs, services,
-respawn budgets, the admin lease and backups stay with the JAX admin.
-Only SQLite is ported: a ``postgresql://`` url raises, naming the backend.
+dicts), and every method the train worker, the admin and the services
+manager call: users and authentication (``create_user``,
+``authenticate_user``, ...), models, datasets, train and sub-train
+jobs, trials (``mark_trial_completed`` / ``mark_trial_errored`` fenced on
+RUNNING, ``claim_trial_for_resume``, ``get_best_trials_of_train_job``,
+trial logs), inference jobs, services, the respawn budgets and the
+admin lease. ``backup`` and the Postgres adapter are not ported: a
+``postgresql://`` url raises, naming the backend.
 """
 
 from __future__ import annotations
 
+import hashlib
+import hmac
 import json
+import os
 import sqlite3
 import threading
 import time
@@ -196,6 +197,92 @@ class MetaStore:
             rows = self._exec(sql, args).fetchall()
         return [self._decode(dict(r)) for r in rows]
 
+    # ---- users ----
+    def create_user(self, email: str, password: str,
+                    user_type: str) -> Dict[str, Any]:
+        salt = os.urandom(16).hex()
+        row = {"id": _uid(), "email": email,
+               "password_hash": _hash_password(password, salt), "salt": salt,
+               "user_type": user_type, "created_at": _now()}
+        self._insert("users", row)
+        return self.get_user(row["id"])  # type: ignore[return-value]
+
+    def get_user(self, user_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM users WHERE id=?", (user_id,))
+
+    def get_user_by_email(self, email: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM users WHERE email=?", (email,))
+
+    def authenticate_user(self, email: str,
+                          password: str) -> Optional[Dict[str, Any]]:
+        user = self.get_user_by_email(email)
+        if user is None or user["banned"]:
+            return None
+        expected = _hash_password(password, user["salt"])
+        if not hmac.compare_digest(expected, user["password_hash"]):
+            return None
+        return user
+
+    def ban_user(self, user_id: str) -> None:
+        self._update("users", user_id, {"banned": 1})
+
+    # ---- models ----
+    def create_model(self, user_id: str, name: str, task: str,
+                     model_class: str, model_bytes: bytes,
+                     dependencies: Optional[Dict[str, str]] = None,
+                     access_right: str = "PRIVATE") -> Dict[str, Any]:
+        row = {"id": _uid(), "user_id": user_id, "name": name, "task": task,
+               "model_class": model_class, "model_bytes": model_bytes,
+               "dependencies": json.dumps(dependencies or {}),
+               "access_right": access_right, "created_at": _now()}
+        self._insert("models", row)
+        return self.get_model(row["id"])  # type: ignore[return-value]
+
+    def get_model(self, model_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM models WHERE id=?", (model_id,))
+
+    def get_model_by_name(self, user_id: str,
+                          name: str) -> Optional[Dict[str, Any]]:
+        return self._one(
+            "SELECT * FROM models WHERE user_id=? AND name=?",
+            (user_id, name))
+
+    def get_available_models(self, task: Optional[str] = None,
+                             user_id: Optional[str] = None
+                             ) -> List[Dict[str, Any]]:
+        """Models usable by ``user_id``: their own plus PUBLIC ones."""
+        sql = "SELECT * FROM models WHERE 1=1"
+        args: list = []
+        if task is not None:
+            sql += " AND task=?"
+            args.append(task)
+        if user_id is not None:
+            sql += " AND (user_id=? OR access_right='PUBLIC')"
+            args.append(user_id)
+        return self._all(sql + " ORDER BY created_at", tuple(args))
+
+    # ---- datasets ----
+    def create_dataset(self, user_id: str, name: str, task: str, uri: str,
+                       size_bytes: int = 0,
+                       stat: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+        row = {"id": _uid(), "user_id": user_id, "name": name, "task": task,
+               "uri": uri, "size_bytes": size_bytes,
+               "stat": json.dumps(stat or {}), "created_at": _now()}
+        self._insert("datasets", row)
+        return self.get_dataset(row["id"])  # type: ignore[return-value]
+
+    def get_dataset(self, dataset_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM datasets WHERE id=?", (dataset_id,))
+
+    def get_datasets(self, user_id: str,
+                     task: Optional[str] = None) -> List[Dict[str, Any]]:
+        if task:
+            return self._all(
+                "SELECT * FROM datasets WHERE user_id=? AND task=?",
+                (user_id, task))
+        return self._all("SELECT * FROM datasets WHERE user_id=?", (user_id,))
+
     # ---- train jobs ----
     def create_train_job(self, user_id: str, app: str, app_version: int,
                          task: str, budget: Dict[str, Any],
@@ -210,8 +297,30 @@ class MetaStore:
                "train_args": json.dumps(train_args or {}),
                "status": "STARTED", "created_at": _now()}
         self._insert("train_jobs", row)
-        return self._one("SELECT * FROM train_jobs WHERE id=?",
-                         (row["id"],))  # type: ignore[return-value]
+        return self.get_train_job(row["id"])  # type: ignore[return-value]
+
+    def get_train_job(self, job_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM train_jobs WHERE id=?", (job_id,))
+
+    def get_train_jobs_of_user(self,
+                               user_id: str) -> List[Dict[str, Any]]:
+        return self._all(
+            "SELECT * FROM train_jobs WHERE user_id=? "
+            "ORDER BY created_at DESC", (user_id,))
+
+    def get_train_jobs_of_app(self, user_id: str,
+                              app: str) -> List[Dict[str, Any]]:
+        return self._all(
+            "SELECT * FROM train_jobs WHERE user_id=? AND app=? "
+            "ORDER BY app_version DESC", (user_id, app))
+
+    def get_latest_train_job_of_app(self, user_id: str,
+                                    app: str) -> Optional[Dict[str, Any]]:
+        jobs = self.get_train_jobs_of_app(user_id, app)
+        return jobs[0] if jobs else None
+
+    def update_train_job(self, job_id: str, **fields: Any) -> None:
+        self._update("train_jobs", job_id, fields)
 
     # ---- sub train jobs ----
     def create_sub_train_job(self, train_job_id: str,
@@ -220,8 +329,19 @@ class MetaStore:
                "model_id": model_id, "status": "STARTED",
                "created_at": _now()}
         self._insert("sub_train_jobs", row)
-        return self._one("SELECT * FROM sub_train_jobs WHERE id=?",
-                         (row["id"],))  # type: ignore[return-value]
+        return self.get_sub_train_job(row["id"])  # type: ignore[return-value]
+
+    def get_sub_train_job(self, sid: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM sub_train_jobs WHERE id=?", (sid,))
+
+    def get_sub_train_jobs_of_train_job(
+            self, train_job_id: str) -> List[Dict[str, Any]]:
+        return self._all(
+            "SELECT * FROM sub_train_jobs WHERE train_job_id=?",
+            (train_job_id,))
+
+    def update_sub_train_job(self, sid: str, **fields: Any) -> None:
+        self._update("sub_train_jobs", sid, fields)
 
     # ---- trials ----
     def create_trial(self, sub_train_job_id: str, trial_no: int,
@@ -324,6 +444,13 @@ class MetaStore:
             "SELECT * FROM trials WHERE sub_train_job_id=? ORDER BY trial_no",
             (sub_train_job_id,))
 
+    def get_trials_of_train_job(self,
+                                train_job_id: str) -> List[Dict[str, Any]]:
+        return self._all(
+            "SELECT t.* FROM trials t JOIN sub_train_jobs s "
+            "ON t.sub_train_job_id = s.id WHERE s.train_job_id=? "
+            "ORDER BY t.trial_no", (train_job_id,))
+
     def get_best_trials_of_train_job(self, train_job_id: str,
                                      max_count: int = 2
                                      ) -> List[Dict[str, Any]]:
@@ -354,3 +481,183 @@ class MetaStore:
         for r in rows:
             r["data"] = json.loads(r["data"])
         return rows
+
+    # ---- inference jobs ----
+    def create_inference_job(self, user_id: str, train_job_id: str,
+                             budget: Optional[Dict[str, Any]] = None
+                             ) -> Dict[str, Any]:
+        row = {"id": _uid(), "user_id": user_id,
+               "train_job_id": train_job_id,
+               "budget": json.dumps(budget or {}), "status": "STARTED",
+               "created_at": _now()}
+        self._insert("inference_jobs", row)
+        return self.get_inference_job(row["id"])  # type: ignore[return-value]
+
+    def get_inference_job(self, job_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM inference_jobs WHERE id=?", (job_id,))
+
+    def get_inference_jobs_of_train_job(
+            self, train_job_id: str) -> List[Dict[str, Any]]:
+        return self._all(
+            "SELECT * FROM inference_jobs WHERE train_job_id=? "
+            "ORDER BY created_at DESC", (train_job_id,))
+
+    def get_inference_jobs(self, user_id: Optional[str] = None
+                           ) -> List[Dict[str, Any]]:
+        if user_id:
+            return self._all(
+                "SELECT * FROM inference_jobs WHERE user_id=? "
+                "ORDER BY created_at DESC", (user_id,))
+        return self._all(
+            "SELECT * FROM inference_jobs ORDER BY created_at DESC")
+
+    def update_inference_job(self, job_id: str, **fields: Any) -> None:
+        self._update("inference_jobs", job_id, fields)
+
+    # ---- services ----
+    def create_service(self, service_type: str,
+                       train_job_id: Optional[str] = None,
+                       sub_train_job_id: Optional[str] = None,
+                       inference_job_id: Optional[str] = None,
+                       host: str = "", port: int = 0, pid: int = 0,
+                       devices: Optional[List[int]] = None,
+                       spawn_spec: Optional[Dict[str, Any]] = None,
+                       start_time: float = 0.0) -> Dict[str, Any]:
+        """``spawn_spec`` (the module/config/slot recipe) and
+        ``start_time`` (the pid's kernel start time) are recorded as the
+        JAX admin records them."""
+        row = {"id": _uid(), "service_type": service_type,
+               "status": "STARTED", "train_job_id": train_job_id,
+               "sub_train_job_id": sub_train_job_id,
+               "inference_job_id": inference_job_id, "host": host,
+               "port": port, "pid": pid,
+               "devices": json.dumps(devices or []),
+               "spawn_spec": json.dumps(spawn_spec)
+               if spawn_spec is not None else None,
+               "start_time": start_time, "created_at": _now()}
+        self._insert("services", row)
+        return self.get_service(row["id"])  # type: ignore[return-value]
+
+    def get_service(self, service_id: str) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM services WHERE id=?", (service_id,))
+
+    def get_services(self, status: Optional[str] = None
+                     ) -> List[Dict[str, Any]]:
+        if status:
+            return self._all("SELECT * FROM services WHERE status=?",
+                             (status,))
+        return self._all("SELECT * FROM services")
+
+    def update_service(self, service_id: str, **fields: Any) -> None:
+        if "spawn_spec" in fields and \
+                not isinstance(fields["spawn_spec"], (str, type(None))):
+            fields["spawn_spec"] = json.dumps(fields["spawn_spec"])
+        self._update("services", service_id, fields)
+
+    # ---- respawn budgets ----
+    @staticmethod
+    def _lineage(service_type: str, job_id: str) -> str:
+        return f"{service_type}:{job_id}"
+
+    def incr_respawn_count(self, service_type: str, job_id: str) -> int:
+        """Atomically bump and return the (service type, job) lineage's
+        respawn count; durable across admin restarts."""
+        lineage = self._lineage(service_type, job_id)
+        with self._lock:
+            cur = self._exec(
+                "UPDATE respawn_budgets SET count=count+1, updated_at=? "
+                "WHERE lineage=?", (_now(), lineage))
+            if cur.rowcount == 0:
+                self._exec(
+                    "INSERT INTO respawn_budgets (lineage, count, "
+                    "updated_at) VALUES (?,?,?)", (lineage, 1, _now()))
+            self._conn.commit()
+            row = self._exec(
+                "SELECT count FROM respawn_budgets WHERE lineage=?",
+                (lineage,)).fetchone()
+        return int(row["count"]) if row else 1
+
+    def get_respawn_counts(self) -> Dict[str, int]:
+        """All lineages → count (lineage = ``"<type>:<job_id>"``)."""
+        return {r["lineage"]: int(r["count"]) for r in self._all(
+            "SELECT lineage, count FROM respawn_budgets")}
+
+    # ---- admin lease (single-writer fencing) ----
+    def acquire_admin_lease(self, holder: str,
+                            ttl_s: float = 15.0
+                            ) -> Optional[Dict[str, Any]]:
+        """Claim the single-writer admin lease (one row, id=1, whose
+        ``generation`` only grows): insert at generation 1 when there is
+        none; renew when ``holder`` already holds it; take it over at
+        generation + 1 (``took_over``) when the holder's heartbeat is
+        older than the TTL it was granted with; ``None`` when a live
+        other holds it. Cross-process atomicity comes from the
+        database: the fresh insert races on the primary key, takeovers
+        are conditional on the observed holder and generation."""
+        now = _now()
+        with self._lock:
+            row = self._exec("SELECT * FROM admin_lease WHERE id=1"
+                             ).fetchone()
+            if row is None:
+                try:
+                    self._exec(
+                        "INSERT INTO admin_lease (id, holder, "
+                        "generation, heartbeat_at, acquired_at, ttl_s) "
+                        "VALUES (1,?,?,?,?,?)",
+                        (holder, 1, now, now, ttl_s))
+                    self._conn.commit()
+                except sqlite3.IntegrityError:
+                    # another process's boot won the primary key
+                    return None
+                return {"holder": holder, "generation": 1,
+                        "took_over": False}
+            if row["holder"] == holder:
+                self._exec(
+                    "UPDATE admin_lease SET heartbeat_at=?, ttl_s=? "
+                    "WHERE id=1 AND holder=?", (now, ttl_s, holder))
+                self._conn.commit()
+                return {"holder": holder,
+                        "generation": int(row["generation"]),
+                        "took_over": False}
+            held_ttl = float(row["ttl_s"] or 0) or ttl_s
+            if now - float(row["heartbeat_at"] or 0) <= held_ttl:
+                return None  # live other admin: fenced out
+            gen = int(row["generation"]) + 1
+            cur = self._exec(
+                "UPDATE admin_lease SET holder=?, generation=?, "
+                "heartbeat_at=?, acquired_at=?, ttl_s=? WHERE id=1 "
+                "AND holder=? AND generation=?",
+                (holder, gen, now, now, ttl_s, row["holder"],
+                 row["generation"]))
+            self._conn.commit()
+            if cur.rowcount == 0:
+                return None  # raced another takeover: it won
+            return {"holder": holder, "generation": gen,
+                    "took_over": True}
+
+    def renew_admin_lease(self, holder: str) -> bool:
+        """Heartbeat the lease; False once a newer admin took over."""
+        with self._lock:
+            cur = self._exec(
+                "UPDATE admin_lease SET heartbeat_at=? WHERE id=1 AND "
+                "holder=?", (_now(), holder))
+            self._conn.commit()
+            return cur.rowcount == 1
+
+    def release_admin_lease(self, holder: str) -> bool:
+        """Clean shutdown: zero the heartbeat but keep holder and
+        generation, so the next boot takes over at generation + 1."""
+        with self._lock:
+            cur = self._exec(
+                "UPDATE admin_lease SET heartbeat_at=0 WHERE id=1 AND "
+                "holder=?", (holder,))
+            self._conn.commit()
+            return cur.rowcount == 1
+
+    def get_admin_lease(self) -> Optional[Dict[str, Any]]:
+        return self._one("SELECT * FROM admin_lease WHERE id=1")
+
+
+def _hash_password(password: str, salt: str) -> str:
+    return hashlib.pbkdf2_hmac("sha256", password.encode(),
+                               bytes.fromhex(salt), 100_000).hex()

@@ -17,15 +17,16 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` → ``cuda`` (raising ``RuntimeError`` when no CUDA device
-    is present); anything else → ``torch.device(device)`` as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the plain PyTorch versions on the host")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` → ``cuda``; anything else → ``torch.device(device)`` as
+    given. A CUDA device (asked for by name or by default) raises
+    ``RuntimeError`` when no CUDA device is present: a process that was
+    given a card and finds none never carries on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "the plain PyTorch versions on the host")
+    return dev
 
 
 def same_device(a: torch.device, b: Optional[torch.device]) -> bool:

@@ -38,7 +38,11 @@ Where it differs from the JAX worker, on purpose:
   carrying a prefill leg is left to the decode side's local prefill, and
   shipments pushed for a held request are drained and dropped;
 - ``main`` reads the same config JSON plus ``"device"``; there is no jax
-  platform setup and no multi-host rendezvous.
+  platform setup and no multi-host rendezvous;
+- the published stats carry the process's kernel launch counts under
+  ``kernel_launches`` (each kernel wrapper's ``launches``: zero where
+  the plain versions ran), so a caller outside the process can tell
+  which kernels its requests went through.
 """
 
 from __future__ import annotations
@@ -57,6 +61,9 @@ import numpy as np
 from rafiki_tpu_torch.native.client import CLIENT_STATS
 from rafiki_tpu_torch.obs.metrics import MetricsRegistry, StatsMap
 from rafiki_tpu_torch.obs.trace import TraceBuffer, mint_trace_id
+from rafiki_tpu_torch.ops import attention as _fa
+from rafiki_tpu_torch.ops import paged_attention as _pa
+from rafiki_tpu_torch.ops import patch_embed as _pe
 from rafiki_tpu_torch.serving.kv_transfer import normalize_role
 from rafiki_tpu_torch.serving.queues import (EXPIRY_SKEW_TOLERANCE_S,
                                              QueueHub, pack_message,
@@ -335,6 +342,7 @@ class InferenceWorker:
         stats["published_at"] = time.time()
         stats["uptime_s"] = time.monotonic() - self._boot_mono
         stats["stale_after_s"] = self.STALE_AFTER_S
+        stats["kernel_launches"] = kernel_launches()
         if self.engine is not None:
             snap = self.engine.stats_snapshot()
             stats.update({f"engine_{k}": v for k, v in snap.items()})
@@ -798,6 +806,23 @@ def _expired(msg: dict, skew_s: float = EXPIRY_SKEW_TOLERANCE_S,
             > float(ttl) + TTL_EXPIRY_PAD_S
     ts = msg.get("deadline_ts")
     return ts is not None and time.time() > float(ts) + skew_s
+
+
+#: the kernel wrappers whose launch counts the worker publishes
+KERNEL_WRAPPERS = {
+    "matmul_bias": _pe.matmul_bias,
+    "flash_attention_fwd": _fa.flash_attention_fwd,
+    "flash_attention_fwd_mh": _fa.flash_attention_fwd_mh,
+    "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
+    "paged_decode_attention": _pa.paged_decode_attention,
+    "paged_window_attention": _pa.paged_window_attention,
+}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """This process's launch count of each kernel wrapper."""
+    return {name: int(fn.launches) for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def _tristate(v: Any) -> Optional[bool]:

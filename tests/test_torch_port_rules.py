@@ -222,3 +222,64 @@ def test_b4_b7_wrappers_reject_non_cuda_tensors(b4_b7_kernel_path,
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
     assert fn.launches == before
+
+
+# ---- the control plane's processes and the data plane are the port's own
+
+def test_the_manager_spawns_only_the_ports_modules():
+    import importlib.util
+
+    from rafiki_tpu_torch.admin import services_manager as psm
+
+    targets = set(psm.SPAWN_TARGETS.values())
+    assert len(targets) == 4
+    for module in targets:
+        assert module.split(".")[0] == "rafiki_tpu_torch", module
+        assert importlib.util.find_spec(module) is not None, module
+
+
+def _code_strings(path):
+    """String constants of a module, docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_port_code_names_a_jax_package_module():
+    """No string the port's code uses (a spawn target, an import by
+    name, a package-data lookup) names a module of the JAX package."""
+    import re
+
+    jax_module = re.compile(r"^rafiki_tpu\.\w")
+    bad = [(str(f.relative_to(ROOT)), s) for f in _port_sources()
+           for s in _code_strings(f) if jax_module.match(s)]
+    assert not bad, bad
+
+
+def test_the_kvd_is_built_from_the_ports_source_into_its_build_dir():
+    from rafiki_tpu_torch.native import client as pclient
+
+    assert pclient.SOURCE == ROOT / "rafiki_tpu_torch" / "native" / \
+        "kv_server.cc"
+    assert pclient.SOURCE.is_file()
+    assert pclient.BUILD_DIR == ROOT / "build" / "rafiki_tpu_torch"
+
+
+def test_the_control_plane_modules_are_scanned():
+    scanned = {str(f.relative_to(ROOT)) for f in _port_sources()}
+    for rel in ("constants.py", "admin/admin.py", "admin/app.py",
+                "admin/services_manager.py", "admin/device_probe.py",
+                "admin/proc.py", "client/client.py", "parallel/mesh.py",
+                "serving/predictor.py", "serving/router.py",
+                "serving/breaker.py", "advisor/service.py",
+                "obs/http.py", "native/client.py"):
+        assert f"rafiki_tpu_torch/{rel}" in scanned, rel
