@@ -4,10 +4,15 @@
 Run from a checkout of the repository, with one Hopper card (sm_90a) and
 the CUDA toolkit's ``nvcc``::
 
-    python3 chip_smoke.py            # the full check, Llama-3-8B depth 32
+    python3 chip_smoke.py            # the full check
     python3 chip_smoke.py --depth 8  # the Llama serving leg at a cut depth
     python3 chip_smoke.py --train-depth 8  # the Llama training leg, cut
-    python3 chip_smoke.py --worker-depth 8  # the Llama worker leg, cut
+    python3 chip_smoke.py --worker-depth 32  # the Llama worker leg, uncut
+    python3 chip_smoke.py --slice-depth 8  # phase 24's leg, cut
+
+The Llama legs run at depth 32 of Llama-3-8B's, except the worker leg
+(phase 18), which runs at depth 8 unless ``--worker-depth`` says
+otherwise: it keeps the call's time.
 
 ViT-B/16 and BERT-base always run at full width and depth.
 
@@ -109,13 +114,13 @@ Phases; each raises on failure, so the script exits non-zero:
     CPU at pages 8 and 4.
 18. The inference worker, Llama: ``LlamaLoRA`` at Llama-3-8B widths
     (hidden 4096, 32 heads, kv_ratio 4, MLP 4 x hidden, vocab 128256, rope
-    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 32 unless
-    ``--worker-depth`` cuts it) from a seeded f32 blob written through the
-    port's param-store codec to a ``mem://`` store (encode, decode and
-    boot timed, host peak RSS); an ``InferenceWorker`` (decode loop, 8
-    slots, 64 new tokens, 4 steps a sync, page 16) serves phase 4's 8
-    texts, 4 streaming, queued on the port's ``InProcQueueHub`` before its
-    loop starts. Every reply without error, stream deltas a prefix of the
+    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 8 unless
+    ``--worker-depth`` says otherwise) from a seeded f32 blob written
+    through the port's param-store codec to a ``mem://`` store (encode,
+    decode and boot timed, host peak RSS); an ``InferenceWorker``
+    (decode loop, 8 slots, 64 new tokens, 4 steps a sync, page 16)
+    serves phase 4's 8 texts, 4 streaming, queued on the port's
+    ``InProcQueueHub`` before its loop starts. Every reply without error, stream deltas a prefix of the
     final text, B1/B2 launched, and the texts token-identical to a direct
     ``make_decode_engine`` run of the same template and requests; TTFT
     p50/p95 (worker histograms; client clock for streams), output and
@@ -176,8 +181,37 @@ Phases; each raises on failure, so the script exits non-zero:
     seconds, the Predictor's requests/s and p50 / p95, and the kvd's
     ``STATS``.
 
-The worker phases run in the order 20, 19, 21, 22, 23, 18: phase 18 holds
-a 35 GB blob on the host, and runs last.
+24. Llama serving as its users run it, at phase 18's widths (bf16,
+    depth 32 unless ``--slice-depth`` cuts it): a byte-BPE artifact of
+    exactly 128256 ids (merges trained on a seeded corpus, then seeded
+    merges of an existing id and a byte); a seeded HF-layout checkpoint
+    written by ``export_llama_safetensors`` in shards of 4 blocks with
+    ``model.safetensors.index.json`` and a ``config.json`` (rope theta
+    500000; the disk's free space checked first); ``LlamaLoRA``
+    (``tokenizer_path``, ``pretrained_path``, ``adapters_only``) trains
+    one epoch of two batches of 1 x 2048 from it: B3/B5/B6 must launch,
+    every frozen leaf must equal the checkpoint's tensor (write and
+    import seconds and GB/s, host peak RSS). Then its
+    ``make_decode_engine`` (paged, page 16, 8 slots, max_len 2048): 8
+    greedy requests, then the same prompts sampled (temperature 0.8,
+    top-k 50, top-p 0.95, seeds 0-7), decode tokens/s of each; the
+    card's ``_select_next`` on one captured step's f32 logits must pick
+    the plain CPU sampler's tokens (its device time per step beside an
+    argmax's); 8 background requests of 128 new tokens fill the slots
+    and 2 interactive ones arrive two calls later: ``preemptions`` >= 1
+    and equal to the ``preempted`` spans, every request its full token
+    count, the interactive TTFT beside an idle engine's; one request
+    resumed (``forced_prefix``) from the text a stream had delivered
+    halfway: its output must begin with it and spend its budget. B1/B2
+    must launch on every serving leg (the ``llama_slice_*`` paths).
+25. Phase 15's head-dim-8 f32 Llama as ``LlamaLoRA`` knobs with a
+    512-id byte-BPE tokenizer, paged at page 8 on the card and on the
+    CPU: seeded sampling, a preemption (greedy and sampled) and a stream
+    resume must give identical tokens and texts; B1/B2 must launch.
+
+Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
+22, 23, then 24 and 18: phases 24 and 18 hold the most host memory
+(phase 24's f32 tree, phase 18's blob), and run last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -3323,6 +3357,615 @@ def stack_phase(torch, np, vit, dev):
     return {"stack": launches}
 
 
+# ---- Llama serving as its users run it (phases 24-25): a byte-BPE
+# ---- tokenizer, an HF-layout pretrained base, seeded sampling, SLO
+# ---- preemption and stream resume
+
+#: phase 24's LlamaLoRA knobs: phase 18's widths, fine-tuned from the
+#: checkpoint with only the adapters training
+SLICE_KNOBS = dict(WORKER_LLAMA, bf16=True, rope_theta=500000.0,
+                   batch_size=1, max_epochs=1, learning_rate=1e-3,
+                   adapters_only=True)
+#: phase 24's sampled requests: Llama-3's common serving settings
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+#: the trained merges before phase 24 extends the table to VOCAB
+BPE_TRAIN_VOCAB = 1024
+
+
+def _texts(path):
+    with open(path) as f:
+        return [rec["text"] for line in f if line.strip()
+                for rec in [json.loads(line)] if "text" in rec]
+
+
+def slice_tokenizer(np, bpe, work, vocab, seed):
+    """A byte-BPE artifact of exactly ``vocab`` ids: merges trained on a
+    seeded corpus (``write_corpus``), then seeded merges of an existing id
+    with a byte id (distinct pairs, so every token stays short) until the
+    table holds ``vocab - 259`` merges. Returns (path, train seconds, the
+    corpus texts)."""
+    texts = _texts(write_corpus(np, work / "bpe_corpus.jsonl", 256, seed))
+    t0 = time.perf_counter()
+    merges = list(bpe.ByteBPETokenizer.train(
+        texts, BPE_TRAIN_VOCAB, native=False).merges)
+    train_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    seen = set(merges)
+    first = bpe.N_SPECIAL + 256
+    while first + len(merges) < vocab:
+        pair = (int(rng.integers(bpe.N_SPECIAL, first + len(merges))),
+                int(rng.integers(bpe.N_SPECIAL, first)))
+        if pair not in seen:
+            seen.add(pair)
+            merges.append(pair)
+    path = work / "bpe.json"
+    bpe.ByteBPETokenizer(merges, native=False).save(str(path))
+    return str(path), train_s, texts
+
+
+def _block_tree(torch, k, gen, dev, hidden, kv, mlp):
+    """One decoder block's base leaves (no adapters) as the params tree
+    lays them out, bf16 on the card, drawn from ``gen``."""
+    def w(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(0.02).to(
+                               torch.bfloat16)
+
+    def norm():
+        return (1.0 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+                ).to(torch.bfloat16)
+
+    return {"attn": {"wq": {"kernel": w(hidden, hidden)},
+                     "wk": {"kernel": w(hidden, kv)},
+                     "wv": {"kernel": w(hidden, kv)},
+                     "wo": {"kernel": w(hidden, hidden)}},
+            "gate": {"kernel": w(hidden, mlp)}, "up": {"kernel": w(hidden,
+                                                                   mlp)},
+            "down": {"kernel": w(mlp, hidden)},
+            "RMSNorm_0": {"scale": norm()}, "RMSNorm_1": {"scale": norm()}}
+
+
+def write_checkpoint(torch, conv, sio, path, depth, vocab, dev,
+                     blocks_per_shard=4):
+    """A seeded HF-layout Llama checkpoint at phase 24's widths, bf16,
+    written by the port's ``export_llama_safetensors`` shard by shard
+    (``model-0000i-of-0000n.safetensors``, the embedding in the first,
+    the final norm and LM head in the last) with HF's
+    ``model.safetensors.index.json`` and a ``config.json`` carrying
+    ``rope_theta``. Each shard's leaves are drawn on the card and freed
+    after writing. Raises before writing when the disk lacks the room.
+    Returns (bytes written, seconds)."""
+    import shutil
+
+    w = WORKER_LLAMA
+    hidden = w["hidden_dim"]
+    kv = hidden // w["kv_ratio"]
+    mlp = 4 * hidden
+    per_block = 2 * (2 * hidden * hidden + 2 * hidden * kv
+                     + 3 * hidden * mlp + 2 * hidden)
+    need = depth * per_block + 2 * (2 * vocab * hidden + hidden)
+    path.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    if free < need + (1 << 30):
+        raise RuntimeError(
+            f"phase 24 needs {need / 1e9:.2f} GB (+1 GB) free under {path} "
+            f"for its checkpoint, has {free / 1e9:.2f} GB: short by "
+            f"{(need + (1 << 30) - free) / 1e9:.2f} GB; cut --slice-depth")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    groups = [list(range(i, min(i + blocks_per_shard, depth)))
+              for i in range(0, depth, blocks_per_shard)]
+    n = len(groups)
+    weight_map = {}
+    t0 = time.perf_counter()
+    for g, blocks in enumerate(groups):
+        tree = {f"block_{i}": _block_tree(torch, i, gen, dev, hidden, kv,
+                                          mlp) for i in blocks}
+        if g == 0:
+            tree["tok_embed"] = {"embedding": torch.randn(
+                vocab, hidden, generator=gen, device=dev).mul_(0.02).to(
+                    torch.bfloat16)}
+        if g == n - 1:
+            tree["final_norm"] = {"scale": torch.ones(
+                hidden, device=dev, dtype=torch.bfloat16)}
+            tree["lm_head"] = {"kernel": torch.randn(
+                hidden, vocab, generator=gen, device=dev).mul_(0.02).to(
+                    torch.bfloat16)}
+        fname = f"model-{g + 1:05d}-of-{n:05d}.safetensors"
+        conv.export_llama_safetensors(tree, str(path / fname))
+        del tree
+        weight_map.update({name: fname for name in
+                           sio.SafeFile(str(path / fname)).keys()})
+    nbytes = sum((path / f).stat().st_size for f in set(weight_map.values()))
+    with open(path / "model.safetensors.index.json", "w") as f:
+        json.dump({"metadata": {"total_size": nbytes},
+                   "weight_map": weight_map}, f)
+    with open(path / "config.json", "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "hidden_size": hidden, "intermediate_size": mlp,
+                   "num_hidden_layers": depth,
+                   "num_attention_heads": w["n_heads"],
+                   "num_key_value_heads": w["n_heads"] // w["kv_ratio"],
+                   "vocab_size": vocab, "rope_theta": 500000.0,
+                   "torch_dtype": "bfloat16"}, f)
+    return nbytes, time.perf_counter() - t0
+
+
+class RssPeak:
+    """The process's largest resident set between :meth:`start` and
+    :meth:`stop`, sampled from ``/proc/self/statm`` every 50 ms on a
+    thread (``gb`` is None where that file cannot be read; ``getrusage``
+    gives only the peak over the process's whole life)."""
+
+    def start(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.gb, self._stop = None, threading.Event()
+        self._t = threading.Thread(target=self._sample, daemon=True)
+        self._t.start()
+        return self
+
+    def _sample(self):
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * self.page / 1e9
+                self.gb = max(self.gb or 0.0, rss)
+            except (OSError, ValueError, IndexError):
+                return
+            if self._stop.wait(0.05):
+                return
+
+    def stop(self):
+        self._stop.set()
+        self._t.join()
+
+
+def _prompt_ids(np, tok, text, max_len):
+    """A text's BOS-led ids, as the template's engine encodes them."""
+    row, n = tok.encode(text, max_len)
+    return np.asarray(row[:max(1, int(n))], np.int32)
+
+
+def _paged_counts(pa):
+    return {"paged_decode_attention": pa.paged_decode_attention.launches,
+            "paged_window_attention": pa.paged_window_attention.launches}
+
+
+def _zero_paged(pa):
+    pa.paged_decode_attention.launches = 0
+    pa.paged_window_attention.launches = 0
+
+
+def _run_engine(core, submits, on_step=None, limit=20000):
+    """Submit ``(rid, ids, max_new, kwargs)`` requests to a core engine
+    and step it until they are done (``on_step(n)`` may submit more);
+    returns {rid: ids} of every request done, the steps' (seconds, ran a
+    prefill, tokens), and each submitted request's seconds to its first
+    token on the host clock."""
+    t_sub, t_first, done, steps = {}, {}, {}, []
+    for rid, ids, max_new, kw in submits:
+        core.submit(rid, ids, max_new, **kw)
+        t_sub[rid] = time.perf_counter()
+    while not set(t_sub) <= set(done):
+        before = core.stats_snapshot()
+        t0 = time.perf_counter()
+        core.step()
+        t1 = time.perf_counter()
+        after = core.stats_snapshot()
+        steps.append((t1 - t0, after["prefill_calls"] > before[
+            "prefill_calls"], after["tokens_generated"]
+            - before["tokens_generated"]))
+        for rid, _ids in core.poll_partial():
+            t_first.setdefault(rid, t1)
+        for rid, ids in core.poll():
+            done[rid] = [int(t) for t in ids]
+            t_first.setdefault(rid, t1)
+        if on_step is not None:
+            on_step(len(steps))
+        if len(steps) > limit:
+            raise AssertionError(f"engine did not drain: {core.stats}")
+    return done, steps, {rid: t_first[rid] - t_sub[rid] for rid in t_sub}
+
+
+def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, depth, dev):
+    """Phase 24: Llama serving as its users run it, at phase 18's widths
+    (bf16, hidden 4096, 32 / 8 heads, MLP 4 x hidden, vocab 128256, LoRA
+    rank 16, rope theta 500000; depth ``--slice-depth``): a byte-BPE
+    artifact of exactly 128256 ids; a seeded HF-layout checkpoint written
+    by ``export_llama_safetensors`` (sharded, ``index.json``,
+    ``config.json``); ``LlamaLoRA(tokenizer_path=, pretrained_path=,
+    adapters_only=True).train`` over one epoch of two batches (B3/B5/B6
+    must launch; every frozen leaf must equal the checkpoint's tensor);
+    then its ``make_decode_engine`` (paged, page 16, 8 slots, max_len
+    2048): 8 greedy and 8 sampled requests (temperature 0.8, top-k 50,
+    top-p 0.95, seeds 0-7; the card's ``_select_next`` on one step's
+    logits must pick the CPU's tokens), 8 long background requests
+    preempted by 2 interactive ones (``preemptions`` >= 1, equal to the
+    ``preempted`` spans, every request its full token count; TTFT beside
+    an idle engine's), and one request resumed from half its delivered
+    text (its output must begin with it and have its budget). B1/B2 must
+    launch on every serving leg."""
+    import gc
+    import shutil
+
+    from rafiki_tpu_torch.model.base import TrainContext
+
+    work = ROOT / "build" / "chip_smoke" / "slice"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rec = {"phase": "llama_slice", "depth": depth,
+           "widths": dict(WORKER_LLAMA, mlp_dim=4 * WORKER_LLAMA[
+               "hidden_dim"])}
+    paths = {}
+    rss = RssPeak().start()
+    try:
+        # 1. the tokenizer
+        t0 = time.perf_counter()
+        tok_path, bpe_train_s, bpe_texts = slice_tokenizer(
+            np, bpe, work, VOCAB, SEED + 24)
+        tok = bpe.ByteBPETokenizer.load(tok_path)
+        loop = bpe.ByteBPETokenizer.load(tok_path, native=False)
+        rec["tokenizer"] = {"vocab": tok.vocab_size,
+                            "trained_merges": BPE_TRAIN_VOCAB - 259,
+                            "train_s": bpe_train_s,
+                            "artifact_s": time.perf_counter() - t0}
+        if tok.vocab_size != VOCAB:
+            raise AssertionError(f"BPE vocab {tok.vocab_size} != {VOCAB}")
+        # 2. the checkpoint
+        ckpt = work / "ckpt"
+        nbytes, write_s = write_checkpoint(torch, conv, sio, ckpt, depth,
+                                           VOCAB, dev)
+        rec["checkpoint"] = {"bytes": nbytes, "write_s": write_s,
+                             "write_gb_per_s": nbytes / write_s / 1e9,
+                             "shards": len(list(ckpt.glob("*.safetensors")))}
+        torch.cuda.empty_cache()
+        # 3. the fine-tune: two texts, batch 1
+        train = work / "train.jsonl"
+        write_corpus(np, train, 2, SEED + 25)
+        knobs = dict(SLICE_KNOBS, depth=depth, tokenizer_path=tok_path,
+                     pretrained_path=str(ckpt))
+        m = ll.LlamaLoRA(device=dev, **knobs)
+        timed = {}
+        real_import = ll.import_llama_safetensors
+
+        def timed_import(path, params):
+            s0 = time.perf_counter()
+            out = real_import(path, params)
+            timed["import_s"] = time.perf_counter() - s0
+            return out
+
+        ll.import_llama_safetensors = timed_import
+        zero_flash_launches(fa)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            ctx = TrainContext()
+            m.train(str(train), ctx)
+        finally:
+            ll.import_llama_safetensors = real_import
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_launches = flash_launches(fa)
+        paths["llama_slice_finetune"] = train_launches
+        # every frozen (base) leaf against the file, tensor by tensor
+        files = conv._resolve_checkpoint(str(ckpt))
+        handles, frozen, unequal = {}, 0, []
+        for path, leaf in conv._flatten(m._params):
+            mapped = conv.hf_name_for(path)
+            if mapped is None:
+                continue
+            name, transpose = mapped
+            sf = handles.setdefault(files[name], sio.SafeFile(files[name]))
+            frozen += 1
+            if not np.array_equal(conv._read(sf, name, transpose), leaf):
+                unequal.append(name)
+        rec["finetune"] = {
+            "train_s": train_s, "frozen_check_s": time.perf_counter() - t0,
+            "import_s": timed.get("import_s"),
+            "import_gb_per_s": nbytes / timed["import_s"] / 1e9
+            if timed.get("import_s") else None,
+            "losses": ctx.logger.get_values("loss"),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": train_launches, "frozen_leaves": frozen,
+            "frozen_unequal": unequal}
+        if min(train_launches.values()) <= 0:
+            raise AssertionError(f"a flash kernel never launched in the "
+                                 f"fine-tune: {train_launches}")
+        if unequal or not frozen:
+            raise AssertionError(f"frozen leaves differ from the "
+                                 f"checkpoint: {unequal}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. serving
+        slots, max_len = 8, int(knobs["max_len"])
+        eng = m.make_decode_engine(max_slots=slots, max_new_tokens=64,
+                                   steps_per_sync=4, kv_page_size=16)
+        core = eng.engine
+        texts = _texts(write_corpus(np, work / "serve.jsonl", 32,
+                                    SEED + 26))
+        t0 = time.perf_counter()
+        prompts = [_prompt_ids(np, tok, t, max_len) for t in texts]
+        encode_s = time.perf_counter() - t0
+        loop_ids = [_prompt_ids(np, loop, t, max_len) for t in texts]
+        rec["tokenizer"].update(
+            encode_ms_per_prompt=encode_s / len(texts) * 1e3,
+            prompt_tokens=[len(p) for p in prompts[:16]],
+            native_equals_python_loop=all(
+                np.array_equal(a, b) for a, b in zip(prompts, loop_ids)))
+        if not rec["tokenizer"]["native_equals_python_loop"]:
+            raise AssertionError("native BPE ids differ from the loop's")
+
+        # 4a. greedy, then sampled (seeds 0-7), same prompts
+        captured = []
+        real_select = de._select_next
+
+        def capture(*args):
+            if not captured:
+                captured.append([a.detach().clone() for a in args])
+            return real_select(*args)
+
+        legs = {}
+        for leg in ("greedy", "sampled"):
+            kw = [dict(SAMPLING, seed=i) if leg == "sampled" else {}
+                  for i in range(slots)]
+            _zero_paged(pa)
+            de._select_next = capture
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done, steps, ttft = _run_engine(
+                    core, [(f"{leg}{i}", prompts[i], 64, kw[i])
+                           for i in range(slots)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                de._select_next = real_select
+            launches = _paged_counts(pa)
+            paths[f"llama_slice_{leg}"] = launches
+            legs[leg] = {
+                "wall_s": wall,
+                "output_tok_per_s": sum(map(len, done.values())) / wall,
+                "decode_tok_per_s": _decode_tok_per_s(steps),
+                "mean_ttft_s": float(np.mean(list(ttft.values()))),
+                "complete": all(len(v) == 64 for v in done.values()),
+                "launches": launches}
+            legs[leg]["tokens"] = done
+        sampled_differ = sum(legs["sampled"]["tokens"][f"sampled{i}"]
+                             != legs["greedy"]["tokens"][f"greedy{i}"]
+                             for i in range(slots))
+        for leg in legs.values():
+            del leg["tokens"]
+        # the card's sampler against the plain CPU one, one step's logits
+        args = captured[0]
+        card_pick = de._select_next(*args).cpu()
+        cpu_pick = de._select_next(*(a.cpu() for a in args))
+        sampler_ms = time_ms(torch, lambda: de._select_next(*args))
+        greedy_ms = time_ms(torch, lambda: args[0].argmax(-1))
+        rec["sampling"] = dict(
+            legs, settings=SAMPLING, seeds=list(range(slots)),
+            sampled_requests_unlike_greedy=int(sampled_differ),
+            sampler_card_equals_cpu=bool(torch.equal(card_pick, cpu_pick)),
+            sampler_ms_per_step=sampler_ms, argmax_ms_per_step=greedy_ms,
+            logits_shape=list(args[0].shape))
+        if not rec["sampling"]["sampler_card_equals_cpu"]:
+            raise AssertionError(f"the card's sampler picked {card_pick}, "
+                                 f"the CPU's {cpu_pick}")
+        if not all(leg["complete"] for leg in legs.values()):
+            raise AssertionError(f"a sampling-leg request was cut: {legs}")
+
+        # 4b. preemption: 8 long background requests fill the slots, 2
+        # interactive ones arrive two calls later; their TTFT (submit to
+        # the first_token span, host clock) beside an idle engine's
+        events = []
+        core.span_sink = lambda ev, rid, attrs: events.append(
+            (ev, rid, time.perf_counter()))
+        bg = [(f"bg{i}", prompts[8 + i], 128, {"slo": "background"})
+              for i in range(slots)]
+        ia = [(f"ia{i}", prompts[16 + i], 32, {"slo": "interactive"})
+              for i in range(2)]
+        t_ia = {}
+
+        def arrive(n_steps):
+            if n_steps == 2:
+                for rid, ids, max_new, kw in ia:
+                    core.submit(rid, ids, max_new, **kw)
+                    t_ia[rid] = time.perf_counter()
+
+        def ttft(since):
+            return {rid: next(t for ev, r, t in events
+                              if ev == "first_token" and r == rid)
+                    - since[rid] for rid in since}
+
+        _zero_paged(pa)
+        core.reset_stats()
+        t0 = time.perf_counter()
+        done, _steps, _t = _run_engine(core, bg, on_step=arrive)
+        while len(done) < len(bg) + len(ia):
+            core.step()
+            done.update({rid: list(ids) for rid, ids in core.poll()})
+        wall = time.perf_counter() - t0
+        stats = core.stats_snapshot()
+        n_spans = sum(ev == "preempted" for ev, _r, _t in events)
+        contended = ttft(t_ia)
+        events.clear()
+        t_idle, idle_done = {}, {}
+        for rid, ids, max_new, kw in ia:
+            core.submit(rid, ids, max_new, **kw)
+            t_idle[rid] = time.perf_counter()
+        while len(idle_done) < len(ia):
+            core.step()
+            idle_done.update({rid: list(ids) for rid, ids in core.poll()})
+        idle = ttft(t_idle)
+        core.span_sink = None
+        launches = _paged_counts(pa)
+        paths["llama_slice_preempt"] = launches
+        full = all(len(done[rid]) == n for rid, _i, n, _k in bg + ia)
+        rec["preemption"] = {
+            "background": {"requests": slots, "max_new": 128},
+            "interactive": {"requests": 2, "max_new": 32,
+                            "arrive_after_calls": 2},
+            "wall_s": wall, "preemptions": stats["preemptions"],
+            "preempted_spans": n_spans,
+            "admission_stalls": stats["admission_stalls"],
+            "interactive_ttft_s": contended,
+            "interactive_ttft_idle_s": idle,
+            "every_request_full": full,
+            "interactive_equal_idle": all(
+                done[r] == idle_done[r] for r in idle_done),
+            "launches": launches}
+        if stats["preemptions"] < 1 or stats["preemptions"] != n_spans:
+            raise AssertionError(f"preemptions {stats['preemptions']}, "
+                                 f"preempted spans {n_spans}")
+        if not full:
+            raise AssertionError("a preemption-leg request was cut")
+
+        # 4c. stream resume: the text a stream had delivered halfway
+        # (after k of 48 tokens, k <= 24 the largest whose text re-encodes
+        # to fewer than 48 tokens: byte-BPE re-tokenizes generated bytes
+        # into more ids than were generated) as the forced prefix
+        text, budget = texts[24], 48
+        _zero_paged(pa)
+        whole, _s, _t = _run_engine(core, [
+            ("whole", _prompt_ids(np, tok, text, max_len), budget, {})])
+        ids = whole["whole"]
+        n_text = len(tok.encode_ids(text))
+        for k in range(budget // 2, 0, -1):
+            prefix = m._detok(ids[:k]).rstrip("\ufffd")
+            covered = len(tok.encode_ids(text + " " + prefix)) - n_text
+            if prefix and covered < budget:
+                break
+        before = core.stats_snapshot()["tokens_generated"]
+        eng.submit("resumed", text, max_new=budget, forced_prefix=prefix)
+        resumed = {}
+        while not resumed:
+            eng.step()
+            resumed.update(dict(eng.poll()))
+        generated = core.stats_snapshot()["tokens_generated"] - before
+        launches = _paged_counts(pa)
+        paths["llama_slice_resume"] = launches
+        out = resumed["resumed"]
+        rec["resume"] = {"delivered_tokens": k, "prefix_chars": len(prefix),
+                         "prefix_tokens": covered, "generated": generated,
+                         "budget": budget,
+                         "starts_with_prefix": out.startswith(prefix),
+                         "has_its_budget": covered + generated == budget,
+                         "equals_uninterrupted": out == m._detok(ids),
+                         "launches": launches}
+        if not (out.startswith(prefix) and covered + generated == budget):
+            raise AssertionError(f"resume failed: {rec['resume']}")
+        for name, counts in paths.items():
+            if name != "llama_slice_finetune" and min(counts.values()) <= 0:
+                raise AssertionError(f"a paged kernel never launched on "
+                                     f"{name}: {counts}")
+        del eng, core, m
+    finally:
+        rss.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["host_peak_rss_gb"] = rss.gb
+    rec["process_peak_rss_gb"] = _peak_rss_gb()
+    emit(rec)
+    return paths
+
+
+def slice_exactness_phase(torch, np, ll, de, pa, bpe, dev):
+    """Phase 25: phase 15's head-dim-8 Llama (hidden 32, 4 heads, 2 kv
+    heads, max_len 32, f32, random weights from a seed, nonzero
+    adapters) as ``LlamaLoRA`` knobs with a byte-BPE tokenizer (512 ids),
+    served paged at page 8 on the card and on the CPU: seeded sampling,
+    a preemption (one slot, a background request evicted by an
+    interactive one, greedy and sampled) and a stream resume must give
+    identical tokens and texts; B1 and B2 must launch."""
+    work = ROOT / "build" / "chip_smoke" / "slice_hd8"
+    work.mkdir(parents=True, exist_ok=True)
+    texts = _texts(write_corpus(np, work / "corpus.jsonl", 64, SEED + 27))
+    tok = bpe.ByteBPETokenizer.train(texts, 512)
+    tok_path = str(work / "bpe.json")
+    tok.save(tok_path)
+    knobs = {"hidden_dim": 32, "depth": 2, "n_heads": 4, "kv_ratio": 2,
+             "lora_rank": 4, "max_len": 32, "bf16": False,
+             "tokenizer_path": tok_path}
+    cpu = torch.device("cpu")
+    host = ll.LlamaLoRA(device=cpu, **knobs)
+    gen = torch.Generator().manual_seed(SEED)
+    net = host._module()
+    randomize_lora_b(net, gen)
+    blob = {"params": _nest({k: t.detach().numpy().copy()
+                             for k, t in net.state_dict().items()}),
+            "meta": {"id2tok": {}, "bpe_merges": [list(m) for m in
+                                                  tok.merges]}}
+    prompts = [_prompt_ids(np, tok, t, 16) for t in texts[:8]]
+
+    def serve(device):
+        m = ll.LlamaLoRA(device=device, **knobs)
+        m.load_parameters(blob)
+        out = {}
+        eng = m.make_decode_engine(max_slots=4, max_new_tokens=10,
+                                   steps_per_sync=2, kv_page_size=8)
+        core = eng.engine
+        done, _s, _t = _run_engine(core, [
+            (f"s{i}", prompts[i], 10, dict(SAMPLING, seed=i))
+            for i in range(4)] + [(f"g{i}", prompts[4 + i], 10, {})
+                                  for i in range(4)])
+        out["sampled"] = done
+        for mode in ("greedy", "sampled"):
+            kw = dict(SAMPLING, seed=3) if mode == "sampled" else {}
+            one = de.DecodeEngine(core.module, max_slots=1, max_len=32,
+                                  steps_per_sync=2, device=device)
+            one.submit("bg", prompts[0], 12, slo="background", **kw)
+            one.step()
+            one.step()
+            one.submit("ia", prompts[1], 6, slo="interactive", **kw)
+            done = {}
+            while len(done) < 2:
+                one.step()
+                done.update({r: [int(t) for t in ids]
+                             for r, ids in one.poll()})
+            out[f"preempt_{mode}"] = (done, one.stats["preemptions"])
+        whole = {}
+        eng.submit("w", texts[9], max_new=10)
+        while not whole:
+            eng.step()
+            whole.update(dict(eng.poll()))
+        prefix = whole["w"][:len(whole["w"]) // 2]
+        eng.submit("r", texts[9], max_new=10, forced_prefix=prefix)
+        res = {}
+        while not res:
+            eng.step()
+            res.update(dict(eng.poll()))
+        out["resume"] = (whole["w"], prefix, res["r"])
+        return out
+
+    want = serve(cpu)
+    torch.cuda.synchronize()
+    _zero_paged(pa)
+    got = serve(dev)
+    torch.cuda.synchronize()
+    launches = _paged_counts(pa)
+    same = {k: got[k] == want[k] for k in want}
+    rec = {"phase": "slice_hd8_exactness", "knobs": knobs,
+           "bpe_vocab": tok.vocab_size, "identical": same,
+           "preemptions": {k: got[k][1] for k in got
+                           if k.startswith("preempt")},
+           "resume_starts_with_prefix": got["resume"][2].startswith(
+               got["resume"][1]),
+           "launches": launches}
+    emit(rec)
+    if not all(same.values()):
+        raise AssertionError(f"card and CPU differ: {same}")
+    if min(v for k, v in rec["preemptions"].items()) < 1:
+        raise AssertionError(f"no preemption: {rec['preemptions']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a paged kernel never launched: {launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=32,
@@ -3331,9 +3974,14 @@ def main(argv=None):
     ap.add_argument("--train-depth", type=int, default=32,
                     help="decoder depth of the training leg (widths are "
                          "never cut)")
-    ap.add_argument("--worker-depth", type=int, default=32,
+    ap.add_argument("--worker-depth", type=int, default=8,
                     help="decoder depth of the Llama worker leg, phase 18 "
-                         "(widths are never cut)")
+                         "(widths are never cut; 8 of 32 by default, for "
+                         "the call's time)")
+    ap.add_argument("--slice-depth", type=int, default=32,
+                    help="decoder depth of phase 24's tokenizer, "
+                         "checkpoint, fine-tune and serving leg (widths "
+                         "are never cut)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3351,8 +3999,10 @@ def main(argv=None):
     from rafiki_tpu_torch import advisor as adv
     from rafiki_tpu_torch.model import loop as lp
     from rafiki_tpu_torch.model import optim
+    from rafiki_tpu_torch.data import bpe
     from rafiki_tpu_torch.model.base import TrainContext
     from rafiki_tpu_torch.models import bert
+    from rafiki_tpu_torch.models import convert as conv
     from rafiki_tpu_torch.models import llama_lora as ll
     from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.models.bert import HashTokenizer
@@ -3365,6 +4015,7 @@ def main(argv=None):
     from rafiki_tpu_torch.store import meta_store as ms
     from rafiki_tpu_torch.store import param_store as ps
     from rafiki_tpu_torch.store import params as store_params
+    from rafiki_tpu_torch.store import safetensors_io as sio
     from rafiki_tpu_torch.worker import inference as wi
     from rafiki_tpu_torch.worker import train as wt
 
@@ -3382,10 +4033,13 @@ def main(argv=None):
           "build_s": build_s, "kernels_compiled": len(ptxas),
           "spilling": [e["mangled"] for e in ptxas if e["spill_bytes"]],
           "most_registers": max((e["registers"] or 0) for e in ptxas)})
-    if (args.depth, args.train_depth, args.worker_depth) != (32, 32, 32):
-        print(f"chip_smoke: Llama legs cut to depth {args.depth} (serving)"
-              f", {args.train_depth} (training) and {args.worker_depth} "
-              "(worker) of 32", flush=True)
+    depths = {"serving": args.depth, "training": args.train_depth,
+              "worker": args.worker_depth, "slice": args.slice_depth}
+    cut = {leg: d for leg, d in depths.items() if d != 32}
+    if cut:
+        print("chip_smoke: Llama legs cut to depth " + ", ".join(
+            f"{d} ({leg})" for leg, d in cut.items()) + " of 32",
+            flush=True)
 
     dev = torch.device("cuda")
     # the paths' launch counts assume the per-head forward (B3) whatever
@@ -3438,6 +4092,8 @@ def main(argv=None):
                                                    dev)
     paths["llama_hd8_int8_serving"] = hd8_serving_phase(
         torch, np, ll, de, pa, dev, int8=True)
+    paths["llama_slice_hd8"] = slice_exactness_phase(torch, np, ll, de, pa,
+                                                     bpe, dev)
     torch.cuda.empty_cache()
     # phase 18 runs last, so its 35 GB of host memory cannot weigh on the
     # other phases' host-clock timings
@@ -3453,6 +4109,9 @@ def main(argv=None):
                                     wi, fa, pa, dev))
     torch.cuda.empty_cache()
     paths.update(stack_phase(torch, np, vit, dev))
+    torch.cuda.empty_cache()
+    paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe,
+                             args.slice_depth, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)

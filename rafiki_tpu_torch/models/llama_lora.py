@@ -25,11 +25,15 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
   (:func:`make_trainable`), :func:`merge`, ``lm_valid_mask`` /
   ``lm_loss_terms``, :func:`adamw` and :func:`train_step`;
 - the ``LlamaLoRA`` template: ``train`` (the unsharded
-  ``_train_functional`` loop), ``evaluate``, ``dump_parameters``,
-  ``load_parameters`` (blobs move both ways with the JAX template),
-  ``predict``, ``warmup``, ``make_decode_engine`` and
+  ``_train_functional`` loop, and with ``pretrained_path`` the base
+  weights of an HF-convention safetensors checkpoint), ``evaluate``,
+  ``dump_parameters``, ``load_parameters`` (blobs move both ways with
+  the JAX template, ``meta["bpe_merges"]`` included), ``predict``,
+  ``warmup``, ``make_decode_engine`` and
   ``estimate_serving_device_bytes`` (the worker's admission budget), with
-  the int8 serving knobs ``quantize_int8`` and ``kv_cache_int8``.
+  the int8 serving knobs ``quantize_int8`` and ``kv_cache_int8`` and the
+  byte-BPE tokenizer of ``tokenizer_path`` (``_bpe``, ``_same_tokenizer``;
+  the vocabulary follows the artifact, generations decode exactly).
 
 Layouts follow the JAX package: kernels are ``(d_in, features)`` and a
 LoRA site computes ``x @ W + ((x @ A) @ B) * alpha / rank``. Parameters
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rafiki_tpu_torch.data.bpe import ByteBPETokenizer
 from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
 from rafiki_tpu_torch.model.base import (TrainContext,
@@ -63,6 +68,10 @@ from rafiki_tpu_torch.model.dev import check_gang_size
 from rafiki_tpu_torch.model.loop import epoch_count
 from rafiki_tpu_torch.model.template_utils import same_tree_shapes
 from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
+from rafiki_tpu_torch.models.convert import (hf_name_for,
+                                             import_llama_safetensors,
+                                             read_hf_rope_config,
+                                             structure_copy)
 from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
@@ -104,6 +113,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def _same_tokenizer(a: Any, b: Any) -> bool:
+    """Do two tokenizers map ids to the same text? BPE tokenizers compare
+    merge tables; otherwise same type and vocab (a HashTokenizer is
+    determined by its vocab size)."""
+    if type(a) is not type(b):
+        return False
+    am, bm = getattr(a, "merges", None), getattr(b, "merges", None)
+    if am is not None or bm is not None:
+        return am == bm
+    return a.vocab_size == b.vocab_size
 
 
 def _parse_rope_scaling(value: Any) -> Optional[RopeScaling]:
@@ -353,7 +374,14 @@ class _DecoderAttention(nn.Module):
         # causality then falls out of the per-row position mask
         if page_tables is not None:
             page_size = ck.shape[1]
-            widx = (torch.gather(page_tables, 1, (t // page_size).long()),
+            col = (t // page_size).long()
+            width = page_tables.shape[1]
+            # a column past the table's live width (a slot re-fed at a
+            # page boundary during another's chunked prefill) writes to
+            # the scratch page 0, as JAX's gather fills such an index
+            # and its scatter drops the write: no live row reads either
+            page = torch.gather(page_tables, 1, col.clamp(max=width - 1))
+            widx = (torch.where(col < width, page, torch.zeros_like(page)),
                     t % page_size)
         else:
             widx = (torch.arange(b, device=x.device)[:, None].expand(b, s),
@@ -472,6 +500,8 @@ class Llama(nn.Module):
         self.n_heads = int(n_heads)
         self.n_kv_heads = int(n_kv_heads)
         self.dtype = torch.float32 if dtype is None else dtype
+        self.rope_theta = float(rope_theta)
+        self.rope_scaling = rope_scaling
         self.kv_page_size = int(kv_page_size)
         self.kv_pages = int(kv_pages)
         self.quantized = bool(quantized)
@@ -739,17 +769,30 @@ def _default_kv_pages(max_slots: int, max_len: int, page_size: int) -> int:
     return 1 + max_slots * (max_len // page_size)
 
 
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``state_dict``-keyed leaves as the nested params tree."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
 def _replace_leaves(tree: Dict[str, Any],
                     leaves: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """``tree`` with the leaves named by ``state_dict`` key replaced (as
-    f32 numpy)."""
-    out = f32_tree(tree)
+    """``tree`` (an f32 tree the caller owns and never writes) with the
+    leaves named by ``state_dict`` key replaced by f32 numpy copies; the
+    other leaves are shared, not copied."""
+    out = structure_copy(tree)
     for key, t in leaves.items():
         node = out
         *path, leaf = key.split(".")
         for part in path:
             node = node[part]
-        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = np.array(t.detach().to("cpu", torch.float32))
     return out
 
 
@@ -760,9 +803,9 @@ class LlamaLoRA:
     ``depth``, ``n_heads``, ``kv_ratio``, ``lora_rank``, ``lora_scale``,
     ``learning_rate``, ``batch_size``, ``max_epochs``, ``max_len``,
     ``vocab_size``, ``bf16``, ``adapters_only``, ``rope_theta``,
-    ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``, ...); the
-    byte-BPE tokenizer, ``pretrained_path`` and the MoE knob are later
-    slices and raise. ``device=None`` is the CUDA card.
+    ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``,
+    ``tokenizer_path``, ``pretrained_path``, ...); the MoE knob is a later
+    slice and raises. ``device=None`` is the CUDA card.
 
     Parameters live as the JAX template keeps them: ``_params``, nested
     dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
@@ -782,8 +825,8 @@ class LlamaLoRA:
     def get_knob_config() -> KnobConfig:
         """The JAX template's search space, knob for knob (its JSON is
         JAX's). The knobs of later slices (parallelism, MoE, remat
-        schedules, the BPE tokenizer, pretrained weights) keep their
-        domains: a proposal that sets one raises when it trains."""
+        schedules) keep their domains: a proposal that sets one raises
+        when it trains."""
         return {
             "max_epochs": FixedKnob(6),
             "vocab_size": FixedKnob(1 << 14),
@@ -831,11 +874,16 @@ class LlamaLoRA:
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
         self.knobs: Dict[str, Any] = dict(knobs)
-        for key in ("tokenizer_path", "pretrained_path", "moe_experts"):
-            if self.knobs.get(key):
-                raise NotImplementedError(f"knob {key!r} is not ported yet")
-        self.tokenizer = HashTokenizer(int(self.knobs.get("vocab_size",
-                                                          1 << 14)))
+        if self.knobs.get("moe_experts"):
+            raise NotImplementedError("knob 'moe_experts' is not ported yet")
+        tok_path = str(self.knobs.get("tokenizer_path") or "")
+        if tok_path:
+            # the vocabulary follows the artifact: the embedding must
+            # match the merge table, not the vocab_size knob
+            self.tokenizer: Any = ByteBPETokenizer.load(tok_path)
+        else:
+            self.tokenizer = HashTokenizer(int(self.knobs.get("vocab_size",
+                                                              1 << 14)))
         self._params: Optional[Dict[str, Any]] = None
         self._model: Optional[Llama] = None
         self._qmodel: Optional[Llama] = None  # the int8 serving model
@@ -903,21 +951,24 @@ class LlamaLoRA:
 
     def load_parameters(self, params: Dict[str, Any]) -> None:
         """Load a ``dump_parameters()`` dict — the port's or the JAX
-        template's: the format is one."""
+        template's: the format is one. A ``meta["bpe_merges"]`` table
+        rebuilds the byte-BPE tokenizer it was trained with."""
         meta = params["meta"]
-        if meta.get("bpe_merges") is not None:
-            raise NotImplementedError(
-                "the byte-BPE tokenizer is not ported yet")
         self._id2tok = {int(k): v for k, v in meta["id2tok"].items()}
+        merges = meta.get("bpe_merges")
+        if merges is not None:
+            self.tokenizer = ByteBPETokenizer(
+                [tuple(int(x) for x in m) for m in merges])
         self._set_params(params["params"])
 
-    def _set_params(self, tree: Dict[str, Any]) -> None:
+    def _set_params(self, tree: Dict[str, Any], own: bool = False) -> None:
         """Keep ``tree`` (f32 copies, but read-only f32 leaves — views
-        into a param-store blob — as they are) and drop the models of the
-        previous tree; build the compute-dtype model from it (matmul
-        leaves cast once) unless ``quantize_int8`` serves the int8 one
-        instead."""
-        self._params = f32_tree(tree, copy=False)
+        into a param-store blob — as they are, and every leaf as it is
+        when ``own``: a tree :meth:`train` just built) and drop the
+        models of the previous tree; build the compute-dtype model from
+        it (matmul leaves cast once) unless ``quantize_int8`` serves the
+        int8 one instead."""
+        self._params = tree if own else f32_tree(tree, copy=False)
         self._model = self._qmodel = None
         if not self.knobs.get("quantize_int8"):
             self._float_model()
@@ -927,25 +978,37 @@ class LlamaLoRA:
         JAX template's format, loadable by either template."""
         if self._params is None:
             raise RuntimeError("model is not trained/loaded")
-        return {"params": f32_tree(self._params),
-                "meta": {"id2tok": {str(k): v
-                                    for k, v in self._id2tok.items()}}}
+        meta: Dict[str, Any] = {"id2tok": {str(k): v
+                                           for k, v in self._id2tok.items()}}
+        if self._bpe:
+            # the merge table travels with the weights: a serving host
+            # rebuilds the tokenizer without the artifact file
+            meta["bpe_merges"] = [list(m) for m in self.tokenizer.merges]
+        return {"params": f32_tree(self._params), "meta": meta}
+
+    @property
+    def _bpe(self) -> bool:
+        """True when a real (invertible) tokenizer is active."""
+        return hasattr(self.tokenizer, "decode")
 
     # ---- training ----
     def _encode_lm(self, texts: Sequence[str]
                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """BOS-prefixed token rows. Also grows the id→token table used
-        to detokenize generations (hashing is one-way)."""
+        """BOS-prefixed token rows. With the hash tokenizer this also
+        grows the id→token table used to detokenize generations (hashing
+        is one-way); BPE decodes exactly and needs no table."""
         max_len = int(self.knobs["max_len"])
         ids = np.zeros((len(texts), max_len), np.int32)
         lens = np.zeros((len(texts),), np.int32)
         for i, t in enumerate(texts):
             row, n = self.tokenizer.encode(t, max_len)  # CLS slot = BOS
             ids[i], lens[i] = row, n
-            # mirror the tokenizer's own splitting so ids align with words
-            for tok_str, tok_id in zip(_TOKEN_RE.findall(t.lower()),
-                                       row[1:n]):
-                self._id2tok[int(tok_id)] = tok_str
+            if not self._bpe:
+                # mirror the tokenizer's own splitting so ids align
+                # with words
+                for tok_str, tok_id in zip(_TOKEN_RE.findall(t.lower()),
+                                           row[1:n]):
+                    self._id2tok[int(tok_id)] = tok_str
         return ids, lens
 
     def _check_trainable_knobs(self) -> None:
@@ -961,8 +1024,6 @@ class LlamaLoRA:
             ("model_parallel", 1), ("sequence_parallel", 1),
             ("pipeline_stages", 1), ("grad_accum", 1), ("moe_experts", 0),
             ("loss_chunk", 0)) if on(name, default)]
-        if k.get("pretrained_path"):
-            blockers.append("pretrained_path")
         if k.get("remat"):
             blockers.append("remat")
         if str(k.get("remat_policy") or "none") != "none":
@@ -1036,10 +1097,15 @@ class LlamaLoRA:
         """LoRA fine-tune on a ``.jsonl`` text corpus: the JAX template's
         functional loop (``_train_functional``). The init is the loaded
         weights when their shapes match, else ``ctx.shared_params`` under
-        the ``share_params`` knob, else the port's seeded init. Batches
-        come from ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens``
-        are logged per epoch. At the end ``_params`` holds the trained
-        tree with ``lora_scale`` folded into ``lora_b``."""
+        the ``share_params`` knob, else the port's seeded init; with
+        ``pretrained_path`` on a fresh, non-warm start every base leaf
+        comes from that HF-convention checkpoint, read tensor by tensor
+        (the LoRA adapters keep their init; a ``config.json`` whose
+        ``rope_theta`` or ``rope_scaling`` disagrees with the knobs is
+        warned about, as in JAX). Batches come from
+        ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens`` are logged
+        per epoch. At the end ``_params`` holds the trained tree with
+        ``lora_scale`` folded into ``lora_b``."""
         self._check_trainable_knobs()
         ctx = ctx or TrainContext()
         ds = load_text_classification_dataset(dataset_path)
@@ -1047,16 +1113,29 @@ class LlamaLoRA:
         model = self._module()
         names = lora_trainable_names(
             model, bool(self.knobs.get("adapters_only", False)))
-        fresh = params_to_jax(model.state_dict())
-        base = fresh
+        state = model.state_dict()
+        shapes = _nest(state)  # the module's own tensors: no host copy
+        base = None
+        warm = False
         if self._params is not None and \
-                same_tree_shapes(fresh, self._params):
+                same_tree_shapes(shapes, self._params):
             base = self._params  # re-train / load_parameters
         shared = (ctx.shared_params or {}).get("params")
         if self.knobs.get("share_params") and shared is not None and \
-                same_tree_shapes(fresh, shared):
-            base = shared
-        base = f32_tree(base)
+                same_tree_shapes(shapes, shared):
+            base, warm = shared, True
+        pretrained = str(self.knobs.get("pretrained_path") or "")
+        if pretrained and self._params is None and not warm:
+            self._check_pretrained_rope(pretrained, model)
+            # adapters from the init (copied off the module), the rest
+            # straight from the file into a tree of fresh f32 arrays
+            base = import_llama_safetensors(pretrained, _nest({
+                key: (np.array(t.detach().to("cpu", torch.float32))
+                      if hf_name_for(tuple(key.split("."))) is None
+                      else t) for key, t in state.items()}))
+        else:
+            base = f32_tree(params_to_jax(state) if base is None else base)
+        del state, shapes
         trainable = make_trainable(model, names)
         model.load_state_dict(llama_params_from_jax(base, model.dtype,
                                                     trainable))
@@ -1090,7 +1169,43 @@ class LlamaLoRA:
                     not ctx.should_continue(epoch, -mean_loss):
                 break
         del opt, model
-        self._set_params(folded())
+        self._set_params(folded(), own=True)
+
+    def _check_pretrained_rope(self, pretrained: str, model: Llama) -> None:
+        """Warn when the checkpoint's ``config.json`` disagrees with the
+        rope the model applies: a mismatched ``rope_theta``, or
+        ``rope_scaling`` declared but not applied, applied but not
+        declared, different, or of a type this model cannot apply. Each
+        loads cleanly and generates garbage."""
+        import logging
+
+        log = logging.getLogger(__name__)
+        cfg_theta, cfg_scaling = read_hf_rope_config(pretrained)
+        if cfg_theta is not None and \
+                abs(cfg_theta - model.rope_theta) > 1e-6:
+            log.warning(
+                "checkpoint config.json says rope_theta=%s but the "
+                "rope_theta knob is %s — a mismatched theta loads "
+                "cleanly and generates GARBAGE; set the knob to match "
+                "the checkpoint", cfg_theta, model.rope_theta)
+        have = model.rope_scaling
+        if cfg_scaling or have is not None:
+            want = None
+            unsupported = False
+            if cfg_scaling:
+                try:
+                    want = _parse_rope_scaling(cfg_scaling)
+                except (ValueError, TypeError):
+                    unsupported = True
+            if unsupported or (have is None) != (want is None) or (
+                    have is not None and want is not None and any(
+                        abs(a - b) > 1e-6 for a, b in zip(have, want))):
+                log.warning(
+                    "checkpoint config.json rope_scaling=%r but the "
+                    "rope_scaling knob resolves to %r — set the knob to "
+                    "the checkpoint's values (or clear it) or "
+                    "long-context generations silently degrade",
+                    cfg_scaling, have)
 
     def evaluate(self, dataset_path: str) -> float:
         """Inverse perplexity exp(−nll) in (0, 1]; higher is better.
@@ -1267,8 +1382,11 @@ class LlamaLoRA:
         return out
 
     def _detok(self, ids: Sequence[Any]) -> str:
-        """Render generated ids through the learned id→token table
-        (hashing is one-way; unknown ids render as ``<id>``)."""
+        """Render generated ids: exact BPE decode when a real tokenizer
+        is active, else the learned id→token table (hashing is one-way;
+        unknown ids render as ``<id>``)."""
+        if self._bpe:
+            return self.tokenizer.decode(int(t) for t in ids).lstrip()
         return " ".join(self._id2tok.get(int(t), f"<{int(t)}>")
                         for t in ids)
 

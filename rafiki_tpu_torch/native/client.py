@@ -10,8 +10,9 @@ package's ``kv_server.cc`` (``rafiki_tpu_torch/native/kv_server.cc``):
 ``build/rafiki_tpu_torch/rafiki-kvd`` (a directory ``.gitignore`` lists),
 again whenever the source is newer, writing a temporary name and
 renaming it so a process that already runs the old binary keeps a valid
-file. The JAX build's sanitizer flavours and its BPE library are not
-ported.
+file; ``ensure_built(target="librbpe.so")`` builds the byte-BPE encoder
+(``native/bpe_encoder.cc``) the same way, as a shared library. The JAX
+build's sanitizer flavours are not ported.
 
 Crash survival: :class:`KVServer` can spawn the kvd with a
 ``--data-dir`` so every mutating command lands in a CRC-checksummed WAL
@@ -40,6 +41,10 @@ SOURCE = Path(__file__).resolve().parent / "kv_server.cc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "rafiki_tpu_torch"
 CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-pthread")
+#: build target -> (source, extra g++ flags)
+TARGETS = {"rafiki-kvd": (SOURCE, ()),
+           "librbpe.so": (SOURCE.with_name("bpe_encoder.cc"),
+                          ("-shared", "-fPIC"))}
 
 #: process-wide client-resilience counters, re-exported on every
 #: /metrics surface that talks to the kvd (one socket layer, one truth)
@@ -57,29 +62,31 @@ _RETRYABLE = frozenset({
 _build_lock = threading.Lock()
 
 
-def ensure_built(force: bool = False) -> Path:
-    """Compile ``kv_server.cc`` into ``build/rafiki_tpu_torch/rafiki-kvd``
-    when the binary is missing or older than the source (or ``force``);
+def ensure_built(force: bool = False, target: str = "rafiki-kvd") -> Path:
+    """Compile ``target``'s source (``kv_server.cc`` for the kvd,
+    ``bpe_encoder.cc`` for ``librbpe.so``) into ``build/rafiki_tpu_torch/``
+    when the output is missing or older than the source (or ``force``);
     returns its path. ``g++`` writes a temporary name that is then
-    renamed over the binary. Raises ``RuntimeError`` when there is no
+    renamed over the output. Raises ``RuntimeError`` when there is no
     ``g++`` or the compile fails."""
-    out = BUILD_DIR / "rafiki-kvd"
+    source, flags = TARGETS[target]
+    out = BUILD_DIR / target
     with _build_lock:
         if not force and out.exists() and \
-                out.stat().st_mtime >= SOURCE.stat().st_mtime:
+                out.stat().st_mtime >= source.stat().st_mtime:
             return out
         cxx = os.environ.get("CXX") or shutil.which("g++")
         if not cxx:
-            raise RuntimeError("g++ not found; cannot build rafiki-kvd "
-                               f"from {SOURCE}")
+            raise RuntimeError(f"g++ not found; cannot build {target} "
+                               f"from {source}")
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
-                               str(SOURCE)],
+        proc = subprocess.run([cxx, *CXXFLAGS, *flags, "-o", str(tmp),
+                               str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed building {SOURCE.name} "
+            raise RuntimeError(f"g++ failed building {source.name} "
                                f"(exit {proc.returncode}):\n"
                                f"{proc.stderr}")
         os.replace(tmp, out)

@@ -4,7 +4,9 @@ Ports the core of ``rafiki_tpu/serving/decode_engine.py``:
 
 - ``_Slot``, ``DecodeEngine`` (``__init__``, ``submit``, ``step``,
   ``poll``, ``poll_partial``, ``busy``, ``reset``, ``reset_stats``,
-  ``stats_snapshot``) and ``TextDecodeEngine``;
+  ``stats_snapshot``) and ``TextDecodeEngine`` with stream resume
+  (``supports_resume``, ``resume_sep``, ``submit(forced_prefix=)``: the
+  delivered text is re-ingested as prompt and presented as output);
 - the paged-KV allocator: a LIFO free list over pool pages
   ``1..n_pages-1`` (page 0 is the scratch page idle lanes write to),
   worst-case page reservation at admission (a request that does not fit
@@ -16,9 +18,21 @@ Ports the core of ``rafiki_tpu/serving/decode_engine.py``:
   ``_mark_progress``): ``admitted``, ``prefill``, ``first_token``,
   ``decode_mark`` (every ``SPAN_DECODE_MARK_EVERY`` generated tokens) and
   ``done``, with the JAX engine's attributes at the JAX engine's points;
-- ``_make_step`` → :func:`_decode_steps`: K greedy decode steps as a
-  Python loop with on-device input selection and ONE host sync (the
-  emitted tokens) per call;
+- SLO preemption: on a full engine a higher-class head evicts the
+  youngest lowest-class, unshielded occupant (``_occupants``,
+  ``_victim_for``, ``_evictable_for``, ``_res_of``, ``_resumed_from``,
+  ``_preempt_slot``), after a feasibility check that the evictions can
+  end in its admission; the victim re-queues front-of-class with its
+  tokens in ``_Slot.prior`` and resumes token-exact (``preempted`` span,
+  ``resumed`` on the re-``admitted`` one, the ``preemptions`` counter);
+  an aged promotion is ``shielded``. The host KV tier is not ported, so
+  there are no parked occupants: handles are live lanes only
+  (``_preempt_parked`` waits for the tier);
+- ``_make_step`` → :func:`_decode_steps`: K decode steps as a Python
+  loop with on-device input selection and ONE host sync (the emitted
+  tokens) per call; argmax, or :func:`_select_next` (temperature,
+  top-k/top-p, a threefry categorical keyed by (seed, position), bit for
+  bit the JAX engine's draws) when a live slot samples;
 - ``_make_prefill`` → :func:`_prefill`: one C-token cache pass that
   stops at the final norm (the (B, C, vocab) lm_head is never computed;
   XLA dead-code-eliminated it, eager PyTorch must not run it).
@@ -32,18 +46,17 @@ paged engine's every decode call goes through the hand-written kernels
 Left for later slices, raising :class:`NotPorted` (a
 ``NotImplementedError`` that is also a ``ValueError``, so a serving worker
 answers such a request with an error reply naming it and serves on):
-sampling (``temperature > 0`` needs threefry parity; ``top_k``, ``top_p``
-and ``seed`` are taken and, as in JAX, ignored by greedy decoding),
-stream resume (``forced_prefix``), adapters other than 0 (multi-adapter
-engines), speculation (``speculate_k >= 2``, ``draft``), the host KV tier
-(``host_kv_pages > 0``), registered/imported/exported prefixes and KV
-shipment (``poll_kv``, ``stage_kv_blob``), and SLO preemption (classes
-still order admission; no ``preempted`` span is emitted).
+adapters other than 0 (multi-adapter engines), speculation
+(``speculate_k >= 2``, ``draft``), the host KV tier (``host_kv_pages >
+0``, and with it parked occupants), registered/imported/exported
+prefixes and KV shipment (``poll_kv``, ``stage_kv_blob``,
+``TextDecodeEngine.submit(kv_blob=)``).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -53,7 +66,9 @@ import torch
 
 from rafiki_tpu_torch.obs.metrics import StatsMap
 from rafiki_tpu_torch.serving.slo import (DEFAULT_SLO, ClassQueue,
-                                          normalize_slo)
+                                          evictable_occupants,
+                                          normalize_slo, preemption_victim)
+from rafiki_tpu_torch.utils import threefry
 from rafiki_tpu_torch.utils.device import (DeviceLike, resolve_device,
                                            same_device)
 
@@ -63,13 +78,25 @@ class _Slot:
     request_id: Any
     prompt: np.ndarray          # (p,) int32, valid tokens only
     max_new: int
+    temperature: float = 0.0    # <= 0 → greedy
+    top_k: int = 0              # <= 0 → no top-k cut
+    top_p: float = 1.0          # >= 1 → no nucleus cut
+    seed: int = 0               # with (position) → the sample's key
     eos_id: Optional[int] = None  # emitting this token ends the request
     slo: str = DEFAULT_SLO      # admission class (interactive first)
-    seq: int = 0                # arrival order
+    seq: int = 0                # arrival order; preemption evicts the
+    #                             youngest lowest-class victim
     n_consumed: int = 0         # tokens fed to the model so far
     generated: List[int] = field(default_factory=list)
-    n_streamed: int = 0         # generated tokens already poll_partial'd
+    #: tokens generated before a preemption: re-ingested as prompt on
+    #: resume but still output, so poll/poll_partial present
+    #: prior + generated
+    prior: List[int] = field(default_factory=list)
+    n_streamed: int = 0         # output tokens already poll_partial'd
     first_tokened: bool = False  # first_token span already emitted
+    #: admitted by the aging promotion: immune to preemption (evicting
+    #: it on the next interactive arrival would starve it again)
+    shielded: bool = False
 
 
 #: generated tokens between two ``decode_mark`` spans
@@ -133,6 +160,11 @@ class DecodeEngine:
         self._prompt_buf = np.zeros((self.B, self.L), np.int32)
         self._prompt_len = np.ones((self.B,), np.int32)
         self._stop_pos = np.zeros((self.B,), np.int32)
+        # per-slot sampling parameters (device operands of sampled calls)
+        self._temp = np.zeros((self.B,), np.float32)
+        self._topk = np.zeros((self.B,), np.int32)
+        self._topp = np.ones((self.B,), np.float32)
+        self._seed = np.zeros((self.B,), np.int32)
         #: device copy of the prompts, refreshed only on admission
         self._prompt_dev: Optional[torch.Tensor] = None
         #: paged KV: host-owned page tables + free-list allocator over
@@ -172,6 +204,9 @@ class DecodeEngine:
             "kv_pages_used": 0, "kv_pages_high_water": 0,
             "kv_pages_total": (self.n_pages - 1 if self.paged else 0),
             "admission_stalls": 0,
+            # SLO plane: evictions of lower-class work so a higher
+            # class could admit, and aging promotions
+            "preemptions": 0, "slo_aged_promotions": 0,
             "queued_interactive": 0, "queued_batch": 0,
             "queued_background": 0})
         #: optional request-lifecycle hook ``(event, request_id, attrs)``;
@@ -186,16 +221,17 @@ class DecodeEngine:
                top_p: float = 1.0, seed: int = 0,
                eos_id: Optional[int] = None, adapter_id: int = 0,
                slo: str = "") -> None:
-        """Queue a greedy request. ``prompt_ids``: 1-D valid tokens
-        (>= 1); prompt + generation are truncated to fit the cache.
+        """Queue a request. ``prompt_ids``: 1-D valid tokens (>= 1);
+        prompt + generation are truncated to fit the cache.
         ``temperature <= 0`` is greedy, which ignores ``top_k``, ``top_p``
-        and ``seed`` (as the JAX engine's greedy program does); sampling
-        raises :class:`NotPorted`. ``eos_id`` ends the request when
-        emitted (the EOS is dropped from the reply). ``adapter_id`` must
-        be 0: this engine serves one adapter. ``slo`` orders admission
-        (interactive, batch, background)."""
-        if float(temperature) > 0:
-            raise _not_ported("sampling (temperature > 0)")
+        and ``seed``; otherwise top-k/top-p-filtered categorical sampling
+        keyed by ``fold_in(fold_in(PRNGKey(0), seed), position)``, so a
+        draw depends only on (seed, position), never on the batch.
+        ``eos_id`` ends the request when emitted (the EOS is dropped from
+        the reply). ``adapter_id`` must be 0: this engine serves one
+        adapter. ``slo`` orders admission (interactive, batch,
+        background), and a full engine preempts lower-class occupants
+        for a higher-class head."""
         if int(adapter_id) != 0:
             raise _not_ported(f"adapter_id {int(adapter_id)} "
                               "(multi-adapter serving)")
@@ -217,6 +253,8 @@ class DecodeEngine:
             self._seq += 1
             self._cq.push(cls, _Slot(
                 request_id, prompt, max_new,
+                temperature=float(temperature), top_k=int(top_k),
+                top_p=float(top_p), seed=int(seed),
                 eos_id=None if eos_id is None else int(eos_id),
                 slo=cls, seq=self._seq))
 
@@ -227,14 +265,20 @@ class DecodeEngine:
         return done
 
     def poll_partial(self) -> List[Tuple[Any, List[int]]]:
-        """(request_id, generated-so-far) for still-live slots that
+        """(request_id, output-so-far) for still-live slots that
         produced new tokens since the last call: cumulative copies, not
-        deltas. Call from the thread that drives ``step``."""
+        deltas, of ``prior + generated`` (a preempt-resumed request
+        streams its whole output, never re-emitting the re-ingested
+        tokens). Call from the thread that drives ``step``."""
         out: List[Tuple[Any, List[int]]] = []
         for slot in self._slots:
-            if slot is not None and len(slot.generated) > slot.n_streamed:
-                out.append((slot.request_id, list(slot.generated)))
-                slot.n_streamed = len(slot.generated)
+            if slot is None:
+                continue
+            total = len(slot.prior) + len(slot.generated)
+            if total > slot.n_streamed:
+                out.append((slot.request_id,
+                            slot.prior + list(slot.generated)))
+                slot.n_streamed = total
         return out
 
     @property
@@ -263,6 +307,8 @@ class DecodeEngine:
         if self.span_sink is None:
             return
         if not slot.first_tokened:
+            # a flag, not n0 == 0: a preempt-resumed slot restarts its
+            # generated list but its stream already first-tokened
             slot.first_tokened = True
             self._span("first_token", slot.request_id)
         if n0 // SPAN_DECODE_MARK_EVERY != n1 // SPAN_DECODE_MARK_EVERY:
@@ -293,6 +339,10 @@ class DecodeEngine:
             self._prompt_buf[:] = 0
             self._prompt_len[:] = 1
             self._stop_pos[:] = 0
+            self._temp[:] = 0
+            self._topk[:] = 0
+            self._topp[:] = 1
+            self._seed[:] = 0
             self._prompt_dev = None
             if self.paged:
                 self._free_pages = list(range(self.n_pages - 1, 0, -1))
@@ -344,18 +394,25 @@ class DecodeEngine:
             self.stats.set("kv_pages_used", used)
             self.stats.max_set("kv_pages_high_water", used)
 
-    def _release_slot_pages(self, i: int) -> None:
-        """Return slot ``i``'s pages and reservation to the pool; its
-        table row points back at the scratch page."""
+    def _release_slot_pages(self, i: int, have_lock: bool = False
+                            ) -> None:
+        """Return slot ``i``'s pages and reservation to the pool (request
+        completed or preempted); its table row points back at the
+        scratch page. ``have_lock``: preemption calls this from the
+        admission loop, which holds ``_lock`` (not reentrant)."""
         n = int(self._n_alloc[i])
         if n:
             self._free_pages.extend(int(p) for p in self._ptab[i, :n])
             self._ptab[i, :n] = 0
             self._n_alloc[i] = 0
             self._ptab_dirty = True
-        with self._lock:
+        if have_lock:
             self._res_total -= int(self._n_res[i])
             self._n_res[i] = 0
+        else:
+            with self._lock:
+                self._res_total -= int(self._n_res[i])
+                self._n_res[i] = 0
         self.stats.set("kv_pages_used",
                        self.n_pages - 1 - len(self._free_pages))
 
@@ -437,6 +494,70 @@ class DecodeEngine:
                     self._slots[i].n_consumed += int(adv[i])
                     self._tok[i] = self._prompt_buf[i, int(self._pos[i])]
 
+    # ---- SLO preemption (lock held: admission-loop context) ----
+    def _occupants(self) -> List[Tuple[Any, str, int, bool]]:
+        """Admitted work as the ``(handle, slo, seq, shielded)`` tuples
+        the shared eviction policy consumes. Handles are ``("live",
+        lane)``: without the host tier nothing is parked."""
+        return [(("live", j), s.slo, s.seq, s.shielded)
+                for j, s in enumerate(self._slots) if s is not None]
+
+    def _victim_for(self, cls: str) -> Optional[Any]:
+        """The occupant to evict so a ``cls`` head can admit
+        (:func:`preemption_victim`: youngest lowest-class, shielded
+        immune)."""
+        return preemption_victim(cls, self._occupants())
+
+    def _evictable_for(self, cls: str) -> List[Any]:
+        """Every occupant :meth:`_victim_for` could return for a ``cls``
+        head. The feasibility check sums their reservations before any
+        eviction: a preemption that cannot end in the head admitting
+        would destroy the victims' progress for nothing."""
+        return [h for h, _s, _q in
+                evictable_occupants(cls, self._occupants())]
+
+    def _res_of(self, handle: Any) -> int:
+        return int(self._n_res[handle[1]])
+
+    def _resumed_from(self, slot: _Slot) -> _Slot:
+        """The front-of-class re-queued request a victim becomes: its
+        prompt plus everything generated so far, so re-admission
+        re-ingests them through chunked prefill at the same absolute
+        positions (token-exact: a greedy token depends only on the
+        history, a sampled one on (seed, position))."""
+        gen = list(slot.generated)
+        prompt = (np.concatenate([slot.prompt, np.asarray(gen, np.int32)])
+                  if gen else slot.prompt)
+        resumed = _Slot(slot.request_id, prompt, slot.max_new - len(gen),
+                        temperature=slot.temperature, top_k=slot.top_k,
+                        top_p=slot.top_p, seed=slot.seed,
+                        eos_id=slot.eos_id, slo=slot.slo, seq=slot.seq,
+                        prior=slot.prior + gen)
+        resumed.n_streamed = slot.n_streamed
+        resumed.first_tokened = slot.first_tokened
+        resumed.shielded = slot.shielded
+        return resumed
+
+    def _preempt_slot(self, j: int, by: str
+                      ) -> Tuple[Any, int, int, str, str]:
+        """Evict slot ``j`` mid-generation so a ``by``-class admission
+        fits: its pages and reservation return to the pool now, and it
+        re-queues front-of-class as :meth:`_resumed_from`. Returns the
+        ``preempted`` span record."""
+        slot = self._slots[j]
+        n_gen = len(slot.generated)
+        resumed = self._resumed_from(slot)
+        self._slots[j] = None
+        self._tok[j] = 0
+        self._pos[j] = 0  # a fresh occupant restarts at position 0
+        self._prompt_len[j] = 1
+        self._stop_pos[j] = 0
+        if self.paged:
+            self._release_slot_pages(j, have_lock=True)
+        self._cq.push(resumed.slo, resumed, front=True)
+        self.stats.inc("preemptions")
+        return (slot.request_id, j, n_gen, slot.slo, by)
+
     def _seat_slot(self, i: int, slot: _Slot) -> None:
         """Install a popped request into free slot ``i`` (lock held)."""
         self._slots[i] = slot
@@ -448,53 +569,87 @@ class DecodeEngine:
         # finish once pos reaches plen - 1 + max_new (the step at input
         # position p emits a generated token iff p >= plen - 1)
         self._stop_pos[i] = min(len(slot.prompt) - 1 + slot.max_new, self.L)
+        self._temp[i] = slot.temperature
+        self._topk[i] = slot.top_k
+        self._topp[i] = slot.top_p
+        self._seed[i] = np.int32(slot.seed & 0x7FFFFFFF)
         if self.paged:
             self._ensure_pages_to(i, 0)
 
     def step(self) -> int:
-        """Admit queued requests into free slots, run K decode steps for
-        every live slot, harvest completions. Returns the live count."""
-        admitted_info: List[Tuple[Any, int, int, str]] = []
+        """Admit queued requests into free slots (preempting lower-class
+        occupants for a higher-class head when the engine is full), run K
+        decode steps for every live slot, harvest completions. Returns
+        the live count."""
+        admitted_info: List[Tuple[Any, int, int, str, bool]] = []
+        preempted_info: List[Tuple[Any, int, int, str, str]] = []
         with self._lock:
             while True:
                 nxt = self._cq.peek()
                 if nxt is None:
                     break
-                _, head = nxt
+                cls, head = nxt
                 i = next((j for j in range(self.B)
                           if self._slots[j] is None), None)
-                if i is None:
-                    break
+                # feasibility before any eviction: the head admits only
+                # if its worst case fits what is not reserved plus what
+                # evicting strictly-lower-class, unshielded occupants
+                # would free; otherwise it waits (FIFO fairness) and
+                # nothing is evicted
+                victims = self._evictable_for(cls)
+                if i is None and not victims:
+                    break  # a lane can only come from a live victim
+                n_res = 0
                 if self.paged:
-                    # the head admits only if its worst case fits what is
-                    # not reserved; otherwise it WAITS (FIFO fairness:
-                    # smaller latecomers never overtake it)
                     n_res = self._pages_for(
                         min(len(head.prompt) - 1 + head.max_new, self.L))
-                    if self.n_pages - 1 - self._res_total < n_res:
+                    avail = self.n_pages - 1 - self._res_total
+                    reclaim = sum(self._res_of(h) for h in victims)
+                    if avail + reclaim < n_res:
                         self.stats.inc("admission_stalls")
                         break
+                if i is None:
+                    # every lane is taken: evict the youngest
+                    # lowest-class occupant for its lane
+                    i = self._victim_for(cls)[1]
+                    preempted_info.append(self._preempt_slot(i, cls))
+                if self.paged:
+                    # terminates in admission by the feasibility check
+                    while self._res_total + n_res > self.n_pages - 1:
+                        preempted_info.append(self._preempt_slot(
+                            self._victim_for(cls)[1], cls))
                     self._n_res[i] = n_res
                     self._res_total += n_res
+                # pop() is the peeked head: a preemption pushes only into
+                # strictly lower classes
                 _, slot = self._cq.pop()
+                if self._cq.last_pop_promoted:
+                    slot.shielded = True  # aging fired: not preemptible
                 self._seat_slot(i, slot)
                 admitted_info.append((slot.request_id, i,
-                                      len(slot.prompt), slot.slo))
+                                      len(slot.prompt), slot.slo,
+                                      bool(slot.prior)))
             depths = self._cq.depths()
+            self.stats.set("slo_aged_promotions", self._cq.promotions)
             live = [i for i in range(self.B) if self._slots[i] is not None]
             self.stats.max_set("max_concurrent", len(live))
         for c, d in depths.items():
             self.stats.set(f"queued_{c}", d)
         # spans outside the engine lock: the sink takes its own locks
-        for rid, row, plen, cls in admitted_info:
+        for rid, row, n_gen, vslo, by in preempted_info:
+            self._span("preempted", rid, slot=row, tokens=n_gen, slo=vslo,
+                       by=by)
+        for rid, row, plen, cls, resumed in admitted_info:
+            # `resumed` marks a preempt-resume re-admission: not a fresh
+            # queue-wait sample for observers
             self._span("admitted", rid, slot=row, prompt_tokens=plen,
-                       slo=cls, resumed=False)
+                       slo=cls, resumed=resumed)
         if not live:
             return 0
         admitted = bool(admitted_info)
         if admitted and self.C > 1:
             self._chunked_prefill()
-            for rid, _row, plen, _cls in admitted_info:
+            for rid, _row, plen, _cls, _res in admitted_info:
                 self._span("prefill", rid, prompt_tokens=plen)
         if admitted or self._prompt_dev is None:
             self._prompt_dev = self._dev(self._prompt_buf, torch.int64)
@@ -505,12 +660,21 @@ class DecodeEngine:
                 self._ensure_pages_to(i, min(
                     int(self._pos[i]) + self.K,
                     int(self._stop_pos[i])) - 1)
+        # the sampler (a vocab sort per step) runs only in calls where a
+        # live slot samples, as JAX compiles a separate greedy program
+        sampling = None
+        if any(self._slots[i].temperature > 0 for i in live):
+            sampling = (self._dev(self._temp, torch.float32),
+                        self._dev(self._topk, torch.int32),
+                        self._dev(self._topp, torch.float32),
+                        self._dev(self._seed, torch.int32))
         emitted = _decode_steps(
             self.module, self._cache, self.K,
             self._dev(self._tok, torch.int64),
             self._dev(self._pos, torch.int32), self._prompt_dev,
             self._dev(self._prompt_len, torch.int32),
-            self._dev(self._stop_pos, torch.int32), self._ptab_arg())
+            self._dev(self._stop_pos, torch.int32), self._ptab_arg(),
+            sampling)
         self.stats.inc("steps", self.K)
 
         finished: List[Tuple[Any, List[int]]] = []
@@ -539,7 +703,9 @@ class DecodeEngine:
             self._pos[i] = pos0 + n_real
             if (eos_hit or len(slot.generated) >= slot.max_new
                     or int(self._pos[i]) >= self.L):
-                finished.append((slot.request_id, slot.generated))
+                # a preempt-resumed request replies with its whole output
+                finished.append((slot.request_id,
+                                 slot.prior + slot.generated))
                 self._slots[i] = None
                 self._tok[i] = 0
                 self._pos[i] = 0  # a fresh occupant restarts at 0
@@ -561,24 +727,63 @@ class DecodeEngine:
         return len(live)
 
 
+def _select_next(logits: torch.Tensor, temp: torch.Tensor,
+                 top_k: torch.Tensor, top_p: torch.Tensor,
+                 seed: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Per-slot token selection on the device (the JAX ``_select_next``):
+    greedy where ``temp <= 0``, else temperature-scaled categorical over
+    the top-k/top-p-filtered distribution. Both filters are a per-row
+    logit threshold on one descending sort (the k-th largest; the
+    smallest logit of the minimal nucleus). The draw's key is
+    ``fold_in(fold_in(PRNGKey(0), seed), pos)``. ``logits`` (B, V) f32;
+    the rest (B,)."""
+    v = logits.shape[-1]
+    greedy = logits.argmax(-1)
+    lg = logits / temp.clamp(min=1e-6)[:, None]
+    sorted_lg = lg.sort(-1, descending=True).values
+    kk = torch.where(top_k <= 0, v, top_k).clamp(1, v).long()
+    k_thresh = sorted_lg.gather(-1, (kk - 1)[:, None])
+    probs = torch.softmax(sorted_lg, -1)
+    cum = probs.cumsum(-1)
+    # the minimal prefix whose mass reaches top_p (the first token's
+    # "mass before" is 0 < top_p, so it is always kept)
+    keep = (cum - probs) < top_p.clamp(min=1e-6)[:, None]
+    p_thresh = torch.where(keep, sorted_lg,
+                           torch.full_like(sorted_lg, math.inf)
+                           ).amin(-1, keepdim=True)
+    masked = torch.where(lg >= torch.maximum(k_thresh, p_thresh), lg,
+                         torch.full_like(lg, -1e30))
+    keys = threefry.fold_in(
+        threefry.fold_in(threefry.prng_key(0, device=logits.device), seed),
+        pos)
+    sampled = threefry.categorical(keys, masked)
+    return torch.where(temp <= 0, greedy, sampled)
+
+
 def _decode_steps(module: Any, cache: List[Dict[str, torch.Tensor]],
                   k: int, tok: torch.Tensor, pos: torch.Tensor,
                   prompt_buf: torch.Tensor, prompt_len: torch.Tensor,
-                  stop_pos: torch.Tensor,
-                  ptab: Optional[torch.Tensor]) -> np.ndarray:
-    """K greedy decode steps over all slots, writing ``cache`` in place
-    (the JAX ``_make_step`` scan). Between steps the next input is chosen
-    on the device: the next prompt token while a slot's next position is
-    inside its prompt, else its own argmax; a slot whose next position
-    reaches ``stop_pos`` freezes (tok/pos stop advancing). Returns the
-    (K, n_slots) argmax tokens — the call's one host sync."""
+                  stop_pos: torch.Tensor, ptab: Optional[torch.Tensor],
+                  sampling: Optional[Tuple[torch.Tensor, ...]] = None
+                  ) -> np.ndarray:
+    """K decode steps over all slots, writing ``cache`` in place (the JAX
+    ``_make_step`` scan). Each step's token is the argmax, or with
+    ``sampling`` = (temp, top_k, top_p, seed) per slot
+    :func:`_select_next` at the step's input position. Between steps the
+    next input is chosen on the device: the next prompt token while a
+    slot's next position is inside its prompt, else its own token; a
+    slot whose next position reaches ``stop_pos`` freezes (tok/pos stop
+    advancing). Returns the (K, n_slots) tokens — the call's one host
+    sync."""
     rows = torch.arange(tok.shape[0], device=tok.device)
     last = prompt_buf.shape[1] - 1
     emitted = []
     for _ in range(k):
         logits = module(tok[:, None], positions=pos[:, None], cache=cache,
                         page_tables=ptab)
-        nxt = logits[:, -1].float().argmax(-1)
+        lg = logits[:, -1].float()
+        nxt = (_select_next(lg, *sampling, pos) if sampling is not None
+               else lg.argmax(-1))
         new_pos = pos + 1
         nxt_prompt = prompt_buf[rows, new_pos.clamp(max=last).long()]
         nxt_input = torch.where(new_pos < prompt_len, nxt_prompt, nxt)
@@ -605,43 +810,90 @@ class TextDecodeEngine:
     ``encode(text) -> 1-D int32 ids`` and ``decode(ids) -> text`` come
     from the owning model template (``LlamaLoRA.make_decode_engine``)."""
 
-    #: the inference worker forwards a request's ``slo`` only to engines
-    #: that declare it. Stream resume (``supports_resume``) and KV
-    #: shipment (``supports_kv_ship``) are not declared: the worker
-    #: answers a ``forced_prefix`` with an error reply and refuses a
-    #: prefill/decode role at boot.
+    #: the inference worker forwards a failover request's
+    #: ``forced_prefix`` and a request's ``slo`` only to engines that
+    #: declare them. KV shipment (``supports_kv_ship``) is not declared:
+    #: the worker refuses a prefill/decode role at boot.
+    supports_resume = True
     supports_slo = True
 
     def __init__(self, engine: DecodeEngine,
                  encode: Callable[[str], np.ndarray],
                  decode: Callable[[List[int]], str],
-                 max_new: int = 8) -> None:
+                 max_new: int = 8, resume_sep: str = " ") -> None:
         self.engine = engine
         self._encode = encode
         self._decode = decode
         self.max_new = int(max_new)
+        #: text joint between a prompt and a forced resume prefix, and
+        #: between the prefix and the continuation: " " suits both
+        #: tokenizers (the hash tokenizer splits and joins on
+        #: whitespace; the byte-BPE detokenizer strips the leading space
+        #: of its first generated token)
+        self._sep = resume_sep
         self._stream_sent: Dict[Any, str] = {}  # rid -> text delivered
+        #: rid -> forced resume prefix: text the engine re-ingests as
+        #: prompt but that deltas and the final text present as output
+        self._forced: Dict[Any, str] = {}
+        #: resumes whose prefix already covered the token budget,
+        #: completed without the engine; surfaced by the next poll()
+        self._forced_done: List[Tuple[Any, str]] = []
 
     def submit(self, request_id: Any, text: str,
                max_new: Optional[int] = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                eos_id: Optional[int] = None, adapter_id: int = 0,
-               forced_prefix: str = "", slo: str = "") -> None:
-        """The JAX wrapper's signature; ``forced_prefix`` (stream resume)
-        raises :class:`NotPorted`, the rest is :meth:`DecodeEngine.submit`."""
+               forced_prefix: str = "", slo: str = "",
+               kv_blob: Optional[Dict[str, Any]] = None) -> None:
+        """The JAX wrapper's signature. ``forced_prefix`` (stream
+        failover): text a previous worker already emitted for this
+        request. It is re-ingested with the prompt (``text + sep +
+        prefix``, through chunked prefill), the budget shrinks by the
+        tokens it covers, and deltas and the final text present it as
+        output. Greedy continuations are token-exact when re-tokenizing
+        prompt + prefix reproduces the original token boundaries (always
+        for the hash tokenizer; byte-BPE may shift one at the splice).
+        ``kv_blob`` (a shipped prefill) raises :class:`NotPorted` unless
+        a resume prefix drops it, as the JAX engine does."""
+        budget = self.max_new if max_new is None else int(max_new)
         if forced_prefix:
-            raise _not_ported("stream resume (forced_prefix)")
-        self.engine.submit(request_id, self._encode(text),
-                           self.max_new if max_new is None
-                           else int(max_new),
+            full = text + self._sep + forced_prefix
+            covered = max(0, len(self._encode(full))
+                          - len(self._encode(text)))
+            remaining = budget - covered
+            if remaining <= 0:
+                # the whole budget was generated before; only the final
+                # message was lost: complete with the prefix as the text
+                self._forced_done.append((request_id, str(forced_prefix)))
+                return
+            self._forced[request_id] = str(forced_prefix)
+            self._stream_sent[request_id] = str(forced_prefix)
+            text, budget = full, remaining
+            kv_blob = None  # a shipment covers the original prompt only
+        if kv_blob is not None:
+            raise _not_ported("KV shipment (disaggregated prefill)")
+        self.engine.submit(request_id, self._encode(text), budget,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed, eos_id=eos_id,
                            adapter_id=adapter_id, slo=slo)
 
+    def _full_text(self, rid: Any, ids: List[int]) -> str:
+        """The request's cumulative output text: the decoded ids, after
+        the forced resume prefix when one is active."""
+        text = self._decode(ids)
+        base = self._forced.get(rid)
+        if base is not None:
+            text = base + (self._sep + text if text else "")
+        return text
+
     def poll(self) -> List[Tuple[Any, str]]:
-        done = [(rid, self._decode(ids)) for rid, ids in self.engine.poll()]
+        done = [(rid, self._full_text(rid, ids))
+                for rid, ids in self.engine.poll()]
+        done.extend(self._forced_done)
+        self._forced_done = []
         for rid, _ in done:  # a finished request stops streaming state
             self._stream_sent.pop(rid, None)
+            self._forced.pop(rid, None)
         return done
 
     def poll_partial(self) -> List[Tuple[Any, str]]:
@@ -652,7 +904,7 @@ class TextDecodeEngine:
         resolves them, so the delivered stream is append-only."""
         out: List[Tuple[Any, str]] = []
         for rid, ids in self.engine.poll_partial():
-            text = self._decode(ids).rstrip("�")
+            text = self._full_text(rid, ids).rstrip("�")
             sent = self._stream_sent.get(rid, "")
             if len(text) > len(sent) and text.startswith(sent):
                 out.append((rid, text[len(sent):]))
@@ -664,6 +916,8 @@ class TextDecodeEngine:
 
     def reset(self) -> None:
         self._stream_sent.clear()
+        self._forced.clear()
+        self._forced_done.clear()
         self.engine.reset()
 
     def reset_stats(self) -> None:

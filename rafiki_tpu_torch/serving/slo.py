@@ -1,12 +1,11 @@
 """SLO classes and the class-aware admission queue.
 
-The port's own copy of what ``DecodeEngine`` admission uses from
-``rafiki_tpu/serving/slo.py``: ``SLO_CLASSES``/``SLO_PRIORITY``,
-``DEFAULT_SLO``, ``normalize_slo``, ``slo_priority`` and ``ClassQueue``;
-and what the predictor's shed gate uses: ``BROWNOUT_STAGES`` and
-``BrownoutController``, the hysteresis ladder. The preemption helpers
-(``evictable_occupants``, ``preemption_victim``) wait for the slice that
-ports preemption.
+The port's own copy of what ``DecodeEngine`` admission and preemption
+use from ``rafiki_tpu/serving/slo.py``: ``SLO_CLASSES``/``SLO_PRIORITY``,
+``DEFAULT_SLO``, ``normalize_slo``, ``slo_priority``, the eviction policy
+(``evictable_occupants``, ``preemption_victim``) and ``ClassQueue``; and
+what the predictor's shed gate uses: ``BROWNOUT_STAGES`` and
+``BrownoutController``, the hysteresis ladder.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import threading
 from typing import Any, Deque, Dict, Optional, Tuple
 
 #: priority order, highest first: admission serves interactive before
-#: batch before background.
+#: batch before background; preemption evicts in the reverse order.
 SLO_CLASSES: Tuple[str, ...] = ("interactive", "batch", "background")
 
 #: class -> rank (lower = more urgent)
@@ -49,6 +48,28 @@ def normalize_slo(value: Any, default: str = DEFAULT_SLO) -> str:
 def slo_priority(slo: str) -> int:
     """Rank of a class (0 = most urgent); unknown classes rank last."""
     return SLO_PRIORITY.get(slo, len(SLO_CLASSES))
+
+
+def evictable_occupants(cls: str, occupants):
+    """The occupants a ``cls`` head may preempt: strictly lower class,
+    not shielded (aged promotions are immune). ``occupants`` is an
+    iterable of ``(handle, slo, seq, shielded)``; returns the matching
+    ``(handle, slo, seq)`` triples. The one eviction predicate: the
+    engine's feasibility check and its victim selection both go through
+    it, so the reclaim loop that relies on them agreeing terminates."""
+    p = slo_priority(cls)
+    return [(h, s, q) for h, s, q, shielded in occupants
+            if not shielded and slo_priority(s) > p]
+
+
+def preemption_victim(cls: str, occupants) -> Optional[Any]:
+    """The one occupant to evict for a ``cls`` head: the youngest
+    (highest seq) member of the lowest evictable class. None when
+    nothing ranks below ``cls``."""
+    cands = evictable_occupants(cls, occupants)
+    if not cands:
+        return None
+    return max(cands, key=lambda t: (slo_priority(t[1]), t[2]))[0]
 
 
 class ClassQueue:

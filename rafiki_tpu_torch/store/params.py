@@ -70,13 +70,14 @@ def f32_tree(tree: Mapping[str, Any], copy: bool = True) -> Dict[str, Any]:
 
 def _leaf_tensor(leaf: Any) -> torch.Tensor:
     """One leaf as a tensor: int8 stays int8 (a ``qkernel``), everything
-    else becomes f32. A torch tensor stays on its device; an array
-    becomes a CPU tensor of its own, except a read-only f32 array, which
-    the tensor views (the callers only read it: a cast, or
-    ``load_state_dict``'s copy)."""
+    else becomes f32. A torch tensor stays on its device; an f32 array
+    (read-only or not) is viewed, not copied — the callers only read it
+    (a cast, or ``load_state_dict``'s copy), and an 8B tree is not held
+    twice on the host; any other array becomes a CPU tensor of its
+    own."""
     if isinstance(leaf, torch.Tensor):
         t = leaf
-    elif _frozen_f32(leaf):
+    elif isinstance(leaf, np.ndarray) and leaf.dtype == np.float32:
         with warnings.catch_warnings():  # "not writable": only read
             warnings.simplefilter("ignore", UserWarning)
             t = torch.from_numpy(leaf)

@@ -374,6 +374,8 @@ class InferenceWorker:
         now = time.monotonic()
         if event == "admitted":
             if not attrs.get("resumed"):
+                # a preempt-resume re-admission is not queue wait: the gap
+                # since submit includes the victim's own generation time
                 self._h_queue.observe(now - t_queued)
             self.traces.add_span(tid, "admitted", worker=self.worker_id,
                                  **attrs)
@@ -400,6 +402,8 @@ class InferenceWorker:
             self.traces.add_span(tid, "done", **attrs)
             self._req_obs.pop(rid, None)
         else:
+            # incl. `preempted`: the span joins the timeline and the id
+            # stays, since the victim resumes under it
             self.traces.add_span(tid, event, **attrs)
 
     def _count_dropped(self, n: int) -> None:
@@ -649,11 +653,13 @@ class InferenceWorker:
 
     def _admit_decode_message(self, m: dict, inflight: dict,
                               streaming: set) -> None:
-        """Submit one popped message's queries to the engine. A request
-        the engine refuses (``ValueError``: an unported sampling mode or
-        adapter, a prompt larger than the page pool, a malformed class)
-        rejects the whole message with an error reply; the loop serves
-        on."""
+        """Submit one popped message's queries to the engine, each with
+        its ``forced_prefix`` (a failover resume) when the message
+        carries one. A request the engine refuses (``ValueError``: an
+        unported adapter, a prompt larger than the page pool, a
+        malformed class, a resume on an engine without
+        ``supports_resume``) rejects the whole message with an error
+        reply; the loop serves on."""
         qs = m["queries"]
         qs = list(qs) if not isinstance(qs, (list, tuple)) else qs
         if not qs:  # nothing will ever poll() for an empty message
@@ -689,6 +695,9 @@ class InferenceWorker:
                                  "(forced_prefix)")
             for qi, text in enumerate(qs):
                 kwargs = dict(samp)
+                prefix = str(fp.get(str(qi), "") or "")
+                if prefix:
+                    kwargs["forced_prefix"] = prefix
                 if getattr(self.engine, "supports_slo", False):
                     kwargs["slo"] = slo
                 self._req_obs[(m["id"], qi)] = (tid, t_queued, slo)

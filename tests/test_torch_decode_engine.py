@@ -151,7 +151,7 @@ def test_unported_modes_raise(port_lm):
             DecodeEngine(mod, max_slots=2, max_len=L, device="cpu", **kw)
     eng = DecodeEngine(mod, max_slots=2, max_len=L, device="cpu")
     with pytest.raises(NotImplementedError):
-        eng.submit(0, np.array([1, 2], np.int32), 4, temperature=0.7)
+        eng.submit(0, np.array([1, 2], np.int32), 4, adapter_id=1)
     for call in (lambda: eng.register_prefix(np.array([1, 2])),
                  lambda: eng.export_prefix(), lambda: eng.poll_kv(),
                  lambda: eng.import_prefix({}),
@@ -160,3 +160,32 @@ def test_unported_modes_raise(port_lm):
             call()
     with pytest.raises(NotImplementedError):
         port_lm.make_decode_engine(system_prefix="tok1")
+
+
+def test_refeed_past_the_live_table_width_vs_jax(trained_lm, port_lm):
+    """A live slot re-fed at a page boundary while another request's
+    chunked prefill runs: its position's page is not allocated yet and
+    lies past the live table width. JAX's gather fills that index and
+    its scatter drops the write; the port sends it to the scratch page.
+    Both must emit the same tokens (the port once raised here)."""
+    kw = dict(max_slots=2, max_len=L, steps_per_sync=1, prefill_chunk=8)
+    jeng = JaxDecodeEngine(trained_lm._module(kv_page_size=PAGE,
+                                              kv_pages=9),
+                           trained_lm._params, **kw)
+    teng = DecodeEngine(port_lm._serving_module_params(PAGE, 9),
+                        device="cpu", **kw)
+    outs = []
+    for eng in (jeng, teng):
+        eng.submit("a", np.array([1, 5], np.int32), 12)
+        while int(eng._pos[0]) < PAGE:
+            eng.step()
+        assert int(eng._pos[0]) == PAGE and int(eng._n_alloc[0]) == 1
+        eng.submit("b", np.arange(3, 9, dtype=np.int32), 4)
+        done = {}
+        for _ in range(60):
+            eng.step()
+            done.update({rid: list(t) for rid, t in eng.poll()})
+            if len(done) == 2:
+                break
+        outs.append(done)
+    assert outs[1] == outs[0] and len(outs[1]) == 2

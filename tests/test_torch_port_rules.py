@@ -1,8 +1,9 @@
 """The port's standing rules, enforced.
 
 - Nothing under ``rafiki_tpu_torch/``, and not ``chip_smoke.py``, imports
-  JAX, Flax, optax or the JAX package, nor msgpack or ml_dtypes (the card's
-  machine has neither: the port's codec is its own).
+  JAX, Flax, optax or the JAX package, nor msgpack, ml_dtypes or
+  safetensors (the card's machine has none of them: the port's codec and
+  its safetensors reader and writer are its own).
 - Entry points resolve ``device=None`` to the CUDA card and raise when
   there is none, instead of serving from the CPU.
 - A kernel wrapper given a tensor that is not on the CPU launches its
@@ -30,7 +31,7 @@ from test_decode_engine import KNOBS
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu", "msgpack",
-             "ml_dtypes")
+             "ml_dtypes", "safetensors")
 
 
 def _port_sources():

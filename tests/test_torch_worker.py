@@ -225,10 +225,9 @@ def lm_worker(lm_blob):
 
 
 @pytest.mark.parametrize("sampling,prompt,error", [
-    ({"temperature": 0.7}, "tok1 tok2", "sampling (temperature > 0)"),
     ({"adapter_id": 1}, "tok1 tok2", "adapter_id 1"),
     ({"max_new": 6}, " ".join(f"t{i}" for i in range(30)), "KV pages"),
-], ids=["temperature", "adapter_id", "too_many_pages"])
+], ids=["adapter_id", "too_many_pages"])
 def test_unserved_requests_get_an_error_reply_and_the_worker_serves_on(
         lm_worker, sampling, prompt, error):
     preds, info = lm_worker.pred.predict([prompt], timeout=30.0,
@@ -236,6 +235,25 @@ def test_unserved_requests_get_an_error_reply_and_the_worker_serves_on(
     assert preds == [] and any(error in e for e in info["errors"]), info
     preds, info = lm_worker.pred.predict(["tok1 tok2"], timeout=30.0)
     assert len(preds) == 1 and not info.get("errors"), info
+
+
+def test_sampled_requests_are_served_as_the_jax_worker(lm_blob):
+    """Seeded sampling through the Predictor's ``sampling`` field: the
+    port worker's texts equal the JAX worker's for the same seeds."""
+    sampling = {"temperature": 0.9, "top_k": 20, "top_p": 0.95,
+                "seed": 11}
+    texts = {}
+    for cls, store in ((JWorker, _jax_store(lm_blob)),
+                       (InferenceWorker, _port_store(lm_blob))):
+        s = _Serving(_lm_worker(cls, store, "paged8"))
+        try:
+            preds, info = s.pred.predict(PROMPTS, timeout=60.0,
+                                         sampling=sampling)
+            assert not info.get("errors") and len(preds) == len(PROMPTS)
+            texts[cls] = preds
+        finally:
+            s.close()
+    assert texts[InferenceWorker] == texts[JWorker]
 
 
 def test_malformed_sampling_degrades_to_greedy(lm_worker):
@@ -252,7 +270,12 @@ def test_malformed_sampling_degrades_to_greedy(lm_worker):
                      "done"], spans
 
 
-def test_forced_prefix_gets_an_error_reply(lm_worker):
+def test_forced_prefix_gets_an_error_reply(lm_worker, monkeypatch):
+    """An engine that does not declare ``supports_resume`` (a duck-typed
+    one; the port's ``TextDecodeEngine`` resumes) gets the structured
+    refusal, before any query reaches it."""
+    monkeypatch.setattr(lm_worker.worker.engine, "supports_resume", False,
+                        raising=False)
     hub = lm_worker.hub
     hub.push_query("w0", jpack({"id": "fp", "queries": ["tok1"],
                                 "forced_prefix": {"0": "tok2"}}))
