@@ -5,14 +5,16 @@ Run from a checkout of the repository, with one Hopper card (sm_90a) and
 the CUDA toolkit's ``nvcc``::
 
     python3 chip_smoke.py            # the full check
-    python3 chip_smoke.py --depth 8  # the Llama serving leg at a cut depth
+    python3 chip_smoke.py --depth 32  # phases 4 and 16, uncut
     python3 chip_smoke.py --train-depth 8  # the Llama training leg, cut
     python3 chip_smoke.py --worker-depth 32  # the Llama worker leg, uncut
-    python3 chip_smoke.py --slice-depth 8  # phase 24's leg, cut
+    python3 chip_smoke.py --slice-depth 32  # phases 24 and 26, uncut
 
-The Llama legs run at depth 32 of Llama-3-8B's, except the worker leg
-(phase 18), which runs at depth 8 unless ``--worker-depth`` says
-otherwise: it keeps the call's time.
+The Llama legs run at widths of Llama-3-8B's and, to keep the call's
+time, at cut depths unless told otherwise: phases 4 and 16 (serving,
+bf16 and int8) at 8 of 32 (``--depth``), phases 24 and 26 at 16
+(``--slice-depth``), the worker leg (phase 18) at 4
+(``--worker-depth``); the training leg runs at 32 (``--train-depth``).
 
 ViT-B/16 and BERT-base always run at full width and depth.
 
@@ -33,11 +35,16 @@ Phases; each raises on failure, so the script exits non-zero:
    queries held to the bf16 tolerance and timed beside SDPA on the K/V
    gathered and dequantized to bf16, f32 queries to 1e-5 + 1e-5·|plain|,
    a second call bit-identical, and ptxas's registers and spills of the
-   int8 bodies (those at d 64 and 128 must not spill).
+   int8 bodies (those at d 64 and 128 must not spill). Then B2 at
+   speculative-verify shapes: windows of s = 2, 4 and 8 tokens, six live
+   slots' windows (one crossing a page) and two idle lanes repeating one
+   position over scratch page 0, bf16 and int8 pools, each against its
+   plain version; s = 4 (bf16) timed beside its bound and SDPA.
 3. f32 exactness: the full-width Llama at depth 2 in f32 (random weights
    from a seed, nonzero LoRA) behind a paged ``DecodeEngine`` must emit
    exactly the tokens of ``greedy_generate`` over a contiguous cache.
-4. Serving, the main path: Llama-3-8B (bf16, depth 32 unless cut, rope
+4. Serving, the main path: Llama-3-8B (bf16, depth 8 unless
+   ``--depth`` says otherwise, rope
    theta 500000, LoRA rank 16, random weights) behind ``DecodeEngine`` +
    ``TextDecodeEngine`` with a paged pool; 8 text requests of 64..1024
    prompt tokens, 64 new tokens each, submitted over the first steps.
@@ -114,7 +121,7 @@ Phases; each raises on failure, so the script exits non-zero:
     CPU at pages 8 and 4.
 18. The inference worker, Llama: ``LlamaLoRA`` at Llama-3-8B widths
     (hidden 4096, 32 heads, kv_ratio 4, MLP 4 x hidden, vocab 128256, rope
-    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 8 unless
+    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 4 unless
     ``--worker-depth`` says otherwise) from a seeded f32 blob written
     through the port's param-store codec to a ``mem://`` store (encode,
     decode and boot timed, host peak RSS); an ``InferenceWorker``
@@ -182,9 +189,10 @@ Phases; each raises on failure, so the script exits non-zero:
     ``STATS``.
 
 24. Llama serving as its users run it, at phase 18's widths (bf16,
-    depth 32 unless ``--slice-depth`` cuts it): a byte-BPE artifact of
-    exactly 128256 ids (merges trained on a seeded corpus, then seeded
-    merges of an existing id and a byte); a seeded HF-layout checkpoint
+    depth 16 unless ``--slice-depth`` says otherwise): a byte-BPE
+    artifact of exactly 128256 ids (merges trained on a seeded corpus,
+    then seeded merges of an existing id and a byte); a seeded HF-layout
+    checkpoint
     written by ``export_llama_safetensors`` in shards of 4 blocks with
     ``model.safetensors.index.json`` and a ``config.json`` (rope theta
     500000; the disk's free space checked first); ``LlamaLoRA``
@@ -206,8 +214,22 @@ Phases; each raises on failure, so the script exits non-zero:
     must launch on every serving leg (the ``llama_slice_*`` paths).
 25. Phase 15's head-dim-8 f32 Llama as ``LlamaLoRA`` knobs with a
     512-id byte-BPE tokenizer, paged at page 8 on the card and on the
-    CPU: seeded sampling, a preemption (greedy and sampled) and a stream
-    resume must give identical tokens and texts; B1/B2 must launch.
+    CPU: seeded sampling, a preemption (greedy and sampled), a stream
+    resume and phase 26's modes (prompt lookup, the target as its own
+    draft, a prefix registered and one imported, two adapters) must give
+    identical tokens, texts and counters; B1/B2 must launch.
+26. (inside phase 24, before its model is freed) The decode modes on
+    phase 24's fine-tuned model (bf16, paged, page 16, 8 slots):
+    prompt-lookup speculation (``speculate_k`` 4) and draft-model
+    speculation (a seeded ``LlamaLoRA`` at Llama-3.2-1B's shape: hidden
+    2048, 16 layers, 32 / 8 kv heads, MLP 8192, the same tokenizer) on
+    phase 24's 8 greedy requests, tokens equal to the greedy leg's and
+    verify windows through B2; a 512-token system prefix registered and
+    8 requests extending it, tokens equal to a no-prefix engine's, then
+    exported through the param-store codec and imported into a fresh
+    engine, the same tokens (blob bytes, TTFT with and without); two
+    adapters in one engine (the fine-tune and a seeded variant), 8
+    requests alternating, each equal to its adapter's solo engine.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
 22, 23, then 24 and 18: phases 24 and 18 hold the most host memory
@@ -571,12 +593,17 @@ def kernel_phase(torch, np, F, pa, ll, dev, ptxas=()):
                               bool(torch.equal(got, again)),
                           "ms": time_ms(torch, kernel)}
         results[name]["f32_queries"] = f32_int8[name]
+    results["paged_window_attention"]["verify_windows"] = verify_windows(
+        torch, np, F, pa, measure, put, k_pool, v_pool, (kq, vq, ks, vs),
+        tab, last, sm, dev)
     emit({"phase": "kernels",
           "window_of_one_identical": window_of_one_identical,
           "window_of_one_identical_int8": window_of_one_identical_int8,
           **results})
+    verify = results["paged_window_attention"]["verify_windows"]
     for name, r in list(results.items()) + [
-            (f"{n} (f32 queries)", r) for n, r in f32_int8.items()]:
+            (f"{n} (f32 queries)", r) for n, r in f32_int8.items()] + [
+            (f"B2 verify window {k}", r) for k, r in verify.items()]:
         if not r["err_over_tol"] <= 1.0:
             raise AssertionError(
                 f"{name} disagrees with its plain version: max abs error "
@@ -594,6 +621,86 @@ def kernel_phase(torch, np, F, pa, ll, dev, ptxas=()):
         raise AssertionError(f"the int8 B1/B2 bodies at d 64/128 spill or "
                              f"were not reported: {spills or resources}")
     return results
+
+
+def verify_windows(torch, np, F, pa, measure, put, k_pool, v_pool, int8,
+                   tab, last, sm, dev):
+    """B2 as speculative verify calls it, on phase 2's pools: windows of
+    s = speculate_k in {2, 4, 8} tokens, six live slots' windows ending
+    at their positions (slot 1's, at 17, crosses a page at s >= 4) and
+    two idle lanes as the engine makes them, a free slot's position 0
+    repeated s times over a table row of scratch page 0; bf16 and int8
+    pools, bf16 queries. Each against its plain version with a second
+    call bit-identical, and each row beside the decode kernel (B1) at its
+    position; the s = 4 bf16 case timed beside its bound and SDPA on the
+    same K/V gathered (the B2 row at the verify shape)."""
+    kq, vq, ks, vs = int8
+    b, page = len(last), k_pool.shape[1]
+    n_heads, n_kv, dh = 32, k_pool.shape[2], k_pool.shape[3]
+    live = np.array([1, 1, 1, 1, 1, 1, 0, 0], bool)
+    vtab = tab.clone()
+    vtab[put(~live)] = 0
+    floor, rel = FLASH_TOL["bfloat16"]
+    out = {}
+    for s_k in (2, 4, 8):
+        offs = np.arange(s_k)[None, :]
+        wpos = np.where(live[:, None],
+                        np.minimum(np.maximum(0, last[:, None] - s_k + 1)
+                                   + offs, last[:, None]),
+                        0).astype(np.int32)
+        wp = put(wpos)
+        q = put(np.random.default_rng(SEED + s_k).standard_normal(
+            (b, s_k, n_heads, dh), np.float32), torch.bfloat16)
+        for pool, args, plain_args in (
+                ("bfloat16", (k_pool, v_pool, vtab, wp, sm),
+                 (k_pool.float(), v_pool.float(), vtab, wp, sm)),
+                ("int8", (kq, vq, vtab, wp, sm, ks, vs),
+                 (kq, vq, vtab, wp, sm, ks, vs))):
+            got = pa.paged_window_attention(q, *args)
+            again = pa.paged_window_attention(q, *args)
+            ref = pa._paged_window_reference(q.float(), *plain_args)
+            steps = torch.stack([pa.paged_decode_attention(
+                q[:, j], args[0], args[1], vtab, wp[:, j], sm, *args[5:])
+                for j in range(s_k)], dim=1)
+            torch.cuda.synchronize()
+            err, over = elementwise_err(got, ref, floor, rel)
+            out[f"s{s_k}_{pool}"] = {
+                "max_abs_err": err, "err_over_tol": over,
+                "bit_identical_second_call": bool(torch.equal(got, again)),
+                "rows_equal_decode_kernel": bool(torch.equal(got, steps)),
+                "positions": wpos.tolist()}
+        if s_k != 4:
+            continue
+        length = vtab.shape[1] * page
+        kl = k_pool[vtab.long()].reshape(b, length, n_kv, dh).transpose(1, 2)
+        vl = v_pool[vtab.long()].reshape(b, length, n_kv, dh).transpose(1, 2)
+        k_pos = torch.arange(length, device=dev)
+        mask = (k_pos[None, None, :] <= wp[:, :, None].long())[:, None]
+        # the bytes the function must read: each lane's visible keys (an
+        # idle lane's one), q read and the output written
+        keys = wpos[:, -1].astype(np.int64) + 1
+        n_bytes = int(keys.sum()) * n_kv * dh * 2 * 2 + 2 * q.numel() * 2
+        flops = 4 * n_heads * dh * int((wpos.astype(np.int64) + 1).sum())
+        ref = pa._paged_window_reference(q.float(), k_pool.float(),
+                                         v_pool.float(), vtab, wp, sm)
+        got = pa.paged_window_attention(q, k_pool, v_pool, vtab, wp, sm)
+        timed = measure(
+            lambda: pa.paged_window_attention(q, k_pool, v_pool, vtab, wp,
+                                              sm),
+            lambda: pa._paged_window_reference(q, k_pool, v_pool, vtab, wp,
+                                               sm),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kl, vl, attn_mask=mask, scale=sm,
+                enable_gqa=True),
+            ref, got, n_bytes, flops,
+            pa._launch_plan(b, s_k, n_heads, n_kv, vtab.shape[1], page,
+                            torch.bfloat16, dh))
+        timed["shapes"] = (f"q ({b}, {s_k}, {n_heads}, {dh}) bf16; pool "
+                           f"{tuple(k_pool.shape)} bf16; table ({b}, "
+                           f"{vtab.shape[1]}); 6 live windows ending at "
+                           f"{last[live].tolist()}, 2 idle lanes at 0")
+        out["s4_timed"] = timed
+    return out
 
 
 def randomize_lora_b(model, gen):
@@ -3569,7 +3676,8 @@ def _run_engine(core, submits, on_step=None, limit=20000):
     return done, steps, {rid: t_first[rid] - t_sub[rid] for rid in t_sub}
 
 
-def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, depth, dev):
+def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps, sp, depth,
+                dev):
     """Phase 24: Llama serving as its users run it, at phase 18's widths
     (bf16, hidden 4096, 32 / 8 heads, MLP 4 x hidden, vocab 128256, LoRA
     rank 16, rope theta 500000; depth ``--slice-depth``): a byte-BPE
@@ -3738,6 +3846,7 @@ def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, depth, dev):
         sampled_differ = sum(legs["sampled"]["tokens"][f"sampled{i}"]
                              != legs["greedy"]["tokens"][f"greedy{i}"]
                              for i in range(slots))
+        greedy_tokens = legs["greedy"]["tokens"]
         for leg in legs.values():
             del leg["tokens"]
         # the card's sampler against the plain CPU one, one step's logits
@@ -3862,26 +3971,281 @@ def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, depth, dev):
             if name != "llama_slice_finetune" and min(counts.values()) <= 0:
                 raise AssertionError(f"a paged kernel never launched on "
                                      f"{name}: {counts}")
-        del eng, core, m
+        emit(dict(rec, host_peak_rss_gb=rss.gb))
+        # 5. phase 26 on the same fine-tuned model
+        del eng, core
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(decode_modes_phase(
+            torch, np, ll, pa, conv, ps, sp, m, tok, prompts, texts,
+            greedy_tokens, depth, dev))
+        del m
     finally:
         rss.stop()
         shutil.rmtree(work, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    rec["host_peak_rss_gb"] = rss.gb
-    rec["process_peak_rss_gb"] = _peak_rss_gb()
-    emit(rec)
+    emit({"phase": "llama_slice_memory", "host_peak_rss_gb": rss.gb,
+          "process_peak_rss_gb": _peak_rss_gb()})
     return paths
 
 
-def slice_exactness_phase(torch, np, ll, de, pa, bpe, dev):
+#: phase 26's draft model: Llama-3.2-1B's published shape (hidden 2048,
+#: 16 layers, 32 heads over 8 kv heads, head dim 64, MLP 8192 = 4 x
+#: hidden; its tied embedding untied, as the template builds it), phase
+#: 24's BPE artifact and max_len
+DRAFT_LLAMA = {"hidden_dim": 2048, "depth": 16, "n_heads": 32,
+               "kv_ratio": 4, "lora_rank": 16}
+#: phase 26's verify window width, system-prompt tokens and the new
+#: tokens of its prefix leg
+SPEC_K = 4
+PREFIX_TOKENS = 512
+PREFIX_NEW = 32
+
+
+def variant_tree(np, tree, seed):
+    """``tree`` (a params tree, its other leaves shared) with every
+    ``lora_b`` leaf a fresh seeded N(0, 0.02^2) f32 array: a second
+    fine-tune of the same base."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict)
+                else (0.02 * rng.standard_normal(np.shape(v))).astype(
+                    np.float32) if k == "lora_b" else v
+                for k, v in node.items()}
+
+    return walk(tree)
+
+
+def _first_diffs(got, want):
+    """{rid: first differing token index} of the requests whose tokens
+    differ."""
+    return {rid: next((i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                       if a != b), min(len(got[rid]), len(want[rid])))
+            for rid in want if got.get(rid) != want[rid]}
+
+
+def _leg(torch, np, pa, core, submits):
+    """Run ``submits`` on ``core`` with the paged counters zeroed: its
+    tokens, wall seconds, decode tokens/s, mean TTFT (host clock), the
+    engine's counters and the launches."""
+    _zero_paged(pa)
+    core.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps, ttft = _run_engine(core, submits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"tokens": done, "wall_s": wall,
+            "decode_tok_per_s": _decode_tok_per_s(steps),
+            "mean_ttft_s": float(np.mean(list(ttft.values()))),
+            "stats": core.stats_snapshot(), "launches": _paged_counts(pa)}
+
+
+def decode_modes_phase(torch, np, ll, pa, conv, ps, sp, m, tok, prompts,
+                       texts, greedy, depth, dev):
+    """Phase 26: the decode modes Llama's users switch on, through phase
+    24's fine-tuned model (bf16, paged, page 16, 8 slots, max_len 2048):
+
+    (a) prompt-lookup speculation (``speculate_k`` 4) on phase 24's 8
+        greedy requests: tokens equal to the greedy leg's; B2 launched at
+        least ``spec_calls`` x depth times;
+    (b) draft-model speculation with a seeded ``LlamaLoRA`` at
+        Llama-3.2-1B's shape (``DRAFT_LLAMA``, the same BPE artifact and
+        max_len): tokens equal to the greedy leg's;
+    (d) a 512-token system prefix registered, 8 requests extending it:
+        tokens equal to a no-prefix engine's on the same full prompts,
+        ``prefix_hits`` 8; then ``export_prefix`` through the param-store
+        codec into a fresh engine's ``import_prefix``: the same tokens;
+    (c) multi-adapter serving, N = 2 (adapter 0 the fine-tune, adapter 1
+        the same tree with seeded ``lora_b``): the 8 requests alternate
+        adapters in one engine and each equals its solo single-adapter
+        engine's (adapter 0: the greedy leg; adapter 1: the fine-tune's
+        engine with the variant's adapters swapped in). The fine-tune's
+        own serving model is freed before the stacked one is built.
+
+    B1/B2 must launch on every leg (the ``llama_modes_*`` paths)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    slots, max_len, max_new = 8, int(m.knobs["max_len"]), 64
+    kw = dict(max_slots=slots, max_new_tokens=max_new, steps_per_sync=4,
+              kv_page_size=16)
+    reqs = [(f"greedy{i}", prompts[i], max_new, {}) for i in range(slots)]
+    rec = {"phase": "llama_decode_modes", "depth": depth,
+           "draft_shape": DRAFT_LLAMA, "speculate_k": SPEC_K}
+    paths = {}
+
+    def summary(leg, **extra):
+        st = leg["stats"]
+        out = {k: leg[k] for k in ("wall_s", "decode_tok_per_s",
+                                   "mean_ttft_s", "launches")}
+        out.update({k: st[k] for k in (
+            "spec_calls", "spec_drafted", "spec_accepted",
+            "spec_draft_model_calls", "draft_resyncs", "prefix_hits",
+            "prefix_tokens", "kv_imports", "steps", "prefill_calls")})
+        out["acceptance"] = (st["spec_accepted"] / st["spec_drafted"]
+                             if st["spec_drafted"] else None)
+        out.update(extra)
+        return out
+
+    def free(*objs):
+        del objs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) prompt lookup
+    eng = m.make_decode_engine(speculate_k=SPEC_K, **kw)
+    leg = _leg(torch, np, pa, eng.engine, reqs)
+    paths["llama_modes_prompt_lookup"] = leg["launches"]
+    spec_calls = leg["stats"]["spec_calls"]
+    rec["prompt_lookup"] = summary(
+        leg, tokens_equal_greedy=leg["tokens"] == greedy,
+        first_diffs=_first_diffs(leg["tokens"], greedy),
+        verify_window_launches_at_least=spec_calls * depth)
+    free(eng)
+    if leg["tokens"] != greedy:
+        raise AssertionError(f"prompt-lookup tokens differ from greedy: "
+                             f"{rec['prompt_lookup']}")
+    if spec_calls < 1 or leg["launches"]["paged_window_attention"] < \
+            spec_calls * depth:
+        raise AssertionError(f"verify windows did not run through B2: "
+                             f"{rec['prompt_lookup']}")
+
+    # (b) a draft model at Llama-3.2-1B's shape
+    t0 = time.perf_counter()
+    dknobs = dict(m.knobs, pretrained_path="", **DRAFT_LLAMA)
+    draft = ll.LlamaLoRA(device=dev, **dknobs)
+    net = draft._module()
+    randomize_lora_b(net, torch.Generator(device=dev).manual_seed(SEED + 26))
+    draft._set_params(sp.params_to_jax(net.state_dict()), own=True)
+    draft_params = sum(int(np.prod(np.shape(leaf)))
+                       for _path, leaf in conv._flatten(draft._params))
+    del net
+    build_s = time.perf_counter() - t0
+    eng = m.make_decode_engine(speculate_k=SPEC_K, draft_model=draft, **kw)
+    leg = _leg(torch, np, pa, eng.engine, reqs)
+    paths["llama_modes_draft"] = leg["launches"]
+    rec["draft_model"] = summary(
+        leg, tokens_equal_greedy=leg["tokens"] == greedy,
+        first_diffs=_first_diffs(leg["tokens"], greedy),
+        draft_params=draft_params, draft_build_s=build_s)
+    free(eng, draft)
+    if leg["tokens"] != greedy or leg["stats"][
+            "spec_draft_model_calls"] < 1:
+        raise AssertionError(f"draft-model speculation: "
+                             f"{rec['draft_model']}")
+
+    # (d) a 512-token system prefix
+    bos = _prompt_ids(np, tok, texts[0], max_len)[:1]
+    prefix = np.concatenate([bos] + [tok.encode_ids(t) for t in texts])[
+        :PREFIX_TOKENS].astype(np.int32)
+    full = [np.concatenate([prefix, tok.encode_ids(texts[i])]).astype(
+        np.int32)[:max_len - PREFIX_NEW] for i in range(slots)]
+    preq = [(f"p{i}", full[i], PREFIX_NEW, {}) for i in range(slots)]
+    kwp = dict(kw, max_new_tokens=PREFIX_NEW)
+    eng = m.make_decode_engine(**kwp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.engine.register_prefix(prefix)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    with_prefix = _leg(torch, np, pa, eng.engine, preq)
+    blob = eng.engine.export_prefix()
+    t0 = time.perf_counter()
+    wire = ps.params_from_bytes(ps.params_to_bytes(blob))
+    codec_s = time.perf_counter() - t0
+    free(eng)
+    eng = m.make_decode_engine(**kwp)
+    without = _leg(torch, np, pa, eng.engine, preq)
+    free(eng)
+    eng = m.make_decode_engine(**kwp)
+    t0 = time.perf_counter()
+    eng.engine.import_prefix(wire)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    kv_imports = eng.engine.stats["kv_imports"]
+    imported = _leg(torch, np, pa, eng.engine, preq)
+    free(eng, wire)
+    paths["llama_modes_prefix"] = with_prefix["launches"]
+    paths["llama_modes_prefix_import"] = imported["launches"]
+    rec["system_prefix"] = {
+        "prefix_tokens": int(len(prefix)), "new_tokens": PREFIX_NEW,
+        "prompt_tokens": [int(len(f)) for f in full],
+        "register_s": register_s, "blob_bytes": blob["nbytes"],
+        "kv_imports": kv_imports,
+        "blob_leaves": len(blob["leaves"]), "codec_s": codec_s,
+        "import_s": import_s,
+        "with_prefix": summary(with_prefix),
+        "without_prefix": summary(without),
+        "imported": summary(imported),
+        "tokens_equal_no_prefix": with_prefix["tokens"] == without[
+            "tokens"],
+        "first_diffs": _first_diffs(with_prefix["tokens"],
+                                    without["tokens"]),
+        "imported_tokens_equal": imported["tokens"] == without["tokens"]}
+    if not (rec["system_prefix"]["tokens_equal_no_prefix"]
+            and rec["system_prefix"]["imported_tokens_equal"]
+            and with_prefix["stats"]["prefix_hits"] == slots
+            and imported["stats"]["prefix_hits"] == slots
+            and kv_imports == 1):
+        raise AssertionError(f"system prefix: {rec['system_prefix']}")
+
+    # (c) two adapters in one engine; the variant's solo run first
+    variant = variant_tree(np, m._params, SEED + 27)
+    model = m._float_model()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                node = variant
+                for part in name.split("."):
+                    node = node[part]
+                p.copy_(torch.from_numpy(node))
+    del model
+    eng = m.make_decode_engine(**kw)
+    solo1 = _leg(torch, np, pa, eng.engine, reqs)["tokens"]
+    free(eng)
+    t0 = time.perf_counter()
+    eng = m.make_multi_adapter_engine([m._params, variant], **kw)
+    torch.cuda.synchronize()
+    multi_build_s = time.perf_counter() - t0
+    mreq = [(f"greedy{i}", prompts[i], max_new, {"adapter_id": i % 2})
+            for i in range(slots)]
+    leg = _leg(torch, np, pa, eng.engine, mreq)
+    paths["llama_modes_multi_adapter"] = leg["launches"]
+    want = {rid: (greedy if i % 2 == 0 else solo1)[rid]
+            for i, (rid, *_r) in enumerate(mreq)}
+    rec["multi_adapter"] = summary(
+        leg, n_adapters=2, build_s=multi_build_s,
+        tokens_equal_solo=leg["tokens"] == want,
+        first_diffs=_first_diffs(leg["tokens"], want),
+        adapters_differ=sum(greedy[r] != solo1[r] for r in greedy))
+    free(eng, variant)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    if leg["tokens"] != want:
+        raise AssertionError(f"multi-adapter tokens differ from the solo "
+                             f"engines': {rec['multi_adapter']}")
+    for name, counts in paths.items():
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a paged kernel never launched on {name}:"
+                                 f" {counts}")
+    return paths
+
+
+def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
     """Phase 25: phase 15's head-dim-8 Llama (hidden 32, 4 heads, 2 kv
     heads, max_len 32, f32, random weights from a seed, nonzero
     adapters) as ``LlamaLoRA`` knobs with a byte-BPE tokenizer (512 ids),
     served paged at page 8 on the card and on the CPU: seeded sampling,
     a preemption (one slot, a background request evicted by an
-    interactive one, greedy and sampled) and a stream resume must give
-    identical tokens and texts; B1 and B2 must launch."""
+    interactive one, greedy and sampled), a stream resume, and phase
+    26's decode modes (prompt-lookup speculation, the target as its own
+    draft, a prefix registered and one exported and imported, two
+    adapters in one engine) must give identical tokens, texts and
+    counters; the self-drafted windows must be accepted (at least 90 %
+    of the drafts); B1 and B2 must launch."""
     work = ROOT / "build" / "chip_smoke" / "slice_hd8"
     work.mkdir(parents=True, exist_ok=True)
     texts = _texts(write_corpus(np, work / "corpus.jsonl", 64, SEED + 27))
@@ -3940,6 +4304,53 @@ def slice_exactness_phase(torch, np, ll, de, pa, bpe, dev):
             eng.step()
             res.update(dict(eng.poll()))
         out["resume"] = (whole["w"], prefix, res["r"])
+        out.update(modes(m, device))
+        return out
+
+    spec_keys = ("spec_calls", "spec_drafted", "spec_accepted",
+                 "spec_draft_model_calls", "draft_resyncs", "prefix_hits",
+                 "prefix_tokens", "kv_imports")
+
+    def modes(m, device):
+        """Phase 26's four modes at this size: prompt lookup, the target
+        itself as its draft (every verify row live and accepted), two
+        adapters in one engine, a registered prefix exported and
+        imported."""
+        # 12 new tokens: three whole windows of SPEC_K, so a self-drafted
+        # window is never cut at a request's stop
+        greedy = [(f"k{i}", prompts[i], 12, {}) for i in range(4)]
+        kw = dict(max_slots=4, max_new_tokens=12, steps_per_sync=2,
+                  kv_page_size=8)
+        out = {}
+
+        def run(eng, submits):
+            done = _run_engine(eng.engine, submits)[0]
+            st = eng.engine.stats_snapshot()
+            return done, {k: st[k] for k in spec_keys}
+
+        out["prompt_lookup"] = run(
+            m.make_decode_engine(speculate_k=SPEC_K, **kw), greedy)
+        twin = ll.LlamaLoRA(device=device, **knobs)
+        twin.load_parameters(blob)
+        out["self_draft"] = run(m.make_decode_engine(
+            speculate_k=SPEC_K, draft_model=twin, **kw), greedy)
+        pre = prompts[0][:6]
+        preq = [(f"p{i}", np.concatenate([pre, prompts[1 + i][1:]])[:20],
+                 8, {}) for i in range(4)]
+        eng = m.make_decode_engine(**kw)
+        eng.engine.register_prefix(pre)
+        out["prefix"] = run(eng, preq)
+        wire = ps.params_from_bytes(ps.params_to_bytes(
+            eng.engine.export_prefix()))
+        eng = m.make_decode_engine(**kw)
+        eng.engine.import_prefix(wire)
+        out["prefix_imported"] = run(eng, preq)
+        eng = m.make_multi_adapter_engine(
+            [blob["params"], variant_tree(np, blob["params"], SEED + 28)],
+            **kw)
+        out["multi_adapter"] = run(eng, [
+            (f"a{i}", prompts[i], 10, {"adapter_id": i % 2})
+            for i in range(4)])
         return out
 
     want = serve(cpu)
@@ -3953,12 +4364,21 @@ def slice_exactness_phase(torch, np, ll, de, pa, bpe, dev):
            "bpe_vocab": tok.vocab_size, "identical": same,
            "preemptions": {k: got[k][1] for k in got
                            if k.startswith("preempt")},
+           "mode_counters": {k: got[k][1] for k in (
+               "prompt_lookup", "self_draft", "prefix", "prefix_imported",
+               "multi_adapter")},
            "resume_starts_with_prefix": got["resume"][2].startswith(
                got["resume"][1]),
            "launches": launches}
     emit(rec)
     if not all(same.values()):
         raise AssertionError(f"card and CPU differ: {same}")
+    drafted = got["self_draft"][1]
+    if not (drafted["spec_draft_model_calls"] > 0 and drafted[
+            "spec_accepted"] >= 0.9 * drafted["spec_drafted"] > 0
+            and got["prefix"][1]["prefix_hits"] == 4
+            and got["prefix_imported"][1]["kv_imports"] == 1):
+        raise AssertionError(f"decode modes: {rec['mode_counters']}")
     if min(v for k, v in rec["preemptions"].items()) < 1:
         raise AssertionError(f"no preemption: {rec['preemptions']}")
     if min(launches.values()) <= 0:
@@ -3968,20 +4388,22 @@ def slice_exactness_phase(torch, np, ll, de, pa, bpe, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--depth", type=int, default=32,
-                    help="decoder depth of the serving leg (widths are "
-                         "never cut)")
+    ap.add_argument("--depth", type=int, default=8,
+                    help="decoder depth of the serving legs, phases 4 "
+                         "and 16 (widths are never cut; 8 of 32 by "
+                         "default, for the call's time)")
     ap.add_argument("--train-depth", type=int, default=32,
                     help="decoder depth of the training leg (widths are "
                          "never cut)")
-    ap.add_argument("--worker-depth", type=int, default=8,
+    ap.add_argument("--worker-depth", type=int, default=4,
                     help="decoder depth of the Llama worker leg, phase 18 "
-                         "(widths are never cut; 8 of 32 by default, for "
+                         "(widths are never cut; 4 of 32 by default, for "
                          "the call's time)")
-    ap.add_argument("--slice-depth", type=int, default=32,
-                    help="decoder depth of phase 24's tokenizer, "
-                         "checkpoint, fine-tune and serving leg (widths "
-                         "are never cut)")
+    ap.add_argument("--slice-depth", type=int, default=16,
+                    help="decoder depth of phase 24's checkpoint, "
+                         "fine-tune and serving legs and of phase 26 "
+                         "(widths are never cut; 16 of 32 by default, for "
+                         "the call's time)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4093,7 +4515,7 @@ def main(argv=None):
     paths["llama_hd8_int8_serving"] = hd8_serving_phase(
         torch, np, ll, de, pa, dev, int8=True)
     paths["llama_slice_hd8"] = slice_exactness_phase(torch, np, ll, de, pa,
-                                                     bpe, dev)
+                                                     ps, bpe, dev)
     torch.cuda.empty_cache()
     # phase 18 runs last, so its 35 GB of host memory cannot weigh on the
     # other phases' host-clock timings
@@ -4110,8 +4532,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(stack_phase(torch, np, vit, dev))
     torch.cuda.empty_cache()
-    paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe,
-                             args.slice_depth, dev))
+    paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps,
+                             store_params, args.slice_depth, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)
@@ -4136,7 +4558,8 @@ def main(argv=None):
                                     "bound_share", "b3_same_call_ms",
                                     "ptxas", "bit_identical_second_call",
                                     "full_length", "classifier_shapes",
-                                    "f32_queries", "int8_launches_by_path")
+                                    "f32_queries", "int8_launches_by_path",
+                                    "verify_windows")
             if key in r}}
         for name, r in kres.items()]})
     missing = [name for name in kres if not by_path[name]]

@@ -303,10 +303,9 @@ class Admin:
         ``DRAFT_TRIAL_ID`` (a completed same-template trial to use as
         the draft MODEL instead of prompt lookup), and the autoscaler
         keys ``AUTOSCALE`` / ``MIN_WORKERS`` / ``MAX_WORKERS`` /
-        ``AUTOSCALE_COOLDOWN_S``. The port refuses ``MULTI_ADAPTER``,
-        ``SYSTEM_PREFIX``, ``SPECULATE_K``, ``DRAFT_TRIAL_ID``, the
-        disaggregated and host-tier keys and the autoscaler keys by
-        name (``NotPorted``), before anything spawns."""
+        ``AUTOSCALE_COOLDOWN_S``. The port refuses the disaggregated
+        and host-tier keys and the autoscaler keys by name
+        (``NotPorted``), before anything spawns."""
         job = self.meta.create_inference_job(user_id, train_job_id,
                                              budget=budget)
         self.services.create_inference_services(job["id"],

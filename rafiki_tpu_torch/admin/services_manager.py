@@ -30,8 +30,11 @@ and adoption after an admin restart (``reconcile``,
 ``reap_stale_services``), kvd respawn with WAL replay (a dead kvd marks
 the stack degraded), rolling restart, autoscale and scale-out, and the
 inference-budget options that the port's worker refuses (prefill/decode
-roles and KV shipments, the host KV tier, speculation and draft trials,
-extra adapters, shared system prefixes, the paged gather path).
+roles and KV shipments, the host KV tier, the paged gather path). The
+decode modes are served with the JAX manager's validations:
+``MULTI_ADAPTER`` (the best-N trials of one model and shape as one
+stacked worker on one slot), ``SYSTEM_PREFIX``, ``SPECULATE_K`` and
+``DRAFT_TRIAL_ID``.
 """
 
 from __future__ import annotations
@@ -77,10 +80,6 @@ DEFERRED_BUDGET_KEYS = {
     "WORKER_ROLE": "prefill/decode worker roles (WORKER_ROLE)",
     "KV_WAIT_S": "disaggregated KV shipment waits (KV_WAIT_S)",
     "HOST_KV_PAGES": "the host KV tier (HOST_KV_PAGES)",
-    "SPECULATE_K": "speculative decoding (SPECULATE_K)",
-    "DRAFT_TRIAL_ID": "draft-trial speculation (DRAFT_TRIAL_ID)",
-    "MULTI_ADAPTER": "extra adapters (MULTI_ADAPTER)",
-    "SYSTEM_PREFIX": "shared system prefixes (SYSTEM_PREFIX)",
     "AUTOSCALE": "autoscale (AUTOSCALE)",
     "MIN_WORKERS": "autoscale bounds (MIN_WORKERS)",
     "MAX_WORKERS": "autoscale bounds (MAX_WORKERS)",
@@ -644,9 +643,15 @@ class ServicesManager:
                 ijob["train_job_id"], max_count=max_workers)
             if not best:
                 raise RuntimeError("no completed trials to deploy")
+            best, multi_adapter = self._multi_adapter_trials(best, budget)
             plans = [self._inference_worker_config(inference_job_id, i,
                                                    trial, budget)
-                     for i, trial in enumerate(best)]
+                     for i, trial in enumerate(best[:1] if multi_adapter
+                                               else best)]
+            if multi_adapter:
+                # the other best trials ride as stacked adapters 1..N
+                plans[0]["extra_adapter_trials"] = [t["id"]
+                                                    for t in best[1:]]
             pred_cfg = self._predictor_config(budget)
         except BaseException:
             self.meta.update_inference_job(inference_job_id,
@@ -688,6 +693,42 @@ class ServicesManager:
                                                status="ERRORED")
                 raise
 
+    def _multi_adapter_trials(self, best: List[Dict[str, Any]],
+                              budget: Dict[str, Any]):
+        """``MULTI_ADAPTER``: the best-N LM trials as ONE worker serving
+        N stacked adapters (adapter 0 the best trial), one slot, when at
+        least two of them share the primary's model and shape signature
+        (the others are dropped with a warning); otherwise a warning and
+        plain replicas. Returns ``(trials, multi_adapter)``."""
+        if not (bool(budget.get("MULTI_ADAPTER")) and len(best) > 1):
+            return best, False
+
+        def model_of(trial: Dict[str, Any]) -> Dict[str, Any]:
+            sub = self.meta.get_sub_train_job(trial["sub_train_job_id"])
+            return self.meta.get_model(sub["model_id"])
+
+        primary = model_of(best[0])
+        if primary["task"] != TaskType.LANGUAGE_MODELING:
+            log.warning("MULTI_ADAPTER ignored: task %s is not a language-"
+                        "modeling job; deploying plain replicas",
+                        primary["task"])
+            return best, False
+        sig0 = best[0].get("shape_signature")
+        same = [best[0]] + [t for t in best[1:]
+                            if model_of(t)["id"] == primary["id"]
+                            and t.get("shape_signature") == sig0]
+        if len(same) < 2:
+            log.warning("MULTI_ADAPTER ignored: no other best trial shares "
+                        "model %s and shape %r; deploying plain replicas",
+                        primary["id"], sig0)
+            return best, False
+        if len(same) < len(best):
+            log.warning("MULTI_ADAPTER: dropping %d best trial(s) with a "
+                        "different model or shape; stacking %d trials of "
+                        "model %s", len(best) - len(same), len(same),
+                        primary["id"])
+        return same, True
+
     def _inference_worker_config(self, inference_job_id: str, i: int,
                                  trial: Dict[str, Any],
                                  budget: Dict[str, Any]
@@ -718,6 +759,9 @@ class ServicesManager:
                 cfg["default_slo"] = normalize_slo(budget["SLO_DEFAULT"])
             except ValueError as e:
                 raise ValueError(f"SLO_DEFAULT: {e}") from e
+        if budget.get("SYSTEM_PREFIX"):
+            cfg["system_prefix"] = str(budget["SYSTEM_PREFIX"])
+        self._speculation_config(cfg, budget, model, decode_loop)
         if budget.get("KV_PAGE_SIZE"):
             if not decode_loop:
                 raise ValueError(
@@ -749,6 +793,46 @@ class ServicesManager:
                              "same budget (it selects the PAGED decode "
                              "path's implementation)")
         return cfg
+
+    def _speculation_config(self, cfg: Dict[str, Any],
+                            budget: Dict[str, Any], model: Dict[str, Any],
+                            decode_loop: bool) -> None:
+        """``SPECULATE_K`` (>= 2) enables prompt-lookup speculation;
+        ``DRAFT_TRIAL_ID`` names a completed trial of the same model as
+        the draft model (its own knobs shape it). The JAX manager's
+        checks, at the create call."""
+        if decode_loop and budget.get("SPECULATE_K"):
+            spec_k = int(budget["SPECULATE_K"])
+            if spec_k < 2:
+                raise ValueError(
+                    f"SPECULATE_K={spec_k} must be >= 2 (draft window "
+                    "depth; 1 would verify nothing)")
+            cfg["speculate_k"] = spec_k
+            draft_id = str(budget.get("DRAFT_TRIAL_ID") or "")
+            if draft_id:
+                d_trial = self.meta.get_trial(draft_id)
+                if d_trial is None:
+                    raise KeyError(
+                        f"DRAFT_TRIAL_ID {draft_id!r} names no trial")
+                d_sub = self.meta.get_sub_train_job(
+                    d_trial["sub_train_job_id"])
+                if d_sub and d_sub["model_id"] != model["id"]:
+                    raise ValueError(
+                        f"DRAFT_TRIAL_ID {draft_id!r} is a different model "
+                        f"({d_sub['model_id']}) than the deployed "
+                        f"{model['id']} — the draft must share the "
+                        "target's template/tokenizer")
+                cfg["draft_trial_id"] = draft_id
+                cfg["draft_knobs"] = d_trial["knobs"]
+        elif budget.get("DRAFT_TRIAL_ID") or budget.get("SPECULATE_K"):
+            if not decode_loop:
+                raise ValueError(
+                    "SPECULATE_K/DRAFT_TRIAL_ID require a language-"
+                    "modeling deployment (the decode loop); task "
+                    f"{model['task']} serves through the micro-batcher")
+            raise ValueError(
+                "DRAFT_TRIAL_ID requires SPECULATE_K >= 2 (the draft "
+                "window depth) in the same budget")
 
     def _predictor_config(self, budget: Dict[str, Any]) -> Dict[str, Any]:
         """The predictor's config, the budget's SLO keys validated as

@@ -3,9 +3,11 @@
 Ports ``rafiki_tpu/models/llama_lora.py``:
 
 - ``rope``, ``_parse_rope_scaling``, ``RMSNorm`` and ``LoRADense`` (its
-  plain form and the int8 ``quantized`` form, whose base kernel is int8
-  ``qkernel`` with per-output-channel f32 ``qscale``; the stacked
-  ``n_adapters`` form raises), and ``quantize_llama_params``;
+  plain form, the int8 ``quantized`` form, whose base kernel is int8
+  ``qkernel`` with per-output-channel f32 ``qscale``, and the stacked
+  ``n_adapters`` form of multi-adapter serving, ``adapter_ids``
+  threaded through every block), ``quantize_llama_params`` and
+  ``stack_lora_adapters``;
 - ``_masked_decode_attention``, the contiguous-cache decode attention;
 - ``_DecoderAttention`` — its decode branch, for contiguous rows and the
   paged pool: rope'd K and raw V are written at ``(table[pos // page],
@@ -29,8 +31,10 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
   weights of an HF-convention safetensors checkpoint), ``evaluate``,
   ``dump_parameters``, ``load_parameters`` (blobs move both ways with
   the JAX template, ``meta["bpe_merges"]`` included), ``predict``,
-  ``warmup``, ``make_decode_engine`` and
-  ``estimate_serving_device_bytes`` (the worker's admission budget), with
+  ``warmup``, ``make_decode_engine`` (speculation with prompt-lookup or
+  a draft model, a registered system prefix), ``make_multi_adapter_engine``
+  and ``estimate_serving_device_bytes`` (the worker's admission budget),
+  with
   the int8 serving knobs ``quantize_int8`` and ``kv_cache_int8`` and the
   byte-BPE tokenizer of ``tokenizer_path`` (``_bpe``, ``_same_tokenizer``;
   the vocabulary follows the artifact, generations decode exactly).
@@ -81,7 +85,7 @@ from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
 from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
                                            llama_params_from_jax,
-                                           params_to_jax)
+                                           params_from_jax, params_to_jax)
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 
 RopeScaling = Tuple[float, float, float, float]
@@ -165,6 +169,32 @@ def _weight(shape: Sequence[int], std: float, dtype: torch.dtype,
     else:
         t.zero_()
     return nn.Parameter(t, requires_grad=False)
+
+
+#: a forward of fewer tokens than this runs its dense layers and norms
+#: over this many rows on a CUDA device, zero-padded (``Llama.forward``).
+#: cuBLAS and the reduction kernels pick their algorithm from the row
+#: count, so a token would otherwise round differently in a one-token
+#: decode step (8 rows) than in a speculative verify window (8 x k
+#: rows); padded, both are one shape and a verify row has the decode
+#: step's bits (a row's result depends on its own values only).
+ROW_BUCKET = 64
+
+
+def _rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``x`` as (rows, d), zero-padded to :data:`ROW_BUCKET` rows on a
+    CUDA device when it has fewer; and its row count."""
+    rows = x.numel() // x.shape[-1]
+    return _pad_rows(x.reshape(rows, x.shape[-1]),
+                     ROW_BUCKET if x.device.type == "cuda" else rows), rows
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t``'s leading axis zero-padded to ``n`` rows (as it is when it
+    has as many)."""
+    if t.shape[0] >= n:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 1) + (0, n - t.shape[0]))
 
 
 class RMSNorm(nn.Module):
@@ -256,12 +286,10 @@ class LoRADense(nn.Module):
                  gen: torch.Generator, alpha: float = 16.0,
                  quantized: bool = False, n_adapters: int = 0) -> None:
         super().__init__()
-        if n_adapters:
-            raise NotImplementedError(
-                "multi-adapter LoRA sites are not ported yet")
         self.rank = int(rank)
         self.alpha = float(alpha)
         self.quantized = bool(quantized)
+        self.n_adapters = int(n_adapters)
         if self.quantized:
             base = _weight((d_in, features), 1.0 / math.sqrt(d_in),
                            torch.float32, device, gen)
@@ -273,20 +301,42 @@ class LoRADense(nn.Module):
             self.kernel = _weight((d_in, features), 1.0 / math.sqrt(d_in),
                                   dtype, device, gen)
         if self.rank > 0:
-            self.lora_a = _weight((d_in, self.rank), 0.02, dtype, device,
-                                  gen)
-            self.lora_b = _weight((self.rank, features), 0.0, dtype,
+            lead = (self.n_adapters,) if self.n_adapters > 0 else ()
+            self.lora_a = _weight(lead + (d_in, self.rank), 0.02, dtype,
+                                  device, gen)
+            self.lora_b = _weight(lead + (self.rank, features), 0.0, dtype,
                                   device, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``adapter_ids`` (multi-adapter sites): one id per example, or
+        per row of x's leading axes (None: adapter 0)."""
         if self.quantized:
             y = (x @ self.qkernel.to(x.dtype)) * self.qscale.to(x.dtype)
         else:
             y = x @ self.kernel.to(x.dtype)
-        if self.rank > 0:
-            y = y + ((x @ self.lora_a.to(x.dtype))
-                     @ self.lora_b.to(x.dtype)) * (self.alpha / self.rank)
-        return y
+        if self.rank <= 0:
+            return y
+        if self.n_adapters <= 0:
+            return y + ((x @ self.lora_a.to(x.dtype))
+                        @ self.lora_b.to(x.dtype)) * (self.alpha / self.rank)
+        # multi-adapter: every row takes the correction of the adapter its
+        # ``adapter_ids`` entry names. Each adapter's correction is the
+        # single-adapter product over all rows, selected per row: a
+        # tenant's rows then equal, bit for bit, what an engine of that
+        # adapter alone computes (the same matmul shapes), at N times
+        # the rank-r work, which is small beside the base matmul
+        if adapter_ids is None:  # an unselected call: adapter 0
+            adapter_ids = torch.zeros(x.shape[0], dtype=torch.int32,
+                                      device=x.device)
+        pick = adapter_ids.reshape(adapter_ids.shape
+                                   + (1,) * (x.dim() - adapter_ids.dim()))
+        corr = None
+        for j in range(self.n_adapters):
+            cj = ((x @ self.lora_a[j].to(x.dtype))
+                  @ self.lora_b[j].to(x.dtype))
+            corr = cj if corr is None else torch.where(pick == j, cj, corr)
+        return y + corr * (self.alpha / self.rank)
 
 
 class Embed(nn.Module):
@@ -329,7 +379,7 @@ class _DecoderAttention(nn.Module):
                  lora_rank: int, rope_theta: float,
                  rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
                  device: torch.device, gen: torch.Generator,
-                 quantized: bool = False) -> None:
+                 quantized: bool = False, n_adapters: int = 0) -> None:
         super().__init__()
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
@@ -338,7 +388,7 @@ class _DecoderAttention(nn.Module):
         self.rope_scaling = rope_scaling
         dh = hidden // n_heads
         kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen,
-                  quantized=quantized)
+                  quantized=quantized, n_adapters=n_adapters)
         self.wq = LoRADense(hidden, n_heads * dh, **kw)
         self.wk = LoRADense(hidden, n_kv_heads * dh, **kw)
         self.wv = LoRADense(hidden, n_kv_heads * dh, **kw)
@@ -348,14 +398,20 @@ class _DecoderAttention(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]],
                 page_tables: Optional[torch.Tensor],
                 lens: Optional[torch.Tensor] = None,
-                decode: bool = True) -> torch.Tensor:
-        b, s, d = x.shape
+                decode: bool = True,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x``: (R, d) rows, the first b·s of them the window's tokens
+        in (b, s) order (``positions`` is (b, s)), the rest zero padding;
+        ``adapter_ids`` one per row. Returns (R, d)."""
+        b, s = positions.shape
+        n, d = b * s, x.shape[-1]
         dh = d // self.n_heads
-        q = rope(self.wq(x).reshape(b, s, self.n_heads, dh), positions,
-                 self.rope_theta, self.rope_scaling)
-        k = rope(self.wk(x).reshape(b, s, self.n_kv_heads, dh), positions,
-                 self.rope_theta, self.rope_scaling)
-        v = self.wv(x).reshape(b, s, self.n_kv_heads, dh)
+        aid = adapter_ids
+        q = rope(self.wq(x, aid)[:n].reshape(b, s, self.n_heads, dh),
+                 positions, self.rope_theta, self.rope_scaling)
+        k = rope(self.wk(x, aid)[:n].reshape(b, s, self.n_kv_heads, dh),
+                 positions, self.rope_theta, self.rope_scaling)
+        v = self.wv(x, aid)[:n].reshape(b, s, self.n_kv_heads, dh)
         if not decode:
             # the train branch: causal flash attention over the window,
             # keys past each row's length masked. K/V repeat to n_heads
@@ -366,7 +422,8 @@ class _DecoderAttention(nn.Module):
                 k.repeat_interleave(self.rep, dim=2).transpose(1, 2),
                 v.repeat_interleave(self.rep, dim=2).transpose(1, 2),
                 causal=True, kv_lens=lens).transpose(1, 2)
-            return self.wo(o.reshape(b, s, self.n_heads * dh))
+            return self.wo(_pad_rows(o.reshape(n, self.n_heads * dh),
+                                     x.shape[0]), aid)
         ck, cv = cache["k"], cache["v"]
         kv_int8 = "k_scale" in cache  # the int8 cache's extra leaves
         t = positions  # (b, s): each slot's own write index per token
@@ -413,7 +470,8 @@ class _DecoderAttention(nn.Module):
             o = _masked_decode_attention(
                 q, ck.repeat_interleave(self.rep, dim=2),
                 cv.repeat_interleave(self.rep, dim=2), t, dh, x.dtype)
-        return self.wo(o.reshape(b, s, self.n_heads * dh))
+        return self.wo(_pad_rows(o.reshape(n, self.n_heads * dh),
+                                 x.shape[0]), aid)
 
 
 class _DecoderBlock(nn.Module):
@@ -421,28 +479,30 @@ class _DecoderBlock(nn.Module):
                  mlp_dim: int, lora_rank: int, rope_theta: float,
                  rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
                  device: torch.device, gen: torch.Generator,
-                 n_experts: int = 0, quantized: bool = False) -> None:
+                 n_experts: int = 0, quantized: bool = False,
+                 n_adapters: int = 0) -> None:
         super().__init__()
         if n_experts:
             raise NotImplementedError("the MoE FFN is not ported yet")
         self.RMSNorm_0 = RMSNorm(hidden, device)
         self.attn = _DecoderAttention(hidden, n_heads, n_kv_heads,
                                       lora_rank, rope_theta, rope_scaling,
-                                      dtype, device, gen, quantized)
+                                      dtype, device, gen, quantized,
+                                      n_adapters)
         self.RMSNorm_1 = RMSNorm(hidden, device)
         kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen,
-                  quantized=quantized)
+                  quantized=quantized, n_adapters=n_adapters)
         self.gate = LoRADense(hidden, mlp_dim, **kw)
         self.up = LoRADense(hidden, mlp_dim, **kw)
         self.down = LoRADense(mlp_dim, hidden, **kw)
 
     def forward(self, x, positions, cache, page_tables, lens=None,
-                decode=True):
+                decode=True, adapter_ids=None):
         x = x + self.attn(self.RMSNorm_0(x), positions, cache, page_tables,
-                          lens, decode)
-        y = self.RMSNorm_1(x)
-        y = F.silu(self.gate(y)) * self.up(y)  # SwiGLU
-        return x + self.down(y)
+                          lens, decode, adapter_ids)
+        y = self.RMSNorm_1(x)  # then SwiGLU
+        y = F.silu(self.gate(y, adapter_ids)) * self.up(y, adapter_ids)
+        return x + self.down(y, adapter_ids)
 
 
 def _check_kv_layout(max_len: int, kv_page_size: int, kv_pages: int
@@ -468,7 +528,10 @@ class Llama(nn.Module):
     the serving engine's scratch page); ``with_kv_layout`` gives another
     layout over the same weights. ``quantized`` holds every LoRADense
     base as int8 with per-channel scales (serving only, the tree
-    :func:`quantize_llama_params` gives); ``kv_int8`` makes the decode
+    :func:`quantize_llama_params` gives); ``n_adapters > 0`` stacks that
+    many LoRA adapters at every site (serving only, the tree
+    :func:`stack_lora_adapters` gives), each row applying the one its
+    ``adapter_ids`` entry names; ``kv_int8`` makes the decode
     cache int8 with one f32 absmax scale per K/V row. Weights are drawn
     from ``generator`` (a fresh one seeded 0 when None) on ``device``
     (None = the CUDA card, raising without one)."""
@@ -487,9 +550,6 @@ class Llama(nn.Module):
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
-        if n_adapters:
-            raise NotImplementedError(
-                "multi-adapter serving is not ported yet")
         _check_kv_layout(max_len, kv_page_size, kv_pages)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -505,13 +565,15 @@ class Llama(nn.Module):
         self.kv_page_size = int(kv_page_size)
         self.kv_pages = int(kv_pages)
         self.quantized = bool(quantized)
+        self.n_adapters = int(n_adapters)
         self.kv_int8 = bool(kv_int8)
         self.tok_embed = Embed(vocab_size, hidden_dim, device, generator)
         for i in range(depth):
             self.add_module(f"block_{i}", _DecoderBlock(
                 hidden_dim, n_heads, n_kv_heads, mlp_dim, lora_rank,
                 rope_theta, rope_scaling, self.dtype, device, generator,
-                n_experts=n_experts, quantized=self.quantized))
+                n_experts=n_experts, quantized=self.quantized,
+                n_adapters=self.n_adapters))
         self.final_norm = RMSNorm(hidden_dim, device)
         self.lm_head = LoRADense(hidden_dim, vocab_size, 0, self.dtype,
                                  device, generator,
@@ -565,10 +627,13 @@ class Llama(nn.Module):
                 page_tables: Optional[torch.Tensor] = None,
                 decode: bool = True,
                 return_hidden: bool = False,
-                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lens: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(b, s) ids → (b, s, vocab) logits, or the final-norm
         activations with ``return_hidden`` (prefill, which must not pay
-        the lm_head).
+        the lm_head). ``adapter_ids`` ((b,) int32) selects each row's
+        adapter on a multi-adapter model (``n_adapters > 0``; None is
+        adapter 0) and is ignored otherwise.
 
         ``decode=True`` (the default here; the JAX module's is False) is
         one decode-branch call: write the window's K/V into ``cache`` at
@@ -595,14 +660,19 @@ class Llama(nn.Module):
                     "generate paths must use a contiguous-cache model)")
         else:
             page_tables = None
-        x = self.tok_embed(ids).to(self.dtype)
+        # the blocks run over (R, d) rows: the b x s tokens, zero-padded
+        # to ROW_BUCKET rows on the card (see there)
+        x, n = _rows(self.tok_embed(ids).to(self.dtype))
+        if adapter_ids is not None and self.n_adapters:
+            adapter_ids = _pad_rows(adapter_ids.reshape(b, 1).expand(b, s)
+                                    .reshape(n), x.shape[0])
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x, positions, cache[i],
-                                            page_tables, lens, decode)
+                                            page_tables, lens, decode,
+                                            adapter_ids)
         x = self.final_norm(x)
-        if return_hidden:
-            return x
-        return self.lm_head(x)
+        out = x if return_hidden else self.lm_head(x)
+        return out[:n].reshape(b, s, out.shape[-1])
 
 
 def greedy_generate(module: Llama, prompt_ids: np.ndarray,
@@ -769,6 +839,67 @@ def _default_kv_pages(max_slots: int, max_len: int, page_size: int) -> int:
     return 1 + max_slots * (max_len // page_size)
 
 
+def stack_lora_adapters(trees: Sequence[Dict[str, Any]],
+                        validate: bool = True) -> Dict[str, Any]:
+    """Ports ``stack_lora_adapters``: N adapter-only fine-tunes of one
+    base (nested-dict params trees, the JAX layout) merged into the tree
+    of ``Llama(n_adapters=N)``. ``lora_a``/``lora_b`` leaves stack along
+    a new leading adapter axis (f32 numpy); every other leaf is taken
+    from ``trees[0]`` as it is (not copied) and, with ``validate``,
+    checked byte-identical across the inputs: a mismatch means the
+    trials were not trained with ``adapters_only`` and cannot share one
+    serving engine. ``validate=False`` skips the scan."""
+    trees = list(trees)
+    if not trees:
+        raise ValueError("need at least one adapter tree")
+
+    def as_np(leaf: Any) -> np.ndarray:
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(leaf)
+
+    def merge(path: List[str], nodes: List[Any]) -> Any:
+        if isinstance(nodes[0], dict):
+            return {k: merge(path + [k], [n[k] for n in nodes])
+                    for k in nodes[0]}
+        name = "/".join(path).lower()
+        if "lora_a" in name or "lora_b" in name:
+            return np.stack([as_np(n).astype(np.float32) for n in nodes])
+        if validate:
+            first = as_np(nodes[0])
+            for i, leaf in enumerate(nodes[1:], start=1):
+                if leaf is not nodes[0] and not np.array_equal(
+                        first, as_np(leaf)):
+                    raise ValueError(
+                        f"non-adapter leaf {name!r} differs between "
+                        f"adapter 0 and {i}: multi-adapter serving "
+                        "requires trials trained with adapters_only=True "
+                        "(shared base/norms/lm_head)")
+        return nodes[0]
+
+    return merge([], trees)
+
+
+def _load_leaves(model: nn.Module, tree: Dict[str, Any]) -> None:
+    """``model.load_state_dict(llama_params_from_jax(tree, dtype))``, one
+    leaf at a time: each leaf is cast to its parameter's type on the way
+    in (the bits the bridge's cast gives), so an 8B tree never has a
+    second, compute-dtype copy of itself on the host. The keys must be
+    the model's, and the shapes its parameters'."""
+    state = model.state_dict()
+    flat = params_from_jax(tree)
+    if set(flat) != set(state):
+        raise ValueError(f"params tree does not match the model: missing "
+                         f"{sorted(set(state) - set(flat))[:4]}, unexpected "
+                         f"{sorted(set(flat) - set(state))[:4]}")
+    with torch.no_grad():
+        for key, t in flat.items():
+            if tuple(t.shape) != tuple(state[key].shape):
+                raise ValueError(f"{key}: shape {tuple(t.shape)} != the "
+                                 f"model's {tuple(state[key].shape)}")
+            state[key].copy_(t)
+
+
 def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
     """``state_dict``-keyed leaves as the nested params tree."""
     tree: Dict[str, Any] = {}
@@ -894,11 +1025,13 @@ class LlamaLoRA:
         return torch.bfloat16 if self.knobs.get("bf16", True) \
             else torch.float32
 
-    def _module(self, quantized: bool = False) -> Llama:
+    def _module(self, quantized: bool = False,
+                n_adapters: int = 0) -> Llama:
         """A freshly initialized model for these knobs (mlp = 4·hidden,
         as in the JAX template), contiguous cache layout; int8 base
-        kernels with ``quantized``, an int8 cache with the
-        ``kv_cache_int8`` knob."""
+        kernels with ``quantized``, ``n_adapters`` stacked adapters at
+        every LoRA site, an int8 cache with the ``kv_cache_int8``
+        knob."""
         k = self.knobs
         hd = int(k["hidden_dim"])
         heads = int(k["n_heads"])
@@ -912,7 +1045,7 @@ class LlamaLoRA:
                                       or 10000.0),
                      rope_scaling=_parse_rope_scaling(
                          k.get("rope_scaling", "")),
-                     quantized=quantized,
+                     quantized=quantized, n_adapters=n_adapters,
                      kv_int8=bool(k.get("kv_cache_int8", False)),
                      device=self.device)
 
@@ -1301,6 +1434,39 @@ class LlamaLoRA:
                 + leaf_bytes("embedding", (vocab, hd))
                 + leaf_bytes("scale", (hd,)))
 
+    def _param_shapes(self) -> Dict[str, Any]:
+        """The params tree these knobs give, its leaves zero-byte
+        broadcast views of the right shapes (the JAX template's
+        ``jax.eval_shape`` of the init): what a loaded tree must
+        match."""
+        k = self.knobs
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
+        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
+
+        def leaf(*shape: int) -> np.ndarray:
+            return np.broadcast_to(np.float32(0), shape)
+
+        def site(d_in: int, out: int) -> Dict[str, np.ndarray]:
+            out_tree = {"kernel": leaf(d_in, out)}
+            if rank:
+                out_tree.update(lora_a=leaf(d_in, rank),
+                                lora_b=leaf(rank, out))
+            return out_tree
+
+        block = {"attn": {"wq": site(hd, hd), "wk": site(hd, kv),
+                          "wv": site(hd, kv), "wo": site(hd, hd)},
+                 "gate": site(hd, 4 * hd), "up": site(hd, 4 * hd),
+                 "down": site(4 * hd, hd),
+                 "RMSNorm_0": {"scale": leaf(hd)},
+                 "RMSNorm_1": {"scale": leaf(hd)}}
+        tree: Dict[str, Any] = {f"block_{i}": block
+                                for i in range(int(k["depth"]))}
+        tree.update(tok_embed={"embedding": leaf(vocab, hd)},
+                    final_norm={"scale": leaf(hd)},
+                    lm_head={"kernel": leaf(hd, vocab)})
+        return tree
+
     def estimate_serving_device_bytes(self, max_slots: int = 8,
                                       n_extra_adapters: int = 0,
                                       draft: Optional["LlamaLoRA"] = None,
@@ -1404,39 +1570,123 @@ class LlamaLoRA:
         ``kv_page_size > 0`` serves from a paged KV pool of ``kv_pages``
         pages (0 = full coverage); on a CUDA device every decode call
         then runs the paged-attention kernels (their int8 instances under
-        ``kv_cache_int8``). Speculation, draft models, system prefixes and
-        the host KV tier are later slices."""
-        if system_prefix:
-            raise NotImplementedError(
-                "registered prefixes are not ported yet")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "draft-model speculation is not ported yet")
+        ``kv_cache_int8``), verify windows included.
+
+        ``speculate_k >= 2`` verifies ``speculate_k - 1`` drafted tokens
+        a call: prompt-lookup drafts, or with ``draft_model`` (a smaller
+        loaded ``LlamaLoRA`` with this model's tokenizer) the draft
+        model's greedy continuations; the draft keeps its own contiguous
+        cache. ``system_prefix`` registers the text's KV once; requests
+        that extend it skip its prefill. The host KV tier is a later
+        slice (``host_kv_pages`` raises)."""
+        self._require_params()
+        if host_kv_pages and kv_page_size <= 0:
+            raise ValueError("host_kv_pages requires kv_page_size > 0 "
+                             "(pages are the host tier's transfer "
+                             "unit)")
         if kv_page_size > 0 and not kv_pages:
             kv_pages = _default_kv_pages(max_slots,
                                          int(self.knobs["max_len"]),
                                          int(kv_page_size))
         module = self._serving_module_params(kv_page_size, kv_pages)
-        return self._build_text_engine(module, max_slots, max_new_tokens,
-                                       steps_per_sync, prefill_chunk,
-                                       speculate_k,
-                                       host_kv_pages=host_kv_pages)
+        engine = self._build_text_engine(module, max_slots, max_new_tokens,
+                                         steps_per_sync, prefill_chunk,
+                                         speculate_k,
+                                         draft_model=draft_model,
+                                         host_kv_pages=host_kv_pages)
+        if system_prefix:
+            engine.register_prefix(system_prefix)
+        return engine
+
+    def make_multi_adapter_engine(self, adapter_params: Sequence[Any],
+                                  max_slots: int = 8,
+                                  max_new_tokens: int = 8,
+                                  steps_per_sync: int = 4,
+                                  prefill_chunk: int = 32,
+                                  speculate_k: int = 0,
+                                  validate: bool = True,
+                                  kv_page_size: int = 0,
+                                  kv_pages: int = 0,
+                                  host_kv_pages: int = 0
+                                  ) -> TextDecodeEngine:
+        """One engine serving N adapter-only fine-tunes of one base: each
+        request picks its fine-tune with ``submit(..., adapter_id=i)``,
+        and requests of different adapters share every decode call.
+        ``adapter_params``: params trees in adapter-id order (a
+        ``dump_parameters()["params"]`` each); their non-adapter leaves
+        must be identical (checked unless ``validate=False``) and the
+        engine serves ``adapter_params[0]``'s base. Tokenization is this
+        model's. Under ``quantize_int8`` the shared base kernels are
+        quantized once and the adapters pass through as they are. This
+        template's own serving model is dropped first (it is rebuilt by
+        the next call that needs it), so the card holds one base."""
+        trees = list(adapter_params)
+        if not trees:
+            raise ValueError("adapter_params must name >= 1 trees")
+        if host_kv_pages and kv_page_size <= 0:
+            raise ValueError("host_kv_pages requires kv_page_size > 0 "
+                             "(pages are the host tier's transfer "
+                             "unit)")
+        stacked = stack_lora_adapters(trees, validate=validate)
+        self._model = self._qmodel = None
+        quantized = bool(self.knobs.get("quantize_int8"))
+        model = self._module(quantized=quantized, n_adapters=len(trees))
+        if quantized:
+            stacked = quantize_llama_params(stacked, model.device)
+        _load_leaves(model, stacked)
+        del stacked
+        if kv_page_size > 0 and not kv_pages:
+            kv_pages = _default_kv_pages(max_slots,
+                                         int(self.knobs["max_len"]),
+                                         int(kv_page_size))
+        return self._build_text_engine(
+            model.with_kv_layout(kv_page_size, kv_pages), max_slots,
+            max_new_tokens, steps_per_sync, prefill_chunk, speculate_k,
+            host_kv_pages=host_kv_pages)
 
     def _build_text_engine(self, module: Llama, max_slots: int,
                            max_new_tokens: int, steps_per_sync: int,
                            prefill_chunk: int, speculate_k: int,
+                           draft_model: Optional["LlamaLoRA"] = None,
                            host_kv_pages: int = 0) -> TextDecodeEngine:
-        """This model's tokenizer around a DecodeEngine."""
+        """This model's tokenizer around a DecodeEngine, with the JAX
+        template's checks of a draft model: ``speculate_k >= 2``, the same
+        tokenizer, a ``max_len`` covering this model's, and parameters of
+        the draft's own knobs' shapes."""
         max_len = int(self.knobs["max_len"])
 
         def encode(text: str) -> np.ndarray:
             row, n = self.tokenizer.encode(str(text), max_len)
             return np.asarray(row[:max(1, int(n))], np.int32)
 
+        draft = None
+        if draft_model is not None:
+            if int(speculate_k) < 2:
+                raise ValueError(
+                    "draft_model requires speculate_k >= 2 "
+                    f"(got {speculate_k})")
+            if draft_model._params is None:
+                raise RuntimeError("draft model is not trained/loaded")
+            if not _same_tokenizer(self.tokenizer, draft_model.tokenizer):
+                raise ValueError(
+                    "draft and target tokenize differently (merge "
+                    "tables / vocab mismatch): speculation compares "
+                    "token ids, so the models must share a tokenizer")
+            if int(draft_model.knobs["max_len"]) < max_len:
+                raise ValueError(
+                    "draft max_len must cover the target's (the draft "
+                    "cache walks the same positions)")
+            if not same_tree_shapes(draft_model._param_shapes(),
+                                    draft_model._params):
+                raise ValueError(
+                    "draft parameters do not match the draft model's "
+                    "knobs (pass the draft trial's own knobs, e.g. "
+                    "the worker config's draft_knobs)")
+            draft = draft_model._serving_module_params()
         core = DecodeEngine(module, max_slots=max_slots, max_len=max_len,
                             steps_per_sync=steps_per_sync,
                             prefill_chunk=prefill_chunk,
-                            speculate_k=speculate_k,
+                            speculate_k=speculate_k, draft=draft,
                             host_kv_pages=int(host_kv_pages),
                             device=self.device)
         return TextDecodeEngine(core, encode, self._detok,

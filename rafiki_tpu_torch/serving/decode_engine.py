@@ -35,21 +35,37 @@ Ports the core of ``rafiki_tpu/serving/decode_engine.py``:
   bit the JAX engine's draws) when a live slot samples;
 - ``_make_prefill`` → :func:`_prefill`: one C-token cache pass that
   stops at the final norm (the (B, C, vocab) lm_head is never computed;
-  XLA dead-code-eliminated it, eager PyTorch must not run it).
+  XLA dead-code-eliminated it, eager PyTorch must not run it);
+- multi-adapter serving (a module with ``n_adapters > 0``): the per-slot
+  ``_aid`` operand of every step, prefill and verify call, and
+  ``_check_adapter_id``;
+- speculative decoding (``speculate_k >= 2``): prompt-lookup drafts
+  (:func:`_ngram_draft`) or a draft model's greedy continuations
+  (``draft=``, its own contiguous cache kept in step by the prefill,
+  scan and verify mirrors, ``_resync_draft`` after a gated stretch),
+  one verify call (:func:`_verify`, the JAX ``_make_verify``) over each
+  slot's k-token window, the acceptance gate (``SPEC_*`` constants) and
+  the spec margin of ``_pages_for``;
+- registered prefixes (``register_prefix``; ``_install_prefix`` into
+  rows or pages; the admission hit path, gated on the slot's adapter)
+  and their wire form (``export_prefix`` / ``import_prefix``: the JAX
+  engine's blob, a contiguous (1, plen, ...) snapshot with its leaves in
+  ``jax.tree_util`` order). Where JAX computes a snapshot in one batch-1
+  pass of a contiguous twin, the port runs the engine's own (B, C)
+  prefill calls over it (``_prefix_snapshot``): a hit is then bit for
+  bit a request prefilled without the prefix, in bf16 on the card too.
 
 JAX compiles each program once and donates the cache; here the model
 writes its cache tensors in place and runs eagerly. On a CUDA device a
 paged engine's every decode call goes through the hand-written kernels
 (``paged_decode_attention`` for the s == 1 steps,
-``paged_window_attention`` for prefill windows).
+``paged_window_attention`` for prefill and verify windows).
 
 Left for later slices, raising :class:`NotPorted` (a
 ``NotImplementedError`` that is also a ``ValueError``, so a serving worker
-answers such a request with an error reply naming it and serves on):
-adapters other than 0 (multi-adapter engines), speculation
-(``speculate_k >= 2``, ``draft``), the host KV tier (``host_kv_pages >
-0``, and with it parked occupants), registered/imported/exported
-prefixes and KV shipment (``poll_kv``, ``stage_kv_blob``,
+answers such a request with an error reply naming it and serves on): the
+host KV tier (``host_kv_pages > 0``, and with it parked occupants) and
+KV shipment (``poll_kv``, ``stage_kv_blob``,
 ``TextDecodeEngine.submit(kv_blob=)``).
 """
 
@@ -65,12 +81,25 @@ import numpy as np
 import torch
 
 from rafiki_tpu_torch.obs.metrics import StatsMap
+from rafiki_tpu_torch.serving.kv_transfer import (cache_from_leaves,
+                                                  cache_leaves, dtype_name,
+                                                  leaf_signature)
 from rafiki_tpu_torch.serving.slo import (DEFAULT_SLO, ClassQueue,
                                           evictable_occupants,
                                           normalize_slo, preemption_victim)
 from rafiki_tpu_torch.utils import threefry
 from rafiki_tpu_torch.utils.device import (DeviceLike, resolve_device,
                                            same_device)
+
+
+#: speculation break-even (tokens per verify call) of prompt-lookup
+#: drafts, and of a draft model (which pays two extra forwards a verify
+#: and a mirror a scan call); scan calls before a gated-off speculator
+#: re-probes; the EMA decay of tokens per verify call
+SPEC_MIN_TOKENS_PER_CALL = 1.5
+SPEC_MIN_TOKENS_PER_CALL_DRAFT = 2.2
+SPEC_REPROBE_CALLS = 32
+SPEC_EMA_DECAY = 0.7
 
 
 @dataclass
@@ -83,6 +112,7 @@ class _Slot:
     top_p: float = 1.0          # >= 1 → no nucleus cut
     seed: int = 0               # with (position) → the sample's key
     eos_id: Optional[int] = None  # emitting this token ends the request
+    adapter_id: int = 0         # multi-adapter engines: which fine-tune
     slo: str = DEFAULT_SLO      # admission class (interactive first)
     seq: int = 0                # arrival order; preemption evicts the
     #                             youngest lowest-class victim
@@ -122,8 +152,16 @@ class DecodeEngine:
     happens at call boundaries. Any K produces identical tokens.
 
     ``module`` is a port ``Llama`` (its ``kv_page_size``/``kv_pages``
-    choose the cache layout); ``device`` must be the module's device
-    (None = the CUDA card, raising without one)."""
+    choose the cache layout, its ``n_adapters`` multi-adapter serving);
+    ``device`` must be the module's device (None = the CUDA card,
+    raising without one). ``speculate_k >= 2`` enables greedy
+    speculation: each verify call checks ``speculate_k - 1`` drafted
+    tokens plus the model's own next one in one window and emits 1..k
+    tokens; drafts come from prompt lookup, or from ``draft`` (a
+    contiguous-cache port ``Llama`` sharing the vocabulary; the JAX
+    ``(module, params)`` pair is one module here). Every emitted token
+    is the model's argmax given accepted history, so outputs are those
+    of plain decoding; sampling slots fall back to the scan."""
 
     def __init__(self, module: Any, max_slots: int, max_len: int,
                  steps_per_sync: int = 4, prefill_chunk: int = 32,
@@ -135,14 +173,17 @@ class DecodeEngine:
         if not same_device(self.device, module.device):
             raise ValueError(f"module lives on {module.device}, engine "
                              f"device is {self.device}")
-        if int(speculate_k) >= 2 or draft is not None:
-            raise _not_ported("speculative decoding")
         if int(host_kv_pages):
             raise _not_ported("the host KV tier")
         self.module = module
         self.B = int(max_slots)
         self.L = int(max_len)
         self.K = max(1, int(steps_per_sync))
+        #: verify window width (0: no speculation)
+        self.spec_k = 0 if int(speculate_k) < 2 else min(int(speculate_k),
+                                                         self.L)
+        #: scan calls since the last speculative attempt
+        self._spec_idle = 0
         #: prompt tokens ingested per prefill call (1 disables prefill:
         #: prompts then stream token by token through the decode steps)
         self.C = max(1, min(int(prefill_chunk), self.L))
@@ -165,6 +206,9 @@ class DecodeEngine:
         self._topk = np.zeros((self.B,), np.int32)
         self._topp = np.ones((self.B,), np.float32)
         self._seed = np.zeros((self.B,), np.int32)
+        #: multi-adapter serving: each slot's adapter, a device operand
+        self.n_adapters = int(getattr(module, "n_adapters", 0) or 0)
+        self._aid = np.zeros((self.B,), np.int32)
         #: device copy of the prompts, refreshed only on admission
         self._prompt_dev: Optional[torch.Tensor] = None
         #: paged KV: host-owned page tables + free-list allocator over
@@ -197,9 +241,38 @@ class DecodeEngine:
         self._ptab_dev_width = 0
         self._ptab_dirty = True
         self._cache = module.init_cache(self.B)
+        #: draft-model speculation: the draft's own contiguous cache,
+        #: synced with the target's accepted history by construction
+        #: (every prefill chunk, scan call and verify window is mirrored
+        #: into it); a gated-off stretch skips the mirrors and the next
+        #: probe rebuilds the cache (``_resync_draft``)
+        self.draft_module = draft
+        self._draft_cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        if draft is not None and self.spec_k:
+            if not same_device(self.device, draft.device):
+                raise ValueError(f"draft lives on {draft.device}, engine "
+                                 f"device is {self.device}")
+            if int(getattr(draft, "kv_page_size", 0) or 0):
+                raise ValueError("the draft model keeps a contiguous "
+                                 "cache (kv_page_size 0)")
+            self._draft_cache = draft.init_cache(self.B)
+        #: the acceptance gate's break-even floor and its EMA of tokens
+        #: per verify call, seeded just above the floor
+        self._spec_floor = (SPEC_MIN_TOKENS_PER_CALL_DRAFT
+                            if self._draft_cache is not None
+                            else SPEC_MIN_TOKENS_PER_CALL)
+        self._spec_ema = self._spec_floor + 0.5
+        self._draft_synced = True
+        #: registered prefix per adapter: {"ids", "cache" (per-layer
+        #: (1, plen, ...) tensors), "len", "aid"[, "draft_cache"]}
+        self._prefixes: Dict[int, Dict[str, Any]] = {}
         self.stats = StatsMap({
             "steps": 0, "tokens_generated": 0, "requests_done": 0,
             "max_concurrent": 0, "prefill_calls": 0, "prefill_tokens": 0,
+            "spec_calls": 0, "spec_drafted": 0, "spec_accepted": 0,
+            "prefix_hits": 0, "prefix_tokens": 0,
+            "spec_draft_model_calls": 0, "draft_resyncs": 0,
+            "kv_imports": 0,
             # paged-KV pool gauges (0 on contiguous engines)
             "kv_pages_used": 0, "kv_pages_high_water": 0,
             "kv_pages_total": (self.n_pages - 1 if self.paged else 0),
@@ -228,16 +301,15 @@ class DecodeEngine:
         keyed by ``fold_in(fold_in(PRNGKey(0), seed), position)``, so a
         draw depends only on (seed, position), never on the batch.
         ``eos_id`` ends the request when emitted (the EOS is dropped from
-        the reply). ``adapter_id`` must be 0: this engine serves one
-        adapter. ``slo`` orders admission (interactive, batch,
-        background), and a full engine preempts lower-class occupants
-        for a higher-class head."""
-        if int(adapter_id) != 0:
-            raise _not_ported(f"adapter_id {int(adapter_id)} "
-                              "(multi-adapter serving)")
+        the reply). ``adapter_id`` (multi-adapter engines) picks the
+        request's fine-tune; out-of-range ids raise ``ValueError``, and a
+        single-adapter engine ignores the field. ``slo`` orders admission
+        (interactive, batch, background), and a full engine preempts
+        lower-class occupants for a higher-class head."""
         prompt = np.asarray(prompt_ids, np.int32).ravel()
         max_new = max(1, min(int(max_new), self.L - 1))
         prompt = prompt[:max(1, self.L - max_new)]
+        aid = self._check_adapter_id(adapter_id)
         cls = normalize_slo(slo)
         if self.paged:
             # a request whose worst case exceeds the whole pool could
@@ -256,7 +328,19 @@ class DecodeEngine:
                 temperature=float(temperature), top_k=int(top_k),
                 top_p=float(top_p), seed=int(seed),
                 eos_id=None if eos_id is None else int(eos_id),
-                slo=cls, seq=self._seq))
+                adapter_id=aid, slo=cls, seq=self._seq))
+
+    def _check_adapter_id(self, adapter_id: int) -> int:
+        """A request's adapter, validated: an out-of-range id raises
+        (serving another fine-tune would be a correct-looking wrong
+        answer); single-adapter engines ignore the field."""
+        if self.n_adapters <= 0:
+            return 0
+        aid = int(adapter_id)
+        if not 0 <= aid < self.n_adapters:
+            raise ValueError(f"adapter_id {aid} out of range for "
+                             f"{self.n_adapters}-adapter engine")
+        return aid
 
     def poll(self) -> List[Tuple[Any, List[int]]]:
         """Completed (request_id, generated ids) since the last poll."""
@@ -343,7 +427,11 @@ class DecodeEngine:
             self._topk[:] = 0
             self._topp[:] = 1
             self._seed[:] = 0
+            self._aid[:] = 0
             self._prompt_dev = None
+            self._spec_ema = self._spec_floor + 0.5
+            self._spec_idle = 0
+            self._draft_synced = True
             if self.paged:
                 self._free_pages = list(range(self.n_pages - 1, 0, -1))
                 self._ptab[:] = 0
@@ -353,17 +441,171 @@ class DecodeEngine:
                 self._ptab_dirty = True
                 self.stats.set("kv_pages_used", 0)
         self._cache = self.module.init_cache(self.B)
+        if self._draft_cache is not None:
+            self._draft_cache = self.draft_module.init_cache(self.B)
+
+    # ---- registered prefixes (not concurrent with step) ----
+    def _snapshot_module(self) -> Any:
+        """The layout of a prefix snapshot: a contiguous twin over the
+        same weights (a (1, plen, ...) row snapshot is the install
+        source and the wire form on either layout)."""
+        return self.module.with_kv_layout(0, 0) if self.paged \
+            else self.module
+
+    def _prefix_snapshot(self, module: Any, prefix: np.ndarray, aid: int,
+                         paged: bool) -> List[Dict[str, torch.Tensor]]:
+        """The KV of ``prefix`` through ``module`` as this engine's own
+        chunked prefill computes it: (B, C) calls over C-token chunks from
+        position 0, the prefix in row 0 and the other rows idle, on a
+        scratch cache of the engine's layout (a pool of the prefix's
+        pages behind a page table of the live width the engine would
+        pass). Every call then has the shapes of the engine's prefill
+        calls and row 0 the arithmetic of a slot prefilling the prefix:
+        a hit's rows are the bits a request without the prefix computes
+        for the same positions, on the card in bf16 too (a batch-1,
+        plen-wide pass rounds differently). Returns (1, plen, ...)
+        tensors per layer."""
+        plen, w = len(prefix), self.C if self.C > 1 else len(prefix)
+        page = self.page_size if paged else 0
+        n_pg = (plen - 1) // page + 1 if paged else 0
+        twin = module.with_kv_layout(page, 1 + n_pg) if paged else module
+        cache = twin.init_cache(self.B)
+        table = np.zeros((self.B, max(1, n_pg)), np.int32)
+        table[0, :n_pg] = np.arange(1, n_pg + 1)
+        aid_dev = (self._dev(np.full((self.B,), aid, np.int32), torch.int32)
+                   if int(getattr(module, "n_adapters", 0) or 0) else None)
+        for c0 in range(0, plen, w):
+            n = min(w, plen - c0)
+            tok = np.zeros((self.B, w), np.int32)
+            pos = np.zeros((self.B, w), np.int32)
+            tok[0, :n] = prefix[c0:c0 + n]
+            pos[0, :n] = np.arange(c0, c0 + n)
+            tok[0, n:], pos[0, n:] = tok[0, n - 1], pos[0, n - 1]
+            ptab = None
+            if paged:
+                width = 1
+                while width < (c0 + n - 1) // page + 1:
+                    width *= 2
+                ptab = self._dev(table[:, :min(width, self._n_table)],
+                                 torch.int32)
+            _prefill(twin, cache, self._dev(tok, torch.int64),
+                     self._dev(pos, torch.int32), ptab, aid_dev)
+        if not paged:
+            return [{name: t[:1, :plen].clone() for name, t in layer.items()}
+                    for layer in cache]
+        pos = np.arange(plen)
+        pg = self._dev(table[0, pos // page], torch.int64)
+        off = self._dev(pos % page, torch.int64)
+        return [{name: t[pg, off][None] for name, t in layer.items()}
+                for layer in cache]
 
     def register_prefix(self, prefix_ids: np.ndarray,
                         adapter_id: int = 0) -> int:
-        raise _not_ported("registered prefixes")
+        """Precompute the KV of a shared prompt prefix (a system prompt):
+        a later request whose prompt strictly extends it skips its
+        prefill, admission copying the snapshot's rows into the slot's
+        cache (:meth:`_prefix_snapshot`; on a paged engine the prefill
+        runs through the paged kernels). One prefix per adapter (its KV
+        is a function of the adapter); re-register to replace, empty ids
+        to clear. Returns the registered length (at most ``max_len -
+        2``). Not concurrent with ``step``."""
+        aid = self._check_adapter_id(adapter_id)
+        prefix = np.asarray(prefix_ids, np.int32).ravel()[:self.L - 2]
+        if len(prefix) == 0:
+            self._prefixes.pop(aid, None)
+            return 0
+        entry = {"ids": prefix, "len": len(prefix), "aid": aid,
+                 "cache": self._prefix_snapshot(self.module, prefix, aid,
+                                                self.paged)}
+        if self._draft_cache is not None:
+            # the draft attends the same positions: without its own
+            # snapshot a hit slot would draft over zero KV
+            entry["draft_cache"] = self._prefix_snapshot(
+                self.draft_module, prefix, aid, False)
+        self._prefixes[aid] = entry
+        return len(prefix)
 
-    def export_prefix(self, adapter_id: int = 0):
-        raise _not_ported("prefix export")
+    def _install_prefix(self, rows: List[int], pre: Dict[str, Any]) -> None:
+        """Copy prefix ``pre``'s KV into the given slots: their rows, or
+        on a paged engine their pages (mapped at admission) through the
+        page table; int8-KV scale leaves come along. The draft cache,
+        always contiguous, takes the row copy."""
+        plen = pre["len"]
+        rws = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        if self.paged:
+            pos = np.arange(plen)
+            pg = self._ptab[np.asarray(rows, np.int64)][:, pos //
+                                                        self.page_size]
+            idx0 = self._dev(pg, torch.int64)
+            idx1 = self._dev(pos % self.page_size, torch.int64)
+            for layer, snap in zip(self._cache, pre["cache"]):
+                for name, c in layer.items():
+                    vals = snap[name][0].to(c.dtype)
+                    c.index_put_((idx0, idx1[None, :].expand_as(idx0)),
+                                 vals[None].expand(
+                                     (len(rows),) + tuple(vals.shape)))
+        else:
+            _install_rows(self._cache, pre["cache"], rws, plen)
+        if self._draft_cache is not None and "draft_cache" in pre:
+            _install_rows(self._draft_cache, pre["draft_cache"], rws, plen)
+        self.stats.inc("prefix_hits", len(rows))
+        self.stats.inc("prefix_tokens", plen * len(rows))
+
+    def export_prefix(self, adapter_id: int = 0
+                      ) -> Optional[Dict[str, Any]]:
+        """The registered prefix snapshot as the JAX engine's wire blob
+        (``v``, ``ids``, ``len``, ``adapter_id``, ``sig``, ``leaves``,
+        ``nbytes``), its leaves in ``jax.tree_util`` order on the host:
+        numpy arrays, bf16 ones as CPU torch tensors (the param-store
+        codec writes them as ``bfloat16``). None when no prefix is
+        registered for the adapter."""
+        pre = self._prefixes.get(self._check_adapter_id(adapter_id))
+        if pre is None:
+            return None
+        leaves = [t.cpu() if t.dtype == torch.bfloat16 else t.cpu().numpy()
+                  for t in cache_leaves(pre["cache"])]
+        return {"v": 1, "ids": np.asarray(pre["ids"], np.int32),
+                "len": int(pre["len"]), "adapter_id": int(pre["aid"]),
+                "sig": leaf_signature(leaves), "leaves": leaves,
+                "nbytes": int(sum(t.numel() * t.element_size()
+                                  if isinstance(t, torch.Tensor)
+                                  else t.nbytes for t in leaves))}
 
     def import_prefix(self, blob: Dict[str, Any],
                       adapter_id: int = 0) -> int:
-        raise _not_ported("prefix import")
+        """Install a peer's exported prefix snapshot (the JAX engine's or
+        this one's) without recomputing its prefill. The geometry is
+        checked before any state changes, raising ``ValueError`` on a
+        mismatch. A draft-model engine keeps no draft rows for it (still
+        lossless: acceptance starts cold). Returns the installed length.
+        Not concurrent with ``step``."""
+        aid = self._check_adapter_id(adapter_id)
+        if not isinstance(blob, dict) or int(blob.get("v", -1)) != 1:
+            raise ValueError("not a prefix snapshot blob")
+        ids = np.asarray(blob.get("ids"), np.int32).ravel()
+        plen = int(blob.get("len", -1))
+        if plen != len(ids) or not 0 < plen <= self.L - 2:
+            raise ValueError(
+                f"prefix blob length {plen} does not fit this engine "
+                f"(1..{self.L - 2} tokens)")
+        like = self._snapshot_module().init_cache(1, device="meta")
+        flat = cache_leaves(like)
+        leaves = list(blob.get("leaves") or [])
+        if len(leaves) != len(flat) or any(
+                tuple(v.shape[:2]) != (1, plen)
+                or tuple(v.shape[2:]) != tuple(c.shape[2:])
+                or dtype_name(v) != dtype_name(c)
+                for v, c in zip(leaves, flat)):
+            raise ValueError(
+                "prefix blob does not match this engine's cache "
+                "geometry (model shape / dtype / int8 mismatch)")
+        tensors = [(v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.array(v))).to(self.device)
+                   for v in leaves]
+        self._prefixes[aid] = {"ids": ids, "len": plen, "aid": aid,
+                               "cache": cache_from_leaves(tensors, like)}
+        self.stats.inc("kv_imports")
+        return plen
 
     def poll_kv(self):
         raise _not_ported("KV shipment (disaggregated prefill)")
@@ -374,9 +616,13 @@ class DecodeEngine:
     # ---- paged-KV allocator (step thread only, except reservations,
     # ---- which share the admission lock) ----
     def _pages_for(self, stop_pos: int) -> int:
-        """Worst-case pages a request can touch: the decode steps write
-        positions <= stop_pos - 1."""
-        return min(stop_pos - 1, self.L - 1) // self.page_size + 1
+        """Worst-case pages a request can touch: the scan writes
+        positions <= stop_pos - 1, and a verify window up to
+        ``spec_k - 1`` past it (clamped to the cache). Reserved at
+        admission, so lazy allocation never fails."""
+        h = min(stop_pos - 1 + (self.spec_k - 1 if self.spec_k else 0),
+                self.L - 1)
+        return h // self.page_size + 1
 
     def _ensure_pages_to(self, i: int, last_pos: int) -> None:
         """Allocate slot ``i``'s logical pages covering positions
@@ -445,6 +691,12 @@ class DecodeEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
+    def _aid_arg(self) -> Optional[torch.Tensor]:
+        """The per-slot adapter operand (None on single-adapter
+        engines)."""
+        return (self._dev(self._aid, torch.int32) if self.n_adapters
+                else None)
+
     # ---- the loop body ----
     def _chunked_prefill(self) -> None:
         """Ingest admitted prompts C tokens per call before they join the
@@ -460,7 +712,10 @@ class DecodeEngine:
             if rem.max() == 0:
                 break
             c_use = self.C
-            if self.C > self._small_c and rem.max() <= self._small_c:
+            # short remainders take the narrow call; a draft engine stays
+            # wide, as JAX compiles its draft mirror at C only
+            if (self.C > self._small_c and self._draft_cache is None
+                    and rem.max() <= self._small_c):
                 c_use = self._small_c
             adv = np.minimum(rem, c_use)
             tok_chunk = np.empty((self.B, c_use), np.int32)
@@ -483,9 +738,16 @@ class DecodeEngine:
                     if adv[i] > 0:
                         self._ensure_pages_to(
                             i, int(self._pos[i]) + int(adv[i]) - 1)
-            _prefill(self.module, self._cache,
-                     self._dev(tok_chunk, torch.int64),
-                     self._dev(pos_chunk, torch.int32), self._ptab_arg())
+            tok_dev = self._dev(tok_chunk, torch.int64)
+            pos_dev = self._dev(pos_chunk, torch.int32)
+            aid_dev = self._aid_arg()
+            _prefill(self.module, self._cache, tok_dev, pos_dev,
+                     self._ptab_arg(), aid_dev)
+            if self._draft_cache is not None and self._draft_synced:
+                # the draft's KV follows the prompt walk (while desynced,
+                # the resync rebuilds prompts anyway)
+                _prefill(self.draft_module, self._draft_cache, tok_dev,
+                         pos_dev, None, None)
             self.stats.inc("prefill_calls")
             self.stats.inc("prefill_tokens", int(adv.sum()))
             for i in range(self.B):
@@ -531,7 +793,8 @@ class DecodeEngine:
         resumed = _Slot(slot.request_id, prompt, slot.max_new - len(gen),
                         temperature=slot.temperature, top_k=slot.top_k,
                         top_p=slot.top_p, seed=slot.seed,
-                        eos_id=slot.eos_id, slo=slot.slo, seq=slot.seq,
+                        eos_id=slot.eos_id, adapter_id=slot.adapter_id,
+                        slo=slot.slo, seq=slot.seq,
                         prior=slot.prior + gen)
         resumed.n_streamed = slot.n_streamed
         resumed.first_tokened = slot.first_tokened
@@ -559,13 +822,28 @@ class DecodeEngine:
         return (slot.request_id, j, n_gen, slot.slo, by)
 
     def _seat_slot(self, i: int, slot: _Slot) -> None:
-        """Install a popped request into free slot ``i`` (lock held)."""
+        """Install a popped request into free slot ``i`` (lock held):
+        host mirrors, the shared-prefix fast-forward when the prompt
+        strictly extends the prefix registered for its adapter (a
+        preempt-resumed slot re-matches), first pages, then the prefix
+        install into them."""
         self._slots[i] = slot
         self._tok[i] = slot.prompt[0]
         self._pos[i] = 0
         self._prompt_buf[i, :] = 0
         self._prompt_buf[i, :len(slot.prompt)] = slot.prompt
         self._prompt_len[i] = len(slot.prompt)
+        pre = self._prefixes.get(slot.adapter_id)
+        if pre is not None and (len(slot.prompt) > pre["len"]
+                                and np.array_equal(slot.prompt[:pre["len"]],
+                                                   pre["ids"])):
+            # the KV copy makes positions 0..plen-1 as if prefilled; the
+            # prompt walk resumes at plen
+            self._pos[i] = pre["len"]
+            slot.n_consumed = pre["len"]
+            self._tok[i] = slot.prompt[pre["len"]]
+        else:
+            pre = None
         # finish once pos reaches plen - 1 + max_new (the step at input
         # position p emits a generated token iff p >= plen - 1)
         self._stop_pos[i] = min(len(slot.prompt) - 1 + slot.max_new, self.L)
@@ -573,8 +851,12 @@ class DecodeEngine:
         self._topk[i] = slot.top_k
         self._topp[i] = slot.top_p
         self._seed[i] = np.int32(slot.seed & 0x7FFFFFFF)
+        self._aid[i] = slot.adapter_id
         if self.paged:
-            self._ensure_pages_to(i, 0)
+            # position 0, or the whole prefix span for a hit
+            self._ensure_pages_to(i, int(self._pos[i]))
+        if pre is not None:
+            self._install_prefix([i], pre)
 
     def step(self) -> int:
         """Admit queued requests into free slots (preempting lower-class
@@ -653,6 +935,20 @@ class DecodeEngine:
                 self._span("prefill", rid, prompt_tokens=plen)
         if admitted or self._prompt_dev is None:
             self._prompt_dev = self._dev(self._prompt_buf, torch.int64)
+        any_sampling = any(self._slots[i].temperature > 0 for i in live)
+        # the speculative path: every live slot greedy and past its
+        # prompt, room for a whole window in the cache, and recent
+        # acceptance above break-even (or a periodic re-probe); else this
+        # call runs the scan. Both emit the argmax tokens.
+        if (self.spec_k and not any_sampling
+                and (self._spec_ema >= self._spec_floor
+                     or self._spec_idle >= SPEC_REPROBE_CALLS)
+                and all(self._pos[i] >= len(self._slots[i].prompt) - 1
+                        and int(self._pos[i]) + self.spec_k <= self.L
+                        for i in live)):
+            return self._speculative_step(live)
+        if self.spec_k:
+            self._spec_idle += 1
         if self.paged:
             for i in live:
                 # the K steps write positions pos..pos+K-1, frozen at
@@ -663,7 +959,7 @@ class DecodeEngine:
         # the sampler (a vocab sort per step) runs only in calls where a
         # live slot samples, as JAX compiles a separate greedy program
         sampling = None
-        if any(self._slots[i].temperature > 0 for i in live):
+        if any_sampling:
             sampling = (self._dev(self._temp, torch.float32),
                         self._dev(self._topk, torch.int32),
                         self._dev(self._topp, torch.float32),
@@ -674,8 +970,20 @@ class DecodeEngine:
             self._dev(self._pos, torch.int32), self._prompt_dev,
             self._dev(self._prompt_len, torch.int32),
             self._dev(self._stop_pos, torch.int32), self._ptab_arg(),
-            sampling)
+            sampling, self._aid_arg())
         self.stats.inc("steps", self.K)
+        if self._draft_cache is not None:
+            if not any_sampling and (
+                    self._spec_ema >= self._spec_floor
+                    or self._spec_idle >= SPEC_REPROBE_CALLS - 1):
+                if not self._draft_synced:
+                    self._resync_draft()
+                self._mirror_scan_onto_draft(emitted)
+            else:
+                # speculation cannot pay now (gate off, or a sampling
+                # slot): skip the mirror, and let the next probe rebuild
+                # the draft cache from the accepted contexts
+                self._draft_synced = False
 
         finished: List[Tuple[Any, List[int]]] = []
         for i in live:
@@ -726,6 +1034,236 @@ class DecodeEngine:
                 self._span("done", rid, tokens=len(toks))
         return len(live)
 
+    # ---- speculation ----
+    def _draft_pass(self, tok: np.ndarray, pos: np.ndarray) -> None:
+        """One multi-token KV pass of (B, w) ``tok`` at ``pos`` through
+        the draft (a prefill-shaped mirror)."""
+        _prefill(self.draft_module, self._draft_cache,
+                 self._dev(tok, torch.int64), self._dev(pos, torch.int32),
+                 None, None)
+
+    def _resync_draft(self) -> None:
+        """Rebuild the draft cache from every live slot's accepted
+        context (prompt + generated, positions 0..pos-1) in K-token
+        passes: a re-probe after a gated-off stretch whose scan mirrors
+        were skipped."""
+        self._draft_cache = self.draft_module.init_cache(self.B)
+        ctxs: Dict[int, np.ndarray] = {}
+        maxp = 0
+        for i in range(self.B):
+            s = self._slots[i]
+            if s is None:
+                continue
+            ctx = np.concatenate([s.prompt,
+                                  np.asarray(s.generated, np.int32)])
+            ctxs[i] = ctx[:int(self._pos[i])]
+            maxp = max(maxp, len(ctxs[i]))
+        for c0 in range(0, maxp, self.K):
+            tok_m = np.zeros((self.B, self.K), np.int32)
+            pos_m = np.zeros((self.B, self.K), np.int32)
+            for i in range(self.B):
+                ctx = ctxs.get(i)
+                if ctx is None or len(ctx) <= c0:
+                    # nothing (left) for this lane: an idempotent rewrite
+                    # of its current token at its current position
+                    tok_m[i, :] = self._tok[i]
+                    pos_m[i, :] = self._pos[i]
+                    continue
+                n = min(self.K, len(ctx) - c0)
+                tok_m[i, :n] = ctx[c0:c0 + n]
+                pos_m[i, :n] = np.arange(c0, c0 + n)
+                tok_m[i, n:] = tok_m[i, n - 1]
+                pos_m[i, n:] = pos_m[i, n - 1]
+            self._draft_pass(tok_m, pos_m)
+        self._draft_synced = True
+        self.stats.inc("draft_resyncs")
+
+    def _mirror_scan_onto_draft(self, emitted: np.ndarray) -> None:
+        """Write the scan call's consumed inputs into the draft cache in
+        one pass, so the draft stays token for token in step with the
+        target. Runs before the host mirrors advance (``_pos``/``_tok``
+        are the call's start); idle lanes rewrite their current token at
+        their current position."""
+        tok_m = np.empty((self.B, self.K), np.int32)
+        pos_m = np.empty((self.B, self.K), np.int32)
+        for i in range(self.B):
+            s = self._slots[i]
+            p0 = int(self._pos[i])
+            cur = int(self._tok[i])
+            if s is None:
+                tok_m[i, :] = cur
+                pos_m[i, :] = p0
+                continue
+            plen = len(s.prompt)
+            n_real = max(0, min(self.K, int(self._stop_pos[i]) - p0,
+                                self.L - p0))
+            for j in range(self.K):
+                if j < n_real:
+                    p = p0 + j
+                    if j == 0:
+                        t = cur
+                    elif p < plen:
+                        t = int(s.prompt[p])
+                    else:  # generated region: the previous step's token
+                        t = int(emitted[j - 1, i])
+                    tok_m[i, j], pos_m[i, j] = t, p
+                else:  # idle remainder: rewrite the last entry
+                    tok_m[i, j] = tok_m[i, j - 1] if j else cur
+                    pos_m[i, j] = pos_m[i, j - 1] if j else p0
+        self._draft_pass(tok_m, pos_m)
+
+    def _speculative_step(self, live: List[int]) -> int:
+        """One verify call: each live slot's drafted continuation rides
+        one k-token window; a slot emits its accepted prefix plus the
+        model's own token at the first mismatch (1..spec_k tokens).
+        Rejected drafts leave KV rows above the slot's new position:
+        unreachable under the position mask, rewritten when generation
+        reaches them."""
+        k = self.spec_k
+        if self._draft_cache is not None:
+            if not self._draft_synced:
+                self._resync_draft()
+            # k-1 greedy steps of the draft over its own cache, then the
+            # verify mirror writes the window's inputs [tok, drafts], the
+            # last row included (a fully accepted window needs its KV)
+            d_emit = _decode_steps(
+                self.draft_module, self._draft_cache, k - 1,
+                self._dev(self._tok, torch.int64),
+                self._dev(self._pos, torch.int32), self._prompt_dev,
+                self._dev(self._prompt_len, torch.int32),
+                self._dev(self._stop_pos, torch.int32), None)
+            drafts = np.ascontiguousarray(d_emit.T).astype(np.int32)
+            self._draft_pass(
+                np.concatenate([self._tok[:, None], drafts], axis=1),
+                self._pos[:, None] + np.arange(k, dtype=np.int32)[None, :])
+            self.stats.inc("spec_draft_model_calls")
+        else:
+            drafts = np.zeros((self.B, k - 1), np.int32)
+            for i in live:
+                s = self._slots[i]
+                ctx = np.concatenate(
+                    [s.prompt, np.asarray(s.generated, np.int32)])
+                drafts[i] = _ngram_draft(ctx, k - 1)
+        if self.paged:
+            for i in live:
+                # the window writes positions pos..pos+k-1 (the gate kept
+                # them inside the cache), inside the reservation's spec
+                # margin, whether or not the drafts are accepted
+                self._ensure_pages_to(i, min(int(self._pos[i]) + k - 1,
+                                             self.L - 1))
+        g, n_emit = _verify(self.module, self._cache, self._tok, self._pos,
+                            drafts, self._stop_pos, self._ptab_arg(),
+                            self._aid_arg(), self.device)
+        self.stats.inc("steps")
+        self.stats.inc("spec_calls")
+        self._spec_idle = 0
+        self._spec_ema = (SPEC_EMA_DECAY * self._spec_ema
+                          + (1 - SPEC_EMA_DECAY)
+                          * float(np.mean(n_emit[live])))
+
+        finished: List[Tuple[Any, List[int]]] = []
+        for i in live:
+            slot = self._slots[i]
+            pos0 = int(self._pos[i])
+            take = max(1, min(int(n_emit[i]), int(self._stop_pos[i]) - pos0,
+                              self.L - pos0))
+            toks = [int(t) for t in g[i, :take]]
+            eos_hit = slot.eos_id is not None and slot.eos_id in toks
+            if eos_hit:  # drop the EOS and anything verified past it
+                toks = toks[:toks.index(slot.eos_id)]
+            n0 = len(slot.generated)
+            slot.generated.extend(toks)
+            slot.n_consumed += take
+            self._pos[i] = pos0 + take
+            if toks:
+                self.stats.inc("tokens_generated", len(toks))
+                self._mark_progress(slot, n0, len(slot.generated))
+            self.stats.inc("spec_drafted", k - 1)
+            self.stats.inc("spec_accepted", take - 1)
+            if (eos_hit or len(slot.generated) >= slot.max_new
+                    or int(self._pos[i]) >= self.L):
+                finished.append((slot.request_id,
+                                 slot.prior + slot.generated))
+                self._slots[i] = None
+                self._tok[i] = 0
+                self._pos[i] = 0
+                self._prompt_len[i] = 1
+                self._stop_pos[i] = 0
+                if self.paged:
+                    self._release_slot_pages(i)
+            else:
+                self._tok[i] = slot.generated[-1]
+        if finished:
+            with self._lock:
+                self._done.extend(finished)
+                self.stats.inc("requests_done", len(finished))
+            for rid, toks in finished:
+                self._span("done", rid, tokens=len(toks))
+        return len(live)
+
+
+def _ngram_draft(context: np.ndarray, k: int, max_n: int = 3) -> np.ndarray:
+    """Prompt-lookup drafting: the longest (<= ``max_n``) suffix n-gram of
+    ``context`` with an earlier occurrence proposes the ``k`` tokens that
+    followed its most recent match (padded with the last context token);
+    without a match, the last token ``k`` times. Host-side numpy."""
+    ctx = np.asarray(context, np.int32).ravel()
+    n_ctx = len(ctx)
+    for n in range(min(max_n, n_ctx - 1), 0, -1):
+        suffix = ctx[n_ctx - n:]
+        # windows over ctx[:-1]: every start whose n-gram ends before
+        # the suffix's own final token
+        windows = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+        hits = np.nonzero(np.all(windows == suffix, axis=1))[0]
+        if len(hits):
+            j = int(hits[-1]) + n  # continuation of the latest match
+            cont = ctx[j:j + k]
+            if len(cont) < k:
+                cont = np.concatenate(
+                    [cont, np.full(k - len(cont), ctx[-1], np.int32)])
+            return cont.astype(np.int32)
+    return np.full(k, ctx[-1], np.int32)
+
+
+def _verify(module: Any, cache: List[Dict[str, torch.Tensor]],
+            tok: np.ndarray, pos: np.ndarray, drafts: np.ndarray,
+            stop_pos: np.ndarray, ptab: Optional[torch.Tensor],
+            aid: Optional[torch.Tensor], device: torch.device
+            ) -> Tuple[np.ndarray, np.ndarray]:
+    """One speculative verify call (the JAX ``_make_verify``): each slot's
+    current token and its k-1 drafts at positions pos..pos+k-1 through
+    one cache pass (on a paged module, a window of the window kernel);
+    idle lanes (pos >= stop_pos) re-feed their token at their position k
+    times. ``g[:, j]`` is the argmax after input j, so draft j+1 is right
+    iff it equals ``g[:, j]``; ``n_emit`` is 1 + the accepted prefix.
+    Returns both on the host (the call's one sync)."""
+    k = drafts.shape[1] + 1
+    active = (pos < stop_pos)[:, None]
+    seq = np.where(active, np.concatenate([tok[:, None], drafts], axis=1),
+                   tok[:, None])
+    positions = np.where(active, pos[:, None] + np.arange(k)[None, :],
+                         pos[:, None])
+    logits = module(torch.from_numpy(seq.astype(np.int64)).to(device),
+                    positions=torch.from_numpy(
+                        positions.astype(np.int32)).to(device),
+                    cache=cache, page_tables=ptab, adapter_ids=aid)
+    g = logits.float().argmax(-1)
+    d = torch.from_numpy(drafts.astype(np.int64)).to(device)
+    ok = torch.cumprod((d == g[:, :-1]).long(), dim=1)
+    n_emit = 1 + ok.sum(dim=1)
+    out = torch.cat([g, n_emit[:, None]], dim=1).cpu().numpy()
+    return out[:, :k].astype(np.int32), out[:, k].astype(np.int32)
+
+
+def _install_rows(cache: List[Dict[str, torch.Tensor]],
+                  snap: List[Dict[str, torch.Tensor]], rows: torch.Tensor,
+                  plen: int) -> None:
+    """Write a (1, plen, ...) snapshot into contiguous cache rows
+    ``rows``, positions 0..plen-1, leaf by leaf."""
+    for layer, pre in zip(cache, snap):
+        for name, c in layer.items():
+            c[rows, :plen] = pre[name][:, :plen].to(c.dtype)
+
 
 def _select_next(logits: torch.Tensor, temp: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
@@ -764,8 +1302,8 @@ def _decode_steps(module: Any, cache: List[Dict[str, torch.Tensor]],
                   k: int, tok: torch.Tensor, pos: torch.Tensor,
                   prompt_buf: torch.Tensor, prompt_len: torch.Tensor,
                   stop_pos: torch.Tensor, ptab: Optional[torch.Tensor],
-                  sampling: Optional[Tuple[torch.Tensor, ...]] = None
-                  ) -> np.ndarray:
+                  sampling: Optional[Tuple[torch.Tensor, ...]] = None,
+                  aid: Optional[torch.Tensor] = None) -> np.ndarray:
     """K decode steps over all slots, writing ``cache`` in place (the JAX
     ``_make_step`` scan). Each step's token is the argmax, or with
     ``sampling`` = (temp, top_k, top_p, seed) per slot
@@ -773,14 +1311,14 @@ def _decode_steps(module: Any, cache: List[Dict[str, torch.Tensor]],
     next input is chosen on the device: the next prompt token while a
     slot's next position is inside its prompt, else its own token; a
     slot whose next position reaches ``stop_pos`` freezes (tok/pos stop
-    advancing). Returns the (K, n_slots) tokens — the call's one host
-    sync."""
+    advancing). ``aid``: each slot's adapter (multi-adapter modules).
+    Returns the (K, n_slots) tokens — the call's one host sync."""
     rows = torch.arange(tok.shape[0], device=tok.device)
     last = prompt_buf.shape[1] - 1
     emitted = []
     for _ in range(k):
         logits = module(tok[:, None], positions=pos[:, None], cache=cache,
-                        page_tables=ptab)
+                        page_tables=ptab, adapter_ids=aid)
         lg = logits[:, -1].float()
         nxt = (_select_next(lg, *sampling, pos) if sampling is not None
                else lg.argmax(-1))
@@ -796,13 +1334,14 @@ def _decode_steps(module: Any, cache: List[Dict[str, torch.Tensor]],
 
 def _prefill(module: Any, cache: List[Dict[str, torch.Tensor]],
              tok_chunk: torch.Tensor, pos_chunk: torch.Tensor,
-             ptab: Optional[torch.Tensor]) -> None:
+             ptab: Optional[torch.Tensor],
+             aid: Optional[torch.Tensor] = None) -> None:
     """One C-token prefill call (the JAX ``_make_prefill``): (B, C)
     tokens at their per-slot positions through the decode path, pure
     KV-cache population. ``return_hidden`` stops at the final norm, so
     the (B, C, vocab) lm_head is never computed."""
     module(tok_chunk, positions=pos_chunk, cache=cache, page_tables=ptab,
-           return_hidden=True)
+           return_hidden=True, adapter_ids=aid)
 
 
 class TextDecodeEngine:
@@ -876,6 +1415,19 @@ class TextDecodeEngine:
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed, eos_id=eos_id,
                            adapter_id=adapter_id, slo=slo)
+
+    def register_prefix(self, text: str, adapter_id: int = 0) -> int:
+        """Precompute the KV of a shared prompt prefix (see
+        :meth:`DecodeEngine.register_prefix`); not concurrent with
+        ``step``."""
+        return self.engine.register_prefix(self._encode(text),
+                                           adapter_id=adapter_id)
+
+    def export_prefix(self, adapter_id: int = 0):
+        return self.engine.export_prefix(adapter_id=adapter_id)
+
+    def import_prefix(self, blob, adapter_id: int = 0) -> int:
+        return self.engine.import_prefix(blob, adapter_id=adapter_id)
 
     def _full_text(self, rid: Any, ids: List[int]) -> str:
         """The request's cumulative output text: the decoded ids, after

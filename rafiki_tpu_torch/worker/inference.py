@@ -8,6 +8,7 @@ same queue hub and the same msgpack wire. Ported: ``ClockSkewEstimator``,
 ``InferenceWorker`` (``__init__``, ``_admission_check``, ``_warmup``,
 ``stop``, ``drain``, ``_publish_stats``, ``_engine_span``,
 ``_reject_expired``, ``_handle_control``, ``_reject_draining``,
+``_share_prefix_snapshot``,
 ``_drain_reject_queued``, ``_hub_outage_pause``, ``_hub_ok``, ``run`` with
 the micro-batch path and ``_serve_batch``, ``_run_decode_loop`` /
 ``_decode_serve`` with streaming deltas, ``_admit_decode_message``),
@@ -28,12 +29,19 @@ Where it differs from the JAX worker, on purpose:
 - boot fails loudly: a warmup failure propagates, and ``decode_loop``
   with a template that has no ``make_decode_engine`` raises instead of
   degrading to the micro-batcher;
+- the decode modes are the JAX worker's: ``speculate_k`` (prompt-lookup
+  speculation), ``draft_trial_id`` with ``draft_knobs`` (draft-model
+  speculation), ``extra_adapter_trials`` (one stacked multi-adapter
+  engine, requests routed by ``sampling["adapter_id"]``),
+  ``system_prefix`` and, with ``pool_id``, prefix sharing: the first
+  replica of a pool publishes its prefix snapshot as the hub blob
+  ``prefix:{pool_id}:0``, a later one installs it instead of prefilling
+  (``_share_prefix_snapshot``, counted in ``kv_imports_installed``);
 - options of later slices raise ``NotImplementedError`` at boot, each
-  naming itself: ``role`` prefill/decode, ``host_kv_pages``,
-  ``extra_adapter_trials``, ``draft_trial_id``, ``pool_id`` prefix
-  sharing, ``system_prefix``, ``speculate_k`` and fault injection
-  (``chaos`` or ``RAFIKI_CHAOS``); so does ``paged_kernel=False`` (the
-  port has no gather path on the card: ``None``/``True`` serve paged);
+  naming itself: ``role`` prefill/decode, ``host_kv_pages`` and fault
+  injection (``chaos`` or ``RAFIKI_CHAOS``); so does
+  ``paged_kernel=False`` (the port has no gather path on the card:
+  ``None``/``True`` serve paged);
 - no obs HTTP sidecar (``serve_obs``) and no KV shipment: a message
   carrying a prefill leg is left to the decode side's local prefill, and
   shipments pushed for a held request are drained and dropped;
@@ -125,6 +133,7 @@ class InferenceWorker:
                  speculate_k: int = 0, system_prefix: str = "",
                  extra_adapter_trials: Optional[List[str]] = None,
                  draft_trial_id: str = "",
+                 draft_knobs: Optional[dict] = None,
                  kv_page_size: int = 0, kv_pages: int = 0,
                  paged_kernel: Optional[bool] = None,
                  default_slo: str = "",
@@ -142,30 +151,22 @@ class InferenceWorker:
                               "prefill/decode and KV shipment)")
         if int(host_kv_pages):
             raise _not_ported("host_kv_pages (the host KV page tier)")
-        if extra_adapter_trials:
-            raise _not_ported("extra_adapter_trials (multi-adapter "
-                              "serving)")
-        if draft_trial_id:
-            raise _not_ported("draft_trial_id (draft-model speculation)")
-        if pool_id and system_prefix:
-            raise _not_ported("pool_id prefix sharing (a pool's shared "
-                              "system-prefix snapshot)")
-        if system_prefix:
-            raise _not_ported("system_prefix (registered prefixes)")
-        if int(speculate_k) >= 2:
-            raise _not_ported("speculate_k (speculative decoding)")
         if chaos is not None or os.environ.get(CHAOS_ENV, "").strip():
             raise _not_ported(f"fault injection (chaos / {CHAOS_ENV})")
         if paged_kernel is False:
             raise _not_ported("paged_kernel=False (the gather path: on the "
                               "card paged KV always runs the kernels)")
+        #: the job's pool id: keys the shared prefix-snapshot blob
+        self.pool_id = str(pool_id or "")
         #: admission class for requests that carry no ``slo`` of their
         #: own; validated at boot (a typo'd job default fails the deploy)
         self.default_slo = normalize_slo(default_slo)
         #: visible drop accounting; drain_rejected counts messages
-        #: error-replied while draining
+        #: error-replied while draining; kv_imports_installed counts
+        #: prefix snapshots installed from a pool peer's blob
         self.stats = StatsMap({"dropped_expired": 0,
                                "drain_rejected": 0,
+                               "kv_imports_installed": 0,
                                "data_plane_down": 0,
                                "hub_outages": 0})
         self._dp_down = False
@@ -229,11 +230,41 @@ class InferenceWorker:
             raise KeyError(f"no parameters for trial {trial_id!r}")
         self.model.load_parameters(params)
         del params
+        # an unloaded draft twin sized from its knobs: its params and
+        # cache count toward admission before any blob loads
+        draft_for_admission = None
+        if draft_trial_id and decode_loop and speculate_k >= 2:
+            draft_for_admission = model_class(
+                device=self.device, **(draft_knobs or knobs))
+        #: prefix sharing: a pool peer's published snapshot replaces the
+        #: local prefix prefill (installed after boot); single-adapter
+        #: deployments only, best-effort (a hub hiccup just prefills)
+        self._peer_prefix_blob: Optional[dict] = None
+        self._system_prefix = str(system_prefix or "")
+        if self.pool_id and system_prefix and decode_loop \
+                and not extra_adapter_trials:
+            try:
+                raw = self.hub.get_blob(f"prefix:{self.pool_id}:0")
+                if raw is not None:
+                    self._peer_prefix_blob = unpack_message(raw)
+                    system_prefix = ""
+            except Exception:  # noqa: BLE001 — sharing never gates boot
+                log.debug("prefix blob fetch failed", exc_info=True)
         self._admission_check(
             max_slots if decode_loop else 0,
+            len(extra_adapter_trials or ()) if decode_loop else 0,
+            draft_for_admission,
             kv_page_size=kv_page_size if decode_loop else 0,
             kv_pages=kv_pages if decode_loop else 0)
         self.engine = None
+        if draft_trial_id and (not decode_loop or speculate_k < 2):
+            raise ValueError(
+                "draft_trial_id requires decode_loop and "
+                f"speculate_k >= 2 (got speculate_k={speculate_k})")
+        if draft_trial_id and extra_adapter_trials:
+            raise ValueError(
+                "draft_trial_id is not supported with multi-adapter "
+                "deployment (the stacked engine has no draft path)")
         if decode_loop:
             if not hasattr(self.model, "make_decode_engine"):
                 raise RuntimeError(
@@ -244,23 +275,82 @@ class InferenceWorker:
             if kv_page_size:
                 extra = {"kv_page_size": kv_page_size,
                          "kv_pages": kv_pages}
-            self.engine = self.model.make_decode_engine(
-                max_slots=max_slots, max_new_tokens=max_new_tokens,
-                steps_per_sync=steps_per_sync, **extra)
+            if extra_adapter_trials:
+                self.engine = self._multi_adapter_engine(
+                    model_class, param_store, extra_adapter_trials,
+                    system_prefix, max_slots=max_slots,
+                    max_new_tokens=max_new_tokens,
+                    steps_per_sync=steps_per_sync,
+                    speculate_k=speculate_k, **extra)
+            else:
+                if speculate_k:
+                    extra["speculate_k"] = speculate_k
+                if system_prefix:
+                    extra["system_prefix"] = system_prefix
+                if draft_trial_id:
+                    # draft-model speculation: a second trial drafts,
+                    # shaped by its own knobs
+                    d_dump = param_store.load(draft_trial_id)
+                    if d_dump is None:
+                        raise KeyError("no parameters for draft trial "
+                                       f"{draft_trial_id!r}")
+                    d_model = model_class(device=self.device,
+                                          **(draft_knobs or knobs))
+                    d_model.load_parameters(d_dump)
+                    extra["draft_model"] = d_model
+                self.engine = self.model.make_decode_engine(
+                    max_slots=max_slots, max_new_tokens=max_new_tokens,
+                    steps_per_sync=steps_per_sync, **extra)
             # engine counters surface in the metrics under their bare
             # names; the hub publish keeps the engine_ prefix
             self.metrics.register_stats(self.engine.stats)
             self.engine.span_sink = self._engine_span
         self._warmup()
+        self._share_prefix_snapshot()
 
-    def _admission_check(self, max_slots: int, kv_page_size: int = 0,
+    def _multi_adapter_engine(self, model_class: type,
+                              param_store: ParamStore,
+                              extra_adapter_trials: List[str],
+                              system_prefix: str, **kw: Any) -> Any:
+        """One stacked engine: the primary trial as adapter 0 and each
+        extra trial as adapter 1..N, one base on the card. A base that
+        does not stack fails the boot naming the remedy; a system prefix
+        is registered per adapter (its KV is a function of the
+        adapter)."""
+        if not hasattr(self.model, "make_multi_adapter_engine"):
+            raise RuntimeError(
+                f"{model_class.__name__} does not support multi-adapter "
+                "serving (no make_multi_adapter_engine); deploy plain "
+                "replicas instead")
+        trees = [self.model._params]
+        for tid in extra_adapter_trials:
+            dump = param_store.load(tid)
+            if dump is None:
+                raise KeyError(f"no parameters for adapter trial {tid!r}")
+            trees.append(dump["params"])
+        try:
+            engine = self.model.make_multi_adapter_engine(trees, **kw)
+        except ValueError as e:
+            raise RuntimeError(
+                "multi-adapter deployment requires trials that share one "
+                "base (train them with adapters_only=True and identical "
+                "shape-relevant knobs); deploy as plain replicas instead: "
+                f"{e}") from e
+        if system_prefix:
+            for aid in range(len(trees)):
+                engine.register_prefix(system_prefix, adapter_id=aid)
+        return engine
+
+    def _admission_check(self, max_slots: int, n_extra_adapters: int = 0,
+                         draft: Any = None, kv_page_size: int = 0,
                          kv_pages: int = 0) -> None:
         """Refuse a deployment whose serving footprint (params + KV cache
-        + working set, the template's ``estimate_serving_device_bytes``)
-        exceeds the device's memory, before any engine is built. A
-        micro-batch deployment passes ``max_slots=0``; a paged one is
-        budgeted at its page pool. An estimator that raises is logged and
-        the deployment admitted."""
+        + stacked adapters + a draft's params and cache + working set,
+        the template's ``estimate_serving_device_bytes``) exceeds the
+        device's memory, before any engine is built. A micro-batch
+        deployment passes ``max_slots=0``; a paged one is budgeted at its
+        page pool. An estimator that raises is logged and the deployment
+        admitted."""
         est = getattr(self.model, "estimate_serving_device_bytes", None)
         if est is None:
             return
@@ -268,7 +358,10 @@ class InferenceWorker:
         if not limit:
             return
         try:
-            kwargs = {"max_slots": max_slots}
+            kwargs = {"max_slots": max_slots,
+                      "n_extra_adapters": n_extra_adapters}
+            if draft is not None:
+                kwargs["draft"] = draft
             if kv_page_size:
                 kwargs["kv_page_size"] = kv_page_size
                 kwargs["kv_pages"] = kv_pages
@@ -305,6 +398,39 @@ class InferenceWorker:
             warmup = getattr(self.model, "warmup", None)
             if warmup is not None:
                 warmup()
+
+    def _share_prefix_snapshot(self) -> None:
+        """Prefix sharing across a pool: the replica that found a peer's
+        blob at boot skipped its prefix prefill and installs the blob
+        here (a blob that does not fit falls back to registering the
+        prefix locally); the first replica publishes the snapshot it
+        computed. Best-effort: a failure leaves a local snapshot
+        serving."""
+        if not self.pool_id or self.engine is None \
+                or not self._system_prefix:
+            return
+        exp = getattr(self.engine, "export_prefix", None)
+        imp = getattr(self.engine, "import_prefix", None)
+        if exp is None or imp is None:
+            return
+        key = f"prefix:{self.pool_id}:0"
+        if self._peer_prefix_blob is not None:
+            blob, self._peer_prefix_blob = self._peer_prefix_blob, None
+            try:
+                imp(blob)
+                self.stats.inc("kv_imports_installed")
+            except Exception:  # noqa: BLE001 — a bad peer blob must not
+                # leave the worker without its prefix
+                log.warning("peer prefix snapshot rejected; registering "
+                            "the prefix locally", exc_info=True)
+                self.engine.register_prefix(self._system_prefix)
+            return
+        try:
+            blob = exp()
+            if blob is not None and self.hub.get_blob(key) is None:
+                self.hub.put_blob(key, pack_message(blob))
+        except Exception:  # noqa: BLE001 — publishing helps peers only
+            log.warning("prefix snapshot publish failed", exc_info=True)
 
     def stop(self) -> None:
         self._stop.set()
@@ -896,6 +1022,7 @@ def main(argv: Optional[list] = None) -> int:
         system_prefix=str(cfg.get("system_prefix", "")),
         extra_adapter_trials=list(cfg.get("extra_adapter_trials") or []),
         draft_trial_id=str(cfg.get("draft_trial_id", "")),
+        draft_knobs=cfg.get("draft_knobs"),
         kv_page_size=int(cfg.get("kv_page_size", 0)),
         kv_pages=int(cfg.get("kv_pages", 0)),
         paged_kernel=_tristate(cfg.get("paged_kernel")),

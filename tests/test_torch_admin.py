@@ -450,10 +450,6 @@ def test_models_datasets_and_job_validation(app):
 
 
 DEFERRED = [
-    ("MULTI_ADAPTER", {"MULTI_ADAPTER": 1}),
-    ("SYSTEM_PREFIX", {"SYSTEM_PREFIX": "be brief"}),
-    ("SPECULATE_K", {"SPECULATE_K": 4}),
-    ("DRAFT_TRIAL_ID", {"DRAFT_TRIAL_ID": "t1"}),
     ("WORKER_ROLE", {"WORKER_ROLE": "prefill,decode"}),
     ("KV_WAIT_S", {"KV_WAIT_S": 1.0}),
     ("HOST_KV_PAGES", {"HOST_KV_PAGES": 8}),
@@ -476,6 +472,105 @@ def test_deferred_inference_options_are_refused_by_name(app, name, budget):
     assert not manager.services and manager.allocator.free_count() == 1
     ij = meta.get_inference_jobs_of_train_job(job["id"])[0]
     assert ij["status"] == "ERRORED"
+
+
+def _lm_job(meta, shapes=("s1", "s1", "s2"), task="LANGUAGE_MODELING"):
+    """A train job of one model with completed trials (best first) of the
+    given shape signatures, as the manager's deploy path reads them."""
+    name = f"lm-{task}-{len(meta.get_available_models(user_id='u'))}"
+    m = meta.create_model("u", name, task, "LlamaLoRA", b"x")
+    job = meta.create_train_job("u", name, 1, task, {}, "a", "b")
+    sub = meta.create_sub_train_job(job["id"], m["id"])
+    trials = []
+    for i, sig in enumerate(shapes):
+        t = meta.create_trial(sub["id"], i, m["id"], {"max_len": 32,
+                                                      "i": i},
+                              shape_sig=sig)
+        meta.mark_trial_completed(t["id"], 1.0 - 0.1 * i, True)
+        trials.append(t)
+    return job, m, trials
+
+
+@pytest.mark.parametrize("budget,message", [
+    ({"SPECULATE_K": 1},
+     "SPECULATE_K=1 must be >= 2 (draft window depth; 1 would verify "
+     "nothing)"),
+    ({"DRAFT_TRIAL_ID": "t1"},
+     "DRAFT_TRIAL_ID requires SPECULATE_K >= 2 (the draft window depth) "
+     "in the same budget"),
+    ({"SPECULATE_K": 4, "DRAFT_TRIAL_ID": "no-such-trial"},
+     "DRAFT_TRIAL_ID 'no-such-trial' names no trial"),
+], ids=["speculate_k_1", "draft_without_speculate_k", "draft_trial_missing"])
+def test_speculation_budget_keys_validated_as_jax_does(app, budget,
+                                                       message):
+    """The JAX manager's checks of SPECULATE_K / DRAFT_TRIAL_ID, with its
+    messages, at the create call: nothing spawns, no slot is taken."""
+    client, meta, manager, _ = app
+    job, _m, _t = _lm_job(meta)
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(job["id"], budget=budget)
+    assert ei.value.status == 400 and message in str(ei.value)
+    assert not manager.services and manager.allocator.free_count() == 1
+
+
+def test_speculation_on_an_image_job_and_a_foreign_draft_are_refused(app):
+    client, meta, manager, _ = app
+    job, _m, _t = _lm_job(meta, task="IMAGE_CLASSIFICATION")
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(job["id"], budget={"SPECULATE_K": 4})
+    assert "SPECULATE_K/DRAFT_TRIAL_ID require a language-modeling " \
+        "deployment" in str(ei.value)
+    lm_job, lm_model, _t = _lm_job(meta)
+    other_job, other_model, other = _lm_job(meta, shapes=("s9",))
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(lm_job["id"], budget={
+            "SPECULATE_K": 4, "DRAFT_TRIAL_ID": other[0]["id"]})
+    assert f"is a different model ({other_model['id']}) than the " \
+        f"deployed {lm_model['id']}" in str(ei.value)
+    assert not manager.services
+
+
+def test_decode_mode_keys_reach_the_worker_config(app):
+    """SYSTEM_PREFIX, SPECULATE_K and DRAFT_TRIAL_ID (with the draft
+    trial's own knobs) land in the worker's config as JAX writes them."""
+    _, meta, manager, _ = app
+    job, _m, trials = _lm_job(meta)
+    budget = {"SYSTEM_PREFIX": "be brief", "SPECULATE_K": 4,
+              "DRAFT_TRIAL_ID": trials[2]["id"]}
+    cfg = manager._inference_worker_config("ij", 0, trials[0], budget)
+    assert (cfg["system_prefix"], cfg["speculate_k"],
+            cfg["draft_trial_id"], cfg["draft_knobs"]) == (
+        "be brief", 4, trials[2]["id"], {"max_len": 32, "i": 2})
+    assert cfg["pool_id"] == "ij"
+    plain = manager._inference_worker_config("ij", 0, trials[0], {})
+    assert not {"system_prefix", "speculate_k",
+                "draft_trial_id"} & set(plain)
+
+
+def test_multi_adapter_stacks_trials_of_one_model_and_shape(app, caplog):
+    """MULTI_ADAPTER: the best trials sharing the primary's model and
+    shape signature go to one worker (the others dropped with a
+    warning); an image job, or no second stackable trial, deploys plain
+    replicas with a warning."""
+    _, meta, manager, _ = app
+    job, _m, trials = _lm_job(meta)
+    best = meta.get_best_trials_of_train_job(job["id"], max_count=3)
+    got, multi = manager._multi_adapter_trials(best, {"MULTI_ADAPTER": 1})
+    assert multi and [t["id"] for t in got] == [t["id"]
+                                                for t in trials[:2]]
+    assert "dropping 1 best trial" in caplog.text
+    assert manager._multi_adapter_trials(best, {}) == (best, False)
+    ijob, _m, _t = _lm_job(meta, task="IMAGE_CLASSIFICATION")
+    ibest = meta.get_best_trials_of_train_job(ijob["id"], max_count=3)
+    assert manager._multi_adapter_trials(
+        ibest, {"MULTI_ADAPTER": 1}) == (ibest, False)
+    assert "not a language-modeling job; deploying plain replicas" \
+        in caplog.text
+    sjob, _m, _t = _lm_job(meta, shapes=("a", "b"))
+    sbest = meta.get_best_trials_of_train_job(sjob["id"], max_count=2)
+    assert manager._multi_adapter_trials(
+        sbest, {"MULTI_ADAPTER": 1}) == (sbest, False)
+    assert "no other best trial shares model" in caplog.text
 
 
 @pytest.mark.parametrize("route,body,what", [

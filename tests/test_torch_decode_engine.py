@@ -144,22 +144,27 @@ def test_reset_frees_pool_and_slots(port_lm):
 
 
 def test_unported_modes_raise(port_lm):
+    """The host KV tier and KV shipment are later slices; the decode
+    modes of this one are served (a single-adapter engine ignores
+    ``adapter_id``, as JAX's does; a draft must keep a contiguous
+    cache)."""
     mod = port_lm._serving_module_params(PAGE, 9)
-    for kw in ({"speculate_k": 3}, {"host_kv_pages": 4},
-               {"draft": (mod, None)}):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(mod, max_slots=2, max_len=L, device="cpu", **kw)
-    eng = DecodeEngine(mod, max_slots=2, max_len=L, device="cpu")
     with pytest.raises(NotImplementedError):
-        eng.submit(0, np.array([1, 2], np.int32), 4, adapter_id=1)
-    for call in (lambda: eng.register_prefix(np.array([1, 2])),
-                 lambda: eng.export_prefix(), lambda: eng.poll_kv(),
-                 lambda: eng.import_prefix({}),
-                 lambda: eng.stage_kv_blob({})):
+        DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
+                     host_kv_pages=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
+                     speculate_k=3, draft=mod)
+    eng = DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
+                       speculate_k=3, draft=mod.with_kv_layout(0, 0))
+    eng.submit(0, np.array([1, 2], np.int32), 4, adapter_id=1)
+    assert eng.register_prefix(np.array([1, 2])) == 2
+    assert eng.export_prefix()["len"] == 2
+    for call in (lambda: eng.poll_kv(), lambda: eng.stage_kv_blob({})):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(NotImplementedError):
-        port_lm.make_decode_engine(system_prefix="tok1")
+        port_lm.make_decode_engine(host_kv_pages=4, kv_page_size=PAGE)
 
 
 def test_refeed_past_the_live_table_width_vs_jax(trained_lm, port_lm):

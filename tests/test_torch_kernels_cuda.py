@@ -274,6 +274,59 @@ def test_int8_paged_kernels_on_card(dtype, dh, page):
         assert torch.equal(got_w, again_w), c
 
 
+#: verify-window lanes: window start per live slot (windows crossing a
+#: page, 14 and 61 with page 16, and a 64-key tile, 61; one far along,
+#: 1021); three idle lanes, free slots as the engine makes them, at
+#: position 0
+VERIFY_START = np.array([14, 61, 200, 1021, 0, 37, 0, 0], np.int32)
+VERIFY_LIVE = np.array([1, 1, 1, 1, 0, 1, 0, 0], bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 4, 8])
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_paged_window_at_verify_shapes_on_card(pool, s):
+    """B2 as speculative verify calls it: 8 slots, s = speculate_k, 32
+    query / 8 kv heads, head dim 128, page 16, bf16 queries over a bf16
+    or an int8 pool. A live slot's window covers pos..pos+s-1 and its
+    last page is the one it was just given; an idle lane (a free slot)
+    repeats position 0 s times over a table row of scratch page 0. Each
+    element within ``_paged_tol`` of the plain version, a second call
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    n_kv, n_heads, dh, page = 8, 32, 128, 16
+    rng = np.random.default_rng(7 * s + (pool == "int8"))
+    offs = np.arange(s, dtype=np.int32)[None, :]
+    wpos = np.where(VERIFY_LIVE[:, None], VERIFY_START[:, None] + offs,
+                    VERIFY_START[:, None]).astype(np.int32)
+    last = wpos[:, -1]
+    n_tab = int(last.max()) // page + 1
+    if pool == "int8":
+        kq, vq, ks, vs, tab = _int8_pools(rng, last, n_kv, dh, page, n_tab,
+                                          dev)
+        pools, scales = (kq, vq), (ks, vs)
+    else:
+        k, v, tab = _paged_pools(rng, last, n_kv, dh, page, n_tab, dt, dev)
+        pools, scales = (k, v), ()
+    tab[torch.from_numpy(~VERIFY_LIVE).to(dev)] = 0
+    q = torch.from_numpy(rng.standard_normal(
+        (len(last), s, n_heads, dh)).astype(np.float32)).to(dev).to(dt)
+    tpos = torch.from_numpy(wpos).to(dev)
+    sm = 1.0 / np.sqrt(dh)
+    before = pa.paged_window_attention.launches
+    got = pa.paged_window_attention(q, *pools, tab, tpos, sm, *scales)
+    again = pa.paged_window_attention(q, *pools, tab, tpos, sm, *scales)
+    assert pa.paged_window_attention.launches == before + 2
+    ref_pools = pools if scales else tuple(p.float() for p in pools)
+    ref = pa._paged_window_reference(q.float(), *ref_pools, tab, tpos, sm,
+                                     *scales)
+    torch.cuda.synchronize()
+    assert _paged_within(got, ref, dt)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_int8_paged_kernels_refuse_bad_operands_on_card():
     """No fallback: an int8 pool without scales, scales of another type,

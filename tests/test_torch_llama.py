@@ -182,10 +182,14 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError):
         LlamaLoRA(device="cpu", **{**KNOBS, "model_parallel": 2}).train(
             "unread.jsonl")
-    for kw in ({"n_adapters": 2}, {"n_experts": 4}):
-        with pytest.raises(NotImplementedError):
-            Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1,
-                  n_heads=2, n_kv_heads=1, mlp_dim=16, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
+              n_kv_heads=1, mlp_dim=16, device="cpu", n_experts=4)
+    # the stacked multi-adapter sites are ported
+    assert Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1,
+                 n_heads=2, n_kv_heads=1, mlp_dim=16, lora_rank=2,
+                 device="cpu", n_adapters=2).block_0.up.lora_a.shape == \
+        (2, 8, 2)
     with pytest.raises(NotImplementedError, match="moe_experts"):
         LlamaLoRA(device="cpu", **{**KNOBS, "moe_experts": 4})
     # the int8 serving forms are ported: int8 base kernels with their
@@ -203,3 +207,41 @@ def test_unported_branches_raise():
     m8 = LlamaLoRA(device="cpu", **{**KNOBS, "quantize_int8": True,
                                     "kv_cache_int8": True})
     assert m8._module(quantized=True).quantized and m8._module().kv_int8
+
+
+@pytest.mark.parametrize("n_adapters", [0, 2])
+def test_row_padding_leaves_every_row_as_it_is(monkeypatch, n_adapters):
+    """On the card, calls of fewer than ``ROW_BUCKET`` rows run padded to
+    it (so a verify window's rows get a decode step's bits). Forced here
+    on the CPU, the padding changes no row: the same logits for a
+    one-token and a four-token call, multi-adapter rows included."""
+    from rafiki_tpu_torch.models import llama_lora as ll
+
+    m = Llama(vocab_size=64, max_len=16, hidden_dim=16, depth=2,
+              n_heads=4, n_kv_heads=2, mlp_dim=32, lora_rank=2,
+              n_adapters=n_adapters, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for name, p in m.named_parameters():
+        if name.endswith("lora_b"):
+            p.data.normal_(0.0, 0.5, generator=gen)
+    ids = torch.randint(0, 64, (3, 4), generator=gen)
+    aid = torch.tensor([1, 0, 1]) if n_adapters else None
+
+    def logits():
+        cache = m.init_cache(3)
+        out = [m(ids[:, :1], cache=cache, adapter_ids=aid)]
+        out.append(m(ids[:, 1:], positions=torch.arange(1, 4).expand(3, 3),
+                     cache=cache, adapter_ids=aid))
+        return torch.cat(out, dim=1)
+
+    want = logits()
+    real = ll._rows
+
+    def padded(x):
+        flat, rows = real(x)
+        return torch.nn.functional.pad(
+            flat, (0, 0, 0, ll.ROW_BUCKET - rows)), rows
+
+    monkeypatch.setattr(ll, "_rows", padded)
+    got = logits()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

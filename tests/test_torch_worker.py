@@ -224,17 +224,27 @@ def lm_worker(lm_blob):
     s.close()
 
 
-@pytest.mark.parametrize("sampling,prompt,error", [
-    ({"adapter_id": 1}, "tok1 tok2", "adapter_id 1"),
-    ({"max_new": 6}, " ".join(f"t{i}" for i in range(30)), "KV pages"),
+@pytest.mark.parametrize("sampling,prompt,error,worker_kw", [
+    ({"adapter_id": 5}, "tok1 tok2",
+     "adapter_id 5 out of range for 2-adapter engine",
+     {"extra_adapter_trials": ["t0"]}),
+    ({"max_new": 6}, " ".join(f"t{i}" for i in range(30)), "KV pages", {}),
 ], ids=["adapter_id", "too_many_pages"])
 def test_unserved_requests_get_an_error_reply_and_the_worker_serves_on(
-        lm_worker, sampling, prompt, error):
-    preds, info = lm_worker.pred.predict([prompt], timeout=30.0,
-                                         sampling=sampling)
-    assert preds == [] and any(error in e for e in info["errors"]), info
-    preds, info = lm_worker.pred.predict(["tok1 tok2"], timeout=30.0)
-    assert len(preds) == 1 and not info.get("errors"), info
+        lm_blob, sampling, prompt, error, worker_kw):
+    """An adapter outside a stacked deployment's range (a single-adapter
+    engine ignores the field, as JAX's does) and a request larger than
+    the pool (3 usable pages of 8) get an error reply naming it."""
+    s = _Serving(_lm_worker(InferenceWorker, _port_store(lm_blob),
+                            "paged8", kv_pages=4, **worker_kw))
+    try:
+        preds, info = s.pred.predict([prompt], timeout=30.0,
+                                     sampling=sampling)
+        assert preds == [] and any(error in e for e in info["errors"]), info
+        preds, info = s.pred.predict(["tok1 tok2"], timeout=30.0)
+        assert len(preds) == 1 and not info.get("errors"), info
+    finally:
+        s.close()
 
 
 def test_sampled_requests_are_served_as_the_jax_worker(lm_blob):
@@ -457,19 +467,58 @@ def test_admission_admits_when_the_estimator_raises(lm_blob, monkeypatch,
     ({"role": "prefill"}, "worker role 'prefill'"),
     ({"role": "decode"}, "worker role 'decode'"),
     ({"host_kv_pages": 4}, "host_kv_pages"),
-    ({"extra_adapter_trials": ["t1"]}, "extra_adapter_trials"),
-    ({"draft_trial_id": "t1", "speculate_k": 3}, "draft_trial_id"),
-    ({"pool_id": "p", "system_prefix": "be brief"}, "pool_id"),
-    ({"system_prefix": "be brief"}, "system_prefix"),
-    ({"speculate_k": 3}, "speculate_k"),
     ({"chaos": object()}, "fault injection"),
     ({"paged_kernel": False}, "paged_kernel=False"),
-], ids=["prefill", "decode", "host_kv_pages", "extra_adapters", "draft",
-        "pool_prefix", "system_prefix", "speculate_k", "chaos",
+], ids=["prefill", "decode", "host_kv_pages", "chaos",
         "paged_kernel_false"])
 def test_options_not_ported_refuse_to_boot(lm_blob, kw, name):
     with pytest.raises(NotImplementedError, match=name.replace("(", r"\(")):
         _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"draft_trial_id": "t0"},
+    {"draft_trial_id": "t0", "speculate_k": 3, "decode_loop": False},
+    {"draft_trial_id": "t0", "speculate_k": 3,
+     "extra_adapter_trials": ["t0"]},
+    {"draft_trial_id": "nope", "speculate_k": 3},
+    {"extra_adapter_trials": ["nope"]},
+], ids=["draft_without_speculate_k", "draft_without_decode_loop",
+        "draft_with_extra_adapters", "draft_trial_missing",
+        "adapter_trial_missing"])
+def test_decode_mode_misconfigurations_refused_as_jax_does(lm_blob, kw):
+    """The JAX worker's boot checks of the decode modes, same exception
+    type, same message."""
+    with pytest.raises((ValueError, KeyError)) as want:
+        _lm_worker(JWorker, _jax_store(lm_blob), "paged8", **kw)
+    with pytest.raises(type(want.value)) as got:
+        _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8", **kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw", [
+    {"speculate_k": 3},
+    {"system_prefix": "tok1 tok2"},
+    {"speculate_k": 4, "draft_trial_id": "t0"},
+], ids=["speculate_k", "system_prefix", "draft"])
+def test_decode_mode_workers_serve_the_jax_workers_texts(lm_blob, kw):
+    """Each decode mode through the Predictor: the port worker's texts
+    equal the JAX worker's, and its engine ran the mode."""
+    queries = ["tok1 tok2 tok3 tok1 tok2", "tok1 tok2 tok5"]
+    answers = []
+    for cls, store in ((JWorker, _jax_store(lm_blob)),
+                       (InferenceWorker, _port_store(lm_blob))):
+        s = _Serving(_lm_worker(cls, store, "paged8", **kw))
+        try:
+            preds, info = s.pred.predict(queries, timeout=60.0)
+            assert info["workers_answered"] == 1, info
+            answers.append((preds, s.worker.engine.stats_snapshot()))
+        finally:
+            s.close()
+    (want, js), (got, ts) = answers
+    assert got == want
+    key = "prefix_hits" if "system_prefix" in kw else "spec_calls"
+    assert ts[key] == js[key] > 0
 
 
 def test_armed_chaos_env_refuses_to_boot(lm_blob, monkeypatch):
