@@ -12,8 +12,9 @@ the CUDA toolkit's ``nvcc``::
 
 The Llama legs run at widths of Llama-3-8B's and, to keep the call's
 time, at cut depths unless told otherwise: phases 4 and 16 (serving,
-bf16 and int8) at 8 of 32 (``--depth``), phases 24 and 26 at 16
-(``--slice-depth``), the worker leg (phase 18) at 4
+bf16 and int8) at 8 of 32 (``--depth``), phases 24 and 26 at 8
+(``--slice-depth``; 16 before phases 27-28 were added), the worker leg
+(phase 18) at 4
 (``--worker-depth``); the training leg runs at 32 (``--train-depth``).
 
 ViT-B/16 and BERT-base always run at full width and depth.
@@ -189,7 +190,7 @@ Phases; each raises on failure, so the script exits non-zero:
     ``STATS``.
 
 24. Llama serving as its users run it, at phase 18's widths (bf16,
-    depth 16 unless ``--slice-depth`` says otherwise): a byte-BPE
+    depth 8 unless ``--slice-depth`` says otherwise): a byte-BPE
     artifact of exactly 128256 ids (merges trained on a seeded corpus,
     then seeded merges of an existing id and a byte); a seeded HF-layout
     checkpoint
@@ -231,9 +232,32 @@ Phases; each raises on failure, so the script exits non-zero:
     adapters in one engine (the fine-tune and a seeded variant), 8
     requests alternating, each equal to its adapter's solo engine.
 
+27. BASELINE #2 at ImageNet widths (``resnet_phase``): ``ResNetClassifier``
+    (resnet50, width 64, bf16, batch 256, 224 x 224 x 3, 1000 classes)
+    trains one epoch of 16 steps (``budget_scale`` 0.2) from a seeded
+    617 MB ``.npy`` zip that streams by the template's own size rule
+    (``data/stream.py``: worker-thread decode, flip + crop): step time,
+    images/s, the wait on the loader, the card's busy share (one step
+    profiled), peak memory, the step's FLOPs from the conv and dense
+    shapes and its ``mfu`` against 989 TFLOP/s; finite losses, every
+    ``batch_stats`` leaf moved; ``evaluate`` on 512 images, ``predict``
+    of 256 and of 1. Then f32, TF32 off: resnet18 / resnet50 at width 16
+    on 64 x 64 (the ImageNet stem), vgg11 and densenet-s on 32 x 32, on
+    the card and on the CPU from one blob: logits, two SGD steps' losses
+    and ``batch_stats``.
+28. The BASELINE jobs (``cnn_tuning_phase``): BOHB ``tune_model`` over
+    ``ResNetClassifier`` (variant pinned to resnet50, 4 trials) on a
+    seeded 32 x 32 x 3 npz, the winner served by an ``InferenceWorker``
+    (256 images equal to ``predict``, closed-loop clients at 1 and 16);
+    ``python -m rafiki_tpu_torch.cli tune JaxFeedForward`` over
+    FashionMNIST-layout PNG zips (2048 / 512) as a subprocess on the
+    card; one epoch each of ``VGGClassifier`` and ``DenseNetClassifier``.
+    No port kernel lies on these paths: their launch counts must stay 0
+    (the ``resnet50_training`` and ``cnn_tuning`` paths).
+
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
-22, 23, then 24 and 18: phases 24 and 18 hold the most host memory
-(phase 24's f32 tree, phase 18's blob), and run last.
+22, 23, 27, 28, then 24 and 18: phases 24 and 18 hold the most host
+memory (phase 24's f32 tree, phase 18's blob), and run last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -1989,13 +2013,25 @@ def write_images(np, path, n, seed, n_classes=10):
 
 def _train_timed(torch, template, path, ctx, lp, fa, pe, profile_step):
     """``template.train(path)`` with every step timed (synchronized) and
-    its loss read, one step under ``torch.profiler``, and the launch
-    counts zeroed just before and read just after. ``train_epoch`` is
-    rebound for this run only."""
+    its loss read, the host's wait for each batch timed
+    (``loader_wait_s``), one step under ``torch.profiler``, and the
+    launch counts zeroed just before and read just after.
+    ``train_epoch`` is rebound for this run only."""
     from torch.profiler import ProfilerActivity, profile
 
-    losses, step_s, prof_line = [], [], {}
+    losses, step_s, wait_s, prof_line = [], [], [], {}
     real_epoch = lp.train_epoch
+
+    def timed_batches(batches):
+        it = iter(batches)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            wait_s.append(time.perf_counter() - t)
+            yield batch
 
     def timed_epoch(step, state, batches):
         def timed(state, batch):
@@ -2020,7 +2056,7 @@ def _train_timed(torch, template, path, ctx, lp, fa, pe, profile_step):
             step_s.append(time.perf_counter() - t)
             losses.append(value)
             return state, loss
-        return real_epoch(timed, state, batches)
+        return real_epoch(timed, state, timed_batches(batches))
 
     lp.train_epoch = timed_epoch
     try:
@@ -2034,8 +2070,8 @@ def _train_timed(torch, template, path, ctx, lp, fa, pe, profile_step):
         launches = all_launches(fa, pe)
     finally:
         lp.train_epoch = real_epoch
-    return dict(losses=losses, step_s=step_s, wall_s=wall,
-                launches=launches, profiled_step=prof_line,
+    return dict(losses=losses, step_s=step_s, loader_wait_s=wait_s,
+                wall_s=wall, launches=launches, profiled_step=prof_line,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -4386,6 +4422,475 @@ def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
     return launches
 
 
+# ---- BASELINE #1 and #2 (phases 27-28): the CNN templates, the streaming
+# loader, the feed-forward template and the port's CLI
+
+#: the CNN template of each family module
+CNN_TEMPLATES = {"resnet": "ResNetClassifier", "vgg": "VGGClassifier",
+                 "densenet": "DenseNetClassifier"}
+#: the main paths of phases 27-28, which launch no port kernel
+CNN_PATHS = ("resnet50_training", "cnn_tuning")
+#: phase 27's ResNet-50: BASELINE #2's widths (never cut), bf16 compute,
+#: one epoch of ``RESNET_STEPS`` steps through ``budget_scale`` 0.2
+RESNET_KNOBS = {"variant": "resnet50", "width_mult": 1.0,
+                "batch_size": 256, "bf16": True, "max_epochs": 5,
+                "learning_rate": 0.1, "weight_decay": 1e-4,
+                "quick_train": False, "share_params": False}
+RESNET_IMAGE = (224, 224, 3)
+RESNET_CLASSES = 1000
+RESNET_STEPS = 16
+#: phase 27's card-against-CPU leg: (template module, knobs, image side)
+CNN_EXACT = (("resnet", {"variant": "resnet18", "width_mult": 0.25}, 64),
+             ("resnet", {"variant": "resnet50", "width_mult": 0.25}, 64),
+             ("vgg", {"variant": "vgg11", "width_mult": 0.25}, 32),
+             ("densenet", {"variant": "densenet-s", "growth": 8}, 32))
+#: the leg's SGD step: the second step's statistics are those of weights
+#: moved by a gradient summed in another order on each device, so the
+#: difference grows with the step (on an H100 at 0.05, vgg11's were 2.1 x
+#: the bound)
+CNN_EXACT_LR = 0.01
+#: the bound on the first step's update, card against CPU: each leaf's
+#: largest difference in ``p1 - p0`` over its largest CPU update. Readings
+#: on an H100 (700 W): 1.4e-4 resnet18, 2.8e-5 resnet50, 1.3e-3 vgg11,
+#: 4.5e-3 densenet-s; a step without Nesterov's look-ahead is 0.47 off
+CNN_EXACT_UPDATE_TOL = 2e-2
+#: phase 28's jobs: BOHB over ResNetClassifier with the variant pinned,
+#: on a 32 x 32 x 3 npz; the feed-forward job through the CLI on
+#: FashionMNIST-layout PNG zips
+CNN_TUNE_PINS = {"variant": "resnet50"}
+CNN_TUNE_TRIALS = 4
+CNN_TUNE_IMAGES = (1024, 256)
+FASHION_IMAGES = (2048, 512)
+FF_TRIALS = 4
+#: phase 28 (c): one epoch of each of the other CNN families
+CNN_RECIPE = {"max_epochs": 5, "learning_rate": 0.05, "weight_decay": 1e-4,
+              "bf16": True, "quick_train": False, "share_params": False}
+CNN_EPOCH_KNOBS = {
+    "vgg": {"variant": "vgg11", "width_mult": 1.0, "batch_size": 128},
+    "densenet": {"variant": "densenet-s", "growth": 12, "batch_size": 128}}
+
+
+def write_stream_zip(np, path, n, n_classes, seed):
+    """The streamable layout at ImageNet's shape: ``n`` seeded uint8
+    224 x 224 x 3 ``.npy`` members and a ``labels.csv`` whose labels cover
+    every one of ``n_classes`` classes (``n >= n_classes``)."""
+    import io
+    import zipfile
+
+    rng = np.random.default_rng(seed)
+    labels = rng.permutation(np.arange(n) % n_classes)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        rows = ["path,label"]
+        for i in range(n):
+            buf = io.BytesIO()
+            np.save(buf, rng.integers(0, 256, RESNET_IMAGE, np.uint8),
+                    allow_pickle=False)
+            zf.writestr(f"img{i:06d}.npy", buf.getvalue())
+            rows.append(f"img{i:06d}.npy,c{int(labels[i])}")
+        zf.writestr("labels.csv", "\n".join(rows))
+    return str(path)
+
+
+def forward_flops(torch, layers, net, image_shape):
+    """2 x the multiply-adds of one image's forward through ``net``'s
+    ``Conv`` and ``Dense`` layers, from their output and kernel shapes (a
+    forward hook on each during one forward of a zero image)."""
+    total = [0]
+
+    def on_conv(m, _inp, out):
+        total[0] += 2 * out.numel() * m.kernel[0].numel()
+
+    def on_dense(m, _inp, out):
+        total[0] += 2 * out.numel() * m.kernel.shape[0]
+
+    hooks = [m.register_forward_hook(
+        on_conv if isinstance(m, layers.Conv) else on_dense)
+        for m in net.modules() if isinstance(m, (layers.Conv, layers.Dense))]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1, *image_shape),
+                            device=next(net.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def cnn_exactness_leg(torch, np, cnn, store_params, optim, dev):
+    """Phase 27's f32 leg: each ``CNN_EXACT`` network (random weights from
+    a seed) on the card and on the CPU from one blob, TF32 off: eval
+    logits of one seeded batch of 16 within 1e-4 relative + 1e-5, then two
+    SGD-Nesterov steps (the recipe's optimizer at ``CNN_EXACT_LR``, train
+    mode) on two batches: the losses within 1e-4 relative, the first
+    step's update of every parameter within ``CNN_EXACT_UPDATE_TOL`` of the
+    leaf's largest CPU update, and every ``batch_stats`` leaf within 1e-5
+    relative + 1e-5 of its largest entry. Before the nets: the template's
+    uint8 pixels, scaled on the card, equal numpy's ``astype(float32) /
+    255`` bit for bit."""
+    out = []
+    rng = np.random.default_rng(SEED + 27)
+    t = cnn["resnet"].ResNetClassifier(device=dev, **RESNET_KNOBS)
+    pixels = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1)
+    got = t._device_images(pixels).cpu().numpy()
+    if not np.array_equal(got, pixels.astype(np.float32) / 255.0):
+        raise AssertionError("uint8 pixels scaled on the card differ from "
+                             "numpy's division by 255")
+    for mod_name, knobs, side in CNN_EXACT:
+        template = getattr(cnn[mod_name], CNN_TEMPLATES[mod_name])
+        shape = (side, side, 3)
+        full = {**RESNET_KNOBS, **knobs, "bf16": False}
+        nets = {}
+        for where in ("cpu", dev):
+            t = template(device=where, **full)
+            t._n_classes, t._image_shape = 10, list(shape)
+            nets[str(where)] = t._module()
+        blob = store_params.cnn_params_to_jax(nets["cpu"].state_dict())
+        nets[str(dev)].load_state_dict(store_params.cnn_params_from_jax(blob))
+        xs = [rng.uniform(0, 1, (16, *shape)).astype(np.float32)
+              for _ in range(3)]
+        ys = [rng.integers(0, 10, 16) for _ in range(2)]
+        res = {}
+        for where, net in nets.items():
+            net.eval()
+            with torch.no_grad():
+                logits = net(torch.from_numpy(xs[0]).to(where)).cpu().numpy()
+            net.train()
+            opt, sched = optim.sgd_nesterov(net.named_parameters(),
+                                            CNN_EXACT_LR, 2, 1e-4)
+            p0 = {k: v.detach().cpu().numpy().copy()
+                  for k, v in net.named_parameters()}
+            losses = []
+            for x, y in zip(xs[1:], ys):
+                opt.zero_grad(set_to_none=True)
+                loss = torch.nn.functional.cross_entropy(
+                    net(torch.from_numpy(x).to(where)),
+                    torch.from_numpy(y).to(where))
+                loss.backward()
+                opt.step()
+                sched.step()
+                losses.append(loss.item())
+                if len(losses) == 1:
+                    update = {k: v.detach().cpu().numpy() - p0[k]
+                              for k, v in net.named_parameters()}
+            stats = _flat_tree(store_params.cnn_params_to_jax(
+                net.state_dict())["batch_stats"])
+            res[where] = (logits, losses, stats, update)
+        (lc, sc, stc, uc), (lg, sg, stg, ug) = res["cpu"], res[str(dev)]
+        # a leaf that stays put on the CPU (behind a zero-initialised BN
+        # scale, exempt from decay) must stay put on the card too
+        update_err = max(float(np.abs(ug[k] - uc[k]).max()
+                               / max(float(np.abs(uc[k]).max()), 1e-30))
+                         for k in uc)
+        logit_err = float(np.max(np.abs(lg - lc) / (1e-5 + 1e-4 * np.abs(lc))))
+        stat_err = max(float(np.max(np.abs(stg[k] - stc[k]) / (
+            1e-5 * np.abs(stc[k]).max() + 1e-5 * np.abs(stc[k]))))
+            for k in stc)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(sg, sc))
+        out.append({"net": f"{template.__name__}:{knobs}", "image": side,
+                    "logits_err_over_tol": logit_err,
+                    "logits_max_abs_diff": float(np.abs(lg - lc).max()),
+                    "losses_cpu": sc, "losses_card": sg,
+                    "loss_rel_err": loss_err,
+                    "step1_update_rel_err": update_err,
+                    "batch_stats_err_over_tol": stat_err})
+        if not (logit_err <= 1 and stat_err <= 1 and loss_err <= 1e-4
+                and update_err <= CNN_EXACT_UPDATE_TOL):
+            raise AssertionError(f"card vs CPU: {out[-1]}")
+        del nets
+    return out
+
+
+def resnet_phase(torch, np, cnn, layers, stream, store_params, optim, lp,
+                 TrainContext, fa, pe, pa, dev):
+    """Phase 27, BASELINE #2 at ImageNet widths: ``ResNetClassifier``
+    (resnet50, width 64, bf16, batch 256, the 7 x 7 / 2 stem and SAME
+    max-pool, 1000 classes) trains one epoch (``budget_scale`` 0.2 of 5)
+    of ``RESNET_STEPS`` steps from a seeded ``.npy`` zip of 224 x 224 x 3
+    images over every class, large enough to stream by the template's
+    own rule (``should_stream``, no force switch). Each step is timed
+    (synchronized), as is the wait on the loader; one step runs under
+    ``torch.profiler`` (the card's busy share); peak device memory; the
+    FLOPs of a step counted from the module's conv and dense shapes
+    (forward + 2 x for the backward) over its time and 989 TFLOP/s. Every
+    loss must be finite and every ``batch_stats`` leaf moved. Then
+    ``evaluate`` on 512 seeded images, ``predict`` of 256 and of 1 (p50
+    of 20), and the f32 card-against-CPU leg (``cnn_exactness_leg``). No
+    port kernel lies on this path: every launch count, zeroed before
+    ``train`` and read after the last ``predict``, must stay 0."""
+    import os
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "resnet"
+    n = RESNET_STEPS * RESNET_KNOBS["batch_size"]
+    t0 = time.perf_counter()
+    path = write_stream_zip(np, work / "imagenet_shape.zip", n,
+                            RESNET_CLASSES, SEED + 27)
+    data_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 2 ** 20
+    if os.environ.get("RAFIKI_FORCE_STREAMING") == "1" or \
+            not stream.should_stream(path):
+        raise AssertionError(f"{size_mb:.0f} MiB does not stream by the "
+                             f"{stream.STREAM_THRESHOLD_MB} MiB rule")
+    m = cnn["resnet"].ResNetClassifier(device=dev, **RESNET_KNOBS)
+    ctx = TrainContext(budget_scale=0.2)
+    _zero_paged(pa)
+    r = _train_timed(torch, m, path, ctx, lp, fa, pe,
+                     profile_step=RESNET_STEPS - 2)
+    steady = r["step_s"][1:-2]  # not the first, not the profiled one
+    step_s = float(np.median(steady))
+    batch = RESNET_KNOBS["batch_size"]
+    net = m._serving_net()
+    flops = 3 * batch * forward_flops(torch, layers, net, RESNET_IMAGE)
+    dump = m.dump_parameters()
+    stats = _flat_tree(dump["batch_stats"])
+    unmoved = [k for k, v in stats.items()
+               if np.array_equal(v, np.zeros_like(v) if k.endswith("mean")
+                                 else np.ones_like(v))]
+    # evaluate and predict, on images of the same distribution
+    rng = np.random.default_rng(SEED + 270)
+    val_labels = np.arange(512) % RESNET_CLASSES
+    val_images = rng.integers(0, 256, (512, *RESNET_IMAGE), np.uint8)
+    val = work / "val.npz"
+    np.savez(val, images=val_images, labels=val_labels,
+             n_classes=np.asarray(RESNET_CLASSES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = m.evaluate(str(val))
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs = np.asarray(m.predict(list(val_images[:256])))
+    predict_s = time.perf_counter() - t0
+    lat = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        m.predict([val_images[i]])
+        lat.append(time.perf_counter() - t0)
+    # zeroed just before train: these cover train, evaluate and predict
+    launches = {**all_launches(fa, pe), **_paged_counts(pa)}
+    del m, net
+    torch.cuda.empty_cache()
+    rec = {"phase": "resnet50_training", "model": "ResNet-50",
+           "knobs": RESNET_KNOBS, "image": list(RESNET_IMAGE),
+           "classes": RESNET_CLASSES, "archive_mib": size_mb,
+           "archive_write_s": data_s, "streamed": True,
+           "steps": len(r["losses"]), "losses": r["losses"],
+           "epoch_loss": ctx.logger.get_values("loss"),
+           "step_s": r["step_s"], "median_step_s": step_s,
+           "images_per_s": batch / step_s,
+           "loader_wait_s": r["loader_wait_s"],
+           "median_loader_wait_s": float(np.median(
+               r["loader_wait_s"][1:])),
+           "wall_s": r["wall_s"], "peak_mem_gb": r["peak_mem_gb"],
+           "profiled_step": r["profiled_step"],
+           "device_busy_share_of_steady_step": (
+               None if _idle(r, steady) is None else 1 - _idle(r, steady)),
+           "step_flops": flops, "mfu": flops / step_s / PEAK_FLOPS[
+               "bfloat16"],
+           "batch_stats_leaves": len(stats), "batch_stats_unmoved": unmoved,
+           "evaluate": {"images": 512, "score": score, "wall_s": eval_s,
+                        "images_per_s": 512 / eval_s},
+           "predict_256": {"wall_s": predict_s,
+                           "images_per_s": 256 / predict_s},
+           "predict_1_image_p50_s": float(np.median(lat)),
+           "launches": launches}
+    emit(rec)
+    if len(r["losses"]) != RESNET_STEPS or \
+            not all(math.isfinite(x) for x in r["losses"]):
+        raise AssertionError(f"ResNet-50 losses: {r['losses']}")
+    if unmoved:
+        raise AssertionError(f"batch_stats did not move: {unmoved[:4]}")
+    if probs.shape != (256, RESNET_CLASSES) or \
+            not np.isfinite(probs).all() or \
+            np.abs(probs.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError(f"bad probabilities: {probs.shape}")
+    if any(launches.values()):
+        raise AssertionError(f"a port kernel ran on the CNN path: "
+                             f"{launches}")
+    exact = cnn_exactness_leg(torch, np, cnn, store_params, optim, dev)
+    emit({"phase": "cnn_card_vs_cpu_f32", "nets": exact,
+          "seconds_phase_27": time.perf_counter() - t_phase})
+    return {"resnet50_training": launches}
+
+
+def _fashion_cli(np, dataset, work, dev):
+    """Phase 28 (b): ``python -m rafiki_tpu_torch.cli tune JaxFeedForward
+    train.zip val.zip --trials FF_TRIALS --device cuda`` as a subprocess
+    on the card (``dev``), over FashionMNIST-layout zips from the port's
+    generator."""
+    import os
+
+    n_train, n_val = FASHION_IMAGES
+    train, val = str(work / "fashion_train.zip"), str(work / "fashion_val.zip")
+    t0 = time.perf_counter()
+    dataset.generate_fashion_archive(train, n_train, seed=SEED)
+    dataset.generate_fashion_archive(val, n_val, seed=SEED + 1)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "rafiki_tpu_torch.cli", "tune",
+         "JaxFeedForward", train, val, "--trials", str(FF_TRIALS),
+         "--device", dev.type],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(
+            Path(dataset.__file__).resolve().parents[2])), cwd=str(work))
+    wall = time.perf_counter() - t0
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    if r.returncode != 0 or not last.startswith("best_score="):
+        raise AssertionError(f"the CLI job failed (rc {r.returncode}): "
+                             f"{r.stderr[-1500:]}")
+    return {"images": [n_train, n_val], "archives_write_s": data_s,
+            "trials": FF_TRIALS, "wall_s": wall,
+            "best_score": float(last.split()[0].split("=")[1]),
+            "best_line": last[:300]}
+
+
+def cnn_tuning_phase(torch, np, cnn, dataset, dev_mod, ps, queues, wi, fa,
+                     pe, pa, TrainContext, dev):
+    """Phase 28, the two BASELINE jobs: (a) ``tune_model`` with BOHB over
+    ``ResNetClassifier`` (``CNN_TUNE_PINS``, ``CNN_TUNE_TRIALS`` trials)
+    on a seeded 32 x 32 x 3 npz of 10 classes; its winner served by an
+    ``InferenceWorker``: 256 images in 4 messages equal to ``predict``,
+    then closed-loop 1-image clients at concurrency 1 and 16; (b) the
+    feed-forward job through the port's CLI (``_fashion_cli``); (c) one
+    epoch each of ``VGGClassifier`` and ``DenseNetClassifier`` on (a)'s
+    data. No port kernel may launch."""
+    import threading
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "cnn_tuning"
+    work.mkdir(parents=True, exist_ok=True)
+    n_train, n_val = CNN_TUNE_IMAGES
+    train, val = str(work / "train.npz"), str(work / "val.npz")
+    dataset.generate_image_classification_dataset(
+        train, n_train, image_size=32, n_channels=3, n_classes=10, seed=SEED)
+    vds = dataset.generate_image_classification_dataset(
+        val, n_val, image_size=32, n_channels=3, n_classes=10,
+        seed=SEED + 1)
+    zero_all_launches(fa, pe)
+    _zero_paged(pa)
+    t0 = time.perf_counter()
+    result = dev_mod.tune_model(
+        cnn["resnet"].ResNetClassifier, train, val,
+        total_trials=CNN_TUNE_TRIALS, advisor_type="bohb", seed=SEED,
+        knob_overrides=CNN_TUNE_PINS, device=dev)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    trials = [{"knobs": {k: t.knobs[k] for k in ("width_mult", "batch_size",
+                                                  "bf16", "learning_rate")},
+               "score": t.score, "losses": t.logger.get_values("loss")}
+              for t in result.trials]
+    store = ps.ParamStore.from_uri("mem://")
+    store.save("best", result.best_params)
+    hub = queues.InProcQueueHub()
+    t0 = time.perf_counter()
+    worker = wi.InferenceWorker(cnn["resnet"].ResNetClassifier, "best",
+                                result.best_knobs, store, hub, "r0",
+                                decode_loop=False, device=dev)
+    boot_s = time.perf_counter() - t0
+    images = vds.images[:256]
+    msgs = [{"id": f"r{i}", "queries": images[64 * i:64 * (i + 1)]}
+            for i in range(len(images) // 64)]
+    for msg in msgs:
+        hub.push_query("r0", queues.pack_message(msg))
+    batches, serve_batch = [], worker._serve_batch
+
+    def counted(messages):
+        batches.append(len(messages))
+        return serve_batch(messages)
+
+    worker._serve_batch = counted
+    loop = threading.Thread(target=worker.run,
+                            kwargs={"poll_timeout": 0.01})
+    t0 = time.perf_counter()
+    loop.start()
+    try:
+        replies = [queues.unpack_message(hub.pop_prediction(msg["id"],
+                                                            600.0))
+                   for msg in msgs]
+        wall256 = time.perf_counter() - t0
+        errors = [r["error"][-800:] for r in replies if r.get("error")]
+        if errors:
+            raise AssertionError(f"the served ResNet winner: {errors}")
+        got = np.concatenate([np.asarray(r["predictions"], np.float32)
+                              for r in replies])
+        lat1, _, w1, in1, _ = _closed_loop(hub, queues, worker, images, 1,
+                                           40, batches)
+        lat16, wall16, w16, in16, b16 = _closed_loop(hub, queues, worker,
+                                                     images, 16, 16,
+                                                     batches)
+    finally:
+        worker.stop()
+        loop.join()
+    want = np.asarray(worker.model.predict(list(images)), np.float32)
+    served = {"boot_s": boot_s, "wall_256_s": wall256,
+              "images_per_s": 256 / wall256,
+              "identical_to_predict": bool(np.array_equal(got, want)),
+              "accuracy": float(np.mean(np.argmax(got, -1) ==
+                                        vds.labels[:len(images)])),
+              "concurrency_1": {"requests": len(lat1),
+                                "p50_s": float(np.percentile(lat1, 50)),
+                                "p95_s": float(np.percentile(lat1, 95)),
+                                "in_batch_mean_s": in1},
+              "concurrency_16": {"requests": len(lat16),
+                                 "requests_per_s": len(lat16) / wall16,
+                                 "p50_s": float(np.percentile(lat16, 50)),
+                                 "p95_s": float(np.percentile(lat16, 95)),
+                                 "in_batch_mean_s": in16,
+                                 "batch_msgs_max": max(b16)}}
+    del worker
+    torch.cuda.empty_cache()
+    cli = _fashion_cli(np, dataset, work, dev)
+    epochs = {}
+    for name, knobs in CNN_EPOCH_KNOBS.items():
+        template = getattr(cnn[name], CNN_TEMPLATES[name])
+        m = template(device=dev, **CNN_RECIPE, **knobs)
+        ctx = TrainContext(budget_scale=0.2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.train(train, ctx)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        epochs[name] = {"knobs": knobs, "train_s": train_s,
+                        "images_per_s": n_train / train_s,
+                        "epoch_loss": ctx.logger.get_values("loss"),
+                        "score": m.evaluate(val)}
+        del m
+    launches = {**all_launches(fa, pe), **_paged_counts(pa)}
+    emit({"phase": "cnn_tuning", "resnet_job": {
+              "advisor": "bohb", "pins": CNN_TUNE_PINS,
+              "images": [n_train, n_val], "job_s": job_s,
+              "trials": trials, "best_score": result.best_score,
+              "best_knobs": result.best_knobs, "served": served},
+          "feed_forward_cli": cli, "one_epoch": epochs,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if len(result.trials) != CNN_TUNE_TRIALS:
+        raise AssertionError(f"{len(result.trials)} of {CNN_TUNE_TRIALS} "
+                             "ResNet trials completed")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("the served ResNet winner differs from predict")
+    if set(w1) | set(w16) != {10}:
+        raise AssertionError("closed-loop replies malformed")
+    if not all(math.isfinite(x) for e in epochs.values()
+               for x in e["epoch_loss"]):
+        raise AssertionError(f"VGG/DenseNet epochs: {epochs}")
+    if any(launches.values()):
+        raise AssertionError(f"a port kernel ran on the CNN jobs: "
+                             f"{launches}")
+    return {"cnn_tuning": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=8,
@@ -4399,10 +4904,10 @@ def main(argv=None):
                     help="decoder depth of the Llama worker leg, phase 18 "
                          "(widths are never cut; 4 of 32 by default, for "
                          "the call's time)")
-    ap.add_argument("--slice-depth", type=int, default=16,
+    ap.add_argument("--slice-depth", type=int, default=8,
                     help="decoder depth of phase 24's checkpoint, "
                          "fine-tune and serving legs and of phase 26 "
-                         "(widths are never cut; 16 of 32 by default, for "
+                         "(widths are never cut; 8 of 32 by default, for "
                          "the call's time)")
     args = ap.parse_args(argv)
 
@@ -4422,9 +4927,13 @@ def main(argv=None):
     from rafiki_tpu_torch.model import loop as lp
     from rafiki_tpu_torch.model import optim
     from rafiki_tpu_torch.data import bpe
+    from rafiki_tpu_torch.data import dataset
+    from rafiki_tpu_torch.data import stream
+    from rafiki_tpu_torch.model import dev as dev_mod
     from rafiki_tpu_torch.model.base import TrainContext
     from rafiki_tpu_torch.models import bert
     from rafiki_tpu_torch.models import convert as conv
+    from rafiki_tpu_torch.models import densenet, layers, resnet, vgg
     from rafiki_tpu_torch.models import llama_lora as ll
     from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.models.bert import HashTokenizer
@@ -4532,14 +5041,23 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(stack_phase(torch, np, vit, dev))
     torch.cuda.empty_cache()
+    cnn = {"resnet": resnet, "vgg": vgg, "densenet": densenet}
+    paths.update(resnet_phase(torch, np, cnn, layers, stream, store_params,
+                              optim, lp, TrainContext, fa, pe, pa, dev))
+    torch.cuda.empty_cache()
+    paths.update(cnn_tuning_phase(torch, np, cnn, dataset, dev_mod, ps,
+                                  queues, wi, fa, pe, pa, TrainContext, dev))
+    torch.cuda.empty_cache()
     paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps,
                              store_params, args.slice_depth, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)
 
-    by_path = {name: {path: counts[name] for path, counts in paths.items()
-                      if counts.get(name)}
+    # the CNN paths launch no port kernel: their zeros are listed too
+    by_path = {name: {path: counts.get(name, 0)
+                      for path, counts in paths.items()
+                      if counts.get(name) or path in CNN_PATHS}
                for name in kres}
     for name in ("paged_decode_attention", "paged_window_attention"):
         kres[name]["int8_launches_by_path"] = by_path[name + "_int8"]
@@ -4562,7 +5080,7 @@ def main(argv=None):
                                     "verify_windows")
             if key in r}}
         for name, r in kres.items()]})
-    missing = [name for name in kres if not by_path[name]]
+    missing = [name for name in kres if not sum(by_path[name].values())]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")
     emit({"ok": True, "device": {"platform": "gpu",

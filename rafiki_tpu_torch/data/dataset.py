@@ -2,10 +2,20 @@
 
 The port's own copies, from ``rafiki_tpu/data/dataset.py``, of:
 
-- ``ImageClassificationDataset`` and ``load_image_classification_dataset``
-  for the canonical ``.npz`` (uint8 ``images`` [N,H,W,C] or [N,H,W],
-  ``labels`` [N], scalar ``n_classes``, optional ``class_names``). The
-  ``.zip`` archive and directory layouts raise ``NotImplementedError``;
+- ``ImageClassificationDataset`` (with ``save``) and
+  ``load_image_classification_dataset`` for every layout: the canonical
+  ``.npz`` (uint8 ``images`` [N,H,W,C] or [N,H,W], ``labels`` [N], scalar
+  ``n_classes``, optional ``class_names``), a ``.zip`` of images plus a
+  ``labels.csv``, and a directory with a ``labels.csv``
+  (``_load_zip_dataset``, ``_load_dir_dataset``, ``_read_labels_csv``,
+  ``_stack_images``, ``_labels_to_ids``). Members are decoded by the
+  port's own PNG codec (``data/png.py``) where JAX calls PIL; a JPEG
+  member raises ``NotPorted``. Class ids come from ``sorted(set(names))``,
+  a sort of strings: ``"10"`` before ``"2"``;
+- ``generate_image_classification_dataset``, ``FASHION_CLASSES`` and
+  ``generate_fashion_archive`` (the FashionMNIST-layout zip: 28×28
+  greyscale PNGs under ``images/`` and a ``labels.csv`` of the published
+  class names; the PNGs are the port's encoder's, the pixels JAX's);
 - ``TextClassificationDataset`` and ``load_text_classification_dataset``:
   ``.jsonl`` with a ``{"n_classes": N}`` meta first line, then one
   ``{"text": ..., "label": int}`` object per line.
@@ -13,12 +23,17 @@ The port's own copies, from ``rafiki_tpu/data/dataset.py``, of:
 
 from __future__ import annotations
 
+import csv
+import io
 import json
+import zipfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from rafiki_tpu_torch.data.png import decode_png, encode_png
 
 
 @dataclass
@@ -34,6 +49,16 @@ class ImageClassificationDataset:
     @property
     def image_shape(self) -> Tuple[int, int, int]:
         return tuple(self.images.shape[1:])  # type: ignore[return-value]
+
+    def save(self, path: str) -> None:
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        kwargs: Dict[str, np.ndarray] = dict(
+            images=self.images, labels=self.labels,
+            n_classes=np.asarray(self.n_classes))
+        if self.class_names is not None:
+            kwargs["class_names"] = np.asarray(self.class_names)
+        np.savez_compressed(p, **kwargs)
 
     @staticmethod
     def load(path: str) -> "ImageClassificationDataset":
@@ -51,17 +76,131 @@ class ImageClassificationDataset:
 
 def load_image_classification_dataset(path: str
                                       ) -> ImageClassificationDataset:
-    """Load an image-classification ``.npz``. The JAX package's ``.zip``
-    archive and ``labels.csv`` directory layouts are not ported."""
+    """Load any supported image-classification dataset layout: ``.npz``,
+    ``.zip`` of images + ``labels.csv``, or a directory with
+    ``labels.csv``."""
     p = Path(path)
     if p.is_file() and p.suffix == ".npz":
         return ImageClassificationDataset.load(path)
-    if (p.is_file() and p.suffix == ".zip") or \
-            (p.is_dir() and (p / "labels.csv").exists()):
-        raise NotImplementedError(
-            f"{path!r}: only the .npz image layout is ported (the .zip "
-            "archive and the labels.csv directory are not)")
+    if p.is_file() and p.suffix == ".zip":
+        return _load_zip_dataset(p)
+    if p.is_dir() and (p / "labels.csv").exists():
+        return _load_dir_dataset(p)
     raise ValueError(f"unrecognized image dataset at {path!r}")
+
+
+def _read_labels_csv(fp) -> List[Tuple[str, str]]:
+    rows = list(csv.reader(io.TextIOWrapper(fp) if hasattr(fp, "read1")
+                           else fp))
+    if rows and rows[0] and rows[0][0].strip().lower() in ("path", "image"):
+        rows = rows[1:]
+    return [(r[0].strip(), r[1].strip()) for r in rows if len(r) >= 2]
+
+
+def _stack_images(arrs: Sequence[np.ndarray]) -> np.ndarray:
+    shape = arrs[0].shape
+    if any(a.shape != shape for a in arrs):
+        raise ValueError("all images in a dataset must share one shape")
+    out = np.stack(arrs).astype(np.uint8)
+    if out.ndim == 3:
+        out = out[..., None]
+    return out
+
+
+def _labels_to_ids(names: Sequence[str]) -> Tuple[np.ndarray, List[str]]:
+    classes = sorted(set(names))
+    index = {c: i for i, c in enumerate(classes)}
+    return np.asarray([index[n] for n in names], dtype=np.int64), classes
+
+
+def _load_zip_dataset(p: Path) -> ImageClassificationDataset:
+    with zipfile.ZipFile(p) as z:
+        with z.open("labels.csv") as f:
+            pairs = _read_labels_csv(io.TextIOWrapper(f))
+        images = [decode_png(z.read(rel)) for rel, _ in pairs]
+    labels, classes = _labels_to_ids([lab for _, lab in pairs])
+    return ImageClassificationDataset(_stack_images(images), labels,
+                                      len(classes), classes)
+
+
+def _load_dir_dataset(p: Path) -> ImageClassificationDataset:
+    with open(p / "labels.csv") as f:
+        pairs = _read_labels_csv(f)
+    images = [decode_png((p / rel).read_bytes()) for rel, _ in pairs]
+    labels, classes = _labels_to_ids([lab for _, lab in pairs])
+    return ImageClassificationDataset(_stack_images(images), labels,
+                                      len(classes), classes)
+
+
+def generate_image_classification_dataset(
+        path: str, n_examples: int = 1024, image_size: int = 28,
+        n_channels: int = 1, n_classes: int = 10, noise: float = 0.25,
+        seed: int = 0, class_seed: int = 7) -> ImageClassificationDataset:
+    """Learnable synthetic image dataset (FashionMNIST-shaped by default):
+    class ``c`` is a fixed low-frequency template (upsampled 7×7 normal
+    grids drawn from ``class_seed``) plus noise drawn from ``seed``,
+    clipped to fixed bounds and quantized to uint8. The same draws as
+    JAX's generator, so the same bytes."""
+    rng = np.random.default_rng(seed)
+    h = w = image_size
+    template_rng = np.random.default_rng(class_seed + n_classes * 1000
+                                         + image_size)
+    coarse = template_rng.normal(0.0, 1.0,
+                                 size=(n_classes, 7, 7, n_channels))
+    reps = int(np.ceil(h / 7))
+    templates = np.repeat(np.repeat(coarse, reps, axis=1), reps, axis=2)
+    templates = templates[:, :h, :w, :]
+    labels = rng.integers(0, n_classes, size=n_examples).astype(np.int64)
+    x = templates[labels] + rng.normal(0.0, noise * 2.0,
+                                       size=(n_examples, h, w, n_channels))
+    bound = 3.0 + 3.0 * noise * 2.0
+    x = np.clip((x + bound) / (2.0 * bound), 0.0, 1.0)
+    images = (x * 255).astype(np.uint8)
+    ds = ImageClassificationDataset(images, labels, n_classes,
+                                    [f"class_{i}" for i in range(n_classes)])
+    if path:
+        ds.save(path)
+    return ds
+
+
+#: FashionMNIST's published class names, as the archive's labels.csv
+#: writes them
+FASHION_CLASSES = ["t_shirt_top", "trouser", "pullover", "dress", "coat",
+                   "sandal", "shirt", "sneaker", "bag", "ankle_boot"]
+
+
+def generate_fashion_archive(path: str, n_examples: int = 512,
+                             seed: int = 0) -> ImageClassificationDataset:
+    """The FashionMNIST-layout zip with synthetic content: 28×28
+    greyscale PNGs ``images/{i:05d}.png`` and a ``labels.csv`` of
+    ``FASHION_CLASSES`` names, every class present (seeds are redrawn as
+    JAX redraws them). Returns the dataset with its labels mapped to the
+    loader's name-sorted class ids."""
+    if n_examples < len(FASHION_CLASSES):
+        raise ValueError(
+            f"n_examples={n_examples} cannot cover all "
+            f"{len(FASHION_CLASSES)} fashion classes")
+    s = seed
+    while True:
+        ds = generate_image_classification_dataset(
+            "", n_examples=n_examples, image_size=28, n_channels=1,
+            n_classes=len(FASHION_CLASSES), seed=s)
+        if len(set(ds.labels.tolist())) == len(FASHION_CLASSES):
+            break
+        s += 1000003
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        rows = ["path,label"]
+        for i in range(n_examples):
+            rel = f"images/{i:05d}.png"
+            z.writestr(rel, encode_png(ds.images[i, :, :, 0]))
+            rows.append(f"{rel},{FASHION_CLASSES[int(ds.labels[i])]}")
+        z.writestr("labels.csv", "\n".join(rows) + "\n")
+    order = {c: i for i, c in enumerate(sorted(FASHION_CLASSES))}
+    remapped = np.asarray([order[FASHION_CLASSES[int(label)]]
+                           for label in ds.labels], np.int64)
+    return ImageClassificationDataset(ds.images, remapped,
+                                      len(FASHION_CLASSES),
+                                      sorted(FASHION_CLASSES))
 
 
 @dataclass

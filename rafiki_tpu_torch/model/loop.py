@@ -9,14 +9,16 @@
 - :func:`masked_ce` and :func:`fit` are the loop that ViT's and BERT's
   ``train`` each write out in the JAX package (``vit.py:402-465``,
   ``bert.py:227-294``), shared: the masked mean cross-entropy on f32
-  logits, AdamW under the warmup-cosine schedule (``model/optim.py``),
-  the per-epoch ``loss`` log, and the checkpoint and ``should_continue``
-  hooks.
+  logits, AdamW under the warmup-cosine schedule (``model/optim.py``)
+  unless the template passes its own optimizer (the CNNs' SGD, the
+  feed-forward template's Adam), the per-epoch ``loss`` log, and the
+  checkpoint and ``should_continue`` hooks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Iterator, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -52,18 +54,26 @@ def fit(model: torch.nn.Module,
         objective: Callable[[torch.nn.Module, dict], torch.Tensor],
         epoch_batches: Callable[[int], Iterator[dict]], epochs: int,
         steps_per_epoch: int, knobs: Dict[str, Any], ctx: TrainContext,
-        snapshot: Callable[[], Callable[[], Any]]) -> None:
+        snapshot: Callable[[], Callable[[], Any]],
+        make_optimizer: Optional[Callable[[int], Tuple[Any, Any]]] = None
+        ) -> None:
     """Train ``model`` in place for ``epochs`` epochs of
     ``epoch_batches(epoch)``, one AdamW step of ``objective(model,
     batch)`` per batch. The knobs ``learning_rate``, ``weight_decay`` and
-    ``warmup_frac`` (default 0.1) set the optimizer. After each epoch the
+    ``warmup_frac`` (default 0.1) set the optimizer, unless
+    ``make_optimizer(total_steps) -> (optimizer, scheduler or None)``
+    gives another. After each epoch the
     mean loss is logged; with ``ctx.checkpoint``, ``snapshot()`` publishes
     the current weights and returns the blob factory to pass it. Each
     step is a ``fit.step`` range in a ``torch.profiler`` trace."""
     total_steps = epochs * steps_per_epoch
-    warmup = int(total_steps * float(knobs.get("warmup_frac", 0.1)))
-    opt, sched = adamw(model.parameters(), float(knobs["learning_rate"]),
-                       warmup, total_steps, float(knobs["weight_decay"]))
+    if make_optimizer is not None:
+        opt, sched = make_optimizer(total_steps)
+    else:
+        warmup = int(total_steps * float(knobs.get("warmup_frac", 0.1)))
+        opt, sched = adamw(model.parameters(),
+                           float(knobs["learning_rate"]), warmup,
+                           total_steps, float(knobs["weight_decay"]))
 
     def step(state, batch):
         # a named range in a torch.profiler trace (profile_dir)
@@ -72,7 +82,8 @@ def fit(model: torch.nn.Module,
             loss = objective(model, batch)
             loss.backward()
             opt.step()
-            sched.step()
+            if sched is not None:
+                sched.step()
         return state, loss.detach()
 
     ctx.logger.define_plot("Loss over epochs", ["loss"], x_axis="epoch")

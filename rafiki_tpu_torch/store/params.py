@@ -22,7 +22,25 @@ Llama's leaves are::
     final_norm/scale, lm_head/kernel, tok_embed/embedding
 
 and :func:`llama_params_from_jax` casts its matmul leaves to the compute
-dtype once, at load. The int8 serving tree of ``quantize_llama_params``
+dtype once, at load.
+
+The BatchNorm CNNs' blob (``rafiki_tpu/models/_cnn_base.py``) holds two
+trees, ``params`` and ``batch_stats``; :func:`cnn_params_from_jax` and
+:func:`cnn_params_to_jax` map it to and from one ``state_dict``, where
+BatchNorm's ``mean`` / ``var`` are buffers beside its ``scale`` /
+``bias``. Flax's conv kernels are HWIO and the port's OIHW: the bridge
+transposes every 4-D leaf, exactly. Leaves keep flax's auto-names::
+
+    stem/kernel, stem_bn/{scale,bias}, head/{kernel,bias},
+    stage{i}_block{j}/{Conv_k/kernel, BatchNorm_k/{scale,bias},
+                       shortcut/kernel, shortcut_bn/{scale,bias}}
+    (VGG: Conv_k, BatchNorm_k; DenseNet: _DenseLayer_k/{Conv,BatchNorm}_m
+     and the transitions' Conv_k / BatchNorm_k in creation order)
+    batch_stats: the same BatchNorm paths, each {mean,var}
+
+and the trees come back with every level's keys sorted as strings, the
+order ``jax.tree_util`` gives the JAX template's dump (``block_10``
+before ``block_2``). The int8 serving tree of ``quantize_llama_params``
 names a quantized site's base ``qkernel`` (int8) and ``qscale`` (f32)
 instead of ``kernel``: both keep their types through the bridge. The
 trees come from, and go to, the Flax-msgpack byte codec of
@@ -125,3 +143,37 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = t.detach().to("cpu", torch.float32).numpy()
     return tree
+
+
+#: a BatchNorm's running statistics: the blob's ``batch_stats`` leaves
+BATCH_STATS_LEAVES = ("mean", "var")
+
+
+def _sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def cnn_params_from_jax(blob: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A CNN template's ``{"params", "batch_stats", ...}`` blob → the port
+    module's ``state_dict`` (f32 CPU tensors; 4-D kernels HWIO → OIHW)."""
+    out = params_from_jax(blob["params"])
+    out.update(params_from_jax(blob["batch_stats"]))
+    return {k: t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+            for k, t in out.items()}
+
+
+def cnn_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse: ``{"params": tree, "batch_stats": tree}`` of f32 numpy
+    arrays in flax's layout, keys sorted as ``jax.tree_util`` sorts
+    them."""
+    trees: Dict[str, Dict[str, torch.Tensor]] = {"params": {},
+                                                  "batch_stats": {}}
+    for key, t in state.items():
+        if t.dim() == 4:
+            t = t.permute(2, 3, 1, 0).contiguous()
+        kind = "batch_stats" if key.rsplit(".", 1)[-1] in \
+            BATCH_STATS_LEAVES else "params"
+        trees[kind][key] = t
+    return {kind: _sorted_tree(params_to_jax(tree))
+            for kind, tree in trees.items()}

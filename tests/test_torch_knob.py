@@ -18,11 +18,19 @@ import torch
 
 from rafiki_tpu.model import knob as jk
 from rafiki_tpu.models.bert import BertClassifier as JBert
+from rafiki_tpu.models.densenet import DenseNetClassifier as JDenseNet
 from rafiki_tpu.models.llama_lora import LlamaLoRA as JLlama
+from rafiki_tpu.models.mlp import JaxFeedForward as JFeedForward
+from rafiki_tpu.models.resnet import ResNetClassifier as JResNet
+from rafiki_tpu.models.vgg import VGGClassifier as JVGG
 from rafiki_tpu.models.vit import ViTBase16 as JViT
 from rafiki_tpu_torch.model import knob as pk
 from rafiki_tpu_torch.models.bert import BertClassifier
+from rafiki_tpu_torch.models.densenet import DenseNetClassifier
 from rafiki_tpu_torch.models.llama_lora import LlamaLoRA
+from rafiki_tpu_torch.models.mlp import JaxFeedForward
+from rafiki_tpu_torch.models.resnet import ResNetClassifier
+from rafiki_tpu_torch.models.vgg import VGGClassifier
 from rafiki_tpu_torch.models.vit import ViTBase16
 
 torch.set_num_threads(1)
@@ -80,10 +88,15 @@ def test_knob_class_matches_jax(cls, args, kw):
             assert p.validate(v) == want
 
 
-@pytest.mark.parametrize("template", ["vit", "bert", "llama"])
+@pytest.mark.parametrize("template", ["vit", "bert", "llama", "resnet",
+                                      "vgg", "densenet", "feed_forward"])
 def test_template_knob_configs_serialize_as_jax(template):
     j, p = {"vit": (JViT, ViTBase16), "bert": (JBert, BertClassifier),
-            "llama": (JLlama, LlamaLoRA)}[template]
+            "llama": (JLlama, LlamaLoRA),
+            "resnet": (JResNet, ResNetClassifier),
+            "vgg": (JVGG, VGGClassifier),
+            "densenet": (JDenseNet, DenseNetClassifier),
+            "feed_forward": (JFeedForward, JaxFeedForward)}[template]
     want = json.dumps(jk.knob_config_to_json(j.get_knob_config()))
     got = json.dumps(pk.knob_config_to_json(p.get_knob_config()))
     assert got == want

@@ -1,9 +1,10 @@
 """The port's standing rules, enforced.
 
 - Nothing under ``rafiki_tpu_torch/``, and not ``chip_smoke.py``, imports
-  JAX, Flax, optax or the JAX package, nor msgpack, ml_dtypes or
-  safetensors (the card's machine has none of them: the port's codec and
-  its safetensors reader and writer are its own).
+  JAX, Flax, optax or the JAX package, nor msgpack, ml_dtypes,
+  safetensors or PIL (the card's machine has none of them: the port's
+  codec, its safetensors reader and writer and its PNG codec are its
+  own).
 - Entry points resolve ``device=None`` to the CUDA card and raise when
   there is none, instead of serving from the CPU.
 - A kernel wrapper given a tensor that is not on the CPU launches its
@@ -31,7 +32,7 @@ from test_decode_engine import KNOBS
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu", "msgpack",
-             "ml_dtypes", "safetensors")
+             "ml_dtypes", "safetensors", "PIL")
 
 
 def _port_sources():
@@ -282,5 +283,28 @@ def test_the_control_plane_modules_are_scanned():
                 "admin/proc.py", "client/client.py", "parallel/mesh.py",
                 "serving/predictor.py", "serving/router.py",
                 "serving/breaker.py", "advisor/service.py",
-                "obs/http.py", "native/client.py"):
+                "obs/http.py", "native/client.py", "cli.py",
+                "admin/stack.py", "models/__init__.py", "models/_cnn_base.py",
+                "models/resnet.py", "models/vgg.py", "models/densenet.py",
+                "models/mlp.py", "data/png.py", "data/stream.py",
+                "data/dataset.py"):
         assert f"rafiki_tpu_torch/{rel}" in scanned, rel
+
+
+def test_the_image_templates_refuse_to_fall_back_to_cpu(monkeypatch):
+    from rafiki_tpu_torch.models.densenet import DenseNet, DenseNetClassifier
+    from rafiki_tpu_torch.models.mlp import JaxFeedForward
+    from rafiki_tpu_torch.models.resnet import ResNet, ResNetClassifier
+    from rafiki_tpu_torch.models.vgg import VGG, VGGClassifier
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (ResNetClassifier, VGGClassifier, DenseNetClassifier,
+                 JaxFeedForward,
+                 lambda: ResNet(stage_sizes=(1,), width=8, n_classes=2),
+                 lambda: VGG(stage_sizes=(1,), width=8, n_classes=2),
+                 lambda: DenseNet(block_sizes=(1,), growth=4, n_classes=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for cls in (ResNetClassifier, VGGClassifier, DenseNetClassifier,
+                JaxFeedForward):
+        assert cls(device="cpu").device.type == "cpu"

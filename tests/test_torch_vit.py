@@ -304,13 +304,21 @@ def test_image_loader_matches_jax(tmp_path):
     np.testing.assert_array_equal(got.labels, want.labels)
     assert (got.n_classes, got.image_shape, len(got)) == \
         (want.n_classes, want.image_shape, len(want))
-    (tmp_path / "a.zip").write_bytes(b"PK")
-    with pytest.raises(NotImplementedError, match="npz"):
-        tload(str(tmp_path / "a.zip"))
+    # the .zip archive and labels.csv directory layouts load as JAX's
+    # loader loads them (tests/test_torch_stream.py holds them in full)
+    from rafiki_tpu_torch.data.png import encode_png
+
     (tmp_path / "dir").mkdir()
-    (tmp_path / "dir" / "labels.csv").write_text("a.png,0\n")
-    with pytest.raises(NotImplementedError, match="npz"):
-        tload(str(tmp_path / "dir"))
+    for i in range(3):
+        (tmp_path / "dir" / f"{i}.png").write_bytes(
+            encode_png(want.images[i]))
+    (tmp_path / "dir" / "labels.csv").write_text(
+        "".join(f"{i}.png,{int(want.labels[i])}\n" for i in range(3)))
+    want_d, got_d = jload(str(tmp_path / "dir")), tload(str(tmp_path / "dir"))
+    np.testing.assert_array_equal(got_d.images, want_d.images)
+    np.testing.assert_array_equal(got_d.labels, want_d.labels)
+    assert got_d.class_names == want_d.class_names
+    np.testing.assert_array_equal(got_d.images, want.images[:3])
     with pytest.raises(ValueError, match="unrecognized"):
         tload(str(tmp_path / "missing.npz"))
 
