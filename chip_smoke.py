@@ -8,11 +8,11 @@ the CUDA toolkit's ``nvcc``::
     python3 chip_smoke.py --depth 32  # phases 4 and 16, uncut
     python3 chip_smoke.py --train-depth 8  # the Llama training leg, cut
     python3 chip_smoke.py --worker-depth 32  # the Llama worker leg, uncut
-    python3 chip_smoke.py --slice-depth 32  # phases 24 and 26, uncut
+    python3 chip_smoke.py --slice-depth 32  # phases 24, 26 and 29, uncut
 
 The Llama legs run at widths of Llama-3-8B's and, to keep the call's
 time, at cut depths unless told otherwise: phases 4 and 16 (serving,
-bf16 and int8) at 8 of 32 (``--depth``), phases 24 and 26 at 8
+bf16 and int8) at 8 of 32 (``--depth``), phases 24, 26 and 29 at 8
 (``--slice-depth``; 16 before phases 27-28 were added), the worker leg
 (phase 18) at 4
 (``--worker-depth``); the training leg runs at 32 (``--train-depth``).
@@ -216,9 +216,13 @@ Phases; each raises on failure, so the script exits non-zero:
 25. Phase 15's head-dim-8 f32 Llama as ``LlamaLoRA`` knobs with a
     512-id byte-BPE tokenizer, paged at page 8 on the card and on the
     CPU: seeded sampling, a preemption (greedy and sampled), a stream
-    resume and phase 26's modes (prompt lookup, the target as its own
-    draft, a prefix registered and one imported, two adapters) must give
-    identical tokens, texts and counters; B1/B2 must launch.
+    resume, phase 26's modes (prompt lookup, the target as its own
+    draft, a prefix registered and one imported, two adapters) and phase
+    29's at this size (the host tier with a pool of 5 usable pages and 24
+    host pages in f32, with an int8 KV pool and in bf16, and one KV
+    shipment through the param-store codec) must give identical tokens,
+    texts and counters (the bf16 tier's tokens are reported, and each
+    tiered run must equal its untiered engine's); B1/B2 must launch.
 26. (inside phase 24, before its model is freed) The decode modes on
     phase 24's fine-tuned model (bf16, paged, page 16, 8 slots):
     prompt-lookup speculation (``speculate_k`` 4) and draft-model
@@ -231,6 +235,28 @@ Phases; each raises on failure, so the script exits non-zero:
     engine, the same tokens (blob bytes, TTFT with and without); two
     adapters in one engine (the fine-tune and a seeded variant), 8
     requests alternating, each equal to its adapter's solo engine.
+
+29. (inside phase 24, after phase 26, before its model is freed) The
+    host KV tier and disaggregated prefill/decode on phase 24's model
+    (``tier_disagg_phase``): (a) 6 greedy requests of 1984 down to 512
+    prompt tokens, 64 new each, 8 slots, through ``make_decode_engine``
+    with a pool of half the pages they reserve and ``host_kv_pages`` for
+    the rest, beside an untiered engine with the full pool, in bf16 and
+    again on an f32 twin of the model (tokens equal to the untiered
+    engine's: gated in f32, reported in bf16, where a schedule's chunk
+    widths and split plans round apart), every page the tier restores
+    bit-equal to the page it evicted (gated in both), parks, evictions
+    and unparks > 0 (the ``kv_tier`` path: the two tiered runs), with the
+    evictions, prefetch hits and misses, GB moved each way and the rate
+    of the tier's side-stream copies, the step thread's wait on the tier,
+    decode tokens/s and TTFT beside the untiered engine's; (b) a
+    ``prefill`` and a ``decode`` ``InferenceWorker`` on the same card over
+    the in-process hub; 4 texts of 1024 tokens streamed at once through
+    the port's ``Predictor``, first with the decode worker alone in its
+    pool (it serves them unified), then with both: texts equal, 4
+    shipments sent and installed, no fallback (the ``disagg`` path), with
+    the blob bytes, ship -> install seconds and TTFT beside the unified
+    run's. B1/B2 must launch on both paths.
 
 27. BASELINE #2 at ImageNet widths (``resnet_phase``): ``ResNetClassifier``
     (resnet50, width 64, bf16, batch 256, 224 x 224 x 3, 1000 classes)
@@ -310,7 +336,14 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
          "flash_attention_bwd_dkv")
 
 
+#: the script's start on the host clock; each phase line carries its
+#: seconds since (``t_s``), so a call's time splits by phase
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -3180,8 +3213,9 @@ def llama_tuning_phase(torch, np, ll, ms, ps, adv, wt, queues, wi, fa, pa,
 
 # ---- the stack (phase 23): the port's own control plane on the card
 
-#: phase 23's closed-loop rounds over HTTP, as phase 19's rounds
-STACK_ROUNDS = 2
+#: phase 23's closed-loop rounds over HTTP, as phase 19's rounds (1
+#: since phase 29 joined the call: a round takes ~25 s of the 600 s)
+STACK_ROUNDS = 1
 #: the kernels a ViT-B/16 trial runs, by wrapper name
 STACK_TRAIN_KERNELS = ("matmul_bias", "flash_attention_fwd",
                        "flash_attention_fwd_mh", "flash_attention_bwd_dq",
@@ -4015,6 +4049,9 @@ def slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps, sp, depth,
         paths.update(decode_modes_phase(
             torch, np, ll, pa, conv, ps, sp, m, tok, prompts, texts,
             greedy_tokens, depth, dev))
+        # 6. phase 29 on the same fine-tuned model
+        paths.update(tier_disagg_phase(torch, np, ll, de, pa, m, tok,
+                                       texts, depth, dev))
         del m
     finally:
         rss.stop()
@@ -4270,6 +4307,376 @@ def decode_modes_phase(torch, np, ll, pa, conv, ps, sp, m, tok, prompts,
     return paths
 
 
+#: phase 29's tier leg: requests (6: 16 and then 8 took the call past
+#: 600 s; 4 took phase 29 as long as 6, the lanes waiting on the pool),
+#: their prompt lengths (evenly spaced, the longest first), new tokens
+#: each
+TIER_REQUESTS = 6
+TIER_PROMPTS = (1984, 512)
+TIER_NEW = 64
+#: phase 29's disaggregated leg: requests, prompt tokens, and how long the
+#: decode worker waits for a shipment before re-prefilling
+DISAGG_REQUESTS = 4  # 8 took the call past 600 s
+DISAGG_PROMPT = 1024
+DISAGG_WAIT_S = 120.0
+
+
+def _long_prompts(np, tok, texts, lengths, max_len):
+    """BOS-led prompts of the given token lengths: the corpus texts' ids,
+    cycled, each prompt from its own offset."""
+    bos = _prompt_ids(np, tok, texts[0], max_len)[:1]
+    ids = np.concatenate([tok.encode_ids(t) for t in texts]).astype(np.int32)
+    return [np.concatenate([bos, np.resize(
+        np.roll(ids, -997 * i), int(n) - 1)]).astype(np.int32)
+        for i, n in enumerate(lengths)]
+
+
+def tier_leg(torch, np, pa, make, prompts, max_len, page, new):
+    """Phase 29 (a): ``prompts`` (``new`` tokens each, greedy) through an
+    untiered core engine with the full pool, then through one whose pool
+    holds half the pages the requests reserve, ``host_kv_pages`` the rest;
+    ``make(kv_pages, host_kv_pages)`` builds each (kv_pages 0: the full
+    pool). The tiered run also holds every page the tier brings back
+    against the page it took out, bit for bit, in the same run: the
+    gathered pages are cloned on the step's stream as they are handed
+    to the tier, and the pool's pages are compared with the clones just
+    after their install (device-side counts, read once at the end).
+    Returns the record, the tiered run's launches and whether the tier
+    engaged (parks, evictions, unparks), every page came back unchanged
+    and B1/B2 launched."""
+    import gc
+
+    from rafiki_tpu_torch.serving.kv_transfer import cache_leaves
+
+    def witness(core):
+        """Wrap ``core``'s eviction hand-off and install so that each
+        restored page is compared with its evicted bytes; returns the
+        (pages checked, device mismatch counts) it fills."""
+        saved, checked, bad = {}, [0], []
+        real_evict = core.tier.evict_submit
+        real_apply = core._apply_unpark_installs
+
+        def evict_submit(host_ids, leaves, ready=None):
+            kept = [a.clone() for a in leaves]
+            for j, h in enumerate(host_ids):
+                saved[int(h)] = (kept, j)
+            return real_evict(host_ids, leaves, ready)
+
+        def apply(installs):
+            real_apply(installs)
+            for _lane, _rec, pool_ids, host_ids, _staged in installs:
+                idx = torch.tensor(pool_ids, device=core.device)
+                was = [saved.pop(int(h)) for h in host_ids]
+                for li, c in enumerate(cache_leaves(core._cache)):
+                    want = torch.stack([kept[li][j] for kept, j in was])
+                    got = c.index_select(0, idx)
+                    bad.append((got.view(torch.uint8)
+                                != want.view(torch.uint8)).sum())
+                checked[0] += len(host_ids)
+
+        core.tier.evict_submit = evict_submit
+        core._apply_unpark_installs = apply
+        return checked, bad
+
+    reserve = [(min(len(p) - 1 + new, max_len) - 1) // page + 1
+               for p in prompts]
+    pool = sum(reserve) // 2
+    host = sum(reserve) - pool
+    reqs = [(f"t{i}", p, new, {}) for i, p in enumerate(prompts)]
+    eng = make(0, 0)
+    full = _leg(torch, np, pa, eng, reqs)
+    full_pages = eng.n_pages - 1
+    page_bytes = sum(c[0].numel() * c[0].element_size()
+                     for c in cache_leaves(eng._cache))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    core = make(pool + 1, host)
+    spans = []
+    core.span_sink = lambda ev, rid, attrs: spans.append(ev)
+    checked, bad = witness(core)
+    try:
+        tiered = _leg(torch, np, pa, core, reqs)
+        tier = core.tier
+        moved, secs = dict(tier.copy_bytes), dict(tier.copy_s)
+        wait_s = tier.wait_s
+        mismatched = int(torch.stack(bad).sum()) if bad else 0
+    finally:
+        core.span_sink = None
+        core.close()
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = tiered["stats"]
+    rec = {
+        "requests": len(prompts), "new_tokens": new,
+        "prompt_tokens": [int(len(p)) for p in prompts],
+        "reserved_pages": int(sum(reserve)), "pool_pages": pool,
+        "host_pages": host, "untiered_pool_pages": full_pages,
+        "page_bytes": page_bytes,
+        "tokens_equal_untiered": tiered["tokens"] == full["tokens"],
+        "first_diffs": _first_diffs(tiered["tokens"], full["tokens"]),
+        "pages_restored_checked": checked[0],
+        "restored_bytes_differing": mismatched,
+        "parked_spans": spans.count("parked"),
+        "unparked_spans": spans.count("unparked"),
+        **{k: st[k] for k in (
+            "kv_evictions_total", "kv_unparks_total", "kv_prefetch_hits",
+            "kv_prefetch_misses", "kv_transfer_bytes_total",
+            "max_concurrent", "admission_stalls", "kv_pages_high_water")},
+        "gb_moved": {d: moved[d] / 1e9 for d in moved},
+        "copy_gb_per_s": {d: moved[d] / secs[d] / 1e9 if secs[d] else None
+                          for d in moved},
+        "copy_device_s": secs,
+        "step_thread_tier_wait_s": wait_s,
+        "tiered": {k: tiered[k] for k in ("wall_s", "decode_tok_per_s",
+                                          "mean_ttft_s", "launches")},
+        "untiered": {k: full[k] for k in ("wall_s", "decode_tok_per_s",
+                                          "mean_ttft_s", "launches")}}
+    ok = (rec["parked_spans"] > 0 and st["kv_evictions_total"] > 0
+          and st["kv_unparks_total"] > 0 and checked[0] > 0
+          and mismatched == 0 and min(tiered["launches"].values()) > 0)
+    return rec, tiered["launches"], ok
+
+
+def disagg_leg(torch, np, ll, pa, m, tok, texts, slots, page, new, dev):
+    """Phase 29 (b): a ``prefill`` and a ``decode`` ``InferenceWorker``
+    (``kv_wait_s`` ``DISAGG_WAIT_S``) on the same card over the in-process
+    hub; ``DISAGG_REQUESTS`` texts of ``DISAGG_PROMPT`` tokens streamed at
+    once through the port's ``Predictor``: first with the decode worker
+    alone in the Predictor's pool (no prefill worker to place a leg on, so
+    it prefills and decodes them itself: the unified reference), then
+    with both. Returns the record, the second run's launches and whether
+    it passed its gates."""
+    import gc
+    import threading
+
+    from rafiki_tpu_torch.serving.predictor import Predictor
+    from rafiki_tpu_torch.serving.queues import InProcQueueHub
+    from rafiki_tpu_torch.worker.inference import InferenceWorker
+
+    max_len = int(m.knobs["max_len"])
+    ids = _long_prompts(np, tok, texts[1:], [DISAGG_PROMPT]
+                        * DISAGG_REQUESTS, max_len)
+    queries = [tok.decode(int(t) for t in p[1:]) for p in ids]
+
+    def frozen(node):
+        """Read-only views of the tree's arrays: the template keeps such
+        leaves as they are (as it keeps a param-store blob's)."""
+        if isinstance(node, dict):
+            return {k: frozen(v) for k, v in node.items()}
+        if isinstance(node, np.ndarray):
+            view = node.view()
+            view.flags.writeable = False
+            return view
+        return node
+
+    dump = frozen(m.dump_parameters())
+
+    class Store:
+        """The param store's ``load``, over the fine-tune's tree in memory
+        (the codec's cost is phase 18's to measure)."""
+
+        def load(self, trial_id):
+            return dump
+
+    def boot(wid, **kw):
+        t0 = time.perf_counter()
+        w = InferenceWorker(ll.LlamaLoRA, "slice", m.knobs, Store(), hub,
+                            wid, decode_loop=True, max_slots=slots,
+                            max_new_tokens=new, steps_per_sync=4,
+                            kv_page_size=page, device=dev, **kw)
+        torch.cuda.synchronize()
+        return w, time.perf_counter() - t0
+
+    def stream(pool):
+        pred = Predictor(hub, pool, gather_timeout=600.0)
+        pred._refresh_load_signals()
+        placed = pred.router.select_prefill()
+        out = {}
+
+        def client(i):
+            t0 = time.perf_counter()
+            first, acc, final = None, "", None
+            for ev in pred.predict_stream([queries[i]], timeout=600.0):
+                if ev.get("delta"):
+                    first = first or time.perf_counter()
+                    acc += ev["delta"]["0"]
+                elif ev.get("done"):
+                    final = ev
+            out[i] = {"ttft_s": (first or time.perf_counter()) - t0,
+                      "text": (final.get("predictions") or [None])[0],
+                      "error": final.get("error"),
+                      "deltas_join": bool(final.get("predictions")) and
+                      final["predictions"][0].startswith(acc)}
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(queries))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out, time.perf_counter() - t0, placed
+
+    hub = InProcQueueHub()
+    dec, dec_boot = boot("w-dec", role="decode", kv_wait_s=DISAGG_WAIT_S)
+    pre, pre_boot = boot("w-pre", role="prefill")
+    shipped, installed = {}, {}
+    real_poll, real_install = pre.engine.poll_kv, dec.engine.engine._install_kv
+
+    def poll_kv():
+        done = real_poll()
+        now = time.perf_counter()
+        for rid, _blob in done:
+            shipped[rid] = now
+        return done
+
+    def install_kv(i, blob):
+        installed[dec.engine.engine._slots[i].request_id] = (
+            time.perf_counter(), int(blob["nbytes"]))
+        return real_install(i, blob)
+
+    pre.engine.poll_kv = poll_kv
+    dec.engine.engine._install_kv = install_kv
+    loops = [threading.Thread(target=w.run, kwargs={"poll_timeout": 0.01})
+             for w in (dec, pre)]
+    for t in loops:
+        t.start()
+    try:
+        while not (hub.get_worker_stats("w-dec")
+                   and hub.get_worker_stats("w-pre")):
+            time.sleep(0.01)
+        unified, uni_wall, _ = stream(["w-dec"])
+        _zero_paged(pa)
+        split, split_wall, placed = stream(["w-dec", "w-pre"])
+        torch.cuda.synchronize()
+        launches = _paged_counts(pa)
+    finally:
+        for w in (dec, pre):
+            w.stop()
+        for t in loops:
+            t.join()
+    stats = {"decode": dec.stats.snapshot(), "prefill": pre.stats.snapshot()}
+    for w in (dec, pre):
+        w.engine.close()
+    del dec, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    latency = [installed[rid][0] - shipped[rid] for rid in installed
+               if rid in shipped]
+    equal = all(split[i]["text"] == unified[i]["text"] is not None
+                for i in unified)
+    rec = {
+        "requests": len(queries), "new_tokens": new,
+        "prompt_tokens": [int(len(tok.encode_ids(q))) + 1
+                          for q in queries],
+        "kv_wait_s": DISAGG_WAIT_S, "prefill_placed_on": placed,
+        "texts_equal_unified": equal,
+        "first_differing": {i: _first_diff(split[i]["text"] or "",
+                                           unified[i]["text"] or "")
+                            for i in unified
+                            if split[i]["text"] != unified[i]["text"]},
+        "deltas_join": all(r["deltas_join"] for r in split.values()),
+        "errors": {i: r["error"] for i, r in split.items() if r["error"]},
+        "kv_ships_sent": stats["prefill"]["kv_ships_sent"],
+        "kv_imports_installed": stats["decode"]["kv_imports_installed"],
+        "kv_wait_timeouts": stats["decode"]["kv_wait_timeouts"],
+        "kv_import_fallbacks": stats["decode"]["kv_import_fallbacks"],
+        "blob_bytes": sorted({n for _t, n in installed.values()}),
+        "ship_to_install_s": sorted(latency),
+        "ttft_s": {"disaggregated": sorted(r["ttft_s"]
+                                           for r in split.values()),
+                   "unified": sorted(r["ttft_s"]
+                                     for r in unified.values())},
+        "wall_s": {"disaggregated": split_wall, "unified": uni_wall},
+        "boot_s": {"decode": dec_boot, "prefill": pre_boot},
+        "launches": launches}
+    n = len(queries)
+    ok = (equal and rec["deltas_join"] and not rec["errors"]
+          and placed == "w-pre"
+          and rec["kv_ships_sent"] == rec["kv_imports_installed"] == n
+          and rec["kv_import_fallbacks"] == 0
+          and min(launches.values()) > 0)
+    return rec, launches, ok
+
+
+def tier_disagg_phase(torch, np, ll, de, pa, m, tok, texts, depth, dev):
+    """Phase 29: the host KV tier and disaggregated prefill/decode on phase
+    24's fine-tuned model (bf16, paged, page 16, 8 slots, max_len 2048):
+
+    (a) ``TIER_REQUESTS`` greedy requests of ``TIER_PROMPTS`` prompt
+        tokens, ``TIER_NEW`` new each, through ``make_decode_engine`` with
+        a pool of half the pages they reserve plus ``host_kv_pages`` for
+        the rest, beside an untiered engine with the full pool: parks,
+        evictions and unparks > 0, every restored page bit-equal to the
+        page evicted (:func:`tier_leg`'s witness), B1/B2 launched (path
+        ``kv_tier``: the tiered runs' launches only).
+        Reports the evictions, prefetch hits and misses, the GB moved
+        each way and the rate of the side-stream copies (their device
+        time), the step thread's wait on the tier, and decode tokens/s
+        and TTFT beside the untiered engine's. In bf16 the tokens of two
+        schedules may part (a chunk's width and the kernels' split plans
+        follow the batch, and bf16 rounds their sums apart), so the
+        equality is reported there and gated on an f32 twin of the model
+        (its weights upcast on the card, core engines over it, the same
+        traffic): tokens equal to its untiered engine's. The page witness
+        is gated in both, so a fault in the tier's bf16 copies cannot
+        hide behind the schedule's rounding;
+    (b) :func:`disagg_leg`: texts equal to the unified run's, every
+        shipment installed, none fallen back, B1/B2 launched (path
+        ``disagg``); blob bytes, ship -> install latency, TTFT beside the
+        unified run's."""
+    import gc
+
+    t_phase = time.perf_counter()
+    slots, page, max_len = 8, 16, int(m.knobs["max_len"])
+    lengths = np.linspace(TIER_PROMPTS[0], TIER_PROMPTS[1],
+                          TIER_REQUESTS).astype(int)
+    prompts = _long_prompts(np, tok, texts, lengths, max_len)
+    kw = dict(max_slots=slots, steps_per_sync=4, kv_page_size=page)
+
+    def bf16(kv_pages, host):
+        return m.make_decode_engine(max_new_tokens=TIER_NEW,
+                                    kv_pages=kv_pages, host_kv_pages=host,
+                                    **kw).engine
+
+    tier, tier_launches, tier_ok = tier_leg(
+        torch, np, pa, bf16, prompts, max_len, page, TIER_NEW)
+    # the f32 twin: the fine-tune's weights upcast on the card
+    twin = ll.LlamaLoRA(device=dev, **dict(m.knobs, bf16=False))._module()
+    twin.load_state_dict(m._float_model().state_dict())
+
+    def f32(kv_pages, host):
+        return de.DecodeEngine(
+            twin.with_kv_layout(page, kv_pages
+                                or 1 + max_len // page * slots),
+            max_slots=slots, max_len=max_len, steps_per_sync=4,
+            host_kv_pages=host, device=dev)
+
+    exact, f32_launches, f32_ok = tier_leg(
+        torch, np, pa, f32, prompts, max_len, page, TIER_NEW)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier_ok = tier_ok and f32_ok and exact["tokens_equal_untiered"]
+    tier_launches = {k: tier_launches[k] + f32_launches[k]
+                     for k in tier_launches}
+    tier = {"bf16": tier, "f32": exact}
+    t_tier = time.perf_counter() - t_phase
+    disagg, disagg_launches, disagg_ok = disagg_leg(
+        torch, np, ll, pa, m, tok, texts, slots, page, TIER_NEW, dev)
+    rec = {"phase": "kv_tier_disagg", "depth": depth, "tier": tier,
+           "disagg": disagg, "tier_s": t_tier,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not tier_ok:
+        raise AssertionError(f"host KV tier leg failed: {tier}")
+    if not disagg_ok:
+        raise AssertionError(f"disaggregated leg failed: {disagg}")
+    return {"kv_tier": tier_launches, "disagg": disagg_launches}
+
+
 def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
     """Phase 25: phase 15's head-dim-8 Llama (hidden 32, 4 heads, 2 kv
     heads, max_len 32, f32, random weights from a seed, nonzero
@@ -4341,6 +4748,7 @@ def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
             res.update(dict(eng.poll()))
         out["resume"] = (whole["w"], prefix, res["r"])
         out.update(modes(m, device))
+        out.update(tier_modes(m, device))
         return out
 
     spec_keys = ("spec_calls", "spec_drafted", "spec_accepted",
@@ -4389,6 +4797,59 @@ def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
             for i in range(4)])
         return out
 
+    bf16_tokens = []  # the CPU's, then the card's
+
+    def tier_modes(m, device):
+        """Phase 29 at this size: the host tier (a pool of 6 pages of 8,
+        24 host pages) in f32, with an int8 KV pool (f32 queries) and in
+        bf16, each beside the same engine untiered; and one KV shipment
+        (f32) from a prefill-only engine through the param-store codec
+        into a decode engine. Tokens, tier counters and whether each
+        tiered (or shipped) run equals the untiered one; the bf16 tokens
+        are kept aside (``bf16_tokens``)."""
+        reqs = [(f"h{i}", prompts[i], 10, {}) for i in range(8)]
+        kw = dict(max_slots=4, max_new_tokens=10, steps_per_sync=2,
+                  kv_page_size=8)
+        keys = ("kv_evictions_total", "kv_unparks_total",
+                "kv_parked_slots", "kv_host_pages_used", "max_concurrent")
+        out = {}
+        for name, extra in (("f32", {}), ("int8_kv", {"kv_cache_int8":
+                                                      True}),
+                            ("bf16", {"bf16": True})):
+            lm = m
+            if extra:
+                lm = ll.LlamaLoRA(device=device, **dict(knobs, **extra))
+                lm.load_parameters(blob)
+            want = _run_engine(lm.make_decode_engine(**kw).engine, reqs)[0]
+            eng = lm.make_decode_engine(kv_pages=6, host_kv_pages=24, **kw)
+            try:
+                got = _run_engine(eng.engine, reqs)[0]
+                st = eng.engine.stats_snapshot()
+            finally:
+                eng.close()
+            counters = {k: st[k] for k in keys}
+            if name == "bf16":
+                bf16_tokens.append(got)
+                out["tier_bf16"] = (got == want, counters)
+            else:
+                out[f"tier_{name}"] = (got, got == want, counters)
+        pre = m.make_decode_engine(**kw).engine
+        for rid, ids, max_new, _kw in reqs:
+            pre.submit(rid, ids, max_new, prefill_only=True)
+        blobs = {}
+        while len(blobs) < len(reqs):
+            pre.step()
+            blobs.update(dict(pre.poll_kv()))
+        wire = {rid: ps.params_from_bytes(ps.params_to_bytes(b))
+                for rid, b in blobs.items()}
+        dec = m.make_decode_engine(**kw).engine
+        got = _run_engine(dec, [(rid, ids, max_new, {"kv_import": wire[rid]})
+                                for rid, ids, max_new, _kw in reqs])[0]
+        out["ship"] = (got, got == out["tier_f32"][0],
+                       dec.stats_snapshot()["kv_imports"],
+                       sorted(b["nbytes"] for b in blobs.values()))
+        return out
+
     want = serve(cpu)
     torch.cuda.synchronize()
     _zero_paged(pa)
@@ -4405,10 +4866,25 @@ def slice_exactness_phase(torch, np, ll, de, pa, ps, bpe, dev):
                "multi_adapter")},
            "resume_starts_with_prefix": got["resume"][2].startswith(
                got["resume"][1]),
+           "tier": {k: got[k][-1] for k in ("tier_f32", "tier_int8_kv",
+                                            "tier_bf16")},
+           "tier_equals_untiered": {k: got[k][-2] for k in (
+               "tier_f32", "tier_int8_kv", "tier_bf16")},
+           "tier_bf16_card_equals_cpu": bf16_tokens[1] == bf16_tokens[0],
+           "shipped": {"equals_untiered": got["ship"][1],
+                       "kv_imports": got["ship"][2],
+                       "blob_bytes": got["ship"][3]},
            "launches": launches}
     emit(rec)
     if not all(same.values()):
         raise AssertionError(f"card and CPU differ: {same}")
+    if not (all(rec["tier_equals_untiered"].values())
+            and got["ship"][1] and got["ship"][2] == 8
+            and all(c["kv_evictions_total"] > 0 and c["kv_unparks_total"]
+                    > 0 for c in rec["tier"].values())):
+        raise AssertionError(f"head-dim-8 tier / shipment: "
+                             f"{rec['tier_equals_untiered']}, "
+                             f"{rec['tier']}, {rec['shipped']}")
     drafted = got["self_draft"][1]
     if not (drafted["spec_draft_model_calls"] > 0 and drafted[
             "spec_accepted"] >= 0.9 * drafted["spec_drafted"] > 0
@@ -4906,7 +5382,8 @@ def main(argv=None):
                          "the call's time)")
     ap.add_argument("--slice-depth", type=int, default=8,
                     help="decoder depth of phase 24's checkpoint, "
-                         "fine-tune and serving legs and of phase 26 "
+                         "fine-tune and serving legs and of phases 26 "
+                         "and 29 "
                          "(widths are never cut; 8 of 32 by default, for "
                          "the call's time)")
     args = ap.parse_args(argv)

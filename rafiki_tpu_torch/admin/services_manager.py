@@ -28,13 +28,18 @@ workers plus a predictor per inference job, each a
 Not ported, each refused by name with ``NotPorted``: boot reconciliation
 and adoption after an admin restart (``reconcile``,
 ``reap_stale_services``), kvd respawn with WAL replay (a dead kvd marks
-the stack degraded), rolling restart, autoscale and scale-out, and the
-inference-budget options that the port's worker refuses (prefill/decode
-roles and KV shipments, the host KV tier, the paged gather path). The
-decode modes are served with the JAX manager's validations:
-``MULTI_ADAPTER`` (the best-N trials of one model and shape as one
-stacked worker on one slot), ``SYSTEM_PREFIX``, ``SPECULATE_K`` and
-``DRAFT_TRIAL_ID``.
+the stack degraded), rolling restart, autoscale and scale-out (the
+``AUTOSCALE``, ``MIN_WORKERS``, ``MAX_WORKERS`` and
+``AUTOSCALE_COOLDOWN_S`` budget keys), the paged gather path
+(``PAGED_KERNEL=false``) and fault injection. The decode modes are served
+with the JAX manager's validations: ``MULTI_ADAPTER`` (the best-N trials
+of one model and shape as one stacked worker on one slot),
+``SYSTEM_PREFIX``, ``SPECULATE_K`` and ``DRAFT_TRIAL_ID``; so are
+disaggregated prefill/decode and the host KV tier: ``WORKER_ROLE`` (one
+role for every worker, or one per worker index, comma-separated; an
+all-prefill pool is refused), ``KV_WAIT_S`` (with ``WORKER_ROLE``) and
+``HOST_KV_PAGES`` (with ``KV_PAGE_SIZE``), passed on as the workers'
+``role``, ``kv_wait_s`` and ``host_kv_pages``.
 """
 
 from __future__ import annotations
@@ -77,9 +82,6 @@ SPAWN_TARGETS = {
 #: inference-budget keys of options the port does not serve yet, each
 #: with the name a refusal gives it
 DEFERRED_BUDGET_KEYS = {
-    "WORKER_ROLE": "prefill/decode worker roles (WORKER_ROLE)",
-    "KV_WAIT_S": "disaggregated KV shipment waits (KV_WAIT_S)",
-    "HOST_KV_PAGES": "the host KV tier (HOST_KV_PAGES)",
     "AUTOSCALE": "autoscale (AUTOSCALE)",
     "MIN_WORKERS": "autoscale bounds (MIN_WORKERS)",
     "MAX_WORKERS": "autoscale bounds (MAX_WORKERS)",
@@ -644,10 +646,11 @@ class ServicesManager:
             if not best:
                 raise RuntimeError("no completed trials to deploy")
             best, multi_adapter = self._multi_adapter_trials(best, budget)
-            plans = [self._inference_worker_config(inference_job_id, i,
-                                                   trial, budget)
-                     for i, trial in enumerate(best[:1] if multi_adapter
-                                               else best)]
+            serving = best[:1] if multi_adapter else best
+            plans = [self._inference_worker_config(
+                inference_job_id, i, trial, budget,
+                n_workers=len(serving))
+                for i, trial in enumerate(serving)]
             if multi_adapter:
                 # the other best trials ride as stacked adapters 1..N
                 plans[0]["extra_adapter_trials"] = [t["id"]
@@ -729,13 +732,71 @@ class ServicesManager:
                         primary["id"])
         return same, True
 
+    @staticmethod
+    def _disaggregation_budget(budget: Dict[str, Any], n_workers: int):
+        """The disaggregated prefill/decode and host-tier budget keys,
+        validated as the JAX manager validates them, with its messages.
+        ``WORKER_ROLE``: one role for every worker, or a comma-separated
+        role per worker index (``"prefill,decode"``); a pool of prefill
+        roles only serves nothing. ``HOST_KV_PAGES`` (>= 1, with
+        ``KV_PAGE_SIZE``): each worker's host page tier. ``KV_WAIT_S``
+        (>= 0, with ``WORKER_ROLE``): how long a decode worker holds a
+        request for its shipment before re-prefilling locally. Returns
+        ``(roles, host_kv_pages, kv_wait_s)`` (``[]``, 0, None when
+        absent)."""
+        from rafiki_tpu_torch.serving.kv_transfer import normalize_role
+
+        roles: List[str] = []
+        if budget.get("WORKER_ROLE"):
+            try:
+                roles = [normalize_role(r) for r in
+                         str(budget["WORKER_ROLE"]).split(",")]
+            except ValueError as e:
+                raise ValueError(f"WORKER_ROLE: {e}") from e
+            if len(roles) == 1:
+                roles = roles * n_workers
+            if len(roles) != n_workers:
+                raise ValueError(
+                    f"WORKER_ROLE names {len(roles)} roles for "
+                    f"{n_workers} workers (one per worker, or a "
+                    "single role for all)")
+            if all(r == "prefill" for r in roles):
+                raise ValueError(
+                    "WORKER_ROLE: an all-prefill pool serves nothing "
+                    "— at least one worker must be decode or unified")
+        host_kv_pages = 0
+        if budget.get("HOST_KV_PAGES"):
+            host_kv_pages = int(budget["HOST_KV_PAGES"])
+            if host_kv_pages < 1:
+                raise ValueError(
+                    f"HOST_KV_PAGES={host_kv_pages} must be >= 1 "
+                    "(host-tier page count)")
+            if not budget.get("KV_PAGE_SIZE"):
+                raise ValueError(
+                    "HOST_KV_PAGES requires KV_PAGE_SIZE in the same "
+                    "budget (pages are the host tier's transfer unit)")
+        kv_wait_s = None
+        if "KV_WAIT_S" in budget:
+            kv_wait_s = float(budget["KV_WAIT_S"])
+            if kv_wait_s < 0:
+                raise ValueError(f"KV_WAIT_S={kv_wait_s} must be >= 0")
+            if not roles:
+                raise ValueError(
+                    "KV_WAIT_S requires WORKER_ROLE in the same "
+                    "budget (it tunes the disaggregated decode leg)")
+        return roles, host_kv_pages, kv_wait_s
+
     def _inference_worker_config(self, inference_job_id: str, i: int,
                                  trial: Dict[str, Any],
-                                 budget: Dict[str, Any]
-                                 ) -> Dict[str, Any]:
-        """Worker ``i``'s config for ``trial``, the budget's serving
-        options validated as the JAX manager validates them."""
+                                 budget: Dict[str, Any],
+                                 n_workers: int = 1) -> Dict[str, Any]:
+        """Worker ``i``'s (of ``n_workers``) config for ``trial``, the
+        budget's serving options validated as the JAX manager validates
+        them."""
         from rafiki_tpu_torch.serving.slo import normalize_slo
+
+        roles, host_kv_pages, kv_wait_s = self._disaggregation_budget(
+            budget, n_workers)
 
         sub = self.meta.get_sub_train_job(trial["sub_train_job_id"])
         model = self.meta.get_model(sub["model_id"])
@@ -792,6 +853,20 @@ class ServicesManager:
             raise ValueError("PAGED_KERNEL requires KV_PAGE_SIZE in the "
                              "same budget (it selects the PAGED decode "
                              "path's implementation)")
+        if host_kv_pages:
+            # the KV_PAGE_SIZE checks above guaranteed a paged decode loop
+            cfg["host_kv_pages"] = host_kv_pages
+        if roles:
+            if not decode_loop:
+                raise ValueError(
+                    "WORKER_ROLE requires a language-modeling "
+                    "deployment (the decode loop owns the KV "
+                    f"shipments); task {model['task']} serves "
+                    "through the micro-batcher")
+            if roles[i] != "unified":
+                cfg["role"] = roles[i]
+        if kv_wait_s is not None:
+            cfg["kv_wait_s"] = kv_wait_s
         return cfg
 
     def _speculation_config(self, cfg: Dict[str, Any],

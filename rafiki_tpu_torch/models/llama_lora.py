@@ -1577,8 +1577,11 @@ class LlamaLoRA:
         loaded ``LlamaLoRA`` with this model's tokenizer) the draft
         model's greedy continuations; the draft keeps its own contiguous
         cache. ``system_prefix`` registers the text's KV once; requests
-        that extend it skip its prefill. The host KV tier is a later
-        slice (``host_kv_pages`` raises)."""
+        that extend it skip its prefill. ``host_kv_pages > 0`` (paged
+        engines only) attaches the host KV page tier: the admission
+        budget becomes pool pages plus host pages, cold pages spill to
+        pinned host memory and come back ahead of the step that resumes
+        them (``serving/kv_tier.py``)."""
         self._require_params()
         if host_kv_pages and kv_page_size <= 0:
             raise ValueError("host_kv_pages requires kv_page_size > 0 "

@@ -21,13 +21,36 @@ Ports the core of ``rafiki_tpu/serving/decode_engine.py``:
 - SLO preemption: on a full engine a higher-class head evicts the
   youngest lowest-class, unshielded occupant (``_occupants``,
   ``_victim_for``, ``_evictable_for``, ``_res_of``, ``_resumed_from``,
-  ``_preempt_slot``), after a feasibility check that the evictions can
-  end in its admission; the victim re-queues front-of-class with its
-  tokens in ``_Slot.prior`` and resumes token-exact (``preempted`` span,
-  ``resumed`` on the re-``admitted`` one, the ``preemptions`` counter);
-  an aged promotion is ``shielded``. The host KV tier is not ported, so
-  there are no parked occupants: handles are live lanes only
-  (``_preempt_parked`` waits for the tier);
+  ``_preempt_slot``, ``_preempt_parked``), after a feasibility check
+  that the evictions can end in its admission; the victim re-queues
+  front-of-class with its tokens in ``_Slot.prior`` and resumes
+  token-exact (``preempted`` span, ``resumed`` on the re-``admitted``
+  one, the ``preemptions`` counter); an aged promotion is ``shielded``;
+- the host KV page tier (``host_kv_pages > 0``, paged engines only;
+  ``serving/kv_tier.py``): two-tier admission against device pages plus
+  host pages (``_budget_pages``), and the policy — when the pool runs
+  dry, ``_reclaim_one_hbm_page`` evicts parked slots' pages to the host
+  (``_evict_parked_pages``) or parks a live victim first
+  (``_park_victim``, ``_park_slot``, the ``_Parked`` record); parked
+  slots resume in ``_unpark_order`` (``_try_unpark``, ``_seat_parked``,
+  ``_apply_unpark_installs``) with their exact KV, no re-prefill, and
+  ``_prefetch_hint`` stages the next one's pages ahead of time; the
+  ``kv_host_pages_*``, ``kv_evictions_total``, ``kv_prefetch_*``,
+  ``kv_transfer_bytes_total``, ``kv_parked_slots`` and
+  ``kv_unparks_total`` counters and the ``parked`` / ``unparked`` spans.
+  The gathers and installs of pages are ``index_select`` /
+  ``index_copy_`` on the step thread's stream; the copies between the
+  card and the pinned host pool run on the tier's side stream;
+- disaggregated prefill/decode: prefill-only slots
+  (``submit(prefill_only=True)``) stop at their last prompt token and
+  ship their KV as a wire blob (``_harvest_prefill_only``,
+  ``_extract_slot_kv``, ``poll_kv``, the ``prefilled`` span,
+  ``kv_exports``); ``submit(kv_import=blob)`` validates a blob before
+  any cache write and installs it at seat time (``_install_kv``,
+  ``kv_imports``), and ``stage_kv_blob`` uploads a blob's leaves ahead
+  of admission. Unlike JAX's, the port's ``stage_kv_blob`` does not
+  swallow a failed upload (JAX then installs from the host blob): it
+  raises, so a failing copy to the card is never hidden;
 - ``_make_step`` → :func:`_decode_steps`: K decode steps as a Python
   loop with on-device input selection and ONE host sync (the emitted
   tokens) per call; argmax, or :func:`_select_next` (temperature,
@@ -61,12 +84,10 @@ paged engine's every decode call goes through the hand-written kernels
 (``paged_decode_attention`` for the s == 1 steps,
 ``paged_window_attention`` for prefill and verify windows).
 
-Left for later slices, raising :class:`NotPorted` (a
-``NotImplementedError`` that is also a ``ValueError``, so a serving worker
-answers such a request with an error reply naming it and serves on): the
-host KV tier (``host_kv_pages > 0``, and with it parked occupants) and
-KV shipment (``poll_kv``, ``stage_kv_blob``,
-``TextDecodeEngine.submit(kv_blob=)``).
+:class:`NotPorted` (a ``NotImplementedError`` that is also a
+``ValueError``, so a serving worker answers such a request with an error
+reply naming it and serves on) is kept for the options other modules
+refuse by name (autoscale, chaos, ``PAGED_KERNEL=false``).
 """
 
 from __future__ import annotations
@@ -81,12 +102,16 @@ import numpy as np
 import torch
 
 from rafiki_tpu_torch.obs.metrics import StatsMap
-from rafiki_tpu_torch.serving.kv_transfer import (cache_from_leaves,
-                                                  cache_leaves, dtype_name,
-                                                  leaf_signature)
+from rafiki_tpu_torch.serving.kv_tier import HostPageTier
+from rafiki_tpu_torch.serving.kv_transfer import (LAYOUT_PAGED, LAYOUT_ROWS,
+                                                  cache_from_leaves,
+                                                  cache_leaves, check_kv_blob,
+                                                  dtype_name, leaf_signature,
+                                                  make_kv_blob)
 from rafiki_tpu_torch.serving.slo import (DEFAULT_SLO, ClassQueue,
                                           evictable_occupants,
-                                          normalize_slo, preemption_victim)
+                                          normalize_slo, preemption_victim,
+                                          slo_priority)
 from rafiki_tpu_torch.utils import threefry
 from rafiki_tpu_torch.utils.device import (DeviceLike, resolve_device,
                                            same_device)
@@ -127,6 +152,41 @@ class _Slot:
     #: admitted by the aging promotion: immune to preemption (evicting
     #: it on the next interactive arrival would starve it again)
     shielded: bool = False
+    #: disaggregated serving (prefill role): stop after chunked prefill
+    #: and surface the slot's KV via ``poll_kv`` instead of generating
+    prefill_only: bool = False
+    #: disaggregated serving (decode role): a validated KV blob whose
+    #: rows are installed at seat time, past the shipped prefill
+    kv_import: Optional[Dict[str, Any]] = None
+
+
+class _Parked:
+    """A slot suspended to the host KV tier: its lane is free, its pages
+    live wherever the allocator put them (per logical page: a pool page
+    still on the card, or a host page), and the host mirrors needed to
+    reseat it ride along. Parking loses no progress: unlike a preemption
+    there is no re-prefill on resume; the restored pages are the KV the
+    slot had."""
+
+    __slots__ = ("slot", "pos", "tok", "stop_pos", "n_res", "pages",
+                 "park_seq")
+
+    def __init__(self, slot: _Slot, pos: int, tok: int, stop_pos: int,
+                 n_res: int, pages: List[Tuple[str, int]],
+                 park_seq: int) -> None:
+        self.slot = slot
+        self.pos = pos
+        self.tok = tok
+        self.stop_pos = stop_pos
+        self.n_res = n_res
+        self.pages = pages      # [("hbm", pool_page) | ("host", hp)]
+        self.park_seq = park_seq
+
+    def host_ids(self) -> List[int]:
+        return [p for loc, p in self.pages if loc == "host"]
+
+    def hbm_ids(self) -> List[int]:
+        return [p for loc, p in self.pages if loc == "hbm"]
 
 
 #: generated tokens between two ``decode_mark`` spans
@@ -137,10 +197,6 @@ class NotPorted(NotImplementedError, ValueError):
     """A request or option this slice of the port does not serve yet.
     A ``ValueError`` too: the worker's submit path answers it with an
     error reply instead of losing its serve thread."""
-
-
-def _not_ported(what: str) -> NotPorted:
-    return NotPorted(f"{what} is not ported yet")
 
 
 class DecodeEngine:
@@ -161,7 +217,12 @@ class DecodeEngine:
     contiguous-cache port ``Llama`` sharing the vocabulary; the JAX
     ``(module, params)`` pair is one module here). Every emitted token
     is the model's argmax given accepted history, so outputs are those
-    of plain decoding; sampling slots fall back to the scan."""
+    of plain decoding; sampling slots fall back to the scan.
+
+    ``host_kv_pages > 0`` (a paged module only) attaches the host KV page
+    tier (``serving/kv_tier.py``): admission reserves against the pool's
+    pages plus the host pages, and cold pages spill to host memory and
+    come back ahead of the step that resumes them."""
 
     def __init__(self, module: Any, max_slots: int, max_len: int,
                  steps_per_sync: int = 4, prefill_chunk: int = 32,
@@ -173,8 +234,6 @@ class DecodeEngine:
         if not same_device(self.device, module.device):
             raise ValueError(f"module lives on {module.device}, engine "
                              f"device is {self.device}")
-        if int(host_kv_pages):
-            raise _not_ported("the host KV tier")
         self.module = module
         self.B = int(max_slots)
         self.L = int(max_len)
@@ -236,6 +295,19 @@ class DecodeEngine:
             self._res_total = 0
         else:
             self._n_table = 1
+        #: the host KV page tier: the admission budget becomes pool pages
+        #: plus host pages; whole slots park to make room for hotter work
+        #: and their pages evict to a host pool, coming back (prefetched)
+        #: ahead of the step that resumes them
+        self.host_pages = int(host_kv_pages)
+        if self.host_pages and not self.paged:
+            raise ValueError("host_kv_pages requires a paged engine "
+                             "(kv_page_size > 0): pages are the "
+                             "tier's transfer unit")
+        self.tier: Optional[HostPageTier] = None
+        #: parked slots by a monotonic park key, insertion-ordered
+        self._parked: Dict[int, _Parked] = {}
+        self._park_seq = 0
         self._ptab = np.zeros((self.B, self._n_table), np.int32)
         self._ptab_dev: Optional[torch.Tensor] = None
         self._ptab_dev_width = 0
@@ -281,7 +353,23 @@ class DecodeEngine:
             # class could admit, and aging promotions
             "preemptions": 0, "slo_aged_promotions": 0,
             "queued_interactive": 0, "queued_batch": 0,
-            "queued_background": 0})
+            "queued_background": 0,
+            # the host KV tier (0 on untiered engines): host pool
+            # occupancy, pages evicted to the host, prefetch hits and
+            # misses (a miss uploads inline at the unpark), bytes moved
+            # both ways, live parked slots and resumes
+            "kv_host_pages_used": 0,
+            "kv_host_pages_total": self.host_pages,
+            "kv_evictions_total": 0, "kv_prefetch_hits": 0,
+            "kv_prefetch_misses": 0, "kv_transfer_bytes_total": 0,
+            "kv_parked_slots": 0, "kv_unparks_total": 0,
+            # disaggregated prefill/decode: shipments produced here
+            "kv_exports": 0})
+        if self.host_pages:
+            self.tier = HostPageTier(self.host_pages, self.stats,
+                                     device=self.device)
+        #: finished prefill-only shipments awaiting poll_kv
+        self._done_kv: List[Tuple[Any, Dict[str, Any]]] = []
         #: optional request-lifecycle hook ``(event, request_id, attrs)``;
         #: the inference worker wires it into its traces and latency
         #: histograms. None costs one attribute read per emission site.
@@ -293,7 +381,8 @@ class DecodeEngine:
                max_new: int, temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: int = 0,
                eos_id: Optional[int] = None, adapter_id: int = 0,
-               slo: str = "") -> None:
+               slo: str = "", prefill_only: bool = False,
+               kv_import: Optional[Dict[str, Any]] = None) -> None:
         """Queue a request. ``prompt_ids``: 1-D valid tokens (>= 1);
         prompt + generation are truncated to fit the cache.
         ``temperature <= 0`` is greedy, which ignores ``top_k``, ``top_p``
@@ -305,17 +394,47 @@ class DecodeEngine:
         request's fine-tune; out-of-range ids raise ``ValueError``, and a
         single-adapter engine ignores the field. ``slo`` orders admission
         (interactive, batch, background), and a full engine preempts
-        lower-class occupants for a higher-class head."""
+        lower-class occupants for a higher-class head.
+
+        ``prefill_only`` (the prefill role of disaggregated serving): the
+        slot stops at its last prompt token and its KV comes out of
+        :meth:`poll_kv` as a wire blob instead of generated tokens.
+        ``kv_import`` (the decode role): such a blob, validated here
+        (``ValueError`` on any mismatch, before the cache is touched) and
+        installed when the request is seated, so its prompt walk resumes
+        past the shipped positions."""
         prompt = np.asarray(prompt_ids, np.int32).ravel()
         max_new = max(1, min(int(max_new), self.L - 1))
         prompt = prompt[:max(1, self.L - max_new)]
         aid = self._check_adapter_id(adapter_id)
         cls = normalize_slo(slo)
+        if kv_import is not None:
+            # validated on the caller's thread: a bad shipment is a
+            # structured refusal the worker degrades on, never a shape
+            # error on the step thread mid-install
+            flat = cache_leaves(self._cache)
+            cov = int(kv_import.get("covered", 0) or 0) \
+                if isinstance(kv_import, dict) else 0
+            if self.paged:
+                sig = [[list(c.shape[1:]), dtype_name(c)] for c in flat]
+                lead = ((cov - 1) // self.page_size + 1) if cov else 0
+            else:  # rows layout: leaves are (covered, heads, dh)
+                sig = [[list(c.shape[2:]), dtype_name(c)] for c in flat]
+                lead = cov
+            kv_import = check_kv_blob(
+                kv_import, layout=LAYOUT_PAGED if self.paged
+                else LAYOUT_ROWS, page_size=self.page_size,
+                expect_sig=sig, expect_leading=lead,
+                prompt_len=len(prompt), adapter_id=aid)
         if self.paged:
-            # a request whose worst case exceeds the whole pool could
-            # never take a step: refuse it here instead of stalling the
-            # queue forever
-            need = self._pages_for(min(len(prompt) - 1 + max_new, self.L))
+            # a request whose worst case exceeds what can ever be on the
+            # card could never take a step: refuse it here instead of
+            # stalling the queue forever (a host tier enlarges the
+            # admission budget, not what one request can hold). Prefill-
+            # only work stops at the last prompt token.
+            need = self._pages_for(
+                max(1, len(prompt) - 1) if prefill_only
+                else min(len(prompt) - 1 + max_new, self.L))
             if need > self.n_pages - 1:
                 raise ValueError(
                     f"request needs {need} KV pages worst-case but the "
@@ -328,7 +447,8 @@ class DecodeEngine:
                 temperature=float(temperature), top_k=int(top_k),
                 top_p=float(top_p), seed=int(seed),
                 eos_id=None if eos_id is None else int(eos_id),
-                adapter_id=aid, slo=cls, seq=self._seq))
+                adapter_id=aid, slo=cls, seq=self._seq,
+                prefill_only=bool(prefill_only), kv_import=kv_import))
 
     def _check_adapter_id(self, adapter_id: int) -> int:
         """A request's adapter, validated: an out-of-range id raises
@@ -368,8 +488,8 @@ class DecodeEngine:
     @property
     def busy(self) -> bool:
         with self._lock:
-            return bool(self._cq) or any(s is not None
-                                         for s in self._slots)
+            return bool(self._cq) or bool(self._parked) \
+                or any(s is not None for s in self._slots)
 
     def _span(self, event: str, request_id: Any, **attrs: Any) -> None:
         """Emit a lifecycle event to the wired sink. A sink that raises
@@ -400,17 +520,29 @@ class DecodeEngine:
 
     def reset_stats(self) -> None:
         """Zero the served-traffic counters, keeping the pool gauges."""
-        keep = {}
+        keep = {"kv_host_pages_total": self.host_pages}
         if self.paged:
             keep.update(kv_pages_total=self.n_pages - 1,
                         kv_pages_used=(self.n_pages - 1
                                        - len(self._free_pages)))
+        if self.tier is not None:
+            keep.update(
+                kv_host_pages_used=(self.host_pages
+                                    - self.tier.free_pages()),
+                kv_parked_slots=len(self._parked))
         self.stats.reset(keep=keep)
 
     def stats_snapshot(self) -> Dict[str, int]:
         """A point-in-time copy of the counters, taken under the stats
         lock."""
         return self.stats.snapshot()
+
+    def close(self) -> None:
+        """Stop the host tier's transfer thread (its pool is freed with
+        the engine). Idempotent; an engine without a tier holds nothing
+        that needs closing."""
+        if self.tier is not None:
+            self.tier.close()
 
     def reset(self) -> None:
         """Drop all occupants and zero the cache (error recovery)."""
@@ -432,6 +564,11 @@ class DecodeEngine:
             self._spec_ema = self._spec_floor + 0.5
             self._spec_idle = 0
             self._draft_synced = True
+            self._parked.clear()
+            self._done_kv.clear()
+            if self.tier is not None:
+                self.tier.reset()
+            self.stats.set("kv_parked_slots", 0)
             if self.paged:
                 self._free_pages = list(range(self.n_pages - 1, 0, -1))
                 self._ptab[:] = 0
@@ -517,6 +654,11 @@ class DecodeEngine:
         entry = {"ids": prefix, "len": len(prefix), "aid": aid,
                  "cache": self._prefix_snapshot(self.module, prefix, aid,
                                                 self.paged)}
+        if self.tier is not None:
+            # a tiered engine keeps its snapshots in host memory, uploaded
+            # per install: the capacity trade the page tier makes
+            entry["cache"] = [{n: t.cpu() for n, t in layer.items()}
+                              for layer in entry["cache"]]
         if self._draft_cache is not None:
             # the draft attends the same positions: without its own
             # snapshot a hit slot would draft over zero KV
@@ -540,7 +682,7 @@ class DecodeEngine:
             idx1 = self._dev(pos % self.page_size, torch.int64)
             for layer, snap in zip(self._cache, pre["cache"]):
                 for name, c in layer.items():
-                    vals = snap[name][0].to(c.dtype)
+                    vals = snap[name][0].to(c.device, c.dtype)
                     c.index_put_((idx0, idx1[None, :].expand_as(idx0)),
                                  vals[None].expand(
                                      (len(rows),) + tuple(vals.shape)))
@@ -600,18 +742,114 @@ class DecodeEngine:
                 "prefix blob does not match this engine's cache "
                 "geometry (model shape / dtype / int8 mismatch)")
         tensors = [(v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.array(v))).to(self.device)
+                    else torch.from_numpy(np.array(v))).to(
+                        "cpu" if self.tier is not None else self.device)
                    for v in leaves]
         self._prefixes[aid] = {"ids": ids, "len": plen, "aid": aid,
                                "cache": cache_from_leaves(tensors, like)}
         self.stats.inc("kv_imports")
         return plen
 
-    def poll_kv(self):
-        raise _not_ported("KV shipment (disaggregated prefill)")
+    # ---- disaggregated prefill/decode (KV shipment) ----
+    def poll_kv(self) -> List[Tuple[Any, Dict[str, Any]]]:
+        """Completed prefill-only shipments since the last call:
+        ``(request_id, KV blob)`` pairs ready to ride the hub to a
+        decode-role engine's ``submit(..., kv_import=blob)``."""
+        with self._lock:
+            done, self._done_kv = self._done_kv, []
+        return done
 
-    def stage_kv_blob(self, blob: Dict[str, Any]):
-        raise _not_ported("KV shipment (disaggregated prefill)")
+    def _harvest_prefill_only(self) -> None:
+        """Complete the prefill-only slots whose prompt walk reached its
+        last token: extract the shipment, free the lane and its pages.
+        Costs one scan of the lanes when no prefill-role traffic
+        exists."""
+        shipped: List[Tuple[Any, Dict[str, Any]]] = []
+        for i in range(self.B):
+            s = self._slots[i]
+            if s is None or not s.prefill_only:
+                continue
+            if int(self._pos[i]) >= len(s.prompt) - 1:
+                shipped.append((s.request_id, self._extract_slot_kv(i)))
+                self._slots[i] = None
+                self._tok[i] = 0
+                self._pos[i] = 0
+                self._prompt_len[i] = 1
+                self._stop_pos[i] = 0
+                if self.paged:
+                    self._release_slot_pages(i)
+        if shipped:
+            with self._lock:
+                self._done_kv.extend(shipped)
+                self.stats.inc("requests_done", len(shipped))
+            for rid, blob in shipped:
+                self._span("prefilled", rid, covered=blob["covered"])
+
+    def _extract_slot_kv(self, i: int) -> Dict[str, Any]:
+        """Slot ``i``'s prefilled KV as a wire blob: the pages (paged) or
+        rows (contiguous) covering positions ``0..pos-1``, every cache
+        leaf alike (int8 pools with their scale rows), in
+        ``jax.tree_util`` order. The one host sync of the prefill role
+        (the JAX engine's one sanctioned sync outside the tier thread):
+        every leaf is copied into pinned host memory asynchronously, then
+        the stream is synchronized once."""
+        s = self._slots[i]
+        covered = max(0, min(int(self._pos[i]), len(s.prompt) - 1))
+        leaves: List[Any] = []
+        if covered:
+            flat = cache_leaves(self._cache)
+            if self.paged:
+                n = (covered - 1) // self.page_size + 1
+                idx = self._dev_async(self._ptab[i, :n], torch.int64)
+                dev = [c.index_select(0, idx) for c in flat]
+            else:
+                dev = [c[i, :covered] for c in flat]
+            leaves = _to_host(dev)
+        self.stats.inc("kv_exports")
+        return make_kv_blob(
+            covered, LAYOUT_PAGED if self.paged else LAYOUT_ROWS,
+            self.page_size, leaves, adapter_id=s.adapter_id)
+
+    def stage_kv_blob(self, blob: Dict[str, Any]) -> Dict[str, Any]:
+        """Upload a shipment's leaves to the device ahead of admission
+        (call when the blob arrives off the wire, on the thread that
+        drives ``step``): each leaf is pinned on the host and copied
+        asynchronously, so the seat-time install pays only the copy into
+        the pool. Unlike JAX's, a failed upload raises instead of
+        falling back to the host blob."""
+        staged = dict(blob)
+        staged["leaves"] = [self._upload(a) for a in blob["leaves"]]
+        return staged
+
+    def _upload(self, a: Any) -> torch.Tensor:
+        """A blob leaf (numpy array or host tensor) on this engine's
+        device; pinned and copied without a host sync on a CUDA device."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a))
+        if self.device.type == "cuda" and not t.is_cuda:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _install_kv(self, i: int, blob: Dict[str, Any]) -> None:
+        """Write a shipped blob's pages or rows into slot ``i``'s pages or
+        rows (validated at submit; pages mapped at seat time): an
+        ``index_copy_`` of the shipped pages per leaf, on the step
+        thread's stream."""
+        cov = int(blob["covered"])
+        flat = cache_leaves(self._cache)
+        vals = [self._upload(v).to(c.dtype)
+                for v, c in zip(blob["leaves"], flat)]
+        if self.paged:
+            n = (cov - 1) // self.page_size + 1
+            idx = self._dev_async(self._ptab[i, :n], torch.int64)
+            for c, v in zip(flat, vals):
+                c.index_copy_(0, idx, v)
+        else:
+            for c, v in zip(flat, vals):
+                c[i, :cov] = v
+        self.stats.inc("kv_imports")
+        self.stats.inc("kv_transfer_bytes_total",
+                       int(blob.get("nbytes", 0) or 0))
 
     # ---- paged-KV allocator (step thread only, except reservations,
     # ---- which share the admission lock) ----
@@ -624,14 +862,31 @@ class DecodeEngine:
                 self.L - 1)
         return h // self.page_size + 1
 
-    def _ensure_pages_to(self, i: int, last_pos: int) -> None:
+    @property
+    def _budget_pages(self) -> int:
+        """The two-tier admission budget: usable pool pages plus the host
+        tier's. Reservations are granted against this total; a pool
+        shortfall is resolved by evicting cold pages to the host
+        (:meth:`_reclaim_one_hbm_page`), which the invariant
+        sum(reservations) <= budget proves always possible while growth
+        inside a reservation is pending."""
+        return self.n_pages - 1 + self.host_pages
+
+    def _ensure_pages_to(self, i: int, last_pos: int,
+                         have_lock: bool = False) -> None:
         """Allocate slot ``i``'s logical pages covering positions
         ``[0, last_pos]`` — called before every call with that call's
         write horizon (a slot holds pages for where it is, not for
-        max_len). Infallible inside the slot's reservation."""
+        max_len). Infallible inside the slot's reservation: with a host
+        tier an empty free list evicts cold pages (parked slots' first,
+        else a freshly parked victim's) until the growth fits."""
         need = last_pos // self.page_size + 1
         grew = need > int(self._n_alloc[i])
         while int(self._n_alloc[i]) < need:
+            if not self._free_pages:
+                # only reachable on tiered engines (the untiered invariant
+                # keeps the free list ahead of the reservations)
+                self._reclaim_one_hbm_page(protect=i, have_lock=have_lock)
             self._ptab[i, int(self._n_alloc[i])] = self._free_pages.pop()
             self._n_alloc[i] += 1
         if grew:
@@ -639,6 +894,251 @@ class DecodeEngine:
             used = self.n_pages - 1 - len(self._free_pages)
             self.stats.set("kv_pages_used", used)
             self.stats.max_set("kv_pages_high_water", used)
+
+    # ---- the host tier's policy (step thread; the tier's transfer
+    # ---- thread touches only its own pool and staging state) ----
+    def _reclaim_one_hbm_page(self, protect: int,
+                              have_lock: bool = False) -> None:
+        """Free at least one pool page by evicting a cold page to the host
+        tier: parked slots' pages still on the card first (nothing steps
+        them), else park a live victim (never ``protect``) and evict from
+        it. Raises only on an allocator-invariant breach (a bug)."""
+        if self.tier is None:
+            raise RuntimeError(
+                "paged-KV allocator invariant breached: free list "
+                "empty inside reservation and no host tier to spill "
+                "to")
+        if self._evict_parked_pages(limit=1, exclude_key=None):
+            return
+        j = self._park_victim(protect)
+        if j is None:
+            raise RuntimeError(
+                "paged-KV allocator invariant breached: no free page, "
+                "no parked cold page, and no parkable victim")
+        self._park_slot(j, have_lock=have_lock)
+        if not self._evict_parked_pages(limit=1, exclude_key=None):
+            raise RuntimeError(
+                "paged-KV allocator invariant breached: host tier "
+                "full while within-reservation growth is pending")
+
+    def _evict_parked_pages(self, limit: int,
+                            exclude_key: Optional[int]) -> int:
+        """Move up to ``limit`` on-card pages of parked slots to the host
+        tier, freeing their pool pages, from the lowest-priority /
+        youngest parked slot first (the work least likely to resume
+        next). Returns the pages moved. The gather runs here, on the step
+        thread's stream, before any later call can write the freed pages;
+        the copy to the host runs on the tier's side stream."""
+        moved = 0
+        order = sorted(
+            (k for k in self._parked if k != exclude_key),
+            key=lambda k: (slo_priority(self._parked[k].slot.slo),
+                           self._parked[k].slot.seq),
+            reverse=True)
+        for k in order:
+            if moved >= limit:
+                break
+            rec = self._parked[k]
+            hbm = [(t, p) for t, (loc, p) in enumerate(rec.pages)
+                   if loc == "hbm"]
+            if not hbm:
+                continue
+            # tail pages first: partial restores then refill in logical
+            # order
+            take = hbm[-(limit - moved):]
+            host_ids = self.tier.alloc(len(take))
+            if host_ids is None:
+                if self.tier.free_pages() == 0:
+                    break
+                host_ids = self.tier.alloc(self.tier.free_pages())
+                take = take[-len(host_ids):]
+            pool_ids = [p for _t, p in take]
+            idx = self._dev_async(np.asarray(pool_ids, np.int64),
+                                  torch.int64)
+            leaves = [c.index_select(0, idx)
+                      for c in cache_leaves(self._cache)]
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            self.tier.evict_submit(host_ids, leaves, ready)
+            # a staging for the old id set is stale now; the prefetcher
+            # re-stages the grown set
+            self.tier.drop_staged(k)
+            for (t, _p), h in zip(take, host_ids):
+                rec.pages[t] = ("host", int(h))
+            self._free_pages.extend(pool_ids)
+            self._ptab_dirty = True
+            moved += len(take)
+        if moved:
+            self.stats.set("kv_pages_used",
+                           self.n_pages - 1 - len(self._free_pages))
+        return moved
+
+    def _park_victim(self, protect: int) -> Optional[int]:
+        """The live slot to suspend when the pool must shrink: lowest
+        class, youngest (the preemption order), across classes and
+        shields, since parking loses no progress."""
+        cands = [j for j in range(self.B)
+                 if j != protect and self._slots[j] is not None]
+        if not cands:
+            return None
+        return max(cands, key=lambda j: (
+            slo_priority(self._slots[j].slo), self._slots[j].seq))
+
+    def _park_slot(self, j: int, have_lock: bool = False) -> None:
+        """Suspend live slot ``j``: lane freed, host mirrors captured,
+        pages kept (all on the card at first; eviction moves them to the
+        host on demand). Its reservation stays counted (the slot is still
+        admitted work)."""
+        slot = self._slots[j]
+        n = int(self._n_alloc[j])
+        self._park_seq += 1
+        rec = _Parked(slot, pos=int(self._pos[j]), tok=int(self._tok[j]),
+                      stop_pos=int(self._stop_pos[j]),
+                      n_res=int(self._n_res[j]),
+                      pages=[("hbm", int(self._ptab[j, t]))
+                             for t in range(n)],
+                      park_seq=self._park_seq)
+        self._slots[j] = None
+        self._tok[j] = 0
+        self._pos[j] = 0
+        self._prompt_len[j] = 1
+        self._stop_pos[j] = 0
+        self._ptab[j, :] = 0
+        self._n_alloc[j] = 0
+        self._ptab_dirty = True
+        if have_lock:
+            self._n_res[j] = 0
+        else:
+            with self._lock:
+                self._n_res[j] = 0
+        self._parked[rec.park_seq] = rec
+        if self._draft_cache is not None:
+            # the draft cache's lane no longer mirrors this slot; the next
+            # speculative probe rebuilds it from the accepted contexts
+            self._draft_synced = False
+        self.stats.set("kv_parked_slots", len(self._parked))
+        self._span("parked", slot.request_id, slot=j, pages=len(rec.pages))
+
+    def _unpark_order(self) -> List[int]:
+        """Resume order: highest class first, then oldest arrival (the
+        inverse of the eviction order, so restoring and evicting work
+        opposite ends of the parked set and the page-by-page exchange
+        converges)."""
+        return sorted(self._parked,
+                      key=lambda k: (slo_priority(self._parked[k].slot.slo),
+                                     self._parked[k].slot.seq))
+
+    def _try_unpark(self) -> Tuple[List[Tuple[int, _Parked, List[int],
+                                              List[int], Any]], int]:
+        """Admission-phase resume pass (lock held): restore parked slots'
+        host pages into freshly allocated pool pages as capacity allows,
+        and seat fully restored parked slots into free lanes. Returns
+        ``(installs, slots seated)``; the installs ``(lane, rec,
+        pool_ids, host_ids, staged)`` are applied at once, still under the
+        lock (a later seat in the same admission pass may evict these
+        very pages again, and must evict their content)."""
+        installs: List[Tuple[int, _Parked, List[int], List[int], Any]] = []
+        seated = 0
+        for k in self._unpark_order():
+            rec = self._parked[k]
+            host = [(t, p) for t, (loc, p) in enumerate(rec.pages)
+                    if loc == "host"]
+            if host:
+                fill = min(len(self._free_pages), len(host))
+                if fill < len(host):
+                    # not wholly restorable yet: pull what fits (head
+                    # pages first) and try again next step
+                    if fill == 0:
+                        continue
+                    host = host[:fill]
+                pool_ids = [self._free_pages.pop() for _ in host]
+                host_ids = [p for _t, p in host]
+                staged = None
+                if self.tier is not None and fill == len(rec.host_ids()):
+                    staged = self.tier.take_staged(k, host_ids)
+                for (t, _p), pid in zip(host, pool_ids):
+                    rec.pages[t] = ("hbm", int(pid))
+                installs.append((-1, rec, pool_ids, host_ids, staged))
+                self.stats.set("kv_pages_used",
+                               self.n_pages - 1 - len(self._free_pages))
+            if rec.host_ids():
+                continue  # still partly on the host
+            i = next((j for j in range(self.B) if self._slots[j] is None),
+                     None)
+            if i is None:
+                continue  # wholly on the card, waiting for a lane
+            self._seat_parked(i, k, rec)
+            seated += 1
+        return installs, seated
+
+    def _seat_parked(self, i: int, key: int, rec: _Parked) -> None:
+        """Reseat a wholly restored parked slot into lane ``i`` (lock
+        held): mirrors restored, page table rebuilt, reservation moved
+        back onto the lane. No re-prefill."""
+        slot = rec.slot
+        self._slots[i] = slot
+        self._tok[i] = rec.tok
+        self._pos[i] = rec.pos
+        self._prompt_buf[i, :] = 0
+        self._prompt_buf[i, :len(slot.prompt)] = slot.prompt
+        self._prompt_len[i] = len(slot.prompt)
+        self._stop_pos[i] = rec.stop_pos
+        self._temp[i] = slot.temperature
+        self._topk[i] = slot.top_k
+        self._topp[i] = slot.top_p
+        self._seed[i] = np.int32(slot.seed & 0x7FFFFFFF)
+        self._aid[i] = slot.adapter_id
+        for t, (loc, p) in enumerate(rec.pages):
+            assert loc == "hbm"
+            self._ptab[i, t] = p
+        self._n_alloc[i] = len(rec.pages)
+        self._n_res[i] = rec.n_res
+        self._ptab_dirty = True
+        del self._parked[key]
+        if self.tier is not None:
+            self.tier.drop_staged(key)
+        self.stats.set("kv_parked_slots", len(self._parked))
+        self.stats.inc("kv_unparks_total")
+
+    def _apply_unpark_installs(self, installs) -> None:
+        """Copy restored pages' content into the pool before any call
+        reads them. A prefetch hit takes the tensors the tier staged on
+        the device (marked as used by this stream, since they were
+        allocated on the tier's); a miss uploads from the host pool
+        inline, after :meth:`HostPageTier.fetch` has waited out pending
+        evictions of those pages."""
+        cur = (torch.cuda.current_stream(self.device)
+               if self.device.type == "cuda" else None)
+        for _lane, rec, pool_ids, host_ids, staged in installs:
+            if staged is None:
+                self.stats.inc("kv_prefetch_misses")
+                staged = self.tier.fetch(host_ids, device=self.device)
+                self.stats.inc("kv_transfer_bytes_total", int(sum(
+                    a.numel() * a.element_size() for a in staged)))
+            else:
+                self.stats.inc("kv_prefetch_hits")
+                if cur is not None:
+                    for v in staged:
+                        v.record_stream(cur)
+            idx = self._dev_async(np.asarray(pool_ids, np.int64),
+                                  torch.int64)
+            for c, v in zip(cache_leaves(self._cache), staged):
+                c.index_copy_(0, idx, v.to(c.dtype))
+            self.tier.free(host_ids)
+            self._span("unparked", rec.slot.request_id, pages=len(pool_ids))
+
+    def _prefetch_hint(self) -> None:
+        """Tell the tier which parked slot resumes next, so its host pages
+        are staged on the device before the unpark needs them."""
+        if self.tier is None or not self._parked:
+            return
+        for k in self._unpark_order():
+            ids = self._parked[k].host_ids()
+            if ids:
+                self.tier.prefetch_submit(k, ids)
+                return
 
     def _release_slot_pages(self, i: int, have_lock: bool = False
                             ) -> None:
@@ -691,6 +1191,15 @@ class DecodeEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
+    def _dev_async(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """:meth:`_dev` without a host sync on a CUDA device: the array is
+        copied into pinned memory and uploaded asynchronously (the tier's
+        and the shipments' index operands)."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def _aid_arg(self) -> Optional[torch.Tensor]:
         """The per-slot adapter operand (None on single-adapter
         engines)."""
@@ -734,8 +1243,12 @@ class DecodeEngine:
                     tok_chunk[i, :] = self._tok[i]
                     pos_chunk[i, :] = self._pos[i]
             if self.paged:
+                # each chunk maps only the pages it writes. On a tiered
+                # engine an earlier lane's growth may park this one inside
+                # this loop (its row zeroed, its pos reset): allocating
+                # for the emptied lane would leak the pages
                 for i in range(self.B):
-                    if adv[i] > 0:
+                    if adv[i] > 0 and self._slots[i] is not None:
                         self._ensure_pages_to(
                             i, int(self._pos[i]) + int(adv[i]) - 1)
             tok_dev = self._dev(tok_chunk, torch.int64)
@@ -751,35 +1264,84 @@ class DecodeEngine:
             self.stats.inc("prefill_calls")
             self.stats.inc("prefill_tokens", int(adv.sum()))
             for i in range(self.B):
-                if adv[i] > 0:
+                if adv[i] > 0 and self._slots[i] is not None:
+                    # a lane parked mid-chunk skips the advance: its
+                    # record saved the pre-chunk position, so the resume
+                    # re-prefills this chunk (whose writes went to the
+                    # scratch page: its table row was zeroed at park)
                     self._pos[i] += int(adv[i])
                     self._slots[i].n_consumed += int(adv[i])
                     self._tok[i] = self._prompt_buf[i, int(self._pos[i])]
 
     # ---- SLO preemption (lock held: admission-loop context) ----
-    def _occupants(self) -> List[Tuple[Any, str, int, bool]]:
+    def _occupants(self, live_only: bool = False
+                   ) -> List[Tuple[Any, str, int, bool]]:
         """Admitted work as the ``(handle, slo, seq, shielded)`` tuples
         the shared eviction policy consumes. Handles are ``("live",
-        lane)``: without the host tier nothing is parked."""
-        return [(("live", j), s.slo, s.seq, s.shielded)
-                for j, s in enumerate(self._slots) if s is not None]
+        lane)`` for seated slots and ``("parked", key)`` for slots
+        suspended to the host tier (they hold reservations and pages
+        too, so a higher-class head may reclaim them the same way)."""
+        occ: List[Tuple[Any, str, int, bool]] = [
+            (("live", j), s.slo, s.seq, s.shielded)
+            for j, s in enumerate(self._slots) if s is not None]
+        if not live_only:
+            occ.extend((("parked", k), r.slot.slo, r.slot.seq,
+                        r.slot.shielded) for k, r in self._parked.items())
+        return occ
 
-    def _victim_for(self, cls: str) -> Optional[Any]:
+    def _victim_for(self, cls: str, live_only: bool = False
+                    ) -> Optional[Any]:
         """The occupant to evict so a ``cls`` head can admit
         (:func:`preemption_victim`: youngest lowest-class, shielded
-        immune)."""
-        return preemption_victim(cls, self._occupants())
+        immune). ``live_only``: a lane can only come from a seated
+        slot."""
+        return preemption_victim(cls, self._occupants(live_only))
 
-    def _evictable_for(self, cls: str) -> List[Any]:
+    def _evictable_for(self, cls: str, live_only: bool = False
+                       ) -> List[Any]:
         """Every occupant :meth:`_victim_for` could return for a ``cls``
         head. The feasibility check sums their reservations before any
         eviction: a preemption that cannot end in the head admitting
         would destroy the victims' progress for nothing."""
         return [h for h, _s, _q in
-                evictable_occupants(cls, self._occupants())]
+                evictable_occupants(cls, self._occupants(live_only))]
 
     def _res_of(self, handle: Any) -> int:
-        return int(self._n_res[handle[1]])
+        kind, ref = handle
+        if kind == "live":
+            return int(self._n_res[ref])
+        return int(self._parked[ref].n_res)
+
+    def _preempt_handle(self, handle: Any, by: str
+                        ) -> Tuple[Any, int, int, str, str]:
+        kind, ref = handle
+        if kind == "live":
+            return self._preempt_slot(ref, by)
+        return self._preempt_parked(ref, by)
+
+    def _preempt_parked(self, key: int, by: str
+                        ) -> Tuple[Any, int, int, str, str]:
+        """Evict a parked occupant, the cheapest victim: nothing is
+        seated, so its pool pages, host pages and reservation free now,
+        and it re-queues front-of-class like a live victim."""
+        rec = self._parked.pop(key)
+        slot = rec.slot
+        hbm = rec.hbm_ids()
+        if hbm:
+            self._free_pages.extend(hbm)
+            self._ptab_dirty = True
+        host = rec.host_ids()
+        if host and self.tier is not None:
+            self.tier.free(host)
+        if self.tier is not None:
+            self.tier.drop_staged(key)
+        self._res_total -= rec.n_res
+        self._cq.push(slot.slo, self._resumed_from(slot), front=True)
+        self.stats.inc("preemptions")
+        self.stats.set("kv_parked_slots", len(self._parked))
+        self.stats.set("kv_pages_used",
+                       self.n_pages - 1 - len(self._free_pages))
+        return (slot.request_id, -1, len(slot.generated), slot.slo, by)
 
     def _resumed_from(self, slot: _Slot) -> _Slot:
         """The front-of-class re-queued request a victim becomes: its
@@ -795,7 +1357,8 @@ class DecodeEngine:
                         top_p=slot.top_p, seed=slot.seed,
                         eos_id=slot.eos_id, adapter_id=slot.adapter_id,
                         slo=slot.slo, seq=slot.seq,
-                        prior=slot.prior + gen)
+                        prior=slot.prior + gen,
+                        prefill_only=slot.prefill_only)
         resumed.n_streamed = slot.n_streamed
         resumed.first_tokened = slot.first_tokened
         resumed.shielded = slot.shielded
@@ -823,10 +1386,14 @@ class DecodeEngine:
 
     def _seat_slot(self, i: int, slot: _Slot) -> None:
         """Install a popped request into free slot ``i`` (lock held):
-        host mirrors, the shared-prefix fast-forward when the prompt
+        host mirrors, a shipped blob's fast-forward (disaggregated
+        decode) or the shared-prefix fast-forward when the prompt
         strictly extends the prefix registered for its adapter (a
-        preempt-resumed slot re-matches), first pages, then the prefix
-        install into them."""
+        preempt-resumed slot re-matches), first pages, then the content
+        install into them. The install happens here, right after the
+        lane's pages are mapped: on a tiered engine a later seat in the
+        same admission pass may park this lane and evict its pages, and
+        must evict their content."""
         self._slots[i] = slot
         self._tok[i] = slot.prompt[0]
         self._pos[i] = 0
@@ -834,38 +1401,67 @@ class DecodeEngine:
         self._prompt_buf[i, :len(slot.prompt)] = slot.prompt
         self._prompt_len[i] = len(slot.prompt)
         pre = self._prefixes.get(slot.adapter_id)
-        if pre is not None and (len(slot.prompt) > pre["len"]
-                                and np.array_equal(slot.prompt[:pre["len"]],
-                                                   pre["ids"])):
+        install: Optional[Tuple[str, Any]] = None
+        if slot.kv_import is not None and int(slot.kv_import["covered"]) > 0:
+            # a prefill-role worker computed positions 0..covered-1: the
+            # shipped rows land in this slot's pages below and the prompt
+            # walk resumes past them (the prefix-hit shape, from the wire)
+            cov = int(slot.kv_import["covered"])
+            self._pos[i] = cov
+            slot.n_consumed = cov
+            self._tok[i] = slot.prompt[cov]
+            install = ("kv", slot.kv_import)
+            # installed once; a preempt-resume re-ingests by prefill
+            slot.kv_import = None
+        elif pre is not None and (len(slot.prompt) > pre["len"]
+                                  and np.array_equal(
+                                      slot.prompt[:pre["len"]],
+                                      pre["ids"])):
             # the KV copy makes positions 0..plen-1 as if prefilled; the
             # prompt walk resumes at plen
+            install = ("prefix", pre)
             self._pos[i] = pre["len"]
             slot.n_consumed = pre["len"]
             self._tok[i] = slot.prompt[pre["len"]]
+        if slot.prefill_only:
+            # prefill role: stop at the last prompt token, where the
+            # decode leg starts; the KV ships via poll_kv
+            self._stop_pos[i] = max(0, len(slot.prompt) - 1)
         else:
-            pre = None
-        # finish once pos reaches plen - 1 + max_new (the step at input
-        # position p emits a generated token iff p >= plen - 1)
-        self._stop_pos[i] = min(len(slot.prompt) - 1 + slot.max_new, self.L)
+            # finish once pos reaches plen - 1 + max_new (the step at
+            # input position p emits a generated token iff p >= plen - 1)
+            self._stop_pos[i] = min(len(slot.prompt) - 1 + slot.max_new,
+                                    self.L)
         self._temp[i] = slot.temperature
         self._topk[i] = slot.top_k
         self._topp[i] = slot.top_p
         self._seed[i] = np.int32(slot.seed & 0x7FFFFFFF)
         self._aid[i] = slot.adapter_id
         if self.paged:
-            # position 0, or the whole prefix span for a hit
-            self._ensure_pages_to(i, int(self._pos[i]))
-        if pre is not None:
-            self._install_prefix([i], pre)
+            # position 0, or the whole prefix / shipped span
+            self._ensure_pages_to(i, int(self._pos[i]), have_lock=True)
+        if install is not None:
+            kind, payload = install
+            if kind == "kv":
+                self._install_kv(i, payload)
+            else:
+                self._install_prefix([i], payload)
 
     def step(self) -> int:
-        """Admit queued requests into free slots (preempting lower-class
-        occupants for a higher-class head when the engine is full), run K
-        decode steps for every live slot, harvest completions. Returns
-        the live count."""
+        """Resume parked slots, admit queued requests into free slots
+        (preempting lower-class occupants for a higher-class head when
+        the engine is full), run K decode steps for every live slot,
+        harvest completions. Returns the live count."""
         admitted_info: List[Tuple[Any, int, int, str, bool]] = []
         preempted_info: List[Tuple[Any, int, int, str, str]] = []
         with self._lock:
+            # parked slots first: they hold reservations and progress,
+            # and restoring their host pages keeps the tier from silting
+            unpark_installs, n_unparked = self._try_unpark()
+            if unpark_installs:
+                # restored content lands now, before admission: a later
+                # seat may evict these very pages to the host again
+                self._apply_unpark_installs(unpark_installs)
             while True:
                 nxt = self._cq.peek()
                 if nxt is None:
@@ -876,30 +1472,34 @@ class DecodeEngine:
                 # feasibility before any eviction: the head admits only
                 # if its worst case fits what is not reserved plus what
                 # evicting strictly-lower-class, unshielded occupants
-                # would free; otherwise it waits (FIFO fairness) and
-                # nothing is evicted
+                # (parked ones too) would free; otherwise it waits (FIFO
+                # fairness) and nothing is evicted
                 victims = self._evictable_for(cls)
-                if i is None and not victims:
+                live_victims = [h for h in victims if h[0] == "live"]
+                if i is None and not live_victims:
                     break  # a lane can only come from a live victim
                 n_res = 0
                 if self.paged:
                     n_res = self._pages_for(
-                        min(len(head.prompt) - 1 + head.max_new, self.L))
-                    avail = self.n_pages - 1 - self._res_total
+                        max(1, len(head.prompt) - 1) if head.prefill_only
+                        else min(len(head.prompt) - 1 + head.max_new,
+                                 self.L))
+                    avail = self._budget_pages - self._res_total
                     reclaim = sum(self._res_of(h) for h in victims)
                     if avail + reclaim < n_res:
                         self.stats.inc("admission_stalls")
                         break
                 if i is None:
                     # every lane is taken: evict the youngest
-                    # lowest-class occupant for its lane
-                    i = self._victim_for(cls)[1]
+                    # lowest-class seated occupant for its lane
+                    i = self._victim_for(cls, live_only=True)[1]
                     preempted_info.append(self._preempt_slot(i, cls))
                 if self.paged:
-                    # terminates in admission by the feasibility check
-                    while self._res_total + n_res > self.n_pages - 1:
-                        preempted_info.append(self._preempt_slot(
-                            self._victim_for(cls)[1], cls))
+                    # terminates in admission by the feasibility check;
+                    # parked victims are the cheapest
+                    while self._res_total + n_res > self._budget_pages:
+                        preempted_info.append(self._preempt_handle(
+                            self._victim_for(cls), cls))
                     self._n_res[i] = n_res
                     self._res_total += n_res
                 # pop() is the peeked head: a preemption pushes only into
@@ -914,7 +1514,8 @@ class DecodeEngine:
             depths = self._cq.depths()
             self.stats.set("slo_aged_promotions", self._cq.promotions)
             live = [i for i in range(self.B) if self._slots[i] is not None]
-            self.stats.max_set("max_concurrent", len(live))
+            self.stats.max_set("max_concurrent",
+                               len(live) + len(self._parked))
         for c, d in depths.items():
             self.stats.set(f"queued_{c}", d)
         # spans outside the engine lock: the sink takes its own locks
@@ -927,14 +1528,23 @@ class DecodeEngine:
             self._span("admitted", rid, slot=row, prompt_tokens=plen,
                        slo=cls, resumed=resumed)
         if not live:
+            self._prefetch_hint()
             return 0
-        admitted = bool(admitted_info)
+        admitted = bool(admitted_info) or n_unparked > 0
         if admitted and self.C > 1:
             self._chunked_prefill()
             for rid, _row, plen, _cls, _res in admitted_info:
                 self._span("prefill", rid, prompt_tokens=plen)
+        # prefill-only slots at their last prompt token are done now:
+        # their KV ships and their lanes free before the decode steps
+        self._harvest_prefill_only()
+        # prefill and the harvest may have parked or freed lanes
+        live = [i for i in range(self.B) if self._slots[i] is not None]
         if admitted or self._prompt_dev is None:
             self._prompt_dev = self._dev(self._prompt_buf, torch.int64)
+        self._prefetch_hint()
+        if not live:
+            return 0
         any_sampling = any(self._slots[i].temperature > 0 for i in live)
         # the speculative path: every live slot greedy and past its
         # prompt, room for a whole window in the cache, and recent
@@ -952,7 +1562,11 @@ class DecodeEngine:
         if self.paged:
             for i in live:
                 # the K steps write positions pos..pos+K-1, frozen at
-                # stop_pos-1: map exactly that window's pages
+                # stop_pos-1: map exactly that window's pages. On a tiered
+                # engine an earlier lane's growth may have parked this one
+                # (allocating for the emptied lane would leak its pages)
+                if self._slots[i] is None:
+                    continue
                 self._ensure_pages_to(i, min(
                     int(self._pos[i]) + self.K,
                     int(self._stop_pos[i])) - 1)
@@ -988,6 +1602,9 @@ class DecodeEngine:
         finished: List[Tuple[Any, List[int]]] = []
         for i in live:
             slot = self._slots[i]
+            if slot is None:
+                continue  # parked by a page reclaim before the call: its
+                #           lane idled through it (stop_pos 0)
             plen = len(slot.prompt)
             pos0 = int(self._pos[i])
             # steps this slot really took (slots that hit their stop
@@ -1148,7 +1765,10 @@ class DecodeEngine:
             for i in live:
                 # the window writes positions pos..pos+k-1 (the gate kept
                 # them inside the cache), inside the reservation's spec
-                # margin, whether or not the drafts are accepted
+                # margin, whether or not the drafts are accepted; a lane
+                # parked by an earlier lane's growth is skipped
+                if self._slots[i] is None:
+                    continue
                 self._ensure_pages_to(i, min(int(self._pos[i]) + k - 1,
                                              self.L - 1))
         g, n_emit = _verify(self.module, self._cache, self._tok, self._pos,
@@ -1164,6 +1784,8 @@ class DecodeEngine:
         finished: List[Tuple[Any, List[int]]] = []
         for i in live:
             slot = self._slots[i]
+            if slot is None:
+                continue  # parked by a page reclaim before the call
             pos0 = int(self._pos[i])
             take = max(1, min(int(n_emit[i]), int(self._stop_pos[i]) - pos0,
                               self.L - pos0))
@@ -1255,6 +1877,22 @@ def _verify(module: Any, cache: List[Dict[str, torch.Tensor]],
     return out[:, :k].astype(np.int32), out[:, k].astype(np.int32)
 
 
+def _to_host(tensors: List[torch.Tensor]) -> List[Any]:
+    """Tensors as wire leaves on the host: numpy arrays, bf16 ones as CPU
+    tensors (the param-store codec writes them as ``bfloat16``). From a
+    CUDA device: asynchronous copies into pinned memory and one
+    synchronization of the stream."""
+    if tensors and tensors[0].is_cuda:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+    else:
+        host = [t.clone() for t in tensors]
+    return [h if h.dtype == torch.bfloat16 else h.numpy() for h in host]
+
+
 def _install_rows(cache: List[Dict[str, torch.Tensor]],
                   snap: List[Dict[str, torch.Tensor]], rows: torch.Tensor,
                   plen: int) -> None:
@@ -1262,7 +1900,7 @@ def _install_rows(cache: List[Dict[str, torch.Tensor]],
     ``rows``, positions 0..plen-1, leaf by leaf."""
     for layer, pre in zip(cache, snap):
         for name, c in layer.items():
-            c[rows, :plen] = pre[name][:, :plen].to(c.dtype)
+            c[rows, :plen] = pre[name][:, :plen].to(c.device, c.dtype)
 
 
 def _select_next(logits: torch.Tensor, temp: torch.Tensor,
@@ -1351,10 +1989,12 @@ class TextDecodeEngine:
 
     #: the inference worker forwards a failover request's
     #: ``forced_prefix`` and a request's ``slo`` only to engines that
-    #: declare them. KV shipment (``supports_kv_ship``) is not declared:
-    #: the worker refuses a prefill/decode role at boot.
+    #: declare them, and boots a prefill/decode role only over an engine
+    #: that declares KV shipment (``submit_prefill`` / ``poll_kv`` on the
+    #: prefill leg, ``submit(..., kv_blob=)`` on the decode leg)
     supports_resume = True
     supports_slo = True
+    supports_kv_ship = True
 
     def __init__(self, engine: DecodeEngine,
                  encode: Callable[[str], np.ndarray],
@@ -1392,8 +2032,10 @@ class TextDecodeEngine:
         output. Greedy continuations are token-exact when re-tokenizing
         prompt + prefix reproduces the original token boundaries (always
         for the hash tokenizer; byte-BPE may shift one at the splice).
-        ``kv_blob`` (a shipped prefill) raises :class:`NotPorted` unless
-        a resume prefix drops it, as the JAX engine does."""
+        ``kv_blob``: a prefill-role engine's shipment for this prompt,
+        installed instead of prefilling (``DecodeEngine.submit(
+        kv_import=)``); a resume prefix drops it, since the shipment
+        covers the original prompt only."""
         budget = self.max_new if max_new is None else int(max_new)
         if forced_prefix:
             full = text + self._sep + forced_prefix
@@ -1409,12 +2051,32 @@ class TextDecodeEngine:
             self._stream_sent[request_id] = str(forced_prefix)
             text, budget = full, remaining
             kv_blob = None  # a shipment covers the original prompt only
-        if kv_blob is not None:
-            raise _not_ported("KV shipment (disaggregated prefill)")
         self.engine.submit(request_id, self._encode(text), budget,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed, eos_id=eos_id,
-                           adapter_id=adapter_id, slo=slo)
+                           adapter_id=adapter_id, slo=slo,
+                           kv_import=kv_blob)
+
+    def submit_prefill(self, request_id: Any, text: str,
+                       max_new: Optional[int] = None,
+                       adapter_id: int = 0, slo: str = "") -> None:
+        """Prefill-role submission: run the prompt through chunked
+        prefill and surface its KV shipment via :meth:`poll_kv`; nothing
+        is generated here (the decode leg installs the blob)."""
+        self.engine.submit(request_id, self._encode(str(text)),
+                           self.max_new if max_new is None
+                           else int(max_new),
+                           adapter_id=adapter_id, slo=slo,
+                           prefill_only=True)
+
+    def poll_kv(self) -> List[Tuple[Any, Dict[str, Any]]]:
+        """Finished prefill-only shipments (:meth:`DecodeEngine.poll_kv`)."""
+        return self.engine.poll_kv()
+
+    def stage_kv_blob(self, blob: Dict[str, Any]) -> Dict[str, Any]:
+        """Upload an arrived shipment's leaves ahead of admission
+        (:meth:`DecodeEngine.stage_kv_blob`)."""
+        return self.engine.stage_kv_blob(blob)
 
     def register_prefix(self, text: str, adapter_id: int = 0) -> int:
         """Precompute the KV of a shared prompt prefix (see
@@ -1471,6 +2133,9 @@ class TextDecodeEngine:
         self._forced.clear()
         self._forced_done.clear()
         self.engine.reset()
+
+    def close(self) -> None:
+        self.engine.close()
 
     def reset_stats(self) -> None:
         self.engine.reset_stats()

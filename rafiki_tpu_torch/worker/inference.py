@@ -11,8 +11,10 @@ same queue hub and the same msgpack wire. Ported: ``ClockSkewEstimator``,
 ``_share_prefix_snapshot``,
 ``_drain_reject_queued``, ``_hub_outage_pause``, ``_hub_ok``, ``run`` with
 the micro-batch path and ``_serve_batch``, ``_run_decode_loop`` /
-``_decode_serve`` with streaming deltas, ``_admit_decode_message``),
-``_window_p95``, ``_safe_sampling``, ``_expired``, ``_tristate``,
+``_decode_serve`` with streaming deltas, ``_admit_decode_message``, and
+for disaggregated serving ``_can_import_kv``, ``_handle_prefill_leg``,
+``_ship_finished_prefill``, ``_kv_stage_budget_ok`` and
+``_pump_kv_shipments``), ``_window_p95``, ``_safe_sampling``, ``_expired``, ``_tristate``,
 ``_to_plain`` and ``main``.
 
 Two serving paths, as in JAX: the continuous-batching decode loop for a
@@ -37,14 +39,25 @@ Where it differs from the JAX worker, on purpose:
   replica of a pool publishes its prefix snapshot as the hub blob
   ``prefix:{pool_id}:0``, a later one installs it instead of prefilling
   (``_share_prefix_snapshot``, counted in ``kv_imports_installed``);
-- options of later slices raise ``NotImplementedError`` at boot, each
-  naming itself: ``role`` prefill/decode, ``host_kv_pages`` and fault
-  injection (``chaos`` or ``RAFIKI_CHAOS``); so does
+- disaggregated prefill/decode and the host KV tier are the JAX
+  worker's: ``role`` (``unified`` / ``prefill`` / ``decode``, validated
+  at boot: a role needs ``decode_loop`` and an engine that declares
+  ``supports_kv_ship``), ``host_kv_pages`` (needs ``decode_loop`` and
+  ``kv_page_size``; the tier's gauges and the ``kv_transfer_seconds``
+  histogram on ``/metrics``) and ``kv_wait_s``. A prefill worker runs
+  each message's prefill leg prefill-only and pushes the finished KV
+  blobs to the decode worker the message names (its outbox,
+  ``_ship_finished_prefill``); a decode worker holds a message whose
+  prefill leg went elsewhere for up to ``kv_wait_s`` (the holding pen,
+  ``_pump_kv_shipments``), uploads each arriving blob ahead of admission
+  and submits the request with it, and degrades to a local re-prefill
+  when a shipment is late, lost or refused (``kv_wait_timeouts``,
+  ``kv_import_fallbacks``; ``kv_ships_sent``, ``kv_imports_installed``);
+- fault injection (``chaos`` or ``RAFIKI_CHAOS``) raises
+  ``NotImplementedError`` at boot, naming itself; so does
   ``paged_kernel=False`` (the port has no gather path on the card:
   ``None``/``True`` serve paged);
-- no obs HTTP sidecar (``serve_obs``) and no KV shipment: a message
-  carrying a prefill leg is left to the decode side's local prefill, and
-  shipments pushed for a held request are drained and dropped;
+- no obs HTTP sidecar (``serve_obs``);
 - ``main`` reads the same config JSON plus ``"device"``; there is no jax
   platform setup and no multi-host rendezvous;
 - the published stats carry the process's kernel launch counts under
@@ -95,6 +108,12 @@ SLO_WINDOW_MAX_AGE_S = 60.0
 #: the env var that arms the JAX package's fault injection
 CHAOS_ENV = "RAFIKI_CHAOS"
 
+#: prefill-role outbox give-up window: long enough for the slowest
+#: chunked prefill to finish and ship, short enough that legs whose slots
+#: never produce a blob (an engine reset) cannot grow the outbox without
+#: bound; a pruned leg's decode side re-prefilled long before
+_KV_OUTBOX_TTL_S = 600.0
+
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet")
@@ -138,19 +157,27 @@ class InferenceWorker:
                  paged_kernel: Optional[bool] = None,
                  default_slo: str = "",
                  role: str = "", host_kv_pages: int = 0,
-                 pool_id: str = "",
+                 kv_wait_s: float = 1.5, pool_id: str = "",
                  chaos: Optional[Any] = None,
                  device: DeviceLike = None) -> None:
         self.worker_id = worker_id
         self.hub = hub
         self.max_batch_msgs = max_batch_msgs
+        #: disaggregated serving role (``unified`` default): a ``prefill``
+        #: worker runs prompts through chunked prefill and ships the KV to
+        #: the decode leg's worker over the hub; a ``decode`` worker holds
+        #: shipped-KV requests for up to ``kv_wait_s`` and installs the
+        #: blob at admission, re-prefilling locally when the shipment is
+        #: late, lost or mismatched. Validated at boot.
         self.role = normalize_role(role)
+        self.kv_wait_s = max(0.0, float(kv_wait_s))
+        #: decode-role holding pen: message id -> [message, monotonic
+        #: give-up deadline, {qi: blob}, monotonic arrival]
+        self._pending_kv: Dict[Any, List[Any]] = {}
+        #: prefill-role outbox: message id -> [ship-to worker id, trace
+        #: id, queries still owed, monotonic give-up deadline]
+        self._kv_outbox: Dict[Any, List[Any]] = {}
         # options of later slices: refused before anything loads
-        if self.role != "unified":
-            raise _not_ported(f"worker role {self.role!r} (disaggregated "
-                              "prefill/decode and KV shipment)")
-        if int(host_kv_pages):
-            raise _not_ported("host_kv_pages (the host KV page tier)")
         if chaos is not None or os.environ.get(CHAOS_ENV, "").strip():
             raise _not_ported(f"fault injection (chaos / {CHAOS_ENV})")
         if paged_kernel is False:
@@ -162,16 +189,22 @@ class InferenceWorker:
         #: own; validated at boot (a typo'd job default fails the deploy)
         self.default_slo = normalize_slo(default_slo)
         #: visible drop accounting; drain_rejected counts messages
-        #: error-replied while draining; kv_imports_installed counts
-        #: prefix snapshots installed from a pool peer's blob
+        #: error-replied while draining; the kv_* counters are the
+        #: shipments sent (prefill role) and installed (decode role; a
+        #: pool peer's prefix snapshot counts too), and the degradations
+        #: to a local re-prefill (wait window expired, blob refused)
         self.stats = StatsMap({"dropped_expired": 0,
                                "drain_rejected": 0,
+                               "kv_ships_sent": 0,
                                "kv_imports_installed": 0,
+                               "kv_wait_timeouts": 0,
+                               "kv_import_fallbacks": 0,
                                "data_plane_down": 0,
                                "hub_outages": 0})
         self._dp_down = False
-        #: KV shipments pushed for requests served here by local prefill
-        #: are drained and dropped once such traffic is seen
+        #: flipped by the first request a prefill worker ships KV for:
+        #: from then on the pump drains the shipment queue even with
+        #: nothing held, so late blobs do not accumulate
         self._kv_seen_traffic = False
         self._draining = threading.Event()
         self._skew = ClockSkewEstimator()
@@ -199,6 +232,12 @@ class InferenceWorker:
         self._h_step = self.metrics.histogram(
             "decode_step_seconds",
             "one engine step() — admission + K decode tokens (seconds)")
+        self._h_kv_transfer = self.metrics.histogram(
+            "kv_transfer_seconds",
+            "one host-tier page transfer (evict or prefetch staging) on "
+            "the tier's transfer thread (seconds)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5))
         # per-class latency histograms, and the bounded windows behind
         # the published per-class p95 gauges (the predictor's brownout
         # ladder reads slo_interactive_ttft_p95_s and must see recovery)
@@ -250,12 +289,21 @@ class InferenceWorker:
                     system_prefix = ""
             except Exception:  # noqa: BLE001 — sharing never gates boot
                 log.debug("prefix blob fetch failed", exc_info=True)
+        if host_kv_pages and not (decode_loop and kv_page_size):
+            raise ValueError(
+                "host_kv_pages requires decode_loop and kv_page_size "
+                "> 0 (the host tier spills KV PAGES)")
+        if self.role != "unified" and not decode_loop:
+            raise ValueError(
+                f"worker role {self.role!r} requires decode_loop: the "
+                "micro-batch path has no KV to disaggregate")
         self._admission_check(
             max_slots if decode_loop else 0,
             len(extra_adapter_trials or ()) if decode_loop else 0,
             draft_for_admission,
             kv_page_size=kv_page_size if decode_loop else 0,
-            kv_pages=kv_pages if decode_loop else 0)
+            kv_pages=kv_pages if decode_loop else 0,
+            host_kv_pages=host_kv_pages if decode_loop else 0)
         self.engine = None
         if draft_trial_id and (not decode_loop or speculate_k < 2):
             raise ValueError(
@@ -275,6 +323,10 @@ class InferenceWorker:
             if kv_page_size:
                 extra = {"kv_page_size": kv_page_size,
                          "kv_pages": kv_pages}
+                if host_kv_pages:
+                    # the host page tier: the admission budget becomes
+                    # pool pages + host pages (serving/kv_tier.py)
+                    extra["host_kv_pages"] = int(host_kv_pages)
             if extra_adapter_trials:
                 self.engine = self._multi_adapter_engine(
                     model_class, param_store, extra_adapter_trials,
@@ -301,10 +353,26 @@ class InferenceWorker:
                 self.engine = self.model.make_decode_engine(
                     max_slots=max_slots, max_new_tokens=max_new_tokens,
                     steps_per_sync=steps_per_sync, **extra)
-            # engine counters surface in the metrics under their bare
-            # names; the hub publish keeps the engine_ prefix
+        if self.role != "unified" and not getattr(
+                self.engine, "supports_kv_ship", False):
+            # fail the deploy: a role-configured worker whose engine
+            # cannot ship KV would silently serve unified
+            raise ValueError(
+                f"worker role {self.role!r} requires an engine with "
+                "KV shipment support (supports_kv_ship); this "
+                "deployment's engine has none")
+        if self.engine is not None:
+            # engine counters (the tier's gauges among them) surface in
+            # the metrics under their bare names; the hub publish keeps
+            # the engine_ prefix
             self.metrics.register_stats(self.engine.stats)
             self.engine.span_sink = self._engine_span
+            tier = getattr(getattr(self.engine, "engine", self.engine),
+                           "tier", None)
+            if tier is not None:
+                # observed on the tier's transfer thread (the registry's
+                # instruments are locked)
+                tier.observe_transfer = self._h_kv_transfer.observe
         self._warmup()
         self._share_prefix_snapshot()
 
@@ -343,7 +411,8 @@ class InferenceWorker:
 
     def _admission_check(self, max_slots: int, n_extra_adapters: int = 0,
                          draft: Any = None, kv_page_size: int = 0,
-                         kv_pages: int = 0) -> None:
+                         kv_pages: int = 0, host_kv_pages: int = 0
+                         ) -> None:
         """Refuse a deployment whose serving footprint (params + KV cache
         + stacked adapters + a draft's params and cache + working set,
         the template's ``estimate_serving_device_bytes``) exceeds the
@@ -365,6 +434,9 @@ class InferenceWorker:
             if kv_page_size:
                 kwargs["kv_page_size"] = kv_page_size
                 kwargs["kv_pages"] = kv_pages
+                if host_kv_pages:
+                    # host memory: reported, never in the device total
+                    kwargs["host_kv_pages"] = host_kv_pages
             budget = est(**kwargs)
             total = int(budget["total"])
         except Exception as e:  # noqa: BLE001 — an estimator bug must
@@ -627,6 +699,15 @@ class InferenceWorker:
     # ---- the loop ----
     def run(self, poll_timeout: float = 0.5,
             max_iterations: Optional[int] = None) -> None:
+        if self.role == "prefill":
+            # prefill is throughput work, decode latency work: on a shared
+            # host the prompt chew must not preempt a decode loop's step,
+            # so this serve thread runs niced (Linux niceness is per
+            # thread; pid 0 = this thread). Best-effort.
+            try:
+                os.setpriority(os.PRIO_PROCESS, 0, 10)
+            except (AttributeError, OSError):
+                pass
         if self.engine is not None:
             return self._run_decode_loop(poll_timeout, max_iterations)
         n = 0
@@ -700,8 +781,12 @@ class InferenceWorker:
             n = state["n"] = n + 1
             if n % self.STATS_EVERY == 1:
                 self._publish_stats()
-            raw = self.hub.pop_query(
-                self.worker_id, 0.0 if self.engine.busy else poll_timeout)
+            # held shipped-KV requests count as busy: the loop keeps
+            # pumping the shipment queue instead of parking on an empty
+            # query queue while a blob is in flight
+            busy = self.engine.busy or bool(self._pending_kv)
+            raw = self.hub.pop_query(self.worker_id,
+                                     0.0 if busy else poll_timeout)
             self._hub_ok()
             while raw is not None:
                 m = unpack_message(raw)
@@ -712,20 +797,26 @@ class InferenceWorker:
                 elif _expired(m, skew_est=self._skew):
                     self._reject_expired(m)
                 elif m.get("prefill_for"):
-                    # a disaggregated request's prefill leg: never
-                    # replied to; its decode worker prefills locally
-                    pass
+                    # a disaggregated request's prefill leg: run the
+                    # prompt, ship the KV to the decode worker the payload
+                    # names; never replied to (the decode leg's local
+                    # re-prefill covers every failure here)
+                    self._handle_prefill_leg(m)
+                elif m.get("kv_from") and self._can_import_kv():
+                    # the decode leg: a prefill worker is computing this
+                    # prompt's KV; hold admission for up to kv_wait_s
+                    self._kv_seen_traffic = True
+                    self._pending_kv[m["id"]] = [
+                        m, time.monotonic() + self.kv_wait_s, {},
+                        time.monotonic()]
                 else:
                     if m.get("kv_from"):
-                        # a prefill worker will push this request's KV:
-                        # it is served by local prefill, the shipment
-                        # is drained and dropped
+                        # not held (kv_wait_s 0), but a prefill worker will
+                        # push blobs for it: keep draining them
                         self._kv_seen_traffic = True
                     self._admit_decode_message(m, inflight, streaming)
                 raw = self.hub.pop_query(self.worker_id, 0.0)
-            if self._kv_seen_traffic:
-                while self.hub.pop_kv(self.worker_id, 0.0) is not None:
-                    pass
+            self._pump_kv_shipments(inflight, streaming)
             if self.engine.busy:
                 try:
                     t_step = time.monotonic()
@@ -773,19 +864,163 @@ class InferenceWorker:
                         self._req_obs.pop((mid, i), None)
                     del inflight[mid]
                     streaming.discard(mid)
+            self._ship_finished_prefill()
             if self._draining.is_set() and not inflight \
-                    and not self.engine.busy:
+                    and not self._pending_kv and not self.engine.busy:
                 break  # drain complete: every in-flight stream answered
 
+    # ---- disaggregated prefill/decode (see serving/kv_transfer.py) ----
+    def _can_import_kv(self) -> bool:
+        """May this worker hold a request for a KV shipment? Any engine
+        that ships KV (a unified worker gains the same way when the
+        router disaggregated); a zero wait window disables holding."""
+        return (self.kv_wait_s > 0
+                and getattr(self.engine, "supports_kv_ship", False))
+
+    def _handle_prefill_leg(self, m: dict) -> None:
+        """Run a disaggregated request's prefill leg: submit each query
+        prefill-only and remember where its blob ships. Fire-and-forget:
+        on any local failure the decode worker's wait window expires and
+        it re-prefills, so this path logs and never replies."""
+        ship_to = str(m.get("prefill_for") or "")
+        sub = getattr(self.engine, "submit_prefill", None)
+        if not ship_to or sub is None or self._draining.is_set() \
+                or _expired(m, skew_est=self._skew):
+            return
+        qs = m.get("queries")
+        qs = list(qs) if not isinstance(qs, (list, tuple)) else qs
+        samp = _safe_sampling(m.get("sampling"))
+        tid = str(m.get("trace_id") or "") or mint_trace_id()
+        try:
+            slo = normalize_slo(m.get("slo"), default=self.default_slo)
+        except ValueError:
+            slo = self.default_slo
+        kwargs = {"slo": slo}
+        if samp.get("adapter_id"):
+            # the KV is a function of the adapter; the decode side
+            # validates the blob against the request's
+            kwargs["adapter_id"] = samp["adapter_id"]
+        self.traces.start(tid, request_id=str(m.get("id") or ""),
+                          span="prefill_leg", worker=self.worker_id,
+                          ship_to=ship_to, n_queries=len(qs))
+        try:
+            for qi, text in enumerate(qs):
+                sub((m["id"], qi), str(text), **kwargs)
+        except ValueError as e:
+            log.warning("%s prefill leg rejected (%s); decode worker will "
+                        "re-prefill locally", self.worker_id, e)
+            return
+        self._kv_outbox[m["id"]] = [ship_to, tid, len(qs),
+                                    time.monotonic() + _KV_OUTBOX_TTL_S]
+
+    def _ship_finished_prefill(self) -> None:
+        """Forward completed prefill-only blobs to their decode workers;
+        one no-op call on a worker without prefill traffic."""
+        poll = getattr(self.engine, "poll_kv", None)
+        if poll is None:
+            return
+        for (mid, qi), blob in poll():
+            entry = self._kv_outbox.get(mid)
+            if entry is None:
+                continue
+            ship_to, tid = entry[0], entry[1]
+            entry[2] -= 1  # shipped or failed, this query is settled
+            if entry[2] <= 0:
+                del self._kv_outbox[mid]
+            try:
+                self.hub.push_kv(ship_to, pack_message(
+                    {"id": mid, "qi": int(qi), "blob": blob,
+                     "from": self.worker_id}))
+                self.stats.inc("kv_ships_sent")
+                self.traces.add_span(tid, "kv_shipped", qi=int(qi),
+                                     nbytes=int(blob.get("nbytes", 0) or 0))
+            except Exception:  # noqa: BLE001 — a failed shipment is the
+                # decode side's local re-prefill, not this worker's crash
+                log.warning("%s KV shipment to %s failed", self.worker_id,
+                            ship_to, exc_info=True)
+        if self._kv_outbox:
+            # legs whose slots never produce a blob must not accumulate;
+            # their decode side re-prefilled long ago
+            now = time.monotonic()
+            for mid in [k for k, e in self._kv_outbox.items()
+                        if now > e[3]]:
+                del self._kv_outbox[mid]
+
+    def _kv_stage_budget_ok(self) -> bool:
+        """Upload an arriving blob ahead of admission only when it will
+        install soon: with the admission queue backed up, staged blobs
+        would sit on the card for their whole wait. An unstaged blob
+        installs from its host bytes at seat time."""
+        if len(self._pending_kv) > 4:
+            return False
+        st = self.engine.stats
+        return not any(st.get(f"queued_{c}", 0)
+                       for c in ("interactive", "batch", "background"))
+
+    def _pump_kv_shipments(self, inflight: dict, streaming: set) -> None:
+        """Decode-leg intake: drain arrived shipments into held requests,
+        admit every request whose blobs are complete, and turn expired
+        wait windows into local re-prefills. Once per loop iteration,
+        non-blocking; free when nothing is held.
+
+        Unlike the JAX worker's, a failed upload of an arrived blob to
+        the card is not swallowed: it propagates out of the serve loop."""
+        if not self._pending_kv and not self._kv_seen_traffic:
+            return
+        now = time.monotonic()
+        raw = self.hub.pop_kv(self.worker_id, 0.0)
+        while raw is not None:
+            try:
+                ship = unpack_message(raw)
+                mid, qi = ship["id"], int(ship["qi"])
+                blob = ship["blob"]
+            except Exception:  # noqa: BLE001 — a torn shipment degrades
+                # to a local re-prefill, never a serve-thread crash
+                log.warning("%s discarding undecodable KV shipment",
+                            self.worker_id, exc_info=True)
+                blob = mid = qi = None
+            if mid is not None and mid in self._pending_kv \
+                    and blob is not None:
+                stage = getattr(self.engine, "stage_kv_blob", None)
+                if stage is not None and self._kv_stage_budget_ok():
+                    # the upload starts now, overlapping the step in
+                    # flight; admission installs it later
+                    blob = stage(blob)
+                self._pending_kv[mid][2][qi] = blob
+            raw = self.hub.pop_kv(self.worker_id, 0.0)
+        for mid in list(self._pending_kv):
+            m, deadline, blobs, t_queued = self._pending_kv[mid]
+            qs = m.get("queries")
+            n = len(qs) if isinstance(qs, (list, tuple)) else 1
+            if len(blobs) >= n:
+                del self._pending_kv[mid]
+                self._admit_decode_message(m, inflight, streaming,
+                                           kv_blobs=blobs,
+                                           t_queued=t_queued)
+            elif now >= deadline or self._draining.is_set():
+                # shipment late or lost (or draining): re-prefill locally
+                del self._pending_kv[mid]
+                self.stats.inc("kv_wait_timeouts")
+                self._admit_decode_message(m, inflight, streaming,
+                                           t_queued=t_queued)
+        if self._pending_kv and not self.engine.busy:
+            # nothing to decode while a blob is in flight: yield the CPU
+            # briefly instead of spinning
+            time.sleep(0.002)
+
     def _admit_decode_message(self, m: dict, inflight: dict,
-                              streaming: set) -> None:
+                              streaming: set,
+                              kv_blobs: Optional[Dict[int, Any]] = None,
+                              t_queued: Optional[float] = None) -> None:
         """Submit one popped message's queries to the engine, each with
         its ``forced_prefix`` (a failover resume) when the message
-        carries one. A request the engine refuses (``ValueError``: an
-        unported adapter, a prompt larger than the page pool, a
-        malformed class, a resume on an engine without
-        ``supports_resume``) rejects the whole message with an error
-        reply; the loop serves on."""
+        carries one, or its shipped KV blob (``kv_blobs``, by query
+        index; a blob the engine refuses degrades that query to a local
+        re-prefill, ``kv_import_fallbacks``). A request the engine
+        refuses (``ValueError``: an unported adapter, a prompt larger
+        than the page pool, a malformed class, a resume on an engine
+        without ``supports_resume``) rejects the whole message with an
+        error reply; the loop serves on."""
         qs = m["queries"]
         qs = list(qs) if not isinstance(qs, (list, tuple)) else qs
         if not qs:  # nothing will ever poll() for an empty message
@@ -794,7 +1029,8 @@ class InferenceWorker:
                  "predictions": []}))
             return
         tid = str(m.get("trace_id") or "") or mint_trace_id()
-        t_queued = time.monotonic()
+        if t_queued is None:
+            t_queued = time.monotonic()
         self.traces.start(tid, request_id=str(m["id"]), span="queued",
                           worker=self.worker_id, n_queries=len(qs))
         samp = _safe_sampling(m.get("sampling"))
@@ -827,6 +1063,19 @@ class InferenceWorker:
                 if getattr(self.engine, "supports_slo", False):
                     kwargs["slo"] = slo
                 self._req_obs[(m["id"], qi)] = (tid, t_queued, slo)
+                blob = None if kv_blobs is None else kv_blobs.get(qi)
+                if blob is not None and not prefix:
+                    try:
+                        self.engine.submit((m["id"], qi), str(text),
+                                           kv_blob=blob, **kwargs)
+                        self.stats.inc("kv_imports_installed")
+                        self.traces.add_span(tid, "kv_installed", qi=qi)
+                        continue
+                    except ValueError:
+                        # a mismatched or corrupt shipment: this query
+                        # re-prefills locally; a genuine submit error
+                        # re-raises below and rejects the message
+                        self.stats.inc("kv_import_fallbacks")
                 self.engine.submit((m["id"], qi), str(text), **kwargs)
         except ValueError as e:
             for qi in range(len(qs)):
@@ -1029,6 +1278,7 @@ def main(argv: Optional[list] = None) -> int:
         default_slo=str(cfg.get("default_slo", "")),
         role=str(cfg.get("role", "")),
         host_kv_pages=int(cfg.get("host_kv_pages", 0)),
+        kv_wait_s=float(cfg.get("kv_wait_s", 1.5)),
         pool_id=str(cfg.get("pool_id", "")),
         device=cfg.get("device"))
     print(f"inference worker {worker.worker_id} serving on "

@@ -450,9 +450,6 @@ def test_models_datasets_and_job_validation(app):
 
 
 DEFERRED = [
-    ("WORKER_ROLE", {"WORKER_ROLE": "prefill,decode"}),
-    ("KV_WAIT_S", {"KV_WAIT_S": 1.0}),
-    ("HOST_KV_PAGES", {"HOST_KV_PAGES": 8}),
     ("AUTOSCALE", {"AUTOSCALE": 1}),
     ("MAX_WORKERS", {"MAX_WORKERS": 3}),
     ("PAGED_KERNEL", {"PAGED_KERNEL": "false"}),
@@ -528,6 +525,74 @@ def test_speculation_on_an_image_job_and_a_foreign_draft_are_refused(app):
     assert f"is a different model ({other_model['id']}) than the " \
         f"deployed {lm_model['id']}" in str(ei.value)
     assert not manager.services
+
+
+@pytest.mark.parametrize("budget,message", [
+    ({"WORKER_ROLE": "prefill,decode,prefil"},
+     "WORKER_ROLE: unknown worker role 'prefil' (one of: unified, "
+     "prefill, decode)"),
+    ({"WORKER_ROLE": "prefill,decode,decode"},
+     "WORKER_ROLE names 3 roles for 2 workers (one per worker, or a "
+     "single role for all)"),
+    ({"WORKER_ROLE": "prefill"},
+     "WORKER_ROLE: an all-prefill pool serves nothing — at least one "
+     "worker must be decode or unified"),
+    ({"KV_WAIT_S": 1.0},
+     "KV_WAIT_S requires WORKER_ROLE in the same budget (it tunes the "
+     "disaggregated decode leg)"),
+    ({"WORKER_ROLE": "decode", "KV_WAIT_S": -1},
+     "KV_WAIT_S=-1.0 must be >= 0"),
+    ({"HOST_KV_PAGES": 8},
+     "HOST_KV_PAGES requires KV_PAGE_SIZE in the same budget (pages are "
+     "the host tier's transfer unit)"),
+    ({"HOST_KV_PAGES": -2, "KV_PAGE_SIZE": 8},
+     "HOST_KV_PAGES=-2 must be >= 1 (host-tier page count)"),
+], ids=["WORKER_ROLE", "WORKER_ROLE_count", "WORKER_ROLE_all_prefill",
+        "KV_WAIT_S", "KV_WAIT_S_negative", "HOST_KV_PAGES",
+        "HOST_KV_PAGES_negative"])
+def test_disaggregation_budget_keys_validated_as_jax_does(app, budget,
+                                                          message):
+    """WORKER_ROLE, KV_WAIT_S and HOST_KV_PAGES are served with the JAX
+    manager's checks and messages, at the create call: nothing spawns,
+    no slot is taken, the job is ERRORED."""
+    client, meta, manager, _ = app
+    job, _m, _t = _lm_job(meta)
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(job["id"], budget=budget)
+    assert ei.value.status == 400 and message in str(ei.value)
+    assert not manager.services and manager.allocator.free_count() == 1
+    ij = meta.get_inference_jobs_of_train_job(job["id"])[0]
+    assert ij["status"] == "ERRORED"
+
+
+def test_disaggregation_keys_reach_the_worker_configs(app):
+    """WORKER_ROLE (per worker index), HOST_KV_PAGES and KV_WAIT_S land in
+    the workers' configs as the JAX manager writes them (a unified role
+    writes none); a role on an image job is refused with JAX's
+    message."""
+    client, meta, manager, _ = app
+    job, _m, trials = _lm_job(meta)
+    budget = {"WORKER_ROLE": "prefill, decode,unified", "KV_PAGE_SIZE": 8,
+              "HOST_KV_PAGES": 16, "KV_WAIT_S": 2.5}
+    cfgs = [manager._inference_worker_config("ij", i, t, budget,
+                                             n_workers=3)
+            for i, t in enumerate(trials)]
+    assert [c.get("role") for c in cfgs] == ["prefill", "decode", None]
+    assert {(c["host_kv_pages"], c["kv_wait_s"], c["kv_page_size"])
+            for c in cfgs} == {(16, 2.5, 8)}
+    one = manager._inference_worker_config(
+        "ij", 0, trials[0], {"WORKER_ROLE": "decode"}, n_workers=3)
+    assert one["role"] == "decode" and "kv_wait_s" not in one
+    assert not {"role", "host_kv_pages", "kv_wait_s"} & set(
+        manager._inference_worker_config("ij", 0, trials[0], {}))
+    ijob, _m, _t = _lm_job(meta, task="IMAGE_CLASSIFICATION")
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(ijob["id"],
+                                    budget={"WORKER_ROLE": "decode"})
+    assert "WORKER_ROLE requires a language-modeling deployment (the " \
+        "decode loop owns the KV shipments); task IMAGE_CLASSIFICATION " \
+        "serves through the micro-batcher" in str(ei.value)
+    assert not manager.services and manager.allocator.free_count() == 1
 
 
 def test_decode_mode_keys_reach_the_worker_config(app):

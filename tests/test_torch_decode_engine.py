@@ -144,14 +144,19 @@ def test_reset_frees_pool_and_slots(port_lm):
 
 
 def test_unported_modes_raise(port_lm):
-    """The host KV tier and KV shipment are later slices; the decode
-    modes of this one are served (a single-adapter engine ignores
-    ``adapter_id``, as JAX's does; a draft must keep a contiguous
-    cache)."""
+    """Every decode mode of the JAX engine is served now: the host KV tier
+    on a paged engine (refused, as JAX refuses it, on a contiguous one),
+    KV shipment (``poll_kv``, ``stage_kv_blob``), the decode modes (a
+    single-adapter engine ignores ``adapter_id``, as JAX's does; a draft
+    must keep a contiguous cache)."""
     mod = port_lm._serving_module_params(PAGE, 9)
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
-                     host_kv_pages=4)
+    tiered = DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
+                          host_kv_pages=4)
+    assert tiered.tier is not None and tiered.tier.n_pages == 4
+    tiered.close()
+    with pytest.raises(ValueError, match="paged"):
+        DecodeEngine(port_lm._serving_module_params(), max_slots=2,
+                     max_len=L, device="cpu", host_kv_pages=4)
     with pytest.raises(ValueError, match="contiguous"):
         DecodeEngine(mod, max_slots=2, max_len=L, device="cpu",
                      speculate_k=3, draft=mod)
@@ -160,11 +165,13 @@ def test_unported_modes_raise(port_lm):
     eng.submit(0, np.array([1, 2], np.int32), 4, adapter_id=1)
     assert eng.register_prefix(np.array([1, 2])) == 2
     assert eng.export_prefix()["len"] == 2
-    for call in (lambda: eng.poll_kv(), lambda: eng.stage_kv_blob({})):
-        with pytest.raises(NotImplementedError):
-            call()
-    with pytest.raises(NotImplementedError):
-        port_lm.make_decode_engine(host_kv_pages=4, kv_page_size=PAGE)
+    assert eng.poll_kv() == []
+    blob = {"leaves": [np.zeros((1, 2), np.float32)], "covered": 1}
+    assert torch.equal(eng.stage_kv_blob(blob)["leaves"][0],
+                       torch.zeros((1, 2)))
+    text = port_lm.make_decode_engine(host_kv_pages=4, kv_page_size=PAGE)
+    assert text.engine.tier.n_pages == 4 and text.supports_kv_ship
+    text.close()
 
 
 def test_refeed_past_the_live_table_width_vs_jax(trained_lm, port_lm):

@@ -138,7 +138,8 @@ def test_forced_prefix_state_is_dropped_on_poll_and_reset(trained_lm):
     done, _ = _serve(eng, [("c", "tok1 tok2", {"forced_prefix": "x"})])
     assert done["c"].startswith("x ") and not eng._forced
     assert not eng._stream_sent
-    with pytest.raises(NotImplementedError, match="KV shipment"):
+    # a shipment is validated as the JAX engine validates it
+    with pytest.raises(ValueError, match="KV blob version None != 1"):
         eng.submit("d", "tok1", kv_blob={"covered": 1})
     # a resume drops a shipment, as the JAX engine does
     eng.submit("e", "tok1", forced_prefix="x", kv_blob={"covered": 1})

@@ -464,16 +464,63 @@ def test_admission_admits_when_the_estimator_raises(lm_blob, monkeypatch,
 
 
 @pytest.mark.parametrize("kw,name", [
-    ({"role": "prefill"}, "worker role 'prefill'"),
-    ({"role": "decode"}, "worker role 'decode'"),
-    ({"host_kv_pages": 4}, "host_kv_pages"),
     ({"chaos": object()}, "fault injection"),
     ({"paged_kernel": False}, "paged_kernel=False"),
-], ids=["prefill", "decode", "host_kv_pages", "chaos",
-        "paged_kernel_false"])
+], ids=["chaos", "paged_kernel_false"])
 def test_options_not_ported_refuse_to_boot(lm_blob, kw, name):
     with pytest.raises(NotImplementedError, match=name.replace("(", r"\(")):
         _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"role": "prefill"},
+    {"role": "decode", "kv_wait_s": 2.5},
+    {"host_kv_pages": 4},
+], ids=["prefill", "decode", "host_kv_pages"])
+def test_disaggregation_options_boot_as_jax_does(lm_blob, kw):
+    """The prefill and decode roles and the host tier boot on both
+    workers, published and wired as the JAX worker's: the role in the
+    stats, ``kv_wait_s``, a tier of ``host_kv_pages`` pages on the engine
+    whose gauges reach the worker's metrics."""
+    workers = [_lm_worker(cls, store(lm_blob), "paged8", **kw)
+               for cls, store in ((JWorker, _jax_store),
+                                  (InferenceWorker, _port_store))]
+    jw, pw = workers
+    try:
+        assert (pw.role, pw.kv_wait_s) == (jw.role, jw.kv_wait_s)
+        assert pw.engine.supports_kv_ship and jw.engine.supports_kv_ship
+        pw._publish_stats()
+        jw._publish_stats()
+        assert pw.hub.get_worker_stats("w0")["role"] == \
+            jw.hub.get_worker_stats("w0")["role"] == \
+            kw.get("role", "unified")
+        ptier, jtier = pw.engine.engine.tier, jw.engine.engine.tier
+        assert (ptier is None) == (jtier is None) == \
+            ("host_kv_pages" not in kw)
+        if ptier is not None:
+            assert ptier.n_pages == jtier.n_pages == 4
+            assert ptier.observe_transfer == pw._h_kv_transfer.observe
+            assert "kv_host_pages_total 4" in pw.metrics.render_prometheus()
+    finally:
+        for w in workers:
+            w.engine.close()
+
+
+@pytest.mark.parametrize("kw", [
+    {"role": "prefil"},
+    {"role": "decode", "decode_loop": False},
+    {"host_kv_pages": 4, "kv_page_size": 0},
+    {"host_kv_pages": 4, "decode_loop": False},
+], ids=["bad_role", "role_without_decode_loop", "host_pages_unpaged",
+        "host_pages_without_decode_loop"])
+def test_disaggregation_misconfigurations_refused_as_jax_does(lm_blob, kw):
+    """The JAX worker's boot checks of the role and the host tier, same
+    exception type, same message."""
+    with pytest.raises(ValueError) as want:
+        _lm_worker(JWorker, _jax_store(lm_blob), "paged8", **kw)
+    with pytest.raises(ValueError) as got:
+        _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8", **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [
