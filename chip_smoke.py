@@ -12,10 +12,10 @@ the CUDA toolkit's ``nvcc``::
 
 The Llama legs run at widths of Llama-3-8B's and, to keep the call's
 time, at cut depths unless told otherwise: phases 4 and 16 (serving,
-bf16 and int8) at 8 of 32 (``--depth``), phases 24, 26 and 29 at 8
-(``--slice-depth``; 16 before phases 27-28 were added), the worker leg
-(phase 18) at 4
-(``--worker-depth``); the training leg runs at 32 (``--train-depth``).
+bf16 and int8) at 4 of 32 (``--depth``; 8 before phase 30 was added),
+phases 24, 26 and 29 at 2 (``--slice-depth``; 16 before phases 27-28,
+8 before phase 30), the worker leg (phase 18) at 2 (``--worker-depth``;
+4 before phase 30); the training leg runs at 32 (``--train-depth``).
 
 ViT-B/16 and BERT-base always run at full width and depth.
 
@@ -44,7 +44,7 @@ Phases; each raises on failure, so the script exits non-zero:
 3. f32 exactness: the full-width Llama at depth 2 in f32 (random weights
    from a seed, nonzero LoRA) behind a paged ``DecodeEngine`` must emit
    exactly the tokens of ``greedy_generate`` over a contiguous cache.
-4. Serving, the main path: Llama-3-8B (bf16, depth 8 unless
+4. Serving, the main path: Llama-3-8B (bf16, depth 4 unless
    ``--depth`` says otherwise, rope
    theta 500000, LoRA rank 16, random weights) behind ``DecodeEngine`` +
    ``TextDecodeEngine`` with a paged pool; 8 text requests of 64..1024
@@ -122,7 +122,7 @@ Phases; each raises on failure, so the script exits non-zero:
     CPU at pages 8 and 4.
 18. The inference worker, Llama: ``LlamaLoRA`` at Llama-3-8B widths
     (hidden 4096, 32 heads, kv_ratio 4, MLP 4 x hidden, vocab 128256, rope
-    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 4 unless
+    theta 500000, LoRA rank 16, bf16, max_len 2048, depth 2 unless
     ``--worker-depth`` says otherwise) from a seeded f32 blob written
     through the port's param-store codec to a ``mem://`` store (encode,
     decode and boot timed, host peak RSS); an ``InferenceWorker``
@@ -188,9 +188,33 @@ Phases; each raises on failure, so the script exits non-zero:
     phase 21's, per trial wall and train seconds, worker boot and deploy
     seconds, the Predictor's requests/s and p50 / p95, and the kvd's
     ``STATS``.
+30. (inside phase 23, before its teardown; ``recovery_phase``) Crash
+    recovery of the deployed job under 4 closed-loop 1-image HTTP
+    clients, each request counted as answered (and equal to its image's
+    row of the direct ``predict``), a structured 503 (by kind) or
+    failed: (a) the admin, whose lease TTL is 2 s, stops its
+    monitor, heartbeat and server and drops its handles without stopping
+    a child; a second ``ServicesManager`` (device probe included) +
+    ``Admin`` + ``AdminApp`` over the same MetaStore takes the lease over
+    and ``reconcile()``s: the kvd, the Predictor and the inference worker
+    adopted with their pids, nothing crashed, no request failed, a third
+    manager's ``acquire_lease`` refused (``LeaseHeldError``); (b)
+    ``POST /inference_jobs/<id>/rolling_restart``: the worker's sidecar
+    answers ``/health`` through its ``obs_port_file``, the worker drains
+    through it and exits 0, a replacement boots on the freed slot, no
+    request fails or hangs; (c) SIGKILL on the kvd: the monitor respawns
+    it on its port with WAL replay, the best trial's blob reads back
+    bit-equal, the clients go on; (d) ``POST /system/backup`` opens as a
+    MetaStore with the live rows, and ``python -m rafiki_tpu_torch.cli
+    doctor --workdir`` finds no drift. After each of (a)-(c) phase 19's
+    256 images through ``/predict`` equal the direct ``predict``. The
+    handover's, drain's, replacement's, replay's (seconds and bytes),
+    backup's and doctor's seconds are printed; B7/B3 must launch in the
+    replacement (the ``recovery`` path). Phase 23's teardown then stops
+    the new admin's stack: no recorded pid may stay alive.
 
 24. Llama serving as its users run it, at phase 18's widths (bf16,
-    depth 8 unless ``--slice-depth`` says otherwise): a byte-BPE
+    depth 2 unless ``--slice-depth`` says otherwise): a byte-BPE
     artifact of exactly 128256 ids (merges trained on a seeded corpus,
     then seeded merges of an existing id and a byte); a seeded HF-layout
     checkpoint
@@ -3278,6 +3302,412 @@ def _alive(pid):
         return False
 
 
+#: phase 23's admin lease TTL: short, so phase 30's handover waits out
+#: the dead admin's lease in seconds
+STACK_LEASE_TTL_S = 2.0
+#: phase 30's closed-loop HTTP clients
+RECOVERY_CLIENTS = 4
+
+
+class _Traffic:
+    """``n_clients`` closed-loop 1-image ``/predict`` clients over HTTP,
+    each through its own port ``Client`` with the SDK's retry of a
+    structured 503 turned off, so each request is counted once: answered
+    (its reply held against the direct ``predict`` of its image, ``want``),
+    rejected by a structured 503 (by its error: a draining worker, every
+    breaker open or draining, the data plane down, a shed), or failed
+    (any other error, a timeout included). After a rejection a client
+    waits the reply's ``retry_after_s`` (at most 2 s) before its next
+    request, as the reply asks. ``ViTBase16.predict`` pads every batch
+    to a bucket of 64 images, so each answer must equal its image's row
+    of the direct ``predict`` bit for bit."""
+
+    def __init__(self, np, Client, url, images, want,
+                 n_clients=RECOVERY_CLIENTS):
+        import threading
+
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self.answered, self.differing, self.lat = 0, 0, []
+        self.max_abs_diff = 0.0
+        self.rejected, self.failed = {}, []
+        self._threads = [threading.Thread(
+            target=self._client, args=(np, Client, url, images, want, c),
+            daemon=True) for c in range(n_clients)]
+
+    def _client(self, np, Client, url, images, want, c):
+        from rafiki_tpu_torch.utils.http import HttpStatusError
+
+        cli = Client(timeout=120.0)
+        j = 0
+        while not self._stop.is_set():
+            idx = (c * 97 + j) % len(images)
+            img = images[idx]
+            j += 1
+            t0 = time.perf_counter()
+            try:
+                preds = cli.predict(url, [img], retry_on_503=False)
+            except HttpStatusError as e:
+                if e.status != 503 or e.retry_after_s is None:
+                    with self._lock:
+                        self.failed.append(repr(e)[:300])
+                    continue
+                err = str(e.payload.get("error", ""))
+                kind = ("draining" if "draining" in err else
+                        "data_plane_down" if e.data_plane_down else
+                        "shed" if e.shed else
+                        "breakers" if "no worker available" in err
+                        else err[:80])
+                with self._lock:
+                    self.rejected[kind] = self.rejected.get(kind, 0) + 1
+                self._stop.wait(min(2.0, e.retry_after_s))
+                continue
+            except Exception as e:  # counted, and the phase's gate
+                with self._lock:
+                    self.failed.append(repr(e)[:300])
+                continue
+            diff = float(np.abs(np.asarray(preds[0], np.float32)
+                                - want[idx]).max())
+            with self._lock:
+                self.answered += 1
+                self.differing += diff != 0.0
+                self.max_abs_diff = max(self.max_abs_diff, diff)
+                self.lat.append(time.perf_counter() - t0)
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=180)
+        self.hung = sum(t.is_alive() for t in self._threads)
+
+    def counts(self):
+        lat = sorted(self.lat)
+        return {"answered": self.answered,
+                "answers_differing_from_predict": self.differing,
+                "max_abs_diff": self.max_abs_diff,
+                "rejected": dict(self.rejected),
+                "failed": len(self.failed), "failures": self.failed[:3],
+                "hung_clients": self.hung,
+                "p50_s": lat[len(lat) // 2] if lat else None}
+
+
+def _served_equal(np, client, url, images, want):
+    """Phase 19's 256 images through ``/predict`` in 4 requests of 64,
+    against the direct ``predict``: equal, and the wall seconds."""
+    t0 = time.perf_counter()
+    served = []
+    for i in range(4):
+        served += client.predict(url, list(images[64 * i:64 * (i + 1)]))
+    got = np.asarray(served, np.float32)
+    return {"identical_to_predict": bool(got.shape == want.shape and
+                                         np.array_equal(got, want)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def recovery_phase(torch, np, st, images, want, ijob_id, wid):
+    """Phase 30, inside phase 23's stack before its teardown: crash
+    recovery of the deployed ViT-B/16 job, under closed-loop 1-image
+    HTTP clients at concurrency 4 (``_Traffic``), whose every answer
+    must equal the direct ``predict``.
+
+    (a) Admin handover: the admin stops its monitor and lease heartbeat,
+    stops serving and drops its handles without stopping a child (an
+    admin killed); a second ``ServicesManager`` (the device probe
+    included) + ``Admin`` + ``AdminApp`` over the same MetaStore waits
+    out the lease, takes it over and ``reconcile()``s: it must adopt the
+    kvd (same pid), the Predictor and the inference worker (same pids)
+    and crash nothing; no request may fail; a third manager's
+    ``acquire_lease`` must raise ``LeaseHeldError``.
+    (b) Rolling restart through ``POST /inference_jobs/<id>/rolling_
+    restart``: the worker's sidecar (its ``obs_port_file``) answers
+    ``/health`` first; the worker drains through it and exits 0, and a
+    replacement spawns on the freed slot; every request is answered or
+    gets a structured 503 (counted by kind), none fails or hangs; B7 and
+    B3 launch in the replacement (its published ``kernel_launches``:
+    the ``recovery`` path).
+    (c) SIGKILL on the kvd: the new admin's monitor respawns it on its
+    recorded port with WAL replay (``kvd_respawns`` 1; replay seconds
+    and the bytes of the files replayed); the best trial's parameter
+    blob reads back bit-equal to the one read before the kill; the
+    worker and the Predictor reconnect (requests counted).
+    (d) ``POST /system/backup``: the file opens as a MetaStore with the
+    live store's service, job and trial rows; ``python -m
+    rafiki_tpu_torch.cli doctor --workdir`` on the live workdir reports
+    no drift.
+    After each of (a)-(c) phase 19's 256 images through ``/predict``
+    must equal the direct ``predict``. ``st`` holds the live ``meta``,
+    ``manager``, ``admin``, ``app``, ``client`` and ``url``; the admin
+    of (a) replaces them there, for phase 23's teardown. Returns the
+    phase's record and the ``recovery`` path's launches."""
+    import hashlib
+    import os
+    import signal
+
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.app import AdminApp
+    from rafiki_tpu_torch.admin.services_manager import LeaseHeldError
+    from rafiki_tpu_torch.client import Client
+    from rafiki_tpu_torch.serving.queues import KVQueueHub
+    from rafiki_tpu_torch.store.meta_store import MetaStore
+    from rafiki_tpu_torch.store.param_store import ParamStore
+    from rafiki_tpu_torch.utils.http import json_request
+
+    Manager = st["Manager"]
+    meta, manager, url = st["meta"], st["manager"], st["url"]
+    workdir = manager.workdir
+    rec = {"phase": "recovery", "model": "ViT-B/16",
+           "clients": RECOVERY_CLIENTS, "lease_ttl_s": STACK_LEASE_TTL_S}
+    checks = {}
+
+    def services_by_type():
+        return {r["service_type"]: r for r in meta.get_services("RUNNING")}
+
+    # ---- (a) admin handover
+    before = services_by_type()
+    pids_before = {k: int(r["pid"]) for k, r in before.items()}
+    # this process spawned them: their Popen handles read the drained
+    # worker's exit code and reap the killed kvd
+    old_worker = next(s.proc for s in manager.services.values()
+                      if s.service_type == "INFERENCE_WORKER")
+    old_kv = manager._kv_server
+    with _Traffic(np, Client, url, images, want) as traffic:
+        time.sleep(1.0)
+        t_dead = time.perf_counter()
+        st["admin"]._monitor_stop.set()
+        st["admin"]._monitor.join(timeout=30)
+        manager._stop_lease_heartbeat()
+        st["app"].http.stop()
+        manager._drop_handles()
+        meta2 = MetaStore(meta._db_path)
+        manager2 = Manager(meta2, str(workdir), platform=None, slot_size=1,
+                           slot_timeout=300.0)
+        t_probe = time.perf_counter()
+        while True:
+            try:
+                lease = manager2.acquire_lease(ttl_s=STACK_LEASE_TTL_S)
+                break
+            except LeaseHeldError:
+                if time.perf_counter() - t_dead > 60:
+                    raise
+                time.sleep(0.05)
+        t_lease = time.perf_counter()
+        manager2.start_lease_heartbeat()
+        recovered = manager2.reconcile()
+        t_reconcile = time.perf_counter()
+        manager2.start_data_plane()
+        admin2 = Admin(meta2, manager2)
+        admin2.start_monitor(interval_s=0.3)
+        app2 = AdminApp(admin2)
+        host, port = app2.start()
+        client2 = Client(f"http://{host}:{port}", timeout=600.0)
+        client2.login("superadmin@rafiki", "rafiki")
+        handover_s = time.perf_counter() - t_dead
+        st.update(meta=meta2, manager=manager2, admin=admin2, app=app2,
+                  client=client2)
+        third = Manager(MetaStore(meta._db_path),
+                        str(workdir.parent / "third"),
+                        platform="cuda", devices=manager2.devices)
+        try:
+            third.acquire_lease(ttl_s=STACK_LEASE_TTL_S)
+            fenced = False
+        except LeaseHeldError:
+            fenced = True
+        time.sleep(1.0)
+    adopted = {s.service_type: s.proc.pid
+               for s in manager2.services.values() if s.adopted}
+    rec["handover"] = {
+        "seconds": handover_s, "probe_s": t_probe - t_dead,
+        "lease_wait_s": t_lease - t_probe,
+        "reconcile_s": t_reconcile - t_lease,
+        "lease_generation": lease["generation"],
+        "took_over": bool(lease.get("took_over")),
+        "recovery": {k: recovered[k] for k in (
+            "services_adopted", "kv_adopted", "services_crashed",
+            "orphans_reaped")},
+        "same_pids": {
+            "kvd": manager2._kv_proc.pid == pids_before.get("DATA_PLANE"),
+            "predictor": adopted.get("PREDICTOR") ==
+            pids_before.get("PREDICTOR"),
+            "inference_worker": adopted.get("INFERENCE_WORKER") ==
+            pids_before.get("INFERENCE_WORKER")},
+        "third_admin_fenced": fenced, "traffic": traffic.counts()}
+    checks["a"] = _served_equal(np, client2, url, images, want)
+    h = rec["handover"]
+    if not (all(h["same_pids"].values()) and fenced and
+            recovered["services_adopted"] + recovered["kv_adopted"] >= 3
+            and recovered["services_crashed"] == 0 and h["took_over"]
+            and not h["traffic"]["failed"] and not traffic.hung
+            and not traffic.differing):
+        emit(rec)
+        raise AssertionError(f"admin handover: {h}")
+    print(f"recovery: (a) handover {handover_s:.2f} s", flush=True)
+
+    # ---- (b) rolling restart through the sidecar
+    worker_row = services_by_type()["INFERENCE_WORKER"]
+    obs_file = Path(worker_row["spawn_spec"]["config"]["obs_port_file"])
+    obs_port = int(obs_file.read_text())
+    sidecar = json_request("GET", f"http://127.0.0.1:{obs_port}/health",
+                           timeout=10)
+    hub = KVQueueHub(manager2.kv_host, manager2.kv_port)
+    with _Traffic(np, Client, url, images, want) as traffic:
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        out = client2.rolling_restart_inference_job(ijob_id,
+                                                    drain_timeout=120.0)
+        t_spawned = time.perf_counter()
+        drain_rc = old_worker.wait(timeout=60)
+        t_published = time.time()
+        while True:
+            stats = hub.get_worker_stats(wid) or {}
+            if stats.get("published_at", 0) > t_published - 1.0 and \
+                    not stats.get("draining") and \
+                    stats.get("obs_port") not in (None, obs_port):
+                break
+            if time.perf_counter() - t_spawned > 600:
+                raise AssertionError("the replacement never came up")
+            time.sleep(0.1)
+        t_up = time.perf_counter()
+        time.sleep(3.0)  # the clients go on against the replacement
+    new_row = services_by_type()["INFERENCE_WORKER"]
+    rec["rolling_restart"] = {
+        "sidecar_health": sidecar, "restarted": out["restarted"],
+        "drained_rc": drain_rc, "drain_and_spawn_s": t_spawned - t0,
+        "replacement_boot_s": t_up - t_spawned,
+        "old_pid": pids_before["INFERENCE_WORKER"],
+        "new_pid": int(new_row["pid"]),
+        "slot": new_row["devices"], "traffic": traffic.counts(),
+        "rolling_restarts_done":
+            manager2.respawn_stats()["rolling_restarts_done"]}
+    checks["b"] = _served_equal(np, client2, url, images, want)
+    r = rec["rolling_restart"]
+    if not (sidecar == {"ok": True} and drain_rc == 0 and
+            len(out["restarted"]) == 1 and out["restarted"][0]["drained"]
+            and r["new_pid"] != r["old_pid"]
+            and not r["traffic"]["failed"] and not traffic.hung
+            and not traffic.differing):
+        emit(rec)
+        raise AssertionError(f"rolling restart: {r}")
+    print(f"recovery: (b) drain {r['drain_and_spawn_s']:.2f} s, "
+          f"replacement {r['replacement_boot_s']:.2f} s", flush=True)
+
+    # ---- (c) the kvd killed
+    best_id = st["best_id"]
+    store = ParamStore.from_uri(manager2.param_store_uri)
+    blob = store.backend.get(best_id)
+    digest = hashlib.sha256(blob).hexdigest()
+    data_dir = Path(manager2._kv_data_dir)
+    kv_pid, kv_port = manager2._kv_proc.pid, manager2.kv_port
+    with _Traffic(np, Client, url, images, want) as traffic:
+        time.sleep(1.0)
+        replay_bytes = sum(f.stat().st_size for f in (
+            data_dir / "snapshot.wal", data_dir / "wal") if f.exists())
+        t_kill = time.perf_counter()
+        os.kill(kv_pid, signal.SIGKILL)
+        old_kv._proc.wait()
+        while manager2.recovery["kvd_respawns"] < 1:
+            if time.perf_counter() - t_kill > 300:
+                raise AssertionError("the kvd was never respawned")
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_kill
+        time.sleep(3.0)  # the clients go on against the new kvd
+    blob2 = ParamStore.from_uri(manager2.param_store_uri).backend.get(
+        best_id)
+    rec["kvd_kill"] = {
+        "respawn_s": respawn_s,
+        "replay_s": float(manager2.recovery["kvd_replay_seconds"]),
+        "replay_bytes": replay_bytes, "old_pid": kv_pid,
+        "new_pid": manager2._kv_proc.pid,
+        "same_port": manager2.kv_port == kv_port,
+        "kvd_respawns": manager2.recovery["kvd_respawns"],
+        "blob_bytes": len(blob), "blob_sha256": digest,
+        "blob_bit_equal": blob2 == blob, "traffic": traffic.counts()}
+    del blob, blob2
+    checks["c"] = _served_equal(np, client2, url, images, want)
+    k = rec["kvd_kill"]
+    if not (k["kvd_respawns"] == 1 and k["same_port"] and
+            k["blob_bit_equal"] and k["new_pid"] != kv_pid
+            and not traffic.hung and not traffic.differing):
+        emit(rec)
+        raise AssertionError(f"kvd respawn: {k}")
+    print(f"recovery: (c) kvd respawned in {respawn_s:.2f} s (replay "
+          f"{k['replay_s']:.2f} s over {replay_bytes} bytes)", flush=True)
+
+    # ---- (d) backup and doctor
+    backup_path = workdir.parent / "backup.db"
+    t0 = time.perf_counter()
+    got = client2.backup(str(backup_path))
+    backup_s = time.perf_counter() - t0
+    copy = MetaStore(str(backup_path))
+
+    def rows(m):
+        jobs = [(j["id"], j["status"]) for j in m._all(
+            "SELECT * FROM train_jobs ORDER BY id")]
+        trials = [(t["id"], t["status"], t["score"]) for t in m._all(
+            "SELECT * FROM trials ORDER BY id")]
+        services = sorted((r["id"], r["status"], r["pid"])
+                          for r in m.get_services())
+        return {"train_jobs": jobs, "trials": trials,
+                "services": services,
+                "inference_jobs": [(j["id"], j["status"]) for j in
+                                   m.get_inference_jobs()]}
+
+    live_rows, copy_rows = rows(meta2), rows(copy)
+    import rafiki_tpu_torch
+
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(rafiki_tpu_torch.__file__).resolve().parent.parent))
+    t0 = time.perf_counter()
+    doc = subprocess.run(
+        [sys.executable, "-m", "rafiki_tpu_torch.cli", "doctor",
+         "--workdir", str(workdir), "--json"], capture_output=True,
+        text=True, timeout=600, env=env)
+    doctor_s = time.perf_counter() - t0
+    try:
+        report = json.loads(doc.stdout)
+    except ValueError:
+        report = {"ok": False, "drift": [doc.stdout[-500:],
+                                         doc.stderr[-1500:]]}
+    rec["backup"] = {"bytes": got.get("bytes"), "seconds": backup_s,
+                     "rows_equal": live_rows == copy_rows,
+                     "rows": {k: len(v) for k, v in copy_rows.items()}}
+    rec["doctor"] = {"rc": doc.returncode, "seconds": doctor_s,
+                     "ok": report.get("ok"), "drift": report.get("drift"),
+                     "services": len(report.get("services") or []),
+                     "data_plane_replay": {
+                         k: (report.get("data_plane") or {}).get(
+                             "replay", {}).get(k)
+                         for k in ("ok", "replayable_records",
+                                   "restored_keys")}}
+    # the replacement's launches since it booted (warmup and phase 30's
+    # requests), as it last published them: the recovery path
+    stats = hub.get_worker_stats(wid) or {}
+    launches = {n: int((stats.get("kernel_launches") or {}).get(n, 0))
+                for n in ("matmul_bias", "flash_attention_fwd")}
+    rec["replacement_launches"] = launches
+    rec["served_after"] = checks
+    emit(rec)
+    print(f"recovery: (d) backup {got.get('bytes')} bytes in "
+          f"{backup_s:.3f} s; doctor {doctor_s:.1f} s, drift "
+          f"{report.get('drift')}", flush=True)
+    if not (got.get("ok") and rec["backup"]["rows_equal"]):
+        raise AssertionError(f"backup: {rec['backup']}")
+    if doc.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"doctor: {rec['doctor']}")
+    bad = [s for s, c in checks.items() if not c["identical_to_predict"]]
+    if bad:
+        raise AssertionError(f"/predict differs from the direct predict "
+                             f"after step(s) {bad}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels that never launched in the "
+                             f"replacement worker: {launches}")
+    return launches
+
+
 def stack_phase(torch, np, vit, dev):
     """Phase 23: a ViT-B/16 train -> tune -> deploy -> predict job through
     the port's own control plane. The stack boots on the card: the port's
@@ -3330,10 +3760,13 @@ def stack_phase(torch, np, vit, dev):
               flush=True)
 
     t0 = time.perf_counter()
-    meta = MetaStore(str(work / "meta.db"))
+    # the store lives in the manager's workdir, as `stack start` lays it
+    # out, so phase 30's `doctor --workdir` audits the live stack
+    (work / "stack").mkdir()
+    meta = MetaStore(str(work / "stack" / "meta.db"))
     manager = ServicesManager(meta, str(work / "stack"), platform=None,
                               slot_size=1, slot_timeout=300.0)
-    manager.acquire_lease()
+    manager.acquire_lease(ttl_s=STACK_LEASE_TTL_S)
     manager.start_lease_heartbeat()
     manager.start_data_plane()
     admin = Admin(meta, manager)
@@ -3349,7 +3782,11 @@ def stack_phase(torch, np, vit, dev):
            "devices": [d.name for d in manager.devices],
            "slots": manager.allocator.n_slots, "stack_boot_s": stack_boot_s}
     launches = {name: 0 for name in STACK_TRAIN_KERNELS}
+    recovery_launches = {}
     stopped = False
+    # the live admin: phase 30's handover replaces it
+    st = {"Manager": ServicesManager, "meta": meta, "manager": manager,
+          "admin": admin, "app": app, "client": client}
     try:
         client.login("superadmin@rafiki", "rafiki")
         model = client.create_model("vit-b16", "IMAGE_CLASSIFICATION",
@@ -3477,6 +3914,14 @@ def stack_phase(torch, np, vit, dev):
         for name in STACK_TRAIN_KERNELS:
             launches[name] += worker_launches.get(name, 0)
         health = client.get_inference_job_health(ijob["id"])
+        kvd_stats = manager.kvd_stats(max_age_s=0.0)
+        progress("phase 30")
+        st.update(url=url, best_id=best["id"])
+        recovery_launches = recovery_phase(torch, np, st, images, want,
+                                           ijob["id"], wid)
+        meta, manager, app, client = (st["meta"], st["manager"],
+                                      st["app"], st["client"])
+        progress("phase 30 done")
         rec.update(
             deploy={"create_inference_job_s": create_s,
                     "worker_boot_s": worker_boot_s,
@@ -3495,15 +3940,23 @@ def stack_phase(torch, np, vit, dev):
             predictor={k: health.get(k) for k in (
                 "requests_served", "queries_served", "latency_p50_s",
                 "latency_p95_s", "e2e_hist_p50_s", "e2e_hist_p95_s")},
-            kvd_stats=manager.kvd_stats(max_age_s=0.0))
+            kvd_stats=kvd_stats)
         client.stop_inference_job(ijob["id"])
         rec["free_slots_after_stop"] = manager.allocator.free_count()
     finally:
-        pids = [int(r["pid"]) for r in meta.get_services() if r["pid"]]
+        from rafiki_tpu_torch.admin.proc import terminate_pid
+
+        meta, app = st["meta"], st["app"]
+        rows = [r for r in meta.get_services() if r["pid"]]
+        pids = [int(r["pid"]) for r in rows]
         app.stop()
         stopped = True
+        alive_after_stop = [p for p in pids if _alive(p)]
+        # what an admin that failed mid-handover no longer holds
+        for r in rows:
+            terminate_pid(int(r["pid"]), float(r["start_time"] or 0))
     rec["children"] = len(pids)
-    rec["children_alive_after_stop"] = [p for p in pids if _alive(p)]
+    rec["children_alive_after_stop"] = alive_after_stop
     rec["launches"] = launches
     emit(rec)
     errored = [t for t in per_trial if t["status"] != "COMPLETED"]
@@ -3528,10 +3981,11 @@ def stack_phase(torch, np, vit, dev):
     if rec["children_alive_after_stop"] or not stopped:
         raise AssertionError(f"children left alive: "
                              f"{rec['children_alive_after_stop']}")
+    manager = st["manager"]
     if rec["free_slots_after_stop"] != manager.allocator.n_slots or \
             manager.allocator.free_count() != manager.allocator.n_slots:
         raise AssertionError("a device slot was not freed")
-    return {"stack": launches}
+    return {"stack": launches, "recovery": recovery_launches}
 
 
 # ---- Llama serving as its users run it (phases 24-25): a byte-BPE
@@ -5369,22 +5823,22 @@ def cnn_tuning_phase(torch, np, cnn, dataset, dev_mod, ps, queues, wi, fa,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--depth", type=int, default=8,
+    ap.add_argument("--depth", type=int, default=4,
                     help="decoder depth of the serving legs, phases 4 "
-                         "and 16 (widths are never cut; 8 of 32 by "
+                         "and 16 (widths are never cut; 4 of 32 by "
                          "default, for the call's time)")
     ap.add_argument("--train-depth", type=int, default=32,
                     help="decoder depth of the training leg (widths are "
                          "never cut)")
-    ap.add_argument("--worker-depth", type=int, default=4,
+    ap.add_argument("--worker-depth", type=int, default=2,
                     help="decoder depth of the Llama worker leg, phase 18 "
-                         "(widths are never cut; 4 of 32 by default, for "
+                         "(widths are never cut; 2 of 32 by default, for "
                          "the call's time)")
-    ap.add_argument("--slice-depth", type=int, default=8,
+    ap.add_argument("--slice-depth", type=int, default=2,
                     help="decoder depth of phase 24's checkpoint, "
                          "fine-tune and serving legs and of phases 26 "
                          "and 29 "
-                         "(widths are never cut; 8 of 32 by default, for "
+                         "(widths are never cut; 2 of 32 by default, for "
                          "the call's time)")
     args = ap.parse_args(argv)
 

@@ -23,9 +23,12 @@ B1/B2); LoRA training of the Llama template (the flash-attention forward
 and backward, B3/B5/B6); the ViT and BERT classifiers, serving and
 training (the head-tiled forward B4 and the patch projection B7); int8
 Llama serving; the inference worker; tuning (knobs, advisors, the meta
-store, the train worker and ``tune_model``); and the control plane (the
+store, the train worker and ``tune_model``); the control plane (the
 admin and its REST app, the services manager over CUDA device slots, the
-advisor service, the kv data plane, the Predictor and the client SDK).
+advisor service, the kv data plane, the Predictor and the client SDK)
+and its crash recovery (boot reconciliation and adoption, the kvd's
+respawn with WAL replay, rolling restarts through the workers' obs
+sidecars, the MetaStore backup and the workdir doctor).
 """
 
 __version__ = "0.1.0"

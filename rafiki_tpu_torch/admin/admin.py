@@ -5,9 +5,9 @@ The port's own copy of ``rafiki_tpu/admin/admin.py`` (``Admin``,
 dataset registry, the train- and inference-job lifecycle; it spawns
 services through the port's ``ServicesManager``. A monitor thread reaps
 dead services and finalizes train jobs whose workers have all exited
-(stopping their advisors and freeing their slots). The calls the port
-does not serve yet raise ``NotPorted`` naming themselves: the MetaStore
-backup, rolling restart, scale-out and the autoscaler.
+(stopping their advisors and freeing their slots). The MetaStore
+backup and the rolling restart are served; scale-out and the autoscaler
+raise ``NotPorted`` naming themselves.
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from rafiki_tpu_torch.admin.services_manager import (ServicesManager,
-                                                    _not_ported)
+from rafiki_tpu_torch.admin.services_manager import ServicesManager
 from rafiki_tpu_torch.constants import (ServiceType, SubTrainJobStatus,
                                         TrainJobStatus, UserType)
 from rafiki_tpu_torch.store.meta_store import MetaStore
@@ -132,7 +131,9 @@ class Admin:
 
     # ---- control-plane backup ----
     def backup(self, path: str) -> Dict[str, Any]:
-        raise _not_ported("the MetaStore backup (/system/backup)")
+        """Online MetaStore snapshot (consistent under concurrent
+        writers): the step before risky operations."""
+        return self.meta.backup(path)
 
     # ---- models ----
     def create_model(self, user_id: str, name: str, task: str,

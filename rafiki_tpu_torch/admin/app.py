@@ -3,17 +3,19 @@
 The port's own copy of ``rafiki_tpu/admin/app.py`` (``AdminApp`` with the
 JAX route table, and ``main``): tokens, users, models, datasets, train
 jobs, trials, inference jobs, ``/health``, ``/metrics`` and the operator
-dashboard (the port's own copy of ``dashboard.html``). Model bytes
-travel base64-encoded in JSON (``model.base.serialize_model_class``).
-The routes of what the port does not serve yet — rolling restart,
-scale-out, the autoscaler, ``/system/backup`` — answer 400 naming
+dashboard (the port's own copy of ``dashboard.html``), the rolling
+restart and ``/system/backup``. Model bytes travel base64-encoded in JSON
+(``model.base.serialize_model_class``). The routes of what the port does
+not serve yet, scale-out and the autoscaler, answer 400 naming
 themselves.
 
 ``python -m rafiki_tpu_torch.admin.app --config cfg.json`` is the stack's
-process: it takes the admin lease, boots the port's kvd, starts the
-monitor and serves the API. On a host without a CUDA device it raises,
-unless the config asks for a CPU stack (``"platform": "cpu"``, with
-``"cpu_slots"`` virtual slots).
+process: it takes the admin lease and starts its heartbeat, reconciles
+what a previous admin left (or reaps it, with ``"cold_start"``), boots
+the port's kvd unless it adopted one, starts the monitor and serves the
+API. On a host without a CUDA device it raises, unless the config asks
+for a CPU stack (``"platform": "cpu"``, with ``"cpu_slots"`` virtual
+slots).
 """
 
 from __future__ import annotations
@@ -50,10 +52,29 @@ class AdminApp:
         self.metrics.gauge(
             "admin_pending_respawns", "slot-starved respawns queued",
             fn=lambda: svcs.respawn_stats()["pending_respawns"])
+        # the recovery plane: what the boot reconciler did, where the
+        # lease stands, the kvd's respawns
+        for key, what in (
+                ("services_adopted",
+                 "live services adopted by the boot reconciler"),
+                ("orphans_reaped",
+                 "stopped-job survivors killed by the boot reconciler"),
+                ("services_crashed",
+                 "service rows found dead at boot (CRASHED)"),
+                ("lease_takeovers",
+                 "expired-lease takeovers performed by this admin")):
+            self.metrics.gauge(f"admin_{key}", what,
+                               fn=lambda k=key: svcs.recovery[k])
         self.metrics.gauge(
             "admin_lease_generation",
             "fencing generation of the held admin lease",
             fn=lambda: svcs.lease_generation)
+        self.metrics.gauge(
+            "kvd_respawns", "kvd respawns with WAL replay",
+            fn=lambda: svcs.recovery["kvd_respawns"])
+        self.metrics.gauge(
+            "kvd_replay_seconds", "the last kvd boot's WAL replay time",
+            fn=lambda: svcs.recovery["kvd_replay_seconds"])
         self.metrics.gauge(
             "kvd_up", "1 while the data plane answers STATS",
             fn=lambda: svcs.kvd_stats().get("up", 0))
@@ -284,8 +305,6 @@ class AdminApp:
             return 400, {"error": "body must name a backup 'path'"}
         try:
             return 200, {"ok": True, **self.admin.backup(path)}
-        except NotPorted as e:
-            return 400, {"error": str(e)}
         except OSError as e:
             return 500, {"error": f"backup failed: {e}"}
 
@@ -318,8 +337,6 @@ class AdminApp:
             return 200, self.admin.rolling_restart_inference_job(
                 m["id"], drain_timeout=float(
                     (body or {}).get("drain_timeout", 120.0)))
-        except NotPorted as e:
-            return 400, {"error": str(e)}
         except RuntimeError as e:
             # already-in-progress / no free slot: a conflict with the
             # current state, not a server bug — 409 like the other
@@ -331,10 +348,10 @@ def main(argv: Optional[list] = None) -> int:
     """Service entrypoint: ``python -m rafiki_tpu_torch.admin.app
     --config cfg.json``. The config is the JAX admin's JSON (``workdir``,
     ``db_path``, ``host``, ``port``, ``slot_size``, ``workers``,
-    ``port_file``, ``lease_ttl_s``, ``lease_wait_s``) plus ``platform``:
-    absent or ``"cuda"`` probes the host's cards (and raises without
-    one); ``"cpu"`` asks for a CPU stack over ``cpu_slots`` virtual
-    slots (default 1). ``cold_start`` and the ``RAFIKI_CHAOS`` drills
+    ``port_file``, ``lease_ttl_s``, ``lease_wait_s``, ``cold_start``)
+    plus ``platform``: absent or ``"cuda"`` probes the host's cards (and
+    raises without one); ``"cpu"`` asks for a CPU stack over
+    ``cpu_slots`` virtual slots (default 1). The ``RAFIKI_CHAOS`` drills
     are refused by name."""
     import argparse
     import json
@@ -351,13 +368,10 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--config", required=True,
                         help="JSON: {workdir, db_path, host, port, "
                              "slot_size, port_file, lease_ttl_s, "
-                             "platform, cpu_slots}")
+                             "cold_start, platform, cpu_slots}")
     args = parser.parse_args(argv)
     with open(args.config) as f:
         cfg = json.load(f)
-    if cfg.get("cold_start"):
-        raise NotPorted("cold_start (reaping a previous admin's services) "
-                        "is not ported yet")
     if os.environ.get("RAFIKI_CHAOS", "").strip():
         raise NotPorted("fault injection (RAFIKI_CHAOS) is not ported yet")
     platform = cfg.get("platform") or None
@@ -391,7 +405,26 @@ def main(argv: Optional[list] = None) -> int:
     if lease.get("took_over"):
         print(f"took over expired admin lease (generation "
               f"{lease['generation']})", flush=True)
+    # the heartbeat before the reconcile: reconciling can outlast the TTL
+    # (kill graces, health probes), and an unrenewed lease would let a
+    # concurrent boot take over mid-reconcile
     manager.start_lease_heartbeat()
+    if cfg.get("cold_start"):
+        # the operator's opt-out of adoption (`stack start --cold`): kill
+        # every recorded survivor and boot from a clean slate
+        reaped = manager.reap_stale_services()
+        print(f"cold start: reaped {reaped} stale service row(s)",
+              flush=True)
+    else:
+        # crash-only boot: adopt the survivors, crash and respawn the
+        # dead, reap the orphans; the rows are the source of truth. Only
+        # then the data plane, which is a no-op over an adopted kvd
+        recovery = manager.reconcile()
+        print("reconciled: "
+              f"{recovery['services_adopted']} adopted, "
+              f"{recovery['services_crashed']} crashed, "
+              f"{recovery['orphans_reaped']} orphans reaped, "
+              f"{recovery['kv_adopted']} kvd adopted", flush=True)
     manager.start_data_plane()
     admin = Admin(meta, manager)
     admin.start_monitor()

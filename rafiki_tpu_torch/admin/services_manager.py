@@ -1,18 +1,22 @@
 """ServicesManager: spawn and track the stack's service processes on CUDA
 device slots.
 
-The port's own copy of the job path of
-``rafiki_tpu/admin/services_manager.py``: ``ManagedService``, the
-constructor, the data plane (``start_data_plane``, ``_boot_data_plane``,
-on the port's kvd), ``param_store_uri``, the single-writer admin lease
-(``acquire_lease``, ``start_lease_heartbeat``, ``renew_lease``,
-``release_lease``, the fence check), ``_spawn``,
-``create_train_services``, ``wait_train_job``,
+The port's own copy of ``rafiki_tpu/admin/services_manager.py`` but its
+scale-out half: ``ManagedService``, the constructor, the data plane
+(``start_data_plane``, ``_boot_data_plane``, on the port's kvd; its
+supervision ``_check_data_plane`` and ``_respawn_data_plane``),
+``param_store_uri``, the single-writer admin lease (``acquire_lease``,
+``start_lease_heartbeat``, ``renew_lease``, ``release_lease``, the fence
+check), ``_spawn``, ``create_train_services``, ``wait_train_job``,
 ``create_inference_services``, the monitor's ``poll`` with its worker
-respawn budget, ``stop_service`` and ``stop_all``. The control plane
-spawns an advisor plus N train workers per train job, and N inference
-workers plus a predictor per inference job, each a
-``python -m rafiki_tpu_torch.<module> --config <json>`` child:
+respawn budget, the boot reconciler (``reconcile``, ``_adopt_service``,
+``_probe_service``, ``_reconcile_data_plane``, ``recovery_stats``),
+``reap_stale_services``, the rolling restart (``_request_drain``,
+``rolling_restart``), ``stop_service``, ``stop_all``, ``_DeadProc`` and
+``_AdoptedKVServer``. The control plane spawns an advisor plus N train
+workers per train job, and N inference workers plus a predictor per
+inference job, each a ``python -m rafiki_tpu_torch.<module> --config
+<json>`` child:
 
 - the card inventory comes from a throwaway probe subprocess
   (``device_probe.py``), so the manager never initializes CUDA itself;
@@ -22,13 +26,25 @@ workers plus a predictor per inference job, each a
 - a :class:`SubMeshAllocator` hands each worker a slot, and the slot's
   ``CUDA_VISIBLE_DEVICES`` confines the child to its cards; the advisor
   and the predictor get ``CUDA_VISIBLE_DEVICES=""`` (no card);
-- service rows land in the MetaStore with their full spawn recipe, as
-  the JAX admin records them; ``poll()`` is the failure detector.
+- service rows land in the MetaStore with their full spawn recipe and
+  the child's kernel start time, as the JAX admin records them: the row,
+  not this object's dicts, is the source of truth. ``poll()`` is the
+  failure detector.
 
-Not ported, each refused by name with ``NotPorted``: boot reconciliation
-and adoption after an admin restart (``reconcile``,
-``reap_stale_services``), kvd respawn with WAL replay (a dead kvd marks
-the stack degraded), rolling restart, autoscale and scale-out (the
+Crash-only, as the JAX control plane: a restarted admin calls
+:meth:`reconcile`, which adopts the previous admin's surviving children
+(the pid's identity and a health probe on its recorded port or its
+worker's obs sidecar; the slots re-reserved) and its kvd (identity and
+``PING``), crashes and respawns the dead under the respawn budget kept in
+the MetaStore (a dead kvd on its recorded port with WAL replay), and
+reaps the survivors of jobs stopped meanwhile; ``cold_start`` calls
+:meth:`reap_stale_services` instead. The monitor respawns a kvd that dies
+under it the same way. :meth:`rolling_restart` drains an inference job's
+workers one at a time through their obs sidecars (``POST /drain``) and
+replaces each on its freed slot.
+
+Not ported, each refused by name with ``NotPorted``: autoscale and
+scale-out (``scale_inference_job``, ``scaleout_status`` and the
 ``AUTOSCALE``, ``MIN_WORKERS``, ``MAX_WORKERS`` and
 ``AUTOSCALE_COOLDOWN_S`` budget keys), the paged gather path
 (``PAGED_KERNEL=false``) and fault injection. The decode modes are served
@@ -55,6 +71,8 @@ import uuid
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+from rafiki_tpu_torch.admin.proc import (AdoptedProcess, identity_matches,
+                                         proc_start_time, terminate_pid)
 from rafiki_tpu_torch.constants import (ServiceStatus, ServiceType,
                                         SubTrainJobStatus, TaskType,
                                         TrainJobStatus)
@@ -67,6 +85,11 @@ log = logging.getLogger(__name__)
 
 #: the directory holding ``rafiki_tpu_torch/``
 _PACKAGE_ROOT = Path(__file__).resolve().parent.parent.parent
+
+#: service rows in these states are settled history: never adopted,
+#: respawned or reaped again
+_TERMINAL = (ServiceStatus.STOPPED, ServiceStatus.ERRORED,
+             ServiceStatus.CRASHED)
 
 #: worker service types eligible for self-healing respawn
 _WORKER_TYPES = (ServiceType.TRAIN_WORKER, ServiceType.INFERENCE_WORKER)
@@ -121,13 +144,17 @@ class ManagedService:
 
     def __init__(self, service_id: str, service_type: str,
                  proc: subprocess.Popen, slot: Optional[SubMesh] = None,
-                 host: str = "", port: int = 0) -> None:
+                 host: str = "", port: int = 0,
+                 adopted: bool = False) -> None:
         self.service_id = service_id
         self.service_type = service_type
         self.proc = proc
         self.slot = slot
         self.host = host
         self.port = port
+        #: True when the boot reconciler rebuilt this handle around a
+        #: surviving pid instead of this manager spawning it
+        self.adopted = adopted
 
     @property
     def url(self) -> str:
@@ -190,22 +217,35 @@ class ServicesManager:
         self.kv_host: str = ""
         self.kv_port: int = 0
         self._kv_server: Any = None
+        #: the kvd's process handle: its Popen, an AdoptedProcess, a
+        #: _DeadProc while a respawn is owed, None when unsupervised
+        self._kv_proc: Any = None
         self._kv_service_id: Optional[str] = None
+        #: where the WAL and snapshot live (recorded in the spawn spec,
+        #: so a restarted admin respawns with replay)
         self._kv_data_dir: str = ""
+        #: consecutive failed kvd boot attempts (one per monitor tick)
+        self._kv_boot_attempts = 0
         #: spawn spec per live worker, so a crashed worker can be
         #: respawned while its job still runs. Lineage = (type, job id):
         #: the budget is shared by a job's workers
         self._respawn_specs: Dict[str, Dict[str, Any]] = {}
-        self._respawn_counts: Dict[Any, int] = {}
-        for lineage, count in self.meta.get_respawn_counts().items():
-            stype, _, job_id = lineage.partition(":")
-            self._respawn_counts[(stype, job_id)] = int(count)
+        #: in-memory mirror of the MetaStore's respawn budgets, which are
+        #: authoritative (increments write through): the budget survives
+        #: an admin restart
+        self._respawn_counts: Dict[Any, int] = self._load_respawn_counts()
         #: max replacement spawns per (service type, job) lineage
         self.max_respawns = 3
         #: respawns that found no free slot, retried on every poll
         self._pending_respawns: List[Dict[str, Any]] = []
         #: jobs whose self-healing is exhausted (job id → reason)
         self._degraded: Dict[str, str] = {}
+        #: completed drain → stop → respawn cycles (rolling_restart)
+        self._rolling_restarts = 0
+        #: one rolling restart at a time: a second call (an operator
+        #: retrying a timed-out request) would drain the fresh
+        #: replacements and spawn duplicates sharing one worker id
+        self._rolling_lock = threading.Lock()
         #: single-writer admin lease (generation-fenced). Opt-in:
         #: acquire_lease() arms it; a manager that never acquires is
         #: never fenced.
@@ -216,10 +256,27 @@ class ServicesManager:
         self._hb_thread: Optional[threading.Thread] = None
         self._hb_stop = threading.Event()
         self.fenced = False
-        self.recovery = StatsMap({"lease_takeovers": 0})
+        #: the boot reconciler's and the kvd supervisor's counters, on
+        #: the admin's /metrics and /health
+        self.recovery = StatsMap({
+            "services_adopted": 0, "services_crashed": 0,
+            "orphans_reaped": 0, "respawns_queued": 0,
+            "kv_adopted": 0, "kvd_respawns": 0,
+            "kvd_replay_seconds": 0.0, "lease_takeovers": 0,
+            "last_recovery_at": 0.0})
+        #: cached kvd STATS under a lock of their own (never op_lock: a
+        #: scrape must not wait on a slow spawn)
         self._kvd_stats_cache: Dict[str, Any] = {}
         self._kvd_stats_at = 0.0
         self._kvd_stats_lock = threading.Lock()
+
+    def _load_respawn_counts(self) -> Dict[Any, int]:
+        """The MetaStore's lineage budgets, keyed ``(type, job_id)``."""
+        out: Dict[Any, int] = {}
+        for lineage, count in self.meta.get_respawn_counts().items():
+            stype, _, job_id = lineage.partition(":")
+            out[(stype, job_id)] = int(count)
+        return out
 
     # ---- admin lease (single-writer fencing) ----
     def acquire_lease(self, ttl_s: Optional[float] = None
@@ -304,19 +361,237 @@ class ServicesManager:
                 "admin lease lost — this manager is fenced; a newer "
                 "admin owns the stack now")
 
-    # ---- deferred: refused by name ----
-    def reconcile(self) -> Dict[str, Any]:
-        raise _not_ported("boot reconciliation and adoption of a previous "
-                          "admin's services")
-
     def reap_stale_services(self) -> int:
-        raise _not_ported("reaping a previous admin's services (cold "
-                          "start)")
+        """Cold-start cleanup: kill every process a previous admin's
+        non-terminal rows still point at and mark the rows STOPPED.
+        :meth:`reconcile`, which adopts survivors, is the normal boot;
+        this is for an operator who asks for a clean slate. Each kill is
+        gated on the recorded (pid, start time) identity, so a recycled
+        pid is never killed."""
+        reaped = 0
+        for row in self.meta.get_services():
+            if row["status"] in _TERMINAL or row["id"] in self.services:
+                continue
+            pid = int(row.get("pid") or 0)
+            if pid > 0:
+                terminate_pid(pid, float(row.get("start_time") or 0))
+            self.meta.update_service(row["id"],
+                                     status=ServiceStatus.STOPPED)
+            reaped += 1
+        return reaped
 
-    def rolling_restart(self, inference_job_id: str,
-                        drain_timeout: float = 120.0) -> Dict[str, Any]:
-        raise _not_ported("rolling restart of an inference job")
+    # ---- boot reconciler (crash-only control plane) ----
+    def reconcile(self) -> Dict[str, Any]:
+        """Rebuild the process table from the MetaStore after an admin
+        died. For every non-terminal row the previous admin left:
 
+        - **adopt** a survivor: pid alive with its recorded identity
+          (cmdline and kernel start time) and answering a health probe
+          on its recorded port or its worker's obs sidecar: a
+          :class:`ManagedService` is rebuilt around the pid, its slot
+          re-reserved and its respawn spec re-armed; nothing restarts;
+        - **crash** the dead (or a pid that fails identity or probe):
+          the row goes CRASHED, and a worker of a still-RUNNING job goes
+          into the respawn path under the budget kept in the MetaStore;
+        - **reap** an orphan: a survivor whose job was stopped while no
+          admin ran is killed (identity-gated) and marked STOPPED.
+
+        The kvd is adopted the same way (identity and ``PING`` on its
+        recorded port), so parameter blobs and in-flight queues survive
+        the admin; a dead one is respawned on its port with WAL replay.
+        Returns :meth:`recovery_stats`."""
+        with self.op_lock:
+            return self._reconcile()
+
+    def _reconcile(self) -> Dict[str, Any]:
+        self._respawn_counts = self._load_respawn_counts()
+        crashed_workers: List[Dict[str, Any]] = []
+        for row in self.meta.get_services():
+            if row["status"] in _TERMINAL or row["id"] in self.services:
+                continue
+            stype = row["service_type"]
+            if stype == ServiceType.DATA_PLANE:
+                self._reconcile_data_plane(row)
+                continue
+            pid = int(row.get("pid") or 0)
+            start_time = float(row.get("start_time") or 0)
+            spec = row.get("spawn_spec") or None
+            job_id = row.get("train_job_id") or row.get("inference_job_id")
+            job = None
+            if job_id:
+                job = self.meta.get_train_job(job_id) or \
+                    self.meta.get_inference_job(job_id)
+            job_running = bool(job and job.get("status") == "RUNNING")
+            alive = identity_matches(pid, start_time)
+
+            if alive and job_id and not job_running:
+                log.info("reaping orphan %s %s (job %s is %s)", stype,
+                         row["id"], job_id,
+                         job.get("status") if job else "gone")
+                terminate_pid(pid, start_time)
+                self.meta.update_service(row["id"],
+                                         status=ServiceStatus.STOPPED)
+                self.recovery.inc("orphans_reaped")
+                continue
+
+            probe = self._probe_service(row, spec) if alive else False
+            if alive and probe is not False:
+                if self._adopt_service(row, spec, pid, start_time):
+                    continue
+                alive = False  # its slot is gone: crash it
+
+            if alive or identity_matches(pid, start_time):
+                # it exists but does not serve: kill it before a
+                # replacement claims the same slot
+                terminate_pid(pid, start_time)
+            self.meta.update_service(row["id"],
+                                     status=ServiceStatus.CRASHED)
+            self.recovery.inc("services_crashed")
+            if job_running and spec and stype in _WORKER_TYPES:
+                crashed_workers.append({"dead_id": row["id"],
+                                        "spec": spec})
+
+        # the crashed workers take the monitor's respawn path, under the
+        # budget that survived the restart
+        for item in crashed_workers:
+            try:
+                if not self._respawn(item["dead_id"], item["spec"]):
+                    self._pending_respawns.append(item)
+                    self.recovery.inc("respawns_queued")
+            except Exception as e:  # reconcile must finish: a failed
+                # respawn is a degraded job, not a dead control plane
+                log.warning("boot respawn of %s failed: %s",
+                            item["dead_id"], e)
+                mk = item["spec"].get("meta_kwargs") or {}
+                self._mark_degraded(
+                    item["spec"]["service_type"],
+                    mk.get("train_job_id") or mk.get("inference_job_id"),
+                    f"boot respawn failed: {e}")
+        self.recovery.set("last_recovery_at", time.time())
+        return self.recovery_stats()
+
+    def _adopt_service(self, row: Dict[str, Any],
+                       spec: Optional[Dict[str, Any]], pid: int,
+                       start_time: float) -> bool:
+        """Rebuild a ManagedService around a surviving pid; False when
+        its recorded slot cannot be re-reserved (the caller crashes
+        it)."""
+        stype = row["service_type"]
+        slot = None
+        if spec and spec.get("needs_slot"):
+            try:
+                devices = json.loads(row.get("devices") or "[]")
+            except ValueError:
+                devices = []
+            slot = self.allocator.reserve(devices)
+            if slot is None:
+                log.warning("cannot adopt %s %s: its recorded slot %r is "
+                            "no longer free", stype, row["id"], devices)
+                return False
+        svc = ManagedService(
+            row["id"], stype, AdoptedProcess(pid, start_time), slot,
+            host=row.get("host") or "127.0.0.1",
+            port=int(row.get("port") or 0), adopted=True)
+        self.services[row["id"]] = svc
+        if spec and stype in _WORKER_TYPES:
+            self._respawn_specs[row["id"]] = {
+                "module": spec["module"], "config": spec["config"],
+                "service_type": stype,
+                "needs_slot": bool(spec.get("needs_slot")),
+                "meta_kwargs": dict(spec.get("meta_kwargs") or {})}
+        self.meta.update_service(row["id"], status=ServiceStatus.RUNNING)
+        self.recovery.inc("services_adopted")
+        return True
+
+    def _probe_service(self, row: Dict[str, Any],
+                       spec: Optional[Dict[str, Any]]) -> Optional[bool]:
+        """Health-probe a candidate on its recorded HTTP surface: the
+        row's own port (advisor, predictor) or the worker's obs sidecar
+        (the port in its ``obs_port_file``). Any HTTP answer, an error
+        status too, counts as alive. None: no probe channel recorded,
+        the identity alone decides."""
+        import urllib.error
+
+        from rafiki_tpu_torch.utils.http import json_request
+
+        host = row.get("host") or "127.0.0.1"
+        port = int(row.get("port") or 0)
+        if port <= 0:
+            port_file = ((spec or {}).get("config") or {}).get(
+                "obs_port_file")
+            if port_file and Path(port_file).exists():
+                try:
+                    port = int(Path(port_file).read_text().strip())
+                except (OSError, ValueError):
+                    port = 0
+        if port <= 0:
+            return None
+        try:
+            json_request("GET", f"http://{host}:{port}/health",
+                         timeout=3.0)
+            return True
+        except urllib.error.HTTPError:
+            return True  # it answered: alive, with no /health route
+        except (OSError, ValueError):
+            return False  # refused, timed out or garbage: not serving
+
+    def _reconcile_data_plane(self, row: Dict[str, Any]) -> None:
+        """Adopt a surviving kvd (parameter blobs and queues live in its
+        memory: killing it would drop every in-flight stream). A dead
+        kvd whose row records a data dir is respawned on the same port
+        with WAL replay: "row present, process dead" is a recovery case,
+        never a cold start."""
+        from rafiki_tpu_torch.native.client import KVClient
+
+        pid = int(row.get("pid") or 0)
+        start_time = float(row.get("start_time") or 0)
+        host = row.get("host") or "127.0.0.1"
+        port = int(row.get("port") or 0)
+        spec_cfg = (row.get("spawn_spec") or {}).get("config") or {}
+        ok = False
+        # identity first: a recycled pid must not be PINGed as ours
+        if port > 0 and identity_matches(pid, start_time):
+            try:
+                c = KVClient(host, port, connect_timeout=3.0)
+                ok = c.ping()
+                c.close()
+            except (OSError, RuntimeError):
+                ok = False  # refused or garbled: not a live kvd
+        if ok:
+            self.kv_host, self.kv_port = host, port
+            self._kv_data_dir = str(spec_cfg.get("data_dir") or "")
+            server = _AdoptedKVServer(host, port,
+                                      AdoptedProcess(pid, start_time))
+            self._kv_server = server
+            self._kv_proc = server._proc
+            self._kv_service_id = row["id"]
+            self.recovery.inc("kv_adopted")
+            log.info("adopted data plane kvd pid %d on %s:%d", pid, host,
+                     port)
+            return
+        if identity_matches(pid, start_time):
+            terminate_pid(pid, start_time)
+        self.meta.update_service(row["id"], status=ServiceStatus.CRASHED)
+        self.recovery.inc("services_crashed")
+        if port > 0 and spec_cfg.get("data_dir"):
+            # respawn with replay on the recorded address: surviving
+            # workers and predictors reconnect to the same host:port,
+            # and the WAL restores blobs, membership and queued messages
+            self.kv_host, self.kv_port = host, port
+            self._kv_data_dir = str(spec_cfg["data_dir"])
+            self._kv_service_id = row["id"]
+            self._kv_proc = _DeadProc()
+            self._respawn_data_plane("dead at admin reconcile")
+
+    def recovery_stats(self) -> Dict[str, Any]:
+        """The reconciler's and the lease's counters, for /metrics and
+        /health."""
+        out = self.recovery.snapshot()
+        out["lease_generation"] = self.lease_generation
+        out["fenced"] = bool(self.fenced)
+        return out
+
+    # ---- deferred: refused by name ----
     def scale_inference_job(self, job_id: str, workers: int,
                             drain_timeout: float = 120.0
                             ) -> Dict[str, Any]:
@@ -331,7 +606,10 @@ class ServicesManager:
 
     def start_data_plane(self) -> None:
         """Boot the port's kvd with WAL + snapshot persistence under
-        ``workdir/kvd-data`` (a no-op when it already runs)."""
+        ``workdir/kvd-data`` (a no-op when it already runs or
+        :meth:`reconcile` adopted one). The boot recipe persists in the
+        row's spawn spec, so the monitor and a restarted admin respawn a
+        dead kvd with replay."""
         if self.kv_port:
             return
         self._check_fence()
@@ -341,13 +619,15 @@ class ServicesManager:
 
     def _boot_data_plane(self, host: str, port: int, data_dir: str,
                          fsync: str) -> None:
-        """Spawn a kvd and record its row + spawn spec."""
-        from rafiki_tpu_torch.admin.proc import proc_start_time
+        """Spawn a kvd (fresh, or a respawn with replay when ``port`` is
+        pinned and the data dir holds a WAL) and record its row and
+        spawn spec."""
         from rafiki_tpu_torch.native.client import KVServer
 
         server = KVServer(host=host, port=port, data_dir=data_dir,
                           fsync=fsync)
         self._kv_server = server
+        self._kv_proc = server._proc
         self.kv_host, self.kv_port = server.host, server.port
         self._kv_data_dir = data_dir
         row = self.meta.create_service(
@@ -362,27 +642,94 @@ class ServicesManager:
             start_time=proc_start_time(server._proc.pid))
         self._kv_service_id = row["id"]
         self.meta.update_service(row["id"], status=ServiceStatus.RUNNING)
+        # the replay's seconds: half of the recovery latency
+        try:
+            st = self._fresh_kvd_stats()
+            self.recovery.set("kvd_replay_seconds",
+                              float(st.get("replay_seconds") or 0.0))
+        except (OSError, RuntimeError) as e:
+            log.warning("could not read kvd replay stats: %s", e)
+
+    def _respawn_data_plane(self, reason: str) -> bool:
+        """Respawn a dead kvd on its recorded host:port and data dir:
+        clients reconnect to the same address, and the WAL replay
+        restores blobs, pool membership and queued messages. Budgeted
+        like worker respawns (the lineage ``(DATA_PLANE, kvd)`` in the
+        MetaStore), so a data dir that crashes the kvd every time ends
+        degraded instead of in a respawn storm. True when a kvd serves
+        again."""
+        host, port = self.kv_host, self.kv_port
+        data_dir = self._kv_data_dir or str(self.workdir / "kvd-data")
+        lineage = (ServiceType.DATA_PLANE, "kvd")
+        if self._respawn_counts.get(lineage, 0) >= self.max_respawns:
+            log.error("kvd respawn budget exhausted (%s): the stack is "
+                      "degraded until an operator intervenes", reason)
+            self._degraded["data-plane"] = "kvd respawn budget exhausted"
+            self._kv_proc = None  # stop supervising the corpse
+            return False
+        if self._kv_service_id:
+            self.meta.update_service(self._kv_service_id,
+                                     status=ServiceStatus.CRASHED)
+        log.warning("kvd data plane died (%s): respawning on %s:%d with "
+                    "WAL replay from %s", reason, host, port, data_dir)
+        fsync = os.environ.get("RAFIKI_KVD_FSYNC", self.KVD_FSYNC_DEFAULT)
+        t0 = time.monotonic()
+        # one boot attempt per monitor tick: poll() holds op_lock, and a
+        # wait-for-the-port loop here would stall every admin operation.
+        # A failed attempt leaves the dead handle for the next tick; 20
+        # failures in a row end degraded
+        try:
+            self.kv_host, self.kv_port = "", 0
+            self._boot_data_plane(host, port, data_dir, fsync)
+        except (OSError, RuntimeError) as e:
+            self.kv_host, self.kv_port = host, port
+            self._kv_boot_attempts += 1
+            if self._kv_boot_attempts >= 20:
+                self._degraded["data-plane"] = f"kvd respawn failed: {e}"
+                self._kv_proc = None
+                log.error("kvd respawn failed %d times, giving up: %s",
+                          self._kv_boot_attempts, e)
+            else:
+                log.warning("kvd respawn attempt %d failed (%s): "
+                            "retrying on the next monitor tick",
+                            self._kv_boot_attempts, e)
+            return False
+        self._kv_boot_attempts = 0
+        self._respawn_counts[lineage] = self.meta.incr_respawn_count(
+            ServiceType.DATA_PLANE, "kvd")
+        self.recovery.inc("kvd_respawns")
+        self._degraded.pop("data-plane", None)
+        log.warning("kvd respawned in %.2fs (pid %d, replay %.3fs)",
+                    time.monotonic() - t0, self._kv_proc.pid,
+                    float(self.recovery["kvd_replay_seconds"]))
+        return True
 
     def _check_data_plane(self) -> None:
-        """Monitor-tick half of kvd supervision: a kvd that died marks
-        the stack degraded (its respawn with WAL replay is not ported)."""
-        server = self._kv_server
-        if server is None or self.fenced or server._proc.poll() is None:
+        """Monitor-tick half of kvd supervision: a kvd that died (kill
+        -9, OOM) is respawned on its recorded port and replays its WAL.
+        Runs under op_lock (poll)."""
+        if self._kv_proc is None or self.fenced:
             return
-        if "data-plane" not in self._degraded:
-            reason = (f"kvd exited rc={server._proc.returncode}; kvd "
-                      "respawn with WAL replay is not ported yet")
-            log.error("data plane down: %s", reason)
-            self._degraded["data-plane"] = reason
-            if self._kv_service_id:
-                self.meta.update_service(self._kv_service_id,
-                                         status=ServiceStatus.ERRORED)
+        if self._kv_proc.poll() is None:
+            return
+        self._respawn_data_plane(
+            f"process exited rc={self._kv_proc.returncode}")
+
+    def _fresh_kvd_stats(self) -> Dict[str, Any]:
+        from rafiki_tpu_torch.native.client import KVClient
+
+        # op_timeout bounds the read too: a wedged kvd is a caught
+        # timeout, not a hung /metrics behind _kvd_stats_lock
+        c = KVClient(self.kv_host, self.kv_port, connect_timeout=2.0,
+                     op_timeout_s=2.0)
+        try:
+            return c.stats()
+        finally:
+            c.close()
 
     def kvd_stats(self, max_age_s: float = 2.0) -> Dict[str, Any]:
         """Cached kvd ``STATS`` plus ``up`` (at most one socket round
         trip per ``max_age_s``)."""
-        from rafiki_tpu_torch.native.client import KVClient
-
         with self._kvd_stats_lock:
             now = time.monotonic()
             if now - self._kvd_stats_at < max_age_s:
@@ -390,22 +737,20 @@ class ServicesManager:
             st: Dict[str, Any] = {"up": 0}
             if self.kv_port:
                 try:
-                    c = KVClient(self.kv_host, self.kv_port,
-                                 connect_timeout=2.0, op_timeout_s=2.0)
-                    try:
-                        st = {**c.stats(), "up": 1}
-                    finally:
-                        c.close()
+                    st = {**self._fresh_kvd_stats(), "up": 1}
                 except (OSError, RuntimeError) as e:
                     log.debug("kvd stats probe failed: %s", e)
             self._kvd_stats_cache, self._kvd_stats_at = st, now
             return dict(st)
 
     def data_plane_status(self) -> Dict[str, Any]:
-        """The /health ``data_plane`` block."""
+        """The /health ``data_plane`` block: up, address, data dir, the
+        respawn and replay counters and the persistence stats."""
         st = self.kvd_stats()
         return {"up": bool(st.get("up")), "host": self.kv_host,
                 "port": self.kv_port, "data_dir": self._kv_data_dir,
+                "respawns": self.recovery["kvd_respawns"],
+                "replay_seconds": self.recovery["kvd_replay_seconds"],
                 "stats": {k: v for k, v in st.items() if k != "up"}}
 
     @property
@@ -419,8 +764,6 @@ class ServicesManager:
                service_type: str, slot: Optional[SubMesh] = None,
                wait_port_file: bool = False, timeout: float = 180.0,
                **meta_kwargs: Any) -> ManagedService:
-        from rafiki_tpu_torch.admin.proc import proc_start_time
-
         self._check_fence()
         tag = f"{service_type.lower()}-{uuid.uuid4().hex[:8]}"
         cfg_path = self.workdir / f"{tag}.json"
@@ -579,6 +922,11 @@ class ServicesManager:
                          "checkpoint_interval_s": train_args.get(
                              "checkpoint_interval_s", 30.0),
                          "worker_id": f"tw-{sub['id'][:8]}-{w}",
+                         # the /metrics + /debug/requests sidecar, on an
+                         # ephemeral port written to this file
+                         "obs_port_file": str(
+                             self.workdir / f"tw-{sub['id'][:8]}-{w}"
+                                            ".obs_port"),
                          "device": self.worker_device},
                         ServiceType.TRAIN_WORKER, slot=slot,
                         train_job_id=train_job_id,
@@ -805,11 +1153,15 @@ class ServicesManager:
         # generative tasks serve through the continuous-batching decode
         # loop, the others through the micro-batcher
         decode_loop = model["task"] == TaskType.LANGUAGE_MODELING
+        wid = f"iw-{inference_job_id[:8]}-{i}"
         cfg = {"model_file": str(model_file),
                "model_class": model["model_class"],
                "trial_id": trial["id"], "knobs": trial["knobs"],
-               "worker_id": f"iw-{inference_job_id[:8]}-{i}",
-               "decode_loop": decode_loop,
+               "worker_id": wid, "decode_loop": decode_loop,
+               # the obs sidecar (/metrics, /debug/requests, /drain) on
+               # an ephemeral port written to this file: the drain and
+               # adoption probes find it there
+               "obs_port_file": str(self.workdir / f"{wid}.obs_port"),
                "steps_per_sync": int(budget.get("STEPS_PER_SYNC", 4)),
                "pool_id": inference_job_id,
                "device": self.worker_device}
@@ -1100,7 +1452,8 @@ class ServicesManager:
         with self.op_lock:
             return {"respawns_done": sum(self._respawn_counts.values()),
                     "pending_respawns": len(self._pending_respawns),
-                    "degraded_jobs": len(self._degraded)}
+                    "degraded_jobs": len(self._degraded),
+                    "rolling_restarts_done": self._rolling_restarts}
 
     def pending_respawn_job_ids(self) -> set:
         """Jobs with a queued (slot-starved) worker respawn: they count
@@ -1113,6 +1466,127 @@ class ServicesManager:
                 if jid:
                     out.add(jid)
             return out
+
+    # ---- graceful drain / rolling restart ----
+    def _request_drain(self, config: Dict[str, Any]) -> bool:
+        """Ask a worker to drain: ``POST /drain`` on its obs sidecar (the
+        port in the ``obs_port_file`` it wrote at boot), else a
+        ``{"control": "drain"}`` message on its query queue. False when
+        neither channel is there."""
+        from rafiki_tpu_torch.utils.http import json_request
+
+        port_file = config.get("obs_port_file")
+        if port_file:
+            try:
+                port = int(Path(port_file).read_text().strip())
+                json_request("POST", f"http://127.0.0.1:{port}/drain", {},
+                             timeout=5.0)
+                return True
+            except Exception as e:  # the sidecar may be gone with a
+                # hung worker; the queue channel still works
+                log.warning("drain via obs sidecar failed (%s); falling "
+                            "back to the queue control message", e)
+        wid = config.get("worker_id")
+        if wid and self.kv_port:
+            from rafiki_tpu_torch.serving.queues import (KVQueueHub,
+                                                         pack_message)
+
+            KVQueueHub(self.kv_host, self.kv_port).push_query(
+                wid, pack_message({"control": "drain"}))
+            return True
+        log.warning("no drain channel for worker %r",
+                    config.get("worker_id"))
+        return False
+
+    def rolling_restart(self, inference_job_id: str,
+                        drain_timeout: float = 120.0) -> Dict[str, Any]:
+        """Drain, stop and respawn each of a live inference job's
+        workers one at a time: the draining worker finishes its
+        in-flight requests (streams too) while the predictor's breaker
+        board routes new traffic to its siblings, and only then is it
+        replaced on its freed slot. A worker that does not drain within
+        ``drain_timeout`` is terminated, so the restart converges over a
+        hung process. Returns the old → new service id pairs."""
+        self._check_fence()
+        if not self._rolling_lock.acquire(blocking=False):
+            raise RuntimeError(
+                "a rolling restart is already in progress: wait for it "
+                "to finish (retrying a timed-out request would drain the "
+                "fresh replacements)")
+        try:
+            return self._rolling_restart(inference_job_id, drain_timeout)
+        finally:
+            self._rolling_lock.release()
+
+    def _rolling_restart(self, inference_job_id: str,
+                         drain_timeout: float) -> Dict[str, Any]:
+        with self.op_lock:
+            targets = []
+            for sid, svc in list(self.services.items()):
+                if svc.service_type != ServiceType.INFERENCE_WORKER:
+                    continue
+                spec = self._respawn_specs.get(sid)
+                if spec and spec["meta_kwargs"].get(
+                        "inference_job_id") == inference_job_id:
+                    targets.append((sid, svc, spec))
+        if not targets:
+            raise KeyError("no live inference workers for job "
+                           f"{inference_job_id!r}")
+        restarted = []
+        for sid, svc, spec in targets:
+            with self.op_lock:
+                # healing off for this worker only, at its turn: its
+                # exit (or the terminate below) must not make the
+                # monitor respawn it beside the replacement spawned here
+                self._respawn_specs.pop(sid, None)
+            drain_sent = self._request_drain(spec["config"])
+            # wait outside op_lock, so the monitor keeps polling; a
+            # worker never asked to drain gets a short grace only
+            try:
+                svc.proc.wait(timeout=drain_timeout if drain_sent
+                              else min(5.0, drain_timeout))
+            except subprocess.TimeoutExpired:
+                log.warning("worker %s did not drain within %.0fs%s; "
+                            "terminating", sid, drain_timeout,
+                            "" if drain_sent else " (no drain channel)")
+                svc.proc.terminate()
+                try:
+                    svc.proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    svc.proc.kill()
+                    svc.proc.wait()
+            with self.op_lock:
+                if sid in self.services:  # the monitor may have reaped
+                    # the rc 0 exit already (a drain is a clean exit)
+                    self.meta.update_service(sid,
+                                             status=ServiceStatus.STOPPED)
+                    if svc.slot is not None:
+                        self.allocator.release(svc.slot)
+                        svc.slot = None
+                    del self.services[sid]
+                slot = None
+                if spec["needs_slot"]:
+                    slot = self.allocator.acquire(timeout=self.slot_timeout)
+                    if slot is None:
+                        raise RuntimeError(
+                            "no free device slot to respawn drained worker "
+                            f"{sid}: rolling restart aborted mid-way")
+                try:
+                    # op_lock held across the spawn: a concurrent op
+                    # must not take the vacated slot mid-restart
+                    new = self._spawn(spec["module"], spec["config"],
+                                      spec["service_type"], slot=slot,
+                                      **spec["meta_kwargs"])
+                except Exception:
+                    if slot is not None:
+                        self.allocator.release(slot)
+                    raise
+                self._rolling_restarts += 1
+                # a fresh healthy worker supersedes a degraded flag
+                self._degraded.pop(inference_job_id, None)
+            restarted.append({"old": sid, "new": new.service_id,
+                              "drained": bool(drain_sent)})
+        return {"job_id": inference_job_id, "restarted": restarted}
 
     def stop_service(self, service_id: str, timeout: float = 10.0) -> None:
         self._check_fence()
@@ -1147,6 +1621,7 @@ class ServicesManager:
             self._respawn_specs.pop(sid, None)
             del self.services[sid]
         self._kv_server = None
+        self._kv_proc = None
         self.kv_host, self.kv_port = "", 0
 
     def stop_all(self) -> None:
@@ -1156,11 +1631,47 @@ class ServicesManager:
         for sid in list(self.services):
             with self.op_lock:
                 self._stop_service(sid, timeout=10.0)
-        if self._kv_server is not None:
+        if self._kv_proc is not None and self._kv_server is not None:
             self._kv_server.stop()
             self._kv_server = None
+            self._kv_proc = None
             self.kv_host, self.kv_port = "", 0
             if self._kv_service_id:
                 self.meta.update_service(self._kv_service_id,
                                          status=ServiceStatus.STOPPED)
         self.release_lease()
+
+
+class _DeadProc:
+    """Popen-shaped stand-in for a kvd the reconciler found dead (row
+    present, process gone): an exited handle, so the respawn path sees
+    the same supervision state as after a death under the monitor."""
+
+    pid = 0
+    returncode = -1
+
+    def poll(self) -> int:
+        return self.returncode
+
+
+class _AdoptedKVServer:
+    """KVServer-shaped handle over a kvd the reconciler adopted: the
+    ``host``, ``port``, ``_proc`` and ``stop()`` of
+    :class:`rafiki_tpu_torch.native.client.KVServer`."""
+
+    def __init__(self, host: str, port: int,
+                 proc: AdoptedProcess) -> None:
+        self.host, self.port = host, port
+        self._proc = proc
+
+    def stop(self) -> None:
+        from rafiki_tpu_torch.native.client import KVClient
+
+        try:
+            KVClient(self.host, self.port).shutdown()
+        except OSError:
+            pass
+        try:
+            self._proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()

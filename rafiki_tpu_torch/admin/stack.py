@@ -13,14 +13,13 @@ spawns the advisors, workers and predictors; its state lives under
   boot that exits 3 is reported with its own detail), then records the
   pid and url. ``--device cpu`` asks for a CPU stack (``"platform":
   "cpu"``, over the admin's default of one slot); without it the admin
-  probes the cards and refuses to start without one.
+  probes the cards and refuses to start without one. The admin adopts
+  what a previous one left running; ``--cold`` (``"cold_start"``) kills
+  it instead, for when that state is not to be trusted.
 - ``stop`` sends SIGTERM (SIGKILL after 10 s), then kills the services
   the meta store still lists as live whose (pid, start time) identity
   holds, and marks their rows STOPPED: the orphan sweep.
 - ``status`` prints the admin's ``/health`` with its url.
-
-``--cold`` (a clean-slate boot that kills a previous stack's survivors)
-raises ``NotPorted``, as the port's admin refuses ``cold_start``.
 """
 
 from __future__ import annotations
@@ -46,11 +45,6 @@ def stack_command(args: argparse.Namespace) -> int:
     url_file = workdir / "admin.url"
 
     if args.action == "start":
-        if getattr(args, "cold", False):
-            from rafiki_tpu_torch.serving.decode_engine import NotPorted
-
-            raise NotPorted("stack start --cold (reaping a previous "
-                            "admin's services) is not ported yet")
         if pid_file.exists() and _pid_alive(int(pid_file.read_text())):
             print(f"stack already running (pid {pid_file.read_text()})",
                   file=sys.stderr)
@@ -59,6 +53,7 @@ def stack_command(args: argparse.Namespace) -> int:
         cfg = {"workdir": str(workdir), "db_path": str(workdir / "meta.db"),
                "host": "127.0.0.1", "port": args.port,
                "slot_size": args.slot_size, "workers": args.workers,
+               "cold_start": bool(getattr(args, "cold", False)),
                "port_file": str(workdir / "admin.port")}
         if getattr(args, "device", "cuda") == "cpu":
             cfg["platform"] = "cpu"

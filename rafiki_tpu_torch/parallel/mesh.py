@@ -1,8 +1,8 @@
 """Device slots: the cards of one host, partitioned among worker processes.
 
 The port's own copy of the slot half of ``rafiki_tpu/parallel/mesh.py``
-(``DeviceSpec``, ``partition_devices``, ``SubMesh``, ``SubMeshAllocator``)
-over CUDA device indices. Where the JAX package tiles a TPU slice into
+(``DeviceSpec``, ``partition_devices``, ``SubMesh``, ``SubMeshAllocator``
+with ``reserve``) over CUDA device indices. Where the JAX package tiles a TPU slice into
 ICI-contiguous boxes by chip coordinates, a host's CUDA cards are split
 in index order into equal runs of ``slot_size`` (the cards of one H100
 host are joined all to all by NVLink, so any run is as close as any
@@ -83,6 +83,19 @@ class SubMeshAllocator:
                                      timeout=timeout):
                 return None
             return self._slots[self._free.pop(0)]
+
+    def reserve(self, device_ids: Sequence[int]) -> Optional[SubMesh]:
+        """Take the free slot made of exactly ``device_ids`` (in any
+        order), or None when no free slot matches. The boot reconciler
+        re-reserves the slot an adopted worker still drives: an
+        ``acquire()`` could hand its cards to a new spawn."""
+        want = sorted(int(i) for i in device_ids)
+        with self._cv:
+            for idx in list(self._free):
+                if sorted(d.id for d in self._slots[idx].devices) == want:
+                    self._free.remove(idx)
+                    return self._slots[idx]
+            return None
 
     def release(self, submesh: SubMesh) -> None:
         with self._cv:

@@ -10,8 +10,9 @@ manager call: users and authentication (``create_user``,
 ``authenticate_user``, ...), models, datasets, train and sub-train
 jobs, trials (``mark_trial_completed`` / ``mark_trial_errored`` fenced on
 RUNNING, ``claim_trial_for_resume``, ``get_best_trials_of_train_job``,
-trial logs), inference jobs, services, the respawn budgets and the
-admin lease. ``backup`` and the Postgres adapter are not ported: a
+trial logs), inference jobs, services, the respawn budgets, the admin
+lease, the read-only open of the auditors (``read_only=True``) and the
+online ``backup``. The Postgres adapter is not ported: a
 ``postgresql://`` url raises, naming the backend.
 """
 
@@ -99,9 +100,12 @@ def _uid() -> str:
 class MetaStore:
     """Thread-safe trial metadata over one SQLite connection with a
     process-wide lock. ``db_path``: a file path, ``:memory:`` or a
-    ``sqlite:///path`` url."""
+    ``sqlite:///path`` url. ``read_only`` opens a file through sqlite's
+    ``mode=ro`` uri and runs no DDL: the auditors (``doctor --workdir``,
+    the backup command) cannot write or migrate a live stack's store."""
 
-    def __init__(self, db_path: str = ":memory:") -> None:
+    def __init__(self, db_path: str = ":memory:",
+                 read_only: bool = False) -> None:
         path = str(db_path)
         if path.startswith(("postgresql://", "postgres://")):
             raise NotImplementedError(
@@ -110,9 +114,11 @@ class MetaStore:
         if path.startswith("sqlite:///"):
             path = path[len("sqlite:///"):] or ":memory:"
         self._db_path = path
-        self._conn = sqlite3.connect(path, check_same_thread=False)
-        self._conn.row_factory = sqlite3.Row
+        self._read_only = read_only and path != ":memory:"
+        self._conn = self._connect()
         self._lock = threading.RLock()
+        if self._read_only:
+            return
         with self._lock:
             if path != ":memory:":
                 self._conn.execute("PRAGMA journal_mode=WAL")
@@ -130,6 +136,16 @@ class MetaStore:
                     "UPDATE trials SET error_class='preemption' "
                     "WHERE status='ERRORED' AND error_class IS NULL")
             self._conn.commit()
+
+    def _connect(self) -> sqlite3.Connection:
+        if self._read_only:
+            conn = sqlite3.connect(f"file:{self._db_path}?mode=ro",
+                                   uri=True, check_same_thread=False)
+            conn.execute("PRAGMA busy_timeout=10000")
+        else:
+            conn = sqlite3.connect(self._db_path, check_same_thread=False)
+        conn.row_factory = sqlite3.Row
+        return conn
 
     def close(self) -> None:
         with self._lock:
@@ -656,6 +672,50 @@ class MetaStore:
 
     def get_admin_lease(self) -> Optional[Dict[str, Any]]:
         return self._one("SELECT * FROM admin_lease WHERE id=1")
+
+
+    # ---- online backup ----
+    def backup(self, path: str) -> Dict[str, Any]:
+        """Snapshot the live store to ``path`` with SQLite's online
+        backup API (consistent under concurrent writers) and return
+        ``{path, bytes}``. The copy lands in a temporary file first and
+        replaces ``path`` atomically, so a crash mid-backup never leaves
+        a torn snapshot there."""
+        if self._db_path != ":memory:":
+            # a connection of its own and no store lock: the backup API
+            # is online, and holding the lock for the page copy would
+            # stall every other caller (the lease heartbeat among them)
+            conn = self._connect()
+            try:
+                _sqlite_backup(conn, path)
+            finally:
+                conn.close()
+        else:
+            # the live connection is the database
+            with self._lock:
+                _sqlite_backup(self._conn, path)
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            size = 0
+        return {"path": path, "bytes": size}
+
+
+def _sqlite_backup(conn: sqlite3.Connection, path: str) -> None:
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        dest = sqlite3.connect(tmp)
+        try:
+            conn.backup(dest)
+        finally:
+            dest.close()
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def _hash_password(password: str, salt: str) -> str:

@@ -6,7 +6,8 @@ warmup), then loop — block-pop the query queue, serve, push the replies
 keyed by query id — answering the unchanged JAX ``Predictor`` over the
 same queue hub and the same msgpack wire. Ported: ``ClockSkewEstimator``,
 ``InferenceWorker`` (``__init__``, ``_admission_check``, ``_warmup``,
-``stop``, ``drain``, ``_publish_stats``, ``_engine_span``,
+``stop``, ``drain``, ``serve_obs`` (the obs sidecar with ``POST
+/drain``), ``_publish_stats``, ``_engine_span``,
 ``_reject_expired``, ``_handle_control``, ``_reject_draining``,
 ``_share_prefix_snapshot``,
 ``_drain_reject_queued``, ``_hub_outage_pause``, ``_hub_ok``, ``run`` with
@@ -57,9 +58,9 @@ Where it differs from the JAX worker, on purpose:
   ``NotImplementedError`` at boot, naming itself; so does
   ``paged_kernel=False`` (the port has no gather path on the card:
   ``None``/``True`` serve paged);
-- no obs HTTP sidecar (``serve_obs``);
 - ``main`` reads the same config JSON plus ``"device"``; there is no jax
-  platform setup and no multi-host rendezvous;
+  platform setup and no multi-host rendezvous; on exit it deletes its
+  ``obs_port_file`` (``obs/http.py`` ``remove_port_file``);
 - the published stats carry the process's kernel launch counts under
   ``kernel_launches`` (each kernel wrapper's ``launches``: zero where
   the plain versions ran), so a caller outside the process can tell
@@ -80,6 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from rafiki_tpu_torch.native.client import CLIENT_STATS
+from rafiki_tpu_torch.obs.http import ObsServer, remove_port_file
 from rafiki_tpu_torch.obs.metrics import MetricsRegistry, StatsMap
 from rafiki_tpu_torch.obs.trace import TraceBuffer, mint_trace_id
 from rafiki_tpu_torch.ops import attention as _fa
@@ -213,6 +215,10 @@ class InferenceWorker:
         self.metrics.register_stats(CLIENT_STATS)
         self.traces = TraceBuffer(512)
         self._boot_mono = time.monotonic()
+        #: the obs sidecar's port once serve_obs ran (0: none), published
+        #: with the stats
+        self._obs_port = 0
+        self._obs_server: Optional[ObsServer] = None
         self._h_ttft = self.metrics.histogram(
             "ttft_seconds", "queued -> first generated token (seconds)")
         self._h_queue = self.metrics.histogram(
@@ -523,6 +529,30 @@ class InferenceWorker:
     def draining(self) -> bool:
         return self._draining.is_set()
 
+    def serve_obs(self, host: str = "127.0.0.1",
+                  port: int = 0) -> Tuple[str, int]:
+        """Start the observability sidecar (``GET /metrics``, ``GET
+        /debug/requests?n=K``, ``GET /health``, ``POST /drain``) on a
+        daemon thread; returns its (host, port). The serve loop never
+        touches it: scrapes read the registry the loop writes, and
+        ``/drain`` sets the event the loop polls."""
+        self._obs_server = ObsServer(self.metrics, self.traces,
+                                     host=host, port=port)
+        # the drain control of rolling restarts: on the sidecar, as the
+        # worker itself is a queue consumer with no HTTP surface
+        self._obs_server.http.route(
+            "POST", "/drain",
+            lambda _m, _b, _h: (self.drain() or
+                                (200, {"ok": True, "draining": True})))
+        host, port = self._obs_server.start()
+        self._obs_port = port
+        return host, port
+
+    def stop_obs(self) -> None:
+        if self._obs_server is not None:
+            self._obs_server.stop()
+            self._obs_server = None
+
     #: loop iterations between stats publications to the hub
     STATS_EVERY = 50
     #: how long published counters stay trustworthy (the predictor reads
@@ -541,6 +571,8 @@ class InferenceWorker:
         stats["uptime_s"] = time.monotonic() - self._boot_mono
         stats["stale_after_s"] = self.STALE_AFTER_S
         stats["kernel_launches"] = kernel_launches()
+        if self._obs_port:
+            stats["obs_port"] = self._obs_port  # where /metrics lives
         if self.engine is not None:
             snap = self.engine.stats_snapshot()
             stats.update({f"engine_{k}": v for k, v in snap.items()})
@@ -1240,7 +1272,10 @@ def main(argv: Optional[list] = None) -> int:
     --config cfg.json``. The config is the JAX worker's JSON
     (``model_file``, ``model_class``, ``trial_id``, ``knobs``,
     ``param_store_uri``, ``kv_host``, ``kv_port``, ``worker_id``, the
-    serving options) plus ``"device"`` (default: the CUDA card)."""
+    serving options, ``obs_host`` / ``obs_port`` / ``obs_port_file``)
+    plus ``"device"`` (default: the CUDA card). The obs sidecar listens
+    on ``obs_port`` (default: an ephemeral port), written to
+    ``obs_port_file`` once the worker has booted."""
     import argparse
     import json
 
@@ -1281,9 +1316,20 @@ def main(argv: Optional[list] = None) -> int:
         kv_wait_s=float(cfg.get("kv_wait_s", 1.5)),
         pool_id=str(cfg.get("pool_id", "")),
         device=cfg.get("device"))
+    # observability sidecar: /metrics, /debug/requests and /drain on
+    # an ephemeral (or configured) port, written to obs_port_file
+    obs_host, obs_port = worker.serve_obs(
+        cfg.get("obs_host", "127.0.0.1"), int(cfg.get("obs_port", 0)))
+    if cfg.get("obs_port_file"):
+        with open(cfg["obs_port_file"], "w") as f:
+            f.write(str(obs_port))
     print(f"inference worker {worker.worker_id} serving on "
-          f"{worker.device}", flush=True)
-    worker.run()
+          f"{worker.device} (obs on {obs_host}:{obs_port})", flush=True)
+    try:
+        worker.run()
+    finally:
+        worker.stop_obs()
+        remove_port_file(cfg.get("obs_port_file"), obs_port)
     if worker.draining:
         print(f"inference worker {worker.worker_id} drained cleanly",
               flush=True)

@@ -7,7 +7,8 @@ train, evaluate, save the parameters, report the score. Ported:
 ``_observe_log_record``, ``_record_trial_obs``, ``_admission_check``,
 ``_wire_checkpointing``, ``_start_heartbeat``,
 ``resume_orphaned_trials``, ``run_gang``, ``run``,
-``_linger_for_orphans``), ``_count_blob_params``,
+``_linger_for_orphans``, ``serve_obs``, ``stop_obs``),
+``_count_blob_params``,
 ``_device_peak_flops`` and ``main``.
 
 BOHB rungs ride the same loop (``budget_scale`` scales epochs,
@@ -35,8 +36,8 @@ Where it differs from the JAX worker, on purpose:
 - ``run_gang`` runs sequential trials for a template without a gang spec
   (JAX's fallback) and raises ``NotPorted`` for one with a spec
   (``LlamaLoRA``): the gang engine is not ported;
-- no obs HTTP sidecar: ``main`` refuses a config that asks for one
-  (``obs_port``, ``obs_port_file``); the counters live in ``stats``.
+- on exit ``main`` deletes its ``obs_port_file`` (``obs/http.py``
+  ``remove_port_file``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import os
 import threading
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -57,6 +58,7 @@ from rafiki_tpu_torch.model.dev import check_gang_size, profiled_train
 from rafiki_tpu_torch.model.base import TrainContext
 from rafiki_tpu_torch.model.knob import shape_signature
 from rafiki_tpu_torch.model.log import ModelLogger
+from rafiki_tpu_torch.obs.http import ObsServer, remove_port_file
 from rafiki_tpu_torch.obs.metrics import MetricsRegistry, StatsMap
 from rafiki_tpu_torch.obs.trace import TraceBuffer, mint_trace_id
 from rafiki_tpu_torch.store.param_store import ParamStore
@@ -148,6 +150,21 @@ class TrainWorker:
                                "last_trial_tokens_per_s": 0.0,
                                "last_trial_est_mfu": 0.0})
         self.metrics.register_stats(self.stats)
+        self._obs_server: Optional[ObsServer] = None
+
+    def serve_obs(self, host: str = "127.0.0.1",
+                  port: int = 0) -> Tuple[str, int]:
+        """Start the observability sidecar (``GET /metrics``, ``GET
+        /debug/requests``: the trial timelines, ``GET /health``) on a
+        daemon thread; returns its (host, port)."""
+        self._obs_server = ObsServer(self.metrics, self.traces,
+                                     host=host, port=port)
+        return self._obs_server.start()
+
+    def stop_obs(self) -> None:
+        if self._obs_server is not None:
+            self._obs_server.stop()
+            self._obs_server = None
 
     # ---- one trial ----
     def run_trial(self, proposal: Proposal) -> Optional[float]:
@@ -560,8 +577,10 @@ def main(argv: Optional[list] = None) -> int:
     (``advisor_url``, ``model_file``, ``model_class``, ``train_dataset``,
     ``val_dataset``, ``param_store_uri``, ``meta_store_path``,
     ``sub_train_job_id``, ``model_id``, ``worker_id``, ``profile_dir``,
-    ``knob_overrides``, ``checkpoint_interval_s``, ``gang_size``) plus
-    ``"device"`` (default: the CUDA card)."""
+    ``knob_overrides``, ``checkpoint_interval_s``, ``gang_size``,
+    ``obs_host`` / ``obs_port`` / ``obs_port_file``) plus ``"device"``
+    (default: the CUDA card). The obs sidecar listens on ``obs_port``
+    (default: an ephemeral port), written to ``obs_port_file``."""
     import argparse
 
     from rafiki_tpu_torch.advisor.service import AdvisorClient
@@ -577,10 +596,6 @@ def main(argv: Optional[list] = None) -> int:
     args = parser.parse_args(argv)
     with open(args.config) as f:
         cfg = json.load(f)
-    for key in ("obs_port", "obs_port_file"):
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"{key}: the obs HTTP sidecar is not ported yet")
     with open(cfg["model_file"], "rb") as f:
         model_class = load_model_class(f.read(), cfg["model_class"])
     meta_store = (MetaStore(cfg["meta_store_path"])
@@ -599,10 +614,21 @@ def main(argv: Optional[list] = None) -> int:
         knob_overrides=cfg.get("knob_overrides"),
         checkpoint_interval_s=float(cfg.get("checkpoint_interval_s", 30.0)),
         device=cfg.get("device"))
-    print(f"train worker {worker.worker_id} training on {worker.device}",
-          flush=True)
-    gang_size = int(cfg.get("gang_size") or 0)
-    n = worker.run_gang(gang_size) if gang_size >= 1 else worker.run()
+    # observability sidecar: /metrics (trial and epoch timing, the MFU
+    # gauge) and /debug/requests (per-trial timelines)
+    obs_host, obs_port = worker.serve_obs(
+        cfg.get("obs_host", "127.0.0.1"), int(cfg.get("obs_port", 0)))
+    if cfg.get("obs_port_file"):
+        with open(cfg["obs_port_file"], "w") as f:
+            f.write(str(obs_port))
+    print(f"train worker {worker.worker_id} training on {worker.device} "
+          f"(obs on {obs_host}:{obs_port})", flush=True)
+    try:
+        gang_size = int(cfg.get("gang_size") or 0)
+        n = worker.run_gang(gang_size) if gang_size >= 1 else worker.run()
+    finally:
+        worker.stop_obs()
+        remove_port_file(cfg.get("obs_port_file"), obs_port)
     print(f"train worker {worker.worker_id} done: {n} trials", flush=True)
     return 0
 

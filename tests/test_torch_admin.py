@@ -61,7 +61,7 @@ from rafiki_tpu_torch.parallel.mesh import (DeviceSpec, SubMeshAllocator,
                                             partition_devices, slot_env_vars)
 from rafiki_tpu_torch.serving.decode_engine import NotPorted
 from rafiki_tpu_torch.store.meta_store import MetaStore
-from rafiki_tpu_torch.utils.http import HttpStatusError
+from rafiki_tpu_torch.utils.http import HttpStatusError, json_request
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -221,10 +221,13 @@ def test_app_main_without_a_cpu_flag_raises(tmp_path, monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config", str(cfg)])
+    # a cold start is served now (tests/test_torch_recovery.py boots
+    # one); the fault-injection drills are still refused by name
     cfg.write_text(json.dumps({"workdir": str(tmp_path / "w"),
                                "db_path": str(tmp_path / "meta.db"),
                                "platform": "cpu", "cold_start": True}))
-    with pytest.raises(NotPorted, match="cold_start"):
+    monkeypatch.setenv("RAFIKI_CHAOS", "kill_admin_after_s=1")
+    with pytest.raises(NotPorted, match="RAFIKI_CHAOS"):
         main(["--config", str(cfg)])
 
 
@@ -645,27 +648,53 @@ def test_multi_adapter_stacks_trials_of_one_model_and_shape(app, caplog):
 ])
 def test_deferred_routes_answer_400_naming_themselves(app, route, body,
                                                       what):
-    client, meta, *_ = app
+    """Scale-out is still refused by name. The rolling restart and the
+    backup are served now: a restart of a RUNNING job with no live
+    worker is the reference's 400 naming that, and the backup writes
+    its snapshot (``tests/test_torch_recovery.py`` drives both
+    further)."""
+    client, meta, _manager, tmp_path = app
     job = meta.create_inference_job("u", "t", budget={})
     meta.update_inference_job(job["id"], status="RUNNING")
     route = route.replace("j1", job["id"])
+    if what == "backup":
+        body = {"path": str(tmp_path / "b.db")}
+        got = client._call("POST", route, body)
+        assert got["ok"] and got["path"] == body["path"]
+        assert got["bytes"] == os.path.getsize(body["path"]) > 0
+        assert MetaStore(body["path"]).get_inference_job(job["id"])
+        return
     with pytest.raises(HttpStatusError) as ei:
         client._call("POST", route, body)
     assert ei.value.status == 400
-    assert what in str(ei.value) and "not ported" in str(ei.value)
+    if what == "rolling restart":
+        assert "no live inference workers for job" in str(ei.value)
+        assert "not ported" not in str(ei.value)
+    else:
+        assert what in str(ei.value) and "not ported" in str(ei.value)
 
 
 def test_deferred_manager_calls_raise_not_ported(app):
+    """Scale-out and the autoscaler are still refused by name; the
+    reconciler, the cold-start reaper and the rolling restart are
+    served: over an empty store they adopt, reap and find nothing."""
     _, _, manager, _ = app
-    for call in (manager.reconcile, manager.reap_stale_services,
-                 lambda: manager.rolling_restart("j"),
-                 lambda: manager.scale_inference_job("j", 2),
+    for call in (lambda: manager.scale_inference_job("j", 2),
                  lambda: manager.scaleout_status("j")):
         with pytest.raises(NotPorted, match="not ported"):
             call()
     with pytest.raises(HttpStatusError) as ei:
         app[0]._call("GET", "/inference_jobs/x/autoscaler")
     assert ei.value.status == 400
+    rec = manager.reconcile()
+    assert {k: rec[k] for k in ("services_adopted", "services_crashed",
+                                "orphans_reaped", "kv_adopted")} == {
+        "services_adopted": 0, "services_crashed": 0, "orphans_reaped": 0,
+        "kv_adopted": 0}
+    assert rec["fenced"] is False and rec["last_recovery_at"] > 0
+    assert manager.reap_stale_services() == 0
+    with pytest.raises(KeyError, match="no live inference workers"):
+        manager.rolling_restart("j")
 
 
 def test_health_and_metrics(app):
@@ -727,14 +756,17 @@ def test_a_toy_job_through_the_stack_in_subprocesses(app):
     assert job["status"] == "RUNNING"
     rows = {r["service_type"]: r for r in meta.get_services("RUNNING")}
     worker_cfg = rows["TRAIN_WORKER"]["spawn_spec"]["config"]
-    assert worker_cfg["device"] == "cpu" and "obs_port_file" not in \
-        worker_cfg
+    assert worker_cfg["device"] == "cpu"
+    assert worker_cfg["obs_port_file"] == str(
+        manager.workdir / f"{worker_cfg['worker_id']}.obs_port")
     assert rows["TRAIN_WORKER"]["spawn_spec"]["module"] == \
         "rafiki_tpu_torch.worker.train"
     assert manager.allocator.free_count() == 0
     # the app's monitor is not running here: drive the manager's own wait
     assert manager.wait_train_job(job["id"], timeout=300)
     assert manager.allocator.free_count() == 1
+    # a worker that exits takes its obs port file with it
+    assert not Path(worker_cfg["obs_port_file"]).exists()
     trials = client.get_trials_of_train_job(job["id"])
     assert [t["status"] for t in trials] == ["COMPLETED"] * 3
     best = client.get_best_trials_of_train_job(job["id"], 1)[0]
@@ -744,6 +776,13 @@ def test_a_toy_job_through_the_stack_in_subprocesses(app):
     assert preds == [[best["score"], 3.0], [best["score"], 3.0]]
     types = sorted(s.service_type for s in manager.services.values())
     assert types == ["INFERENCE_WORKER", "PREDICTOR"]
+    # the inference worker's sidecar, found through its obs_port_file
+    iw = next(r for r in meta.get_services("RUNNING")
+              if r["service_type"] == "INFERENCE_WORKER")
+    obs_port = int(Path(iw["spawn_spec"]["config"][
+        "obs_port_file"]).read_text())
+    assert json_request("GET", f"http://127.0.0.1:{obs_port}/health") == \
+        {"ok": True}
     pids = [s.proc.pid for s in manager.services.values()]
     client.stop_inference_job(ij["id"])
     assert not manager.services and manager.allocator.free_count() == 1

@@ -248,9 +248,19 @@ def test_cli_version_and_refusals(capsys):
     assert cli.main(["version"]) == 0
     assert capsys.readouterr().out.strip() == \
         __import__("rafiki_tpu_torch").__version__
-    for argv in (["doctor"], ["backup", "out.db"], ["lint"]):
-        with pytest.raises(NotPorted, match=repr(argv[0])):
-            cli.main(argv)
+    with pytest.raises(NotPorted, match="'lint'"):
+        cli.main(["lint"])
+    # doctor and backup are served: here the doctor finds no card, and
+    # the backup no stack
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        assert cli.main(["doctor"]) == 1
+    out = capsys.readouterr().out
+    assert "[FAIL] cuda device" in out and "SOME CHECKS FAILED" in out
+    assert "[ok ] native kv server" in out
+    assert cli.main(["backup", "out.db", "--workdir", "no-such-stack"]) == 1
+    assert "no MetaStore at no-such-stack/meta.db" in \
+        capsys.readouterr().err
     with pytest.raises(KeyError, match="known"):
         cli.main(["tune", "Nope", "a", "b", "--device", "cpu"])
     with pytest.raises(NotPorted, match="BigramHMM"):
@@ -301,5 +311,13 @@ def test_stack_start_status_stop_on_the_cpu(tmp_path, capsys):
     assert "stack stopped" in capsys.readouterr().out
     assert not Path(f"/proc/{pid}").exists() or \
         Path(f"/proc/{pid}/stat").read_text().split(")")[-1].split()[0] == "Z"
-    with pytest.raises(NotPorted, match="cold"):
-        cli.main(["stack", "start", "--workdir", workdir, "--cold"])
+    # --cold is served: the admin reaps what a previous one left
+    try:
+        assert cli.main(["stack", "start", "--workdir", workdir, "--port",
+                         "0", "--device", "cpu", "--cold"]) == 0
+        cfg = json.loads((tmp_path / "stack" / "admin.json").read_text())
+        assert cfg["cold_start"] is True
+    finally:
+        assert cli.main(["stack", "stop", "--workdir", workdir]) == 0
+    assert "cold start: reaped 0 stale service row(s)" in \
+        (tmp_path / "stack" / "admin.log").read_text()

@@ -732,12 +732,44 @@ def _main_config(tmp_path, url, **extra):
     return str(path), meta, sub
 
 
-def test_main_refuses_the_obs_sidecar(tmp_path):
-    for key, value in (("obs_port", 9100), ("obs_port_file", "p.txt")):
+def test_main_refuses_the_obs_sidecar(tmp_path, monkeypatch):
+    """``main`` serves the obs sidecar now (it used to refuse it): on the
+    port ``obs_port`` names, or on an ephemeral one written to
+    ``obs_port_file``, up while the worker runs; the file goes with the
+    worker."""
+    import socket
+    import urllib.request
+
+    from rafiki_tpu_torch.utils.http import json_request
+
+    seen = []
+
+    def run(self):
+        port = self._obs_server.port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        seen.append((port, json_request(
+            "GET", f"http://127.0.0.1:{port}/health"),
+            "trials_completed 0" in text))
+        return 0
+
+    monkeypatch.setattr(ptrain.TrainWorker, "run", run)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        free = sock.getsockname()[1]
+    port_file = tmp_path / "p.txt"
+    for key, value in (("obs_port", free),
+                       ("obs_port_file", str(port_file))):
         path, _, _ = _main_config(tmp_path, "http://127.0.0.1:1",
                                   **{key: value})
-        with pytest.raises(NotImplementedError, match=key):
-            ptrain.main(["--config", path])
+        if key == "obs_port_file":
+            monkeypatch.setattr(ptrain.TrainWorker, "run", lambda self: (
+                run(self), seen.append(int(port_file.read_text())))[0])
+        assert ptrain.main(["--config", path]) == 0
+    assert seen[0] == (free, {"ok": True}, True)
+    assert seen[1][1:] == ({"ok": True}, True) and seen[2] == seen[1][0]
+    assert not port_file.exists()
 
 
 @pytest.mark.slow
