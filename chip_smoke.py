@@ -207,7 +207,7 @@ Phases; each raises on failure, so the script exits non-zero:
     bit-equal, the clients go on; (d) ``POST /system/backup`` opens as a
     MetaStore with the live rows, and ``python -m rafiki_tpu_torch.cli
     doctor --workdir`` finds no drift. After each of (a)-(c) phase 19's
-    256 images through ``/predict`` equal the direct ``predict``. The
+    first 64 images through ``/predict`` equal the direct ``predict``. The
     handover's, drain's, replacement's, replay's (seconds and bytes),
     backup's and doctor's seconds are printed; B7/B3 must launch in the
     replacement (the ``recovery`` path). Phase 23's teardown then stops
@@ -305,8 +305,29 @@ Phases; each raises on failure, so the script exits non-zero:
     No port kernel lies on these paths: their launch counts must stay 0
     (the ``resnet50_training`` and ``cnn_tuning`` paths).
 
+31. The gang engine (``gang_phase``, after 28): (a) BOHB over
+    ``JaxFeedForward`` on phase 28's FashionMNIST-layout zips, once as a
+    16-lane gang through ``tune_model(gang_size=16)`` and once through
+    the engine's ``mode="sequential"`` (each trial the template's own
+    ``train`` / ``evaluate``) with the same advisor seed: the same
+    trials, promotions and culls, every score equal but at most
+    ``GANG_FF_UNEQUAL``, those within ``GANG_FF_TOL``; (b)
+    ``LlamaLoRA`` at Llama-3-8B widths, depth 4, bf16, ``max_len``
+    1024: 4 lanes of batch 2 with distinct ``learning_rate`` and
+    ``lora_scale`` through the engine's executor, each lane's losses
+    within ``GANG_LLAMA_TOL`` of a sequential run of its own knobs on
+    the same batches, and a planted fault (``GANG_LLAMA_FAULT``: lanes
+    0 and 1 trade learning rates) read above that gate; B3, B5 and B6
+    launched ``depth`` times per gang step, the gang estimator's total
+    beside the peak memory; (c) a
+    head-dim-8 f32 ``LlamaLoRA`` job through ``TrainWorker.run_gang(2)``
+    over a sqlite MetaStore, its winner and a sequentially trained twin
+    served by one multi-adapter engine (paged: B1/B2), token for token
+    equal. Paths ``gang_feedforward`` (no port kernel), ``gang_llama``
+    and ``gang_worker``.
+
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
-22, 23, 27, 28, then 24 and 18: phases 24 and 18 hold the most host
+22, 23, 27, 28, 31, then 24 and 18: phases 24 and 18 hold the most host
 memory (phase 24's f32 tree, phase 18's blob), and run last.
 
 Each path's launch counts are zeroed just before it and read just after;
@@ -1313,8 +1334,8 @@ def train_exactness_phase(torch, np, ll, fa, dev):
         with torch.no_grad():
             for n, p in trainable.items():
                 p.copy_(init[n])
-        opt = ll.adamw(trainable, lr)
-        losses = [float(ll.train_step(model, trainable, opt, 1.0, batch))
+        state, hp = ll.lane_init(trainable, lr)
+        losses = [float(ll.lane_train_step(model, state, hp, batch)[1])
                   for _ in range(steps)]
         return losses, {n: p.detach().clone() for n, p in trainable.items()}
 
@@ -1416,7 +1437,7 @@ def training_phase(torch, np, ll, fa, depth, dev):
                          rope_theta=500000.0, device=dev, generator=gen)
         randomize_lora_b(model, gen)
         trainable = ll.make_trainable(model, ll.lora_trainable_names(model))
-        opt = ll.adamw(trainable, lr)
+        state, hp = ll.lane_init(trainable, lr)
         batch = ll.batch_to_device({"ids": ids[:b], "lens": lens[:b]}, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
@@ -1425,8 +1446,8 @@ def training_phase(torch, np, ll, fa, depth, dev):
         zero_flash_launches(fa)
         for _ in range(steps):
             t = time.perf_counter()
-            losses.append(float(ll.train_step(model, trainable, opt, 1.0,
-                                              batch)))  # syncs
+            losses.append(float(ll.lane_train_step(
+                model, state, hp, batch)[1]))  # syncs
             step_s.append(time.perf_counter() - t)
         launches = flash_launches(fa)
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1437,7 +1458,7 @@ def training_phase(torch, np, ll, fa, depth, dev):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            float(ll.train_step(model, trainable, opt, 1.0, batch))
+            float(ll.lane_train_step(model, state, hp, batch)[1])
             prof_wall = (time.perf_counter() - t) * 1e3
         try:
             split = _kernel_time_split(torch, prof)
@@ -3396,13 +3417,19 @@ class _Traffic:
                 "p50_s": lat[len(lat) // 2] if lat else None}
 
 
+#: phase 30's checks after (a)-(c): phase 19's first images through
+#: ``/predict`` (256 before phase 31 joined the call; each check of 256
+#: took 23-29 s of the serving host path)
+RECOVERY_CHECK_IMAGES = 64
+
+
 def _served_equal(np, client, url, images, want):
-    """Phase 19's 256 images through ``/predict`` in 4 requests of 64,
-    against the direct ``predict``: equal, and the wall seconds."""
+    """``images`` through ``/predict`` in requests of 64, against the
+    direct ``predict`` rows ``want``: equal, and the wall seconds."""
     t0 = time.perf_counter()
     served = []
-    for i in range(4):
-        served += client.predict(url, list(images[64 * i:64 * (i + 1)]))
+    for i in range(0, len(images), 64):
+        served += client.predict(url, list(images[i:i + 64]))
     got = np.asarray(served, np.float32)
     return {"identical_to_predict": bool(got.shape == want.shape and
                                          np.array_equal(got, want)),
@@ -3439,8 +3466,8 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
     live store's service, job and trial rows; ``python -m
     rafiki_tpu_torch.cli doctor --workdir`` on the live workdir reports
     no drift.
-    After each of (a)-(c) phase 19's 256 images through ``/predict``
-    must equal the direct ``predict``. ``st`` holds the live ``meta``,
+    After each of (a)-(c) phase 19's first ``RECOVERY_CHECK_IMAGES``
+    images through ``/predict`` must equal the direct ``predict``. ``st`` holds the live ``meta``,
     ``manager``, ``admin``, ``app``, ``client`` and ``url``; the admin
     of (a) replaces them there, for phase 23's teardown. Returns the
     phase's record and the ``recovery`` path's launches."""
@@ -3536,7 +3563,9 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
             "inference_worker": adopted.get("INFERENCE_WORKER") ==
             pids_before.get("INFERENCE_WORKER")},
         "third_admin_fenced": fenced, "traffic": traffic.counts()}
-    checks["a"] = _served_equal(np, client2, url, images, want)
+    checks["a"] = _served_equal(
+        np, client2, url, images[:RECOVERY_CHECK_IMAGES],
+        want[:RECOVERY_CHECK_IMAGES])
     h = rec["handover"]
     if not (all(h["same_pids"].values()) and fenced and
             recovered["services_adopted"] + recovered["kv_adopted"] >= 3
@@ -3583,7 +3612,9 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
         "slot": new_row["devices"], "traffic": traffic.counts(),
         "rolling_restarts_done":
             manager2.respawn_stats()["rolling_restarts_done"]}
-    checks["b"] = _served_equal(np, client2, url, images, want)
+    checks["b"] = _served_equal(
+        np, client2, url, images[:RECOVERY_CHECK_IMAGES],
+        want[:RECOVERY_CHECK_IMAGES])
     r = rec["rolling_restart"]
     if not (sidecar == {"ok": True} and drain_rc == 0 and
             len(out["restarted"]) == 1 and out["restarted"][0]["drained"]
@@ -3627,7 +3658,9 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
         "blob_bytes": len(blob), "blob_sha256": digest,
         "blob_bit_equal": blob2 == blob, "traffic": traffic.counts()}
     del blob, blob2
-    checks["c"] = _served_equal(np, client2, url, images, want)
+    checks["c"] = _served_equal(
+        np, client2, url, images[:RECOVERY_CHECK_IMAGES],
+        want[:RECOVERY_CHECK_IMAGES])
     k = rec["kvd_kill"]
     if not (k["kvd_respawns"] == 1 and k["same_port"] and
             k["blob_bit_equal"] and k["new_pid"] != kv_pid
@@ -5821,6 +5854,320 @@ def cnn_tuning_phase(torch, np, cnn, dataset, dev_mod, ps, queues, wi, fa,
     return {"cnn_tuning": launches}
 
 
+# ---- the gang engine (phase 31)
+
+#: phase 31 (a): the advisor, trials and lanes (docs/tuning.md's
+#: setting) over FeedForward at its documented pins
+GANG_FF_PINS = {"hidden_layer_count": 2, "hidden_layer_units": 64,
+                "batch_size": 64}
+GANG_FF_TRIALS = 32
+GANG_FF_LANES = 16
+#: (a)'s score gate: masked accuracy over 512 images. The gang's bmm and
+#: the sequential trial's mm round apart in f32, and Adam carries that as
+#: a ±lr step wherever a gradient sits at noise level (see
+#: tests/test_torch_mlp.py), so a trial can end some images apart: the
+#: H100 calls of this phase saw at most one trial (23) apart, by 10
+#: images. So all scores must be equal but at most GANG_FF_UNEQUAL, and
+#: those within GANG_FF_TOL. The trials, promotions and culls themselves
+#: must be equal
+GANG_FF_UNEQUAL = 1
+GANG_FF_TOL = 12 / 512
+#: phase 31 (b): Llama-3-8B widths at depth 4, 4 lanes of batch 2
+GANG_LLAMA = dict(WORKER_LLAMA, max_len=1024, depth=4, batch_size=2,
+                  bf16=True, adapters_only=False, quick_train=True,
+                  max_epochs=6, remat=False, remat_policy="none")
+GANG_LLAMA_HP = ((1e-4, 1.0), (3e-4, 0.5), (1e-3, 2.0), (3e-3, 0.25))
+GANG_LLAMA_STEPS = 3
+#: (b)'s loss tolerance (relative): bf16, the gang's row counts and
+#: bmm against the sequential step's mm. The H100 calls saw <= 1.03e-4; a
+#: planted fault (lanes 0 and 1 trading learning rates, GANG_LLAMA_FAULT)
+#: must read above it
+GANG_LLAMA_TOL = 1e-3
+GANG_LLAMA_FAULT = (GANG_LLAMA_HP[1][0], GANG_LLAMA_HP[0][1]), \
+    (GANG_LLAMA_HP[0][0], GANG_LLAMA_HP[1][1])
+#: phase 31 (c): head dim 8, f32, adapters only (multi-adapter serving)
+GANG_WORKER_PINS = {"hidden_dim": 64, "depth": 2, "n_heads": 8,
+                    "kv_ratio": 2, "lora_rank": 4, "max_len": 128,
+                    "batch_size": 8, "bf16": False, "adapters_only": True,
+                    "quick_train": True, "model_parallel": 1,
+                    "remat_policy": "none", "share_params": False}
+GANG_PATHS = ("gang_feedforward",)
+
+
+def _gang_feedforward(torch, np, dataset, dev_mod, tuning, ff, dev):
+    """Phase 31 (a)."""
+    from rafiki_tpu_torch.advisor import make_advisor
+
+    work = ROOT / "build" / "chip_smoke" / "cnn_tuning"
+    train, val = str(work / "fashion_train.zip"), str(work / "fashion_val.zip")
+    if not (Path(train).exists() and Path(val).exists()):
+        work.mkdir(parents=True, exist_ok=True)
+        dataset.generate_fashion_archive(train, FASHION_IMAGES[0], seed=SEED)
+        dataset.generate_fashion_archive(val, FASHION_IMAGES[1],
+                                         seed=SEED + 1)
+    engines = []
+    real = tuning.GangEngine
+
+    class Recorded(real):  # the engine tune_model builds, for its results
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    runs = {}
+    for mode in ("gang", "sequential"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "gang":
+            tuning.GangEngine = Recorded
+            try:
+                dev_mod.tune_model(
+                    ff.JaxFeedForward, train, val,
+                    total_trials=GANG_FF_TRIALS, advisor_type="bohb",
+                    seed=SEED, gang_size=GANG_FF_LANES,
+                    knob_overrides=GANG_FF_PINS, device=dev)
+            finally:
+                tuning.GangEngine = real
+            results = engines[0].results
+        else:
+            adv = make_advisor(ff.JaxFeedForward.get_knob_config(), "bohb",
+                               total_trials=GANG_FF_TRIALS, seed=SEED)
+            results = real(
+                ff.JaxFeedForward, adv, train, val, gang_size=GANG_FF_LANES,
+                mode="sequential", knob_overrides=GANG_FF_PINS,
+                device=dev).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[mode] = {"wall_s": wall, "trials": len(results),
+                      "trials_per_hour": len(results) / wall * 3600.0,
+                      "results": [((r.trial_no, r.knobs, r.budget_scale,
+                                    r.meta.get("rung"),
+                                    r.meta.get("parent_trial_no")),
+                                   r.score) for r in results]}
+    return runs
+
+
+def _gang_llama(torch, np, ll, fa, dev):
+    """Phase 31 (b): the gang steps, then each lane's sequential twin."""
+    from rafiki_tpu_torch.tuning.gang import _LaneExec
+
+    work = ROOT / "build" / "chip_smoke" / "gang"
+    knobs = dict(GANG_LLAMA, learning_rate=GANG_LLAMA_HP[0][0],
+                 lora_scale=GANG_LLAMA_HP[0][1])
+    k, depth = len(GANG_LLAMA_HP), int(knobs["depth"])
+    n = int(knobs["batch_size"]) * GANG_LLAMA_STEPS
+    train = write_corpus(np, work / "train.jsonl", n, SEED, max_words=1100)
+    val = write_corpus(np, work / "val.jsonl", 2, SEED + 1)
+    est = ll.LlamaLoRA(device=dev, **knobs).estimate_device_budget(
+        1, gang_size=k)
+    print(f"chip_smoke: phase 31 (b) gang estimate "
+          f"{est['total'] / 1e9:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = ll.LlamaLoRA.make_gang_spec(knobs, train, val, device=dev)
+    ex = _LaneExec(spec, k, dev)
+    batches = list(spec.epoch_batches(0))[:GANG_LLAMA_STEPS]
+
+    def run(hps):
+        for i, (lr, scale) in enumerate(hps):
+            ex.fill_lane(i, dict(knobs, learning_rate=lr, lora_scale=scale),
+                         None)
+        losses, secs, per_step = [], [], []
+        for batch in batches:
+            stacked = {key: np.stack([v] * k) for key, v in batch.items()}
+            before = flash_launches(fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.state, out = spec.train_lanes(ex.state, ex.hp, stacked)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            after = flash_launches(fa)
+            per_step.append({name: after[name] - before[name]
+                             for name in after})
+            losses.append([float(x) for x in out])
+        return np.asarray(losses).T, secs, per_step  # (lanes, steps)
+
+    zero_flash_launches(fa)
+    gang, gang_s, per_step = run(GANG_LLAMA_HP)
+    launches = flash_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    # the gate's witness: the same run with a planted lane mix-up
+    fault, _, _ = run((*GANG_LLAMA_FAULT, *GANG_LLAMA_HP[2:]))
+    del ex
+    torch.cuda.empty_cache()
+    twin_losses, twin_s = [], []
+    for lr, scale in GANG_LLAMA_HP:
+        hp = {"learning_rate": torch.tensor(lr, device=dev),
+              "lora_scale": torch.tensor(scale, device=dev)}
+        twin = spec.init_lane(None, hp)
+        row = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            twin, loss = spec.train_step(twin, hp, batch)
+            torch.cuda.synchronize()
+            twin_s.append(time.perf_counter() - t0)
+            row.append(float(loss))
+        twin_losses.append(row)
+        del twin
+    del spec
+    torch.cuda.empty_cache()
+    twin = np.asarray(twin_losses)
+    rel = float(np.max(np.abs(gang - twin) / np.abs(twin)))
+    fault_rel = float(np.max(np.abs(fault - twin) / np.abs(twin)))
+    steady = gang_s[1:] or gang_s
+    k_seq = [sum(twin_s[i * GANG_LLAMA_STEPS + j] for i in range(k))
+             for j in range(GANG_LLAMA_STEPS)]
+    return {"lanes": k, "depth": depth, "knobs": {
+                key: knobs[key] for key in ("hidden_dim", "n_heads",
+                                            "kv_ratio", "lora_rank",
+                                            "max_len", "batch_size",
+                                            "vocab_size")},
+            "hp": GANG_LLAMA_HP, "gang_losses": gang.tolist(),
+            "twin_losses": twin.tolist(), "max_rel_loss_diff": rel,
+            "tol": GANG_LLAMA_TOL,
+            "fault": {"hp": GANG_LLAMA_FAULT, "losses": fault.tolist(),
+                      "max_rel_loss_diff": fault_rel},
+            "launches_per_step": per_step,
+            "gang_step_s": gang_s, "k_sequential_steps_s": k_seq,
+            "gang_step_median_s": float(np.median(steady)),
+            "k_sequential_median_s": float(np.median(k_seq[1:] or k_seq)),
+            "estimate_gb": {key: v / 1e9 for key, v in est.items()},
+            "peak_gb": peak / 1e9}, launches
+
+
+def _gang_worker(torch, np, ll, ms, ps, adv, wt, TrainContext, dev):
+    """Phase 31 (c)."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke" / "gang_worker"
+    shutil.rmtree(work, ignore_errors=True)
+    train = write_corpus(np, work / "train.jsonl", 32, SEED)
+    val = write_corpus(np, work / "val.jsonl", 8, SEED + 1)
+    meta = ms.MetaStore(str(work / "meta.db"))
+    job = meta.create_train_job("smoke", "gang", 1, "TUNING",
+                                {"TRIAL_COUNT": 2}, "train", "val")
+    sub = meta.create_sub_train_job(job["id"], "gang")["id"]
+    store = ps.ParamStore.from_uri(f"file://{work / 'params'}")
+    worker = wt.TrainWorker(
+        ll.LlamaLoRA, adv.make_advisor(ll.LlamaLoRA.get_knob_config(),
+                                       "random", total_trials=2, seed=SEED),
+        train, val, param_store=store, meta_store=meta,
+        sub_train_job_id=sub, model_id="gang", worker_id="gw0",
+        knob_overrides=GANG_WORKER_PINS, checkpoint_interval_s=0,
+        device=dev)
+    t0 = time.perf_counter()
+    n = worker.run_gang(2)
+    job_s = time.perf_counter() - t0
+    rows = meta.get_trials_of_sub_train_job(sub)
+    best = max(rows, key=lambda r: r["score"] or -1.0)
+    twin = ll.LlamaLoRA(device=dev, **best["knobs"])
+    twin.train(train, TrainContext())
+    served = ll.LlamaLoRA(device=dev, **best["knobs"])
+    served.load_parameters(store.load(best["id"]))
+    multi = served.make_multi_adapter_engine(
+        [served._params, twin._params], max_slots=4, max_new_tokens=16,
+        kv_page_size=16)
+    prompts = ["tok1 tok2 tok3", "tok7 tok8 tok9 tok10 tok11"]
+    for i, p in enumerate(prompts):
+        multi.submit(f"gang{i}", p, adapter_id=0)
+        multi.submit(f"seq{i}", p, adapter_id=1)
+    got = {}
+    for _ in range(2000):
+        if not multi.busy:
+            break
+        multi.step()
+        got.update(dict(multi.poll()))
+    torch.cuda.synchronize()
+    return {"trials": n, "rows": [r["status"] for r in rows],
+            "job_s": job_s, "best_score": best["score"],
+            "texts": got, "engines": len(worker.gang_engine._execs),
+            "equal": len(got) == 2 * len(prompts) and all(
+                got[f"gang{i}"] == got[f"seq{i}"]
+                for i in range(len(prompts)))}
+
+
+def gang_phase(torch, np, ll, fa, pa, ff, dataset, dev_mod, tuning, ms, ps,
+               adv, wt, TrainContext, dev):
+    """Phase 31, the gang engine: (a) FeedForward, a 16-lane gang
+    against the sequential schedule; (b) Llama-3-8B-width LoRA lanes
+    against their sequential twins; (c) a gang job through the train
+    worker, its winner served beside its twin."""
+    t_phase = time.perf_counter()
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    ff_runs = _gang_feedforward(torch, np, dataset, dev_mod, tuning, ff, dev)
+    ff_launches = {**flash_launches(fa), **_paged_counts(pa)}
+    t_b = time.perf_counter()
+    llama, llama_launches = _gang_llama(torch, np, ll, fa, dev)
+    b_s = time.perf_counter() - t_b
+    torch.cuda.empty_cache()
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    t_c = time.perf_counter()
+    worker = _gang_worker(torch, np, ll, ms, ps, adv, wt, TrainContext, dev)
+    worker_launches = {**flash_launches(fa), **_paged_counts(pa)}
+    c_s = time.perf_counter() - t_c
+    gang, seq = ff_runs["gang"]["results"], ff_runs["sequential"]["results"]
+    ff_diffs = [abs(a[1] - b[1]) for a, b in zip(gang, seq)]
+    ff_diff = max(ff_diffs, default=0.0)
+    ff_unequal = sum(d != 0.0 for d in ff_diffs)
+    same_trials = [a[0] for a in gang] == [b[0] for b in seq]
+    emit({"phase": "gang",
+          "feed_forward": {
+              "pins": GANG_FF_PINS, "lanes": GANG_FF_LANES,
+              "advisor": "bohb", **{mode: {key: r[key] for key in (
+                  "wall_s", "trials", "trials_per_hour")}
+                  for mode, r in ff_runs.items()},
+              "same_trials": same_trials, "max_score_diff": ff_diff,
+              "unequal_scores": ff_unequal, "tol": GANG_FF_TOL,
+              "unequal_allowed": GANG_FF_UNEQUAL,
+              "promotions": sum(a[0][4] is not None for a in gang),
+              "culled": sum(a[0][2] < 1.0 - 1e-9 for a in gang),
+              "trials_run": [{"trial_no": a[0][0], "budget": a[0][2],
+                              "rung": a[0][3], "parent": a[0][4],
+                              "learning_rate": a[0][1]["learning_rate"],
+                              "gang_score": a[1], "sequential_score": b[1]}
+                             for a, b in zip(gang, seq)]},
+          "llama": llama, "llama_s": b_s,
+          "worker": {**worker, "seconds": c_s,
+                     "launches": worker_launches},
+          "seconds": time.perf_counter() - t_phase})
+    if not same_trials or len(gang) != GANG_FF_TRIALS:
+        raise AssertionError("the FeedForward gang's trials, promotions or "
+                             "culls differ from the sequential schedule's")
+    if ff_unequal > GANG_FF_UNEQUAL or ff_diff > GANG_FF_TOL:
+        raise AssertionError(f"{ff_unequal} FeedForward gang scores differ, "
+                             f"by up to {ff_diff}")
+    if any(ff_launches.values()):
+        raise AssertionError(f"a port kernel ran on FeedForward: "
+                             f"{ff_launches}")
+    if not llama["max_rel_loss_diff"] <= GANG_LLAMA_TOL:
+        raise AssertionError(f"Llama lanes left their sequential twins: "
+                             f"{llama['max_rel_loss_diff']}")
+    if not llama["fault"]["max_rel_loss_diff"] > GANG_LLAMA_TOL:
+        raise AssertionError(f"the lane gate passed a planted fault: "
+                             f"{llama['fault']}")
+    want = {"flash_attention_fwd": llama["depth"],
+            "flash_attention_bwd_dq": llama["depth"],
+            "flash_attention_bwd_dkv": llama["depth"]}
+    for step in llama["launches_per_step"]:
+        if {name: step[name] for name in want} != want:
+            raise AssertionError(f"a gang step launched {step}, not "
+                                 f"{want}")
+    if worker["trials"] != 2 or worker["engines"] != 1 or \
+            set(worker["rows"]) != {"COMPLETED"}:
+        raise AssertionError(f"run_gang: {worker}")
+    if not worker["equal"]:
+        raise AssertionError(f"the gang winner and its twin served "
+                             f"{worker['texts']}")
+    for name in ("paged_decode_attention", "paged_window_attention"):
+        if not worker_launches.get(name):
+            raise AssertionError(f"{name} did not launch serving the "
+                                 "gang winner")
+    return {"gang_feedforward": ff_launches, "gang_llama": llama_launches,
+            "gang_worker": worker_launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=4,
@@ -5866,6 +6213,7 @@ def main(argv=None):
     from rafiki_tpu_torch.models import convert as conv
     from rafiki_tpu_torch.models import densenet, layers, resnet, vgg
     from rafiki_tpu_torch.models import llama_lora as ll
+    from rafiki_tpu_torch.models import mlp
     from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.models.bert import HashTokenizer
     from rafiki_tpu_torch.ops import _build
@@ -5878,6 +6226,7 @@ def main(argv=None):
     from rafiki_tpu_torch.store import param_store as ps
     from rafiki_tpu_torch.store import params as store_params
     from rafiki_tpu_torch.store import safetensors_io as sio
+    from rafiki_tpu_torch import tuning
     from rafiki_tpu_torch.worker import inference as wi
     from rafiki_tpu_torch.worker import train as wt
 
@@ -5979,6 +6328,9 @@ def main(argv=None):
     paths.update(cnn_tuning_phase(torch, np, cnn, dataset, dev_mod, ps,
                                   queues, wi, fa, pe, pa, TrainContext, dev))
     torch.cuda.empty_cache()
+    paths.update(gang_phase(torch, np, ll, fa, pa, mlp, dataset, dev_mod,
+                            tuning, ms, ps, adv, wt, TrainContext, dev))
+    torch.cuda.empty_cache()
     paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps,
                              store_params, args.slice_depth, dev))
     torch.cuda.empty_cache()
@@ -5988,7 +6340,8 @@ def main(argv=None):
     # the CNN paths launch no port kernel: their zeros are listed too
     by_path = {name: {path: counts.get(name, 0)
                       for path, counts in paths.items()
-                      if counts.get(name) or path in CNN_PATHS}
+                      if counts.get(name) or path in CNN_PATHS
+                      or path in GANG_PATHS}
                for name in kres}
     for name in ("paged_decode_attention", "paged_window_attention"):
         kres[name]["int8_launches_by_path"] = by_path[name + "_int8"]

@@ -273,9 +273,14 @@ class ServicesManager:
     def _load_respawn_counts(self) -> Dict[Any, int]:
         """The MetaStore's lineage budgets, keyed ``(type, job_id)``."""
         out: Dict[Any, int] = {}
-        for lineage, count in self.meta.get_respawn_counts().items():
-            stype, _, job_id = lineage.partition(":")
-            out[(stype, job_id)] = int(count)
+        try:
+            for lineage, count in self.meta.get_respawn_counts().items():
+                stype, _, job_id = lineage.partition(":")
+                out[(stype, job_id)] = int(count)
+        except Exception:  # noqa: BLE001 — a store hiccup must not break
+            # boot; the budgets then start fresh
+            log.warning("could not load durable respawn budgets",
+                        exc_info=True)
         return out
 
     # ---- admin lease (single-writer fencing) ----
@@ -695,7 +700,7 @@ class ServicesManager:
                             self._kv_boot_attempts, e)
             return False
         self._kv_boot_attempts = 0
-        self._respawn_counts[lineage] = self.meta.incr_respawn_count(
+        self._respawn_counts[lineage] = self._count_respawn(
             ServiceType.DATA_PLANE, "kvd")
         self.recovery.inc("kvd_respawns")
         self._degraded.pop("data-plane", None)
@@ -840,7 +845,6 @@ class ServicesManager:
 
     def _create_train_services(self, train_job_id: str,
                                n_workers: int) -> List[ManagedService]:
-        from rafiki_tpu_torch.model.dev import check_gang_size
         from rafiki_tpu_torch.model.knob import (FixedKnob,
                                                  knob_config_to_json,
                                                  validate_override_keys)
@@ -856,8 +860,7 @@ class ServicesManager:
         classes = {sub["id"]: self._model_class(
             self.meta.get_model(sub["model_id"])) for sub in subs}
         # validated before anything spawns: a knob_overrides key that
-        # matches no model's knob config is a typo, and a gang the port
-        # cannot run is refused by name
+        # matches no model's knob config is a typo
         requested = train_args.get("knob_overrides") or {}
         if requested:
             known: set = set()
@@ -867,8 +870,6 @@ class ServicesManager:
                 known, requested,
                 context="knob_overrides for this job's models:")
         gang_size = int(train_args.get("gang_size") or 0)
-        for cls in classes.values():
-            check_gang_size(cls, gang_size)
 
         spawned: List[ManagedService] = []
         for sub in subs:
@@ -1413,11 +1414,21 @@ class ServicesManager:
             if slot is not None:
                 self.allocator.release(slot)
             raise
-        # write-through: the budget lives in the MetaStore
-        self._respawn_counts[lineage] = \
-            self.meta.incr_respawn_count(stype, job_id)
+        self._respawn_counts[lineage] = self._count_respawn(stype, job_id)
         self._degraded.pop(job_id, None)
         return True
+
+    def _count_respawn(self, stype: str, job_id: str) -> int:
+        """The lineage's respawn count after one more respawn, written
+        through to the MetaStore (so an admin crash cannot reset the
+        budget); a failed write falls back to the in-memory count, so a
+        store hiccup never costs the healing that just happened."""
+        try:
+            return int(self.meta.incr_respawn_count(stype, job_id))
+        except Exception as e:  # noqa: BLE001 — see the docstring
+            log.warning("respawn budget write-through for %s:%s failed: "
+                        "%s", stype, job_id, e)
+            return self._respawn_counts.get((stype, job_id), 0) + 1
 
     def _live_workers_of(self, stype: str, job_id: str
                          ) -> List[ManagedService]:
@@ -1437,18 +1448,33 @@ class ServicesManager:
         self._degraded[job_id] = reason
         if self._live_workers_of(stype, job_id):
             return  # under-replicated but still serving
-        if stype == ServiceType.TRAIN_WORKER:
-            self.meta.update_train_job(job_id,
-                                       status=TrainJobStatus.ERRORED)
-        else:
-            self.meta.update_inference_job(job_id, status="ERRORED")
+        try:
+            if stype == ServiceType.TRAIN_WORKER:
+                self.meta.update_train_job(job_id,
+                                           status=TrainJobStatus.ERRORED)
+            else:
+                self.meta.update_inference_job(job_id, status="ERRORED")
+        except Exception as e:  # noqa: BLE001 — a store hiccup must not
+            # kill the monitor loop; the flag above carries the signal
+            log.warning("could not mark job %s ERRORED: %s", job_id, e)
 
     def degraded_jobs(self) -> Dict[str, str]:
-        """Jobs that lost self-healing (job id → reason), for /health."""
+        """Jobs that lost self-healing (job id → reason), for /health.
+        Jobs an operator has since STOPPED drop off the list (ERRORED
+        ones stay: that verdict is the point of the flag)."""
         with self.op_lock:
-            return dict(self._degraded)
+            out = dict(self._degraded)
+        for jid in list(out):
+            job = self.meta.get_train_job(jid) or \
+                self.meta.get_inference_job(jid)
+            if job is not None and job.get("status") == "STOPPED":
+                with self.op_lock:
+                    self._degraded.pop(jid, None)
+                del out[jid]
+        return out
 
     def respawn_stats(self) -> Dict[str, int]:
+        self.degraded_jobs()  # prune STOPPED jobs before counting
         with self.op_lock:
             return {"respawns_done": sum(self._respawn_counts.values()),
                     "pending_respawns": len(self._pending_respawns),

@@ -7,8 +7,10 @@ propose/feedback cycle in one process, each trial a template built on
 parameters returned. ``knob_overrides`` pins knobs over every proposal,
 validated as JAX validates it. ``profile_dir`` records each trial's
 ``train`` with ``torch.profiler`` into ``profile_dir/local-<trial_no>/``.
-``gang_size >= 1`` with a template that has a gang spec in the JAX
-package (``LlamaLoRA``) raises ``NotPorted``; without one it runs
+``gang_size >= 1`` routes as JAX routes it (``check_gang_size``): a
+template with a gang spec (``JaxFeedForward``, ``LlamaLoRA``) runs
+through the gang engine (``_tune_model_gang``, ``rafiki_tpu_torch/
+tuning``), K trials as K lanes of one train step; one without runs
 sequential trials with JAX's warning. The JAX module's
 ``test_model_class`` harness is not ported.
 """
@@ -42,19 +44,32 @@ class TuneResult:
     trials: List[TrialSummary] = field(default_factory=list)
 
 
-def check_gang_size(model_class: type, gang_size: int) -> bool:
-    """True when ``gang_size`` asks for the gang engine and the template
-    has none, so trials run one after another (JAX's fallback, with its
-    warning); raises ``NotPorted`` for a template whose JAX counterpart
-    has a gang spec (``GANG_SPEC_NOT_PORTED``): the port has no gang
-    engine. The one place the port refuses a gang."""
-    from rafiki_tpu_torch.serving.decode_engine import NotPorted
+def check_gang_size(model_class: type, gang_size: int,
+                    knob_overrides: Optional[Dict[str, Any]] = None
+                    ) -> bool:
+    """JAX's routing of ``tune_model(gang_size=...)``: True when the gang
+    engine runs these trials. ``gang_size < 1`` is False; a template
+    without a gang spec warns and runs sequential trials (False); one
+    with a spec is True, with a warning that names each pinned knob in
+    ``knob_overrides`` its ``gang_blockers`` refuse (those buckets fall
+    back to sequential trials inside the engine)."""
+    from rafiki_tpu_torch.tuning import supports_gang
 
     if gang_size < 1:
         return False
-    if getattr(model_class, "GANG_SPEC_NOT_PORTED", False):
-        raise NotPorted(f"the gang engine for {model_class.__name__} "
-                        "(gang_size >= 1) is not ported yet")
+    if not supports_gang(model_class):
+        warnings.warn(
+            f"{model_class.__name__} has no gang spec; "
+            "tune_model(gang_size=...) falling back to sequential trials")
+        return False
+    blockers_fn = getattr(model_class, "gang_blockers", None)
+    if callable(blockers_fn) and knob_overrides:
+        pinned = blockers_fn(dict(knob_overrides))
+        if pinned:
+            warnings.warn(
+                f"{model_class.__name__} gang lanes blocked by pinned "
+                "knobs: " + "; ".join(pinned)
+                + " — affected trials fall back to sequential")
     return True
 
 
@@ -96,10 +111,10 @@ def tune_model(model_class: type, train_dataset_path: str,
                            context="knob_overrides")
     advisor = make_advisor(knob_config, advisor_type,
                            total_trials=total_trials, seed=seed)
-    if check_gang_size(model_class, gang_size):
-        warnings.warn(
-            f"{model_class.__name__} has no gang spec; "
-            "tune_model(gang_size=...) falling back to sequential trials")
+    if check_gang_size(model_class, gang_size, knob_overrides):
+        return _tune_model_gang(model_class, advisor, train_dataset_path,
+                                val_dataset_path, gang_size, knob_overrides,
+                                keep_params, device)
 
     trials: List[TrialSummary] = []
     params_by_trial: Dict[str, Params] = {}
@@ -146,3 +161,35 @@ def tune_model(model_class: type, train_dataset_path: str,
                       best_params=params_by_trial.get(best.trial_id, {}),
                       trials=trials)
 
+
+
+def _tune_model_gang(model_class: type, advisor: Any,
+                     train_dataset_path: str, val_dataset_path: str,
+                     gang_size: int,
+                     knob_overrides: Optional[Dict[str, Any]],
+                     keep_params: bool, device: DeviceLike) -> TuneResult:
+    """The gang engine's twin of the sequential loop: the same advisor
+    cycle, K lanes per step, one TrialSummary per lane-trial."""
+    from rafiki_tpu_torch.tuning import GangEngine
+
+    blobs: Dict[str, Params] = {}
+
+    def on_result(result, blob) -> None:
+        if keep_params:
+            blobs[result.trial_id] = blob
+
+    engine = GangEngine(model_class, advisor, train_dataset_path,
+                        val_dataset_path, gang_size=gang_size, mode="gang",
+                        knob_overrides=knob_overrides, keep_blobs=True,
+                        on_result=on_result, device=device)
+    results = engine.run()
+    trials = [TrialSummary(knobs=r.knobs, score=r.score,
+                           logger=ModelLogger(),
+                           params=blobs.get(r.trial_id))
+              for r in results]
+    best = advisor.best_effort
+    if best is None:
+        raise RuntimeError("no successful trial")
+    return TuneResult(best_knobs=best.knobs, best_score=best.score,
+                      best_params=blobs.get(best.trial_id, {}),
+                      trials=trials)

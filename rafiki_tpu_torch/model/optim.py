@@ -28,15 +28,21 @@ The port's counterpart of ``optax.adamw(optax.warmup_cosine_decay_schedule(
   ``nesterov=True`` and per-group ``weight_decay`` computes the same,
   its first momentum buffer being the first gradient (= ``g + 0.9·0``),
   under a ``LambdaLR`` stepped after each update;
-- :func:`adam` is the feed-forward template's ``optax.scale_by_adam()``
-  followed by ``−lr`` (``rafiki_tpu/models/mlp.py``): Adam at a constant
-  rate (b1 0.9, b2 0.999, eps 1e-8 outside the square root).
+- :func:`lane_adam_init` / :func:`lane_adam_step` are the functional
+  chain the feed-forward and LoRA templates' gang lanes and their
+  sequential twins share (``rafiki_tpu/models/mlp.py``,
+  ``llama_lora.py``):
+  ``optax.scale_by_adam()``, then ``add_decayed_weights(wd)`` when ``wd``
+  is set, then ``× −lr``, in optax's order of operations, over a dict of
+  f32 leaves. The rate and the update count are tensors: 0-d for one
+  lane, (K,) for a gang whose leaves carry a leading K, so every lane
+  steps at its own rate and count (a refilled lane restarts at 0).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import torch
 
@@ -119,9 +125,64 @@ def sgd_nesterov(named_params: Iterable[Tuple[str, torch.Tensor]],
         opt, cosine_decay(learning_rate, total_steps))
 
 
-def adam(params: Iterable[torch.Tensor], learning_rate: float
-         ) -> Tuple[torch.optim.Optimizer, Optional[object]]:
-    """``(optimizer, None)``: Adam at the constant ``learning_rate`` (no
-    scheduler)."""
-    return torch.optim.Adam(list(params), lr=learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8), None
+def lane_adam_init(params: Dict[str, torch.Tensor],
+                   lanes: Tuple[int, ...] = ()) -> Dict[str, Any]:
+    """``scale_by_adam``'s state over ``params``: f32 zero moments and an
+    int32 count of shape ``lanes`` (``()`` for one lane, ``(K,)``)."""
+    dev = next(iter(params.values())).device
+    return {"count": torch.zeros(lanes, dtype=torch.int32, device=dev),
+            "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+            "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+
+def _lanes(f: torch.Tensor, leaves: List[torch.Tensor]):
+    """The lane-shaped factor ``f`` as a foreach operand over ``leaves``:
+    the 0-d tensor itself for one lane, else one view per leaf that
+    broadcasts over its trailing axes."""
+    if f.dim() == 0:
+        return f
+    return [f.reshape(f.shape + (1,) * (x.dim() - f.dim())) for x in leaves]
+
+
+@torch.no_grad()
+def lane_adam_step(params: Dict[str, torch.Tensor],
+                   grads: Dict[str, torch.Tensor], opt: Dict[str, Any],
+                   lr: torch.Tensor, weight_decay: float = 0.0,
+                   b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8) -> None:
+    """One update in place: ``mu = (1−b1)·g + b1·mu``, ``nu = (1−b2)·g² +
+    b2·nu``, ``u = mu/(1−b1^t) / (sqrt(nu/(1−b2^t)) + eps)`` with ``t``
+    the count after this step, ``u += wd·p`` (``wd`` > 0), ``p += (−lr)·u``.
+    ``lr`` has the count's shape; each leaf's leading axes match it.
+
+    Every operation is one ``torch._foreach_*`` call over all the leaves,
+    as ``torch.optim.AdamW(foreach=True)`` steps: on the card a few
+    multi-tensor launches per operation, not one per leaf. ``mu`` is a
+    ``lerp`` and ``nu`` an ``addcmul`` (optax's values, rounded in
+    another order); the decay stays ``u + wd·p`` before ``× −lr``, since
+    AdamW's ``p·(1 − lr·wd)`` rounds to ``p`` in f32 at the LoRA
+    template's lr·wd of 1e-8. With K lanes the per-lane factors
+    broadcast leaf by leaf."""
+    count = opt["count"] + 1
+    opt["count"].copy_(count)
+    t = count.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+    neg_lr = -lr.float()
+    ps = list(params.values())
+    gs = [grads[n] for n in params]
+    mus = [opt["mu"][n] for n in params]
+    nus = [opt["nu"][n] for n in params]
+    torch._foreach_lerp_(mus, gs, 1.0 - b1)
+    torch._foreach_mul_(nus, b2)
+    torch._foreach_addcmul_(nus, gs, gs, value=1.0 - b2)
+    den = torch._foreach_div(nus, _lanes(bc2, nus))
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    u = torch._foreach_div(mus, _lanes(bc1, mus))
+    torch._foreach_div_(u, den)
+    del den
+    if weight_decay:
+        torch._foreach_add_(u, ps, alpha=weight_decay)
+    torch._foreach_mul_(u, _lanes(neg_lr, u))
+    torch._foreach_add_(ps, u)

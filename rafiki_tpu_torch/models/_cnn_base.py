@@ -47,7 +47,7 @@ from rafiki_tpu_torch.data.stream import StreamingImageDataset, \
     should_stream
 from rafiki_tpu_torch.model.base import (TrainContext,
                                          validate_template_knobs)
-from rafiki_tpu_torch.model.loop import fit, masked_ce
+from rafiki_tpu_torch.model.loop import epoch_count, fit, masked_ce
 from rafiki_tpu_torch.model.optim import sgd_nesterov
 from rafiki_tpu_torch.model.template_utils import (bucketed_forward,
                                                    conform_images,
@@ -93,13 +93,8 @@ class BatchNormCNNTemplate:
     @classmethod
     def gang_epochs(cls, knobs: Dict[str, Any],
                     budget_scale: float) -> int:
-        """Epoch count ``train()`` spends: ``max_epochs`` scaled by the
-        budget, at least 1, at most 2 under ``quick_train``."""
-        epochs = max(1, round(int(knobs["max_epochs"])
-                              * float(budget_scale)))
-        if knobs.get("quick_train"):
-            epochs = min(epochs, 2)
-        return epochs
+        """Epoch count ``train()`` spends (:func:`epoch_count`)."""
+        return epoch_count(knobs, budget_scale)
 
     # ---- shared internals ----
     def _prep(self, images: np.ndarray) -> np.ndarray:

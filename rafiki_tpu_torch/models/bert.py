@@ -278,7 +278,7 @@ class BertClassifier:
         fit(model, objective,
             lambda epoch: batch_iterator({"ids": ids, "lens": lens, "y": y},
                                          batch_size, seed=epoch),
-            epoch_count(self.knobs, ctx),
+            epoch_count(self.knobs, ctx.budget_scale),
             max(1, -(-len(ids) // batch_size)), self.knobs, ctx, snapshot)
         self._params = params_to_jax(model.state_dict())
         self._net = model.requires_grad_(False)

@@ -25,10 +25,26 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
   module-level functions over any ``Llama``: the trainable masks
   (:func:`lora_trainable_names`), f32 master weights
   (:func:`make_trainable`), :func:`merge`, ``lm_valid_mask`` /
-  ``lm_loss_terms``, :func:`adamw` and :func:`train_step`;
+  ``lm_loss_terms``, :func:`lane_init` and :func:`lane_train_step` (one
+  lane: the template's sequential step and a 1-lane gang's; the JAX
+  step's update, ``optax.chain(scale_by_adam(), add_decayed_weights(
+  1e-4))`` then ``−lr · u``, is ``model/optim.lane_adam_step``);
+- the gang lanes (``make_gang_spec``; JAX ``vmap``s one lane's step over
+  a broadcast base): :func:`lanes_train_step` runs K lanes as one step
+  with the lane axis explicit. The trainable leaves (LoRA A and B, the
+  norm scales, the LM head) carry a leading K, the frozen kernels and the
+  embedding stay single; lane i's rows are one contiguous block of the
+  K·B examples, so every base product is one matmul over all rows, each
+  LoRA correction and the LM head a ``bmm`` over the lanes, each norm
+  scale a broadcast over its block, and attention one ``flash_attention``
+  call of batch K·B per layer (B3 forward, B5 + B6 backward, ``depth``
+  launches each per step, not K·depth);
 - the ``LlamaLoRA`` template: ``train`` (the unsharded
   ``_train_functional`` loop, and with ``pretrained_path`` the base
-  weights of an HF-convention safetensors checkpoint), ``evaluate``,
+  weights of an HF-convention safetensors checkpoint), ``gang_blockers``,
+  ``gang_epochs``, ``make_gang_spec``, ``estimate_device_budget`` (one
+  trial's or, with ``gang_size``, a gang's: :func:`estimate_gang_device_
+  bytes`), ``evaluate``,
   ``dump_parameters``, ``load_parameters`` (blobs move both ways with
   the JAX template, ``meta["bpe_merges"]`` included), ``predict``,
   ``warmup``, ``make_decode_engine`` (speculation with prompt-lookup or
@@ -68,8 +84,8 @@ from rafiki_tpu_torch.model.base import (TrainContext,
 from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
                                          FloatKnob, IntegerKnob, KnobConfig,
                                          PolicyKnob)
-from rafiki_tpu_torch.model.dev import check_gang_size
-from rafiki_tpu_torch.model.loop import epoch_count
+from rafiki_tpu_torch.model.loop import GangSpec, epoch_count, run_epochs
+from rafiki_tpu_torch.model.optim import lane_adam_init, lane_adam_step
 from rafiki_tpu_torch.model.template_utils import same_tree_shapes
 from rafiki_tpu_torch.models.bert import _TOKEN_RE, HashTokenizer
 from rafiki_tpu_torch.models.convert import (hf_name_for,
@@ -798,29 +814,155 @@ def lm_objective(model: Llama, trainable: Dict[str, torch.Tensor],
     return total / count.clamp(min=1.0)
 
 
-def adamw(trainable: Dict[str, torch.Tensor], learning_rate: float
-          ) -> torch.optim.Optimizer:
-    """The JAX step's update, ``optax.chain(scale_by_adam(),
-    add_decayed_weights(1e-4))`` then ``−lr · u``: Adam with b1 0.9, b2
-    0.999, eps 1e-8 outside the square root, bias correction, and the
-    decay added to the update — which is ``AdamW`` with weight decay
-    1e-4."""
-    return torch.optim.AdamW(list(trainable.values()), lr=learning_rate,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
+#: the decay of the JAX step's ``optax.add_decayed_weights``
+WEIGHT_DECAY = 1e-4
 
 
-def train_step(model: Llama, trainable: Dict[str, torch.Tensor],
-               opt: torch.optim.Optimizer, lora_scale: float,
-               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One optimizer step on one batch; returns the batch loss (a
-    detached 0-d tensor: reading it synchronizes, so the caller
-    decides when)."""
-    opt.zero_grad(set_to_none=True)
-    loss = lm_objective(model, trainable, lora_scale, batch)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+def lane_init(trainable: Dict[str, torch.Tensor], learning_rate: float,
+              lora_scale: float = 1.0
+              ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """``(state, hp)`` of one lane over :func:`make_trainable`'s leaves:
+    the state's params share those leaves' storage (a step updates the
+    model in place), Adam's moments start at zero; ``hp`` holds the 0-d
+    f32 ``learning_rate`` and ``lora_scale``."""
+    params = {n: t.detach() for n, t in trainable.items()}
+    dev = next(iter(params.values())).device
+    hp = {n: torch.tensor(float(v), dtype=torch.float32, device=dev)
+          for n, v in (("learning_rate", learning_rate),
+                       ("lora_scale", lora_scale))}
+    return {"params": params, "opt": lane_adam_init(params)}, hp
+
+
+def lane_train_step(model: "Llama", state: Dict[str, Any],
+                    hp: Dict[str, torch.Tensor],
+                    batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One step of one lane: ``state`` is ``{"params": {state_dict key:
+    f32 trainable leaf}, "opt": lane Adam}``, ``hp`` the 0-d tensors
+    ``learning_rate`` and ``lora_scale``. The forward is ``model`` with
+    the lane's leaves in place of its own (merged with the rank-scale);
+    the update is in place. Returns (state, the batch loss, detached)."""
+    params = {n: p.detach().requires_grad_(True)
+              for n, p in state["params"].items()}
+    loss = lm_objective(model, params, hp["lora_scale"], batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    lane_adam_step(state["params"], dict(zip(params, grads)),
+                   state["opt"], hp["learning_rate"], WEIGHT_DECAY)
+    return state, loss.detach()
+
+
+def _lane_norm(x: torch.Tensor, norm: RMSNorm,
+               scale: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """``RMSNorm`` over (R, d) rows in K lane blocks: the shared module's
+    own scale, or the lanes' (K, d) scales, each over its block."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True)
+                          + norm.eps)
+    if scale is None:
+        return (y * norm.scale).to(x.dtype)
+    return (y.reshape(k, -1, x.shape[-1]) * scale[:, None, :]) \
+        .reshape(x.shape).to(x.dtype)
+
+
+def _lane_dense(x: torch.Tensor, dense: LoRADense,
+                lanes: Dict[str, torch.Tensor], name: str,
+                k: int) -> torch.Tensor:
+    """A ``LoRADense`` over (R, d_in) rows in K lane blocks: the shared
+    base kernel as one matmul over every row, each lane's correction
+    ``((x @ A) @ B) · α/r`` a ``bmm`` over its block; a lane-stacked
+    kernel (the LM head) is one ``bmm``."""
+    kernel = lanes.get(f"{name}.kernel")
+    if kernel is not None:
+        return torch.bmm(x.reshape(k, -1, x.shape[-1]),
+                         kernel.to(x.dtype)).reshape(x.shape[0], -1)
+    y = x @ dense.kernel.to(x.dtype)
+    if dense.rank <= 0:
+        return y
+    xk = x.reshape(k, -1, x.shape[-1])
+    corr = torch.bmm(torch.bmm(xk, lanes[f"{name}.lora_a"].to(x.dtype)),
+                     lanes[f"{name}.lora_b"].to(x.dtype))
+    return y + (corr * (dense.alpha / dense.rank)).reshape(y.shape)
+
+
+def lanes_forward(model: "Llama", lanes: Dict[str, torch.Tensor],
+                  ids: torch.Tensor, lens: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """The train branch of ``model.forward`` for K lanes: ``ids`` (K·B,
+    L), lane i's examples the i-th block of B; ``lanes`` maps each
+    trainable ``state_dict`` key to its (K, ...) leaf (``lora_b`` already
+    times the lane's rank-scale); every other leaf is ``model``'s.
+    Returns (K·B, L, vocab) logits."""
+    b, s = ids.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=ids.device).expand(b, s)
+    x = model.tok_embed(ids).to(model.dtype).reshape(b * s, -1)
+
+    def dense(mod, name, h):
+        return _lane_dense(h, mod, lanes, name, k)
+
+    def norm(mod, name, h):
+        return _lane_norm(h, mod, lanes.get(f"{name}.scale"), k)
+
+    for i in range(model.depth):
+        pre = f"block_{i}"
+        blk = getattr(model, pre)
+        att = blk.attn
+        h = norm(blk.RMSNorm_0, f"{pre}.RMSNorm_0", x)
+        dh = x.shape[-1] // att.n_heads
+        q = rope(dense(att.wq, f"{pre}.attn.wq", h).reshape(
+            b, s, att.n_heads, dh), positions, att.rope_theta,
+            att.rope_scaling)
+        kk = rope(dense(att.wk, f"{pre}.attn.wk", h).reshape(
+            b, s, att.n_kv_heads, dh), positions, att.rope_theta,
+            att.rope_scaling)
+        v = dense(att.wv, f"{pre}.attn.wv", h).reshape(
+            b, s, att.n_kv_heads, dh)
+        o = flash_attention(
+            q.transpose(1, 2),
+            kk.repeat_interleave(att.rep, dim=2).transpose(1, 2),
+            v.repeat_interleave(att.rep, dim=2).transpose(1, 2),
+            causal=True, kv_lens=lens).transpose(1, 2)
+        x = x + dense(att.wo, f"{pre}.attn.wo",
+                      o.reshape(b * s, att.n_heads * dh))
+        h = norm(blk.RMSNorm_1, f"{pre}.RMSNorm_1", x)
+        h = F.silu(dense(blk.gate, f"{pre}.gate", h)) \
+            * dense(blk.up, f"{pre}.up", h)
+        x = x + dense(blk.down, f"{pre}.down", h)
+    x = norm(model.final_norm, "final_norm", x)
+    return dense(model.lm_head, "lm_head", x).reshape(b, s, -1)
+
+
+def lanes_train_step(model: "Llama", state: Dict[str, Any],
+                     hp: Dict[str, torch.Tensor],
+                     batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One step of K lanes (:func:`lanes_forward`): ``state`` leaves and
+    ``hp`` carry a leading K, ``batch`` holds (K, B, ...) ``ids``,
+    ``lens`` and ``mask``. Each lane's loss is its masked mean, the sum
+    of the K the one backward. Returns (state, (K,) losses)."""
+    ids, lens, mask = batch["ids"], batch["lens"], batch.get("mask")
+    k, bsz, length = ids.shape
+    params = {n: p.detach().requires_grad_(True)
+              for n, p in state["params"].items()}
+    scale = hp["lora_scale"].float()
+    lanes = {n: t * scale.reshape((k,) + (1,) * (t.dim() - 1))
+             if "lora_b" in n else t for n, t in params.items()}
+    flat_ids = ids.reshape(k * bsz, length)
+    flat_lens = lens.reshape(k * bsz)
+    logits = lanes_forward(model, lanes, flat_ids, flat_lens, k)
+    vocab = logits.shape[-1]
+    targets = F.pad(flat_ids[:, 1:], (0, 1)).long()
+    valid = lm_valid_mask(length, flat_lens, None if mask is None
+                          else mask.reshape(k * bsz)).float()
+    losses = F.cross_entropy(logits.float().reshape(-1, vocab),
+                             targets.reshape(-1), reduction="none")
+    valid = valid.reshape(k, -1)
+    lane_loss = (losses.reshape(k, -1) * valid).sum(1) \
+        / valid.sum(1).clamp(min=1.0)
+    grads = torch.autograd.grad(lane_loss.sum(), list(params.values()))
+    lane_adam_step(state["params"], dict(zip(params, grads)),
+                   state["opt"], hp["learning_rate"], WEIGHT_DECAY)
+    return state, lane_loss.detach()
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -927,6 +1069,28 @@ def _replace_leaves(tree: Dict[str, Any],
     return out
 
 
+def estimate_gang_device_bytes(template: "LlamaLoRA",
+                               gang_size: int) -> Dict[str, int]:
+    """Device memory of a K-lane gang step of ``template``'s knobs, in the
+    port's own accounting (:meth:`LlamaLoRA.estimate_device_budget`'s
+    terms): ONE frozen base (``base``: the frozen leaves, plus the
+    module's own copies of the trainable leaves, which the lanes replace
+    per call), K lanes of f32 trainable leaves with their gradients and
+    two Adam moments, K lanes of activations, and the LM head cast per
+    call for all K lanes. ``params`` includes ``base``."""
+    template._check_trainable_knobs()
+    t = template._budget_terms()
+    k = max(1, int(gang_size))
+    trainable = t["trainable"]
+    out = {"params": t["frozen"] + t["slots"] + k * 4 * trainable,
+           "grads": k * 4 * trainable, "opt": k * 2 * 4 * trainable,
+           "activations": k * t["tokens"] * t["per_token"],
+           "transient": k * t["transient"]}
+    out["total"] = sum(out.values())
+    out["base"] = t["frozen"] + t["slots"]  # already inside params
+    return out
+
+
 class LlamaLoRA:
     """Causal-LM template: LoRA fine-tuning (``train``, ``evaluate``,
     ``dump_parameters``) and serving (``load_parameters``, ``predict``,
@@ -946,11 +1110,6 @@ class LlamaLoRA:
     built once per loaded tree (JAX's cached ``_qparams``), and ``_model``
     is built only when ``evaluate`` asks for it, so an int8 deployment
     holds no compute-dtype copy of its weights on the card."""
-
-    #: the JAX template has a gang spec (``make_gang_spec``, K trials as
-    #: lanes of one compiled step); the port has no gang engine yet, so
-    #: ``gang_size >= 1`` is refused (``model.dev.check_gang_size``)
-    GANG_SPEC_NOT_PORTED = True
 
     @staticmethod
     def get_knob_config() -> KnobConfig:
@@ -1144,6 +1303,157 @@ class LlamaLoRA:
                     self._id2tok[int(tok_id)] = tok_str
         return ids, lens
 
+    # ---- the gang lanes (JAX: vmapped LoRA lanes) ----
+    @classmethod
+    def gang_blockers(cls, knobs: Dict[str, Any]) -> List[str]:
+        """Why THIS assignment cannot train as a gang lane (empty:
+        gangable), each entry naming its knob. JAX's entries, word for
+        word (a lane is one unsharded step over a shared base), then the
+        port's own: the remat schedules are not ported."""
+        def _i(name: str, default: int = 0) -> int:
+            return int(knobs.get(name, default) or default)
+
+        out: List[str] = []
+        if _i("model_parallel", 1) > 1:
+            out.append("model_parallel>1 (tensor parallelism needs the "
+                       "sharded mesh path)")
+        if _i("sequence_parallel", 1) > 1:
+            out.append("sequence_parallel>1 (sp shards activations over "
+                       "a mesh the lane step does not build)")
+        if _i("pipeline_stages", 1) > 1:
+            out.append("pipeline_stages>1 (GPipe owns the device set)")
+        if _i("grad_accum", 1) > 1:
+            out.append("grad_accum>1 (the accumulation scan is not "
+                       "factored into the lane step)")
+        if _i("moe_experts") > 0:
+            out.append("moe_experts>0 (expert parallelism + aux-loss "
+                       "sow need the mesh path)")
+        if _i("loss_chunk") > 0:
+            out.append("loss_chunk>0 (the streamed loss is not factored "
+                       "into the lane step)")
+        if str(knobs.get("pretrained_path") or ""):
+            out.append("pretrained_path set (lanes broadcast the shared "
+                       "PRNGKey(0) base; checkpoint import is a mesh-"
+                       "path feature)")
+        if knobs.get("remat"):
+            out.append("remat (rematerialization is not ported yet)")
+        if str(knobs.get("remat_policy") or "none") != "none":
+            out.append("remat_policy != 'none' (the remat schedules are "
+                       "not ported yet)")
+        return out
+
+    @classmethod
+    def gang_epochs(cls, knobs: Dict[str, Any], budget_scale: float) -> int:
+        """Epochs :meth:`train` spends (:func:`epoch_count`)."""
+        return epoch_count(knobs, budget_scale)
+
+    @classmethod
+    def make_gang_spec(cls, knobs: Dict[str, Any], train_dataset_path: str,
+                       val_dataset_path: str,
+                       device: DeviceLike = None) -> GangSpec:
+        """The gang engine's recipe for this static bucket: K LoRA lanes
+        (trainable leaves and their Adam state) over ONE frozen base on
+        ``device`` (None: the CUDA card). Everything but
+        ``learning_rate`` / ``lora_scale`` (the traceable knobs) is
+        burned in from ``knobs``."""
+        blockers = cls.gang_blockers(knobs)
+        if blockers:
+            raise ValueError("knobs block gang lanes: "
+                             + "; ".join(blockers))
+        model = cls(device=device, **knobs)  # tokenizer wiring
+        model._check_trainable_knobs()
+        dev = model.device
+        ids, lens = model._encode_lm(
+            load_text_classification_dataset(train_dataset_path).texts)
+        vids, vlens = model._encode_lm(
+            load_text_classification_dataset(val_dataset_path).texts)
+        base = model._module()
+        for p in base.parameters():
+            p.requires_grad_(False)
+        names = lora_trainable_names(
+            base, bool(knobs.get("adapters_only", False)))
+        state = base.state_dict()
+        batch_size = int(knobs["batch_size"])
+        meta: Dict[str, Any] = {
+            "id2tok": {str(k): v for k, v in model._id2tok.items()}}
+        if model._bpe:
+            meta["bpe_merges"] = [list(m) for m in model.tokenizer.merges]
+        folded_base: List[Dict[str, Any]] = []  # the f32 tree, at export
+
+        def init_lane(gen, hp):
+            params = {n: state[n].to(torch.float32, copy=True)
+                      for n in names}
+            return {"params": params, "opt": lane_adam_init(params)}
+
+        def train_step(lane_state, hp, batch):
+            return lane_train_step(base, lane_state, hp,
+                                   batch_to_device(batch, dev))
+
+        def train_lanes(stacked, hp, batch):
+            return lanes_train_step(base, stacked, hp,
+                                    batch_to_device(batch, dev))
+
+        def epoch_batches(epoch: int):
+            return batch_iterator({"ids": ids, "lens": lens}, batch_size,
+                                  seed=epoch)
+
+        def eval_batches():
+            # the bucket-32 zero-padded stream evaluate() walks
+            bucket = 32
+            for i in range(0, len(vids), bucket):
+                ib, lb = vids[i:i + bucket], vlens[i:i + bucket]
+                pad = bucket - len(ib)
+                if pad:
+                    ib = np.concatenate(
+                        [ib, np.zeros((pad, vids.shape[1]), ib.dtype)])
+                    lb = np.concatenate([lb, np.zeros((pad,), lb.dtype)])
+                yield {"ids": ib, "lens": lb}
+
+        def eval_lane(lane_state, hp, batch):
+            # evaluate()'s model: the rank-scale folded into lora_b, each
+            # matmul leaf in the compute dtype, the norms f32
+            leaves = {n: t.to(base.dtype) if n.rsplit(".", 1)[-1]
+                      in MATMUL_LEAVES else t
+                      for n, t in merge(lane_state["params"],
+                                        hp["lora_scale"]).items()}
+            b = batch_to_device(batch, dev)
+            with torch.no_grad():
+                logits = torch.func.functional_call(
+                    base, leaves, (b["ids"],),
+                    {"decode": False, "lens": b["lens"]})
+                return lm_loss_terms(logits, b["ids"], b["lens"])
+
+        def export_blob(lane_state, hp):
+            # the rank-scale folded into lora_b, as train() stores it
+            if not folded_base:
+                folded_base.append(params_to_jax(state))
+            scale = torch.tensor(float(hp["lora_scale"]),
+                                 dtype=torch.float32, device=dev)
+            return {"params": _replace_leaves(folded_base[0], merge(
+                        dict(lane_state["params"]), scale)),
+                    "meta": dict(meta)}
+
+        def warm_lane(fresh, blob):
+            shared = (blob or {}).get("params")
+            if shared is None or not same_tree_shapes(_nest(state), shared):
+                return fresh  # incompatible architecture → cold start
+            # the parent's trainable leaves; the frozen base is this
+            # spec's (pretrained bases are blockers: both are the seed-0
+            # init)
+            flat = params_from_jax(shared)
+            return {"params": {n: flat[n].to(dev, torch.float32, copy=True)
+                               for n in names},
+                    "opt": fresh["opt"]}
+
+        return GangSpec(
+            hp_names=("learning_rate", "lora_scale"), init_lane=init_lane,
+            train_step=train_step, train_lanes=train_lanes,
+            epoch_batches=epoch_batches, eval_lane=eval_lane,
+            eval_batches=eval_batches, export_blob=export_blob,
+            warm_lane=warm_lane, share_params_knob="share_params",
+            score_kind="lm", tokens_per_sample=int(knobs["max_len"]),
+            lane_param_count=sum(t.numel() for t in state.values()))
+
     def _check_trainable_knobs(self) -> None:
         """The JAX template routes every knob set that ``gang_blockers``
         names to its sharded mesh loop, which is not ported; so are the
@@ -1166,20 +1476,55 @@ class LlamaLoRA:
                 f"knob(s) {blockers} need the sharded / rematerialized "
                 "train path, which is not ported yet")
 
+    def _budget_terms(self) -> Dict[str, int]:
+        """Element and byte counts the train estimates share (see
+        :meth:`estimate_device_budget`)."""
+        k = self.knobs
+        act = torch.finfo(self._dtype()).bits // 8
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        dh = hd // heads
+        kv = max(1, heads // int(k["kv_ratio"])) * dh
+        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
+        depth, mlp = int(k["depth"]), 4 * hd
+        adapters_only = bool(k.get("adapters_only", False))
+        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd), (hd, mlp),
+                 (hd, mlp), (mlp, hd)]
+        lora = depth * sum(rank * (i + o) for i, o in sites)
+        norms = (2 * depth + 1) * hd
+        head = hd * vocab
+        rms = (4 if adapters_only else 8) * hd + 4  # frozen scale: no norm
+        per_block = (2 * rms + act * (7 * hd + 4 * mlp) + 8 * dh
+                     + 4 * heads + act * len(sites) * rank)
+        final = rms + act * hd + 3 * 4 * vocab
+        return {
+            "act": act,
+            "trainable": lora if adapters_only else lora + norms + head,
+            # the trainable leaves as the module draws them: adapters
+            # and the LM head in the compute dtype, the norms f32
+            "slots": act * lora + (0 if adapters_only
+                                   else 4 * norms + act * head),
+            "frozen": act * (depth * sum(i * o for i, o in sites)
+                             + (head if adapters_only else 0))
+            + 4 * (vocab * hd + (norms if adapters_only else 0)),
+            "tokens": int(k["batch_size"]) * int(k["max_len"]),
+            "per_token": depth * per_block + final,
+            "transient": 0 if adapters_only or act == 4 else head * act}
+
     def estimate_device_budget(self, n_devices: int = 1,
                                gang_size: int = 0) -> Dict[str, int]:
         """Device memory of one train step of these knobs on the port's
         one card, at its peak: the start of the backward. JAX's
         signature: ``n_devices`` (a TPU mesh there) is accepted and
-        ignored, the port trains on one device; ``gang_size >= 1`` is
-        refused by :func:`check_gang_size`. Knobs :meth:`train` refuses
+        ignored, the port trains on one device; ``gang_size >= 1``
+        budgets a K-lane gang step instead
+        (:func:`estimate_gang_device_bytes`). Knobs :meth:`train` refuses
         raise the same error here. Bytes by term:
 
         - ``params``: trainable leaves (adapters, norms, LM head) as f32
           master weights; frozen leaves as :meth:`train` holds them (base
           kernels in the compute dtype, the embedding f32);
         - ``grads``: one f32 gradient per trainable leaf;
-        - ``opt``: AdamW's two f32 moments per trainable leaf;
+        - ``opt``: Adam's two f32 moments per trainable leaf;
         - ``activations``: what autograd saves for the backward over
           batch_size × max_len tokens. A token of one block: each
           RMSNorm's f32 input and rsqrt, and its normalized output where
@@ -1194,41 +1539,23 @@ class LlamaLoRA:
           together when the backward starts;
         - ``transient``: the compute-dtype cast of the largest trainable
           leaf (the LM head), made per call when that dtype is not f32."""
-        check_gang_size(type(self), gang_size)
+        if gang_size >= 1:
+            return estimate_gang_device_bytes(self, gang_size)
         self._check_trainable_knobs()
-        k = self.knobs
-        act = torch.finfo(self._dtype()).bits // 8
-        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
-        dh = hd // heads
-        kv = max(1, heads // int(k["kv_ratio"])) * dh
-        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
-        depth, mlp = int(k["depth"]), 4 * hd
-        adapters_only = bool(k.get("adapters_only", False))
-        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd), (hd, mlp),
-                 (hd, mlp), (mlp, hd)]
-        lora = depth * sum(rank * (i + o) for i, o in sites)
-        norms = (2 * depth + 1) * hd
-        head = hd * vocab
-        trainable = lora if adapters_only else lora + norms + head
-        frozen_act = depth * sum(i * o for i, o in sites) + \
-            (head if adapters_only else 0)
-        frozen_f32 = vocab * hd + (norms if adapters_only else 0)
-        tokens = int(k["batch_size"]) * int(k["max_len"])
-        rms = (4 if adapters_only else 8) * hd + 4  # frozen scale: no norm
-        per_block = (2 * rms + act * (7 * hd + 4 * mlp) + 8 * dh
-                     + 4 * heads + act * len(sites) * rank)
-        final = rms + act * hd + 3 * 4 * vocab
-        out = {"params": 4 * trainable + act * frozen_act + 4 * frozen_f32,
+        t = self._budget_terms()
+        trainable = t["trainable"]
+        out = {"params": 4 * trainable + t["frozen"],
                "grads": 4 * trainable, "opt": 2 * 4 * trainable,
-               "activations": tokens * (depth * per_block + final),
-               "transient": 0 if adapters_only or act == 4 else head * act}
+               "activations": t["tokens"] * t["per_token"],
+               "transient": t["transient"]}
         out["total"] = sum(out.values())
         return out
 
     def train(self, dataset_path: str,
               ctx: Optional[TrainContext] = None) -> None:
         """LoRA fine-tune on a ``.jsonl`` text corpus: the JAX template's
-        functional loop (``_train_functional``). The init is the loaded
+        functional loop (``_train_functional``): the gang lanes' step
+        (:func:`lane_train_step`) on one lane. The init is the loaded
         weights when their shapes match, else ``ctx.shared_params`` under
         the ``share_params`` knob, else the port's seeded init; with
         ``pretrained_path`` on a fresh, non-warm start every base leaf
@@ -1272,36 +1599,32 @@ class LlamaLoRA:
         trainable = make_trainable(model, names)
         model.load_state_dict(llama_params_from_jax(base, model.dtype,
                                                     trainable))
-        lr = float(self.knobs["learning_rate"])
-        scale = float(self.knobs.get("lora_scale", 1.0))
-        opt = adamw(trainable, lr)
+        # the lane functions of the gang engine, on one lane: the state's
+        # leaves are the model's own f32 trainable parameters
+        state_, hp = lane_init(trainable,
+                               float(self.knobs["learning_rate"]),
+                               float(self.knobs.get("lora_scale", 1.0)))
+        params = state_["params"]
         batch_size = int(self.knobs["batch_size"])
-        epochs = epoch_count(self.knobs, ctx)  # JAX gang_epochs
-        ctx.logger.define_plot("LM loss", ["loss"], x_axis="epoch")
+        epochs = self.gang_epochs(self.knobs, ctx.budget_scale)
 
         def folded() -> Dict[str, Any]:
-            return _replace_leaves(base, merge(
-                {n: t.detach() for n, t in trainable.items()}, scale))
+            return _replace_leaves(base, merge(params, hp["lora_scale"]))
 
-        for epoch in range(epochs):
-            losses = [train_step(model, trainable, opt, scale,
-                                 batch_to_device(batch, self.device))
-                      for batch in batch_iterator(
-                          {"ids": ids, "lens": lens}, batch_size,
-                          seed=epoch)]
-            mean_loss = (float(np.mean([float(l) for l in losses]))
-                         if losses else float("nan"))
-            ctx.logger.log(epoch=epoch, loss=mean_loss,
-                           tokens=int(ids.shape[0] * ids.shape[1]))
-            if ctx.checkpoint is not None:
-                self._params = folded()
-                ctx.checkpoint(self.dump_parameters,
-                               frac_done=(epoch + 1) / epochs,
-                               tree={"params": self._params})
-            if ctx.should_continue is not None and \
-                    not ctx.should_continue(epoch, -mean_loss):
-                break
-        del opt, model
+        def step(state, batch):
+            return lane_train_step(model, state, hp,
+                                   batch_to_device(batch, self.device))
+
+        def checkpoint(state, frac_done):
+            self._params = folded()
+            ctx.checkpoint(self.dump_parameters, frac_done=frac_done,
+                           tree={"params": self._params})
+
+        run_epochs(step, state_, lambda epoch: batch_iterator(
+                       {"ids": ids, "lens": lens}, batch_size, seed=epoch),
+                   epochs, ctx, checkpoint, plot="LM loss",
+                   log_extra={"tokens": int(ids.shape[0] * ids.shape[1])})
+        del state_, model
         self._set_params(folded(), own=True)
 
     def _check_pretrained_rope(self, pretrained: str, model: Llama) -> None:

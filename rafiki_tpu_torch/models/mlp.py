@@ -5,19 +5,21 @@ Ports ``rafiki_tpu/models/mlp.py``: ``_MLP`` (flatten, ``Dense_k`` + relu
 per hidden layer, then the logits ``Dense``; flax's auto-names and
 (d_in, features) kernels, ``models/layers.py``) and the
 ``JaxFeedForward`` template, under the name users type:
-``get_knob_config`` knob for knob, ``gang_epochs``, ``train``,
-``evaluate``, ``predict``, ``_predict_probs`` (buckets of 256),
-``warmup``, ``dump_parameters`` and ``load_parameters``. Training is
-JAX's: pixels / 255, batches from ``batch_iterator(seed=epoch)``, the
-masked mean cross-entropy, ``optax.scale_by_adam()`` then ``−lr``
-(``model/optim.adam``), the mean loss per epoch, checkpoints and
-``should_continue``; a loaded blob or a ``share_params`` donor of the
-same shapes warm-starts the weights with a fresh optimizer state.
+``get_knob_config`` knob for knob, ``gang_epochs``, ``_lane_functions``,
+``make_gang_spec``, ``train``, ``evaluate``, ``predict``,
+``_predict_probs`` (buckets of 256), ``warmup``, ``dump_parameters`` and
+``load_parameters``. Training is JAX's: pixels / 255, batches from
+``batch_iterator(seed=epoch)``, the masked mean cross-entropy,
+``optax.scale_by_adam()`` then ``−lr`` (``model/optim.lane_adam_step``),
+the mean loss per epoch, checkpoints and ``should_continue``; a loaded
+blob or a ``share_params`` donor of the same shapes warm-starts the
+weights with a fresh optimizer state.
 
-The JAX template also has a gang spec (``make_gang_spec``): the port has
-no gang engine, so ``gang_size >= 1`` is refused by name
-(``GANG_SPEC_NOT_PORTED``, ``model/dev.py`` ``check_gang_size``);
-sequential trials run.
+As in JAX, the functional lane step (``_lane_functions``) backs both the
+sequential ``train()`` and the gang engine, so a 1-lane gang is the
+sequential trial bit for bit. A gang of K lanes stacks every leaf on a
+leading K: each dense layer is one ``torch.bmm`` over (K, B, in) × (K,
+in, out), and the Adam update takes ``lr`` as a (K,) tensor.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from rafiki_tpu_torch.model.base import (TrainContext,
 from rafiki_tpu_torch.model.knob import (CategoricalKnob, FixedKnob,
                                          FloatKnob, IntegerKnob, KnobConfig,
                                          PolicyKnob)
-from rafiki_tpu_torch.model.loop import fit, masked_ce
-from rafiki_tpu_torch.model.optim import adam
+from rafiki_tpu_torch.model.loop import GangSpec, masked_ce, run_epochs
+from rafiki_tpu_torch.model.optim import lane_adam_init, lane_adam_step
 from rafiki_tpu_torch.model.template_utils import (bucketed_forward,
                                                    conform_images,
                                                    same_tree_shapes)
@@ -68,13 +70,46 @@ class _MLP(nn.Module):
         return getattr(self, f"Dense_{self.n_hidden}")(x)
 
 
+def _dense_names(n_hidden: int) -> List[str]:
+    return [f"Dense_{k}" for k in range(n_hidden + 1)]
+
+
+def _forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+             n_hidden: int) -> torch.Tensor:
+    """One lane's logits: ``_MLP.forward`` over ``state_dict``-keyed
+    leaves (``x @ kernel + bias``, relu between)."""
+    x = x.reshape(x.shape[0], -1)
+    for k, name in enumerate(_dense_names(n_hidden)):
+        x = x @ params[f"{name}.kernel"] + params[f"{name}.bias"]
+        if k < n_hidden:
+            x = F.relu(x)
+    return x
+
+
+def _forward_lanes(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                   n_hidden: int) -> torch.Tensor:
+    """K lanes' logits: leaves (K, ...), ``x`` (K, B, ...); each dense
+    layer one ``bmm`` over the lanes."""
+    x = x.reshape(x.shape[0], x.shape[1], -1)
+    for k, name in enumerate(_dense_names(n_hidden)):
+        x = torch.bmm(x, params[f"{name}.kernel"]) \
+            + params[f"{name}.bias"][:, None, :]
+        if k < n_hidden:
+            x = F.relu(x)
+    return x
+
+
+def _grad_aliases(params: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Leaves that share ``params``' storage and take gradients."""
+    return {n: p.detach().requires_grad_(True) for n, p in params.items()}
+
+
 class JaxFeedForward:
     """Dense image classifier (FashionMNIST-class workloads);
     ``device=None`` is the CUDA card."""
 
     TASKS = (TaskType.IMAGE_CLASSIFICATION,)
-    #: the JAX template has a gang spec; ``gang_size >= 1`` is refused
-    GANG_SPEC_NOT_PORTED = True
 
     @staticmethod
     def get_knob_config() -> KnobConfig:
@@ -124,6 +159,129 @@ class JaxFeedForward:
         budget, at least 1 (no ``quick_train`` cap, as in JAX)."""
         return max(1, round(int(knobs["max_epochs"]) * float(budget_scale)))
 
+    @staticmethod
+    def _lane_functions(knobs: Dict[str, Any], d_in: int, n_classes: int,
+                        device: torch.device):
+        """``(init_lane, train_step, train_lanes)``: the functional core
+        the sequential ``train()`` and the gang lanes share. A state is
+        ``{"params": {state_dict key: f32 leaf}, "opt": lane Adam}``;
+        ``hp["learning_rate"]`` is 0-d for a lane, (K,) for a gang."""
+        n_hidden = int(knobs["hidden_layer_count"])
+        units = int(knobs["hidden_layer_units"])
+
+        def init_lane(gen: torch.Generator, hp: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+            net = _MLP(d_in, n_hidden, units, n_classes, device, gen)
+            params = {n: p.detach() for n, p in net.state_dict().items()}
+            return {"params": params, "opt": lane_adam_init(params)}
+
+        def to_dev(batch: Dict[str, np.ndarray]):
+            return (torch.from_numpy(batch["x"]).to(device),
+                    torch.from_numpy(batch["y"]).to(device),
+                    torch.from_numpy(batch["mask"]).to(device).float())
+
+        def train_step(state, hp, batch):
+            xb, yb, mask = to_dev(batch)
+            params = _grad_aliases(state["params"])
+            loss = masked_ce(_forward(params, xb, n_hidden), yb, mask)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            lane_adam_step(state["params"], dict(zip(params, grads)),
+                           state["opt"], hp["learning_rate"])
+            return state, loss.detach()
+
+        def train_lanes(state, hp, batch):
+            xb, yb, mask = to_dev(batch)
+            params = _grad_aliases(state["params"])
+            logits = _forward_lanes(params, xb, n_hidden).float()
+            k, b = yb.shape
+            losses = F.cross_entropy(logits.reshape(k * b, -1),
+                                     yb.reshape(-1).long(),
+                                     reduction="none").reshape(k, b)
+            lane_loss = (losses * mask).sum(1) / mask.sum(1).clamp(min=1.0)
+            grads = torch.autograd.grad(lane_loss.sum(),
+                                        list(params.values()))
+            lane_adam_step(state["params"], dict(zip(params, grads)),
+                           state["opt"], hp["learning_rate"])
+            return state, lane_loss.detach()
+
+        return init_lane, train_step, train_lanes
+
+    @classmethod
+    def make_gang_spec(cls, knobs: Dict[str, Any], train_dataset_path: str,
+                       val_dataset_path: str,
+                       device: DeviceLike = None) -> GangSpec:
+        """The gang engine's recipe for this static bucket: everything
+        but ``learning_rate`` (the traceable knob) burned in from
+        ``knobs``; the lanes train on ``device`` (None: the CUDA
+        card)."""
+        dev = resolve_device(device)
+        ds = load_image_classification_dataset(train_dataset_path)
+        x = cls._to_float(ds.images)
+        y = ds.labels
+        n_hidden = int(knobs["hidden_layer_count"])
+        batch_size = int(knobs["batch_size"])
+        init_lane, train_step, train_lanes = cls._lane_functions(
+            knobs, int(np.prod(ds.image_shape)), ds.n_classes, dev)
+        vds = load_image_classification_dataset(val_dataset_path)
+        vx = conform_images(cls._to_float(vds.images), ds.image_shape)
+        vy = vds.labels
+        meta = {"n_classes": ds.n_classes,
+                "image_shape": list(ds.image_shape)}
+
+        def epoch_batches(epoch: int):
+            return batch_iterator({"x": x, "y": y}, batch_size, seed=epoch)
+
+        def eval_lane(state, hp, xb):
+            # argmax(logits) == argmax(softmax(logits)): evaluate()'s
+            # accuracy, on the same 256-row buckets
+            with torch.no_grad():
+                return _forward(state["params"],
+                                torch.from_numpy(xb).to(dev),
+                                n_hidden).argmax(-1)
+
+        def eval_lanes(state, hp, xb):
+            k = int(hp["learning_rate"].shape[0])
+            xk = torch.from_numpy(xb).to(dev).expand(k, *xb.shape)
+            with torch.no_grad():
+                return _forward_lanes(state["params"], xk,
+                                      n_hidden).argmax(-1)
+
+        def eval_batches():
+            bucket = 256
+            for i in range(0, len(vx), bucket):
+                xb, yb = vx[i:i + bucket], vy[i:i + bucket]
+                mask = np.ones(bucket, dtype=bool)
+                pad = bucket - len(xb)
+                if pad:
+                    mask[len(xb):] = False
+                    xb = np.concatenate(
+                        [xb, np.zeros((pad, *xb.shape[1:]), xb.dtype)])
+                    yb = np.concatenate([yb, np.zeros(pad, yb.dtype)])
+                yield {"x": xb, "y": yb, "mask": mask}
+
+        def export_blob(lane_state, hp):
+            return {"params": params_to_jax(
+                        {n: t.detach().clone()
+                         for n, t in lane_state["params"].items()}),
+                    "meta": dict(meta)}
+
+        def warm_lane(fresh, blob):
+            shared = (blob or {}).get("params")
+            shapes = params_to_jax({n: torch.empty(t.shape) for n, t in
+                                    fresh["params"].items()})
+            if shared is None or not same_tree_shapes(shapes, shared):
+                return fresh  # incompatible architecture → cold start
+            return {"params": {n: t.to(dev, copy=True) for n, t in
+                               params_from_jax(shared).items()},
+                    "opt": fresh["opt"]}
+
+        return GangSpec(hp_names=("learning_rate",), init_lane=init_lane,
+                        train_step=train_step, train_lanes=train_lanes,
+                        epoch_batches=epoch_batches, eval_lane=eval_lane,
+                        eval_lanes=eval_lanes, eval_batches=eval_batches,
+                        export_blob=export_blob, warm_lane=warm_lane,
+                        share_params_knob="share_params")
+
     def _serving_net(self) -> _MLP:
         if self._params is None:
             raise RuntimeError("model is not trained/loaded")
@@ -142,38 +300,43 @@ class JaxFeedForward:
         self._image_shape = list(ds.image_shape)
         x = self._to_float(ds.images)
         y = ds.labels
-        model = self._module()
-        params = self._params
-        if params is None:
-            params = params_to_jax(model.state_dict())
+        init_lane, train_step, _ = self._lane_functions(
+            self.knobs, int(np.prod(self._image_shape)), ds.n_classes,
+            self.device)
+        hp = {"learning_rate": torch.tensor(
+            float(self.knobs["learning_rate"]), dtype=torch.float32,
+            device=self.device)}
+        state = init_lane(
+            torch.Generator(device=self.device).manual_seed(0), hp)
+        params = self._params  # warm-started via load_parameters
         if ctx.shared_params is not None and self.knobs.get("share_params"):
             shared = ctx.shared_params.get("params")
-            if shared is not None and same_tree_shapes(params, shared):
+            if shared is not None and same_tree_shapes(
+                    params_to_jax(state["params"]), shared):
                 params = shared
             # else: incompatible architecture → cold start
-        model.load_state_dict(params_from_jax(params))
+        if params is not None:  # a copy: the donor blob stays as it is
+            state["params"] = {n: t.to(self.device, copy=True) for n, t in
+                               params_from_jax(params).items()}
         self._params, self._net = None, None
         batch_size = int(self.knobs["batch_size"])
+        epochs = self.gang_epochs(self.knobs, ctx.budget_scale)
 
-        def objective(m, b):
-            xb = torch.from_numpy(b["x"]).to(self.device)
-            yb = torch.from_numpy(b["y"]).to(self.device)
-            mask = torch.from_numpy(b["mask"]).to(self.device).float()
-            return masked_ce(m(xb), yb, mask)
+        def step(state, batch):
+            # a named range in a torch.profiler trace (profile_dir)
+            with torch.profiler.record_function("fit.step"):
+                return train_step(state, hp, batch)
 
-        def snapshot():
-            self._params = params_to_jax(model.state_dict())
-            return self.dump_parameters
+        def checkpoint(state, frac_done):
+            self._params = params_to_jax(state["params"])
+            ctx.checkpoint(self.dump_parameters, frac_done=frac_done)
 
-        fit(model, objective,
-            lambda epoch: batch_iterator({"x": x, "y": y}, batch_size,
-                                         seed=epoch),
-            self.gang_epochs(self.knobs, ctx.budget_scale),
-            max(1, -(-len(x) // batch_size)), self.knobs, ctx, snapshot,
-            make_optimizer=lambda total: adam(
-                model.parameters(), float(self.knobs["learning_rate"])))
-        self._params = params_to_jax(model.state_dict())
-        self._net = model.requires_grad_(False)
+        state = run_epochs(
+            step, state, lambda epoch: batch_iterator(
+                {"x": x, "y": y}, batch_size, seed=epoch),
+            epochs, ctx, checkpoint)
+        self._params = params_to_jax(state["params"])
+        self._net = None
 
     def evaluate(self, dataset_path: str) -> float:
         ds = load_image_classification_dataset(dataset_path)

@@ -318,7 +318,7 @@ class ViTBase16:
         fit(model, objective,
             lambda epoch: batch_iterator({"x": x, "y": y}, batch_size,
                                          seed=epoch),
-            epoch_count(self.knobs, ctx),
+            epoch_count(self.knobs, ctx.budget_scale),
             max(1, -(-len(x) // batch_size)), self.knobs, ctx, snapshot)
         self._params = params_to_jax(model.state_dict())
         self._net = model.requires_grad_(False)

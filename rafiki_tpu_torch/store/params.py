@@ -45,6 +45,13 @@ names a quantized site's base ``qkernel`` (int8) and ``qscale`` (f32)
 instead of ``kernel``: both keep their types through the bridge. The
 trees come from, and go to, the Flax-msgpack byte codec of
 ``store/param_store.py``.
+
+A gang lane's trainable leaves (``rafiki_tpu_torch/tuning``) cross with
+:func:`lane_params_from_jax` and :func:`lane_params_to_jax`: one lane or
+K lanes stacked (every leaf with a leading K, as JAX's vmapped lane
+state holds them), as a nested flax tree (the feed-forward lanes) or as
+JAX's flat LoRA-lane dict, keyed by lowercased ``/``-joined paths
+(``block_0/rmsnorm_0/scale``).
 """
 
 from __future__ import annotations
@@ -177,3 +184,29 @@ def cnn_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         trees[kind][key] = t
     return {kind: _sorted_tree(params_to_jax(tree))
             for kind, tree in trees.items()}
+
+
+def _lane_key(key: str) -> str:
+    return key.replace(".", "/").lower()
+
+
+def lane_params_from_jax(tree: Mapping[str, Any], names: Collection[str]
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX gang lane's params, or K lanes' stacked params, → the port
+    lane state's ``{state_dict key: f32 tensor}`` for the keys ``names``
+    (matched without regard to case: JAX's LoRA-lane keys are
+    lowercased). Leaves are copied (CPU tensors)."""
+    flat = {_lane_key(k): v for k, v in _flatten(tree).items()}
+    return {n: torch.tensor(np.asarray(flat[_lane_key(n)],
+                                       dtype=np.float32))
+            for n in names}
+
+
+def lane_params_to_jax(params: Mapping[str, torch.Tensor],
+                       flat: bool = False) -> Dict[str, Any]:
+    """The inverse: a port lane's (or K lanes') params as f32 numpy, the
+    nested flax tree, or with ``flat`` JAX's LoRA-lane dict."""
+    if flat:
+        return {_lane_key(n): np.array(t.detach().to("cpu", torch.float32))
+                for n, t in params.items()}
+    return params_to_jax({n: t.detach().clone() for n, t in params.items()})

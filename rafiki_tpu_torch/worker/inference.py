@@ -1016,7 +1016,9 @@ class InferenceWorker:
                 stage = getattr(self.engine, "stage_kv_blob", None)
                 if stage is not None and self._kv_stage_budget_ok():
                     # the upload starts now, overlapping the step in
-                    # flight; admission installs it later
+                    # flight; admission installs it later. A failed
+                    # upload hands back the host blob (the engine's
+                    # fallback), which installs at seat time
                     blob = stage(blob)
                 self._pending_kv[mid][2][qi] = blob
             raw = self.hub.pop_kv(self.worker_id, 0.0)

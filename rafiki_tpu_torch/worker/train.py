@@ -33,9 +33,11 @@ Where it differs from the JAX worker, on purpose:
   ``jax.profiler`` trace;
 - admission reads the card's memory (``worker/admission.py``) and the
   template's single-card ``estimate_device_budget``;
-- ``run_gang`` runs sequential trials for a template without a gang spec
-  (JAX's fallback) and raises ``NotPorted`` for one with a spec
-  (``LlamaLoRA``): the gang engine is not ported;
+- ``run_gang`` drives the port's gang engine (``rafiki_tpu_torch/
+  tuning``) for a template with a gang spec, each lane-trial with its
+  own MetaStore row and param blob, with JAX's admission callback over
+  the card's memory; a template without a spec runs sequential trials
+  (JAX's fallback);
 - on exit ``main`` deletes its ``obs_port_file`` (``obs/http.py``
   ``remove_port_file``).
 """
@@ -54,7 +56,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from rafiki_tpu_torch.advisor.base import Proposal, TrialResult
-from rafiki_tpu_torch.model.dev import check_gang_size, profiled_train
+from rafiki_tpu_torch.model.dev import profiled_train
 from rafiki_tpu_torch.model.base import TrainContext
 from rafiki_tpu_torch.model.knob import shape_signature
 from rafiki_tpu_torch.model.log import ModelLogger
@@ -484,15 +486,84 @@ class TrainWorker:
     # ---- gang trial mode ----
     def run_gang(self, gang_size: int,
                  max_trials: Optional[int] = None) -> int:
-        """JAX's gang mode trains K proposals as K lanes of one compiled
-        step. The port has no gang engine: a template without a gang spec
-        runs sequential trials, as JAX runs it, with JAX's warning; one
-        with a spec raises ``NotPorted`` before any trial."""
-        if check_gang_size(self.model_class, gang_size):
+        """Gang mode: K proposals train as K lanes of one step (one
+        executor per static knob bucket), the advisor driven through its
+        batched verbs, ASHA rungs culling lanes in place. Each lane-trial
+        gets a MetaStore row and a ParamStore blob, as a process trial
+        does, and is fed back to the advisor; the engine's gauges
+        (``gang_lanes_active``, ``gang_lanes_culled_total``,
+        ``trials_per_hour``, ``gang_samples_per_s``) ride this worker's
+        registry. A template without a gang spec runs sequential trials.
+        Returns the number of trials completed."""
+        from rafiki_tpu_torch.tuning import GangEngine, supports_gang
+
+        if not supports_gang(self.model_class):
             log.warning("%s has no gang spec; gang_size=%d ignored, "
                         "running sequential trials",
                         self.model_class.__name__, gang_size)
-        return self.run(max_trials)
+            return self.run(max_trials)
+        knob_config = self.model_class.get_knob_config()
+
+        def on_result(result, blob) -> None:
+            trial_id = result.trial_id
+            if self.meta_store is not None:
+                trial_id = self.meta_store.create_trial(
+                    self.sub_train_job_id, result.trial_no,
+                    model_id=self.model_id, knobs=result.knobs,
+                    worker_id=self.worker_id,
+                    budget_scale=result.budget_scale,
+                    shape_sig=shape_signature(knob_config,
+                                              result.knobs))["id"]
+                self._own_trial_ids.add(trial_id)
+            self.param_store.save(trial_id, blob)
+            if self.meta_store is not None:
+                self.meta_store.mark_trial_completed(
+                    trial_id, result.score, params_saved=True)
+            self.stats.inc("trials_completed")
+            self.trials_run += 1
+
+        engine = GangEngine(
+            self.model_class, self.advisor, self.train_dataset_path,
+            self.val_dataset_path, gang_size=gang_size, mode="gang",
+            knob_overrides=self.knob_overrides, metrics=self.metrics,
+            on_result=on_result, admission_check=self._gang_admission,
+            device=self.device)
+        self.gang_engine = engine  # introspection: buckets, refusals
+        return len(engine.run(max_trials))
+
+    def _gang_admission(self, knobs: Dict[str, Any],
+                        k: int) -> Optional[str]:
+        """Memory admission for one gang bucket: the whole gang is one
+        step on the card, so the estimate covers one frozen base plus K
+        lanes' state and activations. Returns a refusal reason (the
+        bucket then runs its trials sequentially, each through the
+        per-trial gate) or None to admit; the limit is the card's
+        (``RAFIKI_DEVICE_HBM_BYTES`` overrides it)."""
+        limit = resolve_device_limit(self.device)
+        if not limit:
+            return None
+        model = self.model_class(device=self.device, **knobs)
+        est = getattr(model, "estimate_device_budget", None)
+        if est is None:
+            return None
+        try:
+            try:
+                budget = est(1, gang_size=k)
+            except TypeError:
+                return None  # an estimator without gang budgets
+            total = int(budget["total"])
+        except Exception as e:  # an estimator bug: visible, not fatal
+            log.warning("gang admission check skipped: "
+                        "estimate_device_budget raised %r", e,
+                        exc_info=True)
+            return None
+        if total > limit:
+            gib = {key: round(v / 2**30, 2) for key, v in budget.items()}
+            return (f"estimated {total / 2**30:.2f}GiB footprint for a "
+                    f"{k}-lane gang exceeds the {limit / 2**30:.2f}GiB "
+                    f"device limit (breakdown: {gib} GiB); shrink the "
+                    "gang, batch_size or max_len")
+        return None
 
     # ---- the loop ----
     def run(self, max_trials: Optional[int] = None) -> int:

@@ -952,6 +952,33 @@ def test_worker_disagg_prefill_kill_mid_run(lm_blob, unified_reference):
     assert pre.stats["kv_ships_sent"] == 1
 
 
+def test_worker_disagg_failed_staging_installs_the_host_blob(
+        lm_blob, unified_reference, monkeypatch):
+    """The decode engine's first upload of a shipment fails: staging
+    hands back the host blob, which installs at seat time; the worker's
+    loop goes on and every stream is the unified one."""
+    from rafiki_tpu_torch.serving.decode_engine import DecodeEngine
+
+    real_upload = DecodeEngine._upload
+    failures = []
+
+    def flaky(self, a):
+        if not failures:
+            failures.append(1)
+            raise RuntimeError("injected upload failure")
+        return real_upload(self, a)
+
+    monkeypatch.setattr(DecodeEngine, "_upload", flaky)
+    dec, pre = _run_disagg(lm_blob, unified_reference)
+    n = len(WORKER_PROMPTS)
+    assert failures == [1]
+    assert _wait(lambda: pre.stats["kv_ships_sent"] == n, DEADLINE_S)
+    assert dec.stats["kv_imports_installed"] == n
+    assert dec.stats["kv_wait_timeouts"] == 0
+    assert dec.stats["kv_import_fallbacks"] == 0
+    assert dec.engine.stats["kv_imports"] == n
+
+
 def test_worker_role_validation(lm_blob):
     from rafiki_tpu_torch.serving.queues import InProcQueueHub
 

@@ -118,31 +118,45 @@ def test_feed_forward_losses_leaves_and_predictions_match_jax(trained,
 
 
 def test_adam_matches_optax_scale_by_adam():
-    """``optim.adam`` against ``scale_by_adam()`` then ``−lr``, the
-    template's update, over 6 steps (rtol 1e-5 with a floor of 1e-6)."""
+    """``optim.lane_adam_step`` against ``scale_by_adam()`` then ``−lr``,
+    the template's update, over 6 steps (rtol 1e-5 with a floor of
+    1e-6); and, as the LoRA lanes run it, with ``add_decayed_weights``
+    before ``−lr``, over two lanes at two rates (a (2,) ``lr``)."""
     rng = np.random.default_rng(0)
-    p0 = rng.standard_normal((4, 3)).astype(np.float32)
-    lr = 1e-2
-    tx = optax.scale_by_adam()
-    jp = jnp.asarray(p0)
-    state = tx.init(jp)
-    tp = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-    opt, sched = optim.adam([tp], lr)
-    assert sched is None
-    for step in range(6):
-        g = rng.standard_normal(p0.shape).astype(np.float32)
-        u, state = tx.update(jnp.asarray(g), state, jp)
-        jp = jp - lr * u
-        tp.grad = torch.from_numpy(g)
-        opt.step()
-        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp),
-                                   rtol=1e-5, atol=1e-6, err_msg=str(step))
+    p0 = rng.standard_normal((2, 4, 3)).astype(np.float32)
+    lrs = np.asarray([1e-2, 3e-3], np.float32)
+    for wd in (0.0, 1e-4):
+        tx = optax.chain(optax.scale_by_adam(),
+                         optax.add_decayed_weights(wd))
+        jp = [jnp.asarray(p0[i]) for i in range(2)]
+        states = [tx.init(p) for p in jp]
+        tp = {"w": torch.from_numpy(p0.copy())}
+        opt = optim.lane_adam_init(tp, (2,))
+        for step in range(6):
+            g = rng.standard_normal(p0.shape).astype(np.float32)
+            for i in range(2):
+                u, states[i] = tx.update(jnp.asarray(g[i]), states[i],
+                                         jp[i])
+                jp[i] = jp[i] - lrs[i] * u
+            optim.lane_adam_step(tp, {"w": torch.from_numpy(g)}, opt,
+                                 torch.from_numpy(lrs), wd)
+            np.testing.assert_allclose(tp["w"].numpy(),
+                                       np.stack([np.asarray(p) for p in jp]),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{wd} {step}")
 
 
 def test_gang_size_is_refused_by_name(data):
-    with pytest.raises(NotPorted, match="JaxFeedForward"):
-        tune_model(JaxFeedForward, data["train"], data["val"],
-                   total_trials=1, gang_size=1, device="cpu")
+    """Once a refusal (the port had no gang engine); now ``gang_size=1``
+    runs the gang engine, and its one lane scores exactly as the
+    sequential trial on the FashionMNIST-layout archive."""
+    kw = dict(total_trials=2, advisor_type="random", seed=4,
+              knob_overrides=PINS, device="cpu")
+    seq = tune_model(JaxFeedForward, data["train"], data["val"], **kw)
+    gang = tune_model(JaxFeedForward, data["train"], data["val"],
+                      gang_size=1, **kw)
+    assert [t.knobs for t in gang.trials] == [t.knobs for t in seq.trials]
+    assert [t.score for t in gang.trials] == [t.score for t in seq.trials]
 
 
 # ---- a tuning job through both train workers, served by the port's

@@ -41,6 +41,7 @@ from rafiki_tpu.model import knob as jk
 from rafiki_tpu.model.base import BaseModel as JBaseModel
 from rafiki_tpu.model.base import TrainContext as JTrainContext
 from rafiki_tpu.model.dev import tune_model as jtune_model
+from rafiki_tpu.models.llama_lora import LlamaLoRA as JLlamaLoRA
 from rafiki_tpu.models.vit import ViT as JViT
 from rafiki_tpu.models.vit import ViTBase16 as JViTBase16
 from rafiki_tpu.store.meta_store import MetaStore as JMetaStore
@@ -52,7 +53,6 @@ from rafiki_tpu_torch.model.dev import tune_model
 from rafiki_tpu_torch.models.llama_lora import LlamaLoRA
 from rafiki_tpu_torch.models.vit import ViTBase16
 from rafiki_tpu_torch.serving import queues
-from rafiki_tpu_torch.serving.decode_engine import NotPorted
 from rafiki_tpu_torch.store.meta_store import MetaStore
 from rafiki_tpu_torch.store.param_store import ParamStore
 from rafiki_tpu_torch.worker import train as ptrain
@@ -566,18 +566,28 @@ class _NoProposals:
         self.calls += 1
         return PA.Proposal.invalid()
 
+    def propose_batch(self, k):
+        self.calls += 1
+        return []
+
 
 def test_gang_size_refused_for_llama_and_ignored_for_vit(caplog):
-    adv = _NoProposals()
-    w = ptrain.TrainWorker(LlamaLoRA, adv, "u", "u", device="cpu")
-    with pytest.raises(NotPorted, match="gang engine"):
-        w.run_gang(2)
-    assert adv.calls == 0  # refused before any trial
-    with pytest.raises(NotPorted, match="gang engine"):
-        tune_model(LlamaLoRA, "u", "u", gang_size=1, device="cpu")
-    with pytest.raises(NotPorted, match="gang engine"):
-        LlamaLoRA(device="cpu", **LM_KNOBS).estimate_device_budget(
-            1, gang_size=4)
+    """Once the port refused a Llama gang by name; now both workers
+    drive a gang engine for it (one batched pull of the advisor, no
+    trial), and a gang's estimate is K lanes of one trial's state and
+    activations over one base. ViT has no gang spec in either package:
+    sequential trials, with JAX's warning."""
+    for mod, template, kw in ((jtrain, JLlamaLoRA, {}),
+                              (ptrain, LlamaLoRA, {"device": "cpu"})):
+        adv = _NoProposals()
+        w = mod.TrainWorker(template, adv, "u", "u", **kw)
+        assert w.run_gang(2) == 0
+        assert adv.calls == 1 and w.gang_engine.n_buckets == 0
+    one = LlamaLoRA(device="cpu", **LM_KNOBS).estimate_device_budget(1)
+    gang = LlamaLoRA(device="cpu", **LM_KNOBS).estimate_device_budget(
+        1, gang_size=4)
+    for key in ("grads", "opt", "activations"):
+        assert gang[key] == 4 * one[key], key
     logs = {}
     for name, mod, template in (("jax", jtrain, JViTBase16),
                                 ("port", ptrain, ViTBase16)):
