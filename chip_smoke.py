@@ -175,7 +175,8 @@ Phases; each raises on failure, so the script exits non-zero:
     the port's own control plane, every service a real process. The port's
     kvd, ``ServicesManager(platform=None)`` over the card the device probe
     finds (one slot), ``Admin``, ``AdminApp`` and a port ``Client`` over
-    HTTP; phase 21's pins, images, BOHB and 8 trials, with ``profile`` on;
+    HTTP; phase 21's pins, images and BOHB, 4 trials (8 until phase 32
+    joined the call), with ``profile`` on;
     every trial must complete and B7/B3/B5/B6 launch in the spawned train
     worker (counted in its traces); the finalized job frees the slot for
     the inference worker; phase 19's 256 images through the Predictor's
@@ -325,10 +326,31 @@ Phases; each raises on failure, so the script exits non-zero:
     served by one multi-adapter engine (paged: B1/B2), token for token
     equal. Paths ``gang_feedforward`` (no port kernel), ``gang_llama``
     and ``gang_worker``.
+32. Scale-out on one card (``scaleout_phase``, after 23): its own stack
+    with two slots over the one card (``ServicesManager(platform=
+    "cuda", devices=[card] * 2)``). (a) ViT-B/16 (bf16, phase 19's blob
+    under a trial row) deployed with one worker, scaled to two by
+    ``Client.scale_inference_job`` (the second joins the published pool
+    once its obs port reports), a rolling restart of the two-worker
+    pool and the scale back to one, under closed-loop 1-image HTTP
+    clients whose every answer must equal the direct ``predict``: no
+    failed request, no 503 in the restart; requests/s at 16 and p50 at
+    1 with one worker and with two. (b) A head-dim-8 f32 ``LlamaLoRA``
+    deployed with ``AUTOSCALE`` (``SCALE_BUDGET``) under
+    ``SCALE_STREAMS`` HTTP streams: the admin's monitor grows the pool
+    on admission stalls, the new worker (armed by ``RAFIKI_CHAOS=
+    kill_after_tokens``, in the admin's environment only until that
+    scale-up spawned) dies with its streams in flight, the manager takes
+    it out of the published pool, the Predictor fails its streams over
+    with forced prefixes, the monitor respawns it and it rejoins once
+    booted, and once the load stops the monitor shrinks the pool back to
+    one through the drain path; every stream's text equal to a direct
+    ``make_decode_engine`` run. B7/B3 (a) and B1/B2 (b) read from every worker's ``/metrics``;
+    paths ``scaleout_vit`` and ``scaleout_llama``.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
-22, 23, 27, 28, 31, then 24 and 18: phases 24 and 18 hold the most host
-memory (phase 24's f32 tree, phase 18's blob), and run last.
+22, 23, 32, 27, 28, 31, then 24 and 18: phases 24 and 18 hold the most
+host memory (phase 24's f32 tree, phase 18's blob), and run last.
 
 Each path's launch counts are zeroed just before it and read just after;
 the ``kernels`` line gives each kernel's sum over the paths and the
@@ -2827,6 +2849,10 @@ def worker_exactness_phase(torch, np, ll, store_params, ps, queues, wi, pa,
 VIT_TUNE_PINS = {"patch_size": 16, "hidden_dim": 768, "depth": 12,
                  "n_heads": 12, "bf16": True}
 VIT_TUNE_TRIALS = 8
+#: phase 23's job through the stack: 4 trials since phase 32 joined the
+#: call (8 before; its trials, their traces and the kvd replay of their
+#: blobs in phase 30 cost ~110 s of the call)
+STACK_TUNE_TRIALS = 4
 VIT_TUNE_IMAGES = (512, 256)  # train, val
 #: phase 21's job time and first proposal, reported beside phase 23's
 VIT_TUNING = {}
@@ -3283,26 +3309,41 @@ def trace_kernel_launches(path):
     return out
 
 
-def _http_closed_loop(Client, url, images, n_clients, per_client):
-    """``n_clients`` closed-loop clients over HTTP, each sending
-    ``per_client`` 1-image ``/predict`` requests through its own port
-    ``Client``, one after another: every request's latency (the client's
-    clock), the wall time and the replies' widths."""
+def _exact_loop(np, Client, url, images, want, n_clients, per_client):
+    """``n_clients`` closed-loop 1-image ``/predict`` clients over HTTP,
+    ``per_client`` requests each, every answer held against its image's
+    row of the direct ``predict`` (``want``) bit for bit: requests/s,
+    p50 / p95, answers differing, requests failed (a structured 503
+    counted apart)."""
     import threading
 
-    lat, widths, errors = [], [], []
+    from rafiki_tpu_torch.utils.http import HttpStatusError
+
+    lat, differing, failed, rejected = [], [], [], []
+    lock = threading.Lock()
 
     def client(c):
-        cli = Client(timeout=300.0)
-        try:
-            for j in range(per_client):
-                img = images[(c * per_client + j) % len(images)]
-                t0 = time.perf_counter()
-                preds = cli.predict(url, [img])
-                lat.append(time.perf_counter() - t0)
-                widths.append(len(preds[0]))
-        except Exception as e:  # surfaced by the phase's gate
-            errors.append(repr(e))
+        cli = Client(timeout=120.0)
+        for j in range(per_client):
+            idx = (c * per_client + j) % len(images)
+            t0 = time.perf_counter()
+            try:
+                got = cli.predict(url, [images[idx]], retry_on_503=False)
+            except HttpStatusError as e:
+                with lock:
+                    (rejected if e.status == 503 else failed).append(
+                        repr(e)[:200])
+                continue
+            except Exception as e:  # counted, and the phase's gate
+                with lock:
+                    failed.append(repr(e)[:200])
+                continue
+            dt = time.perf_counter() - t0
+            same = np.array_equal(np.asarray(got[0], np.float32),
+                                  want[idx])
+            with lock:
+                lat.append(dt)
+                differing.append(not same)
 
     threads = [threading.Thread(target=client, args=(c,))
                for c in range(n_clients)]
@@ -3311,7 +3352,14 @@ def _http_closed_loop(Client, url, images, n_clients, per_client):
         t.start()
     for t in threads:
         t.join()
-    return lat, time.perf_counter() - t0, widths, errors
+    wall = time.perf_counter() - t0
+    return {"clients": n_clients, "requests": len(lat), "wall_s": wall,
+            "requests_per_s": len(lat) / wall,
+            "p50_s": float(np.percentile(lat, 50)) if lat else None,
+            "p95_s": float(np.percentile(lat, 95)) if lat else None,
+            "differing": sum(differing), "failed": len(failed),
+            "rejected_503": len(rejected),
+            "failures": (failed + rejected)[:3]}
 
 
 def _alive(pid):
@@ -3474,6 +3522,7 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
     import hashlib
     import os
     import signal
+    import threading
 
     from rafiki_tpu_torch.admin.admin import Admin
     from rafiki_tpu_torch.admin.app import AdminApp
@@ -3585,28 +3634,34 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
     hub = KVQueueHub(manager2.kv_host, manager2.kv_port)
     with _Traffic(np, Client, url, images, want) as traffic:
         time.sleep(1.0)
+        out = {}
+        # the call returns once the replacement reported its obs port:
+        # the old worker's exit splits the drain from the boot
+        restart = threading.Thread(target=lambda: out.update(
+            client2.rolling_restart_inference_job(ijob_id,
+                                                  drain_timeout=120.0)))
         t0 = time.perf_counter()
-        out = client2.rolling_restart_inference_job(ijob_id,
-                                                    drain_timeout=120.0)
-        t_spawned = time.perf_counter()
-        drain_rc = old_worker.wait(timeout=60)
+        restart.start()
+        drain_rc = old_worker.wait(timeout=180)
+        t_drained = time.perf_counter()
         t_published = time.time()
+        restart.join(timeout=600)
         while True:
             stats = hub.get_worker_stats(wid) or {}
             if stats.get("published_at", 0) > t_published - 1.0 and \
                     not stats.get("draining") and \
                     stats.get("obs_port") not in (None, obs_port):
                 break
-            if time.perf_counter() - t_spawned > 600:
+            if time.perf_counter() - t_drained > 600:
                 raise AssertionError("the replacement never came up")
             time.sleep(0.1)
         t_up = time.perf_counter()
         time.sleep(3.0)  # the clients go on against the replacement
     new_row = services_by_type()["INFERENCE_WORKER"]
     rec["rolling_restart"] = {
-        "sidecar_health": sidecar, "restarted": out["restarted"],
-        "drained_rc": drain_rc, "drain_and_spawn_s": t_spawned - t0,
-        "replacement_boot_s": t_up - t_spawned,
+        "sidecar_health": sidecar, "restarted": out.get("restarted"),
+        "drained_rc": drain_rc, "drain_s": t_drained - t0,
+        "replacement_boot_s": t_up - t_drained,
         "old_pid": pids_before["INFERENCE_WORKER"],
         "new_pid": int(new_row["pid"]),
         "slot": new_row["devices"], "traffic": traffic.counts(),
@@ -3617,13 +3672,14 @@ def recovery_phase(torch, np, st, images, want, ijob_id, wid):
         want[:RECOVERY_CHECK_IMAGES])
     r = rec["rolling_restart"]
     if not (sidecar == {"ok": True} and drain_rc == 0 and
-            len(out["restarted"]) == 1 and out["restarted"][0]["drained"]
+            len(out.get("restarted") or []) == 1
+            and out["restarted"][0]["drained"]
             and r["new_pid"] != r["old_pid"]
             and not r["traffic"]["failed"] and not traffic.hung
             and not traffic.differing):
         emit(rec)
         raise AssertionError(f"rolling restart: {r}")
-    print(f"recovery: (b) drain {r['drain_and_spawn_s']:.2f} s, "
+    print(f"recovery: (b) drain {r['drain_s']:.2f} s, "
           f"replacement {r['replacement_boot_s']:.2f} s", flush=True)
 
     # ---- (c) the kvd killed
@@ -3750,8 +3806,9 @@ def stack_phase(torch, np, vit, dev):
     uploads ``ViTBase16`` and phase 21's seeded 512 / 256 images as
     datasets, and creates a train job with phase 21's pins (full-width
     ViT-B/16, bf16), BOHB (``"advisor": "auto"``, the service's seed 0),
-    ``TRIAL_COUNT`` 8 and ``profile`` on: the admin spawns an advisor
-    service and a train worker onto the slot. Every trial must complete;
+    ``TRIAL_COUNT`` ``STACK_TUNE_TRIALS`` (4) and ``profile`` on: the
+    admin spawns an advisor service and a train worker onto the slot.
+    Every trial must complete;
     each trial's ``torch.profiler`` trace gives its train seconds and
     its kernels' launches (B7, B3, B5 and B6 must launch in the train
     worker). The monitor finalizes the job and frees the slot; the best
@@ -3760,8 +3817,8 @@ def stack_phase(torch, np, vit, dev):
     ``/predict`` in 4 requests of 64 and must equal a direct ``predict``
     of the same trial's parameters, loaded from the param store, on the
     card. Then ``STACK_ROUNDS`` rounds of closed-loop 1-image clients at
-    concurrency 1 and 16 over HTTP, beside phase 19's worker-only
-    figures. The inference worker's published stats must show B7 and B3
+    concurrency 1 and 16 over HTTP (every answer equal to the direct
+    ``predict``), beside phase 19's worker-only figures. The inference worker's published stats must show B7 and B3
     launched. Last, the inference job and the stack stop: no child
     process may be left alive and the slot must be free."""
     import shutil
@@ -3830,7 +3887,7 @@ def stack_phase(torch, np, vit, dev):
         t0 = time.perf_counter()
         job = client.create_train_job(
             "smoke-stack", "IMAGE_CLASSIFICATION", ds_tr["id"],
-            ds_va["id"], budget={"TRIAL_COUNT": VIT_TUNE_TRIALS},
+            ds_va["id"], budget={"TRIAL_COUNT": STACK_TUNE_TRIALS},
             model_ids=[model["id"]],
             train_args={"advisor": "auto", "knob_overrides": VIT_TUNE_PINS,
                         "profile": True})
@@ -3864,7 +3921,7 @@ def stack_phase(torch, np, vit, dev):
                      else knob)
                  for k, knob in vit.ViTBase16.get_knob_config().items()}
         expected_first = make_advisor(space, "auto",
-                                      total_trials=VIT_TUNE_TRIALS,
+                                      total_trials=STACK_TUNE_TRIALS,
                                       seed=0).propose().knobs
         first = trials[0]["knobs"] if trials else None
         rec.update(
@@ -3911,27 +3968,14 @@ def stack_phase(torch, np, vit, dev):
         want = np.asarray(direct.predict(list(images)), np.float32)
         del direct
         torch.cuda.empty_cache()
-        rounds, http_errors, widths = [], [], set()
-        for _ in range(STACK_ROUNDS):
-            lat1, _, w1, e1 = _http_closed_loop(Client, url, images, 1, 40)
-            lat16, wall16, w16, e16 = _http_closed_loop(Client, url,
-                                                        images, 16, 16)
-            http_errors += e1 + e16
-            widths |= set(w1) | set(w16)
-            rounds.append({
-                "concurrency_1": {
-                    "requests": len(lat1),
-                    "p50_s": float(np.percentile(lat1, 50)) if lat1
-                    else None,
-                    "p95_s": float(np.percentile(lat1, 95)) if lat1
-                    else None},
-                "concurrency_16": {
-                    "requests": len(lat16), "wall_s": wall16,
-                    "requests_per_s": len(lat16) / wall16,
-                    "p50_s": float(np.percentile(lat16, 50)) if lat16
-                    else None,
-                    "p95_s": float(np.percentile(lat16, 95)) if lat16
-                    else None}})
+        rounds = [{"concurrency_1": _exact_loop(np, Client, url, images,
+                                                want, 1, 40),
+                   "concurrency_16": _exact_loop(np, Client, url, images,
+                                                 want, 16, 16)}
+                  for _ in range(STACK_ROUNDS)]
+        http_errors = [f for r in rounds for c in r.values()
+                       for f in c["failures"]]
+        differing = sum(c["differing"] for r in rounds for c in r.values())
         t_end = time.time()
         progress("closed loops done")
         # the worker republishes its stats within 50 loop iterations
@@ -3968,7 +4012,8 @@ def stack_phase(torch, np, vit, dev):
                     "max_abs_diff": float(np.abs(got - want).max())
                     if got.shape == want.shape else None},
             rounds=rounds, phase_19_rounds=VIT_WORKER.get("rounds"),
-            http_errors=http_errors[:5], reply_widths=sorted(widths),
+            http_errors=http_errors[:5],
+            answers_differing_from_predict=differing,
             inference_worker_launches=worker_launches,
             predictor={k: health.get(k) for k in (
                 "requests_served", "queries_served", "latency_p50_s",
@@ -3993,14 +4038,15 @@ def stack_phase(torch, np, vit, dev):
     rec["launches"] = launches
     emit(rec)
     errored = [t for t in per_trial if t["status"] != "COMPLETED"]
-    if errored or len(per_trial) != VIT_TUNE_TRIALS:
+    if errored or len(per_trial) != STACK_TUNE_TRIALS:
         raise AssertionError(f"stack trials did not complete: {errored}")
     if not rec["served"]["identical_to_predict"]:
         raise AssertionError("the Predictor's replies differ from the "
                              "direct predict of the best trial")
-    if http_errors or widths != {10}:
+    if http_errors or differing:
         raise AssertionError(f"closed-loop requests failed: "
-                             f"{http_errors[:3]} widths {widths}")
+                             f"{http_errors[:3]}, {differing} answers "
+                             "differing from predict")
     missing = [n for n in ("matmul_bias", "flash_attention_fwd",
                            "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv")
@@ -4019,6 +4065,612 @@ def stack_phase(torch, np, vit, dev):
             manager.allocator.free_count() != manager.allocator.n_slots:
         raise AssertionError("a device slot was not freed")
     return {"stack": launches, "recovery": recovery_launches}
+
+
+# ---- phase 32: scale-out on one card: a pool that grows and shrinks
+# ---- between two slots of the card, the autoscaler, fault injection
+
+#: phase 32 (b)'s model: phase 20's head-dim-8 f32 Llama at max_len 128
+SCALE_LLAMA = dict(vocab_size=1024, hidden_dim=32, depth=2, n_heads=4,
+                   kv_ratio=2, lora_rank=4, max_len=128, bf16=False)
+#: phase 32 (b)'s deployment: the autoscaler between one and two workers,
+#: a page pool of 48 usable 8-token pages (six requests of up to 64
+#: tokens at a time, so 16 streams stall one worker's admission and
+#: still stall two), and a short cooldown between scale actions
+SCALE_BUDGET = {"AUTOSCALE": 1, "MIN_WORKERS": 1, "MAX_WORKERS": 2,
+                "AUTOSCALE_COOLDOWN_S": 15.0, "KV_PAGE_SIZE": 8,
+                "KV_PAGES": 49, "MAX_NEW_TOKENS": 48}
+#: phase 32 (b)'s closed-loop stream clients and distinct prompts
+SCALE_STREAMS = 16
+SCALE_PROMPTS = 48
+#: the scaled-up worker's RAFIKI_CHAOS: it dies after this many tokens.
+#: The Predictor sends every new stream to it until it stalls (the first
+#: worker stalls all along), and it stalls only past six streams, so its
+#: first 400 tokens end with at least four streams seated there: fewer
+#: than four seated make at most 3 tokens a step, and the first worker's
+#: six seated streams each end within 48 of its steps
+SCALE_KILL_AFTER = 400
+#: phase 32 (a)'s closed loops: (clients, requests per client), phase
+#: 23's sizes
+SCALE_LOOP_16 = (16, 16)
+SCALE_LOOP_1 = (1, 40)
+
+
+def _worker_metrics(workdir, wid):
+    """A live worker's ``/metrics`` gauges, through the obs port in its
+    ``obs_port_file``: ``{name: value}`` (empty when it does not
+    answer)."""
+    import urllib.request
+
+    try:
+        port = int((workdir / f"{wid}.obs_port").read_text().strip())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10.0) as r:
+            text = r.read().decode()
+    except (OSError, ValueError):
+        return {}
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, _, value = line.partition(" ")
+            try:
+                out[name] = float(value)
+            except ValueError:
+                pass
+    return out
+
+
+def _launches_of(metrics):
+    return {k[len("kernel_launches_"):]: int(v) for k, v in metrics.items()
+            if k.startswith("kernel_launches_")}
+
+
+class _StreamLoad:
+    """``n_clients`` closed-loop ``/predict_stream`` clients over HTTP,
+    each through its own port ``Client`` (no automatic resume), cycling
+    over ``prompts``: each stream's whole text (the final predictions
+    and the accumulated deltas) held against ``want[prompt]``, its
+    failovers, and the longest gap between two of its events; a
+    failed-over stream keeps its events' times and its trace id
+    (:meth:`failover_split` reads the Predictor's traces of them)."""
+
+    def __init__(self, Client, url, prompts, want, n_clients):
+        import threading
+
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self.done, self.differing, self.failed = 0, [], []
+        self.failed_over, self.failover_gaps = 0, []
+        #: (trace id, its events' seconds after the request was sent)
+        self.failover_streams = []
+        self._threads = [threading.Thread(
+            target=self._client, args=(Client, url, prompts, want, c),
+            daemon=True) for c in range(n_clients)]
+
+    def _client(self, Client, url, prompts, want, c):
+        cli = Client(timeout=120.0)
+        k = 0
+        while not self._stop.is_set():
+            prompt = prompts[(c + k * len(self._threads)) % len(prompts)]
+            k += 1
+            acc, final, gap, times = "", {}, 0.0, []
+            t_start = last = time.perf_counter()
+            try:
+                for ev in cli.predict_stream(url, [prompt], timeout=300.0,
+                                             auto_resume=0):
+                    now = time.perf_counter()
+                    gap, last = max(gap, now - last), now
+                    times.append(now - t_start)
+                    if not isinstance(ev, dict):  # StreamInterrupted
+                        final = {"error": repr(ev)[:200]}
+                        break
+                    if "delta" in ev:
+                        acc += "".join(ev["delta"].values())
+                    elif "replace" in ev:
+                        acc = "".join(ev["replace"].values())
+                    if ev.get("done"):
+                        final = ev
+            except Exception as e:  # counted, and the phase's gate
+                final = {"error": repr(e)[:200]}
+            with self._lock:
+                if final.get("error") or not final.get("done"):
+                    self.failed.append(str(final.get("error"))[:200])
+                    continue
+                text = (final.get("predictions") or [None])[0]
+                self.done += 1
+                if not (text == acc == want[prompt]):
+                    self.differing.append({"prompt": prompt,
+                                           "got": text, "deltas": acc,
+                                           "want": want[prompt]})
+                if (final.get("info") or {}).get("failovers"):
+                    self.failed_over += 1
+                    self.failover_gaps.append(gap)
+                    self.failover_streams.append(
+                        (final["info"].get("trace_id"), times))
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=400)
+        self.hung = sum(t.is_alive() for t in self._threads)
+
+    def failover_split(self, url):
+        """Each failed-over stream's reason (the Predictor's
+        ``worker_lost`` span, timed against the trace's first span) and
+        the silence around it split in two: from the stream's last event
+        before it to it (``detect_s``), and from it to the next event
+        (``resume_s``: the re-submission's wait and prefill on the
+        survivor)."""
+        import urllib.request
+
+        with urllib.request.urlopen(f"{url}/debug/requests?n=512",
+                                    timeout=30.0) as r:
+            traces = {t.get("trace_id"): t
+                      for t in json.loads(r.read())["requests"]}
+        reasons, detect, resume = {}, [], []
+        with self._lock:
+            streams = list(self.failover_streams)
+        for tid, times in streams:
+            spans = (traces.get(tid) or {}).get("spans") or []
+            lost = [sp for sp in spans if sp.get("name") == "worker_lost"]
+            if not spans or not lost:
+                reasons["untraced"] = reasons.get("untraced", 0) + 1
+                continue
+            why = str(lost[0].get("reason"))
+            reasons[why] = reasons.get(why, 0) + 1
+            at = lost[0]["t"] - spans[0]["t"]
+            before = [t for t in times if t <= at]
+            after = [t for t in times if t > at]
+            if before and after:
+                detect.append(at - before[-1])
+                resume.append(after[0] - at)
+        return {"reasons": reasons,
+                "detect_s": [round(x, 3) for x in sorted(detect)],
+                "resume_s": [round(x, 3) for x in sorted(resume)]}
+
+    def counts(self):
+        with self._lock:
+            return {"streams_done": self.done,
+                    "differing": len(self.differing),
+                    "first_difference": self.differing[:1],
+                    "failed": len(self.failed),
+                    "failures": self.failed[:3],
+                    "failed_over": self.failed_over,
+                    "longest_failover_silence_s": max(
+                        self.failover_gaps, default=None)}
+
+
+def _wait(cond, timeout, what, poll=0.05):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 32: {what} within {timeout:.0f} s")
+        time.sleep(poll)
+
+
+def scaleout_phase(torch, np, vit, ll, store_params, HashTokenizer, dev):
+    """Phase 32 (after 23): one inference job's pool grows and shrinks
+    between two slots of the one card. The phase boots its own stack:
+    the port's kvd, ``ServicesManager(platform="cuda", devices=[card
+    0's DeviceSpec] * 2)``, the admin lease, ``Admin`` with its monitor,
+    ``AdminApp`` and a port ``Client`` over HTTP. No training: each
+    leg's trial is a seeded blob put into the stack's param store under
+    a completed trial row.
+
+    (a) ViT-B/16, bf16, 1000 classes (phase 19's blob), under
+    closed-loop 1-image HTTP clients, every answer equal to the direct
+    ``predict`` on the card bit for bit: one worker's requests/s at 16
+    clients and p50 at 1; ``Client.scale_inference_job(job, 2)`` (the
+    second worker on the card's second slot joins the published pool
+    once its obs port reports; the call's seconds); requests/s at 16
+    with two workers, each worker's kernel launches growing; a rolling
+    restart of the two-worker pool under 4 clients (no failed request,
+    no 503); ``scale_inference_job(job, 1)`` under 4 clients (the newest
+    worker drains, membership first; the drain's seconds), its slot
+    free.
+    (b) ``SCALE_LLAMA`` (head dim 8, f32) as ``LlamaLoRA`` with
+    ``SCALE_BUDGET`` (``AUTOSCALE`` between 1 and 2 workers), under
+    ``SCALE_STREAMS`` closed-loop HTTP streams whose every text must
+    equal a direct ``make_decode_engine`` run of the same prompts on the
+    card: the admin's monitor grows the pool on admission stalls (never
+    forced); ``RAFIKI_CHAOS=kill_after_tokens=SCALE_KILL_AFTER`` is in
+    the admin's environment from the load's start until that scale-up
+    has spawned, so it arms the new worker only, which dies with its
+    streams in flight; the Predictor fails them over with forced
+    prefixes, and the monitor respawns the worker under its budget
+    (the job not degraded); the load stops and the monitor shrinks the
+    pool back to one through the drain path.
+    Each worker's launches come from its ``/metrics``; B7 and B3 (a),
+    B1 and B2 (b) must launch in every worker read. Last the jobs and
+    the stack stop: no child left, both slots free. Returns the paths
+    ``scaleout_vit`` and ``scaleout_llama``."""
+    import os
+    import shutil
+    import threading
+
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.app import AdminApp
+    from rafiki_tpu_torch.admin.proc import terminate_pid
+    from rafiki_tpu_torch.admin.services_manager import (ServicesManager,
+                                                         probe_devices)
+    from rafiki_tpu_torch.client import Client
+    from rafiki_tpu_torch.parallel.mesh import DeviceSpec
+    from rafiki_tpu_torch.serving.queues import KVQueueHub
+    from rafiki_tpu_torch.store.meta_store import MetaStore
+    from rafiki_tpu_torch.store.param_store import ParamStore
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "scaleout"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "stack").mkdir(parents=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = DeviceSpec.from_probe(probe_devices()["devices"][0])
+    meta = MetaStore(str(work / "stack" / "meta.db"))
+    manager = ServicesManager(meta, str(work / "stack"), platform="cuda",
+                              devices=[card] * 2, slot_size=1,
+                              slot_timeout=300.0)
+    manager.acquire_lease(ttl_s=STACK_LEASE_TTL_S)
+    manager.start_lease_heartbeat()
+    manager.start_data_plane()
+    admin = Admin(meta, manager)
+    admin.start_monitor(interval_s=0.3)
+    app = AdminApp(admin)
+    host, port = app.start()
+    client = Client(f"http://{host}:{port}", timeout=600.0)
+    hub = KVQueueHub(manager.kv_host, manager.kv_port)
+    store = ParamStore.from_uri(manager.param_store_uri)
+    wd = manager.workdir
+    rec = {"phase": "scaleout", "card": smi,
+           "slots": [[d.id for d in s.devices]
+                     for s in manager.allocator._slots]}
+    launches = {"scaleout_vit": {}, "scaleout_llama": {}}
+    read = {}  # worker -> its kernel launches when read
+    os.environ.pop("RAFIKI_CHAOS", None)
+
+    def progress(step):
+        print(f"scaleout: {step} at {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    def trial_of(model, name, knobs, blob):
+        """A completed trial row of ``model`` with ``blob`` in the
+        stack's param store; returns its train job."""
+        tj = meta.create_train_job("smoke", name, 1, model["task"], {},
+                                   "none", "none")
+        sub = meta.create_sub_train_job(tj["id"], model["id"])
+        t = meta.create_trial(sub["id"], 0, model["id"], knobs)
+        store.save(t["id"], blob)
+        meta.mark_trial_completed(t["id"], 1.0, True)
+        return tj
+
+    def read_launches(path, wid, need):
+        m = _worker_metrics(wd, wid)
+        got = _launches_of(m)
+        read[f"{path}:{wid}:{len(read)}"] = got
+        for k, v in got.items():
+            launches[path][k] = launches[path].get(k, 0) + v
+        missing = [k for k in need if got.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase 32: {missing} never launched in "
+                                 f"worker {wid} ({got})")
+        return m
+
+    try:
+        client.login("superadmin@rafiki", "rafiki")
+        # ---- (a) ViT-B/16, one worker and two on one card
+        images = np.random.default_rng(SEED + 19).integers(
+            0, 256, (256, *VIT_IMAGE), dtype=np.uint8)
+        vmodel = client.create_model("vit-b16", "IMAGE_CLASSIFICATION",
+                                     vit.ViTBase16)
+        vmodel = meta.get_model(vmodel["id"])
+        blob = vit_blob(torch, vit, store_params, dev, 1000)
+        vjob = trial_of(vmodel, "scaleout-vit", VIT_KNOBS, blob)
+        direct = vit.ViTBase16(device=dev, **VIT_KNOBS)
+        direct.load_parameters(blob)
+        want = np.asarray(direct.predict(list(images)), np.float32)
+        del direct, blob
+        torch.cuda.empty_cache()
+        progress("vit blob stored")
+        t0 = time.perf_counter()
+        ij = client.create_inference_job(vjob["id"], max_workers=1)
+        url, vid = ij["predictor_url"], ij["id"]
+        w0 = f"iw-{vid[:8]}-0"
+        _wait(lambda: (wd / f"{w0}.obs_port").exists(), 300,
+              "the ViT worker came up")
+        client.predict(url, [images[0]])
+        a = {"deploy_s": time.perf_counter() - t0}
+        progress("vit deployed")
+        a["one_worker"] = {
+            "at_16": _exact_loop(np, Client, url, images, want,
+                                 *SCALE_LOOP_16),
+            "at_1": _exact_loop(np, Client, url, images, want,
+                                *SCALE_LOOP_1)}
+        before = _launches_of(_worker_metrics(wd, w0))
+        t0 = time.perf_counter()
+        out = client.scale_inference_job(vid, 2, drain_timeout=120.0)
+        a["scale_up"] = {"seconds_to_published_pool":
+                         time.perf_counter() - t0, **out,
+                         "published": hub.get_pool_members(vid)["workers"],
+                         "free_slots": manager.allocator.free_count()}
+        w1 = out["scaled_up"][0] if out.get("scaled_up") else None
+        progress("vit scaled to 2")
+        # the call returned once the Predictor routes over both workers
+        client.predict(url, [images[0]])
+        a["two_workers"] = {"at_16": _exact_loop(
+            np, Client, url, images, want, *SCALE_LOOP_16)}
+        a["gain_at_16"] = (a["two_workers"]["at_16"]["requests_per_s"]
+                           / a["one_worker"]["at_16"]["requests_per_s"])
+        progress("vit two-worker loop")
+        # the two original workers, read just before the restart ends
+        # them: both served the two-worker loop
+        after = {w: read_launches("scaleout_vit", w,
+                                  ("matmul_bias", "flash_attention_fwd"))
+                 for w in (w0, w1)}
+        a["two_workers"]["served_by_both"] = bool(
+            _launches_of(after[w0]).get("matmul_bias", 0)
+            > before.get("matmul_bias", 0)
+            and _launches_of(after[w1]).get("matmul_bias", 0) > 0)
+        with _Traffic(np, Client, url, images, want) as traffic:
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            rr = client.rolling_restart_inference_job(
+                vid, drain_timeout=120.0)
+            a["rolling_restart_s"] = time.perf_counter() - t0
+            time.sleep(1.0)
+        a["rolling_restart"] = {**traffic.counts(),
+                                "restarted": rr["restarted"]}
+        progress("vit rolling restart")
+        # the replacement of w1 before the scale-down drains it; w0's
+        # after it
+        read_launches("scaleout_vit", w1,
+                      ("matmul_bias", "flash_attention_fwd"))
+        with _Traffic(np, Client, url, images, want) as traffic:
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            out = client.scale_inference_job(vid, 1, drain_timeout=120.0)
+            a["drain_s"] = time.perf_counter() - t0
+            time.sleep(1.0)
+        a["scale_down"] = {**traffic.counts(), **out,
+                           "published": hub.get_pool_members(vid)["workers"]}
+        _wait(lambda: manager.allocator.free_count() == 1, 60,
+              "the drained worker's slot came free")
+        a["scale_down"]["free_slots"] = manager.allocator.free_count()
+        read_launches("scaleout_vit", w0,
+                      ("matmul_bias", "flash_attention_fwd"))
+        client.stop_inference_job(vid)
+        _wait(lambda: manager.allocator.free_count() == 2, 60,
+              "both slots came free after the ViT job")
+        rec["vit"] = a
+        progress("vit done")
+
+        # ---- (b) LlamaLoRA head dim 8, the monitor's autoscaler, a kill
+        k = SCALE_LLAMA
+        gen = torch.Generator().manual_seed(SEED + 32)
+        net = ll.Llama(vocab_size=k["vocab_size"], max_len=k["max_len"],
+                       hidden_dim=k["hidden_dim"], depth=k["depth"],
+                       n_heads=k["n_heads"],
+                       n_kv_heads=k["n_heads"] // k["kv_ratio"],
+                       mlp_dim=4 * k["hidden_dim"],
+                       lora_rank=k["lora_rank"], device="cpu",
+                       generator=gen)
+        randomize_lora_b(net, gen)
+        with torch.no_grad():
+            # PAD and BOS never win the argmax, and every other id has a
+            # word that hashes back to it: a delivered text re-encodes to
+            # its own ids, which a failover's forced prefix relies on
+            net.lm_head.kernel[:, :2] = 0.0
+        hash_tok = HashTokenizer(k["vocab_size"])
+        id2tok = {}
+        for i in range(20000):
+            id2tok.setdefault(hash_tok.token_id(f"w{i}"), f"w{i}")
+        lblob = {"params": store_params.params_to_jax(net.state_dict()),
+                 "meta": {"id2tok": {str(i): w for i, w in
+                                     id2tok.items()}}}
+        del net
+        lmodel = client.create_model("llama-hd8", "LANGUAGE_MODELING",
+                                     ll.LlamaLoRA)
+        lmodel = meta.get_model(lmodel["id"])
+        ljob = trial_of(lmodel, "scaleout-llama", SCALE_LLAMA, lblob)
+        rng = np.random.default_rng(SEED + 32)
+        prompts = [" ".join(f"w{int(w)}" for w in rng.integers(
+            0, 20000, size=int(rng.integers(6, 15))))
+            for _ in range(SCALE_PROMPTS)]
+        ref = ll.LlamaLoRA(device=dev, **SCALE_LLAMA)
+        ref.load_parameters(lblob)
+        eng = ref.make_decode_engine(
+            max_slots=8, max_new_tokens=SCALE_BUDGET["MAX_NEW_TOKENS"],
+            kv_page_size=SCALE_BUDGET["KV_PAGE_SIZE"])
+        for i, p in enumerate(prompts):
+            eng.submit(i, p)
+        texts = {}
+        for _ in range(20000):
+            if not eng.busy:
+                break
+            eng.step()
+            texts.update(dict(eng.poll()))
+        lwant = {prompts[i]: t for i, t in texts.items()}
+        del eng, ref
+        if len(lwant) != len(prompts) or any("<" in t for t in
+                                             lwant.values()):
+            raise AssertionError("phase 32: the reference texts do not "
+                                 "re-encode to their own ids")
+        torch.cuda.empty_cache()
+        b = {"reference_texts": len(lwant)}
+        # (a)'s manual scale counted too: (b) reads the counters' growth
+        base = manager.scaling.snapshot()
+        t0 = time.perf_counter()
+        ij = client.create_inference_job(ljob["id"], max_workers=1,
+                                         budget=dict(SCALE_BUDGET))
+        lurl, lid = ij["predictor_url"], ij["id"]
+        l0, l1 = f"iw-{lid[:8]}-0", f"iw-{lid[:8]}-1"
+        _wait(lambda: (wd / f"{l0}.obs_port").exists(), 300,
+              "the Llama worker came up")
+        b["deploy_s"] = time.perf_counter() - t0
+        progress("llama deployed")
+        marks = {}
+
+        def watch(stop):
+            """Stamp the first stall, the scale-up, the new worker's
+            first pick; take RAFIKI_CHAOS out of the admin's env once
+            the scale-up has spawned."""
+            while not stop.is_set():
+                now = time.perf_counter()
+                s0 = hub.get_worker_stats(l0) or {}
+                if "stall" not in marks and \
+                        s0.get("engine_admission_stalls", 0) > 0:
+                    marks["stall"] = now
+                if "up" not in marks and \
+                        manager.scaling["autoscale_ups"] > \
+                        base["autoscale_ups"]:
+                    marks["up"] = now
+                    os.environ.pop("RAFIKI_CHAOS", None)
+                if "up" in marks and "pick" not in marks:
+                    m1 = _worker_metrics(wd, l1)
+                    if m1.get("tokens_generated", 0) > 0:
+                        marks["pick"] = now
+                if "respawn" not in marks and \
+                        manager.respawn_stats()["respawns_done"] >= 1:
+                    # the killed worker's stand-in is booting: the pool
+                    # the Predictor is told routes around it
+                    marks["respawn"] = now
+                    marks["pool_while_respawning"] = \
+                        hub.get_pool_members(lid)["workers"]
+                stop.wait(0.05)
+
+        stop_watch = threading.Event()
+        watcher = threading.Thread(target=watch, args=(stop_watch,),
+                                   daemon=True)
+        os.environ["RAFIKI_CHAOS"] = f"kill_after_tokens={SCALE_KILL_AFTER}"
+        t_load = time.perf_counter()
+        watcher.start()
+        with _StreamLoad(Client, lurl, prompts, lwant,
+                         SCALE_STREAMS) as load:
+            _wait(lambda: "up" in marks, 120, "the monitor scaled up")
+            progress("llama scaled up")
+            _wait(lambda: manager.respawn_stats()["respawns_done"] >= 1,
+                  180, "the chaos-killed worker was respawned")
+            progress("llama worker respawned")
+            _wait(lambda: load.counts()["failed_over"] >= 1
+                  and _worker_metrics(wd, l1).get("requests_done", 0) > 0,
+                  180, "the streams failed over and the respawned "
+                       "worker served")
+            health = client.get_inference_job_health(lid)
+            b["router_while_two"] = (health.get("router") or {})
+            m0, m1 = (_worker_metrics(wd, w) for w in (l0, l1))
+            b["requests_done_while_two"] = {
+                l0: m0.get("requests_done"), l1: m1.get("requests_done")}
+            for w in (l0, l1):
+                read_launches("scaleout_llama", w,
+                              ("paged_decode_attention",
+                               "paged_window_attention"))
+            time.sleep(1.0)
+        stop_watch.set()
+        watcher.join(timeout=10)
+        os.environ.pop("RAFIKI_CHAOS", None)
+        b["downs_under_load"] = (manager.scaling["autoscale_downs"]
+                                 - base["autoscale_downs"])
+        b["load"] = load.counts()
+        b["load"]["hung_clients"] = load.hung
+        # the reading of the dead worker's routing: why each stream
+        # failed over, and how its silence splits
+        b["failover_split"] = load.failover_split(lurl)
+        b["load_s"] = time.perf_counter() - t_load
+        progress("llama load stopped")
+        t0 = time.perf_counter()
+        _wait(lambda: manager.scaling["autoscale_downs"]
+              > base["autoscale_downs"]
+              and manager.scaleout_status(lid)["victim"] is None
+              and manager.allocator.free_count() == 1, 120,
+              "the monitor shrank the pool back to one")
+        b["shrink_s"] = time.perf_counter() - t0
+        b["scaling"] = {k: v - base[k] for k, v in
+                        manager.scaling.snapshot().items()}
+        b["status"] = manager.scaleout_status(lid)
+        b["published"] = hub.get_pool_members(lid)["workers"]
+        b["respawns"] = manager.respawn_stats()
+        b["job_status"] = meta.get_inference_job(lid)["status"]
+        b["seconds_stall_to_up"] = marks["up"] - marks.get("stall",
+                                                           marks["up"])
+        b["pool_while_respawning"] = marks.get("pool_while_respawning")
+        b["seconds_stall_to_first_pick"] = (
+            marks["pick"] - marks.get("stall", marks["up"])
+            if "pick" in marks else None)
+        client.stop_inference_job(lid)
+        _wait(lambda: manager.allocator.free_count() == 2, 60,
+              "both slots came free after the Llama job")
+        rec["llama"] = b
+        progress("llama done")
+    finally:
+        os.environ.pop("RAFIKI_CHAOS", None)
+        rows = [r for r in meta.get_services() if r["pid"]]
+        pids = [int(r["pid"]) for r in rows]
+        app.stop()
+        alive = [p for p in pids if _alive(p)]
+        for r in rows:
+            terminate_pid(int(r["pid"]), float(r["start_time"] or 0))
+    rec["children"] = len(pids)
+    rec["children_alive_after_stop"] = alive
+    rec["free_slots_after_stop"] = manager.allocator.free_count()
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+    errs = []
+    a, b = rec["vit"], rec["llama"]
+    steps = {"one_worker_16": a["one_worker"]["at_16"],
+             "one_worker_1": a["one_worker"]["at_1"],
+             "two_workers_16": a["two_workers"]["at_16"]}
+    for name, r in steps.items():
+        if r["failed"] or r["rejected_503"] or r["differing"]:
+            errs.append(f"(a) {name}: {r}")
+    for name in ("rolling_restart", "scale_down"):
+        r = a[name]
+        if r["failed"] or r["answers_differing_from_predict"] or \
+                r["hung_clients"]:
+            errs.append(f"(a) {name}: {r}")
+    if a["rolling_restart"]["rejected"]:
+        errs.append(f"(a) 503s in the two-worker rolling restart: "
+                    f"{a['rolling_restart']['rejected']}")
+    if a["scale_up"]["published"] != [w0, w1] or \
+            a["scale_down"]["published"] != [w0]:
+        errs.append(f"(a) pool memberships: {a['scale_up']['published']} "
+                    f"{a['scale_down']['published']}")
+    if not a["two_workers"]["served_by_both"]:
+        errs.append("(a) the two-worker loop was not served by both")
+    if b["load"]["failed"] or b["load"]["differing"] or \
+            b["load"]["hung_clients"]:
+        errs.append(f"(b) streams: {b['load']}")
+    if b["load"]["failed_over"] < 4:
+        errs.append(f"(b) fewer than 4 streams were in flight on the "
+                    f"killed worker: {b['load']['failed_over']}")
+    if b["scaling"]["autoscale_ups"] < 1 or \
+            b["scaling"]["autoscale_downs"] < 1 or b["downs_under_load"]:
+        errs.append(f"(b) the monitor did not scale up under the load "
+                    f"and down after it: {b['scaling']}, "
+                    f"{b['downs_under_load']} down under the load")
+    # the policy drains the member with the fewest live pages (ties to
+    # the newest), so either worker may be the one left
+    if len(b["published"]) != 1 or b["published"][0] not in (l0, l1) or \
+            b["job_status"] != "RUNNING" or b["respawns"]["degraded_jobs"]:
+        errs.append(f"(b) pool {b['published']}, job {b['job_status']}, "
+                    f"{b['respawns']}")
+    if not all((b["requests_done_while_two"].get(w) or 0) > 0
+               for w in (l0, l1)):
+        errs.append(f"(b) picks on both workers: "
+                    f"{b['requests_done_while_two']}")
+    if alive or rec["free_slots_after_stop"] != 2:
+        errs.append(f"children left {alive}, free slots "
+                    f"{rec['free_slots_after_stop']}")
+    if errs:
+        raise AssertionError("phase 32: " + "; ".join(errs))
+    return launches
 
 
 # ---- Llama serving as its users run it (phases 24-25): a byte-BPE
@@ -6320,6 +6972,9 @@ def main(argv=None):
                                     wi, fa, pa, dev))
     torch.cuda.empty_cache()
     paths.update(stack_phase(torch, np, vit, dev))
+    torch.cuda.empty_cache()
+    paths.update(scaleout_phase(torch, np, vit, ll, store_params,
+                                HashTokenizer, dev))
     torch.cuda.empty_cache()
     cnn = {"resnet": resnet, "vgg": vgg, "densenet": densenet}
     paths.update(resnet_phase(torch, np, cnn, layers, stream, store_params,

@@ -28,7 +28,10 @@ admin and its REST app, the services manager over CUDA device slots, the
 advisor service, the kv data plane, the Predictor and the client SDK)
 and its crash recovery (boot reconciliation and adoption, the kvd's
 respawn with WAL replay, rolling restarts through the workers' obs
-sidecars, the MetaStore backup and the workdir doctor).
+sidecars, the MetaStore backup and the workdir doctor); scale-out (the
+routing pool, manual scale and the autoscaler, several slots on one
+card), fault injection (``chaos/``, ``RAFIKI_CHAOS``) and the MetaStore's
+Postgres adapter (``store/db.py``).
 """
 
 __version__ = "0.1.0"

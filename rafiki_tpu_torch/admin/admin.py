@@ -5,9 +5,10 @@ The port's own copy of ``rafiki_tpu/admin/admin.py`` (``Admin``,
 dataset registry, the train- and inference-job lifecycle; it spawns
 services through the port's ``ServicesManager``. A monitor thread reaps
 dead services and finalizes train jobs whose workers have all exited
-(stopping their advisors and freeing their slots). The MetaStore
-backup and the rolling restart are served; scale-out and the autoscaler
-raise ``NotPorted`` naming themselves.
+(stopping their advisors and freeing their slots), and ticks the
+inference-pool autoscaler (``ServicesManager.autoscale_tick``). The
+MetaStore backup, the rolling restart and the manual scale of an
+inference job are served.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ class Admin:
                     if self.services.fenced:
                         continue
                     self.services.poll()
+                    # the inference-pool autoscaler: grow on sustained
+                    # admission stalls, shrink through the drain path
+                    # (rate-limited; a no-op without a live pool)
+                    self.services.autoscale_tick()
                     self._finalize_finished_train_jobs()
                 except Exception:  # keep the monitor alive — but a
                     # broken poll loop must be visible, not silent
@@ -302,11 +307,11 @@ class Admin:
         cap / shared-prefix KV cache), ``SPECULATE_K`` (speculative
         decoding: prompt-lookup drafting at depth K),
         ``DRAFT_TRIAL_ID`` (a completed same-template trial to use as
-        the draft MODEL instead of prompt lookup), and the autoscaler
-        keys ``AUTOSCALE`` / ``MIN_WORKERS`` / ``MAX_WORKERS`` /
-        ``AUTOSCALE_COOLDOWN_S``. The port refuses the disaggregated
-        and host-tier keys and the autoscaler keys by name
-        (``NotPorted``), before anything spawns."""
+        the draft MODEL instead of prompt lookup), the disaggregated and
+        host-tier keys, and the autoscaler keys ``AUTOSCALE`` /
+        ``MIN_WORKERS`` / ``MAX_WORKERS`` / ``AUTOSCALE_COOLDOWN_S``,
+        each validated as JAX does before anything spawns. The port
+        refuses ``PAGED_KERNEL=false`` by name (``NotPorted``)."""
         job = self.meta.create_inference_job(user_id, train_job_id,
                                              budget=budget)
         self.services.create_inference_services(job["id"],

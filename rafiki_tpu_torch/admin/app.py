@@ -4,18 +4,20 @@ The port's own copy of ``rafiki_tpu/admin/app.py`` (``AdminApp`` with the
 JAX route table, and ``main``): tokens, users, models, datasets, train
 jobs, trials, inference jobs, ``/health``, ``/metrics`` and the operator
 dashboard (the port's own copy of ``dashboard.html``), the rolling
-restart and ``/system/backup``. Model bytes travel base64-encoded in JSON
-(``model.base.serialize_model_class``). The routes of what the port does
-not serve yet, scale-out and the autoscaler, answer 400 naming
-themselves.
+restart, the manual scale and the autoscaler's state
+(``/inference_jobs/<id>/scale``, ``/inference_jobs/<id>/autoscaler``,
+the ``admin_autoscale_*`` gauges and the ``/health`` scaling block) and
+``/system/backup``. Model bytes travel base64-encoded in JSON
+(``model.base.serialize_model_class``).
 
 ``python -m rafiki_tpu_torch.admin.app --config cfg.json`` is the stack's
 process: it takes the admin lease and starts its heartbeat, reconciles
 what a previous admin left (or reaps it, with ``"cold_start"``), boots
-the port's kvd unless it adopted one, starts the monitor and serves the
-API. On a host without a CUDA device it raises, unless the config asks
-for a CPU stack (``"platform": "cpu"``, with ``"cpu_slots"`` virtual
-slots).
+the port's kvd unless it adopted one, arms the ``RAFIKI_CHAOS`` admin
+and kvd kill timers when the env asks for them, starts the monitor and
+serves the API. On a host without a CUDA device it raises, unless the
+config asks for a CPU stack (``"platform": "cpu"``, with ``"cpu_slots"``
+virtual slots).
 """
 
 from __future__ import annotations
@@ -69,6 +71,19 @@ class AdminApp:
             "admin_lease_generation",
             "fencing generation of the held admin lease",
             fn=lambda: svcs.lease_generation)
+        # the scale-out plane: autoscaler actions
+        self.metrics.gauge(
+            "admin_autoscale_ups",
+            "inference-pool replicas added by autoscale/manual scale",
+            fn=lambda: svcs.scaling["autoscale_ups"])
+        self.metrics.gauge(
+            "admin_autoscale_downs",
+            "inference-pool replicas drained out by autoscale/manual "
+            "scale", fn=lambda: svcs.scaling["autoscale_downs"])
+        self.metrics.gauge(
+            "admin_autoscale_blocked",
+            "autoscale-up decisions skipped for want of a device slot",
+            fn=lambda: svcs.scaling["autoscale_blocked"])
         self.metrics.gauge(
             "kvd_respawns", "kvd respawns with WAL replay",
             fn=lambda: svcs.recovery["kvd_respawns"])
@@ -193,6 +208,9 @@ class AdminApp:
                      **svc.respawn_stats(),
                      "degraded_jobs": len(degraded),
                      "degraded": degraded,
+                     # autoscaler action counters (per-job detail at
+                     # GET /inference_jobs/<id>/autoscaler)
+                     "scaling": svc.scaling.snapshot(),
                      "recovery": {**svc.recovery.snapshot(),
                                   "lease_generation":
                                       svc.lease_generation,
@@ -319,8 +337,6 @@ class AdminApp:
             return 200, self.admin.scale_inference_job(
                 m["id"], int(body["workers"]),
                 drain_timeout=float(body.get("drain_timeout", 120.0)))
-        except NotPorted as e:
-            return 400, {"error": str(e)}
         except RuntimeError as e:
             # no free slot / conflicting operation: a conflict with
             # current capacity, not a server bug
@@ -351,11 +367,11 @@ def main(argv: Optional[list] = None) -> int:
     ``port_file``, ``lease_ttl_s``, ``lease_wait_s``, ``cold_start``)
     plus ``platform``: absent or ``"cuda"`` probes the host's cards (and
     raises without one); ``"cpu"`` asks for a CPU stack over
-    ``cpu_slots`` virtual slots (default 1). The ``RAFIKI_CHAOS`` drills
-    are refused by name."""
+    ``cpu_slots`` virtual slots (default 1). ``RAFIKI_CHAOS`` in the env
+    arms the admin's own kill timer (``kill_admin_after_s``) and the
+    kvd's (``kill_kvd_after_s``)."""
     import argparse
     import json
-    import os
     import signal
     import time
 
@@ -372,8 +388,6 @@ def main(argv: Optional[list] = None) -> int:
     args = parser.parse_args(argv)
     with open(args.config) as f:
         cfg = json.load(f)
-    if os.environ.get("RAFIKI_CHAOS", "").strip():
-        raise NotPorted("fault injection (RAFIKI_CHAOS) is not ported yet")
     platform = cfg.get("platform") or None
     devices = None
     if platform == "cpu":
@@ -426,6 +440,20 @@ def main(argv: Optional[list] = None) -> int:
               f"{recovery['orphans_reaped']} orphans reaped, "
               f"{recovery['kv_adopted']} kvd adopted", flush=True)
     manager.start_data_plane()
+
+    # deterministic chaos: the admin-suicide and data-plane kill timers
+    # when RAFIKI_CHAOS asks for them (the "SIGKILL mid-load" drills).
+    # The kvd killer takes a CALLABLE pid, so it hits whatever kvd is
+    # live when it fires (the supervisor may have respawned it since)
+    from rafiki_tpu_torch.chaos import (ChaosConfig, arm_admin_kill,
+                                        arm_kvd_kill)
+
+    chaos_cfg = ChaosConfig.from_env()
+    if chaos_cfg is not None:
+        arm_admin_kill(chaos_cfg)
+        arm_kvd_kill(chaos_cfg,
+                     lambda: (manager._kv_proc.pid
+                              if manager._kv_proc is not None else 0))
     admin = Admin(meta, manager)
     admin.start_monitor()
     app = AdminApp(admin, cfg.get("host", "127.0.0.1"),

@@ -1,8 +1,8 @@
 """ServicesManager: spawn and track the stack's service processes on CUDA
 device slots.
 
-The port's own copy of ``rafiki_tpu/admin/services_manager.py`` but its
-scale-out half: ``ManagedService``, the constructor, the data plane
+The port's own copy of ``rafiki_tpu/admin/services_manager.py``:
+``ManagedService``, the constructor, the data plane
 (``start_data_plane``, ``_boot_data_plane``, on the port's kvd; its
 supervision ``_check_data_plane`` and ``_respawn_data_plane``),
 ``param_store_uri``, the single-writer admin lease (``acquire_lease``,
@@ -12,11 +12,16 @@ check), ``_spawn``, ``create_train_services``, ``wait_train_job``,
 respawn budget, the boot reconciler (``reconcile``, ``_adopt_service``,
 ``_probe_service``, ``_reconcile_data_plane``, ``recovery_stats``),
 ``reap_stale_services``, the rolling restart (``_request_drain``,
-``rolling_restart``), ``stop_service``, ``stop_all``, ``_DeadProc`` and
-``_AdoptedKVServer``. The control plane spawns an advisor plus N train
-workers per train job, and N inference workers plus a predictor per
-inference job, each a ``python -m rafiki_tpu_torch.<module> --config
-<json>`` child:
+``rolling_restart``), the scale-out plane (``_pool_hub``,
+``_ensure_scaleout``, ``_publish_pool``, ``_scale_up_one``,
+``_promote_warmed``, ``_begin_scale_down``, ``_victim_tick``,
+``_choose_victim``, ``autoscale_tick``, ``scale_inference_job``,
+``_pool_trial_ids``, ``_scale_to``, ``_scale_down_blocking``,
+``scaleout_status`` and the ``scaling`` counters), ``stop_service``,
+``stop_all``, ``_DeadProc`` and ``_AdoptedKVServer``. The control plane
+spawns an advisor plus N train workers per train job, and N inference
+workers plus a predictor per inference job, each a ``python -m
+rafiki_tpu_torch.<module> --config <json>`` child:
 
 - the card inventory comes from a throwaway probe subprocess
   (``device_probe.py``), so the manager never initializes CUDA itself;
@@ -43,11 +48,26 @@ under it the same way. :meth:`rolling_restart` drains an inference job's
 workers one at a time through their obs sidecars (``POST /drain``) and
 replaces each on its freed slot.
 
-Not ported, each refused by name with ``NotPorted``: autoscale and
-scale-out (``scale_inference_job``, ``scaleout_status`` and the
-``AUTOSCALE``, ``MIN_WORKERS``, ``MAX_WORKERS`` and
-``AUTOSCALE_COOLDOWN_S`` budget keys), the paged gather path
-(``PAGED_KERNEL=false``) and fault injection. The decode modes are served
+Scale-out as in JAX: every inference job has a routing pool published to
+the hub (``put_pool_members``), grown from the job's replica template
+and shrunk through the drain path, membership first; the monitor's
+:meth:`autoscale_tick` runs the budget's ``AutoscalePolicy``
+(``AUTOSCALE``, ``MIN_WORKERS``, ``MAX_WORKERS``,
+``AUTOSCALE_COOLDOWN_S``, validated at create; refused over an
+ensemble), and :meth:`scale_inference_job` is the operator's exact
+count. Several slots may name one card (``devices=[spec] * 2``): each
+worker's ``CUDA_VISIBLE_DEVICES`` is that card, and its
+``RAFIKI_DEVICE_HBM_BYTES`` is its slot's share of the card's memory,
+which the worker's admission plans against (``slot_env_vars``). Where
+the JAX manager drains a leaving worker at once, the port drains it only
+once the job's predictor routes without it (``_await_pool_applied``), a
+rolling restart takes each worker out of the published pool first and
+puts its replacement back once it serves (``_restart_one``), and a
+crashed pool member is out of the pool until its respawn boots
+(``_unroute_crashed``, ``_rejoin_when_warm``).
+
+The paged gather path (``PAGED_KERNEL=false``) is refused by name with
+``NotPorted``. The decode modes are served
 with the JAX manager's validations: ``MULTI_ADAPTER`` (the best-N trials
 of one model and shape as one stacked worker on one slot),
 ``SYSTEM_PREFIX``, ``SPECULATE_K`` and ``DRAFT_TRIAL_ID``; so are
@@ -71,6 +91,8 @@ import uuid
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+from rafiki_tpu_torch.admin.autoscaler import (AutoscaleConfig,
+                                               AutoscalePolicy)
 from rafiki_tpu_torch.admin.proc import (AdoptedProcess, identity_matches,
                                          proc_start_time, terminate_pid)
 from rafiki_tpu_torch.constants import (ServiceStatus, ServiceType,
@@ -101,16 +123,6 @@ SPAWN_TARGETS = {
     ServiceType.INFERENCE_WORKER: "rafiki_tpu_torch.worker.inference",
     ServiceType.PREDICTOR: "rafiki_tpu_torch.serving.predictor",
 }
-
-#: inference-budget keys of options the port does not serve yet, each
-#: with the name a refusal gives it
-DEFERRED_BUDGET_KEYS = {
-    "AUTOSCALE": "autoscale (AUTOSCALE)",
-    "MIN_WORKERS": "autoscale bounds (MIN_WORKERS)",
-    "MAX_WORKERS": "autoscale bounds (MAX_WORKERS)",
-    "AUTOSCALE_COOLDOWN_S": "autoscale (AUTOSCALE_COOLDOWN_S)",
-}
-
 
 def _not_ported(what: str) -> Exception:
     from rafiki_tpu_torch.serving.decode_engine import NotPorted
@@ -269,6 +281,19 @@ class ServicesManager:
         self._kvd_stats_cache: Dict[str, Any] = {}
         self._kvd_stats_at = 0.0
         self._kvd_stats_lock = threading.Lock()
+        #: scale-out state per inference job: the routing pool, the spawn
+        #: template of extra replicas, the autoscale policy (when the
+        #: budget armed one), the warming and draining workers. Rebuilt
+        #: from the live services and the job budget after an admin
+        #: restart (_ensure_scaleout), so adoption keeps scaling
+        self._scaleout: Dict[str, Dict[str, Any]] = {}
+        self._last_autoscale_tick = 0.0
+        self._pool_hub_cache: Any = None
+        self._pool_hub_key: Any = None
+        #: autoscaler action counters, on the admin's /metrics
+        self.scaling = StatsMap({
+            "autoscale_ups": 0, "autoscale_downs": 0,
+            "autoscale_blocked": 0, "pool_publishes": 0})
 
     def _load_respawn_counts(self) -> Dict[Any, int]:
         """The MetaStore's lineage budgets, keyed ``(type, job_id)``."""
@@ -595,15 +620,6 @@ class ServicesManager:
         out["lease_generation"] = self.lease_generation
         out["fenced"] = bool(self.fenced)
         return out
-
-    # ---- deferred: refused by name ----
-    def scale_inference_job(self, job_id: str, workers: int,
-                            drain_timeout: float = 120.0
-                            ) -> Dict[str, Any]:
-        raise _not_ported("scale-out of an inference job")
-
-    def scaleout_status(self, job_id: str) -> Dict[str, Any]:
-        raise _not_ported("the inference-pool autoscaler")
 
     # ---- data plane ----
     #: kvd WAL fsync policy (overridable via RAFIKI_KVD_FSYNC)
@@ -981,9 +997,6 @@ class ServicesManager:
         try:
             # every refusal and validation happens HERE, at the API
             # call, before a slot is taken or a process spawned
-            for key, what in DEFERRED_BUDGET_KEYS.items():
-                if budget.get(key):
-                    raise _not_ported(what)
             from rafiki_tpu_torch.worker.inference import _tristate
 
             if "PAGED_KERNEL" in budget and \
@@ -996,6 +1009,21 @@ class ServicesManager:
                 raise RuntimeError("no completed trials to deploy")
             best, multi_adapter = self._multi_adapter_trials(best, budget)
             serving = best[:1] if multi_adapter else best
+            # the autoscale bounds fail the create call, not a monitor
+            # tick hours later
+            if AutoscaleConfig.from_budget(budget, len(serving)) \
+                    is not None and len(serving) > 1:
+                # replicas of DISTINCT best trials are an ensemble:
+                # clones of trial 0 would double-weight it in the unary
+                # gather, and a scale-down could evict another trial's
+                # only replica
+                raise ValueError(
+                    "AUTOSCALE requires a single-replica deployment "
+                    f"(this create would spawn {len(serving)} workers, "
+                    "one per DISTINCT best trial): create with "
+                    "max_workers=1 (or MULTI_ADAPTER) and let the "
+                    "autoscaler grow the pool with clones of the best "
+                    "trial")
             plans = [self._inference_worker_config(
                 inference_job_id, i, trial, budget,
                 n_workers=len(serving))
@@ -1322,13 +1350,21 @@ class ServicesManager:
         predictor = self._spawn(
             SPAWN_TARGETS[ServiceType.PREDICTOR],
             {**pred_cfg, "worker_ids": [c["worker_id"] for c in plans],
-             "kv_host": self.kv_host, "kv_port": self.kv_port},
+             "kv_host": self.kv_host, "kv_port": self.kv_port,
+             # the live routing-pool key: the predictor's router follows
+             # the memberships published under the job id
+             "pool_id": inference_job_id},
             ServiceType.PREDICTOR, wait_port_file=True,
             inference_job_id=inference_job_id)
         spawned.append(predictor)
         self.meta.update_inference_job(
             inference_job_id, status="RUNNING",
             predictor_host=f"{predictor.host}:{predictor.port}")
+        # the scale-out state (routing pool, replica template, the
+        # autoscale policy when the budget asked for one) and the first
+        # published membership for the predictor's router
+        self._ensure_scaleout(inference_job_id)
+        self._publish_pool(inference_job_id)
         return spawned
 
     # ---- lifecycle / failure detection ----
@@ -1372,6 +1408,8 @@ class ServicesManager:
             if status == ServiceStatus.ERRORED and spec is not None:
                 # a crashed worker is replaced while its job still runs
                 # (rc 0 is a normal completion, no respawn)
+                if svc.service_type == ServiceType.INFERENCE_WORKER:
+                    self._unroute_crashed(spec)
                 try:
                     if not self._respawn(svc.service_id, spec):
                         self._pending_respawns.append(
@@ -1407,6 +1445,12 @@ class ServicesManager:
             slot = self.allocator.acquire(timeout=0.0)
             if slot is None:
                 return False
+        port_file = spec["config"].get("obs_port_file")
+        if port_file and stype == ServiceType.INFERENCE_WORKER:
+            try:
+                Path(port_file).unlink()  # a killed worker's stale file
+            except OSError:               # must not read as booted
+                pass
         try:
             self._spawn(spec["module"], spec["config"], stype, slot=slot,
                         **meta_kwargs)
@@ -1414,9 +1458,43 @@ class ServicesManager:
             if slot is not None:
                 self.allocator.release(slot)
             raise
+        if stype == ServiceType.INFERENCE_WORKER:
+            self._rejoin_when_warm(job_id, spec)
         self._respawn_counts[lineage] = self._count_respawn(stype, job_id)
         self._degraded.pop(job_id, None)
         return True
+
+    def _unroute_crashed(self, spec: Dict[str, Any]) -> None:
+        """Take a crashed worker out of its job's published pool while a
+        sibling stays (the caller holds op_lock): the predictor then
+        fails the worker's streams over at its next membership read and
+        routes no new one there, where it would otherwise go on picking
+        the dead worker on its last stats until the stream silence
+        window ran out. The JAX manager keeps it in the pool."""
+        job_id = spec["meta_kwargs"].get("inference_job_id")
+        wid = spec["config"].get("worker_id")
+        st = self._scaleout.get(job_id) if job_id else None
+        if st is None or wid not in st["pool"] or len(st["pool"]) < 2:
+            return
+        st["pool"].remove(wid)
+        self._publish_pool(job_id)
+
+    def _rejoin_when_warm(self, job_id: str, spec: Dict[str, Any]) -> None:
+        """A respawned worker that ``_unroute_crashed`` took out of the
+        pool rejoins it as a scale-up does: WARMING until its obs port
+        reports (``_promote_warmed``)."""
+        wid = spec["config"].get("worker_id")
+        st = self._scaleout.get(job_id)
+        if st is None or not wid or wid in st["pool"] or any(
+                w["wid"] == wid for w in st["warming"]):
+            return
+        port_file = spec["config"].get("obs_port_file")
+        if not port_file:  # nothing to wait on: back in at once
+            st["pool"].append(wid)
+            self._publish_pool(job_id)
+            return
+        st["warming"].append({"wid": wid, "port_file": str(port_file),
+                              "since": time.monotonic()})
 
     def _count_respawn(self, stype: str, job_id: str) -> int:
         """The lineage's respawn count after one more respawn, written
@@ -1528,11 +1606,21 @@ class ServicesManager:
                         drain_timeout: float = 120.0) -> Dict[str, Any]:
         """Drain, stop and respawn each of a live inference job's
         workers one at a time: the draining worker finishes its
-        in-flight requests (streams too) while the predictor's breaker
-        board routes new traffic to its siblings, and only then is it
-        replaced on its freed slot. A worker that does not drain within
-        ``drain_timeout`` is terminated, so the restart converges over a
-        hung process. Returns the old → new service id pairs."""
+        in-flight requests (streams too) while its siblings take the
+        traffic, and only then is it replaced on its freed slot. Where
+        the pool has another member, the worker leaves the published
+        membership first and is drained only once the job's predictor
+        routes without it, and its replacement rejoins once it has
+        booted (obs port written, fresh stats on the hub) and the
+        predictor routes to it again, before the next worker leaves (the
+        JAX manager drains at once and goes on when the replacement's
+        process starts: a two-worker pool then had both workers out of
+        the predictor's routing while the replacement booted, every
+        request a 503, and requests routed to a drained worker after it
+        exited waited out the gather deadline). A worker that does not
+        drain within ``drain_timeout`` is terminated, so the restart
+        converges over a hung process. Returns the old → new service id
+        pairs."""
         self._check_fence()
         if not self._rolling_lock.acquire(blocking=False):
             raise RuntimeError(
@@ -1558,61 +1646,670 @@ class ServicesManager:
         if not targets:
             raise KeyError("no live inference workers for job "
                            f"{inference_job_id!r}")
-        restarted = []
-        for sid, svc, spec in targets:
+        st = self._ensure_scaleout(inference_job_id)
+        if st is not None:
             with self.op_lock:
-                # healing off for this worker only, at its turn: its
-                # exit (or the terminate below) must not make the
-                # monitor respawn it beside the replacement spawned here
-                self._respawn_specs.pop(sid, None)
-            drain_sent = self._request_drain(spec["config"])
-            # wait outside op_lock, so the monitor keeps polling; a
-            # worker never asked to drain gets a short grace only
+                st["rolling"] = True  # the autoscaler waits it out
+        try:
+            return {"job_id": inference_job_id,
+                    "restarted": [self._restart_one(inference_job_id, st,
+                                                    sid, svc, spec,
+                                                    drain_timeout)
+                                  for sid, svc, spec in targets]}
+        finally:
+            if st is not None:
+                with self.op_lock:
+                    st["rolling"] = False
+
+    def _restart_one(self, job_id: str, st: Optional[Dict[str, Any]],
+                     sid: str, svc: ManagedService, spec: Dict[str, Any],
+                     drain_timeout: float) -> Dict[str, Any]:
+        """One step of a rolling restart: membership out (where a
+        sibling stays), drain, reap, respawn on the freed slot, and
+        membership back in once the replacement serves."""
+        wid = spec["config"].get("worker_id")
+        with self.op_lock:
+            # healing off for this worker only, at its turn: its exit
+            # (or the terminate below) must not make the monitor respawn
+            # it beside the replacement spawned here
+            self._respawn_specs.pop(sid, None)
+            pos = None
+            if st is not None and wid in st["pool"] \
+                    and len(st["pool"]) > 1:
+                pos = st["pool"].index(wid)
+                st["pool"].remove(wid)
+        if pos is not None:
+            self._publish_pool(job_id)
+            self._await_pool_applied(job_id)
+        drain_sent = self._request_drain(spec["config"])
+        # wait outside op_lock, so the monitor keeps polling; a worker
+        # never asked to drain gets a short grace only
+        try:
+            svc.proc.wait(timeout=drain_timeout if drain_sent
+                          else min(5.0, drain_timeout))
+        except subprocess.TimeoutExpired:
+            log.warning("worker %s did not drain within %.0fs%s; "
+                        "terminating", sid, drain_timeout,
+                        "" if drain_sent else " (no drain channel)")
+            svc.proc.terminate()
             try:
-                svc.proc.wait(timeout=drain_timeout if drain_sent
-                              else min(5.0, drain_timeout))
+                svc.proc.wait(timeout=10)
             except subprocess.TimeoutExpired:
-                log.warning("worker %s did not drain within %.0fs%s; "
-                            "terminating", sid, drain_timeout,
-                            "" if drain_sent else " (no drain channel)")
-                svc.proc.terminate()
+                svc.proc.kill()
+                svc.proc.wait()
+        with self.op_lock:
+            if sid in self.services:  # the monitor may have reaped the
+                # rc 0 exit already (a drain is a clean exit)
+                self.meta.update_service(sid, status=ServiceStatus.STOPPED)
+                if svc.slot is not None:
+                    self.allocator.release(svc.slot)
+                    svc.slot = None
+                del self.services[sid]
+            slot = None
+            if spec["needs_slot"]:
+                slot = self.allocator.acquire(timeout=self.slot_timeout)
+                if slot is None:
+                    raise RuntimeError(
+                        "no free device slot to respawn drained worker "
+                        f"{sid}: rolling restart aborted mid-way")
+            port_file = spec["config"].get("obs_port_file")
+            if port_file:
                 try:
-                    svc.proc.wait(timeout=10)
-                except subprocess.TimeoutExpired:
-                    svc.proc.kill()
-                    svc.proc.wait()
+                    Path(port_file).unlink()  # a stale file must not
+                except OSError:               # read as ready
+                    pass
+            try:
+                # op_lock held across the spawn: a concurrent op must not
+                # take the vacated slot mid-restart
+                new = self._spawn(spec["module"], spec["config"],
+                                  spec["service_type"], slot=slot,
+                                  **spec["meta_kwargs"])
+            except Exception:
+                if slot is not None:
+                    self.allocator.release(slot)
+                raise
+            self._rolling_restarts += 1
+            # a fresh healthy worker supersedes a degraded flag
+            self._degraded.pop(job_id, None)
+        self._wait_ready(new, port_file, self.WARM_PUBLISH_TIMEOUT_S, wid)
+        if pos is not None:
             with self.op_lock:
-                if sid in self.services:  # the monitor may have reaped
-                    # the rc 0 exit already (a drain is a clean exit)
-                    self.meta.update_service(sid,
-                                             status=ServiceStatus.STOPPED)
-                    if svc.slot is not None:
-                        self.allocator.release(svc.slot)
-                        svc.slot = None
-                    del self.services[sid]
-                slot = None
-                if spec["needs_slot"]:
-                    slot = self.allocator.acquire(timeout=self.slot_timeout)
-                    if slot is None:
-                        raise RuntimeError(
-                            "no free device slot to respawn drained worker "
-                            f"{sid}: rolling restart aborted mid-way")
+                if wid not in st["pool"]:
+                    st["pool"].insert(min(pos, len(st["pool"])), wid)
+            self._publish_pool(job_id)
+            self._await_pool_applied(job_id)
+        return {"old": sid, "new": new.service_id,
+                "drained": bool(drain_sent)}
+
+    def _wait_ready(self, svc: ManagedService, port_file: Optional[str],
+                    timeout: float, wid: Optional[str] = None) -> None:
+        """Wait until a respawned worker has booted (its obs port
+        written and, where the hub holds stats under its id, stats that
+        no longer say ``draining``: the predictor re-admits it on
+        those), exits, or ``timeout`` passes."""
+        if not port_file:
+            return
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and svc.alive() and \
+                not Path(port_file).exists():
+            time.sleep(0.05)
+        while wid and self.kv_port and time.monotonic() < deadline \
+                and svc.alive():
+            try:
+                stats = self._pool_hub().get_worker_stats(wid)
+            except Exception:  # noqa: BLE001 — a hub hiccup: the port
+                return         # file already says the worker is up
+            if not (isinstance(stats, dict) and stats.get("draining")):
+                return
+            time.sleep(0.05)
+
+    #: the longest a membership change waits for the job's predictor to
+    #: route over it (the predictor re-reads membership on ``/health``
+    #: at most every 2 s); past it, or with no predictor answering, the
+    #: caller goes on
+    POOL_APPLY_TIMEOUT_S = 10.0
+
+    def _await_pool_applied(self, job_id: str) -> bool:
+        """Wait until the job's predictor routes over exactly the
+        published pool: its ``/health`` (which re-reads the membership)
+        lists those workers on its breaker board. False when no
+        predictor answers or ``POOL_APPLY_TIMEOUT_S`` passes."""
+        from rafiki_tpu_torch.utils.http import json_request
+
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            want = set(st["pool"]) if st is not None else set()
+        addr = (self.meta.get_inference_job(job_id) or {}).get(
+            "predictor_host")
+        if not want or not addr:
+            return False
+        deadline = time.monotonic() + self.POOL_APPLY_TIMEOUT_S
+        while True:
+            try:
+                health = json_request("GET", f"http://{addr}/health",
+                                      timeout=5.0)
+            except Exception:  # noqa: BLE001 — no predictor to wait for
+                return False
+            if set((health or {}).get("breakers") or {}) == want:
+                return True
+            if time.monotonic() >= deadline:
+                log.warning("job %s's predictor did not apply the pool "
+                            "%s within %.0fs", job_id, sorted(want),
+                            self.POOL_APPLY_TIMEOUT_S)
+                return False
+            time.sleep(0.1)
+
+    # ---- horizontal scale-out and the autoscaler ----
+    #: floor between autoscale evaluations (the monitor ticks faster)
+    AUTOSCALE_TICK_EVERY_S = 1.0
+    #: a scaled-up worker joins the routing pool when its obs sidecar
+    #: reports a port (boot and warmup done), or after this long
+    #: regardless: the predictor's breakers gate a worker that still does
+    #: not serve, and membership must not hang on a lost port file
+    WARM_PUBLISH_TIMEOUT_S = 600.0
+
+    def _pool_hub(self):
+        """A cached KVQueueHub on the live data plane (worker stats reads
+        and pool-membership publishes)."""
+        from rafiki_tpu_torch.serving.queues import KVQueueHub
+
+        key = (self.kv_host, self.kv_port)
+        if self._pool_hub_cache is None or self._pool_hub_key != key:
+            self._pool_hub_cache = KVQueueHub(self.kv_host, self.kv_port)
+            self._pool_hub_key = key
+        return self._pool_hub_cache
+
+    @staticmethod
+    def _wid_index(wid: str) -> int:
+        """The numeric suffix of an ``iw-<job8>-<n>`` worker id (pool
+        order and the next index); -1 when there is none."""
+        try:
+            return int(wid.rsplit("-", 1)[1])
+        except (IndexError, ValueError):
+            return -1
+
+    def _ensure_scaleout(self, job_id: str) -> Optional[Dict[str, Any]]:
+        """The job's scale-out state, rebuilt from the live services'
+        respawn specs and the job budget when missing (so an adopted
+        stack keeps scaling after an admin restart). None when the job
+        has no live inference worker to take a pool and a template
+        from."""
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is not None:
+                return st
+            workers: List[Any] = []
+            for spec in self._respawn_specs.values():
+                if spec["service_type"] != ServiceType.INFERENCE_WORKER:
+                    continue
+                if spec["meta_kwargs"].get("inference_job_id") != job_id:
+                    continue
+                wid = str(spec["config"].get("worker_id") or "")
+                if wid:
+                    workers.append((self._wid_index(wid), wid, spec))
+            if not workers:
+                return None
+            workers.sort(key=lambda t: (t[0], t[1]))
+            job = self.meta.get_inference_job(job_id)
+            budget = (job or {}).get("budget") or {}
+            policy = None
+            trial_ids = {s["config"].get("trial_id")
+                         for _, _, s in workers}
+            try:
+                cfg_as = AutoscaleConfig.from_budget(budget,
+                                                     len(workers))
+                if cfg_as is not None and len(trial_ids) > 1:
+                    # an ensemble pool (distinct trials) is never
+                    # autoscaled: clones would skew the gather and a
+                    # shrink could evict a trial's only replica
+                    raise ValueError(
+                        "pool serves distinct trials (ensemble)")
+                if cfg_as is not None:
+                    policy = AutoscalePolicy(cfg_as)
+            except ValueError as e:
+                # validated at create; a rebuilt pool can disagree with
+                # the bounds after a manual scale: track the pool without
+                # the policy rather than not at all
+                log.warning("autoscaler for job %s disabled on rebuild: "
+                            "%s", job_id, e)
+            # the replica template: a SERVING worker's config (a
+            # disaggregated job's worker 0 may be prefill-role, and a
+            # clone of it would never answer queries); the fallback
+            # strips the role, as a unified clone serves either way
+            tmpl_cfg = next((dict(spec["config"])
+                             for _i, _w, spec in workers
+                             if spec["config"].get("role")
+                             != "prefill"), None)
+            if tmpl_cfg is None:
+                tmpl_cfg = dict(workers[0][2]["config"])
+                tmpl_cfg.pop("role", None)
+            st = {"pool": [w for _, w, _ in workers],
+                  "template": tmpl_cfg,
+                  "module": workers[0][2]["module"],
+                  "next_index": max(i for i, _, _ in workers) + 1,
+                  "pool_version": 0.0, "policy": policy,
+                  "warming": [], "victim": None,
+                  "drain_timeout": 120.0}
+            self._scaleout[job_id] = st
+            return st
+
+    def _publish_pool(self, job_id: str) -> None:
+        """Write the job's routing-pool membership to the hub (the
+        predictor's router applies the diff live). The version is a
+        strictly increasing stamp, so a late re-delivery cannot roll the
+        pool back."""
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is None or not self.kv_port:
+                return
+            st["pool_version"] = max(time.time(),
+                                     st["pool_version"] + 1e-4)
+            members = {"workers": list(st["pool"]),
+                       "version": st["pool_version"],
+                       "published_at": time.time()}
+        try:
+            self._pool_hub().put_pool_members(job_id, members)
+            self.scaling.inc("pool_publishes")
+        except Exception:  # noqa: BLE001 — the hub may be mid-restart;
+            # the next scale event or tick republishes
+            log.warning("pool membership publish failed for job %s",
+                        job_id, exc_info=True)
+
+    def _worker_sid(self, job_id: str, wid: str) -> Optional[str]:
+        """The service id of the job's worker ``wid`` (the caller holds
+        op_lock or tolerates a snapshot)."""
+        for sid, spec in self._respawn_specs.items():
+            if spec["service_type"] != ServiceType.INFERENCE_WORKER:
+                continue
+            if spec["meta_kwargs"].get("inference_job_id") != job_id:
+                continue
+            if spec["config"].get("worker_id") == wid:
+                return sid
+        return None
+
+    def _scale_up_one(self, job_id: str,
+                      slot_timeout: float) -> Optional[str]:
+        """Spawn one extra replica from the job's template. It starts
+        WARMING and joins the routing pool (and the published
+        membership) only once its obs sidecar reports a port: a worker
+        still booting must not attract streams. Returns the new worker
+        id, or None when no slot came free."""
+        with self.op_lock:
+            self._check_fence()
+            if self._scaleout.get(job_id) is None:
+                raise KeyError(f"no scale-out state for job {job_id!r}")
+        # the slot is acquired OUTSIDE op_lock: every release path (the
+        # monitor's poll, stop_service, a drained victim's reap) takes
+        # that lock, so waiting on the allocator under it could never be
+        # satisfied by a concurrent release
+        slot = self.allocator.acquire(timeout=slot_timeout)
+        if slot is None:
+            return None
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is None:  # the job stopped between the locks
+                self.allocator.release(slot)
+                return None
+            idx = st["next_index"]
+            st["next_index"] += 1
+            wid = f"iw-{job_id[:8]}-{idx}"
+            cfg = dict(st["template"])
+            cfg["worker_id"] = wid
+            port_file = self.workdir / f"{wid}.obs_port"
+            cfg["obs_port_file"] = str(port_file)
+            try:
+                port_file.unlink()  # a stale file from an earlier life
+            except OSError:         # must not promote at once
+                pass
+            try:
+                # op_lock held across the spawn, so the claimed slot
+                # cannot be handed out twice
+                self._spawn(st["module"], cfg,
+                            ServiceType.INFERENCE_WORKER, slot=slot,
+                            inference_job_id=job_id)
+            except Exception:
+                self.allocator.release(slot)
+                raise
+            st["warming"].append({"wid": wid,
+                                  "port_file": str(port_file),
+                                  "since": time.monotonic()})
+            self.scaling.inc("autoscale_ups")
+            return wid
+
+    def _promote_warmed(self, job_id: str,
+                        st: Dict[str, Any]) -> None:
+        """Move warmed replicas (obs port reported) into the routing
+        pool and publish the new membership."""
+        changed = False
+        with self.op_lock:
+            for item in list(st["warming"]):
+                ready = Path(item["port_file"]).exists()
+                timed_out = (time.monotonic() - item["since"]
+                             > self.WARM_PUBLISH_TIMEOUT_S)
+                if not ready and not timed_out:
+                    continue
+                st["warming"].remove(item)
+                if item["wid"] not in st["pool"]:
+                    st["pool"].append(item["wid"])
+                changed = True
+        if changed:
+            self._publish_pool(job_id)
+
+    def _begin_scale_down(self, job_id: str, wid: str) -> bool:
+        """Start a drain-based scale-down of ``wid``: membership FIRST
+        (the predictor stops routing there and fails its streams over
+        with forced prefixes), then, once the job's predictor routes
+        without it (``_await_pool_applied``), the drain request; the
+        victim
+        finishes its in-flight work and exits 0, and the monitor reaps
+        it. Its respawn spec goes first, so a non-zero exit while
+        draining is not respawned."""
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is None or st.get("victim"):
+                return False
+            if wid in st["pool"]:
+                st["pool"].remove(wid)
+            sid = self._worker_sid(job_id, wid)
+            spec = self._respawn_specs.pop(sid, None) if sid else None
+            cfg = dict((spec or {}).get("config") or {})
+            if sid is not None and sid in self.services:
+                st["victim"] = {"sid": sid, "wid": wid, "cfg": cfg,
+                                "deadline": time.monotonic()
+                                + st["drain_timeout"]}
+        self._publish_pool(job_id)
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            victim = (st or {}).get("victim")
+        if not victim:
+            return False  # the worker was already gone: the pool shrank
+        # drained only once the predictor routes without it: a request
+        # routed to an exited victim would wait out the gather deadline
+        self._await_pool_applied(job_id)
+        self._request_drain(victim["cfg"])
+        self.scaling.inc("autoscale_downs")
+        return True
+
+    def _victim_tick(self, job_id: str, st: Dict[str, Any]) -> None:
+        """Advance an in-flight scale-down: a cleanly drained victim is
+        reaped by the monitor's poll (rc 0: STOPPED, slot released); one
+        past its drain deadline is terminated, so a stuck scale-down
+        converges instead of wedging the autoscaler."""
+        with self.op_lock:
+            v = st.get("victim")
+            if not v:
+                return
+            if v["sid"] not in self.services:
+                st["victim"] = None  # drained and reaped: done
+                return
+            overdue = time.monotonic() > v["deadline"]
+        if overdue:
+            log.warning("scale-down victim %s did not drain in time; "
+                        "terminating", v["wid"])
+            self.stop_service(v["sid"])
+            with self.op_lock:
+                st["victim"] = None
+
+    @staticmethod
+    def _choose_victim(st: Dict[str, Any],
+                       stats: Dict[str, Any]) -> Optional[str]:
+        """The scale-down victim: the member with the fewest live KV
+        pages (the least in-flight state to fail over), ties to the most
+        recently added. Prefill-role workers are never victims: the
+        autoscaler manages SERVING capacity, and scale-ups clone the
+        serving template, so a drained prefill tier would never come
+        back."""
+        pool = []
+        for w in st["pool"]:
+            s = stats.get(w)
+            if not (isinstance(s, dict) and s.get("role") == "prefill"):
+                pool.append(w)
+        if len(pool) <= 1:
+            return None
+
+        def pages(wid: str) -> float:
+            s = stats.get(wid)
+            if not isinstance(s, dict):
+                return float("inf")
+            v = s.get("engine_kv_pages_used", s.get("kv_pages_used"))
+            return float(v) if isinstance(v, (int, float)) else \
+                float("inf")
+
+        return min(pool, key=lambda w: (pages(w), -pool.index(w)))
+
+    def autoscale_tick(self, force: bool = False) -> List[Dict[str, Any]]:
+        """One autoscaler evaluation (the admin monitor's loop calls it;
+        rate-limited to ``AUTOSCALE_TICK_EVERY_S`` unless ``force``):
+        grows a job's pool on sustained admission stalls, shrinks it
+        through the drain path when idle, promotes warmed replicas into
+        the routing pool and converges stuck drains. Returns the actions
+        taken."""
+        actions: List[Dict[str, Any]] = []
+        if self.fenced or not self.kv_port:
+            return actions
+        now = time.monotonic()
+        if not force and now - self._last_autoscale_tick < \
+                self.AUTOSCALE_TICK_EVERY_S:
+            return actions
+        self._last_autoscale_tick = now
+        with self.op_lock:
+            job_ids = set(self._scaleout)
+            for spec in self._respawn_specs.values():
+                if spec["service_type"] == ServiceType.INFERENCE_WORKER:
+                    jid = spec["meta_kwargs"].get("inference_job_id")
+                    if jid:
+                        job_ids.add(jid)
+        for job_id in sorted(job_ids):
+            job = self.meta.get_inference_job(job_id)
+            if job is None or job.get("status") != "RUNNING":
+                with self.op_lock:
+                    self._scaleout.pop(job_id, None)
+                continue
+            st = self._ensure_scaleout(job_id)
+            if st is None:
+                continue
+            self._promote_warmed(job_id, st)
+            self._victim_tick(job_id, st)
+            with self.op_lock:
+                policy = st.get("policy")
+                busy = bool(st.get("victim") or st.get("warming")
+                            or st.get("manual") or st.get("rolling"))
+                pool = list(st["pool"])
+            if policy is None or busy:
+                # decisions wait until the pool is quiescent: the policy
+                # never fights an action or a manual scale in flight
+                continue
+            stats: Dict[str, Any] = {}
+            for wid in pool:
                 try:
-                    # op_lock held across the spawn: a concurrent op
-                    # must not take the vacated slot mid-restart
-                    new = self._spawn(spec["module"], spec["config"],
-                                      spec["service_type"], slot=slot,
-                                      **spec["meta_kwargs"])
-                except Exception:
-                    if slot is not None:
-                        self.allocator.release(slot)
-                    raise
-                self._rolling_restarts += 1
-                # a fresh healthy worker supersedes a degraded flag
-                self._degraded.pop(inference_job_id, None)
-            restarted.append({"old": sid, "new": new.service_id,
-                              "drained": bool(drain_sent)})
-        return {"job_id": inference_job_id, "restarted": restarted}
+                    stats[wid] = self._pool_hub().get_worker_stats(wid)
+                except Exception:  # noqa: BLE001 — a hub hiccup reads
+                    stats[wid] = None  # as missing stats
+            decision = policy.observe(stats)
+            if decision == "up":
+                try:
+                    wid = self._scale_up_one(job_id, slot_timeout=0.0)
+                except Exception as e:  # noqa: BLE001 — a failed spawn
+                    # must not kill the monitor loop
+                    log.warning("autoscale-up spawn for job %s failed: "
+                                "%s", job_id, e)
+                    wid = None
+                if wid is None:
+                    self.scaling.inc("autoscale_blocked")
+                    actions.append({"job_id": job_id,
+                                    "action": "blocked"})
+                else:
+                    actions.append({"job_id": job_id, "action": "up",
+                                    "worker": wid})
+            elif decision == "down":
+                victim = self._choose_victim(st, stats)
+                if victim and self._begin_scale_down(job_id, victim):
+                    actions.append({"job_id": job_id, "action": "down",
+                                    "worker": victim})
+        return actions
+
+    def scale_inference_job(self, job_id: str, workers: int,
+                            drain_timeout: float = 120.0,
+                            warm_timeout: float = 180.0
+                            ) -> Dict[str, Any]:
+        """Scale to an exact replica count (the operator's override; it
+        stamps the autoscaler's cooldown too, so the policy does not
+        fight the operator). Ups spawn from the job's template and block
+        until the new workers report their obs port (joined the routing
+        pool); downs drain newest-first, one at a time, and block until
+        each victim exits."""
+        self._check_fence()
+        workers = int(workers)
+        if workers < 1:
+            raise ValueError(f"workers={workers} must be >= 1")
+        st = self._ensure_scaleout(job_id)
+        if st is None:
+            raise KeyError(
+                f"no live inference workers for job {job_id!r}")
+        with self.op_lock:
+            if st.get("manual"):
+                raise RuntimeError(
+                    f"a manual scale of job {job_id} is already in "
+                    "progress — wait for it to finish")
+            if len(self._pool_trial_ids(job_id, st)) > 1:
+                raise RuntimeError(
+                    f"job {job_id}'s replicas serve DISTINCT trials "
+                    "(an ensemble) — scaling would clone one trial "
+                    "and skew/evict the others; redeploy with "
+                    "max_workers=1 (or MULTI_ADAPTER) to scale")
+            # the busy flag and an up-front cooldown stamp keep the
+            # autoscaler out while this operation runs
+            st["manual"] = True
+            policy = st.get("policy")
+        if policy is not None:
+            policy.note_action()
+        try:
+            return self._scale_to(job_id, st, workers, drain_timeout,
+                                  warm_timeout)
+        finally:
+            with self.op_lock:
+                st["manual"] = False
+            if policy is not None:
+                policy.note_action()  # the cooldown runs from completion
+
+    def _pool_trial_ids(self, job_id: str,
+                        st: Dict[str, Any]) -> set:
+        """The distinct ``trial_id`` values across the pool's worker
+        configs (the caller holds op_lock); more than one is an
+        ensemble."""
+        out = set()
+        for wid in st["pool"]:
+            sid = self._worker_sid(job_id, wid)
+            spec = self._respawn_specs.get(sid) if sid else None
+            out.add((spec or {}).get("config", {}).get("trial_id"))
+        return out
+
+    def _scale_to(self, job_id: str, st: Dict[str, Any], workers: int,
+                  drain_timeout: float,
+                  warm_timeout: float) -> Dict[str, Any]:
+        result: Dict[str, Any] = {"job_id": job_id, "scaled_up": [],
+                                  "scaled_down": []}
+        with self.op_lock:
+            current = len(st["pool"]) + len(st["warming"])
+        while current < workers:
+            wid = self._scale_up_one(job_id,
+                                     slot_timeout=self.slot_timeout)
+            if wid is None:
+                raise RuntimeError(
+                    f"no free device slot to scale job {job_id} to "
+                    f"{workers} workers ({self.allocator.n_slots} "
+                    f"slots, {self.allocator.free_count()} free)")
+            result["scaled_up"].append(wid)
+            current += 1
+        deadline = time.monotonic() + warm_timeout
+        while time.monotonic() < deadline:
+            self._promote_warmed(job_id, st)
+            with self.op_lock:
+                if not st["warming"]:
+                    break
+            time.sleep(0.05)
+        with self.op_lock:
+            # past the warm deadline: publish anyway, the breakers gate a
+            # worker that still does not serve
+            for item in list(st["warming"]):
+                st["warming"].remove(item)
+                if item["wid"] not in st["pool"]:
+                    st["pool"].append(item["wid"])
+        self._publish_pool(job_id)
+        if result["scaled_up"]:
+            # return once the predictor routes to the new workers
+            self._await_pool_applied(job_id)
+        while True:
+            with self.op_lock:
+                if len(st["pool"]) <= workers:
+                    break
+                victim = st["pool"][-1]
+            self._scale_down_blocking(job_id, victim, drain_timeout)
+            result["scaled_down"].append(victim)
+        with self.op_lock:
+            result["pool"] = list(st["pool"])
+        return result
+
+    def _scale_down_blocking(self, job_id: str, wid: str,
+                             drain_timeout: float) -> None:
+        """The manual scale-down: membership first, then the drain, then
+        the wait for the exit (terminated past the deadline), as
+        rolling_restart reaps or terminates."""
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is None:
+                return
+            if wid in st["pool"]:
+                st["pool"].remove(wid)
+            sid = self._worker_sid(job_id, wid)
+            spec = self._respawn_specs.pop(sid, None) if sid else None
+            svc = self.services.get(sid) if sid else None
+        self._publish_pool(job_id)
+        if svc is None:
+            return
+        self._await_pool_applied(job_id)  # as _begin_scale_down
+        drain_sent = self._request_drain(
+            dict((spec or {}).get("config") or {}))
+        try:
+            svc.proc.wait(timeout=drain_timeout if drain_sent
+                          else min(5.0, drain_timeout))
+        except subprocess.TimeoutExpired:
+            log.warning("scale-down victim %s did not drain within "
+                        "%.0fs; terminating", wid, drain_timeout)
+            svc.proc.terminate()
+            try:
+                svc.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                svc.proc.kill()
+                svc.proc.wait()
+        with self.op_lock:
+            if sid in self.services:  # the monitor may have reaped the
+                # clean rc 0 exit already
+                self.meta.update_service(sid,
+                                         status=ServiceStatus.STOPPED)
+                if svc.slot is not None:
+                    self.allocator.release(svc.slot)
+                    svc.slot = None
+                del self.services[sid]
+        self.scaling.inc("autoscale_downs")
+
+    def scaleout_status(self, job_id: str) -> Dict[str, Any]:
+        """The pool and the autoscaler's state, for the admin API and
+        the dashboard."""
+        with self.op_lock:
+            st = self._scaleout.get(job_id)
+            if st is None:
+                return {"enabled": False, "pool": [], "warming": [],
+                        "victim": None}
+            policy = st.get("policy")
+            out = {"enabled": policy is not None,
+                   "pool": list(st["pool"]),
+                   "warming": [w["wid"] for w in st["warming"]],
+                   "victim": (st.get("victim") or {}).get("wid"),
+                   "drain_timeout_s": st["drain_timeout"]}
+        if policy is not None:
+            out.update(policy.status())
+        return out
 
     def stop_service(self, service_id: str, timeout: float = 10.0) -> None:
         self._check_fence()

@@ -7,7 +7,11 @@ ICI-contiguous boxes by chip coordinates, a host's CUDA cards are split
 in index order into equal runs of ``slot_size`` (the cards of one H100
 host are joined all to all by NVLink, so any run is as close as any
 other). In place of ``submesh_env_vars``, :func:`slot_env_vars` gives a
-child process its slot's ``CUDA_VISIBLE_DEVICES``. ``SubMesh.mesh`` and
+child process its slot's ``CUDA_VISIBLE_DEVICES``, and, where several
+slots name one card (``devices=[spec] * 2``: two workers on one H100),
+its share of that card's memory as ``RAFIKI_DEVICE_HBM_BYTES``, the
+limit the worker's admission plans against (a TPU slot is a chip of its
+own, so the JAX package has no such case). ``SubMesh.mesh`` and
 the sharding helpers belong to the slice that ports parallelism.
 """
 
@@ -52,10 +56,24 @@ class SubMesh:
 
     index: int
     devices: List[DeviceSpec]
+    #: the bytes this slot may plan to hold on each of its cards when a
+    #: card is shared with other slots (its memory over the number of
+    #: slots naming it); 0 when no card is shared or its size is unknown
+    hbm_share_bytes: int = 0
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+def _share_of(devices: Sequence[DeviceSpec],
+              sharing: Dict[int, int]) -> int:
+    """A slot's planning limit per card: the least of its cards' memory
+    over the number of slots naming each; 0 when none is shared."""
+    if all(sharing[d.id] == 1 for d in devices):
+        return 0
+    shares = [d.memory_bytes // sharing[d.id] for d in devices]
+    return min(shares) if all(shares) else 0
 
 
 class SubMeshAllocator:
@@ -65,8 +83,13 @@ class SubMeshAllocator:
 
     def __init__(self, devices: Sequence[DeviceSpec],
                  slot_size: int) -> None:
-        self._slots = [SubMesh(i, devs) for i, devs in
-                       enumerate(partition_devices(devices, slot_size))]
+        parts = partition_devices(devices, slot_size)
+        sharing: Dict[int, int] = {}
+        for devs in parts:
+            for d in devs:
+                sharing[d.id] = sharing.get(d.id, 0) + 1
+        self._slots = [SubMesh(i, devs, _share_of(devs, sharing))
+                       for i, devs in enumerate(parts)]
         self._free = list(range(len(self._slots)))
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -112,12 +135,17 @@ class SubMeshAllocator:
 
 def slot_env_vars(platform: str, slot: Optional[SubMesh]) -> Dict[str, str]:
     """Env vars that confine a child process to ``slot``'s cards:
-    ``CUDA_VISIBLE_DEVICES`` with the slot's indices on ``cuda``, and an
-    empty ``CUDA_VISIBLE_DEVICES`` (no card at all) for a CPU stack's
-    virtual slots and for control-plane children (``slot`` None)."""
+    ``CUDA_VISIBLE_DEVICES`` with the slot's indices on ``cuda`` (plus
+    ``RAFIKI_DEVICE_HBM_BYTES``, the slot's share, where it shares a
+    card), and an empty ``CUDA_VISIBLE_DEVICES`` (no card at all) for a
+    CPU stack's virtual slots and for control-plane children (``slot``
+    None)."""
     if platform not in ("cuda", "cpu"):
         raise ValueError(f"unknown platform {platform!r} (cuda|cpu)")
     if platform == "cpu" or slot is None:
         return {"CUDA_VISIBLE_DEVICES": ""}
-    return {"CUDA_VISIBLE_DEVICES": ",".join(str(d.id)
-                                             for d in slot.devices)}
+    env = {"CUDA_VISIBLE_DEVICES": ",".join(str(d.id)
+                                            for d in slot.devices)}
+    if slot.hbm_share_bytes:
+        env["RAFIKI_DEVICE_HBM_BYTES"] = str(slot.hbm_share_bytes)
+    return env

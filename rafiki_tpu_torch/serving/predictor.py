@@ -11,6 +11,12 @@ classification vectors, majority vote otherwise. Partial gathers still
 answer (whatever arrived by the deadline is ensembled); zero arrivals is
 a 504. The module is host-side: it imports no ``torch`` itself (the
 queue codec it shares with the workers does).
+
+One difference from JAX: a stream's event loop reads the published pool
+membership itself (rate-limited as every reader is), so a stream on a
+worker the control plane took out fails over at once even when no other
+request comes to read the membership; JAX's waits for one, or for the
+silence window.
 """
 
 from __future__ import annotations
@@ -1100,6 +1106,10 @@ class Predictor:
                         # wait out our own silence window
                         failover_reason = "breaker open"
                         break
+                    # rate-limited: a stream on a worker the control
+                    # plane took out (a crash, a scale-down) learns it
+                    # here even when no other request reads membership
+                    self._refresh_membership()
                     if wid not in self.router:
                         # the pool scaled this worker out mid-stream
                         # (remove_worker / membership diff): fail over

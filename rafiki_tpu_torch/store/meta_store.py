@@ -12,8 +12,10 @@ jobs, trials (``mark_trial_completed`` / ``mark_trial_errored`` fenced on
 RUNNING, ``claim_trial_for_resume``, ``get_best_trials_of_train_job``,
 trial logs), inference jobs, services, the respawn budgets, the admin
 lease, the read-only open of the auditors (``read_only=True``) and the
-online ``backup``. The Postgres adapter is not ported: a
-``postgresql://`` url raises, naming the backend.
+online ``backup``. Every statement goes through ``store/db.py``'s
+adapter, as in JAX: SQLite for a path, ``:memory:`` or ``sqlite:///``
+url (the file format unchanged), ``PostgresAdapter`` for a
+``postgresql://`` url (it raises without psycopg2, as JAX's does).
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import hashlib
 import hmac
 import json
 import os
-import sqlite3
 import threading
 import time
 import uuid
@@ -106,69 +107,47 @@ class MetaStore:
 
     def __init__(self, db_path: str = ":memory:",
                  read_only: bool = False) -> None:
-        path = str(db_path)
-        if path.startswith(("postgresql://", "postgres://")):
-            raise NotImplementedError(
-                "the PostgreSQL MetaStore backend is not ported yet; use a "
-                "sqlite path")
-        if path.startswith("sqlite:///"):
-            path = path[len("sqlite:///"):] or ":memory:"
-        self._db_path = path
-        self._read_only = read_only and path != ":memory:"
-        self._conn = self._connect()
+        from rafiki_tpu_torch.store.db import adapter_for
+
+        self._adapter = adapter_for(str(db_path), read_only=read_only)
+        #: the sqlite file (what the train workers are told to open), or
+        #: the server url
+        self._db_path = getattr(self._adapter, "path", str(db_path))
+        self._read_only = read_only and self._db_path != ":memory:"
+        self._conn = self._adapter.connect()
         self._lock = threading.RLock()
         if self._read_only:
             return
         with self._lock:
-            if path != ":memory:":
-                self._conn.execute("PRAGMA journal_mode=WAL")
-            # cross-process writers wait instead of failing on the lock
-            self._conn.execute("PRAGMA busy_timeout=10000")
-            self._conn.execute("PRAGMA foreign_keys=ON")
-            self._conn.executescript(_SCHEMA)
+            self._adapter.init_schema(self._conn, _SCHEMA)
             # pre-heartbeat databases (no-op once the columns exist)
-            self._try_migration(
-                "ALTER TABLE trials ADD COLUMN heartbeat_at REAL")
-            if self._try_migration(
+            self._adapter.try_migration(
+                self._conn, "ALTER TABLE trials ADD COLUMN heartbeat_at "
+                            "REAL")
+            if self._adapter.try_migration(
+                    self._conn,
                     "ALTER TABLE trials ADD COLUMN error_class TEXT"):
                 # under the old semantics every ERRORED row was resumable
                 self._exec(
                     "UPDATE trials SET error_class='preemption' "
                     "WHERE status='ERRORED' AND error_class IS NULL")
-            self._conn.commit()
-
-    def _connect(self) -> sqlite3.Connection:
-        if self._read_only:
-            conn = sqlite3.connect(f"file:{self._db_path}?mode=ro",
-                                   uri=True, check_same_thread=False)
-            conn.execute("PRAGMA busy_timeout=10000")
-        else:
-            conn = sqlite3.connect(self._db_path, check_same_thread=False)
-        conn.row_factory = sqlite3.Row
-        return conn
+            self._adapter.commit(self._conn)
 
     def close(self) -> None:
         with self._lock:
-            self._conn.close()
+            self._adapter.close(self._conn)
 
     # ---- low-level helpers ----
-    def _try_migration(self, ddl: str) -> bool:
+    def _exec(self, sql: str, args: tuple = (), max_rows=None):
+        """Execute one statement through the adapter (the caller holds
+        the lock) and return its mapping-row cursor; a failed statement
+        rolls back so its error cannot leak into the next caller's
+        commit."""
         try:
-            self._conn.execute(ddl)
-            return True
-        except sqlite3.OperationalError as e:
-            if "duplicate column" in str(e).lower():
-                return False
-            raise
-
-    def _exec(self, sql: str, args: tuple = ()) -> sqlite3.Cursor:
-        """Execute one statement (the caller holds the lock); a failed
-        statement rolls back so its error cannot leak into the next
-        caller's commit."""
-        try:
-            return self._conn.execute(sql, args)
+            return self._adapter.execute(self._conn, sql, args,
+                                         max_rows=max_rows)
         except Exception:
-            self._conn.rollback()
+            self._adapter.rollback(self._conn)
             raise
 
     def _insert(self, table: str, row: Dict[str, Any]) -> None:
@@ -177,7 +156,7 @@ class MetaStore:
         with self._lock:
             self._exec(f"INSERT INTO {table} ({cols}) VALUES ({ph})",
                        tuple(row.values()))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
 
     def _update(self, table: str, row_id: str,
                 fields: Dict[str, Any]) -> None:
@@ -186,9 +165,9 @@ class MetaStore:
             cur = self._exec(f"UPDATE {table} SET {sets} WHERE id=?",
                              (*fields.values(), row_id))
             if cur.rowcount == 0:
-                self._conn.rollback()
+                self._adapter.rollback(self._conn)
                 raise KeyError(f"no {table} row {row_id!r}")
-            self._conn.commit()
+            self._adapter.commit(self._conn)
 
     #: columns stored as JSON text, decoded on every read
     _JSON_COLS = ("knobs", "budget", "train_args", "config", "spawn_spec")
@@ -205,7 +184,7 @@ class MetaStore:
 
     def _one(self, sql: str, args: tuple = ()) -> Optional[Dict[str, Any]]:
         with self._lock:
-            row = self._exec(sql, args).fetchone()
+            row = self._exec(sql, args, max_rows=1).fetchone()
         return self._decode(dict(row)) if row else None
 
     def _all(self, sql: str, args: tuple = ()) -> List[Dict[str, Any]]:
@@ -394,7 +373,7 @@ class MetaStore:
                 "params_saved=?, stopped_at=? WHERE id=? "
                 "AND status='RUNNING'",
                 (score, int(params_saved), _now(), trial_id))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             return cur.rowcount == 1
 
     def mark_trial_errored(self, trial_id: str, error: str,
@@ -414,7 +393,7 @@ class MetaStore:
                 "error_class=?, stopped_at=? "
                 "WHERE id=? AND status='RUNNING'",
                 (error[:4000], error_class, _now(), trial_id))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             return cur.rowcount == 1
 
     def heartbeat_trial(self, trial_id: str) -> None:
@@ -451,7 +430,7 @@ class MetaStore:
                 "error_class='preemption') OR (status='RUNNING' "
                 "AND COALESCE(heartbeat_at, started_at, 0) < ?))",
                 (_now(), marker, f" | {marker}", trial_id, cutoff))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             return cur.rowcount == 1
 
     def get_trials_of_sub_train_job(
@@ -488,7 +467,7 @@ class MetaStore:
                 "VALUES (?,?,?,?)",
                 (trial_id, t if t is not None else _now(), kind,
                  json.dumps(data)))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
 
     def get_trial_logs(self, trial_id: str) -> List[Dict[str, Any]]:
         rows = self._all(
@@ -587,7 +566,7 @@ class MetaStore:
                 self._exec(
                     "INSERT INTO respawn_budgets (lineage, count, "
                     "updated_at) VALUES (?,?,?)", (lineage, 1, _now()))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             row = self._exec(
                 "SELECT count FROM respawn_budgets WHERE lineage=?",
                 (lineage,)).fetchone()
@@ -612,8 +591,8 @@ class MetaStore:
         are conditional on the observed holder and generation."""
         now = _now()
         with self._lock:
-            row = self._exec("SELECT * FROM admin_lease WHERE id=1"
-                             ).fetchone()
+            row = self._exec("SELECT * FROM admin_lease WHERE id=1",
+                             max_rows=1).fetchone()
             if row is None:
                 try:
                     self._exec(
@@ -621,9 +600,15 @@ class MetaStore:
                         "generation, heartbeat_at, acquired_at, ttl_s) "
                         "VALUES (1,?,?,?,?,?)",
                         (holder, 1, now, now, ttl_s))
-                    self._conn.commit()
-                except sqlite3.IntegrityError:
-                    # another process's boot won the primary key
+                    self._adapter.commit(self._conn)
+                except Exception:
+                    # two fresh boots raced the primary key from separate
+                    # processes: a row now means the other won and this
+                    # one is fenced; anything else is a real error
+                    self._adapter.rollback(self._conn)
+                    if self._exec("SELECT 1 FROM admin_lease WHERE "
+                                  "id=1", max_rows=1).fetchone() is None:
+                        raise
                     return None
                 return {"holder": holder, "generation": 1,
                         "took_over": False}
@@ -631,7 +616,7 @@ class MetaStore:
                 self._exec(
                     "UPDATE admin_lease SET heartbeat_at=?, ttl_s=? "
                     "WHERE id=1 AND holder=?", (now, ttl_s, holder))
-                self._conn.commit()
+                self._adapter.commit(self._conn)
                 return {"holder": holder,
                         "generation": int(row["generation"]),
                         "took_over": False}
@@ -645,7 +630,7 @@ class MetaStore:
                 "AND holder=? AND generation=?",
                 (holder, gen, now, now, ttl_s, row["holder"],
                  row["generation"]))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             if cur.rowcount == 0:
                 return None  # raced another takeover: it won
             return {"holder": holder, "generation": gen,
@@ -657,7 +642,7 @@ class MetaStore:
             cur = self._exec(
                 "UPDATE admin_lease SET heartbeat_at=? WHERE id=1 AND "
                 "holder=?", (_now(), holder))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             return cur.rowcount == 1
 
     def release_admin_lease(self, holder: str) -> bool:
@@ -667,7 +652,7 @@ class MetaStore:
             cur = self._exec(
                 "UPDATE admin_lease SET heartbeat_at=0 WHERE id=1 AND "
                 "holder=?", (holder,))
-            self._conn.commit()
+            self._adapter.commit(self._conn)
             return cur.rowcount == 1
 
     def get_admin_lease(self) -> Optional[Dict[str, Any]]:
@@ -680,42 +665,27 @@ class MetaStore:
         backup API (consistent under concurrent writers) and return
         ``{path, bytes}``. The copy lands in a temporary file first and
         replaces ``path`` atomically, so a crash mid-backup never leaves
-        a torn snapshot there."""
-        if self._db_path != ":memory:":
+        a torn snapshot there. Engines with no one-file snapshot raise
+        ``NotImplementedError``."""
+        db_file = getattr(self._adapter, "path", None)
+        if db_file and db_file != ":memory:":
             # a connection of its own and no store lock: the backup API
             # is online, and holding the lock for the page copy would
             # stall every other caller (the lease heartbeat among them)
-            conn = self._connect()
+            conn = self._adapter.connect()
             try:
-                _sqlite_backup(conn, path)
+                self._adapter.backup(conn, path)
             finally:
-                conn.close()
+                self._adapter.close(conn)
         else:
             # the live connection is the database
             with self._lock:
-                _sqlite_backup(self._conn, path)
+                self._adapter.backup(self._conn, path)
         try:
             size = os.path.getsize(path)
         except OSError:
             size = 0
         return {"path": path, "bytes": size}
-
-
-def _sqlite_backup(conn: sqlite3.Connection, path: str) -> None:
-    tmp = f"{path}.tmp-{os.getpid()}"
-    try:
-        dest = sqlite3.connect(tmp)
-        try:
-            conn.backup(dest)
-        finally:
-            dest.close()
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
 
 
 def _hash_password(password: str, salt: str) -> str:

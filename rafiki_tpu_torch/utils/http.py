@@ -49,6 +49,13 @@ def _compile(pattern: str) -> re.Pattern:
     return re.compile("^" + regex + "$")
 
 
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    #: the listen backlog. socketserver's default of 5 reset connections
+    #: when 16 closed-loop clients connected to a busy Predictor at once
+    request_queue_size = 128
+
+
 class JsonHttpService:
     """A threading HTTP server over a JSON route table.
 
@@ -173,8 +180,7 @@ class JsonHttpService:
             def do_DELETE(self) -> None:
                 self._dispatch("DELETE")
 
-        self._server = ThreadingHTTPServer((self._host, self._port), _Handler)
-        self._server.daemon_threads = True
+        self._server = _Server((self._host, self._port), _Handler)
         self._port = self._server.server_address[1]
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         daemon=True)

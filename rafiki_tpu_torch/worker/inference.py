@@ -9,13 +9,18 @@ same queue hub and the same msgpack wire. Ported: ``ClockSkewEstimator``,
 ``stop``, ``drain``, ``serve_obs`` (the obs sidecar with ``POST
 /drain``), ``_publish_stats``, ``_engine_span``,
 ``_reject_expired``, ``_handle_control``, ``_reject_draining``,
-``_share_prefix_snapshot``,
-``_drain_reject_queued``, ``_hub_outage_pause``, ``_hub_ok``, ``run`` with
-the micro-batch path and ``_serve_batch``, ``_run_decode_loop`` /
+``_share_prefix_snapshot``, ``_drain_reject_queued``,
+``_hub_outage_pause``, ``_hub_ok``,
+``run`` with the micro-batch path and ``_serve_batch``,
+``_run_decode_loop`` /
 ``_decode_serve`` with streaming deltas, ``_admit_decode_message``, and
 for disaggregated serving ``_can_import_kv``, ``_handle_prefill_leg``,
 ``_ship_finished_prefill``, ``_kv_stage_budget_ok`` and
-``_pump_kv_shipments``), ``_window_p95``, ``_safe_sampling``, ``_expired``, ``_tristate``,
+``_pump_kv_shipments``), the fault-injection hooks (``chaos`` or
+``RAFIKI_CHAOS``: queue faults through a ``ChaosHub``, the ``chaos_*``
+counters on ``/metrics``, the ``kill_after_tokens`` death in the decode
+loop, after which ``main`` exits 31 so the manager respawns the worker),
+``_window_p95``, ``_safe_sampling``, ``_expired``, ``_tristate``,
 ``_to_plain`` and ``main``.
 
 Two serving paths, as in JAX: the continuous-batching decode loop for a
@@ -54,17 +59,17 @@ Where it differs from the JAX worker, on purpose:
   and submits the request with it, and degrades to a local re-prefill
   when a shipment is late, lost or refused (``kv_wait_timeouts``,
   ``kv_import_fallbacks``; ``kv_ships_sent``, ``kv_imports_installed``);
-- fault injection (``chaos`` or ``RAFIKI_CHAOS``) raises
-  ``NotImplementedError`` at boot, naming itself; so does
-  ``paged_kernel=False`` (the port has no gather path on the card:
-  ``None``/``True`` serve paged);
+- ``paged_kernel=False`` raises ``NotImplementedError`` at boot, naming
+  itself (the port has no gather path on the card: ``None``/``True``
+  serve paged);
 - ``main`` reads the same config JSON plus ``"device"``; there is no jax
   platform setup and no multi-host rendezvous; on exit it deletes its
   ``obs_port_file`` (``obs/http.py`` ``remove_port_file``);
 - the published stats carry the process's kernel launch counts under
   ``kernel_launches`` (each kernel wrapper's ``launches``: zero where
-  the plain versions ran), so a caller outside the process can tell
-  which kernels its requests went through.
+  the plain versions ran), and the obs sidecar's ``/metrics`` as
+  ``kernel_launches_<name>`` gauges, so a caller outside the process can
+  tell which kernels its requests went through.
 """
 
 from __future__ import annotations
@@ -106,9 +111,6 @@ TTL_EXPIRY_PAD_S = 0.5
 #: published-p95 samples older than this stop counting: an idle class
 #: must read as recovered (empty window → 0.0 → ladder cooling)
 SLO_WINDOW_MAX_AGE_S = 60.0
-
-#: the env var that arms the JAX package's fault injection
-CHAOS_ENV = "RAFIKI_CHAOS"
 
 #: prefill-role outbox give-up window: long enough for the slowest
 #: chunked prefill to finish and ship, short enough that legs whose slots
@@ -179,9 +181,7 @@ class InferenceWorker:
         #: prefill-role outbox: message id -> [ship-to worker id, trace
         #: id, queries still owed, monotonic give-up deadline]
         self._kv_outbox: Dict[Any, List[Any]] = {}
-        # options of later slices: refused before anything loads
-        if chaos is not None or os.environ.get(CHAOS_ENV, "").strip():
-            raise _not_ported(f"fault injection (chaos / {CHAOS_ENV})")
+        # an option the port does not serve: refused before anything loads
         if paged_kernel is False:
             raise _not_ported("paged_kernel=False (the gather path: on the "
                               "card paged KV always runs the kernels)")
@@ -204,6 +204,21 @@ class InferenceWorker:
                                "data_plane_down": 0,
                                "hub_outages": 0})
         self._dp_down = False
+        #: deterministic fault injection (tests, chaos drills): passed in
+        #: or armed by the RAFIKI_CHAOS env var; queue faults ride a
+        #: ChaosHub wrapper, the kill-after-N-tokens trigger is checked in
+        #: the decode loop. None (the default) costs nothing
+        if chaos is None:
+            from rafiki_tpu_torch.chaos import ChaosConfig, ChaosInjector
+
+            cfg = ChaosConfig.from_env()
+            chaos = ChaosInjector(cfg) if cfg is not None else None
+        self.chaos = chaos
+        self.chaos_killed = False
+        if self.chaos is not None:
+            from rafiki_tpu_torch.chaos import ChaosHub
+
+            self.hub = ChaosHub(hub, self.chaos)
         #: flipped by the first request a prefill worker ships KV for:
         #: from then on the pump drains the shipment queue even with
         #: nothing held, so late blobs do not accumulate
@@ -213,6 +228,15 @@ class InferenceWorker:
         self.metrics = MetricsRegistry()
         self.metrics.register_stats(self.stats)
         self.metrics.register_stats(CLIENT_STATS)
+        # the kernel wrappers' launch counts, readable at any time on
+        # the obs sidecar (the hub publish carries them too, but only
+        # every STATS_EVERY loop iterations)
+        self.metrics.register_stats(kernel_launches,
+                                    prefix="kernel_launches_")
+        if self.chaos is not None:
+            # injected faults are observable: chaos_* on /metrics
+            self.metrics.register_stats(self.chaos.counters,
+                                        prefix="chaos_")
         self.traces = TraceBuffer(512)
         self._boot_mono = time.monotonic()
         #: the obs sidecar's port once serve_obs ran (0: none), published
@@ -798,6 +822,8 @@ class InferenceWorker:
                 break  # served to completion (stop/drain/iterations)
             except ConnectionError as e:
                 self._hub_outage_pause(e, poll_timeout)
+        if self.chaos_killed:
+            return  # injected sudden death: no final publish either
         self._publish_stats()
 
     def _decode_serve(self, inflight: dict, streaming: set,
@@ -871,6 +897,18 @@ class InferenceWorker:
                     # loop spins on a broken engine
                     self.engine.reset()
                     continue
+                if self.chaos is not None and self.chaos.should_kill(
+                        int(self.engine.stats.get("tokens_generated",
+                                                  0) or 0)):
+                    # injected sudden death: leave WITHOUT replying,
+                    # streaming or publishing, as a killed process looks
+                    # to the rest of the stack (the step that crossed the
+                    # threshold never gets its tokens out)
+                    log.warning("%s chaos-killed after %s generated "
+                                "tokens", self.worker_id,
+                                self.chaos.cfg.kill_after_tokens)
+                    self.chaos_killed = True
+                    return
                 if streaming:
                     # per-message delta events between steps, ahead of
                     # the final predictions message (FIFO per query id)
@@ -1332,6 +1370,12 @@ def main(argv: Optional[list] = None) -> int:
     finally:
         worker.stop_obs()
         remove_port_file(cfg.get("obs_port_file"), obs_port)
+    if worker.chaos_killed:
+        # a chaos-killed worker must look ERRORED to the control plane
+        # (a non-zero exit: the manager respawns it), not drained
+        print(f"inference worker {worker.worker_id} chaos-killed",
+              flush=True)
+        return 31
     if worker.draining:
         print(f"inference worker {worker.worker_id} drained cleanly",
               flush=True)

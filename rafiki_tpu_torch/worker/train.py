@@ -344,8 +344,10 @@ class TrainWorker:
         """Refuse a trial whose estimated train footprint exceeds the
         card's memory, before anything is allocated. Templates opt in
         with ``estimate_device_budget(n) -> {..., "total": bytes}``; the
-        limit is ``RAFIKI_DEVICE_HBM_BYTES`` or the card's total memory
-        (none on the CPU without the override: the check is skipped). A
+        limit is ``RAFIKI_DEVICE_HBM_BYTES`` (which the services manager
+        sets to a slot's share where slots share a card) or the card's
+        total memory (none on the CPU without the override: the check is
+        skipped). A
         refusal raises ValueError, a deterministic-class trial error."""
         est = getattr(model, "estimate_device_budget", None)
         if est is None:

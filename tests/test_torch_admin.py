@@ -10,8 +10,10 @@ store's admin surface, ``Admin`` / ``AdminApp`` through the port
   writes what the other reads (users and their passwords, models,
   datasets, jobs, services, respawn budgets, the admin lease).
 - ``AdminApp`` answers the JAX route table; job creation validates at
-  the API, auth is enforced, and every deferred option is refused by
-  name before anything spawns. The port ``Client`` drives a JAX admin
+  the API (the autoscale keys with JAX's messages), auth is enforced,
+  and the one option still refused (``PAGED_KERNEL=false``) is refused
+  by name before anything spawns; ``RAFIKI_CHAOS`` arms the admin's
+  kill timer. The port ``Client`` drives a JAX admin
   and the JAX ``Client`` a port admin.
 - A toy model's whole job runs through the port's stack in real
   subprocesses (advisor, train worker, inference worker, predictor, the
@@ -59,7 +61,6 @@ from rafiki_tpu_torch.model.base import (load_model_class,
 from rafiki_tpu_torch.models.vit import ViTBase16
 from rafiki_tpu_torch.parallel.mesh import (DeviceSpec, SubMeshAllocator,
                                             partition_devices, slot_env_vars)
-from rafiki_tpu_torch.serving.decode_engine import NotPorted
 from rafiki_tpu_torch.store.meta_store import MetaStore
 from rafiki_tpu_torch.utils.http import HttpStatusError, json_request
 
@@ -221,14 +222,44 @@ def test_app_main_without_a_cpu_flag_raises(tmp_path, monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config", str(cfg)])
-    # a cold start is served now (tests/test_torch_recovery.py boots
-    # one); the fault-injection drills are still refused by name
-    cfg.write_text(json.dumps({"workdir": str(tmp_path / "w"),
-                               "db_path": str(tmp_path / "meta.db"),
-                               "platform": "cpu", "cold_start": True}))
-    monkeypatch.setenv("RAFIKI_CHAOS", "kill_admin_after_s=1")
-    with pytest.raises(NotPorted, match="RAFIKI_CHAOS"):
-        main(["--config", str(cfg)])
+
+
+def test_app_main_arms_the_chaos_admin_kill(tmp_path):
+    """``RAFIKI_CHAOS=kill_admin_after_s=...`` arms the admin's own
+    SIGKILL timer, as the JAX admin's ``main`` does: the stack boots and
+    serves, then the process dies by SIGKILL with no clean shutdown (its
+    lease is left unreleased and its kvd alive, for a successor to
+    adopt)."""
+    port_file = tmp_path / "admin.port"
+    cfg = tmp_path / "admin.json"
+    cfg.write_text(json.dumps({
+        "workdir": str(tmp_path / "w"), "db_path": str(tmp_path / "m.db"),
+        "platform": "cpu", "port_file": str(port_file)}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               RAFIKI_CHAOS="kill_admin_after_s=3")
+    log = tmp_path / "admin.log"
+    with open(log, "w") as f:  # not a pipe: the kvd child inherits it
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rafiki_tpu_torch.admin.app",
+             "--config", str(cfg)], env=env, stdout=f,
+            stderr=subprocess.STDOUT, cwd=str(tmp_path))
+    kvd_pid = 0
+    try:
+        proc.wait(timeout=120)
+        rows = MetaStore(str(tmp_path / "m.db")).get_services("RUNNING")
+        kvd_pid = int(rows[0]["pid"]) if rows else 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        if kvd_pid:
+            os.kill(kvd_pid, signal.SIGKILL)
+    out = log.read_text()
+    assert proc.returncode == -signal.SIGKILL, out
+    assert port_file.read_text().strip() and "admin on" in out
+    assert "admin stopped cleanly" not in out
+    assert kvd_pid and rows[0]["service_type"] == "DATA_PLANE"
+    lease = MetaStore(str(tmp_path / "m.db")).get_admin_lease()
+    assert lease["heartbeat_at"] > 0  # never released
 
 
 def test_app_main_serves_a_cpu_stack_and_stops_on_sigterm(tmp_path):
@@ -453,8 +484,6 @@ def test_models_datasets_and_job_validation(app):
 
 
 DEFERRED = [
-    ("AUTOSCALE", {"AUTOSCALE": 1}),
-    ("MAX_WORKERS", {"MAX_WORKERS": 3}),
     ("PAGED_KERNEL", {"PAGED_KERNEL": "false"}),
 ]
 
@@ -489,6 +518,47 @@ def _lm_job(meta, shapes=("s1", "s1", "s2"), task="LANGUAGE_MODELING"):
         meta.mark_trial_completed(t["id"], 1.0 - 0.1 * i, True)
         trials.append(t)
     return job, m, trials
+
+
+@pytest.mark.parametrize("budget,initial", [
+    ({"AUTOSCALE": 1}, 1),
+    ({"MAX_WORKERS": 3}, 1),
+    ({"AUTOSCALE": 1, "MIN_WORKERS": 2, "MAX_WORKERS": 3}, 1),
+    ({"AUTOSCALE": 1, "MAX_WORKERS": 2, "AUTOSCALE_COOLDOWN_S": 0}, 1),
+], ids=["AUTOSCALE", "MAX_WORKERS", "initial_outside_bounds",
+        "cooldown_0"])
+def test_autoscale_budget_keys_validated_as_jax_does(app, budget, initial):
+    """The autoscale keys are served: a bad bound fails the create call
+    with JAX's ``AutoscaleConfig.from_budget`` message, before anything
+    spawns or a slot is taken."""
+    from rafiki_tpu.admin.autoscaler import AutoscaleConfig as JConfig
+
+    client, meta, manager, _ = app
+    job, _m, _t = _lm_job(meta)
+    with pytest.raises(ValueError) as want:
+        JConfig.from_budget(budget, initial)
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(job["id"], max_workers=initial,
+                                    budget=budget)
+    assert ei.value.status == 400 and str(want.value) in str(ei.value)
+    assert "not ported" not in str(ei.value)
+    assert not manager.services and manager.allocator.free_count() == 1
+
+
+def test_autoscale_over_an_ensemble_is_refused_as_jax_does(app):
+    """Autoscale over replicas of DISTINCT best trials (an ensemble) is
+    refused at create with the JAX manager's message; one replica of the
+    best trial is the autoscaled deployment."""
+    client, meta, manager, _ = app
+    job, _m, _t = _lm_job(meta)
+    with pytest.raises(HttpStatusError) as ei:
+        client.create_inference_job(
+            job["id"], max_workers=2,
+            budget={"AUTOSCALE": 1, "MAX_WORKERS": 3})
+    assert ei.value.status == 400
+    assert "AUTOSCALE requires a single-replica deployment (this create " \
+        "would spawn 2 workers" in str(ei.value)
+    assert not manager.services and manager.allocator.free_count() == 1
 
 
 @pytest.mark.parametrize("budget,message", [
@@ -648,11 +718,10 @@ def test_multi_adapter_stacks_trials_of_one_model_and_shape(app, caplog):
 ])
 def test_deferred_routes_answer_400_naming_themselves(app, route, body,
                                                       what):
-    """Scale-out is still refused by name. The rolling restart and the
-    backup are served now: a restart of a RUNNING job with no live
-    worker is the reference's 400 naming that, and the backup writes
-    its snapshot (``tests/test_torch_recovery.py`` drives both
-    further)."""
+    """The routes once refused are served: a restart or a scale of a
+    RUNNING job with no live worker is the reference's 400 naming that,
+    and the backup writes its snapshot (``tests/test_torch_recovery.py``
+    and ``tests/test_torch_scaleout.py`` drive them further)."""
     client, meta, _manager, tmp_path = app
     job = meta.create_inference_job("u", "t", budget={})
     meta.update_inference_job(job["id"], status="RUNNING")
@@ -667,25 +736,29 @@ def test_deferred_routes_answer_400_naming_themselves(app, route, body,
     with pytest.raises(HttpStatusError) as ei:
         client._call("POST", route, body)
     assert ei.value.status == 400
-    if what == "rolling restart":
-        assert "no live inference workers for job" in str(ei.value)
-        assert "not ported" not in str(ei.value)
-    else:
-        assert what in str(ei.value) and "not ported" in str(ei.value)
+    assert "no live inference workers for job" in str(ei.value)
+    assert "not ported" not in str(ei.value)
 
 
-def test_deferred_manager_calls_raise_not_ported(app):
-    """Scale-out and the autoscaler are still refused by name; the
-    reconciler, the cold-start reaper and the rolling restart are
-    served: over an empty store they adopt, reap and find nothing."""
+def test_manager_calls_over_an_empty_store(app):
+    """Scale-out, the autoscaler's state, the reconciler, the cold-start
+    reaper and the rolling restart, over an empty store: a scale names
+    the missing pool as JAX's does, the autoscaler reports no pool, and
+    reconcile and reap find nothing."""
     _, _, manager, _ = app
-    for call in (lambda: manager.scale_inference_job("j", 2),
-                 lambda: manager.scaleout_status("j")):
-        with pytest.raises(NotPorted, match="not ported"):
-            call()
+    with pytest.raises(KeyError, match="no live inference workers"):
+        manager.scale_inference_job("j", 2)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        manager.scale_inference_job("j", 0)
+    want = {"enabled": False, "pool": [], "warming": [], "victim": None}
+    assert manager.scaleout_status("j") == want
     with pytest.raises(HttpStatusError) as ei:
-        app[0]._call("GET", "/inference_jobs/x/autoscaler")
-    assert ei.value.status == 400
+        app[0].get_inference_job_autoscaler("x")
+    assert ei.value.status == 400 and "no inference job 'x'" in \
+        str(ei.value)
+    job = app[1].create_inference_job("u", "t", budget={})
+    assert app[0].get_inference_job_autoscaler(job["id"]) == want
+    assert manager.autoscale_tick(force=True) == []  # no data plane yet
     rec = manager.reconcile()
     assert {k: rec[k] for k in ("services_adopted", "services_crashed",
                                 "orphans_reaped", "kv_adopted")} == {
@@ -709,6 +782,10 @@ def test_health_and_metrics(app):
                                 timeout=30) as r:
         text = r.read().decode()
     assert "admin_free_slots 1" in text and "kvd_up 1" in text
+    for key in ("ups", "downs", "blocked"):
+        assert f"admin_autoscale_{key} 0" in text
+    assert h["scaling"] == {"autoscale_ups": 0, "autoscale_downs": 0,
+                            "autoscale_blocked": 0, "pool_publishes": 0}
     with urllib.request.urlopen(client.admin_url + "/", timeout=30) as r:
         assert b"<html" in r.read()[:400].lower()
 

@@ -12,6 +12,7 @@ are held to the JAX package's as well.
 """
 
 import json
+import time
 
 import pytest
 
@@ -218,3 +219,41 @@ def test_sanitize_trace_id_equals_jax(tid):
     from rafiki_tpu.obs import sanitize_trace_id as jsan
 
     assert sanitize_trace_id(tid) == jsan(tid)
+
+
+def test_a_burst_of_connections_is_queued_not_reset():
+    """The listen backlog holds a burst of clients connecting at once
+    (socketserver's default of 5 reset connections when 16 closed-loop
+    clients met a busy Predictor); 64 concurrent requests to a slow
+    handler are all answered."""
+    import threading
+
+    from rafiki_tpu_torch.utils.http import JsonHttpService, json_request
+
+    svc = JsonHttpService()
+
+    def slow(_m, _b, _h):
+        time.sleep(0.2)
+        return 200, {"ok": True}
+
+    svc.route("POST", "/slow", slow)
+    host, port = svc.start()
+    errors = []
+
+    def call():
+        try:
+            json_request("POST", f"http://{host}:{port}/slow", {},
+                         timeout=60)
+        except Exception as e:  # counted: the assertion below
+            errors.append(repr(e))
+
+    try:
+        assert svc._server.request_queue_size >= 64
+        threads = [threading.Thread(target=call) for _ in range(64)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        svc.stop()
+    assert not errors, errors[:3]

@@ -4,8 +4,9 @@
 A file the port writes (train job, sub-train job, trials in every
 terminal state, heartbeats, logs) must read the same through the JAX
 store — rows, logs, the best trials a deploy takes — and the reverse;
-the schema the port creates must be the JAX one, table for table; and a
-claim for resume must be won by exactly one store of either package.
+the schema the port creates must be the JAX one, table for table; a
+claim for resume must be won by exactly one store of either package; and
+a ``postgresql://`` url fails as JAX's does without psycopg2.
 """
 
 import sqlite3
@@ -117,8 +118,18 @@ def test_claim_for_resume_is_exclusive_across_packages(tmp_path):
         port.update_trial("nope", score=1.0)
 
 
-def test_other_backends_raise_naming_themselves():
-    with pytest.raises(NotImplementedError, match="PostgreSQL"):
-        MetaStore("postgresql://localhost/rafiki")
+def test_a_postgres_url_raises_as_jax_does_without_psycopg2(monkeypatch):
+    """A ``postgresql://`` url builds the PostgresAdapter, which raises
+    JAX's ImportError when psycopg2 cannot be imported (neither machine
+    has it); a ``sqlite:///`` url still opens sqlite."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "psycopg2", None)
+    errs = []
+    for cls in (MetaStore, JMetaStore):
+        with pytest.raises(ImportError, match="psycopg2") as ei:
+            cls("postgresql://localhost/rafiki")
+        errs.append(str(ei.value))
+    assert errs[0] == errs[1]
     store = MetaStore("sqlite:///:memory:")
     assert store.get_trial("x") is None

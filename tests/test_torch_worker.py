@@ -9,7 +9,9 @@ ViT tests (rtol 1e-4, atol 1e-5). Also held here: the error replies and
 that the worker serves on after them, expiry and drain, the engine's
 span events against the JAX engine's, ``estimate_serving_device_bytes``
 against JAX's term by term (its ``params`` against the bytes the port's
-serving model holds), admission, and the options that refuse to boot.
+serving model holds), admission, the options that refuse to boot, and
+fault injection (an injector's hub wrapper and ``chaos_*`` metrics, an
+armed ``RAFIKI_CHAOS`` killing both workers at the same token).
 """
 
 import json
@@ -464,9 +466,8 @@ def test_admission_admits_when_the_estimator_raises(lm_blob, monkeypatch,
 
 
 @pytest.mark.parametrize("kw,name", [
-    ({"chaos": object()}, "fault injection"),
     ({"paged_kernel": False}, "paged_kernel=False"),
-], ids=["chaos", "paged_kernel_false"])
+], ids=["paged_kernel_false"])
 def test_options_not_ported_refuse_to_boot(lm_blob, kw, name):
     with pytest.raises(NotImplementedError, match=name.replace("(", r"\(")):
         _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8", **kw)
@@ -568,10 +569,64 @@ def test_decode_mode_workers_serve_the_jax_workers_texts(lm_blob, kw):
     assert ts[key] == js[key] > 0
 
 
-def test_armed_chaos_env_refuses_to_boot(lm_blob, monkeypatch):
+def test_a_chaos_injector_wraps_the_hub_and_counts_on_metrics(lm_blob):
+    """``chaos=`` (an injector with every reply dropped) boots the worker
+    behind a ``ChaosHub``, as the JAX worker does: the answer never
+    arrives, and the drops are ``chaos_*`` gauges on the worker's
+    metrics, the JAX worker's names."""
+    from rafiki_tpu.chaos import ChaosConfig as JConfig
+    from rafiki_tpu.chaos import ChaosInjector as JInjector
+    from rafiki_tpu_torch.chaos import (ChaosConfig, ChaosHub,
+                                        ChaosInjector)
+
+    inj = ChaosInjector(ChaosConfig(drop_reply_p=1.0))
+    w = _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8",
+                   chaos=inj)
+    assert isinstance(w.hub, ChaosHub) and w.chaos is inj
+    inner = w.hub.inner
+    inner.push_query("w0", jpack({"id": "a", "queries": ["tok1 tok2"]}))
+    w.run(poll_timeout=0.01, max_iterations=40)
+    assert inner.pop_prediction("a", 0.2) is None
+    assert int(inj.counters["replies_dropped"]) == 1
+    text = w.metrics.render_prometheus()
+    assert "chaos_replies_dropped 1" in text
+    jw = _lm_worker(JWorker, _jax_store(lm_blob), "paged8",
+                    chaos=JInjector(JConfig(drop_reply_p=1.0)))
+    jnames = {ln.split()[0] for ln in jw.metrics.render_prometheus()
+              .splitlines() if ln.startswith("chaos_")}
+    assert jnames == {ln.split()[0] for ln in text.splitlines()
+                      if ln.startswith("chaos_")}
+
+
+def test_armed_chaos_env_kills_the_worker_as_jax_does(lm_blob,
+                                                      monkeypatch):
+    """``RAFIKI_CHAOS=kill_after_tokens=3`` arms both workers at boot:
+    each streams the same deltas of one request until its engine has
+    generated 3 tokens, then its loop returns without the final reply
+    or a last stats publish (``chaos_killed``), one kill counted."""
     monkeypatch.setenv("RAFIKI_CHAOS", "kill_after_tokens=3")
-    with pytest.raises(NotImplementedError, match="RAFIKI_CHAOS"):
-        _lm_worker(InferenceWorker, _port_store(lm_blob), "paged8")
+    got = []
+    for cls, store in ((InferenceWorker, _port_store(lm_blob)),
+                       (JWorker, _jax_store(lm_blob))):
+        w = _lm_worker(cls, store, "paged8", steps_per_sync=1)
+        assert w.chaos is not None and w.chaos.cfg.kill_after_tokens == 3
+        hub = w.hub.inner
+        hub.push_query("w0", jpack({"id": "s", "stream": True,
+                                    "queries": ["tok1 tok2 tok3"]}))
+        th = threading.Thread(target=w.run, kwargs={"poll_timeout": 0.02})
+        th.start()
+        th.join(timeout=60)
+        assert not th.is_alive() and w.chaos_killed
+        replies = []
+        while True:
+            raw = hub.pop_prediction("s", 0.1)
+            if raw is None:
+                break
+            replies.append(junpack(raw))
+        assert all("delta" in r for r in replies), replies
+        got.append(([r["delta"] for r in replies],
+                    int(w.chaos.counters["kills"])))
+    assert got[0] == got[1] and got[0][1] == 1 and got[0][0]
 
 
 def test_paged_kernel_true_or_auto_serves_paged(lm_blob):
