@@ -347,9 +347,32 @@ Phases; each raises on failure, so the script exits non-zero:
     one through the drain path; every stream's text equal to a direct
     ``make_decode_engine`` run. B7/B3 (a) and B1/B2 (b) read from every worker's ``/metrics``;
     paths ``scaleout_vit`` and ``scaleout_llama``.
+33. The rest of the zoo (``zoo_phase``, after 31): (a) ``JaxTabularMLP``
+    at its widest knobs (4 x 256 units, batch 256, dropout 0.3) on a
+    seeded table of UCI Covertype's shape (54 features, 7 classes,
+    65536 / 16384 rows): its first 32 steps on the card against the
+    same steps on the CPU from one state (at ``ZOO_EXACT_LR``, within
+    ``ZOO_MLP_TOL``), then 2
+    epochs, ``evaluate``, ``predict`` of 256 rows and the blob through
+    the codec; (b) BOHB over it at ``tests/test_tuning.py``'s pins on
+    8192 / 2048 rows, an 8-lane gang through ``tune_model`` against the
+    engine's ``mode="sequential"``: the same trials, promotions and
+    culls, scores gated as phase 31 (a)'s; (c) ``BiLSTMTagger`` at its
+    widest knobs on a seeded corpus of the Penn Treebank WSJ tag set's
+    shape (45 tags, 4096 words, 8192 / 1024 sentences): 8 steps card
+    against CPU (``ZOO_LSTM_TOL``), one epoch, its blob behind an
+    ``InferenceWorker`` (256 sentences, some empty and some past
+    ``max_len``, equal to ``predict``; sentences/s at concurrency 16);
+    (d) in a process of its own beside (a)-(c), which first writes (c)'s
+    corpus: ``BigramHMM`` on that corpus, ``SklearnDecisionTree`` and
+    ``SklearnGBDT`` on 4096 / 1024 rows and ``SklearnSVM`` on 2048 / 512
+    rows of the table's shape, fitted without scikit-learn, each above
+    its JAX test's accuracy bar and equal through the codec. No port
+    kernel lies on these paths (``zoo_tabular``, ``zoo_gang_tabular``,
+    ``zoo_pos``, ``zoo_host``): their launch counts must stay 0.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
-22, 23, 32, 27, 28, 31, then 24 and 18: phases 24 and 18 hold the most
+22, 23, 32, 27, 28, 31, 33, then 24 and 18: phases 24 and 18 hold the most
 host memory (phase 24's f32 tree, phase 18's blob), and run last.
 
 Each path's launch counts are zeroed just before it and read just after;
@@ -6820,6 +6843,524 @@ def gang_phase(torch, np, ll, fa, pa, ff, dataset, dev_mod, tuning, ms, ps,
             "gang_worker": worker_launches}
 
 
+# ---- the rest of the zoo (phase 33)
+
+#: (a), (b), (d): the table at UCI Covertype's shape, 54 features and 7
+#: classes (the generator's depth-3 teacher over them)
+ZOO_FEATURES, ZOO_CLASSES = 54, 7
+ZOO_TABLE_ROWS = (65536, 16384)  # train, val
+#: (a): the MLP at its knob space's widest point; a budget of 0.2 is 2
+#: of its fixed 10 epochs
+ZOO_MLP_KNOBS = {"max_epochs": 10, "hidden_layer_count": 4,
+                 "hidden_layer_units": 256, "dropout": 0.3,
+                 "learning_rate": 1e-3, "batch_size": 256,
+                 "quick_train": False, "share_params": False}
+ZOO_MLP_BUDGET = 0.2
+ZOO_MLP_STEPS = 32
+#: (a)'s gate: each of the first 32 steps' losses on the card within
+#: this of the CPU's, relative (f32 matmuls, TF32 off; the dropout masks
+#: are the same integer threefry bits on both), at ZOO_EXACT_LR, the
+#: knob's floor. At 1e-3 the H100 read 2.3e-4: steps 0-15 within 2e-7,
+#: then Adam's steps on gradients at noise level carry the two GEMMs'
+#: f32 rounding into the trajectory (on the CPU alone a 1e-7 nudge of the
+#: initial weights reads 1.4e-5 by step 29 at 1e-3, 2.4e-7 at 1e-4)
+ZOO_MLP_TOL = 1e-4
+ZOO_EXACT_LR = 1e-4
+ZOO_PREDICT_ROWS = 256
+#: (a)'s accuracy bar after its 2 epochs, the JAX test's
+#: (tests/test_models_pos_tabular.py)
+ZOO_MLP_BAR = 0.7
+#: (b): BOHB over tests/test_tuning.py's TAB_PINS on 8192 / 2048 rows
+ZOO_GANG_ROWS = (8192, 2048)
+ZOO_GANG_PINS = {"hidden_layer_count": 2, "hidden_layer_units": 32,
+                 "batch_size": 128}
+ZOO_GANG_TRIALS = 8
+ZOO_GANG_LANES = 8
+#: (b)'s score gate (masked accuracy over 2048 rows), as phase 31 (a)'s:
+#: the gang's bmm and the sequential mm round apart in f32, so at most
+#: ZOO_GANG_UNEQUAL trials may end apart, by at most ZOO_GANG_TOL; the
+#: trials, promotions and culls must be equal
+ZOO_GANG_UNEQUAL = 1
+ZOO_GANG_TOL = 24 / 2048
+#: (c): the Penn Treebank WSJ tag set's shape (45 tags), a 4096-word
+#: vocabulary, sentences up to 32 tokens; 8192 / 1024 sentences, not the
+#: WSJ split's 39832 (the generator draws token by token in Python)
+ZOO_CORPUS = {"vocab_size": 4096, "n_tags": 45, "max_len": 32}
+ZOO_SENTENCES = (8192, 1024)
+#: (c): the tagger at its widest point; a budget of 0.1 is one epoch
+ZOO_LSTM_KNOBS = {"max_epochs": 10, "vocab_size": 4096, "embed_dim": 128,
+                  "hidden_dim": 256, "learning_rate": 1e-3,
+                  "batch_size": 64, "max_len": 32, "quick_train": False,
+                  "share_params": False}
+ZOO_LSTM_BUDGET = 0.1
+ZOO_LSTM_STEPS = 8
+#: (c)'s gate: each of the first 8 steps' losses on the card within this
+#: of the CPU's, relative (cuDNN's LSTM in f32, TF32 off)
+ZOO_LSTM_TOL = 1e-4
+ZOO_SERVE_SENTENCES = 256
+ZOO_SERVE_CLIENTS = 16
+#: (d): the host templates, their knobs, rows and the accuracy bar of
+#: their JAX tests (tests/test_models_pos_tabular.py)
+ZOO_HOST = (
+    ("BigramHMM", {"emission_k": 0.01, "transition_k": 0.1,
+                   "min_word_count": 1}, "corpus", 0.7),
+    ("SklearnDecisionTree", {"max_depth": 16, "min_samples_split": 2,
+                             "min_impurity_decrease": 1e-6,
+                             "criterion": "gini"}, (4096, 1024), 0.8),
+    ("SklearnGBDT", {"n_estimators": 25, "learning_rate_gb": 0.1,
+                     "max_depth": 3, "subsample": 0.8}, (4096, 1024), 0.8),
+    ("SklearnSVM", {"C": 1.0, "kernel": "rbf", "gamma_scale": 1.0},
+     (2048, 512), 0.6))
+ZOO_PATHS = ("zoo_tabular", "zoo_gang_tabular", "zoo_pos", "zoo_host")
+
+
+def _zoo_counts(fa, pa, pe):
+    return {**all_launches(fa, pe), **_paged_counts(pa)}
+
+
+def _zoo_zero(fa, pa, pe):
+    zero_all_launches(fa, pe)
+    _zero_paged(pa)
+
+
+def _tree_to(tree, dev):
+    """A nested dict of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _rel_diffs(got, want):
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def _zoo_tabular(torch, np, dataset, loader, tab, ps, TrainContext, fa, pa,
+                 pe, work, dev):
+    """Phase 33 (a)."""
+    import itertools
+
+    train, val = str(work / "table_train.npz"), str(work / "table_val.npz")
+    t0 = time.perf_counter()
+    for path, rows, seed in ((train, ZOO_TABLE_ROWS[0], SEED),
+                             (val, ZOO_TABLE_ROWS[1], SEED + 1)):
+        dataset.generate_tabular_dataset(path, rows, ZOO_FEATURES,
+                                         ZOO_CLASSES, seed=seed)
+    gen_s = time.perf_counter() - t0
+    ds, vds = dataset.load_tabular_dataset(train), \
+        dataset.load_tabular_dataset(val)
+    knobs = ZOO_MLP_KNOBS
+    mean, std = tab.JaxTabularMLP._stats(ds.features)
+    x = ((ds.features - mean) / std).astype(np.float32)
+    # card against CPU: the template's own lane step from one state
+    init = tab.JaxTabularMLP._lane_functions(
+        knobs, ZOO_FEATURES, ZOO_CLASSES, torch.device("cpu"))[0](
+            torch.Generator().manual_seed(SEED), {})
+    losses = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        step = tab.JaxTabularMLP._lane_functions(knobs, ZOO_FEATURES,
+                                                 ZOO_CLASSES, d)[1]
+        state = _tree_to(init, d)
+        hp = {"dropout": torch.tensor(float(knobs["dropout"]), device=d),
+              "learning_rate": torch.tensor(ZOO_EXACT_LR, device=d)}
+        out = []
+        for b in itertools.islice(loader.batch_iterator(
+                {"x": x, "y": ds.labels}, knobs["batch_size"], seed=0),
+                ZOO_MLP_STEPS):
+            state, loss = step(state, hp, b)
+            out.append(loss)
+        losses[name] = [float(v) for v in out]
+    rel = _rel_diffs(losses["card"], losses["cpu"])
+    # the template on the card: 2 epochs, evaluate, predict, the codec
+    torch.cuda.synchronize()
+    _zoo_zero(fa, pa, pe)
+    m = tab.JaxTabularMLP(device=dev, **knobs)
+    ctx = TrainContext(budget_scale=ZOO_MLP_BUDGET)
+    t0 = time.perf_counter()
+    m.train(train, ctx)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    epochs = ctx.logger.get_values("loss")
+    t0 = time.perf_counter()
+    acc = m.evaluate(val)
+    eval_s = time.perf_counter() - t0
+    queries = list(vds.features[:ZOO_PREDICT_ROWS])
+    t0 = time.perf_counter()
+    probs = np.asarray(m.predict(queries))
+    predict_s = time.perf_counter() - t0
+    counts = _zoo_counts(fa, pa, pe)
+    again = tab.JaxTabularMLP(device=dev, **knobs)
+    again.load_parameters(ps.params_from_bytes(
+        ps.params_to_bytes(m.dump_parameters())))
+    steps = len(epochs) * math.ceil(ZOO_TABLE_ROWS[0] / knobs["batch_size"])
+    return {"rows": ZOO_TABLE_ROWS, "features": ZOO_FEATURES,
+            "classes": ZOO_CLASSES, "knobs": knobs, "generate_s": gen_s,
+            "first_steps": {"card": losses["card"], "cpu": losses["cpu"],
+                            "learning_rate": ZOO_EXACT_LR,
+                            "max_rel_diff": max(rel), "tol": ZOO_MLP_TOL},
+            "epoch_losses": epochs, "train_s": train_s, "steps": steps,
+            "step_ms": 1e3 * train_s / steps,
+            "rows_per_s": ZOO_TABLE_ROWS[0] * len(epochs) / train_s,
+            "accuracy": acc, "evaluate_s": eval_s,
+            "predict_rows": len(queries), "predict_s": predict_s,
+            "probs_shape": list(probs.shape),
+            "reloaded_equal": bool(np.array_equal(
+                np.asarray(again.predict(queries)), probs))}, counts
+
+
+def _zoo_gang(torch, np, dataset, dev_mod, tuning, tab, fa, pa, pe, work,
+              dev):
+    """Phase 33 (b)."""
+    from rafiki_tpu_torch.advisor import make_advisor
+
+    train, val = str(work / "gang_train.npz"), str(work / "gang_val.npz")
+    for path, rows, seed in ((train, ZOO_GANG_ROWS[0], SEED + 2),
+                             (val, ZOO_GANG_ROWS[1], SEED + 3)):
+        dataset.generate_tabular_dataset(path, rows, ZOO_FEATURES,
+                                         ZOO_CLASSES, seed=seed)
+    engines, real = [], tuning.GangEngine
+
+    class Recorded(real):  # the engine tune_model builds, for its results
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    tmpl = tab.JaxTabularMLP
+    runs = {}
+    torch.cuda.synchronize()
+    _zoo_zero(fa, pa, pe)
+    for mode in ("gang", "sequential"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "gang":
+            tuning.GangEngine = Recorded
+            try:
+                dev_mod.tune_model(
+                    tmpl, train, val, total_trials=ZOO_GANG_TRIALS,
+                    advisor_type="bohb", seed=SEED,
+                    gang_size=ZOO_GANG_LANES, knob_overrides=ZOO_GANG_PINS,
+                    device=dev)
+            finally:
+                tuning.GangEngine = real
+            results = engines[0].results
+        else:
+            adv = make_advisor(tmpl.get_knob_config(), "bohb",
+                               total_trials=ZOO_GANG_TRIALS, seed=SEED)
+            results = real(tmpl, adv, train, val, gang_size=ZOO_GANG_LANES,
+                           mode="sequential", knob_overrides=ZOO_GANG_PINS,
+                           device=dev).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[mode] = {"wall_s": wall, "trials": len(results),
+                      "results": [((r.trial_no, r.budget_scale,
+                                    r.meta.get("rung"),
+                                    r.meta.get("parent_trial_no")),
+                                   r.score, r.knobs) for r in results]}
+    counts = _zoo_counts(fa, pa, pe)
+    gang, seq = runs["gang"]["results"], runs["sequential"]["results"]
+    diffs = [abs(a[1] - b[1]) for a, b in zip(gang, seq)]
+    return {"rows": ZOO_GANG_ROWS, "pins": ZOO_GANG_PINS,
+            "lanes": ZOO_GANG_LANES, "advisor": "bohb",
+            **{mode: {"wall_s": r["wall_s"], "trials": r["trials"]}
+               for mode, r in runs.items()},
+            "same_trials": [a[0] for a in gang] == [b[0] for b in seq]
+            and len(gang) == ZOO_GANG_TRIALS,
+            "max_score_diff": max(diffs, default=0.0),
+            "unequal_scores": sum(d != 0.0 for d in diffs),
+            "tol": ZOO_GANG_TOL, "unequal_allowed": ZOO_GANG_UNEQUAL,
+            "promotions": sum(a[0][3] is not None for a in gang),
+            "culled": sum(a[0][1] < 1.0 - 1e-9 for a in gang),
+            "trials_run": [{"trial_no": a[0][0], "budget": a[0][1],
+                            "parent": a[0][3],
+                            "dropout": a[2]["dropout"],
+                            "learning_rate": a[2]["learning_rate"],
+                            "gang_score": a[1], "sequential_score": b[1]}
+                           for a, b in zip(gang, seq)]}, counts
+
+
+def _zoo_sentences(corpus, n):
+    """``n`` validation sentences for serving, among them empty ones and
+    ones longer than ``max_len``."""
+    out = []
+    for i in range(n):
+        toks = list(corpus.sentences[i % len(corpus.sentences)][0])
+        if i % 16 == 5:
+            toks = []
+        elif i % 16 == 11:
+            toks = toks * (ZOO_CORPUS["max_len"] // max(len(toks), 1) + 2)
+        out.append(toks)
+    return out
+
+
+def _zoo_pos(torch, np, dataset, loader, pos, ps, queues, wi,
+             TrainContext, fa, pa, pe, work, dev):
+    """Phase 33 (c)."""
+    import itertools
+    import threading
+
+    ds = dataset.CorpusDataset.load(str(work / "corpus_train.jsonl"))
+    vds = dataset.CorpusDataset.load(str(work / "corpus_val.jsonl"))
+    knobs = ZOO_LSTM_KNOBS
+    tags = list(ds.tag_names)
+    cpu = pos.BiLSTMTagger(device="cpu", **knobs)
+    cpu._tags = tags
+    blob0 = pos._to_jax(cpu._module().state_dict())
+    t0 = time.perf_counter()
+    batches = list(itertools.islice(loader.batch_iterator(
+        cpu._arrays(ds), knobs["batch_size"], seed=0), ZOO_LSTM_STEPS))
+    encode_s = time.perf_counter() - t0
+    losses = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        t = pos.BiLSTMTagger(device=d, **knobs)
+        t._tags = tags
+        step = pos.BiLSTMTagger._step_fn(t._net(blob0),
+                                         knobs["learning_rate"], d)
+        losses[name] = [float(step(b)) for b in batches]
+    rel = _rel_diffs(losses["card"], losses["cpu"])
+    torch.cuda.synchronize()
+    _zoo_zero(fa, pa, pe)
+    m = pos.BiLSTMTagger(device=dev, **knobs)
+    ctx = TrainContext(budget_scale=ZOO_LSTM_BUDGET)
+    t0 = time.perf_counter()
+    m.train(str(work / "corpus_train.jsonl"), ctx)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    acc = m.evaluate(str(work / "corpus_val.jsonl"))
+    steps = math.ceil(ZOO_SENTENCES[0] / knobs["batch_size"])
+    # the blob served by a worker
+    store = ps.ParamStore.from_uri("mem://")
+    store.save("bilstm", m.dump_parameters())
+    hub = queues.InProcQueueHub()
+    worker = wi.InferenceWorker(pos.BiLSTMTagger, "bilstm", knobs, store,
+                                hub, "p0", decode_loop=False, device=dev)
+    sents = _zoo_sentences(vds, ZOO_SERVE_SENTENCES)
+    msgs = [{"id": f"s{i}", "queries": sents[32 * i:32 * (i + 1)]}
+            for i in range(len(sents) // 32)]
+    for msg in msgs:
+        hub.push_query("p0", queues.pack_message(msg))
+    loop = threading.Thread(target=worker.run,
+                            kwargs={"poll_timeout": 0.01})
+    t0 = time.perf_counter()
+    loop.start()
+    replies = [queues.unpack_message(hub.pop_prediction(msg["id"], 300.0))
+               for msg in msgs]
+    wall = time.perf_counter() - t0
+    served = [p for r in replies for p in r["predictions"]]
+    per_client = ZOO_SERVE_SENTENCES // ZOO_SERVE_CLIENTS
+    lat = []
+
+    def client(c):
+        for j in range(per_client):
+            mid = f"c{c}_{j}"
+            t1 = time.perf_counter()
+            hub.push_query("p0", queues.pack_message(
+                {"id": mid, "queries": [sents[c * per_client + j]]}))
+            queues.unpack_message(hub.pop_prediction(mid, 300.0))
+            lat.append(time.perf_counter() - t1)
+
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(ZOO_SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    wall16 = time.perf_counter() - t0
+    worker.stop()
+    loop.join()
+    counts = _zoo_counts(fa, pa, pe)
+    direct = m.predict(sents)
+    again = pos.BiLSTMTagger(device=dev, **knobs)
+    again.load_parameters(ps.params_from_bytes(
+        ps.params_to_bytes(m.dump_parameters())))
+    return {"sentences": ZOO_SENTENCES, "corpus": ZOO_CORPUS,
+            "knobs": knobs, "encode_8_batches_s": encode_s,
+            "first_steps": {"card": losses["card"], "cpu": losses["cpu"],
+                            "max_rel_diff": max(rel), "tol": ZOO_LSTM_TOL},
+            "epoch_losses": ctx.logger.get_values("loss"),
+            "train_s": train_s, "steps": steps,
+            "step_ms": 1e3 * train_s / steps,
+            "sentences_per_s_train": ZOO_SENTENCES[0] / train_s,
+            "accuracy": acc, "served": len(served),
+            "empty": sum(not s for s in sents),
+            "over_max_len": sum(len(s) > ZOO_CORPUS["max_len"]
+                                for s in sents),
+            "served_equal_predict": served == direct,
+            "wall_256_s": wall, "sentences_per_s_256": len(sents) / wall,
+            "concurrency_16": {"requests": len(lat), "wall_s": wall16,
+                               "sentences_per_s": len(lat) / wall16,
+                               "p50_s": float(np.percentile(lat, 50)),
+                               "p95_s": float(np.percentile(lat, 95))},
+            "reloaded_equal": again.predict(sents) == direct,
+            "errors": [r["error"] for r in replies if r.get("error")]}, \
+        counts
+
+
+def zoo_host_main(work):
+    """Phase 33's host leg, (d), in a process of its own beside the card
+    legs: it writes (c)'s corpus first (``corpus.ready`` marks it), then
+    fits and serves the host templates and writes ``host.json``."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from rafiki_tpu_torch.data import dataset
+    from rafiki_tpu_torch.ops import attention as fa
+    from rafiki_tpu_torch.ops import paged_attention as pa
+    from rafiki_tpu_torch.ops import patch_embed as pe
+    from rafiki_tpu_torch.models import get_model_template
+    from rafiki_tpu_torch.store import param_store as ps
+
+    t_leg = time.perf_counter()
+    corpus = {}
+    for split, n, seed in (("train", ZOO_SENTENCES[0], SEED),
+                           ("val", ZOO_SENTENCES[1], SEED + 1)):
+        path = work / f"corpus_{split}.jsonl"
+        dataset.generate_corpus_dataset(str(path), n, seed=seed,
+                                        **ZOO_CORPUS)
+        corpus[split] = str(path)
+    corpus_s = time.perf_counter() - t_leg
+    (work / "corpus.ready").write_text(str(corpus_s))
+    t0 = time.perf_counter()
+    tables = {}
+    for rows in {r for _, _, r, _ in ZOO_HOST if r != "corpus"}:
+        paths = []
+        for split, n, seed in (("train", rows[0], SEED + 4),
+                               ("val", rows[1], SEED + 5)):
+            path = work / f"host_{rows[0]}_{split}.npz"
+            dataset.generate_tabular_dataset(str(path), n, ZOO_FEATURES,
+                                             ZOO_CLASSES, seed=seed)
+            paths.append(str(path))
+        tables[rows] = paths
+    tables_s = time.perf_counter() - t0
+    _zoo_zero(fa, pa, pe)
+    results = []
+    for name, knobs, rows, bar in ZOO_HOST:
+        train, val = ((corpus["train"], corpus["val"]) if rows == "corpus"
+                      else tables[rows])
+        cls = get_model_template(name)
+        m = cls(**knobs)
+        t0 = time.perf_counter()
+        m.train(train)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc = m.evaluate(val)
+        eval_s = time.perf_counter() - t0
+        if rows == "corpus":
+            queries = [toks for toks, _ in
+                       dataset.CorpusDataset.load(val).sentences[:64]]
+        else:
+            queries = dataset.load_tabular_dataset(val).features[
+                :64].tolist()
+        want = m.predict(queries)
+        again = cls(**knobs)
+        blob = ps.params_to_bytes(m.dump_parameters())
+        again.load_parameters(ps.params_from_bytes(blob))
+        results.append({"template": name, "knobs": knobs,
+                        "rows": rows if rows == "corpus" else list(rows),
+                        "train_s": train_s, "evaluate_s": eval_s,
+                        "accuracy": acc, "bar": bar,
+                        "blob_bytes": len(blob),
+                        "reloaded_equal": again.predict(queries) == want})
+    out = {"corpus_s": corpus_s, "tables_s": tables_s, "results": results,
+           "launches": _zoo_counts(fa, pa, pe),
+           "seconds": time.perf_counter() - t_leg}
+    (work / "host.json").write_text(json.dumps(out))
+    return 0
+
+
+def zoo_phase(torch, np, dataset, loader, dev_mod, tuning, tab, pos, ps,
+              queues, wi, TrainContext, fa, pa, pe, dev):
+    """Phase 33, the rest of the zoo: (a) ``JaxTabularMLP`` on the card,
+    (b) its gang against the sequential schedule, (c) ``BiLSTMTagger`` on
+    the card and behind a worker, (d) the host templates, fitted without
+    scikit-learn in a process of their own while (a)-(c) run."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "zoo"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    child = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--zoo-host",
+         str(work)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    try:
+        t0 = time.perf_counter()
+        tabular, tab_counts = _zoo_tabular(torch, np, dataset, loader, tab,
+                                           ps, TrainContext, fa, pa, pe,
+                                           work, dev)
+        tabular["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gang, gang_counts = _zoo_gang(torch, np, dataset, dev_mod, tuning,
+                                      tab, fa, pa, pe, work, dev)
+        gang["seconds"] = time.perf_counter() - t0
+        t_wait = time.perf_counter()
+        while not (work / "corpus.ready").exists():
+            if child.poll() is not None:
+                raise AssertionError("the host leg ended before writing "
+                                     "the corpus: " + child.stdout.read())
+            time.sleep(0.05)
+        corpus_wait_s = time.perf_counter() - t_wait
+        t0 = time.perf_counter()
+        pos_res, pos_counts = _zoo_pos(torch, np, dataset, loader, pos, ps,
+                                       queues, wi, TrainContext, fa, pa, pe,
+                                       work, dev)
+        pos_res["seconds"] = time.perf_counter() - t0
+        t_wait = time.perf_counter()
+        child_out, _ = child.communicate(timeout=600)
+        host_wait_s = time.perf_counter() - t_wait
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"the host leg failed:\n{child_out[-4000:]}")
+    host = json.loads((work / "host.json").read_text())
+    host_counts = host.pop("launches")
+    emit({"phase": "zoo", "tabular": tabular, "gang_tabular": gang,
+          "pos": pos_res, "host": host, "corpus_wait_s": corpus_wait_s,
+          "host_wait_s": host_wait_s,
+          "launches": {"zoo_tabular": tab_counts,
+                       "zoo_gang_tabular": gang_counts,
+                       "zoo_pos": pos_counts, "zoo_host": host_counts},
+          "seconds": time.perf_counter() - t_phase})
+    first = tabular["first_steps"]
+    if not first["max_rel_diff"] <= ZOO_MLP_TOL:
+        raise AssertionError(f"the MLP's card steps left the CPU's: "
+                             f"{first}")
+    if not (tabular["reloaded_equal"] and tabular["accuracy"] > ZOO_MLP_BAR
+            and tabular["probs_shape"] == [ZOO_PREDICT_ROWS, ZOO_CLASSES]
+            and tabular["epoch_losses"][-1] < tabular["epoch_losses"][0]):
+        raise AssertionError(f"the MLP on the card: {tabular}")
+    if not gang["same_trials"]:
+        raise AssertionError("the tabular gang's trials, promotions or "
+                             "culls differ from the sequential schedule's")
+    if gang["unequal_scores"] > ZOO_GANG_UNEQUAL or \
+            gang["max_score_diff"] > ZOO_GANG_TOL:
+        raise AssertionError(f"{gang['unequal_scores']} tabular gang scores "
+                             f"differ, by up to {gang['max_score_diff']}")
+    if not pos_res["first_steps"]["max_rel_diff"] <= ZOO_LSTM_TOL:
+        raise AssertionError(f"the BiLSTM's card steps left the CPU's: "
+                             f"{pos_res['first_steps']}")
+    if not (pos_res["served_equal_predict"] and pos_res["reloaded_equal"]
+            and pos_res["served"] == ZOO_SERVE_SENTENCES
+            and pos_res["empty"] and pos_res["over_max_len"]
+            and not pos_res["errors"]
+            and pos_res["epoch_losses"][0] < math.log(ZOO_CORPUS["n_tags"])):
+        raise AssertionError(f"the BiLSTM on the card: {pos_res}")
+    for r in host["results"]:
+        if not (r["accuracy"] > r["bar"] and r["reloaded_equal"]):
+            raise AssertionError(f"host template {r['template']}: {r}")
+    for path, counts in (("zoo_tabular", tab_counts),
+                         ("zoo_gang_tabular", gang_counts),
+                         ("zoo_pos", pos_counts), ("zoo_host", host_counts)):
+        if any(counts.values()):
+            raise AssertionError(f"a port kernel ran on {path}: {counts}")
+    return {"zoo_tabular": tab_counts, "zoo_gang_tabular": gang_counts,
+            "zoo_pos": pos_counts, "zoo_host": host_counts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=4,
@@ -6839,6 +7380,7 @@ def main(argv=None):
                          "and 29 "
                          "(widths are never cut; 2 of 32 by default, for "
                          "the call's time)")
+    ap.add_argument("--zoo-host", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -6849,6 +7391,8 @@ def main(argv=None):
         print("chip_smoke: run it from a checkout of the repository "
               "(rafiki_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
+    if args.zoo_host:  # phase 33 (d), started by phase 33
+        return zoo_host_main(Path(args.zoo_host))
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch.nn.functional as F
@@ -6858,6 +7402,7 @@ def main(argv=None):
     from rafiki_tpu_torch.model import optim
     from rafiki_tpu_torch.data import bpe
     from rafiki_tpu_torch.data import dataset
+    from rafiki_tpu_torch.data import loader
     from rafiki_tpu_torch.data import stream
     from rafiki_tpu_torch.model import dev as dev_mod
     from rafiki_tpu_torch.model.base import TrainContext
@@ -6866,6 +7411,8 @@ def main(argv=None):
     from rafiki_tpu_torch.models import densenet, layers, resnet, vgg
     from rafiki_tpu_torch.models import llama_lora as ll
     from rafiki_tpu_torch.models import mlp
+    from rafiki_tpu_torch.models import pos_tagging as pos
+    from rafiki_tpu_torch.models import tabular as tab
     from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.models.bert import HashTokenizer
     from rafiki_tpu_torch.ops import _build
@@ -6986,17 +7533,22 @@ def main(argv=None):
     paths.update(gang_phase(torch, np, ll, fa, pa, mlp, dataset, dev_mod,
                             tuning, ms, ps, adv, wt, TrainContext, dev))
     torch.cuda.empty_cache()
+    paths.update(zoo_phase(torch, np, dataset, loader, dev_mod, tuning, tab,
+                           pos, ps, queues, wi, TrainContext, fa, pa, pe,
+                           dev))
+    torch.cuda.empty_cache()
     paths.update(slice_phase(torch, np, ll, de, pa, fa, conv, sio, bpe, ps,
                              store_params, args.slice_depth, dev))
     torch.cuda.empty_cache()
     paths["llama_worker"] = llama_worker_phase(
         torch, np, ll, ps, queues, wi, pa, args.worker_depth, dev)
 
-    # the CNN paths launch no port kernel: their zeros are listed too
+    # the CNN, FeedForward-gang and zoo paths launch no port kernel:
+    # their zeros are listed too
     by_path = {name: {path: counts.get(name, 0)
                       for path, counts in paths.items()
                       if counts.get(name) or path in CNN_PATHS
-                      or path in GANG_PATHS}
+                      or path in GANG_PATHS or path in ZOO_PATHS}
                for name in kres}
     for name in ("paged_decode_attention", "paged_window_attention"):
         kres[name]["int8_launches_by_path"] = by_path[name + "_int8"]

@@ -18,7 +18,19 @@ The port's own copies, from ``rafiki_tpu/data/dataset.py``, of:
   class names; the PNGs are the port's encoder's, the pixels JAX's);
 - ``TextClassificationDataset`` and ``load_text_classification_dataset``:
   ``.jsonl`` with a ``{"n_classes": N}`` meta first line, then one
-  ``{"text": ..., "label": int}`` object per line.
+  ``{"text": ..., "label": int}`` object per line;
+- ``CorpusDataset`` (POS tagging): a ``.jsonl`` whose first line is
+  ``{"tag_names": [...]}``, then one ``{"tokens": [...], "tags": [...]}``
+  object per sentence;
+- ``TabularDataset`` and ``load_tabular_dataset``: the canonical
+  ``.npz`` (f32 ``features`` [N, D], ``labels`` [N], scalar
+  ``n_classes``, 0 for regression; optional ``feature_names``) and a
+  ``.csv`` (last column the label, header optional; integral labels are
+  class ids, other numbers a regression target, strings class names
+  sorted into ids) (``_load_csv_tabular``);
+- ``generate_corpus_dataset`` and ``generate_tabular_dataset``, the
+  synthetic POS corpus and table: the same draws as JAX's, so one seed
+  writes the same bytes.
 """
 
 from __future__ import annotations
@@ -228,3 +240,163 @@ class TextClassificationDataset:
 
 def load_text_classification_dataset(path: str) -> TextClassificationDataset:
     return TextClassificationDataset.load(path)
+
+
+@dataclass
+class CorpusDataset:
+    """Token/tag corpus: sentences of (tokens, tags)."""
+
+    sentences: List[Tuple[List[str], List[str]]]
+    tag_names: List[str]
+
+    def __len__(self) -> int:
+        return len(self.sentences)
+
+    def save(self, path: str) -> None:
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "w") as f:
+            f.write(json.dumps({"tag_names": self.tag_names}) + "\n")
+            for tokens, tags in self.sentences:
+                f.write(json.dumps({"tokens": tokens, "tags": tags}) + "\n")
+
+    @staticmethod
+    def load(path: str) -> "CorpusDataset":
+        with open(path) as f:
+            meta = json.loads(f.readline())
+            sentences = []
+            for line in f:
+                d = json.loads(line)
+                if len(d["tokens"]) != len(d["tags"]):
+                    raise ValueError("tokens/tags length mismatch")
+                sentences.append((d["tokens"], d["tags"]))
+        return CorpusDataset(sentences, meta["tag_names"])
+
+
+@dataclass
+class TabularDataset:
+    """Feature-vector table: f32 ``features`` [N, D], int64 class ids
+    (f32 targets when ``n_classes`` is 0, a regression)."""
+
+    features: np.ndarray
+    labels: np.ndarray
+    n_classes: int
+    feature_names: Optional[List[str]] = None
+
+    def __len__(self) -> int:
+        return int(self.features.shape[0])
+
+    def save(self, path: str) -> None:
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        kwargs: Dict[str, np.ndarray] = dict(
+            features=self.features.astype(np.float32), labels=self.labels,
+            n_classes=np.asarray(self.n_classes))
+        if self.feature_names is not None:
+            kwargs["feature_names"] = np.asarray(self.feature_names)
+        np.savez_compressed(p, **kwargs)
+
+    @staticmethod
+    def load(path: str) -> "TabularDataset":
+        with np.load(path, allow_pickle=False) as z:
+            feats = z["features"].astype(np.float32)
+            n_classes = int(z["n_classes"])
+            labels = (z["labels"].astype(np.int64) if n_classes
+                      else z["labels"].astype(np.float32))
+            names = (list(map(str, z["feature_names"]))
+                     if "feature_names" in z else None)
+        return TabularDataset(feats, labels, n_classes, names)
+
+
+def load_tabular_dataset(path: str) -> TabularDataset:
+    p = Path(path)
+    if p.suffix == ".npz":
+        return TabularDataset.load(path)
+    if p.suffix == ".csv":
+        return _load_csv_tabular(p)
+    raise ValueError(f"unrecognized tabular dataset at {path!r}")
+
+
+def _load_csv_tabular(p: Path) -> TabularDataset:
+    with open(p) as f:
+        rows = list(csv.reader(f))
+    names: Optional[List[str]] = None
+    try:
+        float(rows[0][0])
+    except (ValueError, IndexError):
+        names, rows = rows[0][:-1], rows[1:]
+    feats = np.asarray([[float(v) for v in r[:-1]] for r in rows],
+                       np.float32)
+    raw = [r[-1].strip() for r in rows]
+    try:
+        as_float = np.asarray([float(v) for v in raw])
+        if np.allclose(as_float, np.round(as_float)):
+            labels = as_float.astype(np.int64)
+            return TabularDataset(feats, labels,
+                                  int(labels.max()) + 1, names)
+        return TabularDataset(feats, as_float.astype(np.float32), 0, names)
+    except ValueError:  # string class labels
+        labels, classes = _labels_to_ids(raw)
+        return TabularDataset(feats, labels, len(classes), names)
+
+
+def generate_corpus_dataset(path: str, n_sentences: int = 400,
+                            vocab_size: int = 200, n_tags: int = 8,
+                            max_len: int = 12, seed: int = 0,
+                            class_seed: int = 7) -> CorpusDataset:
+    """Synthetic POS-style corpus: every word type ``w{i}`` has one tag
+    (a lexicon drawn from ``class_seed``, each tag owning at least one
+    word) and tags follow a first-order Dirichlet transition matrix;
+    sentences of 3..``max_len`` tokens are drawn from ``seed``."""
+    if vocab_size < n_tags:
+        raise ValueError("vocab_size must be >= n_tags")
+    rng = np.random.default_rng(seed)
+    struct_rng = np.random.default_rng(class_seed + vocab_size)
+    word_tag = struct_rng.integers(0, n_tags, size=vocab_size)
+    word_tag[:n_tags] = np.arange(n_tags)
+    trans = struct_rng.dirichlet(np.ones(n_tags) * 0.3, size=n_tags)
+    tag_names = [f"TAG{i}" for i in range(n_tags)]
+    words_by_tag = [np.where(word_tag == t)[0] for t in range(n_tags)]
+    sentences = []
+    for _ in range(n_sentences):
+        length = int(rng.integers(3, max_len + 1))
+        tags: List[int] = []
+        toks: List[str] = []
+        t = int(rng.integers(0, n_tags))
+        for _ in range(length):
+            tags.append(t)
+            w = int(rng.choice(words_by_tag[t]))
+            toks.append(f"w{w}")
+            t = int(rng.choice(n_tags, p=trans[t]))
+        sentences.append((toks, [tag_names[i] for i in tags]))
+    ds = CorpusDataset(sentences, tag_names)
+    if path:
+        ds.save(path)
+    return ds
+
+
+def generate_tabular_dataset(path: str, n_examples: int = 1024,
+                             n_features: int = 16, n_classes: int = 3,
+                             noise: float = 0.1, seed: int = 0,
+                             class_seed: int = 7) -> TabularDataset:
+    """Synthetic table: standard-normal features, labels from a depth-3
+    axis-aligned teacher tree drawn from ``class_seed`` (3 feature
+    thresholds, 8 leaves), a ``noise`` share of them redrawn uniformly."""
+    rng = np.random.default_rng(seed)
+    teacher_rng = np.random.default_rng(class_seed + n_features * 100)
+    x = rng.normal(0.0, 1.0, size=(n_examples, n_features)).astype(
+        np.float32)
+    feat = teacher_rng.integers(0, n_features, size=3)
+    thr = teacher_rng.normal(0.0, 0.5, size=3)
+    leaf_class = teacher_rng.integers(0, n_classes, size=8)
+    bits = ((x[:, feat] > thr).astype(np.int64) *
+            np.asarray([4, 2, 1])).sum(axis=1)
+    labels = leaf_class[bits]
+    flip = rng.random(n_examples) < noise
+    labels = np.where(flip, rng.integers(0, n_classes, size=n_examples),
+                      labels).astype(np.int64)
+    ds = TabularDataset(x, labels, n_classes,
+                        [f"f{i}" for i in range(n_features)])
+    if path:
+        ds.save(path)
+    return ds

@@ -6,12 +6,14 @@ trees are nested dicts of arrays, so ``same_tree_shapes`` walks them
 without ``jax.tree_util``; ``bucketed_forward`` keeps the fixed 64-row
 buckets (a serving batch of any size runs the same few shapes), and an
 empty input returns ``(0, out_dim)`` where JAX probed the forward's
-output shape with ``jax.eval_shape``.
+output shape with ``jax.eval_shape``. Beside them, two helpers the
+classifier templates share: ``eval_buckets`` (the padded validation
+stream a gang scores) and ``refuse_regression``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -47,6 +49,30 @@ def bucketed_forward(forward: Callable[..., np.ndarray],
                 for c in chunks]
         out.append(np.asarray(forward(*chunks))[:bucket - pad])
     return np.concatenate(out)
+
+
+def eval_buckets(x: np.ndarray, y: np.ndarray, bucket: int = 256
+                 ) -> Iterator[Dict[str, np.ndarray]]:
+    """The validation stream a gang scores: ``{"x", "y", "mask"}`` in
+    zero-padded buckets of ``bucket`` rows, the padding masked out (the
+    buckets ``evaluate()`` predicts in)."""
+    for i in range(0, len(x), bucket):
+        xb, yb = x[i:i + bucket], y[i:i + bucket]
+        mask = np.ones(bucket, dtype=bool)
+        pad = bucket - len(xb)
+        if pad:
+            mask[len(xb):] = False
+            xb = np.concatenate([xb, np.zeros((pad, *xb.shape[1:]),
+                                              xb.dtype)])
+            yb = np.concatenate([yb, np.zeros(pad, yb.dtype)])
+        yield {"x": xb, "y": yb, "mask": mask}
+
+
+def refuse_regression(template: str, n_classes: int) -> None:
+    """The classifier templates' refusal of a regression table."""
+    if n_classes == 0:
+        raise ValueError(f"{template} is a classifier; dataset is "
+                         "regression (n_classes=0)")
 
 
 def conform_images(x: np.ndarray,

@@ -43,6 +43,7 @@ from rafiki_tpu_torch.model.loop import GangSpec, masked_ce, run_epochs
 from rafiki_tpu_torch.model.optim import lane_adam_init, lane_adam_step
 from rafiki_tpu_torch.model.template_utils import (bucketed_forward,
                                                    conform_images,
+                                                   eval_buckets,
                                                    same_tree_shapes)
 from rafiki_tpu_torch.models.layers import Dense
 from rafiki_tpu_torch.store.params import f32_tree, params_from_jax, \
@@ -75,27 +76,36 @@ def _dense_names(n_hidden: int) -> List[str]:
 
 
 def _forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
-             n_hidden: int) -> torch.Tensor:
+             n_hidden: int, masks: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """One lane's logits: ``_MLP.forward`` over ``state_dict``-keyed
-    leaves (``x @ kernel + bias``, relu between)."""
+    leaves (``x @ kernel + bias``, relu between), each hidden layer's
+    output times ``masks[k]`` when given (the tabular template's
+    dropout)."""
     x = x.reshape(x.shape[0], -1)
     for k, name in enumerate(_dense_names(n_hidden)):
         x = x @ params[f"{name}.kernel"] + params[f"{name}.bias"]
         if k < n_hidden:
             x = F.relu(x)
+            if masks is not None:
+                x = x * masks[k]
     return x
 
 
 def _forward_lanes(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                   n_hidden: int) -> torch.Tensor:
-    """K lanes' logits: leaves (K, ...), ``x`` (K, B, ...); each dense
-    layer one ``bmm`` over the lanes."""
+                   n_hidden: int, masks: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """K lanes' logits: leaves (K, ...), ``x`` (K, B, ...), ``masks``
+    (n_hidden, K, B, units) or None; each dense layer one ``bmm`` over
+    the lanes."""
     x = x.reshape(x.shape[0], x.shape[1], -1)
     for k, name in enumerate(_dense_names(n_hidden)):
         x = torch.bmm(x, params[f"{name}.kernel"]) \
             + params[f"{name}.bias"][:, None, :]
         if k < n_hidden:
             x = F.relu(x)
+            if masks is not None:
+                x = x * masks[k]
     return x
 
 
@@ -247,17 +257,7 @@ class JaxFeedForward:
                                       n_hidden).argmax(-1)
 
         def eval_batches():
-            bucket = 256
-            for i in range(0, len(vx), bucket):
-                xb, yb = vx[i:i + bucket], vy[i:i + bucket]
-                mask = np.ones(bucket, dtype=bool)
-                pad = bucket - len(xb)
-                if pad:
-                    mask[len(xb):] = False
-                    xb = np.concatenate(
-                        [xb, np.zeros((pad, *xb.shape[1:]), xb.dtype)])
-                    yb = np.concatenate([yb, np.zeros(pad, yb.dtype)])
-                yield {"x": xb, "y": yb, "mask": mask}
+            return eval_buckets(vx, vy)
 
         def export_blob(lane_state, hp):
             return {"params": params_to_jax(

@@ -46,6 +46,16 @@ instead of ``kernel``: both keep their types through the bridge. The
 trees come from, and go to, the Flax-msgpack byte codec of
 ``store/param_store.py``.
 
+The BiLSTM tagger's cells are flax ``OptimizedLSTMCell``s, one per
+direction (``OptimizedLSTMCell_0`` forward, ``_1`` backward), each with
+input kernels ``ii``/``if``/``ig``/``io`` (no bias) and recurrent
+kernels ``hi``/``hf``/``hg``/``ho`` with biases; :func:`lstm_params_from_jax`
+and :func:`lstm_params_to_jax` map them to and from one bidirectional
+``torch.nn.LSTM`` layer, gates in its order i, f, g, o: ``weight_ih`` the
+transposed input kernels stacked, ``weight_hh`` the recurrent ones,
+``bias_hh`` their biases and ``bias_ih`` zeros (flax has one bias per
+gate; the port never trains ``bias_ih``).
+
 A gang lane's trainable leaves (``rafiki_tpu_torch/tuning``) cross with
 :func:`lane_params_from_jax` and :func:`lane_params_to_jax`: one lane or
 K lanes stacked (every leaf with a leading K, as JAX's vmapped lane
@@ -57,7 +67,7 @@ JAX's flat LoRA-lane dict, keyed by lowercased ``/``-joined paths
 from __future__ import annotations
 
 import warnings
-from typing import Any, Collection, Dict, Mapping
+from typing import Any, Collection, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -184,6 +194,54 @@ def cnn_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         trees[kind][key] = t
     return {kind: _sorted_tree(params_to_jax(tree))
             for kind, tree in trees.items()}
+
+
+#: torch.nn.LSTM's gate order, as flax names the cell's leaves
+LSTM_GATES = ("i", "f", "g", "o")
+
+
+def lstm_params_from_jax(cells: Sequence[Mapping[str, Any]]
+                         ) -> Dict[str, torch.Tensor]:
+    """flax ``OptimizedLSTMCell`` trees, the forward cell then (for a
+    bidirectional layer) the backward one → layer 0 of a
+    ``torch.nn.LSTM`` ``state_dict`` (f32 CPU tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    for d, cell in enumerate(cells):
+        sfx = "_l0" + ("_reverse" if d else "")
+        leaf = {k: _leaf_tensor(v["kernel"]) for k, v in cell.items()}
+        out["weight_ih" + sfx] = torch.cat(
+            [leaf["i" + g].t() for g in LSTM_GATES]).contiguous()
+        out["weight_hh" + sfx] = torch.cat(
+            [leaf["h" + g].t() for g in LSTM_GATES]).contiguous()
+        out["bias_hh" + sfx] = torch.cat(
+            [_leaf_tensor(cell["h" + g]["bias"]) for g in LSTM_GATES])
+        out["bias_ih" + sfx] = torch.zeros_like(out["bias_hh" + sfx])
+    return out
+
+
+def lstm_params_to_jax(state: Mapping[str, torch.Tensor]
+                       ) -> List[Dict[str, Any]]:
+    """The inverse: the cells of layer 0 (forward, then backward when
+    the LSTM is bidirectional) as flax trees of f32 numpy arrays, keys
+    sorted. A nonzero ``bias_ih`` has no flax leaf and raises."""
+    cells = []
+    for sfx in ("_l0", "_l0_reverse"):
+        if "weight_ih" + sfx not in state:
+            continue
+        if bool(torch.any(state["bias_ih" + sfx] != 0)):
+            raise ValueError(f"bias_ih{sfx} is not zero: flax's "
+                             "OptimizedLSTMCell has no input bias")
+        wi = state["weight_ih" + sfx].chunk(4)
+        wh = state["weight_hh" + sfx].chunk(4)
+        bh = state["bias_hh" + sfx].chunk(4)
+        cell: Dict[str, Any] = {}
+        for g, a, b, c in zip(LSTM_GATES, wi, wh, bh):
+            cell["h" + g] = {"bias": c, "kernel": b.t()}
+            cell["i" + g] = {"kernel": a.t()}
+        cells.append(_sorted_tree({
+            k: {n: t.detach().to("cpu", torch.float32).contiguous().numpy()
+                for n, t in v.items()} for k, v in cell.items()}))
+    return cells
 
 
 def _lane_key(key: str) -> str:

@@ -4,12 +4,15 @@ The draws of ``jax.random`` that the decode engine's sampler takes, bit
 for bit, on any torch device: ``threefry2x32`` (Random123's 20-round
 Threefry-2x32, as ``jax._src.prng._threefry2x32_lowering``),
 :func:`prng_key` (``jax.random.PRNGKey`` of a 32-bit seed),
-:func:`fold_in`, :func:`random_bits` (32 bits per element, the
+:func:`fold_in`, :func:`split` (``jax.random.split``: key ``i`` is
+the hash of the counter pair ``(i >> 32, i & 0xFFFFFFFF)``, both output
+words kept), :func:`random_bits` (32 bits per element, the
 ``jax_threefry_partitionable`` layout: element ``i`` of the flattened
 shape hashes the counter pair ``(i >> 32, i & 0xFFFFFFFF)`` and keeps the
 xor of the two output words), :func:`uniform` (f32: the top 23 bits
-become the mantissa of a float in [1, 2), minus 1) and :func:`gumbel`
-(``mode="low"``: ``-log(-log(u))`` over ``uniform(tiny, 1)``).
+become the mantissa of a float in [1, 2), minus 1), :func:`bernoulli`
+(``uniform < p``) and :func:`gumbel` (``mode="low"``: ``-log(-log(u))``
+over ``uniform(tiny, 1)``).
 
 A key is an int64 tensor whose last axis holds the two 32-bit words; a
 batch of keys is ``(..., 2)``. torch has no full uint32 arithmetic on
@@ -69,6 +72,16 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o0, o1], -1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of each key of a batch ``(..., 2)``: the
+    ``num`` new keys ``(..., num, 2)``."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    k1 = key[..., 0].unsqueeze(-1)
+    k2 = key[..., 1].unsqueeze(-1)
+    o0, o1 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return torch.stack([o0, o1], -1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element of ``shape`` for each key of a batch
     ``(..., 2)``: an int64 tensor ``key.shape[:-1] + shape`` of values
@@ -101,6 +114,16 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     span = (hi - lo).double()
     scaled = (floats.double() * span + lo.double()).float()
     return torch.maximum(lo, scaled)
+
+
+def bernoulli(key: torch.Tensor, p: torch.Tensor,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli`` with an f32 ``p``: a bool tensor
+    ``key.shape[:-1] + shape``, ``uniform(key, shape) < p``; ``p`` (0-d,
+    or one per key of the batch) broadcasts over ``shape``."""
+    u = uniform(key, shape)
+    p = p.float().reshape(p.shape + (1,) * len(tuple(shape)))
+    return u < p
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -37,12 +37,12 @@ from rafiki_tpu.store.meta_store import MetaStore as JMetaStore
 from rafiki_tpu.store.param_store import ParamStore as JParamStore
 from rafiki_tpu.worker import train as jtrain
 from rafiki_tpu_torch import cli
-from rafiki_tpu_torch.data.dataset import generate_fashion_archive
+from rafiki_tpu_torch.data.dataset import (generate_corpus_dataset,
+                                           generate_fashion_archive)
 from rafiki_tpu_torch.model import optim
 from rafiki_tpu_torch.model.base import TrainContext
 from rafiki_tpu_torch.model.dev import tune_model
-from rafiki_tpu_torch.models import (NOT_PORTED, get_model_template,
-                                     list_model_templates)
+from rafiki_tpu_torch.models import get_model_template, list_model_templates
 from rafiki_tpu_torch.models.mlp import JaxFeedForward
 from rafiki_tpu_torch.serving import queues
 from rafiki_tpu_torch.serving.decode_engine import NotPorted
@@ -242,23 +242,21 @@ def test_tuning_job_matches_jax_and_its_winner_serves(jobs, data):
 # ---- the zoo registry and the CLI
 
 def test_zoo_has_jax_names_and_refuses_the_unported_by_name():
+    # every JAX zoo name is served now: none is refused
     assert set(list_model_templates()) == set(JAX_ZOO)
-    for name in NOT_PORTED:
-        assert list_model_templates()[name] == "not ported"
-        with pytest.raises(NotPorted, match=name):
-            get_model_template(name)
-    for name in ("JaxFeedForward", "ResNetClassifier", "VGGClassifier",
-                 "DenseNetClassifier", "ViTBase16", "BertClassifier",
-                 "LlamaLoRA"):
+    assert len(JAX_ZOO) == 13
+    for name in JAX_ZOO:
         cls = get_model_template(name)
         assert cls.__name__ == name
         assert cls.__module__.startswith("rafiki_tpu_torch.models.")
+        assert list_model_templates()[name] == \
+            f"{cls.__module__}.{name}"
     with pytest.raises(KeyError, match=r"unknown template 'Nope'; known: "
                                        r"\['BertClassifier'"):
         get_model_template("Nope")
 
 
-def test_cli_version_and_refusals(capsys):
+def test_cli_version_and_refusals(capsys, tmp_path):
     assert cli.main(["version"]) == 0
     assert capsys.readouterr().out.strip() == \
         __import__("rafiki_tpu_torch").__version__
@@ -277,8 +275,16 @@ def test_cli_version_and_refusals(capsys):
         capsys.readouterr().err
     with pytest.raises(KeyError, match="known"):
         cli.main(["tune", "Nope", "a", "b", "--device", "cpu"])
-    with pytest.raises(NotPorted, match="BigramHMM"):
-        cli.main(["tune", "BigramHMM", "a", "b", "--device", "cpu"])
+    # BigramHMM, refused until the zoo was whole, tunes on a tiny corpus
+    tr, va = str(tmp_path / "tr.jsonl"), str(tmp_path / "va.jsonl")
+    generate_corpus_dataset(tr, 60, seed=0)
+    generate_corpus_dataset(va, 20, seed=1)
+    capsys.readouterr()
+    assert cli.main(["tune", "BigramHMM", tr, va, "--trials", "2",
+                     "--advisor", "random", "--device", "cpu"]) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("best_score=") and "emission_k" in line
+    assert 0.5 < float(line.split()[0].split("=")[1]) <= 1.0
     with pytest.raises(SystemExit) as e:
         cli.main(["no-such-command"])
     assert e.value.code == 2

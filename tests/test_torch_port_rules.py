@@ -2,11 +2,12 @@
 
 - Nothing under ``rafiki_tpu_torch/``, and not ``chip_smoke.py``, imports
   JAX, Flax, optax or the JAX package, nor msgpack, ml_dtypes,
-  safetensors or PIL (the card's machine has none of them: the port's
-  codec, its safetensors reader and writer and its PNG codec are its
-  own).
+  safetensors, PIL or scikit-learn (the card's machine has none of them:
+  the port's codec, its safetensors reader and writer, its PNG codec and
+  its tree, boosting and SVM fits are its own).
 - Entry points resolve ``device=None`` to the CUDA card and raise when
-  there is none, instead of serving from the CPU.
+  there is none, instead of serving from the CPU; the host templates
+  (the HMM and the three scikit-learn-free fits) take no device.
 - A kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises — it never runs the plain version.
 """
@@ -32,7 +33,7 @@ from test_decode_engine import KNOBS
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rafiki_tpu", "msgpack",
-             "ml_dtypes", "safetensors", "PIL")
+             "ml_dtypes", "safetensors", "PIL", "sklearn")
 
 
 def _port_sources():
@@ -59,7 +60,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "rafiki_tpu_torch/chaos/dummy_service.py",
             "rafiki_tpu_torch/chaos/control_driver.py",
             "rafiki_tpu_torch/admin/autoscaler.py",
-            "rafiki_tpu_torch/store/db.py"} <= scanned
+            "rafiki_tpu_torch/store/db.py",
+            "rafiki_tpu_torch/models/tabular.py",
+            "rafiki_tpu_torch/models/pos_tagging.py",
+            "rafiki_tpu_torch/models/sklearn_models.py",
+            "rafiki_tpu_torch/models/_tree_fit.py",
+            "rafiki_tpu_torch/models/_svm_fit.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), mod)
            for f in files for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -85,6 +91,23 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     # asked for explicitly, the CPU is fine
     assert DecodeEngine(cpu_model, max_slots=2, max_len=8,
                         device="cpu").device.type == "cpu"
+
+
+def test_zoo_card_templates_refuse_and_host_templates_need_no_card(
+        monkeypatch):
+    from rafiki_tpu_torch.models import get_model_template
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("JaxTabularMLP", "BiLSTMTagger"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model_template(name)()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model_template(name)(device="cuda")
+        assert get_model_template(name)(device="cpu").device.type == "cpu"
+    for name in ("BigramHMM", "SklearnDecisionTree", "SklearnGBDT",
+                 "SklearnSVM"):
+        assert get_model_template(name)().knobs == {}
+        assert get_model_template(name)(device="cuda").knobs == {}
 
 
 def _operands(window):
