@@ -371,6 +371,26 @@ Phases; each raises on failure, so the script exits non-zero:
     kernel lies on these paths (``zoo_tabular``, ``zoo_gang_tabular``,
     ``zoo_pos``, ``zoo_host``): their launch counts must stay 0.
 
+34. The image formats (``image_formats_phase``, right after 13): (a)
+    every file under ``tests/fixtures/torch_images/`` (one per PNG colour
+    type, depth and interlace, one per JPEG decoder branch) decoded by
+    ``data/image.py`` on this host, bit-equal in dtype, shape and value
+    to PIL's arrays recorded beside them (the card's machine has no
+    PIL); (b) ``generate_streaming_image_zip(fmt="jpeg")`` for the
+    recorded (n, shape, seed) cases, every member's SHA-256 equal to the
+    digest recorded from JAX's generator; (c) the loader at ImageNet's
+    shape: ``FORMAT_IMAGES`` seeded 224 x 224 x 3 images written as JPEG
+    (the port's encoder), PNG and ``.npy`` zips (encode seconds each),
+    then one epoch of ``StreamingImageDataset.iter_batches`` at batch
+    ``FORMAT_BATCH`` with the template's worker count (flip + crop):
+    images/s per format beside the card's name and power limit, no gate
+    on speed; (d) ViT-B/16 trains from a JPEG zip: phase 13's knobs and
+    512 images, encoded by the port and loaded whole by
+    ``ViTBase16.train`` through ``load_image_classification_dataset``,
+    batch 64, 8 steps: launch counts equal phase 13's (the
+    ``vit_jpeg_training`` path), finite and falling losses, dump →
+    reload → predict identical.
+
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
 22, 23, 32, 27, 28, 31, 33, then 24 and 18: phases 24 and 18 hold the most
 host memory (phase 24's f32 tree, phase 18's blob), and run last.
@@ -7361,6 +7381,211 @@ def zoo_phase(torch, np, dataset, loader, dev_mod, tuning, tab, pos, ps,
             "zoo_pos": pos_counts, "zoo_host": host_counts}
 
 
+# ---- the image formats (phase 34)
+
+#: phase 34's fixtures: one small file per decoder branch, PIL's arrays
+#: for them (``pil_arrays.npz``) and JAX's generator digests
+#: (``generator_digests.json``), written by ``tests/test_torch_images.py``
+IMAGE_FIXTURES = ROOT / "tests" / "fixtures" / "torch_images"
+#: phase 34 (c): the loader leg at ImageNet's shape
+FORMAT_IMAGES = 2048
+FORMAT_BATCH = 256
+FORMATS = ("jpeg", "png", "npy")
+
+
+def _image_fixtures(np, image):
+    """Phase 34 (a): every fixture decoded here against PIL's array."""
+    with np.load(IMAGE_FIXTURES / "pil_arrays.npz") as z:
+        want = {name: z[name] for name in z.files}
+    names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
+                   if p.suffix in (".png", ".jpg"))
+    if names != sorted(want):
+        raise AssertionError(f"fixtures {names} against arrays "
+                             f"{sorted(want)}")
+    unequal = []
+    t0 = time.perf_counter()
+    for name in names:
+        got = image.decode_image((IMAGE_FIXTURES / name).read_bytes())
+        ref = want[name]
+        if got.dtype != ref.dtype or got.shape != ref.shape or \
+                not np.array_equal(got, ref):
+            unequal.append(name)
+    return {"files": len(names), "unequal": unequal,
+            "seconds": time.perf_counter() - t0}
+
+
+def _zip_digests(path):
+    import hashlib
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {name: hashlib.sha256(z.read(name)).hexdigest()
+                for name in z.namelist()}
+
+
+def _generator_digests(stream, work):
+    """Phase 34 (b): the port's generator against JAX's digests."""
+    cases = json.loads((IMAGE_FIXTURES / "generator_digests.json")
+                       .read_text())
+    unequal, members = [], 0
+    t0 = time.perf_counter()
+    for case in cases:
+        path = work / f"generator_{case['seed']}.zip"
+        stream.generate_streaming_image_zip(
+            str(path), case["n"], tuple(case["shape"]), seed=case["seed"],
+            fmt=case["fmt"])
+        got = _zip_digests(path)
+        members += len(got)
+        if got != case["sha256"]:
+            unequal.append(case)
+    return {"cases": len(cases), "members": members, "unequal": unequal,
+            "seconds": time.perf_counter() - t0}
+
+
+def _write_zip(path, names, blobs, labels):
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for name, blob in zip(names, blobs):
+            zf.writestr(name, blob)
+        zf.writestr("labels.csv", "\n".join(
+            ["path,label"] + [f"{n},c{int(y)}" for n, y in zip(names,
+                                                              labels)]))
+
+
+def _encode_all(np, fmt, images, jpeg, png):
+    """Each image's file bytes, on worker threads (zlib and the native
+    codec release the GIL)."""
+    import io
+    import os
+
+    def npy(img):
+        buf = io.BytesIO()
+        np.save(buf, img, allow_pickle=False)
+        return buf.getvalue()
+
+    encoder = {"jpeg": jpeg.encode_jpeg, "png": png.encode_png,
+               "npy": npy}[fmt]
+    with ThreadPoolExecutor(os.cpu_count() or 8) as ex:
+        return list(ex.map(encoder, images))
+
+
+def _loader_leg(np, stream, jpeg, png, work):
+    """Phase 34 (c): one epoch of the streaming loader per format."""
+    rng = np.random.default_rng(SEED + 34)
+    labels = rng.integers(0, 4, FORMAT_IMAGES)
+    # the streaming generator's picture: noise under one bright quadrant
+    images = rng.integers(0, 96, (FORMAT_IMAGES,) + RESNET_IMAGE,
+                          dtype=np.uint8)
+    half = RESNET_IMAGE[0] // 2
+    for label in range(4):
+        top, left = (label // 2) * half, (label % 2) * half
+        images[labels == label, top:top + half, left:left + half] += 140
+    out = {}
+    for fmt in FORMATS:
+        names = [f"img{i:06d}.{fmt}" for i in range(FORMAT_IMAGES)]
+        t0 = time.perf_counter()
+        blobs = _encode_all(np, fmt, images, jpeg, png)
+        encode_s = time.perf_counter() - t0
+        path = work / f"loader_{fmt}.zip"
+        _write_zip(path, names, blobs, labels)
+        ds = stream.StreamingImageDataset(str(path))
+        first = next(ds.iter_batches(1, shuffle=False))["x"][0]
+        t0 = time.perf_counter()
+        seen = 0
+        for b in ds.iter_batches(FORMAT_BATCH, epoch=0, shuffle=True,
+                                 seed=0, augment=True):
+            if b["x"].shape != (FORMAT_BATCH,) + RESNET_IMAGE:
+                raise AssertionError(f"{fmt}: a batch of {b['x'].shape}")
+            seen += int(b["mask"].sum())
+        epoch_s = time.perf_counter() - t0
+        if seen != FORMAT_IMAGES:
+            raise AssertionError(f"{fmt}: {seen} images in the epoch")
+        err = np.abs(first.astype(np.int16) - images[0]).mean()
+        if fmt != "jpeg" and err:
+            raise AssertionError(f"{fmt} does not give its pixels back")
+        out[fmt] = {"encode_s": encode_s,
+                    "mb": sum(map(len, blobs)) / 2 ** 20,
+                    "epoch_s": epoch_s, "images_per_s": seen / epoch_s,
+                    "first_image_mean_abs_err": float(err),
+                    "workers": ds.n_workers,
+                    "prefetch_batches": ds.prefetch_batches}
+        path.unlink()
+    return out
+
+
+def image_formats_phase(torch, np, vit, lp, TrainContext, stream, image,
+                        jpeg, png, fa, pe, dev, smi):
+    """Phase 34, the image formats: (a) the fixtures against PIL's
+    arrays, (b) the generator against JAX's digests, (c) the loader's
+    images/s by format, (d) ViT-B/16 trained from a JPEG zip."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "image_formats"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fixtures = _image_fixtures(np, image)
+    generator = _generator_digests(stream, work)
+    t0 = time.perf_counter()
+    loader = _loader_leg(np, stream, jpeg, png, work)
+    loader_s = time.perf_counter() - t0
+    # (d): phase 13's images and labels, as JPEG members
+    steps, batch = 8, VIT_KNOBS["batch_size"]
+    npz, images = write_images(np, work / "vit_train.npz", steps * batch,
+                               SEED + 13)
+    with np.load(npz) as z:
+        labels = z["labels"]
+    t0 = time.perf_counter()
+    blobs = _encode_all(np, "jpeg", images, jpeg, png)
+    vit_encode_s = time.perf_counter() - t0
+    path = work / "vit_train_jpeg.zip"
+    _write_zip(path, [f"img{i:06d}.jpg" for i in range(len(blobs))], blobs,
+               labels)
+    if len(set(labels.tolist())) != 10:
+        raise AssertionError("the JPEG set lacks a class")
+    m = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    ctx = TrainContext()
+    r = _train_timed(torch, m, str(path), ctx, lp, fa, pe, profile_step=-1)
+    queries = [jpeg.decode_jpeg(b) for b in blobs[:64]]
+    probs = np.asarray(m.predict(queries))
+    fresh = vit.ViTBase16(device=dev, **VIT_KNOBS)
+    fresh.load_parameters(m.dump_parameters())
+    reloaded = np.asarray(fresh.predict(queries))
+    del fresh, m
+    jpeg_err = float(np.mean([np.abs(q.astype(np.int16) - img).mean()
+                              for q, img in zip(queries, images)]))
+    steady = r["step_s"][1:]
+    vit_leg = {"model": "ViT-B/16", "images": len(blobs), "batch": batch,
+               "steps": steps, "encode_s": vit_encode_s,
+               "zip_mb": path.stat().st_size / 2 ** 20,
+               "decoded_mean_abs_err": jpeg_err, "losses": r["losses"],
+               "step_s": r["step_s"],
+               "steady_step_s": float(np.mean(steady)),
+               "wall_s": r["wall_s"], "peak_mem_gb": r["peak_mem_gb"],
+               "launches": r["launches"],
+               "reload_identical": bool(np.array_equal(reloaded, probs))}
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "image_formats", "card": smi, "fixtures": fixtures,
+          "generator": generator, "loader": loader, "loader_s": loader_s,
+          "vit_jpeg": vit_leg, "seconds": time.perf_counter() - t_phase})
+    if fixtures["unequal"]:
+        raise AssertionError(f"fixtures decoded unlike PIL: "
+                             f"{fixtures['unequal']}")
+    if generator["unequal"]:
+        raise AssertionError(f"generator members unlike JAX's: "
+                             f"{generator['unequal']}")
+    depth = VIT_KNOBS["depth"]
+    _check_training("ViT from JPEG", r, {
+        "flash_attention_fwd": depth * steps,
+        "flash_attention_bwd_dq": depth * steps,
+        "flash_attention_bwd_dkv": depth * steps,
+        "flash_attention_fwd_mh": 0, "matmul_bias": steps})
+    if not vit_leg["reload_identical"]:
+        raise AssertionError("ViT (JPEG) dump → reload → predict differs")
+    return {"vit_jpeg_training": r["launches"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--depth", type=int, default=4,
@@ -7402,6 +7627,7 @@ def main(argv=None):
     from rafiki_tpu_torch.model import optim
     from rafiki_tpu_torch.data import bpe
     from rafiki_tpu_torch.data import dataset
+    from rafiki_tpu_torch.data import image, jpeg, png
     from rafiki_tpu_torch.data import loader
     from rafiki_tpu_torch.data import stream
     from rafiki_tpu_torch.model import dev as dev_mod
@@ -7495,6 +7721,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(vit_training_phase(torch, np, vit, lp, TrainContext, fa,
                                     pe, dev))
+    torch.cuda.empty_cache()
+    paths.update(image_formats_phase(torch, np, vit, lp, TrainContext,
+                                     stream, image, jpeg, png, fa, pe, dev,
+                                     smi))
     torch.cuda.empty_cache()
     paths.update(bert_phase(torch, np, bert, lp, TrainContext, fa, pe, dev))
     torch.cuda.empty_cache()

@@ -9,9 +9,12 @@ The port's own copies, from ``rafiki_tpu/data/dataset.py``, of:
   ``labels.csv``, and a directory with a ``labels.csv``
   (``_load_zip_dataset``, ``_load_dir_dataset``, ``_read_labels_csv``,
   ``_stack_images``, ``_labels_to_ids``). Members are decoded by the
-  port's own PNG codec (``data/png.py``) where JAX calls PIL; a JPEG
-  member raises ``NotPorted``. Class ids come from ``sorted(set(names))``,
-  a sort of strings: ``"10"`` before ``"2"``;
+  port's own codecs (``data/image.py``: PNG and JPEG) where JAX calls
+  PIL; other formats raise ``NotPorted``. Each array is cast to uint8 as
+  JAX casts it, except a 16-bit greyscale PNG: the port keeps its high
+  byte (as PIL reads 16-bit RGB), where JAX's ``astype(np.uint8)`` keeps
+  the low byte and so loads such a set as noise. Class ids come from
+  ``sorted(set(names))``, a sort of strings: ``"10"`` before ``"2"``;
 - ``generate_image_classification_dataset``, ``FASHION_CLASSES`` and
   ``generate_fashion_archive`` (the FashionMNIST-layout zip: 28×28
   greyscale PNGs under ``images/`` and a ``labels.csv`` of the published
@@ -45,7 +48,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rafiki_tpu_torch.data.png import decode_png, encode_png
+from rafiki_tpu_torch.data.image import decode_uint8
+from rafiki_tpu_torch.data.png import encode_png
 
 
 @dataclass
@@ -129,7 +133,7 @@ def _load_zip_dataset(p: Path) -> ImageClassificationDataset:
     with zipfile.ZipFile(p) as z:
         with z.open("labels.csv") as f:
             pairs = _read_labels_csv(io.TextIOWrapper(f))
-        images = [decode_png(z.read(rel)) for rel, _ in pairs]
+        images = [decode_uint8(z.read(rel)) for rel, _ in pairs]
     labels, classes = _labels_to_ids([lab for _, lab in pairs])
     return ImageClassificationDataset(_stack_images(images), labels,
                                       len(classes), classes)
@@ -138,7 +142,7 @@ def _load_zip_dataset(p: Path) -> ImageClassificationDataset:
 def _load_dir_dataset(p: Path) -> ImageClassificationDataset:
     with open(p / "labels.csv") as f:
         pairs = _read_labels_csv(f)
-    images = [decode_png((p / rel).read_bytes()) for rel, _ in pairs]
+    images = [decode_uint8((p / rel).read_bytes()) for rel, _ in pairs]
     labels, classes = _labels_to_ids([lab for _, lab in pairs])
     return ImageClassificationDataset(_stack_images(images), labels,
                                       len(classes), classes)

@@ -22,9 +22,10 @@ loader (a ``.zip`` of images + ``labels.csv``, or a directory with
 - batches are shape-static (``batch_size`` rows + a validity mask; the
   last partial batch repeats its first row, masked out).
 
-Members are ``.npy`` arrays or PNGs (the port's own decoder,
-``data/png.py``, where JAX calls PIL; a JPEG member raises
-``NotPorted``). All images share one shape.
+Members are ``.npy`` arrays, PNGs or JPEGs (the port's own decoders,
+``data/image.py``, where JAX calls PIL; other formats raise
+``NotPorted``). A 16-bit greyscale PNG keeps its high byte, where JAX's
+cast keeps the low one. All images share one shape.
 """
 
 from __future__ import annotations
@@ -41,8 +42,13 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 
 from rafiki_tpu_torch.data.dataset import _labels_to_ids, _read_labels_csv
-from rafiki_tpu_torch.data.png import decode_png, encode_png
+from rafiki_tpu_torch.data.image import decode_uint8
+from rafiki_tpu_torch.data.jpeg import encode_jpeg
+from rafiki_tpu_torch.data.png import encode_png
 from rafiki_tpu_torch.serving.decode_engine import NotPorted
+
+#: PIL's save-format name -> the port's encoder, for the generator
+_WRITERS = {"PNG": encode_png, "JPEG": encode_jpeg}
 
 #: datasets at or above this size stream by default in the CNN templates
 STREAM_THRESHOLD_MB = float(os.environ.get("RAFIKI_STREAM_THRESHOLD_MB",
@@ -122,10 +128,10 @@ class StreamingImageDataset:
     def _decode(self, name: str) -> np.ndarray:
         data = self._read_bytes(name)
         if name.endswith(".npy"):
-            arr = np.load(io.BytesIO(data), allow_pickle=False)
+            arr = np.asarray(np.load(io.BytesIO(data), allow_pickle=False),
+                             np.uint8)
         else:
-            arr = decode_png(data)
-        arr = np.asarray(arr, np.uint8)
+            arr = decode_uint8(data)
         if arr.ndim == 2:
             arr = arr[..., None]
         return arr
@@ -216,11 +222,16 @@ def generate_streaming_image_zip(path: str, n: int,
                                  fmt: str = "png") -> None:
     """Synthetic class-separable zip in the streamable layout (images +
     ``labels.csv``): one bright quadrant per class over noise, the same
-    draws as JAX's generator. ``fmt`` is ``png`` (the port's encoder) or
-    ``npy`` (raw arrays, decode-cheap); JAX's other PIL formats raise
-    ``NotPorted``."""
-    if fmt not in ("png", "npy"):
-        raise NotPorted(f"writing {fmt!r} images is not ported (png, npy)")
+    draws as JAX's generator. ``fmt`` is ``npy`` (raw arrays,
+    decode-cheap) or, in any case, as PIL takes a format name, ``png``
+    (the port's encoder: other bytes, the same pixels) or ``jpeg`` (the
+    port's encoder: the bytes PIL writes). JAX's other PIL formats raise
+    ``NotPorted``; so does ``jpg``, which is no PIL format name (JAX's
+    generator raises ``KeyError`` for it)."""
+    writer = _WRITERS.get(fmt.upper()) if fmt != "npy" else None
+    if fmt != "npy" and writer is None:
+        raise NotPorted(f"writing {fmt!r} images is not ported (png, "
+                        "jpeg, npy)")
     rng = np.random.default_rng(seed)
     h, w, c = image_shape
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
@@ -238,7 +249,7 @@ def generate_streaming_image_zip(path: str, n: int,
                 np.save(buf, img, allow_pickle=False)
                 data = buf.getvalue()
             else:
-                data = encode_png(img)
+                data = writer(img)
             zf.writestr(name, data)
             rows.append(f"{name},c{label}")
         zf.writestr("labels.csv", "\n".join(rows))

@@ -11,8 +11,10 @@ package's ``kv_server.cc`` (``rafiki_tpu_torch/native/kv_server.cc``):
 again whenever the source is newer, writing a temporary name and
 renaming it so a process that already runs the old binary keeps a valid
 file; ``ensure_built(target="librbpe.so")`` builds the byte-BPE encoder
-(``native/bpe_encoder.cc``) the same way, as a shared library. The JAX
-build's sanitizer flavours are not ported.
+(``native/bpe_encoder.cc``) the same way, as a shared library, and
+``ensure_built(target="librjpeg.so")`` the JPEG codec
+(``native/jpeg_codec.cc``). The JAX build's sanitizer flavours are not
+ported.
 
 Crash survival: :class:`KVServer` can spawn the kvd with a
 ``--data-dir`` so every mutating command lands in a CRC-checksummed WAL
@@ -44,7 +46,9 @@ CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-pthread")
 #: build target -> (source, extra g++ flags)
 TARGETS = {"rafiki-kvd": (SOURCE, ()),
            "librbpe.so": (SOURCE.with_name("bpe_encoder.cc"),
-                          ("-shared", "-fPIC"))}
+                          ("-shared", "-fPIC")),
+           "librjpeg.so": (SOURCE.with_name("jpeg_codec.cc"),
+                           ("-shared", "-fPIC"))}
 
 #: process-wide client-resilience counters, re-exported on every
 #: /metrics surface that talks to the kvd (one socket layer, one truth)
@@ -64,7 +68,8 @@ _build_lock = threading.Lock()
 
 def ensure_built(force: bool = False, target: str = "rafiki-kvd") -> Path:
     """Compile ``target``'s source (``kv_server.cc`` for the kvd,
-    ``bpe_encoder.cc`` for ``librbpe.so``) into ``build/rafiki_tpu_torch/``
+    ``bpe_encoder.cc`` for ``librbpe.so``, ``jpeg_codec.cc`` for
+    ``librjpeg.so``) into ``build/rafiki_tpu_torch/``
     when the output is missing or older than the source (or ``force``);
     returns its path. ``g++`` writes a temporary name that is then
     renamed over the output. Raises ``RuntimeError`` when there is no

@@ -11,9 +11,12 @@ against the JAX package.
 - The PNG decoder equals PIL (which only this test imports) over
   greyscale, greyscale + alpha, RGB and RGBA with each of the five row
   filters, written by the test itself, and over PIL's own encodings;
-  palette, 16-bit, interlaced and JPEG files are refused by name.
+  the palette, 16-bit, interlaced and JPEG files it once refused decode
+  equal to PIL through ``data/image.py``; BMP and GIF are refused by
+  name (``tests/test_torch_images.py`` holds the whole matrix).
 - The port's ``generate_fashion_archive`` writes other PNG bytes (its
-  own encoder) holding JAX's pixels and labels.
+  own encoder) holding JAX's pixels and labels; its streaming generator
+  writes JAX's JPEG bytes.
 
 Every comparison is exact: the data path has no arithmetic to round.
 """
@@ -30,6 +33,7 @@ from PIL import Image
 from rafiki_tpu.data import dataset as jds
 from rafiki_tpu.data import stream as jstream
 from rafiki_tpu_torch.data import dataset as pds
+from rafiki_tpu_torch.data import image
 from rafiki_tpu_torch.data import png
 from rafiki_tpu_torch.data import stream as pstream
 from rafiki_tpu_torch.serving.decode_engine import NotPorted
@@ -206,31 +210,70 @@ def test_png_codec_round_trips_with_pil(mode):
                                   img)
 
 
-def test_png_refuses_what_is_not_ported():
+def _adam7_png(img):
+    """An Adam7-interlaced 8-bit RGB PNG of ``img``, every row filter
+    type 0, written here from the PNG specification (PIL writes none)."""
+    h, w = img.shape[:2]
+    raw = bytearray()
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        for row in img[y0::dy, x0::dx]:
+            if row.size:
+                raw += b"\0" + row.tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + \
+            struct.pack(">I", zlib.crc32(kind + body))
+
+    return png.SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, 2, 0, 0, 1)) + \
+        chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b"")
+
+
+def _once_refused(kind):
+    """The files this codec refused before it read them: palette and
+    16-bit greyscale PNG and JPEG written by PIL, an Adam7 PNG by
+    :func:`_adam7_png`."""
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (8, 8, 3), np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(img).convert("P").save(buf, format="PNG")
-    with pytest.raises(NotPorted, match="palette"):
-        png.decode_png(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 65535, (8, 8)).astype(np.uint16)) \
-        .save(buf, format="PNG")
-    with pytest.raises(NotPorted, match="16-bit"):
-        png.decode_png(buf.getvalue())
-    interlaced = bytearray(_filtered_png(img, 0))
-    ihdr = interlaced[16:29]
-    ihdr[12] = 1  # the interlace byte
-    interlaced[16:29] = ihdr
-    interlaced[29:33] = struct.pack(">I", zlib.crc32(b"IHDR" + ihdr))
-    with pytest.raises(NotPorted, match="interlaced"):
-        png.decode_png(bytes(interlaced))
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="JPEG")
-    with pytest.raises(NotPorted, match="JPEG"):
-        png.decode_png(buf.getvalue())
+    if kind == "palette":
+        Image.fromarray(img).convert("P").save(buf, format="PNG")
+    elif kind == "16-bit":
+        Image.fromarray(rng.integers(0, 65535, (8, 8)).astype(np.uint16)) \
+            .save(buf, format="PNG")
+    elif kind == "interlaced":
+        return _adam7_png(img)
+    else:
+        Image.fromarray(img).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def test_png_refuses_what_is_not_ported():
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (8, 8, 3), np.uint8)
+    for fmt in ("BMP", "GIF"):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format=fmt)
+        with pytest.raises(NotPorted, match=fmt):
+            image.decode_image(buf.getvalue())
+    with pytest.raises(ValueError, match="signature"):
+        png.decode_png(_once_refused("jpeg"))
     with pytest.raises(ValueError, match="signature"):
         png.decode_png(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="cannot identify"):
+        image.decode_image(b"not an image at all")
+
+
+@pytest.mark.parametrize("kind", ["palette", "16-bit", "interlaced",
+                                  "jpeg"])
+def test_once_refused_formats_decode_equal_to_pil(kind):
+    data = _once_refused(kind)
+    want = np.asarray(Image.open(io.BytesIO(data)))
+    got = image.decode_image(data)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fashion_archive_port_copy_holds_jax_pixels(tmp_path):
@@ -256,7 +299,7 @@ def test_fashion_archive_port_copy_holds_jax_pixels(tmp_path):
         assert a.read("labels.csv") == b.read("labels.csv")
 
 
-@pytest.mark.parametrize("fmt", ["npy", "png"])
+@pytest.mark.parametrize("fmt", ["npy", "png", "jpeg"])
 def test_streaming_zip_generator_port_copy_holds_jax_pixels(tmp_path, fmt):
     jp, pp = str(tmp_path / "j.zip"), str(tmp_path / "p.zip")
     jstream.generate_streaming_image_zip(jp, 9, (8, 6, 3), n_classes=4,
@@ -266,11 +309,14 @@ def test_streaming_zip_generator_port_copy_holds_jax_pixels(tmp_path, fmt):
     with zipfile.ZipFile(jp) as a, zipfile.ZipFile(pp) as b:
         assert a.namelist() == b.namelist()
         assert a.read("labels.csv") == b.read("labels.csv")
+        if fmt == "jpeg":  # the port's encoder writes PIL's bytes
+            for name in a.namelist():
+                assert a.read(name) == b.read(name), name
     j = jstream.StreamingImageDataset(jp)
     p = pstream.StreamingImageDataset(pp)
     for a, b in zip(_batches(p, 0, False, False), _batches(j, 0, False,
                                                           False)):
         for k in a:
             assert a[k].tobytes() == b[k].tobytes()
-    with pytest.raises(NotPorted, match="jpeg"):
-        pstream.generate_streaming_image_zip(pp, 1, fmt="jpeg")
+    with pytest.raises(NotPorted, match="bmp"):
+        pstream.generate_streaming_image_zip(pp, 1, fmt="bmp")
