@@ -390,6 +390,34 @@ Phases; each raises on failure, so the script exits non-zero:
     batch 64, 8 steps: launch counts equal phase 13's (the
     ``vit_jpeg_training`` path), finite and falling losses, dump →
     reload → predict identical.
+35. The rest of LoRA training (``lora_training_phase``, right after 7):
+    (a) Llama-3-8B widths (bf16, depth ``LORA_DEPTH`` 4, phase 7's 4 x
+    1024 batch, lr 1e-4): 3 steps under each checkpointing schedule
+    (none, full, policy) from one init: B3 launched depth x steps (twice
+    that under full and policy), B5 and B6 depth x steps, peaks ordered
+    none > policy > full, losses and trained leaves bit-equal across the
+    schedules; (b) one step with
+    ``grad_accum`` 2 and one with ``loss_chunk`` 256 against the batch-4
+    step: the loss to the bf16 bound; the three again in f32 at the same
+    widths: every leaf's gradient (Adam's first moment) within
+    ``LORA_GRAD_TOL`` (the f32 bound) of the plain step's in the 2-norm;
+    (c) Mixtral-8x7B widths (8 experts, top 2, vocab
+    32000, rope theta 1e6; depth 2, falling back to 1; 2 x 1024, 4
+    steps): finite, falling losses, launches depth x steps, the aux and
+    the share of choices dropped for capacity reported; every peak of
+    (a)-(c) within ``LORA_PEAK_TOL`` (10 %) of
+    ``estimate_train_device_bytes``' total, each run with the allocator
+    capped at what the train worker admits it at (the estimate and its
+    ``train_reserve``, less the memory outside the allocator); (d)
+    ``LlamaLoRA`` with every new knob (MoE top 2, ``grad_accum``,
+    ``loss_chunk``, remat ``policy``, f32) trained on the card and on the CPU from one init:
+    losses within 1e-4 relative; the card's blob served on the card and
+    on the CPU through ``predict`` and a paged engine (B1/B2 on a MoE
+    path), token-equal; then a two-lane remat "full" bucket through the
+    gang engine against the same trials run one by one, scores within
+    1e-3. Paths ``lora_remat_accum_chunk``, ``lora_moe_mixtral``,
+    ``lora_template_moe``, ``lora_template_moe_serving``,
+    ``lora_gang_remat``.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
 22, 23, 32, 27, 28, 31, 33, then 24 and 18: phases 24 and 18 hold the most
@@ -1630,6 +1658,488 @@ def template_phase(torch, np, ll, TrainContext, dev):
         raise AssertionError(f"reloaded score {reloaded} != {score}")
     if len(preds) != 2 or any(len(p.split()) != 8 for p in preds):
         raise AssertionError(f"bad predictions: {preds}")
+
+
+# ------------------------------------------------ the rest of LoRA training
+
+#: phase 35 (a), (b): Llama-3-8B's widths (rope theta 500000); (c)
+#: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+#: config.json: hidden 4096, intermediate 14336, 32 / 8 heads, 8 local
+#: experts, 2 per token, vocab 32000, rope theta 1e6), LoRA rank 16
+LORA_LLAMA3 = {"vocab_size": VOCAB, "hidden_dim": 4096, "n_heads": 32,
+               "n_kv_heads": 8, "mlp_dim": 14336, "lora_rank": 16,
+               "rope_theta": 500000.0}
+LORA_MIXTRAL = {"vocab_size": 32000, "hidden_dim": 4096, "n_heads": 32,
+                "n_kv_heads": 8, "mlp_dim": 14336, "lora_rank": 16,
+                "rope_theta": 1e6, "n_experts": 8, "moe_top_k": 2}
+#: (a), (b): phase 7's batch (4 x 1024, lens 512..1024) at depth 4
+LORA_DEPTH, LORA_STEPS, LORA_LR, LORA_CHUNK = 4, 3, 1e-4, 256
+#: (c): depth 2 (falling back to 1), batch 2 x 1024, 4 steps
+MOE_DEPTH, MOE_BATCH, MOE_STEPS = 2, 2, 4
+#: a measured peak against ``estimate_train_device_bytes``' total
+LORA_PEAK_TOL = 0.10
+#: (b): a leaf's gradient (Adam's first moment after one step) under
+#: ``grad_accum`` or ``loss_chunk`` against the plain step's, in f32, in
+#: the 2-norm relative to the plain gradient's: the f32 bound (1e-5 +
+#: 1e-5) with its absolute part taken relative to the leaf's norm
+LORA_GRAD_TOL = sum(FLASH_TOL["float32"])
+#: (d): the template on the card, small f32 knobs with every new knob on
+LORA_TEMPLATE = {"max_epochs": 2, "vocab_size": 1 << 10, "hidden_dim": 64,
+                 "depth": 2, "n_heads": 4, "kv_ratio": 2, "lora_rank": 4,
+                 "max_len": 64, "model_parallel": 1, "learning_rate": 1e-4,
+                 "lora_scale": 1.0, "batch_size": 8, "bf16": False,
+                 "moe_experts": 4, "moe_top_k": 2, "grad_accum": 2,
+                 "loss_chunk": 16, "remat_policy": "policy",
+                 "quick_train": True, "share_params": False}
+#: (d): a dense bucket under "full" through the gang engine, two lanes
+#: (every static knob pinned: lr and lora_scale vary)
+LORA_GANG_PINS = {"hidden_dim": 64, "depth": 2,
+                  "n_heads": 4, "kv_ratio": 2, "lora_rank": 4, "max_len": 64,
+                  "batch_size": 8, "bf16": False, "model_parallel": 1,
+                  "remat": False, "remat_policy": "full",
+                  "overlap_collectives": False, "adapters_only": False,
+                  "quick_train": True, "share_params": False}
+
+
+def _lora_model(torch, ll, widths, depth, s, dev, dtype=None):
+    """A ``Llama`` of ``widths`` computing in ``dtype`` (bf16 by default)
+    with nonzero adapters and f32 trainable leaves, and a host copy of
+    those leaves (the init each run starts from)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = ll.Llama(max_len=s, depth=depth, dtype=dtype or torch.bfloat16,
+                     device=dev, generator=gen, **widths)
+    randomize_lora_b(model, gen)
+    trainable = ll.make_trainable(model, ll.lora_trainable_names(model))
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in trainable.items()}
+    return model, trainable, init
+
+
+def _lora_run(torch, ll, fa, model, trainable, init, batch, steps, before,
+              keep=None, **kw):
+    """``steps`` lane steps from ``init`` with a fresh lane Adam, ``kw``
+    the step's shape (``batch_size``, ``seq`` and the knobs of
+    ``estimate_train_device_bytes``): losses, step seconds, flash
+    launches, and the peak allocated bytes above ``before`` (what the
+    process held before the model) beside the estimate. The allocator is
+    capped at what the train worker admits the step at on a card of just
+    that size (``before``, the estimate and its ``train_reserve``, less
+    what the process holds outside the allocator): a step that needs
+    more fails the phase. ``keep`` ("leaves" or "mu") also returns a
+    host copy of every trainable leaf, or of Adam's first moment (after
+    one step ``0.1 · grad``), after the run."""
+    from rafiki_tpu_torch.worker.admission import train_reserve
+
+    est = ll.estimate_train_device_bytes(ll.LlamaDims.of(model), **kw)
+    admitted = est["total"] + train_reserve(est["total"])
+    with torch.no_grad():
+        for n, p in trainable.items():
+            p.copy_(init[n])
+    state, hp = ll.lane_init(trainable, LORA_LR)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    cap = before + admitted - outside
+    zero_flash_launches(fa)
+    losses, secs = [], []
+    torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
+    try:
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses.append(float(ll.lane_train_step(
+                model, state, hp, batch, kw.get("loss_chunk", 0),
+                kw.get("grad_accum", 1))[1]))  # syncs
+            secs.append(time.perf_counter() - t)
+    except torch.cuda.OutOfMemoryError:
+        if cap >= total:  # admission would refuse it: the caller cuts
+            raise
+        raise AssertionError(
+            f"phase 35: a step of {kw} ran out of memory under the "
+            f"{cap / 1e9:.3f} GB the train worker admits it at (estimate "
+            f"{est['total'] / 1e9:.3f} GB)") from None
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    launches = flash_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    tree = {"leaves": state["params"], "mu": state["opt"]["mu"],
+            None: {}}[keep]
+    kept = {n: t.detach().to("cpu") for n, t in tree.items()}
+    del state
+    rise = peak - before
+    return {"losses": losses, "step_s": secs, "launches": launches,
+            "peak_gb": rise / 1e9, "estimate_gb": est["total"] / 1e9,
+            "estimate_terms_gb": {k: v / 1e9 for k, v in est.items()},
+            "peak_over_estimate": rise / est["total"],
+            "reserved_over_allocated_gb": (torch.cuda.max_memory_reserved()
+                                           - peak) / 1e9,
+            "outside_allocator_gb": outside / 1e9,
+            "allocator_cap_gb": cap / 1e9}, kept
+
+
+def _bit_equal(torch, a, b):
+    """Whether two host trees hold the same bits, leaf by leaf."""
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _grad_err(torch, got, want):
+    """``|got - want| / |want|`` of each leaf in the 2-norm (a leaf whose
+    ``want`` is 0 must be 0), the three largest first, as [leaf, err]."""
+    errs = []
+    for n, w in want.items():
+        d = float(torch.linalg.vector_norm(got[n] - w))
+        ref = float(torch.linalg.vector_norm(w))
+        errs.append((d / ref if ref else (0.0 if d == 0 else math.inf), n))
+    return [[n, e] for e, n in sorted(errs, reverse=True)[:3]]
+
+
+def _bf16_close(a, b):
+    lo, rel = FLASH_TOL["bfloat16"]
+    return abs(a - b) <= lo + rel * abs(b)
+
+
+def _remat_legs(torch, np, ll, fa, dev):
+    """Phase 35 (a) and (b), at Llama-3-8B widths."""
+    s = 1024
+    rng = np.random.default_rng(SEED + 7)  # phase 7's batch
+    ids = rng.integers(2, VOCAB, size=(4, s)).astype(np.int32)
+    lens = rng.integers(512, s + 1, size=4).astype(np.int32)
+    cuts = []
+    b, depth = 4, LORA_DEPTH
+    while True:
+        before = torch.cuda.memory_allocated()
+        try:
+            model, trainable, init = _lora_model(torch, ll, LORA_LLAMA3,
+                                                 depth, s, dev)
+            batch = ll.batch_to_device({"ids": ids[:b], "lens": lens[:b]},
+                                       dev)
+            runs, launches, first = {}, {}, None
+            for schedule in ll.REMAT_SCHEDULES:
+                model.remat_policy = schedule
+                r, leaves = _lora_run(torch, ll, fa, model, trainable, init,
+                                      batch, LORA_STEPS, before,
+                                      keep="leaves", batch_size=b, seq=s,
+                                      remat_policy=schedule)
+                first = first or leaves
+                r["leaves_bit_equal_none"] = _bit_equal(torch, leaves,
+                                                        first)
+                runs[schedule] = r
+                for name, n in r["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+            model.remat_policy = "none"
+            first = leaves = None
+            one_step, grad = {}, {}
+            for name, kw in (("plain", {}), ("grad_accum", {"grad_accum": 2}),
+                             ("loss_chunk", {"loss_chunk": LORA_CHUNK})):
+                r, mu = _lora_run(torch, ll, fa, model, trainable, init,
+                                  batch, 1, before, keep="mu",
+                                  batch_size=b, seq=s, **kw)
+                if name == "plain":
+                    plain_mu = mu
+                else:
+                    grad[name] = _grad_err(torch, mu, plain_mu)
+                one_step[name] = r
+                for k, n in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            mu = plain_mu = None
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        model = trainable = init = batch = None
+        torch.cuda.empty_cache()
+        if b > 1:
+            b //= 2
+            cuts.append(f"out of memory: batch cut to {b}")
+        elif depth > 1:
+            depth //= 2
+            cuts.append(f"out of memory: depth cut to {depth}")
+        else:
+            raise AssertionError("phase 35 (a) does not fit")
+        print(f"chip_smoke: phase 35 (a): {cuts[-1]}", flush=True)
+    del model, trainable, init, batch
+    torch.cuda.empty_cache()
+    f32, f32_grad = _grad_legs(torch, ll, fa, ids[:b], lens[:b], depth, s,
+                               dev)
+    for r in f32.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"depth": depth, "batch": [b, s], "lens": lens[:b].tolist(),
+            "steps": LORA_STEPS, "lr": LORA_LR, "cuts": cuts,
+            "schedules": runs, "one_step": one_step, "one_step_f32": f32,
+            "grad_rel_err_bf16": grad, "grad_rel_err": f32_grad,
+            "grad_tol": LORA_GRAD_TOL}, launches
+
+
+def _grad_legs(torch, ll, fa, ids, lens, depth, s, dev):
+    """Phase 35 (b)'s gradients, in f32 at (a)'s widths, depth and batch
+    (in bf16 two batchings of one gradient already differ by 2 % on the
+    deep blocks' q and k adapters): Adam's first moment after one step
+    with ``grad_accum`` 2 and one with ``loss_chunk`` against the plain
+    step's, leaf by leaf."""
+    before = torch.cuda.memory_allocated()
+    model, trainable, init = _lora_model(torch, ll, LORA_LLAMA3, depth, s,
+                                         dev, torch.float32)
+    batch = ll.batch_to_device({"ids": ids, "lens": lens}, dev)
+    runs, err = {}, {}
+    for name, kw in (("plain", {}), ("grad_accum", {"grad_accum": 2}),
+                     ("loss_chunk", {"loss_chunk": LORA_CHUNK})):
+        runs[name], mu = _lora_run(torch, ll, fa, model, trainable, init,
+                                   batch, 1, before, keep="mu",
+                                   batch_size=len(ids), seq=s, **kw)
+        if name == "plain":
+            plain = mu
+        else:
+            err[name] = _grad_err(torch, mu, plain)
+    del model, trainable, init, batch, mu, plain
+    torch.cuda.empty_cache()
+    return runs, err
+
+
+def _moe_leg(torch, np, ll, moe, fa, dev):
+    """Phase 35 (c), at Mixtral-8x7B's widths."""
+    s = 1024
+    rng = np.random.default_rng(SEED + 35)
+    ids = rng.integers(2, LORA_MIXTRAL["vocab_size"],
+                       size=(MOE_BATCH, s)).astype(np.int32)
+    lens = rng.integers(512, s + 1, size=MOE_BATCH).astype(np.int32)
+    cuts = []
+    depth = MOE_DEPTH
+    stats = []
+
+    def route_stats(mod, inputs, output):
+        with torch.no_grad():
+            x = inputs[0].reshape(-1, inputs[0].shape[-1])
+            cap = moe.expert_capacity(x.shape[0], mod.top_k, mod.n_experts)
+            r = moe.route(x.float() @ mod.router.float(), cap, mod.top_k)
+            stats.append((output[1].detach(),
+                          (r.slots == mod.n_experts * cap).sum(),
+                          r.slots.numel()))
+
+    while True:
+        before = torch.cuda.memory_allocated()
+        try:
+            t0 = time.perf_counter()
+            model, trainable, init = _lora_model(torch, ll, LORA_MIXTRAL,
+                                                 depth, s, dev)
+            init_s = time.perf_counter() - t0
+            hooks = [getattr(model, f"block_{i}").moe.register_forward_hook(
+                route_stats) for i in range(depth)]
+            batch = ll.batch_to_device({"ids": ids, "lens": lens}, dev)
+            stats.clear()
+            r, _ = _lora_run(torch, ll, fa, model, trainable, init, batch,
+                             MOE_STEPS, before, batch_size=MOE_BATCH, seq=s)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        model = trainable = init = None
+        torch.cuda.empty_cache()
+        if depth > 1:
+            depth //= 2
+            cuts.append(f"out of memory: depth cut to {depth}")
+        else:
+            raise AssertionError("phase 35 (c) does not fit")
+        print(f"chip_smoke: phase 35 (c): {cuts[-1]}", flush=True)
+    for h in hooks:
+        h.remove()
+    aux = [sum(float(a) for a, _, _ in stats[i * depth:(i + 1) * depth])
+           for i in range(MOE_STEPS)]
+    dropped = sum(int(d) for _, d, _ in stats)
+    choices = sum(n for _, _, n in stats)
+    steady = r["step_s"][1:]
+    r.update({"depth": depth, "batch": [MOE_BATCH, s],
+              "lens": lens.tolist(), "cuts": cuts, "init_s": init_s,
+              "aux_per_step": aux,
+              "ce_per_step": [x - moe.MOE_AUX_COEF * a
+                              for x, a in zip(r["losses"], aux)],
+              "dropped_choice_share": dropped / choices,
+              "tokens_per_s": MOE_BATCH * s * len(steady) / sum(steady),
+              "params": sum(p.numel() for p in model.parameters())})
+    del model, trainable, init, batch
+    torch.cuda.empty_cache()
+    return r
+
+
+def _lora_template_leg(torch, np, ll, pa, fa, store_params, TrainContext,
+                       dev):
+    """Phase 35 (d): the template with every new knob, on the card and
+    on the CPU from one init; its blob served on both."""
+    work = ROOT / "build" / "chip_smoke" / "lora_train"
+    train = write_corpus(np, work / "train.jsonl", 64, SEED + 35,
+                         vocab=200, max_words=60)
+    val = write_corpus(np, work / "val.jsonl", 16, SEED + 36, vocab=200,
+                       max_words=60)
+    host = ll.LlamaLoRA(device="cpu", **LORA_TEMPLATE)
+    blob = {"params": store_params.params_to_jax(
+        host._module().state_dict()), "meta": {"id2tok": {}}}
+    runs = {}
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    for where in ("card", "cpu"):
+        m = ll.LlamaLoRA(device=dev if where == "card" else "cpu",
+                         **LORA_TEMPLATE)
+        m.load_parameters(blob)
+        ctx = TrainContext()
+        t0 = time.perf_counter()
+        m.train(train, ctx)
+        runs[where] = {"model": m, "losses": ctx.logger.get_values("loss"),
+                       "train_s": time.perf_counter() - t0,
+                       "score": m.evaluate(val)}
+        if where == "card":
+            train_launches = {**flash_launches(fa), **_paged_counts(pa)}
+    card = runs["card"]["model"]
+    served = ll.LlamaLoRA(device="cpu", **LORA_TEMPLATE)
+    served.load_parameters(card.dump_parameters())
+    queries = ["tok1 tok5 tok9", "tok3", "tok2 tok4 tok6 tok8 tok10"]
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    preds = {"card": card.predict(queries, max_new_tokens=8),
+             "cpu": served.predict(queries, max_new_tokens=8)}
+    texts = {}
+    for where, m in (("card", card), ("cpu", served)):
+        eng = m.make_decode_engine(max_slots=4, max_new_tokens=12,
+                                   kv_page_size=8)
+        for i, q in enumerate(queries * 2):
+            eng.submit(i, q)
+        got = {}
+        for _ in range(2000):
+            if not eng.busy:
+                break
+            eng.step()
+            got.update(dict(eng.poll()))
+        texts[where] = got
+        if where == "card":
+            torch.cuda.synchronize()
+            serve_launches = {**flash_launches(fa), **_paged_counts(pa)}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"]["losses"],
+                                                  runs["cpu"]["losses"]))
+    return {"knobs": LORA_TEMPLATE,
+            "losses": {w: r["losses"] for w, r in runs.items()},
+            "max_loss_rel": rel,
+            "scores": {w: r["score"] for w, r in runs.items()},
+            "train_s": {w: r["train_s"] for w, r in runs.items()},
+            "predict_equal": preds["card"] == preds["cpu"],
+            "engine_equal": texts["card"] == texts["cpu"]
+            and len(texts["card"]) == 2 * len(queries),
+            "predictions": preds["card"]}, train_launches, serve_launches
+
+
+def _lora_gang_leg(torch, np, ll, dev_mod, fa, pa, dev):
+    """Phase 35 (d): a two-lane bucket under remat "full" through the gang
+    engine, against the same two trials run one after the other."""
+    work = ROOT / "build" / "chip_smoke" / "lora_gang"
+    train = write_corpus(np, work / "train.jsonl", 32, SEED + 37,
+                         vocab=200, max_words=60)
+    val = write_corpus(np, work / "val.jsonl", 8, SEED + 38, vocab=200,
+                       max_words=60)
+    kw = dict(total_trials=2, advisor_type="random", seed=SEED,
+              knob_overrides=LORA_GANG_PINS, device=dev)
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    t0 = time.perf_counter()
+    gang = dev_mod.tune_model(ll.LlamaLoRA, train, val, gang_size=2, **kw)
+    torch.cuda.synchronize()
+    gang_s = time.perf_counter() - t0
+    launches = {**flash_launches(fa), **_paged_counts(pa)}
+    t0 = time.perf_counter()
+    seq = dev_mod.tune_model(ll.LlamaLoRA, train, val, **kw)
+    seq_s = time.perf_counter() - t0
+    pairs = sorted(zip((t.knobs["learning_rate"] for t in gang.trials),
+                       (t.score for t in gang.trials)))
+    twins = sorted(zip((t.knobs["learning_rate"] for t in seq.trials),
+                       (t.score for t in seq.trials)))
+    rel = max(abs(g[1] - q[1]) / abs(q[1]) for g, q in zip(pairs, twins))
+    return {"gang_scores": [p[1] for p in pairs],
+            "sequential_scores": [q[1] for q in twins],
+            "same_trials": [p[0] for p in pairs] == [q[0] for q in twins],
+            "max_score_rel": rel, "tol": GANG_LLAMA_TOL, "gang_s": gang_s,
+            "sequential_s": seq_s}, launches
+
+
+def lora_training_phase(torch, np, ll, moe, fa, pa, dev_mod, store_params,
+                        TrainContext, dev, smi):
+    """Phase 35, the rest of LoRA training: (a) the checkpointing
+    schedules and (b) gradient accumulation and the streamed loss at
+    Llama-3-8B widths, (c) a MoE step at Mixtral-8x7B widths, (d) the
+    template with every new knob on the card against the CPU, served on
+    both, and a remat bucket through the gang engine. Gates at the
+    end."""
+    t_phase = time.perf_counter()
+    paths = {}
+    remat, paths["lora_remat_accum_chunk"] = _remat_legs(torch, np, ll, fa,
+                                                         dev)
+    zero_flash_launches(fa)
+    mixtral = _moe_leg(torch, np, ll, moe, fa, dev)
+    paths["lora_moe_mixtral"] = mixtral["launches"]
+    template, paths["lora_template_moe"], paths["lora_template_moe_serving"] \
+        = _lora_template_leg(torch, np, ll, pa, fa, store_params,
+                             TrainContext, dev)
+    gang, paths["lora_gang_remat"] = _lora_gang_leg(torch, np, ll, dev_mod,
+                                                    fa, pa, dev)
+    emit({"phase": "lora_training", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "remat_llama3": remat, "moe_mixtral": mixtral,
+          "template": template, "gang": gang, "launches": paths})
+
+    runs = remat["schedules"]
+    depth, steps = remat["depth"], LORA_STEPS
+    for schedule, r in runs.items():
+        fwd = (1 if schedule == "none" else 2) * depth * steps
+        want = {"flash_attention_fwd": fwd,
+                "flash_attention_bwd_dq": depth * steps,
+                "flash_attention_bwd_dkv": depth * steps}
+        if r["launches"] != want:
+            raise AssertionError(f"phase 35 (a) {schedule}: launches "
+                                 f"{r['launches']} != {want}")
+        # a recompute runs the same kernels on the same inputs
+        if r["losses"] != runs["none"]["losses"] or \
+                not r["leaves_bit_equal_none"]:
+            raise AssertionError(f"phase 35 (a) {schedule}: losses "
+                                 f"{r['losses']} or trained leaves differ "
+                                 "from none's")
+    peaks = [runs[p]["peak_gb"] for p in ("none", "policy", "full")]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise AssertionError(f"phase 35 (a) peaks none/policy/full "
+                             f"{peaks} are not ordered")
+    one = remat["one_step"]
+    for name in ("grad_accum", "loss_chunk"):
+        if not _bf16_close(one[name]["losses"][0],
+                           one["plain"]["losses"][0]) or \
+                remat["grad_rel_err"][name][0][1] > LORA_GRAD_TOL:
+            raise AssertionError(f"phase 35 (b) {name} step differs: "
+                                 f"{one[name]['losses']} vs "
+                                 f"{one['plain']['losses']}, gradients "
+                                 f"{remat['grad_rel_err'][name]}")
+    losses = mixtral["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 35 (c) losses {losses}")
+    want = mixtral["depth"] * MOE_STEPS
+    if any(n != want for n in mixtral["launches"].values()):
+        raise AssertionError(f"phase 35 (c) launches "
+                             f"{mixtral['launches']} != {want}")
+    for name, r in [*runs.items(), *one.items(), ("moe", mixtral),
+                    *(("f32 " + k, r) for k, r in
+                      remat["one_step_f32"].items())]:
+        if abs(r["peak_over_estimate"] - 1) > LORA_PEAK_TOL:
+            raise AssertionError(
+                f"phase 35 {name}: peak {r['peak_gb']:.3f} GB against "
+                f"the estimate's {r['estimate_gb']:.3f} GB")
+    if template["max_loss_rel"] > 1e-4:
+        raise AssertionError(f"phase 35 (d) card and CPU losses "
+                             f"{template['losses']}")
+    if not (template["predict_equal"] and template["engine_equal"]):
+        raise AssertionError("phase 35 (d) the card's blob serves other "
+                             "tokens on the card than on the CPU")
+    serving = paths["lora_template_moe_serving"]
+    if not (serving.get("paged_decode_attention")
+            and serving.get("paged_window_attention")):
+        raise AssertionError(f"phase 35 (d) paged kernels: {serving}")
+    if not gang["same_trials"] or gang["max_score_rel"] > GANG_LLAMA_TOL:
+        raise AssertionError(f"phase 35 (d) gang scores "
+                             f"{gang['gang_scores']} vs "
+                             f"{gang['sequential_scores']}")
+    return paths
 
 
 # ---------------------------------------------------------------- ViT / BERT
@@ -7643,6 +8153,7 @@ def main(argv=None):
     from rafiki_tpu_torch.models.bert import HashTokenizer
     from rafiki_tpu_torch.ops import _build
     from rafiki_tpu_torch.ops import attention as fa
+    from rafiki_tpu_torch.ops import moe
     from rafiki_tpu_torch.ops import paged_attention as pa
     from rafiki_tpu_torch.ops import patch_embed as pe
     from rafiki_tpu_torch.serving import decode_engine as de
@@ -7697,6 +8208,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths["llama_training"] = training_phase(torch, np, ll, fa,
                                              args.train_depth, dev)
+    torch.cuda.empty_cache()
+    paths.update(lora_training_phase(torch, np, ll, moe, fa, pa, dev_mod,
+                                     store_params, TrainContext, dev, smi))
     torch.cuda.empty_cache()
     template_phase(torch, np, ll, TrainContext, dev)
     torch.cuda.empty_cache()

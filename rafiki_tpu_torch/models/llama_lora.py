@@ -16,19 +16,27 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
   ``paged_decode_attention`` (s == 1) or ``paged_window_attention``
   (s > 1); and its train branch (``decode=False``): causal
   ``flash_attention`` with each row's keys past ``lens`` masked;
-- ``_DecoderBlock`` (SwiGLU; the MoE FFN raises) and ``Llama``, whose
-  flax ``cache`` collection becomes the explicit per-layer tensors of
-  :meth:`Llama.init_cache`, written in place;
+- ``_DecoderBlock`` (SwiGLU, or the top-k routed MoE FFN of
+  ``ops/moe.py``, whose aux losses ``Llama.forward`` collects in an
+  explicit list) and ``Llama``, whose flax ``cache`` collection becomes
+  the explicit per-layer tensors of :meth:`Llama.init_cache`, written in
+  place, and whose ``remat`` / ``remat_policy`` checkpoint each block of
+  the train branch (:func:`checkpoint_block`: ``torch.utils.checkpoint``,
+  ``"policy"`` keeping the matrix products' outputs as JAX's
+  ``dots_saveable``);
 - ``greedy_generate``, a Python loop of decode steps over a contiguous
   cache;
 - the functional training step of ``LlamaLoRA._lane_functions`` as
   module-level functions over any ``Llama``: the trainable masks
   (:func:`lora_trainable_names`), f32 master weights
   (:func:`make_trainable`), :func:`merge`, ``lm_valid_mask`` /
-  ``lm_loss_terms``, :func:`lane_init` and :func:`lane_train_step` (one
-  lane: the template's sequential step and a 1-lane gang's; the JAX
-  step's update, ``optax.chain(scale_by_adam(), add_decayed_weights(
-  1e-4))`` then ``−lr · u``, is ``model/optim.lane_adam_step``);
+  ``lm_loss_terms``, the streamed loss (:func:`chunked_lm_loss_terms`),
+  :func:`micro_terms`, :func:`lane_init` and :func:`lane_train_step` (one
+  lane: the template's sequential step and a 1-lane gang's, with
+  gradient accumulation and the MoE aux term of JAX's sharded step on
+  one device; the update, ``optax.chain(scale_by_adam(),
+  add_decayed_weights(1e-4))`` then ``−lr · u``, is
+  ``model/optim.lane_adam_step``);
 - the gang lanes (``make_gang_spec``; JAX ``vmap``s one lane's step over
   a broadcast base): :func:`lanes_train_step` runs K lanes as one step
   with the lane axis explicit. The trainable leaves (LoRA A and B, the
@@ -38,13 +46,15 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
   LoRA correction and the LM head a ``bmm`` over the lanes, each norm
   scale a broadcast over its block, and attention one ``flash_attention``
   call of batch K·B per layer (B3 forward, B5 + B6 backward, ``depth``
-  launches each per step, not K·depth);
-- the ``LlamaLoRA`` template: ``train`` (the unsharded
-  ``_train_functional`` loop, and with ``pretrained_path`` the base
-  weights of an HF-convention safetensors checkpoint), ``gang_blockers``,
+  launches each per step, not K·depth), each block under the bucket's
+  checkpointing schedule;
+- the ``LlamaLoRA`` template: ``train`` (JAX's ``_train_functional``
+  loop and its sharded loop on one device: ``grad_accum``, ``loss_chunk``,
+  ``moe_experts``, and with ``pretrained_path`` the base weights of an
+  HF-convention safetensors checkpoint), ``gang_blockers``,
   ``gang_epochs``, ``make_gang_spec``, ``estimate_device_budget`` (one
-  trial's or, with ``gang_size``, a gang's: :func:`estimate_gang_device_
-  bytes`), ``evaluate``,
+  trial's, :func:`estimate_train_device_bytes`, or with ``gang_size`` a
+  gang's, :func:`estimate_gang_device_bytes`), ``evaluate``,
   ``dump_parameters``, ``load_parameters`` (blobs move both ways with
   the JAX template, ``meta["bpe_merges"]`` included), ``predict``,
   ``warmup``, ``make_decode_engine`` (speculation with prompt-lookup or
@@ -67,16 +77,18 @@ per call, as JAX does for every leaf.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rafiki_tpu_torch.data.bpe import ByteBPETokenizer
+from rafiki_tpu_torch.data.bpe import BOS_ID, ByteBPETokenizer
 from rafiki_tpu_torch.data.dataset import load_text_classification_dataset
 from rafiki_tpu_torch.data.loader import batch_iterator
 from rafiki_tpu_torch.model.base import (TrainContext,
@@ -94,6 +106,8 @@ from rafiki_tpu_torch.models.convert import (hf_name_for,
                                              structure_copy)
 from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
+from rafiki_tpu_torch.ops.moe import (MOE_AUX_COEF, MoEFeedForward,
+                                      expert_capacity, moe_aux_loss)
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
@@ -496,16 +510,20 @@ class _DecoderBlock(nn.Module):
                  rope_scaling: Optional[RopeScaling], dtype: torch.dtype,
                  device: torch.device, gen: torch.Generator,
                  n_experts: int = 0, quantized: bool = False,
-                 n_adapters: int = 0) -> None:
+                 n_adapters: int = 0, moe_top_k: int = 1) -> None:
         super().__init__()
-        if n_experts:
-            raise NotImplementedError("the MoE FFN is not ported yet")
         self.RMSNorm_0 = RMSNorm(hidden, device)
         self.attn = _DecoderAttention(hidden, n_heads, n_kv_heads,
                                       lora_rank, rope_theta, rope_scaling,
                                       dtype, device, gen, quantized,
                                       n_adapters)
         self.RMSNorm_1 = RMSNorm(hidden, device)
+        if n_experts > 0:
+            # the MoE FFN (its leaves stay f32, int8 deployments too)
+            self.moe = MoEFeedForward(hidden, n_experts, mlp_dim, device,
+                                      gen, top_k=moe_top_k)
+            return
+        self.moe = None
         kw = dict(rank=lora_rank, dtype=dtype, device=device, gen=gen,
                   quantized=quantized, n_adapters=n_adapters)
         self.gate = LoRADense(hidden, mlp_dim, **kw)
@@ -514,11 +532,73 @@ class _DecoderBlock(nn.Module):
 
     def forward(self, x, positions, cache, page_tables, lens=None,
                 decode=True, adapter_ids=None):
+        """Returns ``(x, aux)``: the block's output rows and, for a MoE
+        block, its load-balancing loss (None for a dense one)."""
         x = x + self.attn(self.RMSNorm_0(x), positions, cache, page_tables,
                           lens, decode, adapter_ids)
-        y = self.RMSNorm_1(x)  # then SwiGLU
+        y = self.RMSNorm_1(x)
+        if self.moe is not None:
+            # route the window's b·s tokens only: padding rows would
+            # take capacity slots (JAX routes every (b, s) position)
+            n = positions.numel()
+            out, aux = self.moe(y[:n])
+            return x + _pad_rows(out, x.shape[0]), aux
         y = F.silu(self.gate(y, adapter_ids)) * self.up(y, adapter_ids)
-        return x + self.down(y, adapter_ids)
+        return x + self.down(y, adapter_ids), None
+
+
+#: the checkpointing schedules of ``Llama(remat_policy=...)``
+REMAT_SCHEDULES = ("none", "full", "policy")
+
+
+def remat_schedule(remat: bool = False, remat_policy: str = "") -> str:
+    """The schedule a module runs: ``remat_policy``, or with ``""`` the
+    legacy ``remat`` flag (True: ``"full"``); JAX's ``ValueError`` for
+    an unknown name."""
+    ckpt = str(remat_policy or "") or ("full" if remat else "none")
+    if ckpt not in REMAT_SCHEDULES:
+        raise ValueError(f"unknown remat_policy {ckpt!r} "
+                         "(none/full/policy)")
+    return ckpt
+
+
+def _dots_saveable(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> Any:
+    """The ``"policy"`` schedule (JAX's ``dots_saveable``): keep every
+    matrix product's output, recompute the rest (flash attention is not
+    a product, in either package)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    return (CheckpointPolicy.MUST_SAVE
+            if op in (aten.mm.default, aten.addmm.default,
+                      aten.bmm.default, aten.baddbmm.default)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint_block(schedule: str, fn: Any, *args: Any) -> Any:
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    ``"full"`` keeps only the inputs, ``"policy"`` also every matrix
+    product's output. ``fn`` may be a module: the tensors bound to its
+    parameters now (a ``functional_call``'s, when it runs inside one)
+    are passed in and rebound for the recompute, which runs in the
+    backward, after such a call has put the module's own back."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    extra: Dict[str, Any] = {}
+    if schedule == "policy":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    if not isinstance(fn, nn.Module):
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    names, leaves = zip(*fn.named_parameters(remove_duplicate=False))
+    n = len(args)
+
+    def run(*flat):
+        return torch.func.functional_call(
+            fn, dict(zip(names, flat[n:])), flat[:n])
+
+    return checkpoint(run, *args, *leaves, use_reentrant=False, **extra)
 
 
 def _check_kv_layout(max_len: int, kv_page_size: int, kv_pages: int
@@ -548,7 +628,15 @@ class Llama(nn.Module):
     many LoRA adapters at every site (serving only, the tree
     :func:`stack_lora_adapters` gives), each row applying the one its
     ``adapter_ids`` entry names; ``kv_int8`` makes the decode
-    cache int8 with one f32 absmax scale per K/V row. Weights are drawn
+    cache int8 with one f32 absmax scale per K/V row. ``n_experts > 0``
+    replaces every block's FFN with a top-``moe_top_k`` routed MoE
+    (``ops/moe.py``; its aux losses come back through ``forward``'s
+    ``aux_losses``). ``remat_policy`` is the train branch's checkpointing
+    schedule per block: ``"none"`` saves everything, ``"full"`` only the
+    block boundaries, ``"policy"`` (JAX's ``dots_saveable``) the outputs
+    of the matrix products, recomputing the rest; ``""`` defers to the
+    legacy ``remat`` (True: ``"full"``). The math is the same under
+    each; the decode branch never rematerializes. Weights are drawn
     from ``generator`` (a fresh one seeded 0 when None) on ``device``
     (None = the CUDA card, raising without one)."""
 
@@ -563,10 +651,13 @@ class Llama(nn.Module):
                  n_experts: int = 0, quantized: bool = False,
                  n_adapters: int = 0, kv_int8: bool = False,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False, remat_policy: str = "",
+                 moe_top_k: int = 1) -> None:
         super().__init__()
         device = resolve_device(device)
         _check_kv_layout(max_len, kv_page_size, kv_pages)
+        self.remat_policy = remat_schedule(remat, remat_policy)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.vocab_size = int(vocab_size)
@@ -583,13 +674,17 @@ class Llama(nn.Module):
         self.quantized = bool(quantized)
         self.n_adapters = int(n_adapters)
         self.kv_int8 = bool(kv_int8)
+        self.mlp_dim = int(mlp_dim)
+        self.lora_rank = int(lora_rank)
+        self.n_experts = int(n_experts)
+        self.moe_top_k = int(moe_top_k)
         self.tok_embed = Embed(vocab_size, hidden_dim, device, generator)
         for i in range(depth):
             self.add_module(f"block_{i}", _DecoderBlock(
                 hidden_dim, n_heads, n_kv_heads, mlp_dim, lora_rank,
                 rope_theta, rope_scaling, self.dtype, device, generator,
-                n_experts=n_experts, quantized=self.quantized,
-                n_adapters=self.n_adapters))
+                n_experts=self.n_experts, quantized=self.quantized,
+                n_adapters=self.n_adapters, moe_top_k=self.moe_top_k))
         self.final_norm = RMSNorm(hidden_dim, device)
         self.lm_head = LoRADense(hidden_dim, vocab_size, 0, self.dtype,
                                  device, generator,
@@ -644,12 +739,16 @@ class Llama(nn.Module):
                 decode: bool = True,
                 return_hidden: bool = False,
                 lens: Optional[torch.Tensor] = None,
-                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                adapter_ids: Optional[torch.Tensor] = None,
+                aux_losses: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """(b, s) ids → (b, s, vocab) logits, or the final-norm
         activations with ``return_hidden`` (prefill, which must not pay
-        the lm_head). ``adapter_ids`` ((b,) int32) selects each row's
-        adapter on a multi-adapter model (``n_adapters > 0``; None is
-        adapter 0) and is ignored otherwise.
+        the lm_head; the streamed loss). ``adapter_ids`` ((b,) int32)
+        selects each row's adapter on a multi-adapter model
+        (``n_adapters > 0``; None is adapter 0) and is ignored otherwise.
+        ``aux_losses``: a list the MoE blocks append their aux losses to,
+        in block order (JAX's ``mutable=["losses"]``).
 
         ``decode=True`` (the default here; the JAX module's is False) is
         one decode-branch call: write the window's K/V into ``cache`` at
@@ -682,10 +781,19 @@ class Llama(nn.Module):
         if adapter_ids is not None and self.n_adapters:
             adapter_ids = _pad_rows(adapter_ids.reshape(b, 1).expand(b, s)
                                     .reshape(n), x.shape[0])
+        remat = (not decode and self.remat_policy != "none"
+                 and torch.is_grad_enabled())
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, positions, cache[i],
-                                            page_tables, lens, decode,
-                                            adapter_ids)
+            block = getattr(self, f"block_{i}")
+            if remat:
+                x, aux = checkpoint_block(
+                    self.remat_policy, block, x, positions, None, None,
+                    lens, False, adapter_ids)
+            else:
+                x, aux = block(x, positions, cache[i], page_tables, lens,
+                               decode, adapter_ids)
+            if aux is not None and aux_losses is not None:
+                aux_losses.append(aux)
         x = self.final_norm(x)
         out = x if return_hidden else self.lm_head(x)
         return out[:n].reshape(b, s, out.shape[-1])
@@ -730,14 +838,15 @@ def greedy_generate(module: Llama, prompt_ids: np.ndarray,
 def lora_trainable_names(model: Llama, adapters_only: bool = False
                          ) -> List[str]:
     """``state_dict`` keys of the leaves a LoRA fine-tune trains: the
-    adapters, every norm scale and the LM head (JAX's
-    ``lora_trainable_mask``), or the adapters alone with
+    adapters, every norm scale, the MoE routers and experts (no
+    pretrained checkpoint carries them, so they always train) and the LM
+    head (JAX's ``lora_trainable_mask``), or the adapters alone with
     ``adapters_only`` (``adapter_only_mask``). The base kernels and the
     embedding stay frozen."""
     def trainable(path: str) -> bool:
         if adapters_only:
             return "lora_a" in path or "lora_b" in path
-        return ("lora_" in path or "norm" in path
+        return ("lora_" in path or "norm" in path or "/moe/" in path
                 or path.startswith("lm_head"))
 
     return [name for name, _ in model.named_parameters()
@@ -800,18 +909,92 @@ def lm_loss_terms(logits: torch.Tensor, ids: torch.Tensor,
     return (losses.reshape(b, length) * valid).sum(), valid.sum()
 
 
+def chunked_lm_loss_terms(hidden: torch.Tensor, head_kernel: torch.Tensor,
+                          ids: torch.Tensor, lens: torch.Tensor,
+                          example_mask: Optional[torch.Tensor] = None,
+                          chunk: int = 256
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lm_loss_terms` without the (B, L, vocab) logits: the final-
+    norm activations ``hidden`` (B, L, d) are projected by
+    ``head_kernel`` (d, vocab) and reduced to summed cross-entropy one
+    sequence chunk at a time (:func:`_chunked_ce_sum`). Same math up to
+    f32 summation order; sequence pads up to a chunk multiple are masked
+    out of the sum and the count."""
+    targets = F.pad(ids[:, 1:], (0, 1)).long()
+    valid = lm_valid_mask(hidden.shape[1], lens, example_mask)
+    return (_chunked_ce_sum(hidden, targets, valid, head_kernel, chunk),
+            valid.float().sum())
+
+
+def _chunk_ce(h: torch.Tensor, kernel: torch.Tensor, t: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    logits = h @ kernel  # (B, chunk, vocab): this chunk's only
+    losses = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                             t.reshape(-1), reduction="none")
+    return (losses.reshape(t.shape) * v).sum()
+
+
+def _chunked_ce_sum(hidden: torch.Tensor, targets: torch.Tensor,
+                    valid: torch.Tensor, head_kernel: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """The chunk loop of JAX's ``_chunked_ce_sum``: each (B, chunk)
+    slice is projected in ``hidden``'s dtype, reduced in f32 and
+    dropped; under a gradient the chunk body is checkpointed, so the
+    backward holds one chunk of logits too. The running sum starts at
+    0 and adds the chunks in order, as JAX's scan carries it."""
+    b, length, d = hidden.shape
+    chunk = max(1, min(int(chunk), length))
+    pad = (-length) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        valid = F.pad(valid, (0, pad))
+    kernel = head_kernel.to(hidden.dtype)  # cast once, as LoRADense does
+    v = valid.float()
+    remat = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or kernel.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, length + pad, chunk):
+        args = (hidden[:, i:i + chunk], kernel, targets[:, i:i + chunk],
+                v[:, i:i + chunk])
+        total = total + (checkpoint_block("full", _chunk_ce, *args)
+                         if remat else _chunk_ce(*args))
+    return total
+
+
+def micro_terms(model: Llama, leaves: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor], loss_chunk: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """JAX's ``micro_terms``: (loss sum, valid count, MoE aux) of one
+    (micro-)batch through the train branch, ``leaves`` (``state_dict``
+    keys) in place of the model's own. With ``loss_chunk`` the forward
+    stops at the final norm and the LM head runs chunk by chunk
+    (:func:`chunked_lm_loss_terms`). The aux is 0 for a dense model."""
+    aux: List[torch.Tensor] = []
+    ids, lens = batch["ids"], batch["lens"]
+    out = torch.func.functional_call(
+        model, leaves, (ids,), {"decode": False, "lens": lens,
+                                "return_hidden": bool(loss_chunk),
+                                "aux_losses": aux})
+    if loss_chunk:
+        kernel = leaves.get("lm_head.kernel", model.lm_head.kernel)
+        total, count = chunked_lm_loss_terms(out, kernel, ids, lens,
+                                             batch.get("mask"), loss_chunk)
+    else:
+        total, count = lm_loss_terms(out, ids, lens, batch.get("mask"))
+    return total, count, moe_aux_loss(aux, ids.device)
+
+
 def lm_objective(model: Llama, trainable: Dict[str, torch.Tensor],
-                 lora_scale: float, batch: Dict[str, torch.Tensor]
-                 ) -> torch.Tensor:
-    """Mean masked next-token loss of one batch (``ids``, ``lens`` and,
+                 lora_scale: float, batch: Dict[str, torch.Tensor],
+                 loss_chunk: int = 0) -> torch.Tensor:
+    """The step objective of one batch (``ids``, ``lens`` and,
     optionally, ``mask``) through the train branch, the trainable leaves
-    merged with the rank-scale."""
-    logits = torch.func.functional_call(
-        model, merge(trainable, lora_scale), (batch["ids"],),
-        {"decode": False, "lens": batch["lens"]})
-    total, count = lm_loss_terms(logits, batch["ids"], batch["lens"],
-                                 batch.get("mask"))
-    return total / count.clamp(min=1.0)
+    merged with the rank-scale: the mean masked next-token loss, plus
+    ``MOE_AUX_COEF`` times the MoE aux (exactly 0 for a dense model)."""
+    total, count, aux = micro_terms(model, merge(trainable, lora_scale),
+                                    batch, loss_chunk)
+    return total / count.clamp(min=1.0) + MOE_AUX_COEF * aux
 
 
 #: the decay of the JAX step's ``optax.add_decayed_weights``
@@ -833,19 +1016,55 @@ def lane_init(trainable: Dict[str, torch.Tensor], learning_rate: float,
     return {"params": params, "opt": lane_adam_init(params)}, hp
 
 
+def _accumulated_grads(model: "Llama", params: Dict[str, torch.Tensor],
+                       lora_scale: torch.Tensor,
+                       batch: Dict[str, torch.Tensor], grad_accum: int,
+                       loss_chunk: int
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """JAX's gradient accumulation: ``grad_accum`` contiguous micro-
+    batches, each objective ``total / global valid count + MOE_AUX_COEF
+    · aux / grad_accum`` (the count over the whole batch, so the summed
+    gradients are the big batch's); returns (the summed objectives, the
+    summed gradients). At ``grad_accum`` 1 it is :func:`lm_objective`
+    and its gradients, bit for bit."""
+    ids, lens, mask = batch["ids"], batch["lens"], batch.get("mask")
+    b, seq = ids.shape
+    if b % grad_accum:
+        raise ValueError(f"batch {b} must divide by grad_accum "
+                         f"{grad_accum}")
+    denom = lm_valid_mask(seq, lens, mask).float().sum().clamp(min=1.0)
+    leaves = list(params.values())
+    m = b // grad_accum
+    loss, grads = None, None
+    for i in range(grad_accum):
+        micro = {key: t[i * m:(i + 1) * m] for key, t in batch.items()}
+        total, _, aux = micro_terms(model, merge(params, lora_scale), micro,
+                                    loss_chunk)
+        val = total / denom + MOE_AUX_COEF * aux / grad_accum
+        g = torch.autograd.grad(val, leaves)
+        loss = val.detach() if loss is None else loss + val.detach()
+        grads = list(g) if grads is None else [
+            a + c for a, c in zip(grads, g)]
+    return loss, grads
+
+
 def lane_train_step(model: "Llama", state: Dict[str, Any],
                     hp: Dict[str, torch.Tensor],
-                    batch: Dict[str, torch.Tensor]
+                    batch: Dict[str, torch.Tensor], loss_chunk: int = 0,
+                    grad_accum: int = 1
                     ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """One step of one lane: ``state`` is ``{"params": {state_dict key:
     f32 trainable leaf}, "opt": lane Adam}``, ``hp`` the 0-d tensors
     ``learning_rate`` and ``lora_scale``. The forward is ``model`` with
     the lane's leaves in place of its own (merged with the rank-scale);
-    the update is in place. Returns (state, the batch loss, detached)."""
+    the update is in place. ``loss_chunk`` streams the loss, and the
+    gradients of ``grad_accum`` micro-batches are summed before the one
+    update (JAX's non-functional step; one micro-batch is the functional
+    step). Returns (state, the batch loss, detached)."""
     params = {n: p.detach().requires_grad_(True)
               for n, p in state["params"].items()}
-    loss = lm_objective(model, params, hp["lora_scale"], batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    loss, grads = _accumulated_grads(model, params, hp["lora_scale"],
+                                     batch, grad_accum, loss_chunk)
     lane_adam_step(state["params"], dict(zip(params, grads)),
                    state["opt"], hp["learning_rate"], WEIGHT_DECAY)
     return state, loss.detach()
@@ -884,18 +1103,14 @@ def _lane_dense(x: torch.Tensor, dense: LoRADense,
     return y + (corr * (dense.alpha / dense.rank)).reshape(y.shape)
 
 
-def lanes_forward(model: "Llama", lanes: Dict[str, torch.Tensor],
-                  ids: torch.Tensor, lens: torch.Tensor,
-                  k: int) -> torch.Tensor:
-    """The train branch of ``model.forward`` for K lanes: ``ids`` (K·B,
-    L), lane i's examples the i-th block of B; ``lanes`` maps each
-    trainable ``state_dict`` key to its (K, ...) leaf (``lora_b`` already
-    times the lane's rank-scale); every other leaf is ``model``'s.
-    Returns (K·B, L, vocab) logits."""
-    b, s = ids.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=ids.device).expand(b, s)
-    x = model.tok_embed(ids).to(model.dtype).reshape(b * s, -1)
+def _lane_block(model: "Llama", i: int, lanes: Dict[str, torch.Tensor],
+                positions: torch.Tensor, lens: torch.Tensor, k: int,
+                x: torch.Tensor) -> torch.Tensor:
+    """Block ``i`` of :func:`lanes_forward` over (K·B·L, d) rows."""
+    b, s = positions.shape
+    pre = f"block_{i}"
+    blk = getattr(model, pre)
+    att = blk.attn
 
     def dense(mod, name, h):
         return _lane_dense(h, mod, lanes, name, k)
@@ -903,33 +1118,49 @@ def lanes_forward(model: "Llama", lanes: Dict[str, torch.Tensor],
     def norm(mod, name, h):
         return _lane_norm(h, mod, lanes.get(f"{name}.scale"), k)
 
+    h = norm(blk.RMSNorm_0, f"{pre}.RMSNorm_0", x)
+    dh = x.shape[-1] // att.n_heads
+    q = rope(dense(att.wq, f"{pre}.attn.wq", h).reshape(
+        b, s, att.n_heads, dh), positions, att.rope_theta, att.rope_scaling)
+    kk = rope(dense(att.wk, f"{pre}.attn.wk", h).reshape(
+        b, s, att.n_kv_heads, dh), positions, att.rope_theta,
+        att.rope_scaling)
+    v = dense(att.wv, f"{pre}.attn.wv", h).reshape(b, s, att.n_kv_heads, dh)
+    o = flash_attention(
+        q.transpose(1, 2),
+        kk.repeat_interleave(att.rep, dim=2).transpose(1, 2),
+        v.repeat_interleave(att.rep, dim=2).transpose(1, 2),
+        causal=True, kv_lens=lens).transpose(1, 2)
+    x = x + dense(att.wo, f"{pre}.attn.wo",
+                  o.reshape(b * s, att.n_heads * dh))
+    h = norm(blk.RMSNorm_1, f"{pre}.RMSNorm_1", x)
+    h = F.silu(dense(blk.gate, f"{pre}.gate", h)) \
+        * dense(blk.up, f"{pre}.up", h)
+    return x + dense(blk.down, f"{pre}.down", h)
+
+
+def lanes_forward(model: "Llama", lanes: Dict[str, torch.Tensor],
+                  ids: torch.Tensor, lens: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """The train branch of ``model.forward`` for K lanes: ``ids`` (K·B,
+    L), lane i's examples the i-th block of B; ``lanes`` maps each
+    trainable ``state_dict`` key to its (K, ...) leaf (``lora_b`` already
+    times the lane's rank-scale); every other leaf is ``model``'s. Each
+    block runs under ``model``'s checkpointing schedule. Returns (K·B,
+    L, vocab) logits."""
+    b, s = ids.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=ids.device).expand(b, s)
+    x = model.tok_embed(ids).to(model.dtype).reshape(b * s, -1)
+    remat = model.remat_policy != "none" and torch.is_grad_enabled()
     for i in range(model.depth):
-        pre = f"block_{i}"
-        blk = getattr(model, pre)
-        att = blk.attn
-        h = norm(blk.RMSNorm_0, f"{pre}.RMSNorm_0", x)
-        dh = x.shape[-1] // att.n_heads
-        q = rope(dense(att.wq, f"{pre}.attn.wq", h).reshape(
-            b, s, att.n_heads, dh), positions, att.rope_theta,
-            att.rope_scaling)
-        kk = rope(dense(att.wk, f"{pre}.attn.wk", h).reshape(
-            b, s, att.n_kv_heads, dh), positions, att.rope_theta,
-            att.rope_scaling)
-        v = dense(att.wv, f"{pre}.attn.wv", h).reshape(
-            b, s, att.n_kv_heads, dh)
-        o = flash_attention(
-            q.transpose(1, 2),
-            kk.repeat_interleave(att.rep, dim=2).transpose(1, 2),
-            v.repeat_interleave(att.rep, dim=2).transpose(1, 2),
-            causal=True, kv_lens=lens).transpose(1, 2)
-        x = x + dense(att.wo, f"{pre}.attn.wo",
-                      o.reshape(b * s, att.n_heads * dh))
-        h = norm(blk.RMSNorm_1, f"{pre}.RMSNorm_1", x)
-        h = F.silu(dense(blk.gate, f"{pre}.gate", h)) \
-            * dense(blk.up, f"{pre}.up", h)
-        x = x + dense(blk.down, f"{pre}.down", h)
-    x = norm(model.final_norm, "final_norm", x)
-    return dense(model.lm_head, "lm_head", x).reshape(b, s, -1)
+        block = functools.partial(_lane_block, model, i, lanes, positions,
+                                  lens, k)
+        x = (checkpoint_block(model.remat_policy, block, x) if remat
+             else block(x))
+    x = _lane_norm(x, model.final_norm, lanes.get("final_norm.scale"), k)
+    return _lane_dense(x, model.lm_head, lanes, "lm_head",
+                       k).reshape(b, s, -1)
 
 
 def lanes_train_step(model: "Llama", state: Dict[str, Any],
@@ -1069,22 +1300,182 @@ def _replace_leaves(tree: Dict[str, Any],
     return out
 
 
+class LlamaDims(NamedTuple):
+    """The shapes a train estimate reads: ``act`` is the compute dtype's
+    bytes, ``rank`` the LoRA rank (0: no adapters)."""
+    vocab: int
+    hidden: int
+    depth: int
+    heads: int
+    kv_heads: int
+    mlp: int
+    rank: int
+    act: int
+    n_experts: int = 0
+    top_k: int = 1
+
+    @classmethod
+    def of(cls, model: Llama) -> "LlamaDims":
+        return cls(model.vocab_size, model.hidden_dim, model.depth,
+                   model.n_heads, model.n_kv_heads, model.mlp_dim,
+                   model.lora_rank, torch.finfo(model.dtype).bits // 8,
+                   model.n_experts, model.moe_top_k)
+
+
+def _train_terms(d: LlamaDims, batch_size: int, seq: int,
+                 adapters_only: bool = False, remat_policy: str = "none",
+                 grad_accum: int = 1, loss_chunk: int = 0
+                 ) -> Dict[str, int]:
+    """The element and byte counts :func:`estimate_train_device_bytes`
+    and :func:`estimate_gang_device_bytes` share: ``trainable``
+    (elements), ``slots`` (the bytes of the trainable leaves as the
+    module draws them), ``frozen`` (bytes), ``activations`` and
+    ``transient`` (bytes of one (micro-)batch's step)."""
+    act, hd, depth, mlp = d.act, d.hidden, d.depth, d.mlp
+    rank, vocab, e, k = d.rank, d.vocab, d.n_experts, d.top_k
+    dh = hd // d.heads
+    kv = d.kv_heads * dh
+    sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd)]
+    if not e:
+        sites += [(hd, mlp), (hd, mlp), (mlp, hd)]
+    lora = depth * sum(rank * (i + o) for i, o in sites)
+    norms = (2 * depth + 1) * hd
+    head = hd * vocab
+    experts = depth * e * (hd + 3 * hd * mlp)  # routers and experts, f32
+    tokens = max(1, batch_size // max(1, grad_accum)) * seq
+    # one block's saved tensors per token under "none": each RMSNorm's
+    # f32 input and rsqrt, and its normalized output where the scale
+    # trains; the attention input, q, K/V repeated to every head, the
+    # attention output and its reshaped copy in the compute dtype;
+    # rope's f32 cos and sin for q and k; the f32 LSE; each LoRA site's
+    # rank-wide x @ lora_a. A dense FFN adds its input and the SwiGLU's
+    # gate, silu, up and product; a MoE FFN the router's f32 input, its
+    # probabilities, each choice's f32 output row and, per layer, the
+    # expert slots, their SwiGLU tensors and the experts' per-call casts
+    rms = (4 if adapters_only else 8) * hd + 4
+    block = (2 * rms + act * 6 * hd + 8 * dh + 4 * d.heads
+             + act * len(sites) * rank)
+    layer = 0
+    if e:
+        cap = e * expert_capacity(tokens, k, e)
+        block += 4 * hd + 4 * e + k * (4 * hd + 16)
+        layer = cap * (act * hd + 4 * act * mlp + 8) \
+            + (3 * e * hd * mlp * act if act != 4 else 0)
+    else:
+        block += act * (hd + 4 * mlp)
+    whole = tokens * block + layer  # one block, nothing rematerialized
+    if remat_policy == "none":
+        blocks, recompute = depth * whole, 0
+    else:
+        # the checkpoint's input rows; "policy" adds every product's
+        # output (the base kernels' and, with adapters, x @ A and its
+        # product with B), the router's logits and the experts' products
+        keep = act * hd
+        if remat_policy == "policy":
+            width = sum(o for _, o in sites)
+            keep += act * (width + (width + len(sites) * rank
+                                    if rank else 0))
+            if e:
+                keep += 4 * e
+        kept_layer = (cap * act * (2 * mlp + hd)
+                      if e and remat_policy == "policy" else 0)
+        blocks = depth * (tokens * keep + kept_layer)
+        recompute = whole  # one block's, in the backward
+    # after the blocks: the final norm's and the LM head's input, then
+    # the loss's f32 log-probs, their cotangent and the logits' f32
+    # cotangent, alive together as the backward starts; streamed, one
+    # chunk of those plus the compute-dtype gradient of the LM head the
+    # chunks accumulate into
+    rows = max(1, batch_size // max(1, grad_accum))
+    logits = (rows * min(loss_chunk, seq) * 12 * vocab + act * head
+              if loss_chunk else tokens * 12 * vocab)
+    final = tokens * (rms + act * hd) + max(logits, recompute)
+    return {
+        "trainable": lora if adapters_only else lora + norms + head
+        + experts,
+        "slots": act * lora + (0 if adapters_only else
+                               4 * norms + act * head + 4 * experts),
+        "frozen": act * (depth * sum(i * o for i, o in sites)
+                         + (head if adapters_only else 0))
+        + 4 * (vocab * hd + (norms + experts if adapters_only else 0)),
+        "activations": blocks + final,
+        # the compute-dtype cast of the LM head, made per call
+        "transient": 0 if adapters_only or act == 4 else head * act}
+
+
+def estimate_train_device_bytes(dims: LlamaDims, *, batch_size: int,
+                                seq: int, adapters_only: bool = False,
+                                remat: bool = False,
+                                remat_policy: str = "",
+                                grad_accum: int = 1, loss_chunk: int = 0
+                                ) -> Dict[str, int]:
+    """Device memory of one train step of a ``Llama`` of ``dims`` on one
+    card (JAX's ``estimate_train_device_bytes`` on a mesh of one), in
+    what the port allocates, term by term:
+
+    - ``params``: trainable leaves (adapters, norms, MoE routers and
+      experts, the LM head) as f32 master weights; frozen leaves as
+      ``train`` holds them (base kernels in the compute dtype, the
+      embedding f32);
+    - ``grads``: one f32 gradient per trainable leaf;
+    - ``opt``: Adam's two f32 moments per trainable leaf;
+    - ``activations``: what autograd holds when the backward starts over
+      one (micro-)batch of ``batch_size / grad_accum`` × ``seq`` tokens,
+      under the checkpointing schedule (``remat_policy``, or ``remat``'s
+      ``"full"``): every block's saved tensors (``"none"``), their
+      inputs and matrix products' outputs (``"policy"``) or their inputs
+      alone (``"full"``, then one block rematerialized at a time), then
+      the loss's, dense or streamed (``loss_chunk``);
+    - ``transient``: the compute-dtype cast of the LM head.
+
+    The terms do not all live at once, so ``total`` is the step's peak:
+    ``params + opt`` and the larger of the backward (``activations +
+    transient``, plus the ``grads`` accumulator after the first
+    micro-batch with ``grad_accum > 1``) and the update (the gradients
+    and the lane Adam's two temporaries, ``3 · grads``)."""
+    return _step_bytes(_train_terms(
+        dims, batch_size, seq, adapters_only,
+        remat_schedule(remat, remat_policy), grad_accum, loss_chunk),
+        grad_accum > 1)
+
+
+def _step_bytes(t: Dict[str, int], accumulating: bool) -> Dict[str, int]:
+    """:func:`estimate_train_device_bytes` from :func:`_train_terms`'
+    counts ``t``."""
+    trainable = t["trainable"]
+    out = {"params": 4 * trainable + t["frozen"], "grads": 4 * trainable,
+           "opt": 2 * 4 * trainable, "activations": t["activations"],
+           "transient": t["transient"]}
+    backward = out["activations"] + out["transient"] + (
+        out["grads"] if accumulating else 0)
+    out["total"] = out["params"] + out["opt"] + max(backward,
+                                                    3 * out["grads"])
+    return out
+
+
 def estimate_gang_device_bytes(template: "LlamaLoRA",
                                gang_size: int) -> Dict[str, int]:
     """Device memory of a K-lane gang step of ``template``'s knobs, in the
-    port's own accounting (:meth:`LlamaLoRA.estimate_device_budget`'s
-    terms): ONE frozen base (``base``: the frozen leaves, plus the
-    module's own copies of the trainable leaves, which the lanes replace
-    per call), K lanes of f32 trainable leaves with their gradients and
-    two Adam moments, K lanes of activations, and the LM head cast per
-    call for all K lanes. ``params`` includes ``base``."""
+    port's own accounting (:func:`estimate_train_device_bytes`'s terms):
+    ONE frozen base (``base``: the frozen leaves, plus the module's own
+    copies of the trainable leaves, which the lanes replace per call), K
+    lanes of f32 trainable leaves with their gradients and two Adam
+    moments, K lanes of activations under the bucket's checkpointing
+    schedule, and the LM head cast per call for all K lanes. ``params``
+    includes ``base``; ``total`` is the sum of the terms, not the one
+    trial's peak rule (:func:`estimate_train_device_bytes`): that rule is
+    fitted to one lane, and a gang holds more of its terms at once (on an
+    H100, ``chip_smoke.py``'s phase 31 gang of four lanes at hidden 4096,
+    depth 4, peaked at 58.35 GB, above the rule's 56.11 GB and under the
+    sum's 64.61 GB). So a 1-lane gang is budgeted above the same trial
+    run alone."""
     template._check_trainable_knobs()
     t = template._budget_terms()
     k = max(1, int(gang_size))
     trainable = t["trainable"]
     out = {"params": t["frozen"] + t["slots"] + k * 4 * trainable,
            "grads": k * 4 * trainable, "opt": k * 2 * 4 * trainable,
-           "activations": k * t["tokens"] * t["per_token"],
+           "activations": k * t["activations"],
            "transient": k * t["transient"]}
     out["total"] = sum(out.values())
     out["base"] = t["frozen"] + t["slots"]  # already inside params
@@ -1099,8 +1490,12 @@ class LlamaLoRA:
     ``learning_rate``, ``batch_size``, ``max_epochs``, ``max_len``,
     ``vocab_size``, ``bf16``, ``adapters_only``, ``rope_theta``,
     ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``,
-    ``tokenizer_path``, ``pretrained_path``, ...); the MoE knob is a later
-    slice and raises. ``device=None`` is the CUDA card.
+    ``tokenizer_path``, ``pretrained_path``, the checkpointing schedules
+    ``remat`` and ``remat_policy``, ``grad_accum``, ``loss_chunk``,
+    ``moe_experts``, ``moe_top_k``, ...); the parallelism knobs
+    (``model_parallel``, ``sequence_parallel``, ``pipeline_stages``) are a
+    later slice and raise when they train. ``device=None`` is the CUDA
+    card.
 
     Parameters live as the JAX template keeps them: ``_params``, nested
     dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
@@ -1114,9 +1509,8 @@ class LlamaLoRA:
     @staticmethod
     def get_knob_config() -> KnobConfig:
         """The JAX template's search space, knob for knob (its JSON is
-        JAX's). The knobs of later slices (parallelism, MoE, remat
-        schedules) keep their domains: a proposal that sets one raises
-        when it trains."""
+        JAX's). The parallelism knobs of a later slice keep their
+        domains: a proposal that sets one raises when it trains."""
         return {
             "max_epochs": FixedKnob(6),
             "vocab_size": FixedKnob(1 << 14),
@@ -1164,8 +1558,6 @@ class LlamaLoRA:
     def __init__(self, device: DeviceLike = None, **knobs: Any) -> None:
         self.device = resolve_device(device)
         self.knobs: Dict[str, Any] = dict(knobs)
-        if self.knobs.get("moe_experts"):
-            raise NotImplementedError("knob 'moe_experts' is not ported yet")
         tok_path = str(self.knobs.get("tokenizer_path") or "")
         if tok_path:
             # the vocabulary follows the artifact: the embedding must
@@ -1190,7 +1582,7 @@ class LlamaLoRA:
         as in the JAX template), contiguous cache layout; int8 base
         kernels with ``quantized``, ``n_adapters`` stacked adapters at
         every LoRA site, an int8 cache with the ``kv_cache_int8``
-        knob."""
+        knob, the knobs' checkpointing schedule and MoE FFN."""
         k = self.knobs
         hd = int(k["hidden_dim"])
         heads = int(k["n_heads"])
@@ -1206,7 +1598,11 @@ class LlamaLoRA:
                          k.get("rope_scaling", "")),
                      quantized=quantized, n_adapters=n_adapters,
                      kv_int8=bool(k.get("kv_cache_int8", False)),
-                     device=self.device)
+                     device=self.device,
+                     remat=bool(k.get("remat", False)),
+                     remat_policy=str(k.get("remat_policy", "") or ""),
+                     n_experts=int(k.get("moe_experts", 0) or 0),
+                     moe_top_k=int(k.get("moe_top_k", 1) or 1))
 
     def _serving_module_params(self, kv_page_size: int = 0,
                                kv_pages: int = 0) -> Llama:
@@ -1307,9 +1703,10 @@ class LlamaLoRA:
     @classmethod
     def gang_blockers(cls, knobs: Dict[str, Any]) -> List[str]:
         """Why THIS assignment cannot train as a gang lane (empty:
-        gangable), each entry naming its knob. JAX's entries, word for
-        word (a lane is one unsharded step over a shared base), then the
-        port's own: the remat schedules are not ported."""
+        gangable), each entry naming its knob: JAX's entries, word for
+        word (a lane is one unsharded step over a shared base). The
+        checkpointing schedules are no blocker: each is a bucket of its
+        own."""
         def _i(name: str, default: int = 0) -> int:
             return int(knobs.get(name, default) or default)
 
@@ -1335,11 +1732,6 @@ class LlamaLoRA:
             out.append("pretrained_path set (lanes broadcast the shared "
                        "PRNGKey(0) base; checkpoint import is a mesh-"
                        "path feature)")
-        if knobs.get("remat"):
-            out.append("remat (rematerialization is not ported yet)")
-        if str(knobs.get("remat_policy") or "none") != "none":
-            out.append("remat_policy != 'none' (the remat schedules are "
-                       "not ported yet)")
         return out
 
     @classmethod
@@ -1455,117 +1847,90 @@ class LlamaLoRA:
             lane_param_count=sum(t.numel() for t in state.values()))
 
     def _check_trainable_knobs(self) -> None:
-        """The JAX template routes every knob set that ``gang_blockers``
-        names to its sharded mesh loop, which is not ported; so are the
-        remat schedules."""
+        """The parallelism knobs need the sharded mesh loop of a later
+        slice; they raise, by name."""
         k = self.knobs
-
-        def on(name: str, default: int = 0) -> bool:
-            return int(k.get(name, default) or default) > default
-
-        blockers = [name for name, default in (
-            ("model_parallel", 1), ("sequence_parallel", 1),
-            ("pipeline_stages", 1), ("grad_accum", 1), ("moe_experts", 0),
-            ("loss_chunk", 0)) if on(name, default)]
-        if k.get("remat"):
-            blockers.append("remat")
-        if str(k.get("remat_policy") or "none") != "none":
-            blockers.append("remat_policy")
+        blockers = [name for name in ("model_parallel", "sequence_parallel",
+                                      "pipeline_stages")
+                    if int(k.get(name, 1) or 1) > 1]
         if blockers:
             raise NotImplementedError(
-                f"knob(s) {blockers} need the sharded / rematerialized "
-                "train path, which is not ported yet")
+                f"knob(s) {blockers} need the sharded train path, which "
+                "is not ported yet")
+
+    def _dims(self) -> LlamaDims:
+        k = self.knobs
+        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
+        return LlamaDims(
+            self.tokenizer.vocab_size, hd, int(k["depth"]), heads,
+            max(1, heads // int(k["kv_ratio"])), 4 * hd,
+            int(k["lora_rank"]), torch.finfo(self._dtype()).bits // 8,
+            int(k.get("moe_experts", 0) or 0),
+            int(k.get("moe_top_k", 1) or 1))
+
+    def _train_batch_size(self) -> int:
+        """The batch :meth:`train` steps with: the knob's, rounded down to
+        a multiple of ``grad_accum`` (JAX's rounding on a data axis of
+        one)."""
+        batch_size = int(self.knobs["batch_size"])
+        q = int(self.knobs.get("grad_accum", 1) or 1)
+        return max(q, batch_size - batch_size % q) if q > 1 else batch_size
 
     def _budget_terms(self) -> Dict[str, int]:
-        """Element and byte counts the train estimates share (see
-        :meth:`estimate_device_budget`)."""
+        """:func:`_train_terms` of these knobs."""
         k = self.knobs
-        act = torch.finfo(self._dtype()).bits // 8
-        hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
-        dh = hd // heads
-        kv = max(1, heads // int(k["kv_ratio"])) * dh
-        rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
-        depth, mlp = int(k["depth"]), 4 * hd
-        adapters_only = bool(k.get("adapters_only", False))
-        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd), (hd, mlp),
-                 (hd, mlp), (mlp, hd)]
-        lora = depth * sum(rank * (i + o) for i, o in sites)
-        norms = (2 * depth + 1) * hd
-        head = hd * vocab
-        rms = (4 if adapters_only else 8) * hd + 4  # frozen scale: no norm
-        per_block = (2 * rms + act * (7 * hd + 4 * mlp) + 8 * dh
-                     + 4 * heads + act * len(sites) * rank)
-        final = rms + act * hd + 3 * 4 * vocab
-        return {
-            "act": act,
-            "trainable": lora if adapters_only else lora + norms + head,
-            # the trainable leaves as the module draws them: adapters
-            # and the LM head in the compute dtype, the norms f32
-            "slots": act * lora + (0 if adapters_only
-                                   else 4 * norms + act * head),
-            "frozen": act * (depth * sum(i * o for i, o in sites)
-                             + (head if adapters_only else 0))
-            + 4 * (vocab * hd + (norms if adapters_only else 0)),
-            "tokens": int(k["batch_size"]) * int(k["max_len"]),
-            "per_token": depth * per_block + final,
-            "transient": 0 if adapters_only or act == 4 else head * act}
+        return _train_terms(
+            self._dims(), self._train_batch_size(), int(k["max_len"]),
+            bool(k.get("adapters_only", False)),
+            remat_schedule(bool(k.get("remat", False)),
+                           str(k.get("remat_policy", "") or "")),
+            int(k.get("grad_accum", 1) or 1),
+            int(k.get("loss_chunk", 0) or 0))
 
     def estimate_device_budget(self, n_devices: int = 1,
                                gang_size: int = 0) -> Dict[str, int]:
         """Device memory of one train step of these knobs on the port's
-        one card, at its peak: the start of the backward. JAX's
-        signature: ``n_devices`` (a TPU mesh there) is accepted and
-        ignored, the port trains on one device; ``gang_size >= 1``
-        budgets a K-lane gang step instead
+        one card, at its peak (:func:`estimate_train_device_bytes`, whose
+        docstring gives the terms). JAX's signature: ``n_devices`` (a TPU
+        mesh there) is accepted and ignored, the port trains on one
+        device; ``gang_size >= 1`` budgets a K-lane gang step instead
         (:func:`estimate_gang_device_bytes`). Knobs :meth:`train` refuses
-        raise the same error here. Bytes by term:
-
-        - ``params``: trainable leaves (adapters, norms, LM head) as f32
-          master weights; frozen leaves as :meth:`train` holds them (base
-          kernels in the compute dtype, the embedding f32);
-        - ``grads``: one f32 gradient per trainable leaf;
-        - ``opt``: Adam's two f32 moments per trainable leaf;
-        - ``activations``: what autograd saves for the backward over
-          batch_size × max_len tokens. A token of one block: each
-          RMSNorm's f32 input and rsqrt, and its normalized output where
-          the scale trains (not under ``adapters_only``); the
-          attention input, q, the K/V repeated to every head, the
-          attention output and its reshaped copy, the MLP input and the
-          SwiGLU's gate, silu, up and product in the compute dtype;
-          rope's f32 cos and sin for q and k; the f32 LSE; each LoRA
-          site's rank-wide ``x @ lora_a``. After the blocks: the final
-          norm's, the LM head's input, and the loss's f32 log-probs with
-          their cotangent and the logits' f32 cotangent, the three alive
-          together when the backward starts;
-        - ``transient``: the compute-dtype cast of the largest trainable
-          leaf (the LM head), made per call when that dtype is not f32."""
+        raise the same error here."""
         if gang_size >= 1:
             return estimate_gang_device_bytes(self, gang_size)
         self._check_trainable_knobs()
-        t = self._budget_terms()
-        trainable = t["trainable"]
-        out = {"params": 4 * trainable + t["frozen"],
-               "grads": 4 * trainable, "opt": 2 * 4 * trainable,
-               "activations": t["tokens"] * t["per_token"],
-               "transient": t["transient"]}
-        out["total"] = sum(out.values())
-        return out
+        return _step_bytes(self._budget_terms(),
+                           int(self.knobs.get("grad_accum", 1) or 1) > 1)
 
     def train(self, dataset_path: str,
               ctx: Optional[TrainContext] = None) -> None:
-        """LoRA fine-tune on a ``.jsonl`` text corpus: the JAX template's
-        functional loop (``_train_functional``): the gang lanes' step
-        (:func:`lane_train_step`) on one lane. The init is the loaded
-        weights when their shapes match, else ``ctx.shared_params`` under
-        the ``share_params`` knob, else the port's seeded init; with
-        ``pretrained_path`` on a fresh, non-warm start every base leaf
-        comes from that HF-convention checkpoint, read tensor by tensor
-        (the LoRA adapters keep their init; a ``config.json`` whose
-        ``rope_theta`` or ``rope_scaling`` disagrees with the knobs is
-        warned about, as in JAX). Batches come from
-        ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens`` are logged
-        per epoch. At the end ``_params`` holds the trained tree with
-        ``lora_scale`` folded into ``lora_b``."""
+        """LoRA fine-tune on a ``.jsonl`` text corpus with the gang lanes'
+        step (:func:`lane_train_step`) on one lane. The JAX template runs
+        its functional loop (``_train_functional``) when ``gang_blockers``
+        is empty, else (``grad_accum``, ``moe_experts``, ``loss_chunk``,
+        ``pretrained_path``) its sharded loop, which on one device is
+        this step with the streamed loss, the MoE aux term
+        (``MOE_AUX_COEF · aux``) and gradient accumulation over
+        ``grad_accum`` micro-batches, and the batch rounded down to a
+        multiple of ``grad_accum``; with none of those knobs the two are
+        the same step, so one loop serves both. The knobs'
+        checkpointing schedule runs in every block. One difference, on
+        purpose (ROADMAP Queue C 23): JAX's sharded loop never reads
+        ``lora_scale`` (it trains at scale 1 and stores ``lora_b``
+        unscaled); here every loop applies it and folds it into the
+        stored ``lora_b``.
+
+        The init is the loaded weights when their shapes match, else
+        ``ctx.shared_params`` under the ``share_params`` knob, else the
+        port's seeded init; with ``pretrained_path`` on a fresh, non-warm
+        start every base leaf comes from that HF-convention checkpoint,
+        read tensor by tensor (the LoRA adapters and the MoE routers and
+        experts, which no such checkpoint carries, keep their init; a
+        ``config.json`` whose ``rope_theta`` or ``rope_scaling``
+        disagrees with the knobs is warned about, as in JAX). Batches
+        come from ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens``
+        are logged per epoch. At the end ``_params`` holds the trained
+        tree with ``lora_scale`` folded into ``lora_b``."""
         self._check_trainable_knobs()
         ctx = ctx or TrainContext()
         ds = load_text_classification_dataset(dataset_path)
@@ -1605,7 +1970,9 @@ class LlamaLoRA:
                                float(self.knobs["learning_rate"]),
                                float(self.knobs.get("lora_scale", 1.0)))
         params = state_["params"]
-        batch_size = int(self.knobs["batch_size"])
+        batch_size = self._train_batch_size()
+        loss_chunk = int(self.knobs.get("loss_chunk", 0) or 0)
+        grad_accum = int(self.knobs.get("grad_accum", 1) or 1)
         epochs = self.gang_epochs(self.knobs, ctx.budget_scale)
 
         def folded() -> Dict[str, Any]:
@@ -1613,7 +1980,8 @@ class LlamaLoRA:
 
         def step(state, batch):
             return lane_train_step(model, state, hp,
-                                   batch_to_device(batch, self.device))
+                                   batch_to_device(batch, self.device),
+                                   loss_chunk, grad_accum)
 
         def checkpoint(state, frac_done):
             self._params = folded()
@@ -1667,8 +2035,10 @@ class LlamaLoRA:
         """Inverse perplexity exp(−nll) in (0, 1]; higher is better.
         Buckets of 32 rows; pad rows have ``lens = 0``, so no loss
         position of theirs counts. The f32 tree's model, int8 knobs or
-        not (JAX's evaluate takes ``_params``)."""
+        not (JAX's evaluate takes ``_params``); with ``loss_chunk`` the
+        loss is streamed, as the step streams it."""
         model = self._float_model()
+        loss_chunk = int(self.knobs.get("loss_chunk", 0) or 0)
         ds = load_text_classification_dataset(dataset_path)
         ids, lens = self._encode_lm(ds.texts)
         total, count = 0.0, 0.0
@@ -1683,9 +2053,14 @@ class LlamaLoRA:
                     lb = np.concatenate([lb, np.zeros((pad,), lb.dtype)])
                 batch = batch_to_device({"ids": ib, "lens": lb},
                                         self.device)
-                logits = model(batch["ids"], decode=False,
-                               lens=batch["lens"])
-                s, c = lm_loss_terms(logits, batch["ids"], batch["lens"])
+                out = model(batch["ids"], decode=False, lens=batch["lens"],
+                            return_hidden=bool(loss_chunk))
+                if loss_chunk:
+                    s, c = chunked_lm_loss_terms(
+                        out, model.lm_head.kernel, batch["ids"],
+                        batch["lens"], chunk=loss_chunk)
+                else:
+                    s, c = lm_loss_terms(out, batch["ids"], batch["lens"])
                 total += float(s)
                 count += float(c)
         return float(np.exp(-total / max(count, 1.0)))
@@ -1695,8 +2070,11 @@ class LlamaLoRA:
         """Greedy continuations, detokenized via the learned id→token
         table (unknown ids render as ``<id>``), through the serving model
         (int8 under the int8 knobs). The JAX template pads the batch to a
-        power of two for its compile cache; eager PyTorch has none to
-        hit, so the batch runs as given."""
+        power of two with BOS-only rows for its compile cache; eager
+        PyTorch has none to hit, so a dense model runs the batch as
+        given, but a MoE model pads as JAX does: its routing (which
+        tokens an expert's capacity drops) depends on every row of a
+        call."""
         model = self._serving_module_params()
         texts = [q if isinstance(q, str) else str(q) for q in queries]
         max_len = int(self.knobs["max_len"])
@@ -1704,7 +2082,14 @@ class LlamaLoRA:
         max_new = min(max_new_tokens, max_len - 1)
         ids, lens = self.tokenizer.encode_batch(texts,
                                                 max(1, max_len - max_new))
-        out = greedy_generate(model, ids, lens, max_new).cpu().numpy()
+        n = len(texts)
+        bucket = 1 << max(0, (n - 1).bit_length())
+        if model.n_experts and bucket > n:
+            ids = np.concatenate(
+                [ids, np.zeros((bucket - n, ids.shape[1]), ids.dtype)])
+            ids[n:, 0] = BOS_ID
+            lens = np.concatenate([lens, np.ones((bucket - n,), lens.dtype)])
+        out = greedy_generate(model, ids, lens, max_new).cpu().numpy()[:n]
         return [self._detok(row) for row in out]
 
     def warmup(self) -> None:
@@ -1720,7 +2105,8 @@ class LlamaLoRA:
         matmul leaves (``kernel``, ``lora_a``, ``lora_b``) in the compute
         dtype, or under ``quantize_int8`` each 2-d base ``kernel`` as an
         int8 ``qkernel`` plus its f32 ``qscale`` (the adapters still in
-        the compute dtype); the embedding and the norm scales f32. From
+        the compute dtype); the embedding, the norm scales and the MoE
+        routers and experts f32. From
         the loaded tree's shapes, else from the knobs' (JAX counts its
         f32 tree, which it keeps on the device; the port keeps that tree
         on the host)."""
@@ -1746,13 +2132,15 @@ class LlamaLoRA:
         hd, heads = int(k["hidden_dim"]), int(k["n_heads"])
         kv = max(1, heads // int(k["kv_ratio"])) * (hd // heads)
         rank, vocab = int(k["lora_rank"]), self.tokenizer.vocab_size
-        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd),
-                 (hd, 4 * hd), (hd, 4 * hd), (4 * hd, hd)]
+        experts = int(k.get("moe_experts", 0) or 0)
+        sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd)]
+        if not experts:
+            sites += [(hd, 4 * hd), (hd, 4 * hd), (4 * hd, hd)]
         block = 2 * leaf_bytes("scale", (hd,)) + sum(
             leaf_bytes("kernel", (i, o))
             + (leaf_bytes("lora_a", (i, rank))
                + leaf_bytes("lora_b", (rank, o)) if rank else 0)
-            for i, o in sites)
+            for i, o in sites) + 4 * experts * (hd + 3 * hd * 4 * hd)
         return (int(k["depth"]) * block + leaf_bytes("kernel", (hd, vocab))
                 + leaf_bytes("embedding", (vocab, hd))
                 + leaf_bytes("scale", (hd,)))
@@ -1779,10 +2167,17 @@ class LlamaLoRA:
 
         block = {"attn": {"wq": site(hd, hd), "wk": site(hd, kv),
                           "wv": site(hd, kv), "wo": site(hd, hd)},
-                 "gate": site(hd, 4 * hd), "up": site(hd, 4 * hd),
-                 "down": site(4 * hd, hd),
                  "RMSNorm_0": {"scale": leaf(hd)},
                  "RMSNorm_1": {"scale": leaf(hd)}}
+        e = int(k.get("moe_experts", 0) or 0)
+        if e:
+            block["moe"] = {"router": leaf(hd, e),
+                            "experts_gate": leaf(e, hd, 4 * hd),
+                            "experts_up": leaf(e, hd, 4 * hd),
+                            "experts_down": leaf(e, 4 * hd, hd)}
+        else:
+            block.update(gate=site(hd, 4 * hd), up=site(hd, 4 * hd),
+                         down=site(4 * hd, hd))
         tree: Dict[str, Any] = {f"block_{i}": block
                                 for i in range(int(k["depth"]))}
         tree.update(tok_embed={"embedding": leaf(vocab, hd)},

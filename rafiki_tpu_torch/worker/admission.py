@@ -6,6 +6,11 @@ The port's own copy of ``resolve_device_limit`` from
 reads the total of ``torch.cuda.mem_get_info`` for a CUDA device. The
 estimators live with the templates (``LlamaLoRA.
 estimate_serving_device_bytes``); the worker owns the refusal.
+
+That total is the whole card, while a train estimate is the caching
+allocator's peak of allocated bytes; :func:`train_reserve` is what a
+train step needs beside it, and the train worker admits a trial only
+where its estimate and that reserve fit under the limit.
 """
 
 from __future__ import annotations
@@ -19,6 +24,23 @@ import torch
 from rafiki_tpu_torch.utils.device import DeviceLike
 
 log = logging.getLogger(__name__)
+
+#: what a process holds on the card outside the caching allocator (the
+#: CUDA context, the kernels' modules: 0.65-0.82 GB on an H100), and
+#: the allocator's slack above its peak of allocated bytes, as a share
+#: of that peak (at 5 % a checkpointed Llama-3-8B-wide step ran out of
+#: memory). ``chip_smoke.py`` phase 35 runs each of its train steps with
+#: the allocator capped at ``estimate + train_reserve(estimate)`` less
+#: the memory outside it
+TRAIN_RESERVE_BYTES = 1 << 30
+TRAIN_RESERVE_SHARE = 0.10
+
+
+def train_reserve(total: int) -> int:
+    """Bytes a train step of estimated peak ``total`` needs on the card
+    beyond it: :data:`TRAIN_RESERVE_BYTES` plus
+    :data:`TRAIN_RESERVE_SHARE` of ``total``."""
+    return TRAIN_RESERVE_BYTES + int(TRAIN_RESERVE_SHARE * total)
 
 
 def resolve_device_limit(device: DeviceLike = None) -> Optional[int]:

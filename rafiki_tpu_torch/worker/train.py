@@ -32,7 +32,9 @@ Where it differs from the JAX worker, on purpose:
   trace under ``profile_dir/<trial_id>/``) where JAX takes a
   ``jax.profiler`` trace;
 - admission reads the card's memory (``worker/admission.py``) and the
-  template's single-card ``estimate_device_budget``;
+  template's single-card ``estimate_device_budget``, and keeps
+  ``train_reserve`` of the card beside the estimate (JAX's limit is
+  what its allocator may hand out; the card's total is more);
 - ``run_gang`` drives the port's gang engine (``rafiki_tpu_torch/
   tuning``) for a template with a gang spec, each lane-trial with its
   own MetaStore row and param blob, with JAX's admission callback over
@@ -65,7 +67,8 @@ from rafiki_tpu_torch.obs.metrics import MetricsRegistry, StatsMap
 from rafiki_tpu_torch.obs.trace import TraceBuffer, mint_trace_id
 from rafiki_tpu_torch.store.param_store import ParamStore
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
-from rafiki_tpu_torch.worker.admission import resolve_device_limit
+from rafiki_tpu_torch.worker.admission import (resolve_device_limit,
+                                               train_reserve)
 
 log = logging.getLogger(__name__)
 
@@ -347,7 +350,8 @@ class TrainWorker:
         limit is ``RAFIKI_DEVICE_HBM_BYTES`` (which the services manager
         sets to a slot's share where slots share a card) or the card's
         total memory (none on the CPU without the override: the check is
-        skipped). A
+        skipped), less the estimate's :func:`train_reserve` (the CUDA
+        context and the caching allocator's slack). A
         refusal raises ValueError, a deterministic-class trial error."""
         est = getattr(model, "estimate_device_budget", None)
         if est is None:
@@ -364,12 +368,15 @@ class TrainWorker:
                         "estimate_device_budget raised %r", e,
                         exc_info=True)
             return
-        if total > limit:
+        reserve = train_reserve(total)
+        if total + reserve > limit:
             gib = {k: round(v / 2**30, 2) for k, v in budget.items()}
             raise ValueError(
                 "admission control: estimated "
                 f"{total / 2**30:.2f}GiB/device train footprint "
-                f"exceeds the {limit / 2**30:.2f}GiB device limit "
+                f"exceeds the {(limit - reserve) / 2**30:.2f}GiB the "
+                f"{limit / 2**30:.2f}GiB device limit leaves beside its "
+                f"{reserve / 2**30:.2f}GiB reserve "
                 f"(breakdown: {gib} GiB); shrink batch_size/max_len")
 
     def _wire_checkpointing(self, ctx: TrainContext, ckpt_key: str,
@@ -540,7 +547,8 @@ class TrainWorker:
         lanes' state and activations. Returns a refusal reason (the
         bucket then runs its trials sequentially, each through the
         per-trial gate) or None to admit; the limit is the card's
-        (``RAFIKI_DEVICE_HBM_BYTES`` overrides it)."""
+        (``RAFIKI_DEVICE_HBM_BYTES`` overrides it), less the estimate's
+        :func:`train_reserve`."""
         limit = resolve_device_limit(self.device)
         if not limit:
             return None
@@ -559,12 +567,17 @@ class TrainWorker:
                         "estimate_device_budget raised %r", e,
                         exc_info=True)
             return None
-        if total > limit:
+        reserve = train_reserve(total)
+        if total + reserve > limit:
             gib = {key: round(v / 2**30, 2) for key, v in budget.items()}
             return (f"estimated {total / 2**30:.2f}GiB footprint for a "
-                    f"{k}-lane gang exceeds the {limit / 2**30:.2f}GiB "
-                    f"device limit (breakdown: {gib} GiB); shrink the "
-                    "gang, batch_size or max_len")
+                    f"{k}-lane gang exceeds the "
+                    f"{(limit - reserve) / 2**30:.2f}GiB the "
+                    f"{limit / 2**30:.2f}GiB device limit leaves beside "
+                    f"its {reserve / 2**30:.2f}GiB reserve (breakdown: "
+                    f"{gib} GiB); set "
+                    "remat_policy='full'/'policy' to trade activation "
+                    "memory for recompute, or shrink the gang")
         return None
 
     # ---- the loop ----

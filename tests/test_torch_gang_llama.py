@@ -3,9 +3,10 @@
 JAX package's engine.
 
 - a 1-lane gang ``tune_model`` scores EXACTLY as the sequential one;
-- ``gang_blockers`` names JAX's blockers and the port's own
-  (``remat_policy``, not ported): such a bucket falls back to sequential
-  trials, which refuse the knob by name;
+- ``gang_blockers`` names JAX's blockers, word for word, and no more: a
+  ``remat_policy`` schedule is a bucket of its own, one executor each,
+  and an admission lever (``"full"`` admits a gang ``"none"`` refuses
+  at the same device limit);
 - one executor per bucket; the winner's blob serves in the multi-adapter
   engine token-identically beside a sequentially trained twin, and the
   per-lane gauges carry one ``lane=<i>`` series per lane;
@@ -20,7 +21,6 @@ JAX package's engine.
   1e-5 relative of its sequential twin's.
 """
 
-import logging
 import random
 
 import jax
@@ -79,13 +79,18 @@ def test_llama_supports_gang_and_names_blockers():
     joined = "; ".join(blockers)
     assert "grad_accum" in joined and "model_parallel" in joined
     assert LlamaLoRA.gang_blockers(dict(LLAMA_PINS)) == []
-    # JAX's entries word for word
-    knobs = {**LLAMA_PINS, "grad_accum": 2, "model_parallel": 2,
-             "loss_chunk": 8, "pretrained_path": "x.safetensors"}
-    assert LlamaLoRA.gang_blockers(knobs) == JLlamaLoRA.gang_blockers(knobs)
-    # the port's own: the remat schedules are not ported
-    own = LlamaLoRA.gang_blockers({**LLAMA_PINS, "remat_policy": "full"})
-    assert len(own) == 1 and own[0].startswith("remat_policy")
+    # JAX's entries word for word, for every knob set: the checkpointing
+    # schedules block nothing in either package
+    for knobs in ({**LLAMA_PINS, "grad_accum": 2, "model_parallel": 2,
+                   "loss_chunk": 8, "pretrained_path": "x.safetensors"},
+                  {**LLAMA_PINS, "remat_policy": "full"},
+                  {**LLAMA_PINS, "remat_policy": "policy", "remat": True},
+                  {**LLAMA_PINS, "moe_experts": 4, "sequence_parallel": 2,
+                   "pipeline_stages": 2}):
+        assert LlamaLoRA.gang_blockers(knobs) == \
+            JLlamaLoRA.gang_blockers(knobs)
+    assert LlamaLoRA.gang_blockers({**LLAMA_PINS,
+                                    "remat_policy": "full"}) == []
 
 
 def test_one_lane_gang_scores_equal_sequential_tune_model(text_data):
@@ -99,24 +104,68 @@ def test_one_lane_gang_scores_equal_sequential_tune_model(text_data):
     assert gang.best_score == seq.best_score
 
 
-def test_remat_policy_bucket_is_refused_by_name(text_data, caplog):
-    """A remat_policy bucket cannot run as lanes (the port has no remat
-    schedules): the engine falls back to sequential trials, which refuse
-    the knob by name."""
-    pins = {**LLAMA_PINS, "remat_policy": "full"}
+def test_compile_count_equals_buckets_remat_by_gang_sweep(text_data):
+    """``tests/test_gang_llama.py``'s case: sweeping remat_policy (a
+    static schedule knob) at K = 2 builds one executor per static
+    bucket; the policy forks buckets, gang_size and the traceable knobs
+    never do."""
+    pins = {k: v for k, v in LLAMA_PINS.items() if k != "remat_policy"}
     adv = make_advisor(LlamaLoRA.get_knob_config(), "random",
-                       total_trials=1, seed=4)
+                       total_trials=4, seed=4)
     eng = _engine(text_data, adv, 2, knob_overrides=pins)
-    with caplog.at_level(logging.WARNING), \
-            pytest.raises(NotImplementedError, match="remat_policy"):
-        eng.run()
-    reasons = list(eng._blocked_buckets.values())
+    results = eng.run()
+    assert len(results) == 4
+    policies = {r.knobs["remat_policy"] for r in results}
+    assert len(policies) >= 2, "seed must spread over policies"
+    assert eng.n_buckets == len(policies)
+    assert len(results) > eng.n_buckets
+    assert list(eng.compile_counts().values()) == [1] * len(policies)
+    assert not eng._blocked_buckets
+
+
+def _need(total):
+    """The device limit the train worker admits an estimate at."""
+    from rafiki_tpu_torch.worker.admission import train_reserve
+
+    return total + train_reserve(total)
+
+
+def test_remat_policy_is_an_admission_lever(text_data, monkeypatch):
+    """``tests/test_gang_llama.py``'s case: at a device limit between the
+    two estimates, a gang refused at remat_policy="none" is admitted at
+    "full"; the refused bucket falls back to sequential trials."""
+    from rafiki_tpu_torch.worker.train import TrainWorker
+
+    none_total = LlamaLoRA(device="cpu", **LLAMA_PINS
+                           ).estimate_device_budget(1, gang_size=2)["total"]
+    full_total = LlamaLoRA(
+        device="cpu", **{**LLAMA_PINS, "remat_policy": "full"}
+    ).estimate_device_budget(1, gang_size=2)["total"]
+    assert full_total < none_total, \
+        "full remat must shrink the estimated gang footprint"
+    monkeypatch.setenv("RAFIKI_DEVICE_HBM_BYTES", str(
+        (_need(none_total) + _need(full_total)) // 2))
+
+    def run_worker(policy, n_trials):
+        adv = make_advisor(LlamaLoRA.get_knob_config(), "random",
+                           total_trials=n_trials, seed=6)
+        worker = TrainWorker(
+            LlamaLoRA, adv, *text_data, checkpoint_interval_s=0,
+            knob_overrides={**LLAMA_PINS, "remat_policy": policy},
+            device="cpu")
+        n = worker.run_gang(gang_size=2, max_trials=n_trials)
+        return n, worker.gang_engine
+
+    n_full, eng_full = run_worker("full", 2)
+    assert n_full == 2
+    assert not eng_full._blocked_buckets, "full remat must be admitted"
+    assert eng_full.n_buckets == 1  # ran as a real gang
+
+    n_none, eng_none = run_worker("none", 1)
+    assert n_none == 1  # refusal falls back, it does not strand trials
+    reasons = list(eng_none._blocked_buckets.values())
     assert reasons and "remat_policy" in reasons[0]
-    assert any("falls back to sequential" in r.getMessage()
-               and "remat_policy" in r.getMessage()
-               for r in caplog.records)
-    assert eng.n_buckets == 0
-    assert not adv._outstanding  # released, not stranded
+    assert eng_none.n_buckets == 0  # nothing built as a gang
 
 
 def test_compile_count_equals_buckets_by_gang_sweep(text_data):
@@ -220,8 +269,8 @@ def test_gang_admission_refuses_over_the_device_limit(text_data,
     two = LlamaLoRA(device="cpu", **LLAMA_PINS).estimate_device_budget(
         1, gang_size=2)
     assert two["total"] > one["total"]
-    monkeypatch.setenv("RAFIKI_DEVICE_HBM_BYTES",
-                       str((one["total"] + two["total"]) // 2))
+    monkeypatch.setenv("RAFIKI_DEVICE_HBM_BYTES", str(
+        (_need(one["total"]) + _need(two["total"])) // 2))
     adv = make_advisor(LlamaLoRA.get_knob_config(), "random",
                        total_trials=2, seed=6)
     worker = TrainWorker(LlamaLoRA, adv, *text_data,

@@ -179,19 +179,24 @@ def test_unported_branches_raise():
     # the train branch is ported; the sharded train path is not
     assert m(torch.zeros(1, 2, dtype=torch.long), decode=False).shape == \
         (1, 2, 16)
-    with pytest.raises(NotImplementedError):
-        LlamaLoRA(device="cpu", **{**KNOBS, "model_parallel": 2}).train(
-            "unread.jsonl")
-    with pytest.raises(NotImplementedError):
-        Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
-              n_kv_heads=1, mlp_dim=16, device="cpu", n_experts=4)
+    for knob in ("model_parallel", "sequence_parallel", "pipeline_stages"):
+        with pytest.raises(NotImplementedError, match=knob):
+            LlamaLoRA(device="cpu", **{**KNOBS, knob: 2}).train(
+                "unread.jsonl")
+    # the MoE FFN is ported: its four f32 leaves replace gate/up/down
+    moe = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
+                n_kv_heads=1, mlp_dim=16, device="cpu", n_experts=4)
+    assert sorted(n for n, _ in moe.block_0.named_parameters()
+                  if not n.startswith(("attn", "RMSNorm"))) == [
+        "moe.experts_down", "moe.experts_gate", "moe.experts_up",
+        "moe.router"]
     # the stacked multi-adapter sites are ported
     assert Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1,
                  n_heads=2, n_kv_heads=1, mlp_dim=16, lora_rank=2,
                  device="cpu", n_adapters=2).block_0.up.lora_a.shape == \
         (2, 8, 2)
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        LlamaLoRA(device="cpu", **{**KNOBS, "moe_experts": 4})
+    assert LlamaLoRA(device="cpu", **{**KNOBS, "moe_experts": 4}
+                     )._module().block_0.moe.n_experts == 4
     # the int8 serving forms are ported: int8 base kernels with their
     # scales, an int8 cache with its scale leaves, and the knobs
     q = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,

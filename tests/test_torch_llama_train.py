@@ -202,9 +202,8 @@ def test_template_train_evaluate_and_blob_exchange_match_jax(corpus, case):
 
 
 def test_train_refuses_unported_knobs(corpus):
-    for knob, value in (("model_parallel", 2), ("grad_accum", 2),
-                        ("loss_chunk", 64), ("remat_policy", "full"),
-                        ("remat", True), ("sequence_parallel", 2)):
+    for knob, value in (("model_parallel", 2), ("sequence_parallel", 2),
+                        ("pipeline_stages", 2)):
         m = ll.LlamaLoRA(device="cpu", **{**KNOBS, knob: value})
         with pytest.raises(NotImplementedError, match=knob):
             m.train(corpus[0])

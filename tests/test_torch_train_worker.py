@@ -615,10 +615,10 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
             "depth": 2, "max_len": 32, "batch_size": 8}
     budget = LlamaLoRA(device="cpu", **dict(LM_KNOBS, **pins))
     knobs = dict(LM_KNOBS, **pins)
-    total = budget.estimate_device_budget(1)["total"]
-    assert total == sum(v for k, v in
-                        budget.estimate_device_budget(1).items()
-                        if k != "total")
+    est = budget.estimate_device_budget(1)
+    # the step's peak: the backward's or the update's, not every term
+    assert est["total"] == est["params"] + est["opt"] + max(
+        est["activations"] + est["transient"], 3 * est["grads"])
     monkeypatch.setenv("RAFIKI_DEVICE_HBM_BYTES", "1000")
     meta = MetaStore(str(tmp_path / "m.db"))
     sub = meta.create_sub_train_job("j", "m0")["id"]
@@ -633,7 +633,7 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
         t["error_class"] == "deterministic"
     assert "admission control" in t["error"]
     # knobs the train path refuses raise the same error in the estimate
-    for bad in ({"model_parallel": 2}, {"remat_policy": "full"}):
+    for bad in ({"model_parallel": 2}, {"sequence_parallel": 2}):
         m = LlamaLoRA(device="cpu", **dict(knobs, **bad))
         with pytest.raises(NotImplementedError) as want:
             m._check_trainable_knobs()
@@ -641,6 +641,36 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
                            match=re.escape(str(want.value))):
             m.estimate_device_budget(1)
 
+
+def test_train_admission_keeps_a_reserve_at_the_limit(monkeypatch):
+    """The estimate is the allocator's peak; the card's total also holds
+    the CUDA context and the allocator's slack. So a trial (and a gang)
+    is admitted where its estimate plus ``train_reserve`` fits the limit
+    and refused a byte below, where the bare estimate would fit."""
+    from rafiki_tpu_torch.worker.admission import (TRAIN_RESERVE_BYTES,
+                                                   train_reserve)
+
+    knobs = dict(LM_KNOBS, model_parallel=1, remat_policy="none",
+                 hidden_dim=64, depth=2, max_len=32, batch_size=8)
+    model = LlamaLoRA(device="cpu", **knobs)
+    w = ptrain.TrainWorker(LlamaLoRA, None, "u", "u", device="cpu",
+                           knob_overrides=knobs)
+    for k in (0, 2):
+        est = model.estimate_device_budget(1, gang_size=k)["total"]
+        reserve = train_reserve(est)
+        assert reserve >= TRAIN_RESERVE_BYTES
+        for limit, admitted in ((est + reserve, True),
+                                (est + reserve - 1, False),
+                                (est, False)):
+            monkeypatch.setenv("RAFIKI_DEVICE_HBM_BYTES", str(limit))
+            if k:
+                refusal = w._gang_admission(knobs, k)
+                assert (refusal is None) == admitted, (limit, refusal)
+            elif admitted:
+                w._admission_check(model)
+            else:
+                with pytest.raises(ValueError, match="reserve"):
+                    w._admission_check(model)
 
 
 @pytest.mark.parametrize("extra", [
