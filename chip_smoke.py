@@ -418,6 +418,26 @@ Phases; each raises on failure, so the script exits non-zero:
     1e-3. Paths ``lora_remat_accum_chunk``, ``lora_moe_mixtral``,
     ``lora_template_moe``, ``lora_template_moe_serving``,
     ``lora_gang_remat``.
+36. ``model_parallel`` and the mesh (``mesh_phase``, right after 35),
+    every shard on the one card: (a) the template's mesh loop at
+    Llama-3-8B widths (``MESH_KNOBS``: bf16, depth 2, 4 x 1024, no
+    remat), 3 steps each at meshes (1, 1), (1, 2) and (2, 2): losses
+    within the bf16 bound of (1, 1)'s, B3/B5/B6 launched dp x mp x depth
+    x steps, the card's peak within 5 % of the shards' estimates
+    (``colocated_train_bytes``), the allocator capped at what admission
+    allows them; (b) (a)'s (2, 2) tree saved through
+    ``ParamStore.save_sharded_async`` on a file store, restored into
+    (1, 2) and (1, 1): every leaf bit-equal, seconds and GB/s; (c)
+    Mixtral-8x7B widths (8 experts, top 2, the template's MLP), depth 1,
+    2 x 1024, 2 steps at (1, 2) against (1, 1): losses and aux within
+    the bf16 bound, the peak under the cap; (d) f32 at width 64 on (1,
+    2), card against CPU: losses within 1e-6 relative, the blob decoded
+    token-equal by paged engines on both (B1/B2 on the card); (e) a
+    ``model_parallel`` 2 trial through the train worker on the one-card
+    slot, checkpointing sharded, preempted, resumed warm through
+    ``sharded_ref``. Paths ``lora_mesh_1x1``, ``lora_mesh_1x2``,
+    ``lora_mesh_2x2``, ``lora_mesh_moe_1x1``, ``lora_mesh_moe_1x2``,
+    ``lora_mesh_f32``, ``lora_mesh_f32_serving``, ``lora_mesh_worker``.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
 22, 23, 32, 27, 28, 31, 33, then 24 and 18: phases 24 and 18 hold the most
@@ -2139,6 +2159,429 @@ def lora_training_phase(torch, np, ll, moe, fa, pa, dev_mod, store_params,
         raise AssertionError(f"phase 35 (d) gang scores "
                              f"{gang['gang_scores']} vs "
                              f"{gang['sequential_scores']}")
+    return paths
+
+
+# ------------------------------------------- model_parallel and the mesh
+
+#: phase 36 (a), (b): Llama-3-8B's widths through the template (vocab
+#: 128256, hidden 4096, 32 heads, kv_ratio 4; the MLP 4 x hidden, as both
+#: packages build it), bf16, LoRA rank 16, batch 4 x 1024 (lens
+#: 512..1024), no remat: 3 steps (one per epoch) per mesh; depth 2 (at 4
+#: the phase took 107 s of its 90)
+MESH_KNOBS = {"max_epochs": 3, "vocab_size": VOCAB, "hidden_dim": 4096,
+              "depth": 2, "n_heads": 32, "kv_ratio": 4, "lora_rank": 16,
+              "max_len": 1024, "learning_rate": 1e-4, "lora_scale": 1.0,
+              "batch_size": 4, "bf16": True, "remat_policy": "none",
+              "rope_theta": 500000.0, "quick_train": False,
+              "share_params": False}
+MESH_SHAPES = ((1, 1), (1, 2), (2, 2))
+#: (c): Mixtral-8x7B's widths (hidden 4096, 32 / 8 heads, 8 experts, 2 per
+#: token, vocab 32000, rope theta 1e6; the template's MLP, 4 x hidden),
+#: experts f32, depth 1, batch 2 x 1024, 2 steps at (1, 1) and (1, 2)
+MESH_MOE_KNOBS = dict(MESH_KNOBS, max_epochs=2, vocab_size=32000, depth=1,
+                      batch_size=2, moe_experts=8, moe_top_k=2,
+                      rope_theta=1e6)
+#: (d): f32 at width 64 over (1, 2), card against CPU
+MESH_F32_KNOBS = {"max_epochs": 2, "vocab_size": 1 << 10, "hidden_dim": 64,
+                  "depth": 2, "n_heads": 4, "kv_ratio": 2, "lora_rank": 4,
+                  "max_len": 64, "model_parallel": 2, "learning_rate": 1e-3,
+                  "lora_scale": 1.0, "batch_size": 8, "bf16": False,
+                  "quick_train": True, "share_params": False}
+#: (e): a model_parallel 2 trial through the train worker (the knobs'
+#: domains: 6 epochs cut to 2 by quick_train)
+MESH_WORKER_PINS = dict(MESH_F32_KNOBS, max_epochs=6, vocab_size=1 << 14,
+                        remat_policy="none", remat=False, moe_experts=0,
+                        overlap_collectives=False, adapters_only=False)
+#: a mesh's peak against the sum of its shards' estimates
+MESH_PEAK_TOL = 0.05
+#: (d): card against CPU, f32
+MESH_F32_TOL = 1e-6
+
+
+def _mesh_corpus(np, path, n, seed, s):
+    """``n`` texts of ``s / 2`` .. ``s`` hash-tokenizer words (with BOS,
+    rows of ``s / 2 + 1`` .. ``s`` tokens)."""
+    rng = np.random.default_rng(seed)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        f.write(json.dumps({"n_classes": 2}) + "\n")
+        for _ in range(n):
+            words = rng.integers(0, 5000, size=int(rng.integers(s // 2,
+                                                                 s + 1)))
+            f.write(json.dumps({"text": " ".join(f"tok{w}" for w in words),
+                                "label": 0}) + "\n")
+    return str(path)
+
+
+def _timed_steps(torch, llm, secs, aux):
+    """Wrap the mesh loop's step (and its loss terms) to record each
+    step's seconds and each micro-batch's MoE aux; returns the undo."""
+    step, terms = llm.mesh_train_step, llm.mesh_micro_terms
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*a, **k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        return out
+
+    def with_aux(*a, **k):
+        out = terms(*a, **k)
+        aux.append(float(out[2].detach()))
+        return out
+
+    llm.mesh_train_step, llm.mesh_micro_terms = timed, with_aux
+
+    def undo():
+        llm.mesh_train_step, llm.mesh_micro_terms = step, terms
+    return undo
+
+
+def _mesh_run(torch, ll, llm, fa, TrainContext, knobs, shape, corpus, dev,
+              ctx_extra=None):
+    """The template's ``train`` on a (dp, mp) mesh whose every shard is
+    ``dev``: epoch losses, step seconds, MoE aux, the flash launches, and
+    the peak allocated bytes above what the process held before, beside
+    the sum of the shards' ``estimate_device_budget`` (``ll.
+    colocated_train_bytes``). The allocator is capped at what admission
+    allows that sum."""
+    from rafiki_tpu_torch.worker.admission import train_reserve
+
+    dp, mp = shape
+    n = dp * mp
+    # model_parallel 2 over n devices: JAX's halving rule gives (n, 1) for
+    # n = 1 and (n / 2, 2) otherwise, the mesh loop either way
+    m = ll.LlamaLoRA(device=dev, **dict(knobs, model_parallel=2))
+    assert m._mesh([dev] * n).shape == {"data": dp, "model": mp}
+    est = m.estimate_device_budget(n)
+    # the shards share the card: their terms add, but the loss
+    # backward's working buffers come one shard at a time, and a model
+    # position's data rows share one gathered LM head
+    total_est = ll.colocated_train_bytes(
+        est, dp, mp, int(knobs.get("grad_accum", 1) or 1) > 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    cap = before + total_est + train_reserve(total_est) - outside
+    secs, aux = [], []
+    undo = _timed_steps(torch, llm, secs, aux)
+    ctx = TrainContext(devices=[dev] * n, **(ctx_extra or {}))
+    zero_flash_launches(fa)
+    torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
+    t0 = time.perf_counter()
+    try:
+        m.train(corpus, ctx)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        undo()
+    train_s = time.perf_counter() - t0
+    launches = flash_launches(fa)
+    rise = torch.cuda.max_memory_allocated() - before
+    return m, {"mesh": list(shape), "losses": ctx.logger.get_values("loss"),
+               "step_s": secs, "aux": aux, "train_s": train_s,
+               "launches": launches, "peak_gb": rise / 1e9,
+               "estimate_per_shard_gb": {k: v / 1e9 for k, v in est.items()},
+               "estimate_sum_gb": total_est / 1e9,
+               "peak_over_estimate": rise / total_est,
+               "allocator_cap_gb": cap / 1e9,
+               "shards_share_one_card": True}
+
+
+def _mesh_template(torch, ll, mesh_shape, leaf_shapes, dev):
+    """A sharded template tree of the mesh loop's specs over a mesh of
+    ``mesh_shape`` on ``dev`` (restore targets for (b))."""
+    from rafiki_tpu_torch.models.llama_mesh import mesh_specs
+    from rafiki_tpu_torch.parallel.collectives import ShardedLeaf
+    from rafiki_tpu_torch.parallel.sharding import leaf_paths, make_mesh
+
+    dp, mp = mesh_shape
+    mesh = make_mesh([dev] * (dp * mp), model=mp)
+    specs = mesh_specs(leaf_shapes, mesh, ll.TP_RULES)
+    tree = {}
+    for path, leaf in leaf_paths(leaf_shapes):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = ShardedLeaf(leaf.shape, specs[".".join(path)],
+                                     mesh, [None] * (dp * mp))
+    return tree
+
+
+def _ckpt_leg(torch, ll, ps, tree, leaf_shapes, dev):
+    """(b): (a)'s (2, 2) tree saved through ``save_sharded_async`` on a
+    file store, restored into (1, 2) and (1, 1) on the card: every leaf
+    bit for bit."""
+    from rafiki_tpu_torch.parallel.collectives import ShardedLeaf
+    from rafiki_tpu_torch.parallel.sharding import leaf_paths
+
+    root = ROOT / "build" / "chip_smoke" / "mesh_ckpt"
+    if root.exists():
+        import shutil
+
+        shutil.rmtree(root)
+    store = ps.ParamStore.from_uri(f"file://{root}")
+    t0 = time.perf_counter()
+    assert store.save_sharded_async("ckpt-mesh", tree)
+    snapshot_s = time.perf_counter() - t0
+    store.sharded_checkpointer().wait()
+    save_s = time.perf_counter() - t0
+    nbytes = store.sharded_checkpointer().total_bytes("ckpt-mesh")
+    # compared on the card: the saved tree assembled there once
+    want = {"/".join(p): (leaf.full(dev) if isinstance(leaf, ShardedLeaf)
+                          else torch.as_tensor(leaf).to(dev))
+            for p, leaf in leaf_paths(tree)}
+    restores = {}
+    for shape in ((1, 2), (1, 1)):
+        ref = store.sharded_ref("ckpt-mesh")
+        tmpl = {"params": _mesh_template(torch, ll, shape, leaf_shapes,
+                                         dev)}
+        assert ref.matches(tmpl)
+        t0 = time.perf_counter()
+        out = ref.restore(tmpl)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        unequal = [p for p, leaf in (("/".join(q), x)
+                                     for q, x in leaf_paths(out))
+                   if not torch.equal(leaf.full(dev), want[p])]
+        restores["x".join(map(str, shape))] = {
+            "seconds": secs, "gb_per_s": nbytes / secs / 1e9,
+            "unequal_leaves": unequal}
+        del out
+        torch.cuda.empty_cache()
+    n_leaves = len(want)
+    del want
+    return {"bytes": nbytes, "snapshot_s": snapshot_s, "save_s": save_s,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "leaves": n_leaves, "restores": restores, "warm_reads": True}
+
+
+def _mesh_f32_leg(torch, np, ll, pa, fa, store_params, TrainContext, dev):
+    """(d): f32 at width 64 on a (1, 2) mesh, on the card and on the CPU
+    from one init; the card's blob decoded by paged engines on both."""
+    work = ROOT / "build" / "chip_smoke" / "mesh_f32"
+    train = write_corpus(np, work / "train.jsonl", 32, SEED + 39,
+                         vocab=200, max_words=60)
+    host = ll.LlamaLoRA(device="cpu", **MESH_F32_KNOBS)
+    blob = {"params": store_params.params_to_jax(
+        host._module().state_dict()), "meta": {"id2tok": {}}}
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = ll.LlamaLoRA(device=d, **MESH_F32_KNOBS)
+        m.load_parameters(blob)
+        ctx = TrainContext(devices=[d] * 2)
+        zero_flash_launches(fa)
+        m.train(train, ctx)
+        runs[where] = (m, ctx.logger.get_values("loss"))
+        if where == "card":
+            train_launches = flash_launches(fa)
+    card = runs["card"][0]
+    served = ll.LlamaLoRA(device="cpu", **MESH_F32_KNOBS)
+    served.load_parameters(card.dump_parameters())
+    queries = ["tok1 tok5 tok9", "tok3", "tok2 tok4 tok6 tok8 tok10"]
+    texts = {}
+    zero_flash_launches(fa)
+    _zero_paged(pa)
+    for where, m in (("card", card), ("cpu", served)):
+        eng = m.make_decode_engine(max_slots=4, max_new_tokens=12,
+                                   kv_page_size=8)
+        for i, q in enumerate(queries * 2):
+            eng.submit(i, q)
+        got = {}
+        for _ in range(2000):
+            if not eng.busy:
+                break
+            eng.step()
+            got.update(dict(eng.poll()))
+        texts[where] = got
+        if where == "card":
+            torch.cuda.synchronize()
+            serve_launches = {**flash_launches(fa), **_paged_counts(pa)}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][1],
+                                                  runs["cpu"][1]))
+    return {"losses": {w: r[1] for w, r in runs.items()},
+            "max_loss_rel": rel, "tol": MESH_F32_TOL,
+            "decode_equal": texts["card"] == texts["cpu"]
+            and len(texts["card"]) == 2 * len(queries)}, \
+        train_launches, serve_launches
+
+
+def _mesh_worker_leg(torch, np, ll, ms, ps, adv, wt, fa, dev):
+    """(e): a model_parallel 2 trial through the port's train worker on a
+    one-card slot (a (1, 1) mesh), checkpointing to a file store; it is
+    preempted after its first checkpoint, and a second worker resumes it
+    warm through ``sharded_ref``."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke" / "mesh_worker"
+    if work.exists():
+        shutil.rmtree(work)
+    train = write_corpus(np, work / "train.jsonl", 32, SEED + 40,
+                         vocab=200, max_words=60)
+    meta = ms.MetaStore(str(work / "meta.db"))
+    job = meta.create_train_job("u0", "mesh", 1, "LANGUAGE_MODELING",
+                                {"TRIAL_COUNT": 1}, "tr", "va")
+    sub = meta.create_sub_train_job(job["id"], "m0")["id"]
+    store = ps.ParamStore.from_uri(f"file://{work / 'params'}")
+
+    class Preempted(ll.LlamaLoRA):
+        def train(self, dataset_path, ctx=None):
+            inner = ctx.checkpoint
+
+            def checkpoint(make_blob, frac_done=None, tree=None):
+                inner(make_blob, frac_done=frac_done, tree=tree)
+                raise OSError("phase 36 (e): preempted after a checkpoint")
+
+            ctx.checkpoint = checkpoint
+            super().train(dataset_path, ctx)
+
+    def worker(cls, wid, trials):
+        return wt.TrainWorker(
+            cls, adv.make_advisor(cls.get_knob_config(), "random",
+                                  total_trials=trials, seed=SEED),
+            train, train, param_store=store, meta_store=meta,
+            sub_train_job_id=sub, model_id="m0", worker_id=wid,
+            knob_overrides=MESH_WORKER_PINS, checkpoint_interval_s=1e-9,
+            device=dev)
+
+    refs = []
+    sharded_ref = store.sharded_ref
+
+    def spy(key):
+        ref = sharded_ref(key)
+        refs.append(ref is not None)
+        return ref
+
+    store.sharded_ref = spy
+    zero_flash_launches(fa)
+    worker(Preempted, "w0", 1).run(max_trials=1)
+    first = meta.get_trials_of_sub_train_job(sub)[0]
+    key = f"ckpt-{first['id']}"
+    landed = store.exists_sharded(key) and not store.exists(key)
+    w2 = worker(ll.LlamaLoRA, "w1", 0)
+    w2.orphan_stale_s = 0.0
+    resumed = w2.resume_orphaned_trials()
+    done = [t for t in meta.get_trials_of_sub_train_job(sub)
+            if t["status"] == "COMPLETED"]
+    return {"first_error_class": first["error_class"],
+            "checkpoint_sharded": landed, "resumed": resumed,
+            "warm_start_through_sharded_ref": refs == [True],
+            "completed": len(done), "score": done[0]["score"] if done
+            else None}, flash_launches(fa)
+
+
+def mesh_phase(torch, np, ll, fa, pa, ps, ms, adv, wt, store_params,
+               TrainContext, dev, smi):
+    """Phase 36, ``model_parallel`` and the mesh: (a) the template's mesh
+    loop at Llama-3-8B widths on meshes (1, 1), (1, 2) and (2, 2) whose
+    every shard is this card, (b) (a)'s (2, 2) checkpoint saved sharded
+    and restored into (1, 2) and (1, 1), (c) a Mixtral-8x7B-width MoE
+    step with its experts sharded, (d) f32 card against CPU with the
+    blob decoded on both, (e) a trial through the train worker that
+    checkpoints sharded and resumes warm. All shards share one card, so
+    a step time here shows the mesh loop's overhead, not the scaling
+    more cards would give. Gates at the end."""
+    from rafiki_tpu_torch.models import llama_mesh as llm
+
+    t_phase = time.perf_counter()
+    paths = {}
+    work = ROOT / "build" / "chip_smoke" / "mesh"
+    corpus = _mesh_corpus(np, work / "llama3.jsonl", 4, SEED + 36, 1024)
+    runs, kept = {}, {}
+
+    def keep_tree(make_blob, frac_done=None, tree=None):
+        if frac_done == 1.0:  # the last step's live tree
+            kept["tree"] = tree
+
+    for shape in MESH_SHAPES:
+        name = "x".join(map(str, shape))
+        extra = {"checkpoint": keep_tree} if shape == (2, 2) else None
+        m, runs[name] = _mesh_run(torch, ll, llm, fa, TrainContext,
+                                  MESH_KNOBS, shape, corpus, dev, extra)
+        paths[f"lora_mesh_{name}"] = runs[name]["launches"]
+        leaf_shapes = m._param_shapes()
+        del m
+        torch.cuda.empty_cache()
+    legs_s = {"a": time.perf_counter() - t_phase}
+    ckpt = _ckpt_leg(torch, ll, ps, kept.pop("tree"), leaf_shapes, dev)
+    legs_s["b"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    torch.cuda.empty_cache()
+    moe_corpus = _mesh_corpus(np, work / "mixtral.jsonl", 2, SEED + 37, 1024)
+    moe_runs = {}
+    for shape in ((1, 1), (1, 2)):
+        name = "x".join(map(str, shape))
+        m, moe_runs[name] = _mesh_run(torch, ll, llm, fa, TrainContext,
+                                      MESH_MOE_KNOBS, shape, moe_corpus, dev)
+        paths[f"lora_mesh_moe_{name}"] = moe_runs[name]["launches"]
+        del m
+        torch.cuda.empty_cache()
+    legs_s["c"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    f32, paths["lora_mesh_f32"], paths["lora_mesh_f32_serving"] = \
+        _mesh_f32_leg(torch, np, ll, pa, fa, store_params, TrainContext, dev)
+    torch.cuda.empty_cache()
+    legs_s["d"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    worker, paths["lora_mesh_worker"] = _mesh_worker_leg(
+        torch, np, ll, ms, ps, adv, wt, fa, dev)
+    torch.cuda.empty_cache()
+    legs_s["e"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    emit({"phase": "mesh", "card": smi,
+          "seconds": time.perf_counter() - t_phase, "legs_s": legs_s,
+          "llama3": runs, "checkpoint": ckpt, "mixtral": moe_runs,
+          "f32": f32, "worker": worker, "launches": paths})
+
+    depth = MESH_KNOBS["depth"]
+    ref = runs["1x1"]["losses"]
+    for name, r in runs.items():
+        dp, mp = r["mesh"]
+        want = dp * mp * depth * MESH_KNOBS["max_epochs"]
+        if any(r["launches"][k] != want for k in FLASH):
+            raise AssertionError(f"phase 36 (a) {name}: launches "
+                                 f"{r['launches']} != {want} each")
+        if len(r["losses"]) != 3 or not all(
+                _bf16_close(a, b) for a, b in zip(r["losses"], ref)):
+            raise AssertionError(f"phase 36 (a) {name}: losses "
+                                 f"{r['losses']} against (1, 1)'s {ref}")
+        if abs(r["peak_over_estimate"] - 1) > MESH_PEAK_TOL:
+            raise AssertionError(
+                f"phase 36 (a) {name}: peak {r['peak_gb']:.3f} GB against "
+                f"the shards' {r['estimate_sum_gb']:.3f} GB")
+    if not ref[-1] < ref[0]:
+        raise AssertionError(f"phase 36 (a): losses {ref} do not fall")
+    for name, r in ckpt["restores"].items():
+        if r["unequal_leaves"]:
+            raise AssertionError(f"phase 36 (b) restore into {name}: "
+                                 f"{r['unequal_leaves'][:4]} differ")
+    mref = moe_runs["1x1"]
+    for name, r in moe_runs.items():
+        if not all(_bf16_close(a, b) for a, b in zip(r["losses"],
+                                                    mref["losses"])) or \
+                not all(_bf16_close(a, b) for a, b in zip(r["aux"],
+                                                          mref["aux"])):
+            raise AssertionError(f"phase 36 (c) {name}: losses "
+                                 f"{r['losses']} aux {r['aux']} against "
+                                 f"(1, 1)'s {mref['losses']} {mref['aux']}")
+        if r["peak_gb"] > r["allocator_cap_gb"] or not all(
+                math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"phase 36 (c) {name}: {r}")
+    if f32["max_loss_rel"] > MESH_F32_TOL or not f32["decode_equal"]:
+        raise AssertionError(f"phase 36 (d): card and CPU {f32}")
+    serving = paths["lora_mesh_f32_serving"]
+    if not (serving.get("paged_decode_attention")
+            and serving.get("paged_window_attention")):
+        raise AssertionError(f"phase 36 (d) paged kernels: {serving}")
+    if not (worker["first_error_class"] == "preemption"
+            and worker["checkpoint_sharded"] and worker["resumed"] == 1
+            and worker["warm_start_through_sharded_ref"]
+            and worker["completed"] == 1):
+        raise AssertionError(f"phase 36 (e): {worker}")
+    if not all(paths["lora_mesh_worker"].values()):
+        raise AssertionError(f"phase 36 (e) launches "
+                             f"{paths['lora_mesh_worker']}")
     return paths
 
 
@@ -8211,6 +8654,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(lora_training_phase(torch, np, ll, moe, fa, pa, dev_mod,
                                      store_params, TrainContext, dev, smi))
+    torch.cuda.empty_cache()
+    paths.update(mesh_phase(torch, np, ll, fa, pa, ps, ms, adv, wt,
+                            store_params, TrainContext, dev, smi))
     torch.cuda.empty_cache()
     template_phase(torch, np, ll, TrainContext, dev)
     torch.cuda.empty_cache()

@@ -6,10 +6,10 @@ The port's own copy of ``TrainContext``, ``BaseModel.validate_knobs``
 ``validate_knobs`` class methods call), ``serialize_model_class`` and
 ``load_model_class`` from ``rafiki_tpu/model/base.py``: a class is
 uploaded as the UTF-8 source of its defining module and imported again
-from that source by the admin and by each worker. The port's templates take their device at
-construction, so the JAX context's ``devices`` (a trial's sub-mesh) has
-no field here; ``profile_dir`` is where the train worker writes the
-trial's ``torch.profiler`` trace. The port has no ``BaseModel``:
+from that source by the admin and by each worker. ``devices`` is the
+trial's slot (a mesh is built over it where a template shards: the
+``model_parallel`` knob of ``LlamaLoRA``); ``profile_dir`` is where the
+train worker writes the trial's ``torch.profiler`` trace. The port has no ``BaseModel``:
 ``load_model_class`` accepts any class with the serving surface a worker
 calls (``load_parameters`` and ``predict``).
 """
@@ -22,7 +22,7 @@ import sys
 import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch.model.knob import Knobs, validate_knobs
 from rafiki_tpu_torch.model.log import ModelLogger
@@ -40,6 +40,10 @@ class TrainContext:
     logger: ModelLogger = field(default_factory=ModelLogger)
     #: trial identity, for checkpoints and log correlation
     trial_id: Optional[str] = None
+    #: the slot's devices (``torch.device`` or names; one may repeat); None
+    #: is every visible card (JAX's ``jax.local_devices()``), or one CPU
+    #: device on a template built with ``device="cpu"``
+    devices: Optional[List[Any]] = None
     #: called with (epoch, score) between epochs; False stops training
     should_continue: Optional[Any] = None
     #: when set, the train worker records a ``torch.profiler`` trace of

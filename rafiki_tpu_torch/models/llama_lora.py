@@ -51,9 +51,12 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
 - the ``LlamaLoRA`` template: ``train`` (JAX's ``_train_functional``
   loop and its sharded loop on one device: ``grad_accum``, ``loss_chunk``,
   ``moe_experts``, and with ``pretrained_path`` the base weights of an
-  HF-convention safetensors checkpoint), ``gang_blockers``,
+  HF-convention safetensors checkpoint; with ``model_parallel > 1`` its
+  mesh loop, ``_train_mesh`` over ``models/llama_mesh.py``, ``TP_RULES``
+  and ``_mesh``), ``gang_blockers``,
   ``gang_epochs``, ``make_gang_spec``, ``estimate_device_budget`` (one
-  trial's, :func:`estimate_train_device_bytes`, or with ``gang_size`` a
+  trial's, :func:`estimate_train_device_bytes`, a mesh device's,
+  :func:`estimate_mesh_train_device_bytes`, or with ``gang_size`` a
   gang's, :func:`estimate_gang_device_bytes`), ``evaluate``,
   ``dump_parameters``, ``load_parameters`` (blobs move both ways with
   the JAX template, ``meta["bpe_merges"]`` included), ``predict``,
@@ -79,6 +82,7 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import logging
 import math
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
@@ -108,9 +112,14 @@ from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.common import gqa_repeat_factor
 from rafiki_tpu_torch.ops.moe import (MOE_AUX_COEF, MoEFeedForward,
                                       expert_capacity, moe_aux_loss)
+from rafiki_tpu_torch.models.llama_mesh import (MeshLlama, checkpoint_tree,
+                                                gather_trainable,
+                                                make_step_fn,
+                                                mesh_lane_init, shard_tree)
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
+from rafiki_tpu_torch.parallel.sharding import Mesh, make_mesh
 from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
 from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
@@ -119,6 +128,15 @@ from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 
 RopeScaling = Tuple[float, float, float, float]
+
+#: JAX's Megatron-style tensor-parallel rules (``param_shardings``' keys,
+#: in JAX's order: the first matching substring wins, and "gate"/"up"/
+#: "down" are substrings of the stacked expert names, so "experts" comes
+#: first): column-parallel projections split the output dim, row-parallel
+#: ones the input dim, the stacked MoE experts their expert dim
+TP_RULES = {"experts": 0,
+            "wq": -1, "wk": -1, "wv": -1, "gate": -1, "up": -1,
+            "wo": 0, "down": 0, "lm_head": -1, "tok_embed": -1}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
@@ -843,14 +861,18 @@ def lora_trainable_names(model: Llama, adapters_only: bool = False
     head (JAX's ``lora_trainable_mask``), or the adapters alone with
     ``adapters_only`` (``adapter_only_mask``). The base kernels and the
     embedding stay frozen."""
-    def trainable(path: str) -> bool:
-        if adapters_only:
-            return "lora_a" in path or "lora_b" in path
-        return ("lora_" in path or "norm" in path or "/moe/" in path
-                or path.startswith("lm_head"))
-
     return [name for name, _ in model.named_parameters()
-            if trainable(name.replace(".", "/").lower())]
+            if _trains(name, adapters_only)]
+
+
+def _trains(key: str, adapters_only: bool = False) -> bool:
+    """JAX's ``lora_trainable_mask`` (``adapter_only_mask`` with
+    ``adapters_only``) of one ``state_dict`` key."""
+    path = key.replace(".", "/").lower()
+    if adapters_only:
+        return "lora_a" in path or "lora_b" in path
+    return ("lora_" in path or "norm" in path or "/moe/" in path
+            or path.startswith("lm_head"))
 
 
 def make_trainable(model: Llama, names: Sequence[str]
@@ -1286,9 +1308,11 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _replace_leaves(tree: Dict[str, Any],
-                    leaves: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+                    leaves: Dict[str, torch.Tensor],
+                    copy: bool = True) -> Dict[str, Any]:
     """``tree`` (an f32 tree the caller owns and never writes) with the
-    leaves named by ``state_dict`` key replaced by f32 numpy copies; the
+    leaves named by ``state_dict`` key replaced by f32 numpy copies (with
+    ``copy=False``, views of CPU f32 leaves the caller hands over); the
     other leaves are shared, not copied."""
     out = structure_copy(tree)
     for key, t in leaves.items():
@@ -1296,7 +1320,8 @@ def _replace_leaves(tree: Dict[str, Any],
         *path, leaf = key.split(".")
         for part in path:
             node = node[part]
-        node[leaf] = np.array(t.detach().to("cpu", torch.float32))
+        host = t.detach().to("cpu", torch.float32)
+        node[leaf] = np.array(host) if copy else host.numpy()
     return out
 
 
@@ -1324,18 +1349,28 @@ class LlamaDims(NamedTuple):
 
 def _train_terms(d: LlamaDims, batch_size: int, seq: int,
                  adapters_only: bool = False, remat_policy: str = "none",
-                 grad_accum: int = 1, loss_chunk: int = 0
-                 ) -> Dict[str, int]:
+                 grad_accum: int = 1, loss_chunk: int = 0, mp: int = 0,
+                 route_tokens: int = 0) -> Dict[str, int]:
     """The element and byte counts :func:`estimate_train_device_bytes`
     and :func:`estimate_gang_device_bytes` share: ``trainable``
     (elements), ``slots`` (the bytes of the trainable leaves as the
     module draws them), ``frozen`` (bytes), ``activations`` and
-    ``transient`` (bytes of one (micro-)batch's step)."""
-    act, hd, depth, mlp = d.act, d.hidden, d.depth, d.mlp
-    rank, vocab, e, k = d.rank, d.vocab, d.n_experts, d.top_k
+    ``transient`` (bytes of one (micro-)batch's step). ``mp >= 1`` gives
+    one shard's of the mesh loop on a ``model`` axis of ``mp``
+    (``batch_size`` then its data row's): the residual stream and the
+    norms whole, the heads, the MLP, the experts and the vocabulary
+    split ``mp`` ways, the MoE capacity of ``route_tokens`` (the global
+    micro-batch's); its loss (``llama_mesh._VocabShardCE``) keeps the
+    logits in the compute dtype and adds ``working``: its backward's f32
+    softmax and cast gradient, made for one shard at a time."""
+    mesh = mp >= 1
+    mp = max(1, mp)
+    act, hd, depth = d.act, d.hidden, d.depth
+    rank, k = d.rank, d.top_k
+    mlp, vocab, e = d.mlp // mp, -(-d.vocab // mp), d.n_experts // mp
     dh = hd // d.heads
-    kv = d.kv_heads * dh
-    sites = [(hd, hd), (hd, kv), (hd, kv), (hd, hd)]
+    kv = d.kv_heads * dh // (mp if d.kv_heads % mp == 0 else 1)
+    sites = [(hd, hd // mp), (hd, kv), (hd, kv), (hd // mp, hd)]
     if not e:
         sites += [(hd, mlp), (hd, mlp), (mlp, hd)]
     lora = depth * sum(rank * (i + o) for i, o in sites)
@@ -1353,12 +1388,12 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
     # probabilities, each choice's f32 output row and, per layer, the
     # expert slots, their SwiGLU tensors and the experts' per-call casts
     rms = (4 if adapters_only else 8) * hd + 4
-    block = (2 * rms + act * 6 * hd + 8 * dh + 4 * d.heads
-             + act * len(sites) * rank)
+    block = (2 * rms + act * (hd + 5 * (hd // mp)) + 8 * dh
+             + 4 * (d.heads // mp) + act * len(sites) * rank)
     layer = 0
     if e:
-        cap = e * expert_capacity(tokens, k, e)
-        block += 4 * hd + 4 * e + k * (4 * hd + 16)
+        cap = e * expert_capacity(route_tokens or tokens, k, d.n_experts)
+        block += 4 * hd + 4 * d.n_experts + k * (4 * hd + 16)
         layer = cap * (act * hd + 4 * act * mlp + 8) \
             + (3 * e * hd * mlp * act if act != 4 else 0)
     else:
@@ -1376,7 +1411,7 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
             keep += act * (width + (width + len(sites) * rank
                                     if rank else 0))
             if e:
-                keep += 4 * e
+                keep += 4 * d.n_experts
         kept_layer = (cap * act * (2 * mlp + hd)
                       if e and remat_policy == "policy" else 0)
         blocks = depth * (tokens * keep + kept_layer)
@@ -1387,10 +1422,18 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
     # chunk of those plus the compute-dtype gradient of the LM head the
     # chunks accumulate into
     rows = max(1, batch_size // max(1, grad_accum))
-    logits = (rows * min(loss_chunk, seq) * 12 * vocab + act * head
-              if loss_chunk else tokens * 12 * vocab)
+    logit_rows = rows * min(loss_chunk, seq) if loss_chunk else tokens
+    working = 0
+    if mesh:  # the compute-dtype logits (a streamed chunk's: none kept)
+        working = logit_rows * vocab * (4 + (act if act != 4 else 0)
+                                        + (act if loss_chunk else 0))
+        logits = act * head if loss_chunk else tokens * vocab * act
+    else:
+        logits = logit_rows * 12 * vocab + (act * head if loss_chunk
+                                            else 0)
     final = tokens * (rms + act * hd) + max(logits, recompute)
     return {
+        "working": working,
         "trainable": lora if adapters_only else lora + norms + head
         + experts,
         "slots": act * lora + (0 if adapters_only else
@@ -1446,11 +1489,76 @@ def _step_bytes(t: Dict[str, int], accumulating: bool) -> Dict[str, int]:
     out = {"params": 4 * trainable + t["frozen"], "grads": 4 * trainable,
            "opt": 2 * 4 * trainable, "activations": t["activations"],
            "transient": t["transient"]}
-    backward = out["activations"] + out["transient"] + (
-        out["grads"] if accumulating else 0)
+    if t.get("working"):
+        out["working"] = t["working"]
+    backward = out["activations"] + out["transient"] + out.get(
+        "working", 0) + (out["grads"] if accumulating else 0)
     out["total"] = out["params"] + out["opt"] + max(backward,
                                                     3 * out["grads"])
     return out
+
+
+def estimate_mesh_train_device_bytes(template: "LlamaLoRA", dp: int,
+                                     mp: int) -> Dict[str, int]:
+    """One device's memory of :meth:`LlamaLoRA._train_mesh` on a (dp, mp)
+    mesh (JAX's ``estimate_train_device_bytes`` at ``data_parallel`` dp,
+    ``model_parallel`` mp), in :func:`estimate_train_device_bytes`' terms
+    and peak rule: ``params`` and ``opt`` are exact sums over the shard
+    shapes of JAX's specs (``TP_RULES`` and fsdp), each leaf as the mesh
+    holds it (trainable f32, frozen kernels in the compute dtype);
+    ``activations``, ``transient`` and ``working`` (the loss backward's
+    buffers) are one shard's (:func:`_train_terms` with ``mp``) over
+    its data row's ``batch / (dp · grad_accum)`` rows. Shards that share
+    a card (a mesh that repeats a device) hold their other terms each,
+    but one process makes the ``working`` buffers for one shard at a
+    time, and the data rows of a model position share its gathered LM
+    head (:func:`colocated_train_bytes`)."""
+    from rafiki_tpu_torch.models.llama_mesh import (mesh_specs,
+                                                    storage_dtype)
+    from rafiki_tpu_torch.parallel.sharding import leaf_paths, shard_shape
+
+    k = template.knobs
+    mesh = make_mesh(["cpu"] * (dp * mp), model=mp)
+    shapes = template._param_shapes()
+    specs = mesh_specs(shapes, mesh, TP_RULES)
+    adapters_only = bool(k.get("adapters_only", False))
+    dtype = template._dtype()
+    trainable, frozen = 0, 0
+    for path, leaf in leaf_paths(shapes):
+        key = ".".join(path)
+        n = math.prod(shard_shape(leaf.shape, specs[key], mesh))
+        if _trains(key, adapters_only):
+            trainable += n
+        else:
+            frozen += n * torch.finfo(storage_dtype(key, False, dtype)).bits \
+                // 8
+    grad_accum = int(k.get("grad_accum", 1) or 1)
+    batch = int(k["batch_size"])
+    batch = max(grad_accum * dp, batch - batch % (grad_accum * dp))
+    t = _train_terms(
+        template._dims(), batch // dp, int(k["max_len"]), adapters_only,
+        remat_schedule(bool(k.get("remat", False)),
+                       str(k.get("remat_policy", "") or "")),
+        grad_accum, int(k.get("loss_chunk", 0) or 0), mp=mp,
+        route_tokens=batch // grad_accum * int(k["max_len"]))
+    t.update(trainable=trainable, frozen=frozen)
+    return _step_bytes(t, grad_accum > 1)
+
+
+def colocated_train_bytes(est: Dict[str, int], dp: int, mp: int,
+                          accumulating: bool = False) -> int:
+    """The peak of a (dp, mp) mesh's shards all on one card, each
+    estimated ``est`` (:func:`estimate_mesh_train_device_bytes`): the
+    step's peak rule over their summed terms, with the ``working``
+    buffers counted once (one process makes them for one shard at a
+    time) and the gathered LM head (``transient``) once per model
+    position (the ``dp`` data rows of a position gather it onto one
+    card, and the gather's result is one tensor there)."""
+    n = dp * mp
+    backward = n * est["activations"] + mp * est["transient"] + est.get(
+        "working", 0) + (n * est["grads"] if accumulating else 0)
+    return n * (est["params"] + est["opt"]) + max(backward,
+                                                  3 * n * est["grads"])
 
 
 def estimate_gang_device_bytes(template: "LlamaLoRA",
@@ -1492,10 +1600,9 @@ class LlamaLoRA:
     ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``,
     ``tokenizer_path``, ``pretrained_path``, the checkpointing schedules
     ``remat`` and ``remat_policy``, ``grad_accum``, ``loss_chunk``,
-    ``moe_experts``, ``moe_top_k``, ...); the parallelism knobs
-    (``model_parallel``, ``sequence_parallel``, ``pipeline_stages``) are a
-    later slice and raise when they train. ``device=None`` is the CUDA
-    card.
+    ``moe_experts``, ``moe_top_k``, ``model_parallel``: the mesh loop,
+    ...); ``sequence_parallel`` and ``pipeline_stages`` are a later slice
+    and raise when they train. ``device=None`` is the CUDA card.
 
     Parameters live as the JAX template keeps them: ``_params``, nested
     dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
@@ -1509,8 +1616,9 @@ class LlamaLoRA:
     @staticmethod
     def get_knob_config() -> KnobConfig:
         """The JAX template's search space, knob for knob (its JSON is
-        JAX's). The parallelism knobs of a later slice keep their
-        domains: a proposal that sets one raises when it trains."""
+        JAX's). ``sequence_parallel`` and ``pipeline_stages``, a later
+        slice's, keep their domains: a proposal that sets one raises when
+        it trains."""
         return {
             "max_epochs": FixedKnob(6),
             "vocab_size": FixedKnob(1 << 14),
@@ -1847,16 +1955,36 @@ class LlamaLoRA:
             lane_param_count=sum(t.numel() for t in state.values()))
 
     def _check_trainable_knobs(self) -> None:
-        """The parallelism knobs need the sharded mesh loop of a later
-        slice; they raise, by name."""
+        """``sequence_parallel`` and ``pipeline_stages`` need the ring /
+        ulysses attention and the pipeline of a later slice; they raise,
+        by name. ``model_parallel`` trains on a mesh (``_train_mesh``)."""
         k = self.knobs
-        blockers = [name for name in ("model_parallel", "sequence_parallel",
+        blockers = [name for name in ("sequence_parallel",
                                       "pipeline_stages")
                     if int(k.get(name, 1) or 1) > 1]
         if blockers:
             raise NotImplementedError(
                 f"knob(s) {blockers} need the sharded train path, which "
                 "is not ported yet")
+
+    def _mesh(self, devices: Sequence[Any]) -> Mesh:
+        """JAX's rule: ``model_parallel`` halved until it divides the
+        device count; the rest of the devices are ``data``."""
+        n = len(devices)
+        mp = int(self.knobs.get("model_parallel", 1))
+        while n % mp:
+            mp //= 2
+        return make_mesh(devices, model=max(1, mp))
+
+    def _train_devices(self, ctx: TrainContext) -> List[torch.device]:
+        """``ctx.devices``, or every visible card (JAX's
+        ``jax.local_devices()``), or one CPU device on a CPU template."""
+        if ctx.devices:
+            return [torch.device(d) for d in ctx.devices]
+        if self.device.type == "cuda":
+            return [torch.device("cuda", k)
+                    for k in range(torch.cuda.device_count())]
+        return [self.device]
 
     def _dims(self) -> LlamaDims:
         k = self.knobs
@@ -1889,16 +2017,22 @@ class LlamaLoRA:
 
     def estimate_device_budget(self, n_devices: int = 1,
                                gang_size: int = 0) -> Dict[str, int]:
-        """Device memory of one train step of these knobs on the port's
-        one card, at its peak (:func:`estimate_train_device_bytes`, whose
-        docstring gives the terms). JAX's signature: ``n_devices`` (a TPU
-        mesh there) is accepted and ignored, the port trains on one
-        device; ``gang_size >= 1`` budgets a K-lane gang step instead
-        (:func:`estimate_gang_device_bytes`). Knobs :meth:`train` refuses
-        raise the same error here."""
+        """Device memory of one train step of these knobs at its peak,
+        per device. With ``model_parallel > 1`` the mesh :meth:`train`
+        builds over ``n_devices`` (JAX's factors: ``model_parallel``
+        halved until it divides, the rest ``data``;
+        :func:`estimate_mesh_train_device_bytes`); otherwise the one-card
+        step (:func:`estimate_train_device_bytes`), which trains on one
+        device whatever ``n_devices`` is. ``gang_size >= 1`` budgets a
+        K-lane gang step instead (:func:`estimate_gang_device_bytes`).
+        Knobs :meth:`train` refuses raise the same error here."""
         if gang_size >= 1:
             return estimate_gang_device_bytes(self, gang_size)
         self._check_trainable_knobs()
+        if int(self.knobs.get("model_parallel", 1) or 1) > 1:
+            shape = self._mesh(["cpu"] * max(1, int(n_devices))).shape
+            return estimate_mesh_train_device_bytes(self, shape["data"],
+                                                    shape["model"])
         return _step_bytes(self._budget_terms(),
                            int(self.knobs.get("grad_accum", 1) or 1) > 1)
 
@@ -1913,21 +2047,24 @@ class LlamaLoRA:
         (``MOE_AUX_COEF · aux``) and gradient accumulation over
         ``grad_accum`` micro-batches, and the batch rounded down to a
         multiple of ``grad_accum``; with none of those knobs the two are
-        the same step, so one loop serves both. The knobs'
+        the same step, so one loop serves both. With ``model_parallel >
+        1`` it runs JAX's mesh loop (:meth:`_train_mesh`) over
+        ``ctx.devices``. The knobs'
         checkpointing schedule runs in every block. One difference, on
         purpose (ROADMAP Queue C 23): JAX's sharded loop never reads
         ``lora_scale`` (it trains at scale 1 and stores ``lora_b``
         unscaled); here every loop applies it and folds it into the
         stored ``lora_b``.
 
-        The init is the loaded weights when their shapes match, else
-        ``ctx.shared_params`` under the ``share_params`` knob, else the
-        port's seeded init; with ``pretrained_path`` on a fresh, non-warm
-        start every base leaf comes from that HF-convention checkpoint,
-        read tensor by tensor (the LoRA adapters and the MoE routers and
-        experts, which no such checkpoint carries, keep their init; a
-        ``config.json`` whose ``rope_theta`` or ``rope_scaling``
-        disagrees with the knobs is warned about, as in JAX). Batches
+        The init is :meth:`_initial_base`'s: the loaded weights when
+        their shapes match, else ``ctx.shared_params`` under the
+        ``share_params`` knob, else the port's seeded init; with
+        ``pretrained_path`` on a fresh, non-warm start every base leaf
+        comes from that HF-convention checkpoint, read tensor by tensor
+        (the LoRA adapters and the MoE routers and experts, which no such
+        checkpoint carries, keep their init; a ``config.json`` whose
+        ``rope_theta`` or ``rope_scaling`` disagrees with the knobs is
+        warned about, as in JAX). Batches
         come from ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens``
         are logged per epoch. At the end ``_params`` holds the trained
         tree with ``lora_scale`` folded into ``lora_b``."""
@@ -1935,32 +2072,12 @@ class LlamaLoRA:
         ctx = ctx or TrainContext()
         ds = load_text_classification_dataset(dataset_path)
         ids, lens = self._encode_lm(ds.texts)
+        if int(self.knobs.get("model_parallel", 1) or 1) > 1:
+            return self._train_mesh(ids, lens, ctx)
         model = self._module()
         names = lora_trainable_names(
             model, bool(self.knobs.get("adapters_only", False)))
-        state = model.state_dict()
-        shapes = _nest(state)  # the module's own tensors: no host copy
-        base = None
-        warm = False
-        if self._params is not None and \
-                same_tree_shapes(shapes, self._params):
-            base = self._params  # re-train / load_parameters
-        shared = (ctx.shared_params or {}).get("params")
-        if self.knobs.get("share_params") and shared is not None and \
-                same_tree_shapes(shapes, shared):
-            base, warm = shared, True
-        pretrained = str(self.knobs.get("pretrained_path") or "")
-        if pretrained and self._params is None and not warm:
-            self._check_pretrained_rope(pretrained, model)
-            # adapters from the init (copied off the module), the rest
-            # straight from the file into a tree of fresh f32 arrays
-            base = import_llama_safetensors(pretrained, _nest({
-                key: (np.array(t.detach().to("cpu", torch.float32))
-                      if hf_name_for(tuple(key.split("."))) is None
-                      else t) for key, t in state.items()}))
-        else:
-            base = f32_tree(params_to_jax(state) if base is None else base)
-        del state, shapes
+        base = self._initial_base(model, ctx)
         trainable = make_trainable(model, names)
         model.load_state_dict(llama_params_from_jax(base, model.dtype,
                                                     trainable))
@@ -1994,6 +2111,141 @@ class LlamaLoRA:
                    log_extra={"tokens": int(ids.shape[0] * ids.shape[1])})
         del state_, model
         self._set_params(folded(), own=True)
+
+    def _initial_base(self, model: Llama, ctx: TrainContext,
+                      on_device: Sequence[str] = ()) -> Dict[str, Any]:
+        """The f32 tree a fine-tune starts from: the loaded weights when
+        their shapes match ``model``'s, else ``ctx.shared_params`` under
+        the ``share_params`` knob (a blob, or a sharded checkpoint handle,
+        restored to host arrays once its manifest matches, in the
+        one-card loop too, where JAX's functional loop starts cold:
+        ROADMAP Queue C 25; a restore that fails starts cold, as in JAX),
+        else ``model``'s own init; with
+        ``pretrained_path`` on a fresh, non-warm start every base leaf
+        comes from that checkpoint, read tensor by tensor. Leaves named in
+        ``on_device`` that come from a CUDA module's init stay its tensors
+        (the caller moves them on the card and replaces them in the tree
+        it builds at the end)."""
+        state = model.state_dict()
+        shapes = _nest(state)  # the module's own tensors: no host copy
+        base = None
+        warm = False
+        if self._params is not None and \
+                same_tree_shapes(shapes, self._params):
+            base = self._params  # re-train / load_parameters
+        shared_obj = ctx.shared_params if self.knobs.get("share_params") \
+            else None
+        shared = None
+        if hasattr(shared_obj, "restore"):
+            if shared_obj.matches({"params": shapes}):
+                try:
+                    shared = shared_obj.restore({"params": shapes})[
+                        "params"]
+                except (KeyError, ValueError):
+                    logging.getLogger(__name__).warning(
+                        "sharded warm-start checkpoint does not match "
+                        "this parameterization; training cold",
+                        exc_info=True)
+        elif shared_obj is not None:
+            shared = shared_obj.get("params")
+        if shared is not None and same_tree_shapes(shapes, shared):
+            base, warm = shared, True
+        pretrained = str(self.knobs.get("pretrained_path") or "")
+        if pretrained and self._params is None and not warm:
+            self._check_pretrained_rope(pretrained, model)
+            # adapters from the init (copied off the module), the rest
+            # straight from the file into a tree of fresh f32 arrays
+            return import_llama_safetensors(pretrained, _nest({
+                key: (np.array(t.detach().to("cpu", torch.float32))
+                      if hf_name_for(tuple(key.split("."))) is None
+                      else t) for key, t in state.items()}))
+        if base is None and model.device.type != "cpu":
+            # the card's leaves come to the host as fresh f32 arrays (a
+            # CPU module's may share its parameters' memory: copied)
+            keep = set(on_device)
+            tree = params_to_jax({k: t for k, t in state.items()
+                                  if k not in keep})
+            for key in keep:
+                *path, leaf = key.split(".")
+                node = tree
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = state[key]
+            return tree
+        return f32_tree(params_to_jax(state) if base is None else base)
+
+    def _train_mesh(self, ids: np.ndarray, lens: np.ndarray,
+                    ctx: TrainContext) -> None:
+        """JAX's mesh loop (``model_parallel > 1``): the ``(data,
+        model)`` mesh of :meth:`_mesh` over :meth:`_train_devices`, every
+        leaf sharded by ``TP_RULES`` and fsdp, the batch over ``data``,
+        the step of ``models/llama_mesh.py``. The start is the one-card
+        loop's (:meth:`_initial_base`, the seeded init drawn on the
+        template's device, then held as the f32 host tree the blob is
+        built from), so a (1, 1) mesh starts where one card does; with
+        ``pretrained_path`` the checkpoint is read tensor by tensor into
+        that tree and each leaf then sliced onto its shards (JAX's import
+        reads each shard's slice from the file). The batch rounds down to
+        a multiple of ``data`` (times ``grad_accum``). A checkpoint hands ``ctx.checkpoint`` the live
+        tree (:func:`checkpoint_tree`, JAX's manifest) beside the blob
+        factory. ``overlap_collectives`` changes nothing (JAX's compiler
+        options are TPU-only)."""
+        mesh = self._mesh(self._train_devices(ctx))
+        dp = mesh.shape["data"]
+        model = self._module()
+        names = lora_trainable_names(
+            model, bool(self.knobs.get("adapters_only", False)))
+        base = self._initial_base(model, ctx, on_device=names)
+        k = self.knobs
+        mm = MeshLlama(
+            mesh, {}, hidden=model.hidden_dim, depth=model.depth,
+            n_heads=model.n_heads, n_kv_heads=model.n_kv_heads,
+            lora_rank=model.lora_rank, dtype=model.dtype,
+            rope_theta=model.rope_theta, rope_scaling=model.rope_scaling,
+            n_experts=model.n_experts, moe_top_k=model.moe_top_k,
+            remat_policy=model.remat_policy)
+        del model
+        mm.leaves = shard_tree(base, mesh, TP_RULES, names, mm.dtype)
+        for key in names:  # the shards hold them now: keep shapes only
+            *path, leaf = key.split(".")
+            node = base
+            for part in path:
+                node = node[part]
+            node[leaf] = np.broadcast_to(np.float32(0), node[leaf].shape)
+        state = mesh_lane_init(mm, names, float(k["learning_rate"]))
+        scale = float(k.get("lora_scale", 1.0))
+        grad_accum = int(k.get("grad_accum", 1) or 1)
+        batch_size = int(k["batch_size"])
+        q = grad_accum * dp
+        batch_size = max(q, batch_size - batch_size % q)
+        step = make_step_fn(mm, state, names, scale,
+                            int(k.get("loss_chunk", 0) or 0), grad_accum)
+
+        def folded() -> Dict[str, Any]:
+            # the gathered leaves are fresh host tensors: not copied again
+            return _replace_leaves(base, merge(gather_trainable(mm, names),
+                                               scale), copy=False)
+
+        def make_blob() -> Dict[str, Any]:
+            self._params = folded()
+            return self.dump_parameters()
+
+        def checkpoint(state, frac_done):
+            ctx.checkpoint(make_blob, frac_done=frac_done,
+                           tree={"params": checkpoint_tree(mm, base, names,
+                                                           scale)})
+
+        run_epochs(step, state, lambda epoch: batch_iterator(
+                       {"ids": ids, "lens": lens}, batch_size, seed=epoch),
+                   self.gang_epochs(k, ctx.budget_scale), ctx, checkpoint,
+                   plot="LM loss",
+                   log_extra={"tokens": int(ids.shape[0] * ids.shape[1])})
+        trained = folded()
+        del step, state, mm
+        # the serving model is built when evaluate or predict first asks
+        # for it (the mesh's shards are gone by then)
+        self._params = trained
+        self._model = self._qmodel = None
 
     def _check_pretrained_rope(self, pretrained: str, model: Llama) -> None:
         """Warn when the checkpoint's ``config.json`` disagrees with the

@@ -1,14 +1,18 @@
 """Mixture-of-Experts FFN: top-k capacity routing over SwiGLU experts.
 
-Ports ``rafiki_tpu/ops/moe.py`` on one device (its expert parallelism
-is a sharding of the stacked expert axis over a mesh, which one card
-does not have):
+Ports ``rafiki_tpu/ops/moe.py`` (its expert parallelism is a sharding
+of the stacked expert axis over a mesh: the mesh step,
+``models/llama_mesh.py``, runs :func:`expert_outputs` over each shard's
+range of experts):
 
 - :data:`MOE_AUX_COEF`, the weight of the load-balancing term in the
   train objective;
 - :func:`router_dispatch`, the routing as JAX returns it: one-hot
   ``dispatch`` and ``combine`` tensors over (token, expert, slot) and the
   Switch aux loss;
+- :func:`route`, the same routing as slot indices and gates, and
+  :func:`expert_outputs`, a range of experts run on the tokens a
+  routing gave them;
 - :class:`MoEFeedForward`, the routed SwiGLU FFN, whose ``forward``
   returns ``(y, aux)``: the aux is an output, not a sown collection;
 - :func:`moe_aux_loss`, the sum of a forward's aux terms.
@@ -123,6 +127,42 @@ def router_dispatch(logits: torch.Tensor, capacity: int, top_k: int = 1
             r.aux)
 
 
+def expert_outputs(x: torch.Tensor, r: Routing, gate: torch.Tensor,
+                   up: torch.Tensor, down: torch.Tensor, first_expert: int = 0,
+                   first_token: int = 0) -> torch.Tensor:
+    """The f32 output, (n, d), of experts ``first_expert ..
+    first_expert + E_local - 1`` (``gate`` and ``up`` (E_local, d, h),
+    ``down`` (E_local, h, d), in the compute dtype) for the ``n`` tokens
+    ``x`` holds, which are tokens ``first_token ..`` of the routing
+    ``r``: each token's sum over its kept choices of those experts of
+    gate × its slot's output (zero where it has none)."""
+    n, d = x.shape
+    cap = r.capacity
+    width = gate.shape[0] * cap
+    lo = first_expert * cap
+    mine = r.slots[:, first_token:first_token + n]
+    # each choice's slot among these experts' (width: not one of them)
+    local = torch.where((mine >= lo) & (mine < lo + width), mine - lo,
+                        torch.full_like(mine, width))
+    # each slot's token (n: an empty slot, the zero row below)
+    owner = torch.full((width + 1,), n, dtype=torch.int64, device=x.device)
+    tokens = torch.arange(n, device=x.device)
+    for c in range(local.shape[0]):
+        owner = owner.scatter(0, local[c], tokens)
+    rows = torch.cat([x, x.new_zeros(1, d)])
+    slots = rows[owner[:-1]].reshape(-1, cap, d)
+    g = torch.bmm(slots, gate)
+    u = torch.bmm(slots, up)
+    o = torch.bmm(F.silu(g) * u, down)
+    outs = torch.cat([o.float().reshape(width, d),
+                      o.new_zeros(1, d, dtype=torch.float32)])
+    y = None
+    for c in range(local.shape[0]):
+        yc = r.gates[c][first_token:first_token + n, None] * outs[local[c]]
+        y = yc if y is None else y + yc
+    return y
+
+
 def _lecun(shape: Sequence[int], fan_in: int, device: torch.device,
            gen: torch.Generator) -> nn.Parameter:
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
@@ -165,24 +205,10 @@ class MoEFeedForward(nn.Module):
         t, e = xf.shape[0], self.n_experts
         capacity = expert_capacity(t, self.top_k, e, self.capacity_factor)
         r = route(xf.float() @ self.router.float(), capacity, self.top_k)
-        # each slot's token (t: an empty slot, the zero row below)
-        owner = torch.full((e * capacity + 1,), t, dtype=torch.int64,
-                           device=x.device)
-        tokens = torch.arange(t, device=x.device)
-        for j in range(self.top_k):
-            owner = owner.scatter(0, r.slots[j], tokens)
-        rows = torch.cat([xf, xf.new_zeros(1, d)])
-        slots = rows[owner[:-1]].reshape(e, capacity, d)
         cdt = x.dtype
-        gate = torch.bmm(slots, self.experts_gate.to(cdt))
-        up = torch.bmm(slots, self.experts_up.to(cdt))
-        out = torch.bmm(F.silu(gate) * up, self.experts_down.to(cdt))
-        outs = torch.cat([out.float().reshape(e * capacity, d),
-                          out.new_zeros(1, d, dtype=torch.float32)])
-        y = None
-        for j in range(self.top_k):
-            yj = r.gates[j][:, None] * outs[r.slots[j]]
-            y = yj if y is None else y + yj
+        y = expert_outputs(xf, r, self.experts_gate.to(cdt),
+                           self.experts_up.to(cdt),
+                           self.experts_down.to(cdt))
         return y.to(x.dtype).reshape(x.shape), r.aux
 
 

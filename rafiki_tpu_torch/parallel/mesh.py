@@ -11,12 +11,13 @@ child process its slot's ``CUDA_VISIBLE_DEVICES``, and, where several
 slots name one card (``devices=[spec] * 2``: two workers on one H100),
 its share of that card's memory as ``RAFIKI_DEVICE_HBM_BYTES``, the
 limit the worker's admission plans against (a TPU slot is a chip of its
-own, so the JAX package has no such case). ``SubMesh.mesh`` and
-the sharding helpers belong to the slice that ports parallelism.
+own, so the JAX package has no such case). ``SubMesh.mesh`` builds a
+``parallel/sharding.py`` mesh over a slot's cards.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
@@ -64,6 +65,36 @@ class SubMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def torch_devices(self) -> List[Any]:
+        """The slot's cards as ``torch.device`` s (a CPU slot's as the
+        CPU)."""
+        import torch
+
+        return [torch.device("cuda", d.id) if d.platform == "cuda"
+                else torch.device("cpu") for d in self.devices]
+
+    def mesh(self, axes: Optional[Dict[str, int]] = None,
+             model: Optional[int] = None) -> Any:
+        """A (data, model) mesh over this slot: ``axes`` maps the two
+        axis names to their sizes as JAX's does (default: all ``data``),
+        or ``model`` gives the model axis and the rest is ``data``."""
+        from rafiki_tpu_torch.parallel.sharding import (DATA_AXIS,
+                                                        MODEL_AXIS,
+                                                        make_mesh)
+
+        if model is not None:
+            axes = {DATA_AXIS: self.size // max(1, model),
+                    MODEL_AXIS: model}
+        axes = axes or {DATA_AXIS: self.size}
+        if math.prod(axes.values()) != self.size:
+            raise ValueError(f"axes {axes} do not cover {self.size} devices")
+        unknown = set(axes) - {DATA_AXIS, MODEL_AXIS}
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)} (the "
+                             "port's meshes are (data, model))")
+        return make_mesh(self.torch_devices(), data=axes.get(DATA_AXIS, 1),
+                         model=axes.get(MODEL_AXIS, 1))
 
 
 def _share_of(devices: Sequence[DeviceSpec],

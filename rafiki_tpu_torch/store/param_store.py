@@ -26,8 +26,12 @@ Ports ``rafiki_tpu/store/param_store.py``:
   flax's ``np.frombuffer`` gives them.
 - ``InMemoryBackend``, ``FileBackend``, ``KVBackend`` and ``ParamStore``
   (its LRU bytes cache, ``from_uri`` for ``mem://``, ``file://`` and
-  ``kv://``). The sharded (orbax) checkpoint methods raise
-  ``NotImplementedError``.
+  ``kv://``), with JAX's sharded-checkpoint methods
+  (``sharded_checkpointer``, ``save_sharded_async``, ``sharded_ref``,
+  ``copy_sharded``, ``exists_sharded``): a ``file://`` store keeps
+  ``store/sharded_ckpt.py``'s directories under ``<root>/sharded``, the
+  other backends have none (``None`` / ``False``), and ``delete`` drops a
+  key's sharded checkpoint with its blob.
 """
 
 from __future__ import annotations
@@ -611,6 +615,10 @@ class ParamStore:
         self.backend.delete(trial_id)
         with self._lock:
             self._cache.pop(trial_id, None)
+        # a key's sharded checkpoint is the same logical object
+        ckptr = self.sharded_checkpointer()
+        if ckptr is not None and ckptr.exists(trial_id):
+            ckptr.delete(trial_id)
 
     def keys(self) -> List[str]:
         return self.backend.keys()
@@ -633,18 +641,53 @@ class ParamStore:
         self._cache_put(dst, data)
         return True
 
-    # ---- sharded checkpoints: a later slice ----
+    # ---- sharded checkpoints ----
     def sharded_checkpointer(self):
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+        """The sharded checkpoint store beside a file backend
+        (``<root>/sharded``); None for mem and kv backends, where
+        callers save whole-tree blobs instead."""
+        if getattr(self, "_sharded", None) is None:
+            if not isinstance(self.backend, FileBackend):
+                return None
+            from rafiki_tpu_torch.store.sharded_ckpt import \
+                ShardedCheckpointer
+
+            self._sharded = ShardedCheckpointer(
+                str(self.backend.root / "sharded"))
+        return self._sharded
 
     def save_sharded_async(self, key: str, tree: Any) -> bool:
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+        """An async sharded save of ``tree``; False when the backend has
+        no sharded store (the caller saves a blob instead)."""
+        ckptr = self.sharded_checkpointer()
+        if ckptr is None:
+            return False
+        ckptr.save_async(key, tree)
+        return True
 
     def sharded_ref(self, key: str):
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+        """A lazy restore handle for ``key``'s sharded checkpoint, or
+        None when there is none. An in-flight save lands first; an
+        earlier save's failure is logged, not raised."""
+        ckptr = self.sharded_checkpointer()
+        if ckptr is None:
+            return None
+        ckptr.wait(reraise=False, log=True)
+        if not ckptr.exists(key):
+            return None
+        from rafiki_tpu_torch.store.sharded_ckpt import ShardedCheckpointRef
+
+        return ShardedCheckpointRef(ckptr, key)
 
     def copy_sharded(self, src: str, dst: str) -> bool:
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+        ckptr = self.sharded_checkpointer()
+        if ckptr is None:
+            return False
+        return ckptr.copy(src, dst)  # waits internally (quiet)
 
     def exists_sharded(self, key: str) -> bool:
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+        ckptr = self.sharded_checkpointer()
+        if ckptr is None:
+            return False
+        ckptr.wait(reraise=False, log=True)
+        return ckptr.exists(key)

@@ -25,14 +25,14 @@ Where it differs from the JAX worker, on purpose:
   without one); the template is built as ``model_class(device=...,
   **knobs)``, and a trial that fails on the card is recorded as failed,
   never moved to the CPU;
-- checkpoints take the whole-tree path: the port's ``ParamStore`` has no
-  sharded saves, so a template's ``tree=`` argument is ignored, as JAX
-  ignores it when its store refuses one;
+- ``TrainContext.devices`` is the slot's cards as torch devices (every
+  visible card: the services manager confines the process to its slot;
+  the CPU worker's one device), and admission budgets their count;
 - ``profile_dir`` records ``train`` with ``torch.profiler`` (a Chrome
   trace under ``profile_dir/<trial_id>/``) where JAX takes a
   ``jax.profiler`` trace;
 - admission reads the card's memory (``worker/admission.py``) and the
-  template's single-card ``estimate_device_budget``, and keeps
+  template's ``estimate_device_budget`` over the slot, and keeps
   ``train_reserve`` of the card beside the estimate (JAX's limit is
   what its allocator may hand out; the card's total is more);
 - ``run_gang`` drives the port's gang engine (``rafiki_tpu_torch/
@@ -53,7 +53,7 @@ import os
 import threading
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -226,12 +226,18 @@ class TrainWorker:
                 if proposal.warm_start_trial_id:
                     shared = self.param_store.load(
                         proposal.warm_start_trial_id)
+                    if shared is None:
+                        # sharded checkpoints: hand the template a lazy
+                        # restore handle, not an assembled tree
+                        shared = self.param_store.sharded_ref(
+                            proposal.warm_start_trial_id)
                 trial_profile_dir = None
                 if self.profile_dir:
                     trial_profile_dir = os.path.join(self.profile_dir,
                                                      trial_id)
                     os.makedirs(trial_profile_dir, exist_ok=True)
-                ctx = TrainContext(budget_scale=ctx_budget_scale,
+                ctx = TrainContext(devices=self.slot_devices(),
+                                   budget_scale=ctx_budget_scale,
                                    shared_params=shared, logger=logger,
                                    trial_id=trial_id,
                                    profile_dir=trial_profile_dir)
@@ -343,6 +349,14 @@ class TrainWorker:
         self.traces.add_span(trace_id, "trial_done",
                              score=round(score, 6), **vals)
 
+    def slot_devices(self) -> List[torch.device]:
+        """The trial's devices: every visible card (the services manager
+        sets the slot's ``CUDA_VISIBLE_DEVICES``), or the CPU device."""
+        if self.device.type == "cuda" and self.device.index is None:
+            return [torch.device("cuda", k)
+                    for k in range(torch.cuda.device_count())]
+        return [self.device]
+
     def _admission_check(self, model: Any) -> None:
         """Refuse a trial whose estimated train footprint exceeds the
         card's memory, before anything is allocated. Templates opt in
@@ -360,7 +374,7 @@ class TrainWorker:
         if not limit:
             return
         try:
-            budget = est(1)
+            budget = est(len(self.slot_devices()))
             total = int(budget["total"])
         except Exception as e:  # an estimator bug must not block an
             # admissible trial, but it must be visible
@@ -393,20 +407,26 @@ class TrainWorker:
         crash before its first save still leaves the warm state
         reachable from its row."""
         if proposal.meta.get("resumed_from") and shared is not None:
-            self.param_store.copy(proposal.warm_start_trial_id, ckpt_key)
+            # bytes-level copy; a sharded checkpoint copies its directory
+            if not self.param_store.copy(proposal.warm_start_trial_id,
+                                         ckpt_key):
+                self.param_store.copy_sharded(
+                    proposal.warm_start_trial_id, ckpt_key)
             if base_frac > 0:
                 self.param_store.save(f"{ckpt_key}-meta",
                                       {"frac_done": base_frac})
         last_save = [time.monotonic()]
 
         def save_checkpoint(make_blob, frac_done=None, tree=None) -> None:
-            # ``tree`` is the sharded-save hook of JAX's stores: the
-            # port's store has no sharded saves, so the whole tree goes
-            # through ``make_blob``
+            # ``tree``: the template's live (sharded) tree, saved per
+            # shard and async where the store can; else the whole-tree
+            # blob of ``make_blob``
             now = time.monotonic()
             if now - last_save[0] < self.checkpoint_interval_s:
                 return
-            self.param_store.save(ckpt_key, make_blob())
+            if tree is None or \
+                    not self.param_store.save_sharded_async(ckpt_key, tree):
+                self.param_store.save(ckpt_key, make_blob())
             if frac_done is not None:
                 global_frac = base_frac + float(frac_done) * (1 - base_frac)
                 self.param_store.save(f"{ckpt_key}-meta",
@@ -465,7 +485,8 @@ class TrainWorker:
                     stale_after_s=self.orphan_stale_s):
                 continue  # live heartbeat, or another worker won
             ckpt_key = f"ckpt-{t['id']}"
-            has_ckpt = self.param_store.exists(ckpt_key)
+            has_ckpt = self.param_store.exists(ckpt_key) or \
+                self.param_store.exists_sharded(ckpt_key)
             frac = 0.0
             if has_ckpt:
                 meta = self.param_store.load(f"{ckpt_key}-meta")

@@ -212,5 +212,8 @@ def test_param_store_surface():
     store.delete("a")
     assert not store.exists("a") and store.keys() == ["b"]
     assert not store.copy("missing", "c")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        store.sharded_ref("b")
+    # a mem:// store has no sharded checkpoints: the callers save blobs
+    assert store.sharded_checkpointer() is None
+    assert store.sharded_ref("b") is None
+    assert not store.save_sharded_async("b", {"w": np.ones(3)})
+    assert not store.exists_sharded("b") and not store.copy_sharded("b", "c")

@@ -633,13 +633,19 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
         t["error_class"] == "deterministic"
     assert "admission control" in t["error"]
     # knobs the train path refuses raise the same error in the estimate
-    for bad in ({"model_parallel": 2}, {"sequence_parallel": 2}):
+    for bad in ({"sequence_parallel": 2},):
         m = LlamaLoRA(device="cpu", **dict(knobs, **bad))
         with pytest.raises(NotImplementedError) as want:
             m._check_trainable_knobs()
         with pytest.raises(NotImplementedError,
                            match=re.escape(str(want.value))):
             m.estimate_device_budget(1)
+    # model_parallel trains on a mesh: on one device its (1, 1) mesh's
+    # budget, which holds the one-card step's leaves
+    m = LlamaLoRA(device="cpu", **dict(knobs, model_parallel=2))
+    mesh_est = m.estimate_device_budget(1)
+    assert (mesh_est["params"], mesh_est["opt"]) == (est["params"],
+                                                     est["opt"])
 
 
 def test_train_admission_keeps_a_reserve_at_the_limit(monkeypatch):
