@@ -438,6 +438,34 @@ Phases; each raises on failure, so the script exits non-zero:
     ``sharded_ref``. Paths ``lora_mesh_1x1``, ``lora_mesh_1x2``,
     ``lora_mesh_2x2``, ``lora_mesh_moe_1x1``, ``lora_mesh_moe_1x2``,
     ``lora_mesh_f32``, ``lora_mesh_f32_serving``, ``lora_mesh_worker``.
+37. ``sequence_parallel`` (``sequence_parallel_phase``, right after 36),
+    every shard on the one card, from one f32 host base at Llama-3-8B
+    widths (``SP_KNOBS``: bf16, depth 2, rank 16, no remat, 2 steps):
+    (a) Ulysses on a (data 1, sp 4) mesh, batch 1 x 8192, the sharded
+    streamed loss (``loss_chunk`` 1024; 32 / 8 heads over 4: the small
+    swap); (b) the ring composed with TP on (data 1, sp 3, model 2),
+    batch 1 x 6144, the vocab-split loss (16 heads a shard, 16 % 3 != 0);
+    each beside a one-card step of the same tokens from the same base:
+    losses within the bf16 bound, the peak within 5 % of the colocated
+    estimate (an sp group on the card shares its leaves), B3/B5/B6
+    launched 4 x 2 x 2 = 16 times at (a) and 6 x 2 x 2 x 2 = 48 at (b)
+    (the ring's P(P+1)/2 non-skipped blocks per model shard), and the
+    allocator with the train worker's expandable segments; (c)
+    ``ring_attention`` and ``ulysses_attention`` on the card at the
+    shapes (a) and (b) give them (head dim 128; the ring 16 / 4 heads x
+    2048 tokens a position over sp 3, Ulysses 32 / 8 x 2048 over sp 4):
+    out, dq, dk, dv in bf16 against their plain versions (the same ring /
+    swap over the plain B3/B5/B6, run in f32 on the card; the backward
+    from the card's forward residuals), each tensor's worst error read
+    over 1e-3 + 2^-8·|plain| and, where an element sums parts each
+    rounded to bf16 first (a ring block's, a query head's dK/dV), held to
+    1e-3 + 2^-8·(|plain| + the absolute sum of its parts); and in f32
+    against one-card ``flash_attention`` over the whole sequence within
+    1e-5 + 1e-5·|x|; (d) f32 at width 64, a (1, 4) Ulysses and a (1, 2,
+    2) ring step on the card against the CPU: losses within 1e-7
+    relative. Paths ``llama_sp_ulysses``, ``llama_sp_ring``,
+    ``llama_sp_one_card``, ``llama_sp_f32``. The phase's seconds print on
+    a line of their own.
 
 Phase 25 runs after 17. The worker phases run in the order 20, 19, 21,
 22, 23, 32, 27, 28, 31, 33, then 24 and 18: phases 24 and 18 hold the most
@@ -1739,8 +1767,10 @@ def _lora_run(torch, ll, fa, model, trainable, init, batch, steps, before,
               keep=None, **kw):
     """``steps`` lane steps from ``init`` with a fresh lane Adam, ``kw``
     the step's shape (``batch_size``, ``seq`` and the knobs of
-    ``estimate_train_device_bytes``): losses, step seconds, flash
-    launches, and the peak allocated bytes above ``before`` (what the
+    ``estimate_train_device_bytes``): losses, step seconds, the
+    allocator's retries in each step (an allocation that found no room
+    under the cap, freed the cache and tried again), flash launches, and
+    the peak allocated bytes above ``before`` (what the
     process held before the model) beside the estimate. The allocator is
     capped at what the train worker admits the step at on a card of just
     that size (``before``, the estimate and its ``train_reserve``, less
@@ -1763,15 +1793,18 @@ def _lora_run(torch, ll, fa, model, trainable, init, batch, steps, before,
     outside = total - free - torch.cuda.memory_reserved()
     cap = before + admitted - outside
     zero_flash_launches(fa)
-    losses, secs = [], []
+    losses, secs, retries = [], [], []
     torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
     try:
         for _ in range(steps):
+            r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
             t = time.perf_counter()
             losses.append(float(ll.lane_train_step(
                 model, state, hp, batch, kw.get("loss_chunk", 0),
                 kw.get("grad_accum", 1))[1]))  # syncs
             secs.append(time.perf_counter() - t)
+            retries.append(torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - r0)
     except torch.cuda.OutOfMemoryError:
         if cap >= total:  # admission would refuse it: the caller cuts
             raise
@@ -1789,6 +1822,7 @@ def _lora_run(torch, ll, fa, model, trainable, init, batch, steps, before,
     del state
     rise = peak - before
     return {"losses": losses, "step_s": secs, "launches": launches,
+            "step_alloc_retries": retries,
             "peak_gb": rise / 1e9, "estimate_gb": est["total"] / 1e9,
             "estimate_terms_gb": {k: v / 1e9 for k, v in est.items()},
             "peak_over_estimate": rise / est["total"],
@@ -2582,6 +2616,415 @@ def mesh_phase(torch, np, ll, fa, pa, ps, ms, adv, wt, store_params,
     if not all(paths["lora_mesh_worker"].values()):
         raise AssertionError(f"phase 36 (e) launches "
                              f"{paths['lora_mesh_worker']}")
+    return paths
+
+
+# ------------------------------------------------- sequence_parallel
+
+#: phase 37: Llama-3-8B's widths (vocab 128256, hidden 4096, 32 / 8
+#: heads, MLP 4 x hidden as the template builds it), bf16, rank 16, batch
+#: 1, 2 steps (one per epoch), depth 2 (phase 36's cut)
+SP_KNOBS = {"max_epochs": 2, "vocab_size": VOCAB, "hidden_dim": 4096,
+            "depth": 2, "n_heads": 32, "kv_ratio": 4, "lora_rank": 16,
+            "learning_rate": 1e-4, "lora_scale": 1.0, "batch_size": 1,
+            "bf16": True, "remat_policy": "none", "rope_theta": 500000.0,
+            "quick_train": False, "share_params": False}
+#: (a) Ulysses with the streamed sharded loss, (b) the ring with TP:
+#: (extra knobs, (data, sp, model), path)
+SP_LEGS = {
+    "ulysses": ({"max_len": 8192, "sequence_parallel": 4,
+                 "loss_chunk": 1024}, (1, 4, 1), "llama_sp_ulysses"),
+    "ring": ({"max_len": 6144, "sequence_parallel": 3,
+              "model_parallel": 2}, (1, 3, 2), "llama_sp_ring"),
+}
+#: B3/B5/B6 launches each, no remat: (a) 4 positions x 2 layers x 2
+#: steps; (b) P(P+1)/2 = 6 blocks x 2 model shards x 2 layers x 2 steps
+SP_LAUNCHES = {"ulysses": 16, "ring": 48}
+#: (c): each attention at the shape its leg runs it, head dim 128, batch
+#: 1: (P, tokens a position, heads, kv heads). The ring as one model
+#: shard of (b) runs it (16 / 4 heads over sp 3), Ulysses as (a) (32 / 8
+#: over sp 4)
+SP_KERNEL_SHAPES = {"ring_attention": (3, 2048, 16, 4),
+                    "ulysses_attention": (4, 2048, 32, 8)}
+#: (d): f32, width 64: a (1, 4) Ulysses step (4 heads) and a (1, 2, 2)
+#: ring step (2 heads, 1 a shard)
+SP_F32_KNOBS = {"max_epochs": 2, "vocab_size": 1 << 10, "hidden_dim": 64,
+                "depth": 2, "lora_rank": 4, "max_len": 64,
+                "learning_rate": 1e-3, "lora_scale": 1.0, "batch_size": 8,
+                "bf16": False, "quick_train": True, "share_params": False}
+SP_F32_LEGS = {"1x4": ({"n_heads": 4, "kv_ratio": 2,
+                        "sequence_parallel": 4}, 4),
+               "1x2x2": ({"n_heads": 2, "kv_ratio": 1,
+                          "sequence_parallel": 2, "model_parallel": 2}, 4)}
+SP_PEAK_TOL = 0.05
+SP_F32_TOL = 1e-7
+
+
+def _sp_run(torch, ll, llm, fa, TrainContext, knobs, shape, corpus, base,
+            dev):
+    """The template's ``train`` from ``base`` on a (dp, sp, mp) mesh whose
+    every shard is ``dev`` ((1, 1, 1): the one-card loop): epoch losses,
+    step seconds, the allocator's retries in each step (an allocation
+    that found no room under the cap, freed the cache and tried again),
+    the flash launches and the peak allocated bytes above what the
+    process held before, beside the colocated estimate; the allocator
+    capped at what admission allows it."""
+    from rafiki_tpu_torch.worker.admission import train_reserve
+
+    dp, sp, mp = shape
+    n = dp * sp * mp
+    m = ll.LlamaLoRA(device=dev, **knobs)
+    m._params = base  # the shared host base (train copies it)
+    est = m.estimate_device_budget(n)
+    total_est = ll.colocated_train_bytes(est, dp, mp, sp=sp)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    cap = before + total_est + train_reserve(total_est) - outside
+    secs, retries = [], []
+    mod, name = (llm, "mesh_train_step") if n > 1 else (ll,
+                                                         "lane_train_step")
+    step = getattr(mod, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t = time.perf_counter()
+        out = step(*a, **k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        retries.append(torch.cuda.memory_stats().get("num_alloc_retries",
+                                                     0) - r0)
+        return out
+
+    setattr(mod, name, timed)
+    ctx = TrainContext(devices=[dev] * n)
+    zero_flash_launches(fa)
+    torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
+    t0 = time.perf_counter()
+    try:
+        m.train(corpus, ctx)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        setattr(mod, name, step)
+    train_s = time.perf_counter() - t0
+    launches = flash_launches(fa)
+    rise = torch.cuda.max_memory_allocated() - before
+    reserved = torch.cuda.max_memory_reserved()
+    expandable = any(seg.get("is_expandable")
+                     for seg in torch.cuda.memory_snapshot())
+    del m
+    torch.cuda.empty_cache()
+    return {"mesh": list(shape), "losses": ctx.logger.get_values("loss"),
+            "reserved_peak_gb": reserved / 1e9,
+            "expandable_segments": expandable,
+            "step_s": secs, "train_s": train_s, "launches": launches,
+            "step_alloc_retries": retries,
+            "tokens_per_step": int(knobs["max_len"]) * knobs["batch_size"],
+            "peak_gb": rise / 1e9,
+            "estimate_per_shard_gb": {k: v / 1e9 for k, v in est.items()},
+            "estimate_colocated_gb": total_est / 1e9,
+            "peak_over_estimate": rise / total_est,
+            "allocator_cap_gb": cap / 1e9}
+
+
+def _sp_reading(got, want, tol, parts=None):
+    """``got`` against ``want`` element by element: ``one_rounding``, the
+    worst error over the kernels' tolerance ``lo + rel·|want|`` (one bf16
+    rounding), and ``over_1``, the elements above 1 there; with
+    ``parts`` (an element's absolute sum of parts each rounded to bf16
+    before the sum) also ``parts``, the worst over ``lo + rel·(|want| +
+    parts)``: one rounding of each part and one of the sum. ``gate`` is
+    the reading the phase holds to 1: ``parts`` where given (it passes an
+    element above 1 at ``one_rounding`` only where the parts' rounding
+    explains it), else ``one_rounding``."""
+    lo, rel = tol
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    one = err / (lo + rel * want.abs())
+    out = {"one_rounding": float(one.max()),
+           "over_1": int((one > 1).sum()),
+           "elements": one.numel()}
+    if parts is None:
+        out["gate"] = out["one_rounding"]
+    else:
+        out["parts"] = float((err / (lo + rel * (want.abs()
+                                                 + parts.float()))).max())
+        out["gate"] = out["parts"]
+    return out
+
+
+def _sp_plain_blocks(fa, magnitude=False):
+    """The ring's block functions (``flash_attention_lse``,
+    ``flash_attention_block_bwd``) as their plain versions on the
+    inputs' device; with ``magnitude`` each returns its parts' absolute
+    values, so the ring sums ``|parts|``."""
+    def fwd(q, k, v, scale, causal):
+        o, lse = fa._flash_fwd_reference(q, k, v, fa._full_lens(q, k),
+                                         scale, causal)
+        return (o.abs() if magnitude else o), lse
+
+    def bwd(q, k, v, o, lse, g, scale, causal):
+        lens, delta = fa._full_lens(q, k), fa._delta(g, o)
+        args = (q, k, v, g, lse, delta, lens, scale, causal)
+        grads = (fa._flash_bwd_dq_reference(*args),
+                 *fa._flash_bwd_dkv_reference(*args))
+        return tuple(t.abs() if magnitude else t for t in grads)
+
+    return fwd, bwd
+
+
+def _with_blocks(ra, blocks, fn, *args):
+    """``fn(*args)`` with the ring's block functions swapped for
+    ``blocks``."""
+    saved = ra.flash_attention_lse, ra.flash_attention_block_bwd
+    ra.flash_attention_lse, ra.flash_attention_block_bwd = blocks
+    try:
+        return fn(*args)
+    finally:
+        ra.flash_attention_lse, ra.flash_attention_block_bwd = saved
+
+
+def _sp_kernel_leg(torch, fa, dev):
+    """(c): ring and Ulysses attention on the card, causal, at the
+    per-position shapes (a) and (b) run them (``SP_KERNEL_SHAPES``). bf16:
+    the output against the plain version of the same composition, run in
+    f32 on the card from the same bf16 inputs, and each gradient against
+    the plain backward in f32 from the card's own forward residuals (out,
+    LSE), read by :func:`_sp_reading`. The parts: a ring element sums its
+    blocks' outputs, dQ, dK and dV, and a kv head's dK and dV sum its
+    query heads' (both attentions: JAX's design), each part rounded to
+    bf16 by its kernel. f32: against one-card ``flash_attention`` over
+    the whole sequence, 1e-5 + 1e-5·|x|. The public entry points must
+    equal the pieces held here bit for bit."""
+    from rafiki_tpu_torch.ops import ring_attention as ra
+    from rafiki_tpu_torch.ops.ulysses import ulysses_attention
+    from rafiki_tpu_torch.parallel.collectives import to_positions
+    from rafiki_tpu_torch.parallel.sharding import make_sp_mesh
+
+    d = 128
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol, scale = FLASH_TOL["bfloat16"], 1.0 / math.sqrt(d)
+    names = ("dq", "dk", "dv")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 41)
+    out = {}
+
+    def inputs(name):
+        n, tokens, h, h_kv = SP_KERNEL_SHAPES[name]
+        s = n * tokens
+        return n, h // h_kv, [torch.randn(shape, generator=gen, device=dev)
+                              .to(bf16) for shape in
+                              ((1, h, s, d), (1, h_kv, s, d),
+                               (1, h_kv, s, d), (1, h, s, d))]
+
+    def public(fn, n, host, dtype):
+        q, k, v, g = (t.detach().to(dtype) for t in host)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        o = fn(q, k, v, make_sp_mesh([dev] * n, n), "sp", causal=True)
+        return (o,) + torch.autograd.grad(o, (q, k, v), g)
+
+    def whole(host, rep):
+        q, k, v, g = (t.float().requires_grad_(True) for t in host)
+        o = fa.flash_attention(q, k.repeat_interleave(rep, 1),
+                               v.repeat_interleave(rep, 1), causal=True)
+        return (o,) + torch.autograd.grad(o, (q, k, v), g.detach())
+
+    def f32_check(name, fn, n, host, rep):
+        got = public(fn, n, host, f32)
+        want = whole(host, rep)
+        out[name]["f32"] = {nm: _sp_reading(x, y, FLASH_TOL["float32"])
+                            for nm, x, y in zip(("out",) + names, got,
+                                                want)}
+
+    # the ring: its forward and reverse ring, piece by piece
+    n, rep, host = inputs("ring_attention")
+    devs = [dev] * n
+    mesh = make_sp_mesh(devs, n)
+    qk, kk, vk, gk = (to_positions(t, mesh, (None, None, "sp"))
+                      for t in host)
+    o_k, lse_k = ra._ring_fwd(qk, kk, vk, devs, scale, True, rep)
+    grads_k = ra._ring_bwd(qk, kk, vk, o_k, lse_k, gk, devs, scale, True,
+                           rep)
+    q32, k32, v32, g32, o32 = ([t.float() for t in ts]
+                               for ts in (qk, kk, vk, gk, o_k))
+    plain, mags = {}, {}
+    for want, magnitude in ((plain, False), (mags, True)):
+        blocks = _sp_plain_blocks(fa, magnitude)
+        want["out"] = torch.cat(_with_blocks(
+            ra, blocks, ra._ring_fwd, q32, k32, v32, devs, scale, True,
+            rep)[0], 2)
+        for nm, t in zip(names, _with_blocks(
+                ra, blocks, ra._ring_bwd, q32, k32, v32, o32, lse_k, g32,
+                devs, scale, True, rep)):
+            want[nm] = torch.cat(t, 2)
+    got = public(ra.ring_attention, n, host, bf16)
+    pieces = [torch.cat(t, 2) for t in (o_k, *grads_k)]
+    out["ring_attention"] = {
+        "shape": SP_KERNEL_SHAPES["ring_attention"],
+        "bf16": {nm: _sp_reading(x, plain[nm], tol, mags[nm])
+                 for nm, x in zip(("out",) + names, pieces)},
+        "public_equals_pieces": all(torch.equal(a, b)
+                                    for a, b in zip(got, pieces))}
+    del qk, kk, vk, gk, o_k, lse_k, grads_k, q32, k32, v32, g32, o32
+    del plain, mags, got, pieces
+    f32_check("ring_attention", ra.ring_attention, n, host, rep)
+    # Ulysses: the swaps permute heads and rows, so each position's
+    # residuals are B3's over the whole sequence for its head group; the
+    # plain version runs group by group (one position's heads at a time)
+    n, rep, host = inputs("ulysses_attention")
+    got = public(ulysses_attention, n, host, bf16)
+    q, k, v, g = host
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    lens = fa._full_lens(q, kr)
+    o_w, lse_w = fa.flash_attention_fwd(q, kr, vr, lens, scale, True)
+    want = {nm: torch.empty(q.shape, dtype=f32, device=dev)
+            for nm in ("out",) + names}
+    hg = q.shape[1] // n
+    for h0 in range(0, q.shape[1], hg):
+        hs = slice(h0, h0 + hg)
+        qg, kg, vg, gg = (t[:, hs].float() for t in (q, kr, vr, g))
+        want["out"][:, hs] = fa._flash_fwd_reference(qg, kg, vg, lens,
+                                                     scale, True)[0]
+        args = (qg, kg, vg, gg, lse_w[:, hs],
+                fa._delta(gg, o_w[:, hs].float()), lens, scale, True)
+        want["dq"][:, hs] = fa._flash_bwd_dq_reference(*args)
+        want["dk"][:, hs], want["dv"][:, hs] = \
+            fa._flash_bwd_dkv_reference(*args)
+
+    def groups(t):  # (1, h, s, d) → (1, h_kv, s, d): sum over rep heads
+        return t.reshape(1, t.shape[1] // rep, rep, *t.shape[2:]).sum(2)
+
+    out["ulysses_attention"] = {
+        "shape": SP_KERNEL_SHAPES["ulysses_attention"],
+        "bf16": {"out": _sp_reading(got[0], want["out"], tol),
+                 "dq": _sp_reading(got[1], want["dq"], tol),
+                 "dk": _sp_reading(got[2], groups(want["dk"]), tol,
+                                   groups(want["dk"].abs())),
+                 "dv": _sp_reading(got[3], groups(want["dv"]), tol,
+                                   groups(want["dv"].abs()))},
+        "public_equals_pieces": torch.equal(got[0], o_w)}
+    del got, want, kr, vr, o_w, lse_w
+    f32_check("ulysses_attention", ulysses_attention, n, host, rep)
+    return out
+
+
+def _sp_f32_leg(torch, np, ll, fa, store_params, TrainContext, dev):
+    """(d): f32 at width 64, a (1, 4) and a (1, 2, 2) step on the card and
+    on the CPU from one init."""
+    work = ROOT / "build" / "chip_smoke" / "sp_f32"
+    train = write_corpus(np, work / "train.jsonl", 16, SEED + 42,
+                         vocab=200, max_words=60)
+    out, launches = {}, {}
+    for name, (extra, n) in SP_F32_LEGS.items():
+        knobs = dict(SP_F32_KNOBS, **extra)
+        host = ll.LlamaLoRA(device="cpu", **knobs)
+        blob = {"params": store_params.params_to_jax(
+            host._module().state_dict()), "meta": {"id2tok": {}}}
+        losses = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = ll.LlamaLoRA(device=d, **knobs)
+            m.load_parameters(blob)
+            ctx = TrainContext(devices=[d] * n)
+            zero_flash_launches(fa)
+            m.train(train, ctx)
+            losses[where] = ctx.logger.get_values("loss")
+            if where == "card":
+                for k, c in flash_launches(fa).items():
+                    launches[k] = launches.get(k, 0) + c
+        out[name] = {"losses": losses, "max_loss_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                losses["cpu"]))}
+    return out, launches
+
+
+def sequence_parallel_phase(torch, np, ll, fa, store_params, TrainContext,
+                            dev, smi):
+    """Phase 37, ``sequence_parallel``: (a) Ulysses with the sharded
+    streamed loss on (1, 4) and (b) the ring with TP on (1, 3, 2), each
+    beside a one-card step of its tokens, (c) the two attentions against
+    their plain versions and one-card flash attention, (d) f32 card
+    against CPU. Every shard on the one card; the gates at the end. The
+    allocator runs with the train worker's settings (``main`` sets them
+    first), and each train run reads them back."""
+    from rafiki_tpu_torch.models import llama_mesh as llm
+
+    t_phase = time.perf_counter()
+    paths = {}
+    work = ROOT / "build" / "chip_smoke" / "sp"
+    # one f32 host base, drawn on the card from the template's seed
+    model = ll.LlamaLoRA(device=dev, **dict(SP_KNOBS,
+                                            max_len=8192))._module()
+    base = store_params.params_to_jax(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    legs_s = {"base": time.perf_counter() - t_phase}
+    runs = {}
+    one_card = dict.fromkeys(FLASH, 0)
+    for k, (leg, (extra, shape, path)) in enumerate(SP_LEGS.items()):
+        knobs = dict(SP_KNOBS, **extra)
+        corpus = _mesh_corpus(np, work / f"{leg}.jsonl", 1, SEED + 43 + k,
+                              knobs["max_len"])
+        runs[leg] = _sp_run(torch, ll, llm, fa, TrainContext, knobs, shape,
+                            corpus, base, dev)
+        paths[path] = runs[leg]["launches"]
+        alone = {key: v for key, v in knobs.items()
+                 if key not in ("sequence_parallel", "model_parallel")}
+        runs[leg + "_one_card"] = _sp_run(torch, ll, llm, fa, TrainContext,
+                                          alone, (1, 1, 1), corpus, base,
+                                          dev)
+        for key, c in runs[leg + "_one_card"]["launches"].items():
+            one_card[key] += c
+        legs_s["ab"[k]] = time.perf_counter() - t_phase - sum(
+            legs_s.values())
+    paths["llama_sp_one_card"] = one_card
+    del base
+    kernels = _sp_kernel_leg(torch, fa, dev)
+    torch.cuda.empty_cache()
+    legs_s["c"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    f32, paths["llama_sp_f32"] = _sp_f32_leg(torch, np, ll, fa,
+                                             store_params, TrainContext,
+                                             dev)
+    legs_s["d"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "sequence_parallel", "card": smi, "seconds": seconds,
+          "legs_s": legs_s, "runs": runs, "kernel_checks": kernels,
+          "f32": f32, "launches": paths})
+    print(f"phase 37 seconds: {seconds:.1f}", flush=True)
+
+    for leg, (extra, shape, path) in SP_LEGS.items():
+        r, ref = runs[leg], runs[leg + "_one_card"]
+        want = SP_LAUNCHES[leg]
+        if any(r["launches"][k] != want for k in FLASH):
+            raise AssertionError(f"phase 37 {leg}: launches "
+                                 f"{r['launches']} != {want} each")
+        if len(r["losses"]) != 2 or not all(
+                _bf16_close(a, b) for a, b in zip(r["losses"],
+                                                  ref["losses"])):
+            raise AssertionError(f"phase 37 {leg}: losses {r['losses']} "
+                                 f"against one card's {ref['losses']}")
+        if abs(r["peak_over_estimate"] - 1) > SP_PEAK_TOL:
+            raise AssertionError(
+                f"phase 37 {leg}: peak {r['peak_gb']:.3f} GB against the "
+                f"colocated {r['estimate_colocated_gb']:.3f} GB")
+        if not r["expandable_segments"]:
+            raise AssertionError(f"phase 37 {leg}: the allocator ran with "
+                                 "fixed segments, not the train worker's")
+    for name, checks in kernels.items():
+        worst = max(c["gate"] for k in ("bf16", "f32")
+                    for c in checks[k].values())
+        if not (worst <= 1.0 and checks["public_equals_pieces"]):
+            raise AssertionError(f"phase 37 (c) {name}: {checks}")
+    for name, r in f32.items():
+        if not r["max_loss_rel"] <= SP_F32_TOL:
+            raise AssertionError(f"phase 37 (d) {name}: {r}")
+    if not all(paths["llama_sp_f32"].values()):
+        raise AssertionError(f"phase 37 (d) launches "
+                             f"{paths['llama_sp_f32']}")
     return paths
 
 
@@ -8572,6 +9015,8 @@ def main(argv=None):
     if args.zoo_host:  # phase 33 (d), started by phase 33
         return zoo_host_main(Path(args.zoo_host))
     sys.path.insert(0, str(ROOT))
+    from rafiki_tpu_torch.worker.admission import use_train_allocator
+    use_train_allocator()  # the train worker's, before the card is touched
     import numpy as np
     import torch.nn.functional as F
 
@@ -8657,6 +9102,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     paths.update(mesh_phase(torch, np, ll, fa, pa, ps, ms, adv, wt,
                             store_params, TrainContext, dev, smi))
+    torch.cuda.empty_cache()
+    paths.update(sequence_parallel_phase(torch, np, ll, fa, store_params,
+                                         TrainContext, dev, smi))
     torch.cuda.empty_cache()
     template_phase(torch, np, ll, TrainContext, dev)
     torch.cuda.empty_cache()

@@ -51,9 +51,11 @@ Ports ``rafiki_tpu/models/llama_lora.py``:
 - the ``LlamaLoRA`` template: ``train`` (JAX's ``_train_functional``
   loop and its sharded loop on one device: ``grad_accum``, ``loss_chunk``,
   ``moe_experts``, and with ``pretrained_path`` the base weights of an
-  HF-convention safetensors checkpoint; with ``model_parallel > 1`` its
-  mesh loop, ``_train_mesh`` over ``models/llama_mesh.py``, ``TP_RULES``
-  and ``_mesh``), ``gang_blockers``,
+  HF-convention safetensors checkpoint; with ``model_parallel > 1`` or
+  ``sequence_parallel > 1`` its mesh loop, ``_train_mesh`` over
+  ``models/llama_mesh.py``, ``TP_RULES``, ``_mesh`` and the (data, sp[,
+  model]) meshes, with :func:`chunked_lm_loss_terms_sp`, the streamed
+  loss of a sequence-split batch), ``gang_blockers``,
   ``gang_epochs``, ``make_gang_spec``, ``estimate_device_budget`` (one
   trial's, :func:`estimate_train_device_bytes`, a mesh device's,
   :func:`estimate_mesh_train_device_bytes`, or with ``gang_size`` a
@@ -119,7 +121,9 @@ from rafiki_tpu_torch.models.llama_mesh import (MeshLlama, checkpoint_tree,
 from rafiki_tpu_torch.ops.paged_attention import (kv_cache_write,
                                                   paged_decode_attention,
                                                   paged_window_attention)
-from rafiki_tpu_torch.parallel.sharding import Mesh, make_mesh
+from rafiki_tpu_torch.parallel.collectives import (all_reduce, on_axis,
+                                                   to_positions)
+from rafiki_tpu_torch.parallel.sharding import Mesh, make_mesh, make_sp_mesh
 from rafiki_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     TextDecodeEngine)
 from rafiki_tpu_torch.store.params import (MATMUL_LEAVES, f32_tree,
@@ -984,6 +988,43 @@ def _chunked_ce_sum(hidden: torch.Tensor, targets: torch.Tensor,
     return total
 
 
+def chunked_lm_loss_terms_sp(hidden: Any, head_kernel: Any,
+                             ids: torch.Tensor, lens: torch.Tensor,
+                             example_mask: Optional[torch.Tensor],
+                             chunk: int, mesh: Mesh, data_axis: str,
+                             sp_axis: str
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chunked_lm_loss_terms` with the sequence split over
+    ``mesh[sp_axis]`` (JAX's ``chunked_lm_loss_terms_sp``): the
+    next-token shift runs over the whole (B, L) batch first (it crosses
+    the shards' boundaries), then each (data, sp) position streams its
+    own (B / dp, L / sp) slice of ``hidden`` through the chunk loop
+    (:func:`_chunked_ce_sum`, chunk ``min(chunk, L / sp)``) and the (sum,
+    count) are all-reduced over both axes. ``hidden``: the global (B, L,
+    d) tensor, or one slice per mesh position (flat order);
+    ``head_kernel``: one (d, vocab) tensor, or one per position. Returns
+    the first position's (sum, count), 0-d f32."""
+    seq = ids.shape[1]
+    sp = mesh.shape[sp_axis]
+    if seq % sp:
+        raise ValueError(f"sequence {seq} must divide the "
+                         f"sp axis ({sp}) for the sharded chunked loss")
+    chunk = max(1, min(int(chunk), seq // sp))
+    spec = (data_axis, sp_axis)
+    if isinstance(hidden, torch.Tensor):
+        hidden = to_positions(hidden, mesh, spec)
+    if isinstance(head_kernel, torch.Tensor):
+        head_kernel = [head_kernel.to(d) for d in mesh.flat_devices()]
+    targets = to_positions(F.pad(ids[:, 1:], (0, 1)).long(), mesh, spec)
+    valid = to_positions(lm_valid_mask(seq, lens, example_mask), mesh, spec)
+    totals = [_chunked_ce_sum(h, t, v, w, chunk)
+              for h, t, v, w in zip(hidden, targets, valid, head_kernel)]
+    counts = [v.float().sum() for v in valid]
+    axes = (data_axis, sp_axis)
+    return (on_axis(mesh, axes, all_reduce, totals)[0],
+            on_axis(mesh, axes, all_reduce, counts)[0])
+
+
 def micro_terms(model: Llama, leaves: Dict[str, torch.Tensor],
                 batch: Dict[str, torch.Tensor], loss_chunk: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -1350,7 +1391,7 @@ class LlamaDims(NamedTuple):
 def _train_terms(d: LlamaDims, batch_size: int, seq: int,
                  adapters_only: bool = False, remat_policy: str = "none",
                  grad_accum: int = 1, loss_chunk: int = 0, mp: int = 0,
-                 route_tokens: int = 0) -> Dict[str, int]:
+                 route_tokens: int = 0, sp: int = 1) -> Dict[str, int]:
     """The element and byte counts :func:`estimate_train_device_bytes`
     and :func:`estimate_gang_device_bytes` share: ``trainable``
     (elements), ``slots`` (the bytes of the trainable leaves as the
@@ -1362,7 +1403,13 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
     split ``mp`` ways, the MoE capacity of ``route_tokens`` (the global
     micro-batch's); its loss (``llama_mesh._VocabShardCE``) keeps the
     logits in the compute dtype and adds ``working``: its backward's f32
-    softmax and cast gradient, made for one shard at a time."""
+    softmax and cast gradient, made for one shard at a time. ``sp > 1``
+    gives one position's of a sequence-split mesh (``seq`` then its
+    slice's length): the ring's attention (where ``heads / mp`` do not
+    divide over ``sp``) keeps K and V un-repeated, and the streamed loss
+    (:func:`chunked_lm_loss_terms_sp`) is the one-card chunk loop's, its
+    chunk's buffers in ``working`` and the LM head's compute-dtype
+    gradient, which the chunks accumulate into, in ``transient``."""
     mesh = mp >= 1
     mp = max(1, mp)
     act, hd, depth = d.act, d.hidden, d.depth
@@ -1388,7 +1435,10 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
     # probabilities, each choice's f32 output row and, per layer, the
     # expert slots, their SwiGLU tensors and the experts' per-call casts
     rms = (4 if adapters_only else 8) * hd + 4
-    block = (2 * rms + act * (hd + 5 * (hd // mp)) + 8 * dh
+    # q, K/V (repeated, or the ring's un-repeated), the output, its copy
+    qkvo = (3 * (hd // mp) + 2 * kv if sp > 1 and (d.heads // mp) % sp
+            else 5 * (hd // mp))
+    block = (2 * rms + act * (hd + qkvo) + 8 * dh
              + 4 * (d.heads // mp) + act * len(sites) * rank)
     layer = 0
     if e:
@@ -1424,7 +1474,11 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
     rows = max(1, batch_size // max(1, grad_accum))
     logit_rows = rows * min(loss_chunk, seq) if loss_chunk else tokens
     working = 0
-    if mesh:  # the compute-dtype logits (a streamed chunk's: none kept)
+    streamed_sp = sp > 1 and bool(loss_chunk)
+    if streamed_sp:  # one position's chunk at a time, in the backward
+        working = logit_rows * 12 * vocab
+        logits = 0
+    elif mesh:  # the compute-dtype logits (a streamed chunk's: none kept)
         working = logit_rows * vocab * (4 + (act if act != 4 else 0)
                                         + (act if loss_chunk else 0))
         logits = act * head if loss_chunk else tokens * vocab * act
@@ -1442,8 +1496,10 @@ def _train_terms(d: LlamaDims, batch_size: int, seq: int,
                          + (head if adapters_only else 0))
         + 4 * (vocab * hd + (norms + experts if adapters_only else 0)),
         "activations": blocks + final,
-        # the compute-dtype cast of the LM head, made per call
-        "transient": 0 if adapters_only or act == 4 else head * act}
+        # the compute-dtype cast of the LM head, made per call (and, on
+        # a sequence-split mesh's streamed loss, its gradient)
+        "transient": (0 if adapters_only or act == 4 else head * act)
+        + (head * act if streamed_sp else 0)}
 
 
 def estimate_train_device_bytes(dims: LlamaDims, *, batch_size: int,
@@ -1499,28 +1555,36 @@ def _step_bytes(t: Dict[str, int], accumulating: bool) -> Dict[str, int]:
 
 
 def estimate_mesh_train_device_bytes(template: "LlamaLoRA", dp: int,
-                                     mp: int) -> Dict[str, int]:
+                                     mp: int, sp: int = 1
+                                     ) -> Dict[str, int]:
     """One device's memory of :meth:`LlamaLoRA._train_mesh` on a (dp, mp)
-    mesh (JAX's ``estimate_train_device_bytes`` at ``data_parallel`` dp,
-    ``model_parallel`` mp), in :func:`estimate_train_device_bytes`' terms
-    and peak rule: ``params`` and ``opt`` are exact sums over the shard
-    shapes of JAX's specs (``TP_RULES`` and fsdp), each leaf as the mesh
-    holds it (trainable f32, frozen kernels in the compute dtype);
-    ``activations``, ``transient`` and ``working`` (the loss backward's
-    buffers) are one shard's (:func:`_train_terms` with ``mp``) over
-    its data row's ``batch / (dp · grad_accum)`` rows. Shards that share
-    a card (a mesh that repeats a device) hold their other terms each,
-    but one process makes the ``working`` buffers for one shard at a
-    time, and the data rows of a model position share its gathered LM
-    head (:func:`colocated_train_bytes`)."""
+    mesh, or with ``sp > 1`` a (dp, sp[, mp]) one (JAX's
+    ``estimate_train_device_bytes`` at ``data_parallel`` dp,
+    ``model_parallel`` mp, ``sequence_parallel`` sp), in
+    :func:`estimate_train_device_bytes`' terms and peak rule: ``params``
+    and ``opt`` are exact sums over the shard shapes of JAX's specs
+    (``TP_RULES`` and fsdp; fsdp alone on a (data, sp) mesh), each leaf
+    as the mesh holds it (trainable f32, frozen kernels in the compute
+    dtype); ``activations``, ``transient`` and ``working`` (the loss
+    backward's buffers) are one shard's (:func:`_train_terms` with
+    ``mp`` and ``sp``) over its ``batch / (dp · grad_accum)`` rows of
+    ``max_len / sp`` tokens. Shards that share a card (a mesh that
+    repeats a device) hold their other terms each, but one process makes
+    the ``working`` buffers for one shard at a time, the data rows of a
+    model position share its gathered LM head, and an ``sp`` group holds
+    one copy of its leaves (:func:`colocated_train_bytes`)."""
     from rafiki_tpu_torch.models.llama_mesh import (mesh_specs,
                                                     storage_dtype)
     from rafiki_tpu_torch.parallel.sharding import leaf_paths, shard_shape
 
     k = template.knobs
-    mesh = make_mesh(["cpu"] * (dp * mp), model=mp)
+    if sp > 1:
+        mesh = make_sp_mesh(["cpu"] * (dp * sp * mp), sp, mp)
+    else:
+        mesh = make_mesh(["cpu"] * (dp * mp), model=mp)
     shapes = template._param_shapes()
-    specs = mesh_specs(shapes, mesh, TP_RULES)
+    specs = mesh_specs(shapes, mesh,
+                       None if sp > 1 and mp == 1 else TP_RULES)
     adapters_only = bool(k.get("adapters_only", False))
     dtype = template._dtype()
     trainable, frozen = 0, 0
@@ -1536,29 +1600,33 @@ def estimate_mesh_train_device_bytes(template: "LlamaLoRA", dp: int,
     batch = int(k["batch_size"])
     batch = max(grad_accum * dp, batch - batch % (grad_accum * dp))
     t = _train_terms(
-        template._dims(), batch // dp, int(k["max_len"]), adapters_only,
-        remat_schedule(bool(k.get("remat", False)),
-                       str(k.get("remat_policy", "") or "")),
+        template._dims(), batch // dp, int(k["max_len"]) // sp,
+        adapters_only, remat_schedule(bool(k.get("remat", False)),
+                                      str(k.get("remat_policy", "") or "")),
         grad_accum, int(k.get("loss_chunk", 0) or 0), mp=mp,
-        route_tokens=batch // grad_accum * int(k["max_len"]))
+        route_tokens=batch // grad_accum * int(k["max_len"]), sp=sp)
     t.update(trainable=trainable, frozen=frozen)
     return _step_bytes(t, grad_accum > 1)
 
 
 def colocated_train_bytes(est: Dict[str, int], dp: int, mp: int,
-                          accumulating: bool = False) -> int:
-    """The peak of a (dp, mp) mesh's shards all on one card, each
-    estimated ``est`` (:func:`estimate_mesh_train_device_bytes`): the
-    step's peak rule over their summed terms, with the ``working``
-    buffers counted once (one process makes them for one shard at a
-    time) and the gathered LM head (``transient``) once per model
-    position (the ``dp`` data rows of a position gather it onto one
-    card, and the gather's result is one tensor there)."""
-    n = dp * mp
-    backward = n * est["activations"] + mp * est["transient"] + est.get(
-        "working", 0) + (n * est["grads"] if accumulating else 0)
-    return n * (est["params"] + est["opt"]) + max(backward,
-                                                  3 * n * est["grads"])
+                          accumulating: bool = False, sp: int = 1) -> int:
+    """The peak of a (dp, mp) mesh's shards (or a (dp, sp, mp) mesh's)
+    all on one card, each estimated ``est``
+    (:func:`estimate_mesh_train_device_bytes`): the step's peak rule over
+    their summed terms, with the ``working`` buffers counted once (one
+    process makes them for one shard at a time), the gathered LM head
+    (``transient``) once per model position (the ``dp`` data rows and
+    ``sp`` positions of a model position make it onto one card, and the
+    gather's result is one tensor there), and the leaves, their Adam
+    moments and gradients once per ``sp`` group (its positions on one
+    card share one tensor of each, ``ShardedLeaf.owner``); the
+    activations are every position's."""
+    u = dp * mp
+    backward = u * sp * est["activations"] + mp * est["transient"] + \
+        est.get("working", 0) + (u * est["grads"] if accumulating else 0)
+    return u * (est["params"] + est["opt"]) + max(backward,
+                                                  3 * u * est["grads"])
 
 
 def estimate_gang_device_bytes(template: "LlamaLoRA",
@@ -1600,9 +1668,10 @@ class LlamaLoRA:
     ``rope_scaling``, ``quantize_int8``, ``kv_cache_int8``,
     ``tokenizer_path``, ``pretrained_path``, the checkpointing schedules
     ``remat`` and ``remat_policy``, ``grad_accum``, ``loss_chunk``,
-    ``moe_experts``, ``moe_top_k``, ``model_parallel``: the mesh loop,
-    ...); ``sequence_parallel`` and ``pipeline_stages`` are a later slice
-    and raise when they train. ``device=None`` is the CUDA card.
+    ``moe_experts``, ``moe_top_k``, ``model_parallel`` and
+    ``sequence_parallel``: the mesh loop, ...); ``pipeline_stages`` is a
+    later slice and raises when it trains. ``device=None`` is the CUDA
+    card.
 
     Parameters live as the JAX template keeps them: ``_params``, nested
     dicts of f32 numpy arrays in the JAX layout (what ``dump_parameters``
@@ -1616,9 +1685,8 @@ class LlamaLoRA:
     @staticmethod
     def get_knob_config() -> KnobConfig:
         """The JAX template's search space, knob for knob (its JSON is
-        JAX's). ``sequence_parallel`` and ``pipeline_stages``, a later
-        slice's, keep their domains: a proposal that sets one raises when
-        it trains."""
+        JAX's). ``pipeline_stages``, a later slice's, keeps its domain: a
+        proposal that sets it raises when it trains."""
         return {
             "max_epochs": FixedKnob(6),
             "vocab_size": FixedKnob(1 << 14),
@@ -1955,21 +2023,66 @@ class LlamaLoRA:
             lane_param_count=sum(t.numel() for t in state.values()))
 
     def _check_trainable_knobs(self) -> None:
-        """``sequence_parallel`` and ``pipeline_stages`` need the ring /
-        ulysses attention and the pipeline of a later slice; they raise,
-        by name. ``model_parallel`` trains on a mesh (``_train_mesh``)."""
+        """``pipeline_stages`` needs the pipeline of a later slice; it
+        raises, by name. ``model_parallel`` and ``sequence_parallel``
+        train on a mesh (``_train_mesh``)."""
         k = self.knobs
-        blockers = [name for name in ("sequence_parallel",
-                                      "pipeline_stages")
+        blockers = [name for name in ("pipeline_stages",)
                     if int(k.get(name, 1) or 1) > 1]
         if blockers:
             raise NotImplementedError(
                 f"knob(s) {blockers} need the sharded train path, which "
                 "is not ported yet")
 
+    def _check_sp_knobs(self, n_devices: int) -> None:
+        """JAX's refusals of a ``sequence_parallel > 1`` trial, word for
+        word and in its order (``LlamaLoRA.train``)."""
+        k = self.knobs
+        sp = int(k.get("sequence_parallel", 1) or 1)
+        if sp <= 1:
+            return
+        sp_tp = int(k.get("model_parallel", 1) or 1)
+        if int(k.get("pipeline_stages", 1) or 1) > 1:
+            raise ValueError(
+                "sequence_parallel>1 is mutually exclusive with "
+                "pipeline_stages>1 (pick sp[×tp]×dp or pp×dp)")
+        if int(k.get("moe_experts", 0)) and sp_tp == 1:
+            raise ValueError(
+                "moe_experts with sequence_parallel requires "
+                "model_parallel>1: experts shard over the `model` "
+                "axis, which the dp x sp mesh lacks (the 3-axis "
+                "dp x sp x model mesh carries both)")
+        if int(k.get("loss_chunk", 0) or 0) and sp_tp > 1:
+            raise ValueError(
+                "loss_chunk with sequence_parallel requires "
+                "model_parallel=1 (the sharded chunked loss keeps "
+                "the head replicated; a vocab-sharded head inside "
+                "the shard would need cross-axis softmax)")
+        if n_devices % (sp * sp_tp):
+            raise ValueError(
+                f"sequence_parallel={sp} x model_parallel={sp_tp} "
+                f"must divide the trial's {n_devices} devices")
+        if int(k["max_len"]) % sp:
+            raise ValueError(f"max_len {k['max_len']} must "
+                             f"divide by sequence_parallel={sp}")
+        heads = int(k["n_heads"])
+        kv_heads = max(1, heads // int(k["kv_ratio"]))
+        if sp_tp > 1 and (heads % sp_tp or kv_heads % sp_tp):
+            raise ValueError(
+                f"sequence_parallel with model_parallel={sp_tp} "
+                f"needs n_heads ({heads}) and kv heads ({kv_heads}) "
+                "divisible by it (TP shards whole heads)")
+
     def _mesh(self, devices: Sequence[Any]) -> Mesh:
         """JAX's rule: ``model_parallel`` halved until it divides the
-        device count; the rest of the devices are ``data``."""
+        device count; the rest of the devices are ``data``. With
+        ``sequence_parallel > 1`` the (data, sp) mesh, or (data, sp,
+        model) with ``model_parallel > 1`` (not halved), in row-major
+        order."""
+        sp = int(self.knobs.get("sequence_parallel", 1) or 1)
+        if sp > 1:
+            return make_sp_mesh(devices, sp, int(
+                self.knobs.get("model_parallel", 1) or 1))
         n = len(devices)
         mp = int(self.knobs.get("model_parallel", 1))
         while n % mp:
@@ -2021,7 +2134,10 @@ class LlamaLoRA:
         per device. With ``model_parallel > 1`` the mesh :meth:`train`
         builds over ``n_devices`` (JAX's factors: ``model_parallel``
         halved until it divides, the rest ``data``;
-        :func:`estimate_mesh_train_device_bytes`); otherwise the one-card
+        :func:`estimate_mesh_train_device_bytes`); with
+        ``sequence_parallel > 1`` its (data, sp[, model]) mesh (JAX's:
+        ``sequence_parallel`` and ``model_parallel`` as the knobs say,
+        ``data`` the rest of ``n_devices``); otherwise the one-card
         step (:func:`estimate_train_device_bytes`), which trains on one
         device whatever ``n_devices`` is. ``gang_size >= 1`` budgets a
         K-lane gang step instead (:func:`estimate_gang_device_bytes`).
@@ -2029,6 +2145,11 @@ class LlamaLoRA:
         if gang_size >= 1:
             return estimate_gang_device_bytes(self, gang_size)
         self._check_trainable_knobs()
+        sp = int(self.knobs.get("sequence_parallel", 1) or 1)
+        if sp > 1:
+            mp = int(self.knobs.get("model_parallel", 1) or 1)
+            return estimate_mesh_train_device_bytes(
+                self, max(1, int(n_devices) // (sp * mp)), mp, sp)
         if int(self.knobs.get("model_parallel", 1) or 1) > 1:
             shape = self._mesh(["cpu"] * max(1, int(n_devices))).shape
             return estimate_mesh_train_device_bytes(self, shape["data"],
@@ -2048,8 +2169,9 @@ class LlamaLoRA:
         ``grad_accum`` micro-batches, and the batch rounded down to a
         multiple of ``grad_accum``; with none of those knobs the two are
         the same step, so one loop serves both. With ``model_parallel >
-        1`` it runs JAX's mesh loop (:meth:`_train_mesh`) over
-        ``ctx.devices``. The knobs'
+        1`` or ``sequence_parallel > 1`` it runs JAX's mesh loop
+        (:meth:`_train_mesh`) over ``ctx.devices``, after JAX's refusals
+        of a sequence-parallel trial (:meth:`_check_sp_knobs`). The knobs'
         checkpointing schedule runs in every block. One difference, on
         purpose (ROADMAP Queue C 23): JAX's sharded loop never reads
         ``lora_scale`` (it trains at scale 1 and stores ``lora_b``
@@ -2068,11 +2190,13 @@ class LlamaLoRA:
         come from ``batch_iterator(seed=epoch)``; ``loss`` and ``tokens``
         are logged per epoch. At the end ``_params`` holds the trained
         tree with ``lora_scale`` folded into ``lora_b``."""
-        self._check_trainable_knobs()
         ctx = ctx or TrainContext()
+        self._check_sp_knobs(len(self._train_devices(ctx)))
+        self._check_trainable_knobs()
         ds = load_text_classification_dataset(dataset_path)
         ids, lens = self._encode_lm(ds.texts)
-        if int(self.knobs.get("model_parallel", 1) or 1) > 1:
+        if int(self.knobs.get("model_parallel", 1) or 1) > 1 or \
+                int(self.knobs.get("sequence_parallel", 1) or 1) > 1:
             return self._train_mesh(ids, lens, ctx)
         model = self._module()
         names = lora_trainable_names(
@@ -2176,9 +2300,10 @@ class LlamaLoRA:
 
     def _train_mesh(self, ids: np.ndarray, lens: np.ndarray,
                     ctx: TrainContext) -> None:
-        """JAX's mesh loop (``model_parallel > 1``): the ``(data,
-        model)`` mesh of :meth:`_mesh` over :meth:`_train_devices`, every
-        leaf sharded by ``TP_RULES`` and fsdp, the batch over ``data``,
+        """JAX's mesh loop (``model_parallel > 1`` or ``sequence_parallel
+        > 1``): the mesh of :meth:`_mesh` over :meth:`_train_devices`,
+        every leaf sharded by ``TP_RULES`` (none on a (data, sp) mesh)
+        and fsdp, the batch over ``data`` and its sequence over ``sp``,
         the step of ``models/llama_mesh.py``. The start is the one-card
         loop's (:meth:`_initial_base`, the seeded init drawn on the
         template's device, then held as the f32 host tree the blob is
@@ -2205,7 +2330,8 @@ class LlamaLoRA:
             n_experts=model.n_experts, moe_top_k=model.moe_top_k,
             remat_policy=model.remat_policy)
         del model
-        mm.leaves = shard_tree(base, mesh, TP_RULES, names, mm.dtype)
+        rules = None if mm.sp > 1 and mm.mp == 1 else TP_RULES
+        mm.leaves = shard_tree(base, mesh, rules, names, mm.dtype)
         for key in names:  # the shards hold them now: keep shapes only
             *path, leaf = key.split(".")
             node = base

@@ -1,11 +1,13 @@
-"""The sharded train step of ``LlamaLoRA`` on a (data, model) mesh.
+"""The sharded train step of ``LlamaLoRA`` on a (data, model), (data, sp)
+or (data, sp, model) mesh.
 
 Ports the mesh loop of ``rafiki_tpu/models/llama_lora.py``
-(``LlamaLoRA.train`` where ``gang_blockers`` names ``model_parallel``):
-every leaf is sharded by ``TP_RULES`` over ``model`` and fsdp over
-``data`` (``param_shardings(..., fsdp=True, min_size=2 ** 12)``, JAX's
-specs leaf for leaf, the LoRA leaves included), the batch is split over
-``data``, and one process drives every shard
+(``LlamaLoRA.train`` where ``gang_blockers`` names ``model_parallel`` or
+``sequence_parallel``): every leaf is sharded by ``TP_RULES`` over
+``model`` (none on a (data, sp) mesh, as in JAX) and fsdp over ``data``
+(``param_shardings(..., fsdp=True, min_size=2 ** 12)``, JAX's specs leaf
+for leaf, the LoRA leaves included), the batch is split over ``data``
+and its sequence over ``sp``, and one process drives every shard
 (:mod:`rafiki_tpu_torch.parallel.collectives`). Where XLA partitions
 JAX's global program, the port writes the sharded program out:
 
@@ -30,17 +32,35 @@ JAX's global program, the port writes the sharded program out:
   gradient with respect to its logits (:class:`_VocabShardCE`);
 - a MoE block (``TP_RULES["experts"]``, dim 0) gives each shard ``E /
   mp`` experts; the routing is ``ops/moe.py``'s over the whole batch
-  (the router logits are all-gathered over ``data``, as JAX routes its
-  global batch), each shard runs its experts on its data row's tokens,
-  and one all-reduce over ``model`` sums the outputs.
+  (the router logits are all-gathered over ``sp`` and ``data`` into the
+  batch's row-major token order, as JAX routes its global batch), each
+  shard runs its experts on its own tokens, and one all-reduce over
+  ``model`` sums the outputs;
+- with ``sp``: each position holds its (B / dp, L / sp) slice of every
+  activation; rope runs at the global token positions; attention is
+  ``ops/ring_attention.py``'s where a shard's ``n_heads / mp`` heads do
+  not divide over ``sp``, else ``ops/ulysses.py``'s (JAX's
+  ``_DecoderAttention`` dispatch), both without ``kv_lens``; the
+  next-token targets are shifted over the whole sequence before they
+  are split; with ``loss_chunk`` the loss is ``chunked_lm_loss_terms_sp``
+  (a (data, sp) mesh: JAX refuses it with ``model``).
+
+No spec names ``sp``, so a leaf is replicated over it. The positions of
+an ``sp`` group that sit on one device hold ONE tensor of each leaf, one
+autograd leaf in the step (whose gradient autograd sums over the group)
+and one Adam state: on one card an ``sp`` replica costs no memory, as it
+would cost a card of its own on a mesh of cards
+(``llama_lora.colocated_train_bytes`` counts it so). The leaf says which
+(``ShardedLeaf.owner``: each position's first holder of its tensor), and
+the step, the gathers, Adam and the replica sums run once per owner.
 
 The step is the one-card step's: the rank-scale merged into ``lora_b``,
 ``grad_accum`` micro-batches over the global valid count, the streamed
 loss, the MoE aux term and each block under the knobs' checkpointing
 schedule. The gradient of a leaf's slice is the sum over the positions
 holding a copy of it (the all-reduce of a replicated leaf's gradients
-over both axes); Adam is elementwise, so each position updates its own
-copy of its slice (``lane_adam_step``, one call per device).
+over every axis); Adam is elementwise, so each distinct copy of a slice
+is updated in place (``lane_adam_step``, one call per device).
 """
 
 from __future__ import annotations
@@ -56,12 +76,15 @@ import torch.nn.functional as F
 from rafiki_tpu_torch.ops.attention import flash_attention
 from rafiki_tpu_torch.ops.moe import (MOE_AUX_COEF, expert_capacity,
                                       expert_outputs, route)
+from rafiki_tpu_torch.ops.ring_attention import ring_attention
+from rafiki_tpu_torch.ops.ulysses import ulysses_attention
 from rafiki_tpu_torch.model.optim import lane_adam_init, lane_adam_step
 from rafiki_tpu_torch.parallel.collectives import (ShardedLeaf, all_gather,
-                                                   all_reduce, on_axis)
-from rafiki_tpu_torch.parallel.sharding import (DATA_AXIS, MODEL_AXIS, Mesh,
-                                                leaf_paths, param_shardings,
-                                                shard_batch)
+                                                   all_reduce, on_axis,
+                                                   owners)
+from rafiki_tpu_torch.parallel.sharding import (DATA_AXIS, MODEL_AXIS,
+                                                SP_AXIS, Mesh, leaf_paths,
+                                                param_shardings)
 from rafiki_tpu_torch.store.params import MATMUL_LEAVES
 
 #: ``param_shardings``' fsdp threshold in JAX's mesh loop
@@ -69,8 +92,9 @@ FSDP_MIN_SIZE = 2 ** 12
 
 
 def mesh_specs(shapes: Dict[str, Any], mesh: Mesh,
-               rules: Dict[str, int]) -> Dict[str, Tuple]:
-    """Per ``state_dict`` key, the spec JAX's mesh loop gives the leaf."""
+               rules: Optional[Dict[str, int]]) -> Dict[str, Tuple]:
+    """Per ``state_dict`` key, the spec JAX's mesh loop gives the leaf
+    (``rules`` None: fsdp alone, as on a (data, sp) mesh)."""
     specs = param_shardings(shapes, mesh, tp_rules=rules, fsdp=True,
                             min_size=FSDP_MIN_SIZE)
     return {p.replace("/", "."): s for p, s in specs.items()}
@@ -86,11 +110,13 @@ def storage_dtype(key: str, trainable: bool,
     return dtype
 
 
-def shard_tree(base: Dict[str, Any], mesh: Mesh, rules: Dict[str, int],
-               trainable: List[str], dtype: torch.dtype
-               ) -> Dict[str, ShardedLeaf]:
+def shard_tree(base: Dict[str, Any], mesh: Mesh,
+               rules: Optional[Dict[str, int]], trainable: List[str],
+               dtype: torch.dtype) -> Dict[str, ShardedLeaf]:
     """``base`` (a nested f32 tree in the JAX layout) sliced onto
-    ``mesh``'s devices, one leaf at a time, keyed by ``state_dict`` key."""
+    ``mesh``'s devices, one leaf at a time, keyed by ``state_dict`` key.
+    No spec names ``sp``: the positions of an ``sp`` group that sit on
+    one device hold one tensor of each leaf (:class:`MeshLlama`)."""
     specs = mesh_specs(base, mesh, rules)
     wanted = set(trainable)
     out: Dict[str, ShardedLeaf] = {}
@@ -102,7 +128,8 @@ def shard_tree(base: Dict[str, Any], mesh: Mesh, rules: Dict[str, int],
                 else torch.as_tensor(leaf)
             out[key] = ShardedLeaf.from_full(
                 full, mesh, specs[key],
-                dtype=storage_dtype(key, key in wanted, dtype))
+                dtype=storage_dtype(key, key in wanted, dtype),
+                share=(SP_AXIS,))
     return out
 
 
@@ -112,7 +139,9 @@ def _spec_dim(spec: Tuple, axis: str) -> Optional[int]:
 
 class MeshLlama:
     """The shapes and settings the sharded step reads (a ``Llama``'s,
-    without its weights) and the mesh's sharded leaves."""
+    without its weights) and the mesh's sharded leaves. ``dp``, ``sp``
+    and ``mp`` are the mesh's ``data``, ``sp`` and ``model`` sizes (1 for
+    an axis it lacks)."""
 
     def __init__(self, mesh: Mesh, leaves: Dict[str, ShardedLeaf], *,
                  hidden: int, depth: int, n_heads: int, n_kv_heads: int,
@@ -131,8 +160,9 @@ class MeshLlama:
         self.capacity_factor = capacity_factor
         self.remat_policy = remat_policy
         self.eps = eps
-        self.dp = mesh.shape[DATA_AXIS]
-        self.mp = mesh.shape[MODEL_AXIS]
+        self.dp = mesh.axis_size(DATA_AXIS)
+        self.sp = mesh.axis_size(SP_AXIS)
+        self.mp = mesh.axis_size(MODEL_AXIS)
         self.devices = mesh.flat_devices()
         if n_heads % self.mp:
             raise ValueError(f"model_parallel={self.mp} must divide "
@@ -152,27 +182,27 @@ def _frozen_view(leaf: ShardedLeaf, p: int, split: Optional[int]
     gathered over ``data`` where fsdp split it, then whole (``split``
     None) or the ``p``-th model chunk along ``split``."""
     mesh = leaf.mesh
-    mp = mesh.shape[MODEL_AXIS]
-    i, j = divmod(p, mp)
+    mp = mesh.axis_size(MODEL_AXIS)
     spec = leaf.spec + (None,) * (len(leaf.shape) - len(leaf.spec))
     dev = mesh.flat_devices()[p]
     dd, dm = _spec_dim(spec, DATA_AXIS), _spec_dim(spec, MODEL_AXIS)
 
-    def column(jj: int) -> torch.Tensor:
+    def column(q: int) -> torch.Tensor:
         if dd is None:
-            return leaf.shards[i * mp + jj]
-        return torch.cat([leaf.shards[ii * mp + jj].to(dev)
-                          for ii in range(mesh.shape[DATA_AXIS])], dd)
+            return leaf.shards[q]
+        return torch.cat([leaf.shards[r].to(dev)
+                          for r in mesh.along(q, DATA_AXIS)], dd)
 
     if dm is not None:
         if split is not None and split % len(leaf.shape) == dm:
-            return column(j)
-        t = torch.cat([column(jj).to(dev) for jj in range(mp)], dm)
+            return column(p)
+        t = torch.cat([column(q).to(dev)
+                       for q in mesh.along(p, MODEL_AXIS)], dm)
     else:
-        t = column(j)
+        t = column(p)
     if split is None:
         return t
-    return t.tensor_split(mp, dim=split)[j]
+    return t.tensor_split(mp, dim=split)[mesh.coord(p, MODEL_AXIS)]
 
 
 def _view(leaf: ShardedLeaf, shards: List[torch.Tensor],
@@ -183,19 +213,22 @@ def _view(leaf: ShardedLeaf, shards: List[torch.Tensor],
     split is chunked locally. Gradients flow back through the
     collectives' rules."""
     mesh = leaf.mesh
-    mp = mesh.shape[MODEL_AXIS]
+    mp = mesh.axis_size(MODEL_AXIS)
     spec = leaf.spec + (None,) * (len(leaf.shape) - len(leaf.spec))
     dd, dm = _spec_dim(spec, DATA_AXIS), _spec_dim(spec, MODEL_AXIS)
     out = list(shards)
     if dd is not None:
-        out = on_axis(mesh, DATA_AXIS, all_gather, out, dd)
+        out = on_axis(mesh, DATA_AXIS, all_gather, out, dd,
+                      owner=leaf.owner)
     if dm is not None:
         if split is not None and split % len(leaf.shape) == dm:
             return out
-        out = on_axis(mesh, MODEL_AXIS, all_gather, out, dm)
-    if split is None:
+        out = on_axis(mesh, MODEL_AXIS, all_gather, out, dm,
+                      owner=leaf.owner)
+    if split is None or mp == 1:  # whole: the gathered tensor itself
         return out
-    return [t.tensor_split(mp, dim=split)[p % mp] for p, t in enumerate(out)]
+    return [t.tensor_split(mp, dim=split)[mesh.coord(p, MODEL_AXIS)]
+            for p, t in enumerate(out)]
 
 
 class _RegatherMatmul(torch.autograd.Function):
@@ -232,8 +265,8 @@ class _Step:
         leaf = self.mm.leaves[key]
         if key in self.params:
             shards = self.params[key]
-            if dtype is not None:
-                shards = [t.to(dtype) for t in shards]
+            if dtype is not None:  # once per tensor the positions share
+                shards = _per_owner(leaf, shards, lambda t: t.to(dtype))
             return _view(leaf, shards, split)
         return [_frozen_view(leaf, p, split).to(dtype or leaf.dtype)
                 for p in range(len(leaf.shards))]
@@ -300,6 +333,8 @@ class _Step:
         k = self.dense(h, f"{pre}.attn.wk", -1)
         v = self.dense(h, f"{pre}.attn.wv", -1)
         local_kv = mm.n_kv_heads % mm.mp == 0
+        if mm.sp > 1:
+            return self.sp_attention(q, k, v, rows)
         if not local_kv:  # K/V heads split mid-group: gather them whole
             k, v = self.gather_model(k, -1), self.gather_model(v, -1)
         out = []
@@ -316,7 +351,7 @@ class _Step:
                 kp = kp.repeat_interleave(rep, dim=2)
                 vp = vp.repeat_interleave(rep, dim=2)
             else:
-                j = p % mm.mp
+                j = mm.mesh.coord(p, MODEL_AXIS)
                 idx = torch.arange(j * hl, (j + 1) * hl,
                                    device=kp.device) // rep
                 kp, vp = kp.index_select(2, idx), vp.index_select(2, idx)
@@ -326,18 +361,57 @@ class _Step:
             out.append(o.reshape(b * s, hl * dh))
         return out
 
-    def moe(self, h: List[torch.Tensor], pre: str
+    def sp_attention(self, q: List[torch.Tensor], k: List[torch.Tensor],
+                     v: List[torch.Tensor], rows: List[Dict]
+                     ) -> List[torch.Tensor]:
+        """JAX's ``_DecoderAttention`` with ``seq_axis``: rope at each
+        position's global token positions, then the un-repeated K/V
+        (GQA) through the ring where the shard's heads do not divide
+        over ``sp``, else through Ulysses; no ``kv_lens`` (a pad key is
+        seen only by pad queries, whose loss is masked)."""
+        from rafiki_tpu_torch.models.llama_lora import rope
+
+        mm = self.mm
+        if mm.n_kv_heads % mm.mp:
+            raise ValueError(f"sequence_parallel with model_parallel="
+                             f"{mm.mp} needs the kv heads "
+                             f"({mm.n_kv_heads}) divisible by it")
+        dh = mm.hidden // mm.n_heads
+        hl = mm.n_heads // mm.mp
+        qs, ks, vs = [], [], []
+        for p, r in enumerate(rows):
+            b, s = r["positions"].shape
+            kv_heads = k[p].shape[-1] // dh
+            qs.append(rope(q[p].reshape(b, s, hl, dh), r["positions"],
+                           mm.rope_theta, mm.rope_scaling).transpose(1, 2))
+            ks.append(rope(k[p].reshape(b, s, kv_heads, dh),
+                           r["positions"], mm.rope_theta,
+                           mm.rope_scaling).transpose(1, 2))
+            vs.append(v[p].reshape(b, s, kv_heads, dh).transpose(1, 2))
+        attn = ring_attention if hl % mm.sp else ulysses_attention
+        outs = attn(qs, ks, vs, mm.mesh, SP_AXIS, causal=True)
+        return [o.transpose(1, 2).reshape(-1, hl * dh) for o in outs]
+
+    def moe(self, h: List[torch.Tensor], pre: str, rows: List[Dict]
             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         mm = self.mm
         el = mm.n_experts // mm.mp
         logits = [x.float() @ w.float()
                   for x, w in zip(h, self.view(f"{pre}.moe.router", None))]
-        # the routing sees the global batch, as JAX's does: the logits
-        # gathered over ``data``, routed once per gathered tensor (the
-        # positions of a model column that share a device share it)
-        sizes = [h[i * mm.mp].shape[0] for i in range(mm.dp)]
-        glob = on_axis(mm.mesh, DATA_AXIS, all_gather, logits, 0)
-        cap = expert_capacity(sum(sizes), mm.top_k, mm.n_experts,
+        # the routing sees the global token set in its row-major (batch,
+        # sequence) order, as JAX's does: the logits gathered over
+        # ``sp`` along the sequence, then over ``data``, routed once per
+        # gathered tensor (the gathers share their result among the
+        # positions of a group on one device: ``owners``)
+        if mm.sp > 1:
+            logits = [t.reshape(r["ids"].shape + (mm.n_experts,))
+                      for t, r in zip(logits, rows)]
+            logits = [t.reshape(-1, mm.n_experts) for t in on_axis(
+                mm.mesh, SP_AXIS, all_gather, logits, 1)]
+        glob = on_axis(mm.mesh, DATA_AXIS, all_gather, logits, 0,
+                       owner=owners(mm.mesh, (SP_AXIS,)))
+        own = owners(mm.mesh, (SP_AXIS, DATA_AXIS))
+        cap = expert_capacity(glob[0].shape[0], mm.top_k, mm.n_experts,
                               mm.capacity_factor)
         routed: Dict[int, Any] = {}
         cdt = h[0].dtype
@@ -346,14 +420,14 @@ class _Step:
         wd = self.view(f"{pre}.moe.experts_down", 0, cdt)
         out = []
         for p, x in enumerate(h):
-            i, j = divmod(p, mm.mp)
-            if id(glob[p]) not in routed:
-                routed[id(glob[p])] = route(glob[p], cap, mm.top_k)
-            r = routed[id(glob[p])]
-            out.append(expert_outputs(x, r, wg[p], wu[p], wd[p],
-                                      first_expert=j * el,
-                                      first_token=sum(sizes[:i])))
-        aux = routed[id(glob[0])].aux
+            if own[p] not in routed:
+                routed[own[p]] = route(glob[p], cap, mm.top_k)
+            r = routed[own[p]]
+            out.append(expert_outputs(
+                x, r, wg[p], wu[p], wd[p],
+                first_expert=mm.mesh.coord(p, MODEL_AXIS) * el,
+                tokens=rows[p]["tokens"]))
+        aux = routed[own[0]].aux
         return [y.to(x.dtype) for y, x in zip(self.reduce_model(out), h)], aux
 
     def block(self, k: int, rows: List[Dict], *xs: torch.Tensor):
@@ -366,7 +440,7 @@ class _Step:
         xs = [x + yy for x, yy in zip(xs, y)]
         h = self.norm(xs, f"{pre}.RMSNorm_1.scale")
         if mm.n_experts:
-            y, aux = self.moe(h, pre)
+            y, aux = self.moe(h, pre, rows)
             return tuple(x + yy for x, yy in zip(xs, y)) + (aux,)
         g = self.dense(h, f"{pre}.gate", -1)
         u = self.dense(h, f"{pre}.up", -1)
@@ -414,7 +488,9 @@ class _Step:
         logits, lse, picked, inside = [], [], [], []
         for p, (x, w) in enumerate(zip(h, kernels)):
             lg = x @ w
-            off = sum(k.shape[-1] for k in kernels[p - p % mm.mp:p])
+            j = mm.mesh.coord(p, MODEL_AXIS)
+            off = sum(kernels[q].shape[-1]
+                      for q in mm.mesh.along(p, MODEL_AXIS)[:j])
             t = targets[p] - off
             inside.append((t >= 0) & (t < lg.shape[-1]))
             picked.append(t.clamp(0, lg.shape[-1] - 1))
@@ -428,7 +504,8 @@ class _Step:
         total = None
         for p, lg in enumerate(logits):
             part = _VocabShardCE.apply(lg, lse[p], picked[p], inside[p],
-                                       valid[p], p % mm.mp == 0)
+                                       valid[p],
+                                       mm.mesh.coord(p, MODEL_AXIS) == 0)
             total = part.to(dev0) if total is None else \
                 total + part.to(dev0)
         return total
@@ -474,16 +551,33 @@ class _VocabShardCE(torch.autograd.Function):
 
 
 def _rows(mm: MeshLlama, batch: Dict[str, torch.Tensor]) -> List[Dict]:
-    """The batch split over ``data`` (:func:`shard_batch`), one dict per
-    position on its device (a data row's model positions on one device
-    share it)."""
+    """One dict per position on its device: its (B / dp, L / sp) slice of
+    ``ids``, its rows' ``lens`` (and ``mask``), its tokens' global
+    positions (rope's, ``sp_index · L / sp + arange(L / sp)``) and indices
+    in the batch's row-major token order (the MoE routing's), and its
+    slice of the next-token ``targets`` and ``valid`` mask, both computed
+    over the whole sequence first (the shift crosses the ``sp`` shards'
+    boundaries)."""
+    from rafiki_tpu_torch.models.llama_lora import lm_valid_mask
+
+    ids, lens, mask = batch["ids"], batch["lens"], batch.get("mask")
+    b, seq = ids.shape
+    targets = F.pad(ids[:, 1:], (0, 1)).long()
+    valid = lm_valid_mask(seq, lens, mask).float()
+    bl, ls = b // mm.dp, seq // mm.sp
+    order = torch.arange(b * seq).reshape(b, seq)
     out = []
-    parts = shard_batch(batch, mm.mesh)
     for p, dev in enumerate(mm.devices):
-        r = {k: v.to(dev) for k, v in parts[p // mm.mp].items()}
-        b, s = r["ids"].shape
-        r["positions"] = torch.arange(s, dtype=torch.int32,
-                                      device=dev).expand(b, s)
+        i, s = mm.mesh.coord(p, DATA_AXIS), mm.mesh.coord(p, SP_AXIS)
+        rs, cs = slice(i * bl, (i + 1) * bl), slice(s * ls, (s + 1) * ls)
+        r = {"ids": ids[rs, cs].to(dev), "lens": lens[rs].to(dev),
+             "targets": targets[rs, cs].reshape(-1).to(dev),
+             "valid": valid[rs, cs].reshape(-1).to(dev),
+             "tokens": order[rs, cs].reshape(-1).to(dev),
+             "positions": (s * ls + torch.arange(
+                 ls, dtype=torch.int32, device=dev)).expand(bl, ls)}
+        if mask is not None:
+            r["mask"] = mask[rs].to(dev)
         out.append(r)
     return out
 
@@ -493,20 +587,25 @@ def mesh_micro_terms(mm: MeshLlama, params: Dict[str, List[torch.Tensor]],
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """JAX's ``micro_terms`` over the mesh: (loss sum, valid count, MoE
     aux) of one (micro-)batch, each a 0-d f32 on the mesh's first
-    device."""
+    device. The count sums over ``data`` and ``sp``; with ``sp`` and
+    ``loss_chunk`` the loss is :func:`~rafiki_tpu_torch.models.llama_lora.
+    chunked_lm_loss_terms_sp`'s (each position streams its own chunks)."""
     from rafiki_tpu_torch.models.llama_lora import (checkpoint_block,
-                                                    lm_valid_mask)
+                                                    chunked_lm_loss_terms_sp)
 
     step = _Step(mm, params)
     rows = _rows(mm, batch)
     h, aux_terms = step.hidden(rows)
-    targets = [F.pad(r["ids"][:, 1:], (0, 1)).long().reshape(-1)
-               for r in rows]
-    valid = [lm_valid_mask(r["ids"].shape[1], r["lens"], r.get("mask"))
-             .float().reshape(-1) for r in rows]
+    targets = [r["targets"] for r in rows]
+    valid = [r["valid"] for r in rows]
     kernels = step.view("lm_head.kernel", -1, mm.dtype)
     dev0 = mm.devices[0]
-    if loss_chunk:
+    if loss_chunk and mm.sp > 1:
+        total, _ = chunked_lm_loss_terms_sp(
+            [x.reshape(r["ids"].shape + (-1,)) for x, r in zip(h, rows)],
+            kernels, batch["ids"], batch["lens"], batch.get("mask"),
+            loss_chunk, mm.mesh, DATA_AXIS, SP_AXIS)
+    elif loss_chunk:
         # the streamed loss: one sequence chunk of logits at a time,
         # each chunk's body rematerialized in the backward
         b, s = rows[0]["ids"].shape
@@ -530,24 +629,36 @@ def mesh_micro_terms(mm: MeshLlama, params: Dict[str, List[torch.Tensor]],
     else:
         total = step.ce_terms(h, kernels, targets, valid)
     count = None
-    for i in range(mm.dp):
-        c = valid[i * mm.mp].sum().to(dev0)
-        count = c if count is None else count + c
+    for p in range(len(rows)):
+        if mm.mesh.coord(p, MODEL_AXIS) == 0:
+            c = valid[p].sum().to(dev0)
+            count = c if count is None else count + c
     aux = torch.zeros((), dtype=torch.float32, device=dev0)
     for a in aux_terms:
         aux = aux + a.float().to(dev0)
-    return total, count, aux
+    return total.to(dev0), count, aux
+
+
+def _per_owner(leaf: ShardedLeaf, ts: List[torch.Tensor],
+               fn: Callable[[torch.Tensor], torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """``fn`` of each position's tensor of ``leaf`` (``ts``, shared as
+    the leaf's shards are), run once per owner and shared as they are."""
+    done = {p: fn(ts[p]) for p in leaf.owned()}
+    return [done[o] for o in leaf.owner]
 
 
 def mesh_lane_init(mm: MeshLlama, trainable: List[str], learning_rate: float
                    ) -> Dict[str, Any]:
     """The step state: per device, the trainable shards it holds (keyed
-    ``key@position``, sharing the leaves' storage) and their Adam
-    moments; the learning rate per device."""
+    ``key@position`` by each shard's owner, sharing the leaves' storage)
+    and their Adam moments; the learning rate per device."""
     groups: Dict[torch.device, Dict[str, torch.Tensor]] = {}
     for key in trainable:
-        for p, t in enumerate(mm.leaves[key].shards):
-            groups.setdefault(mm.devices[p], {})[f"{key}@{p}"] = t
+        leaf = mm.leaves[key]
+        for p in leaf.owned():
+            groups.setdefault(mm.devices[p], {})[f"{key}@{p}"] = \
+                leaf.shards[p]
     return {dev: {"params": params, "opt": lane_adam_init(params),
                   "lr": torch.tensor(float(learning_rate),
                                      dtype=torch.float32, device=dev)}
@@ -556,20 +667,21 @@ def mesh_lane_init(mm: MeshLlama, trainable: List[str], learning_rate: float
 
 def _replica_sums(mm: MeshLlama, key: str, grads: List[torch.Tensor]
                   ) -> List[torch.Tensor]:
-    """Each position's gradient of its copy summed over every position
-    holding the same slice (the all-reduce of a replicated leaf's
-    gradients)."""
+    """Each owner's gradient (``grads``, one per owner position, keyed by
+    it) summed over every owner of the same slice (the all-reduce of a
+    replicated leaf's gradients). A shard that several positions share
+    (an ``sp`` group on one device) already holds their sum, autograd's,
+    and counts once."""
     leaf = mm.leaves[key]
     groups: Dict[str, List[int]] = {}
-    for p in range(len(grads)):
+    for p in leaf.owned():
         groups.setdefault(repr(leaf.bounds(p)), []).append(p)
-    out = list(grads)
+    out = dict(grads)
     for ps in groups.values():
         if len(ps) > 1:
             res = all_reduce([grads[p] for p in ps],
                              [mm.devices[p] for p in ps])
-            for p, r in zip(ps, res):
-                out[p] = r
+            out.update(zip(ps, res))
     return out
 
 
@@ -580,16 +692,22 @@ def mesh_train_step(mm: MeshLlama, state: Dict[str, Any],
                     ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """One step of the mesh (the one-card ``lane_train_step``): the
     objective of ``grad_accum`` micro-batches (each a contiguous block of
-    the batch, split over ``data``) over the batch's valid count, the
-    rank-scale merged into ``lora_b``, the gradients summed over
-    replicas, then Adam in place on every position. Returns (state, the
-    batch loss, detached, on the mesh's first device)."""
+    the batch, split over ``data`` and ``sp``) over the batch's valid
+    count, the rank-scale merged into ``lora_b``, the gradients summed
+    over replicas, then Adam in place on every distinct shard. Returns
+    (state, the batch loss, detached, on the mesh's first device)."""
     from rafiki_tpu_torch.models.llama_lora import (WEIGHT_DECAY,
                                                     lm_valid_mask)
 
-    leaves = {key: [t.detach().requires_grad_(True)
-                    for t in mm.leaves[key].shards] for key in trainable}
-    flat = [t for key in trainable for t in leaves[key]]
+    # one autograd leaf per owned shard: the positions sharing a shard
+    # share its leaf, whose gradient autograd sums over them
+    leaves: Dict[str, List[torch.Tensor]] = {}
+    flat: List[torch.Tensor] = []
+    for key in trainable:
+        leaf = mm.leaves[key]
+        leaves[key] = _per_owner(
+            leaf, leaf.shards, lambda t: t.detach().requires_grad_(True))
+        flat += [leaves[key][p] for p in leaf.owned()]
     ids, lens, mask = batch["ids"], batch["lens"], batch.get("mask")
     b, seq = ids.shape
     if b % (grad_accum * mm.dp):
@@ -602,8 +720,8 @@ def mesh_train_step(mm: MeshLlama, state: Dict[str, Any],
     loss, grads = None, None
     for a in range(grad_accum):
         micro = {k: v[a * m:(a + 1) * m] for k, v in batch.items()}
-        merged = {key: [t * lora_scale for t in ts] if "lora_b" in key
-                  else ts for key, ts in leaves.items()}
+        merged = {key: _scaled(mm.leaves[key], ts, lora_scale)
+                  if "lora_b" in key else ts for key, ts in leaves.items()}
         total, _, aux = mesh_micro_terms(mm, merged, micro, loss_chunk)
         val = total / denom + MOE_AUX_COEF * aux / grad_accum
         g = torch.autograd.grad(val, flat, allow_unused=True)
@@ -612,18 +730,23 @@ def mesh_train_step(mm: MeshLlama, state: Dict[str, Any],
         loss = val.detach() if loss is None else loss + val.detach()
         grads = g if grads is None else [x + y for x, y in zip(grads, g)]
     by_key: Dict[str, torch.Tensor] = {}
-    k = 0
+    rest = iter(grads)
     for key in trainable:
-        n = len(leaves[key])
-        for p, gg in enumerate(_replica_sums(mm, key, grads[k:k + n])):
+        own = {p: next(rest) for p in mm.leaves[key].owned()}
+        for p, gg in _replica_sums(mm, key, own).items():
             by_key[f"{key}@{p}"] = gg
-        k += n
-    del grads, leaves, merged, flat
+    del grads, leaves, merged, flat, rest
     for dev_state in state.values():
         params = dev_state["params"]
         lane_adam_step(params, {n: by_key[n] for n in params},
                        dev_state["opt"], dev_state["lr"], WEIGHT_DECAY)
     return state, loss
+
+
+def _scaled(leaf: ShardedLeaf, ts: List[torch.Tensor], scale: float
+            ) -> List[torch.Tensor]:
+    """Each owner's tensor of ``ts`` times ``scale``, once."""
+    return _per_owner(leaf, ts, lambda t: t * scale)
 
 
 def gather_trainable(mm: MeshLlama, trainable: List[str]
@@ -640,16 +763,19 @@ def checkpoint_tree(mm: MeshLlama, base: Dict[str, Any],
     each trainable leaf's shards (``lora_b`` times the rank-scale, as
     the blob folds it), each frozen leaf as host views of its f32 base
     array sliced by its spec. The manifest is JAX's for the same
-    mesh."""
+    mesh (on an ``sp`` mesh: ``param_shardings``' specs, ROADMAP Queue C
+    24)."""
     wanted = set(trainable)
     tree: Dict[str, Any] = {}
     for path, arr in leaf_paths(base):
         key = ".".join(path)
         leaf = mm.leaves[key]
         if key in wanted:
-            shards = [t.detach() * lora_scale if "lora_b" in key
-                      else t.detach() for t in leaf.shards]
-            out: Any = ShardedLeaf(leaf.shape, leaf.spec, mm.mesh, shards)
+            shards = _per_owner(leaf, leaf.shards, torch.Tensor.detach)
+            if "lora_b" in key:
+                shards = _scaled(leaf, shards, lora_scale)
+            out: Any = ShardedLeaf(leaf.shape, leaf.spec, mm.mesh, shards,
+                                   leaf.owner)
         else:
             out = ShardedLeaf.from_full(np.asarray(arr), mm.mesh, leaf.spec,
                                         on_host=True)

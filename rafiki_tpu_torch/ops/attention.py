@@ -12,6 +12,11 @@ Ports ``rafiki_tpu/ops/attention.py``:
   is B3's.
 - :func:`flash_attention_bwd_dq` ← Pallas ``_attn_bwd_dq_kernel`` (B5).
 - :func:`flash_attention_bwd_dkv` ← Pallas ``_attn_bwd_dkv_kernel`` (B6).
+- :func:`flash_attention_lse` ← ``flash_attention_lse``: ``(out, lse)``,
+  differentiable in both (B3; B5 + B6 with ``delta − g_lse``), and
+  :func:`flash_attention_block_bwd` ← ``flash_attention_block_bwd``: one
+  block's f32 (dq, dk, dv) against the global output and LSE (B5 + B6);
+  the blockwise entry points of ``ops/ring_attention.py``.
 - :func:`_attention_reference` ← the same-named XLA oracle; with
   :func:`_flash_fwd_reference` and :func:`_flash_bwd_reference` these are
   the kernels' plain versions.
@@ -629,3 +634,84 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, lens, scale, causal, block_h)
     return _forward(q, k, v, lens, scale, causal, block_h, False)[0]
+
+
+# ------------------------------------------- blockwise (ring) entry points
+
+def _full_lens(q: Tensor, k: Tensor) -> Tensor:
+    return _prep_lens(None, q.shape[0], k.shape[2], q.device)
+
+
+def _block_grads(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                 delta: Tensor, sm_scale: float, causal: bool
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """B5 and B6 over every key (no ``kv_lens``): (dq, dk, dv) in q's
+    dtype, from ``lse`` and ``delta`` ((b, h, s_q) f32)."""
+    lens = _full_lens(q, k)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, lens, sm_scale,
+                                causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens,
+                                     sm_scale, causal)
+    return dq, dk, dv
+
+
+class _FlashAttentionLSE(torch.autograd.Function):
+    """B3 forward returning ``(out, lse)``; B5 + B6 backward with the
+    LSE's cotangent folded into ``delta`` (``ds = p·(dp − delta +
+    g_lse)``, JAX's ``_flash_attention_bwd_impl(..., g_lse=)``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal):
+        out, lse = flash_attention_fwd(q, k, v, _full_lens(q, k), sm_scale,
+                                       causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        delta = _delta(do, out)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        dq, dk, dv = _block_grads(q, k, v, do.to(q.dtype), lse, delta,
+                                  ctx.sm_scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(q: Tensor, k: Tensor, v: Tensor,
+                        sm_scale: Optional[float] = None,
+                        causal: bool = False) -> Tuple[Tensor, Tensor]:
+    """Like :func:`flash_attention` but returns ``(out, lse)``, ``lse[b,
+    h, i]`` (f32) the log-sum-exp of row i's scaled, masked scores: what
+    blockwise consumers (ring attention) combine per-block outputs with.
+    Differentiable in ``out`` and ``lse``. B3 forward (with its LSE
+    write), B5 + B6 backward. No ``kv_lens``, as in JAX: a fully masked
+    row's ``LSE_MASKED`` would poison a cross-block max-combine."""
+    scale = sm_scale if sm_scale is not None else \
+        1.0 / math.sqrt(q.shape[-1])
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionLSE.apply(q, k, v, scale, causal)
+    return flash_attention_fwd(q, k, v, _full_lens(q, k), scale, causal,
+                               True)
+
+
+def flash_attention_block_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, g: Tensor, sm_scale: float,
+                              causal: bool = False
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One block's contribution to the GLOBAL attention backward: given
+    this block's q/k/v, the globally combined output ``o`` and row
+    log-sum-exp ``lse`` (b, h, s_q) over ALL blocks, and the output
+    cotangent ``g``, returns f32 (dq, dk, dv) for this block (``p =
+    exp(s − lse)`` are the block's columns of the global attention
+    matrix, so dq summed over blocks and each block's dk/dv routed home
+    make the full backward). ``delta = rowsum(g·o)`` of the global
+    output; B5 and B6 over every key."""
+    dq, dk, dv = _block_grads(q, k, v, g.to(q.dtype), lse,
+                              _delta(g, o), sm_scale, causal)
+    return dq.float(), dk.float(), dv.float()

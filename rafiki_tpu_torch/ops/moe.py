@@ -129,28 +129,31 @@ def router_dispatch(logits: torch.Tensor, capacity: int, top_k: int = 1
 
 def expert_outputs(x: torch.Tensor, r: Routing, gate: torch.Tensor,
                    up: torch.Tensor, down: torch.Tensor, first_expert: int = 0,
-                   first_token: int = 0) -> torch.Tensor:
+                   tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The f32 output, (n, d), of experts ``first_expert ..
     first_expert + E_local - 1`` (``gate`` and ``up`` (E_local, d, h),
     ``down`` (E_local, h, d), in the compute dtype) for the ``n`` tokens
-    ``x`` holds, which are tokens ``first_token ..`` of the routing
-    ``r``: each token's sum over its kept choices of those experts of
-    gate × its slot's output (zero where it has none)."""
+    ``x`` holds, which are the routing ``r``'s tokens ``tokens`` ((n,)
+    indices; None: its first n): each token's sum over its kept choices
+    of those experts of gate × its slot's output (zero where it has
+    none)."""
     n, d = x.shape
     cap = r.capacity
     width = gate.shape[0] * cap
     lo = first_expert * cap
-    mine = r.slots[:, first_token:first_token + n]
+    if tokens is None:
+        tokens = torch.arange(n, device=x.device)
+    mine = r.slots[:, tokens]
     # each choice's slot among these experts' (width: not one of them)
     local = torch.where((mine >= lo) & (mine < lo + width), mine - lo,
                         torch.full_like(mine, width))
     # each slot's token (n: an empty slot, the zero row below)
     owner = torch.full((width + 1,), n, dtype=torch.int64, device=x.device)
-    tokens = torch.arange(n, device=x.device)
+    rows = torch.arange(n, device=x.device)
     for c in range(local.shape[0]):
-        owner = owner.scatter(0, local[c], tokens)
-    rows = torch.cat([x, x.new_zeros(1, d)])
-    slots = rows[owner[:-1]].reshape(-1, cap, d)
+        owner = owner.scatter(0, local[c], rows)
+    slots = torch.cat([x, x.new_zeros(1, d)])[owner[:-1]].reshape(-1, cap,
+                                                                 d)
     g = torch.bmm(slots, gate)
     u = torch.bmm(slots, up)
     o = torch.bmm(F.silu(g) * u, down)
@@ -158,7 +161,7 @@ def expert_outputs(x: torch.Tensor, r: Routing, gate: torch.Tensor,
                       o.new_zeros(1, d, dtype=torch.float32)])
     y = None
     for c in range(local.shape[0]):
-        yc = r.gates[c][first_token:first_token + n, None] * outs[local[c]]
+        yc = r.gates[c][tokens, None] * outs[local[c]]
         y = yc if y is None else y + yc
     return y
 

@@ -76,12 +76,14 @@ class SubMesh:
 
     def mesh(self, axes: Optional[Dict[str, int]] = None,
              model: Optional[int] = None) -> Any:
-        """A (data, model) mesh over this slot: ``axes`` maps the two
-        axis names to their sizes as JAX's does (default: all ``data``),
-        or ``model`` gives the model axis and the rest is ``data``."""
+        """A mesh over this slot: ``axes`` maps axis names to their sizes
+        in order, as JAX's does (default: all ``data``; e.g. ``{"data":
+        1, "sp": 2, "model": 2}``), or ``model`` gives the model axis and
+        the rest is ``data``."""
+        import numpy as np
+
         from rafiki_tpu_torch.parallel.sharding import (DATA_AXIS,
-                                                        MODEL_AXIS,
-                                                        make_mesh)
+                                                        MODEL_AXIS, Mesh)
 
         if model is not None:
             axes = {DATA_AXIS: self.size // max(1, model),
@@ -89,12 +91,10 @@ class SubMesh:
         axes = axes or {DATA_AXIS: self.size}
         if math.prod(axes.values()) != self.size:
             raise ValueError(f"axes {axes} do not cover {self.size} devices")
-        unknown = set(axes) - {DATA_AXIS, MODEL_AXIS}
-        if unknown:
-            raise ValueError(f"unknown mesh axes {sorted(unknown)} (the "
-                             "port's meshes are (data, model))")
-        return make_mesh(self.torch_devices(), data=axes.get(DATA_AXIS, 1),
-                         model=axes.get(MODEL_AXIS, 1))
+        grid = np.empty(self.size, dtype=object)
+        grid[:] = self.torch_devices()
+        return Mesh(grid.reshape(tuple(axes.values())).tolist(),
+                    tuple(axes))
 
 
 def _share_of(devices: Sequence[DeviceSpec],

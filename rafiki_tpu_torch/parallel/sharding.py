@@ -1,8 +1,9 @@
-"""Sharding vocabulary: a (data, model) mesh and the partition specs.
+"""Sharding vocabulary: a mesh of named axes and the partition specs.
 
 The port's own copy of ``rafiki_tpu/parallel/sharding.py``:
 :data:`DATA_AXIS`, :data:`MODEL_AXIS`, :func:`make_mesh` (with JAX's
-errors), :func:`pad_batch_to_axis`, :func:`fsdp_param_spec`,
+errors), :func:`make_sp_mesh` (``LlamaLoRA.train``'s ``(data, sp[,
+model])`` meshes), :func:`pad_batch_to_axis`, :func:`fsdp_param_spec`,
 :func:`tp_param_spec`, :func:`combine_specs`, :func:`param_shardings`,
 :func:`shard_batch` and :func:`replicate_tree`.
 
@@ -36,44 +37,110 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+#: the sequence axis of ``LlamaLoRA``'s ``sequence_parallel`` meshes
+#: (JAX's train loop names it ``"sp"``)
+SP_AXIS = "sp"
 
 Spec = Tuple[Optional[str], ...]
 
 
 class Mesh:
-    """A (data, model) grid of devices; ``devices[i][j]`` holds position
-    ``(i, j)``, the flat position ``i · model + j``."""
+    """A grid of devices with named axes, positions in row-major order:
+    ``devices`` is nested one level per axis (``devices[i][j]`` on a
+    (data, model) mesh, ``devices[i][s][j]`` on (data, sp, model)), and
+    the flat position of coordinates ``(c_0, c_1, ...)`` is
+    ``Σ c_a · Π_{b > a} size_b``. ``axis_names`` defaults to
+    ``(data, model)``, JAX's ``make_mesh`` axes; ``LlamaLoRA``'s
+    ``sequence_parallel`` meshes are ``(data, sp)`` and ``(data, sp,
+    model)``."""
 
-    def __init__(self, devices: Sequence[Sequence[Any]]) -> None:
-        self.devices: List[List[torch.device]] = [
-            [torch.device(d) for d in row] for row in devices]
-        kinds = {d.type for row in self.devices for d in row}
+    def __init__(self, devices: Sequence[Any],
+                 axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS)
+                 ) -> None:
+        names = tuple(axis_names)
+        sizes: List[int] = []
+        level: Any = devices
+        for _ in names:
+            sizes.append(len(level))
+            level = level[0]
+        flat: List[Any] = [devices]
+        for _ in names:
+            flat = [x for row in flat for x in row]
+        self._flat = [torch.device(d) for d in flat]
+        if len(self._flat) != math.prod(sizes):
+            raise ValueError(f"devices do not form a {sizes} grid")
+        kinds = {d.type for d in self._flat}
         if len(kinds) > 1:
             raise ValueError(f"a mesh's devices must be of one type, got "
                              f"{sorted(kinds)}")
-        self.shape: Dict[str, int] = {DATA_AXIS: len(self.devices),
-                                      MODEL_AXIS: len(self.devices[0])}
-        self.axis_names = (DATA_AXIS, MODEL_AXIS)
+        self.axis_names = names
+        self.shape: Dict[str, int] = dict(zip(names, sizes))
+        self.devices = _nested(self._flat, sizes)
 
     @property
     def size(self) -> int:
-        return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
+        return len(self._flat)
 
-    def device(self, i: int, j: int) -> torch.device:
-        return self.devices[i][j]
+    def axis_size(self, axis: str) -> int:
+        """The axis's size, 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
 
-    def positions(self) -> List[Tuple[int, int]]:
-        """Every ``(i, j)`` in flat order."""
-        return [(i, j) for i in range(self.shape[DATA_AXIS])
-                for j in range(self.shape[MODEL_AXIS])]
+    def coords(self, p: int) -> Tuple[int, ...]:
+        """Flat position ``p``'s coordinates, one per axis."""
+        out = []
+        for n in reversed(list(self.shape.values())):
+            p, c = divmod(p, n)
+            out.append(c)
+        return tuple(reversed(out))
+
+    def coord(self, p: int, axis: str) -> int:
+        """Position ``p``'s coordinate on ``axis`` (0 on an axis the mesh
+        does not have)."""
+        if axis not in self.shape:
+            return 0
+        return self.coords(p)[self.axis_names.index(axis)]
+
+    def flat(self, coords: Sequence[int]) -> int:
+        """The flat position of ``coords``."""
+        p = 0
+        for c, n in zip(coords, self.shape.values()):
+            p = p * n + int(c)
+        return p
+
+    def along(self, p: int, axis: str) -> List[int]:
+        """The positions that differ from ``p`` only on ``axis``, in the
+        axis's order (``[p]`` for an axis the mesh does not have)."""
+        if axis not in self.shape:
+            return [p]
+        a = self.axis_names.index(axis)
+        c = list(self.coords(p))
+        out = []
+        for k in range(self.shape[axis]):
+            c[a] = k
+            out.append(self.flat(c))
+        return out
+
+    def device(self, *coords: int) -> torch.device:
+        return self._flat[self.flat(coords)]
+
+    def positions(self) -> List[Tuple[int, ...]]:
+        """Every position's coordinates in flat order."""
+        return [self.coords(p) for p in range(self.size)]
 
     def flat_devices(self) -> List[torch.device]:
-        return [d for row in self.devices for d in row]
+        return list(self._flat)
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
-                f"model={self.shape[MODEL_AXIS]}, "
-                f"devices={[str(d) for d in self.flat_devices()]})")
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({axes}, devices={[str(d) for d in self._flat]})"
+
+
+def _nested(flat: List[Any], sizes: Sequence[int]) -> List[Any]:
+    if len(sizes) == 1:
+        return list(flat)
+    step = len(flat) // sizes[0]
+    return [_nested(flat[i * step:(i + 1) * step], sizes[1:])
+            for i in range(sizes[0])]
 
 
 def make_mesh(devices: Sequence[Any], data: Optional[int] = None,
@@ -90,6 +157,22 @@ def make_mesh(devices: Sequence[Any], data: Optional[int] = None,
     if data * model != n:
         raise ValueError(f"data*model = {data * model} != {n} devices")
     return Mesh([devs[i * model:(i + 1) * model] for i in range(data)])
+
+
+def make_sp_mesh(devices: Sequence[Any], sp: int, model: int = 1) -> Mesh:
+    """``LlamaLoRA.train``'s sequence-parallel mesh: ``devices`` in
+    row-major order as ``(data, sp)``, or ``(data, sp, model)`` for
+    ``model > 1`` (JAX reshapes the device array to ``(-1, sp[,
+    model])``); the caller checks that ``sp · model`` divides them."""
+    devs = list(devices)
+    per = sp * model
+    data = len(devs) // per
+    if model > 1:
+        grid = [[devs[(i * sp + s) * model:(i * sp + s + 1) * model]
+                 for s in range(sp)] for i in range(data)]
+        return Mesh(grid, (DATA_AXIS, SP_AXIS, MODEL_AXIS))
+    return Mesh([devs[i * sp:(i + 1) * sp] for i in range(data)],
+                (DATA_AXIS, SP_AXIS))
 
 
 def pad_batch_to_axis(x: Any, mesh: Mesh, axis: Optional[str] = None
@@ -121,7 +204,7 @@ def fsdp_param_spec(path: str, shape: Sequence[int], mesh: Mesh,
     skipped."""
     taken: List[Optional[str]] = list(base)
     taken += [None] * (len(shape) - len(taken))
-    n_data = mesh.shape[DATA_AXIS]
+    n_data = mesh.axis_size(DATA_AXIS)
     if math.prod(shape) >= min_size:
         for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
             if taken[i] is None and shape[i] % n_data == 0:
@@ -137,7 +220,7 @@ def tp_param_spec(path: str, shape: Sequence[int], mesh: Mesh,
     dims allowed); replicated when that dim does not divide."""
     if not shape:
         return ()
-    n_model = mesh.shape[MODEL_AXIS]
+    n_model = mesh.axis_size(MODEL_AXIS)
     for frag, dim in rules.items():
         if frag in path:
             d = dim % len(shape)
@@ -193,9 +276,10 @@ def param_shardings(params: Any, mesh: Mesh,
     return specs
 
 
-def shard_bounds(shape: Sequence[int], spec: Spec, mesh: Mesh, i: int,
-                 j: int) -> List[List[int]]:
-    """``[start, stop]`` per dim of position ``(i, j)``'s shard."""
+def shard_bounds(shape: Sequence[int], spec: Spec, mesh: Mesh,
+                 *coords: int) -> List[List[int]]:
+    """``[start, stop]`` per dim of the shard at ``coords`` (one per mesh
+    axis, ``(i, j)`` on a (data, model) mesh)."""
     full = list(spec) + [None] * (len(shape) - len(spec))
     out = []
     for dim, axis in zip(shape, full):
@@ -203,7 +287,7 @@ def shard_bounds(shape: Sequence[int], spec: Spec, mesh: Mesh, i: int,
             out.append([0, int(dim)])
             continue
         n = mesh.shape[axis]
-        k = i if axis == DATA_AXIS else j
+        k = coords[mesh.axis_names.index(axis)]
         step = int(dim) // n
         out.append([k * step, (k + 1) * step])
     return out
@@ -212,7 +296,8 @@ def shard_bounds(shape: Sequence[int], spec: Spec, mesh: Mesh, i: int,
 def shard_shape(shape: Sequence[int], spec: Spec, mesh: Mesh
                 ) -> Tuple[int, ...]:
     """A shard's shape (JAX's ``NamedSharding.shard_shape``)."""
-    return tuple(b - a for a, b in shard_bounds(shape, spec, mesh, 0, 0))
+    return tuple(b - a for a, b in shard_bounds(
+        shape, spec, mesh, *([0] * len(mesh.axis_names))))
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh
@@ -223,7 +308,7 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh
     n = mesh.shape[DATA_AXIS]
     out = []
     for i in range(n):
-        dev = mesh.device(i, 0)
+        dev = mesh.device(i, *([0] * (len(mesh.axis_names) - 1)))
         part = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)

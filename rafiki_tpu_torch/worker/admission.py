@@ -35,12 +35,27 @@ log = logging.getLogger(__name__)
 TRAIN_RESERVE_BYTES = 1 << 30
 TRAIN_RESERVE_SHARE = 0.10
 
+#: the caching allocator's settings in a process that trains: segments
+#: that grow in place. With fixed segments a sequence-parallel step
+#: fragments the reserve: at Llama-3-8B widths on (data 1, sp 4) the
+#: f32 LM head gradient (1.96 GiB) found no place with 2.79 GiB of the
+#: reserve free in pieces (``chip_smoke.py`` phase 37 on an H100)
+TRAIN_ALLOC_CONF = "expandable_segments:True"
+
 
 def train_reserve(total: int) -> int:
     """Bytes a train step of estimated peak ``total`` needs on the card
     beyond it: :data:`TRAIN_RESERVE_BYTES` plus
     :data:`TRAIN_RESERVE_SHARE` of ``total``."""
     return TRAIN_RESERVE_BYTES + int(TRAIN_RESERVE_SHARE * total)
+
+
+def use_train_allocator() -> None:
+    """Give the caching allocator :data:`TRAIN_ALLOC_CONF` unless
+    ``PYTORCH_CUDA_ALLOC_CONF`` already says how to run it. The allocator
+    reads the variable when the process first touches the card, so call
+    this before that: the train worker's ``main`` does it first."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", TRAIN_ALLOC_CONF)
 
 
 def resolve_device_limit(device: DeviceLike = None) -> Optional[int]:

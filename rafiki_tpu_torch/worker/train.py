@@ -68,7 +68,8 @@ from rafiki_tpu_torch.obs.trace import TraceBuffer, mint_trace_id
 from rafiki_tpu_torch.store.param_store import ParamStore
 from rafiki_tpu_torch.utils.device import DeviceLike, resolve_device
 from rafiki_tpu_torch.worker.admission import (resolve_device_limit,
-                                               train_reserve)
+                                               train_reserve,
+                                               use_train_allocator)
 
 log = logging.getLogger(__name__)
 
@@ -687,7 +688,9 @@ def main(argv: Optional[list] = None) -> int:
     ``knob_overrides``, ``checkpoint_interval_s``, ``gang_size``,
     ``obs_host`` / ``obs_port`` / ``obs_port_file``) plus ``"device"``
     (default: the CUDA card). The obs sidecar listens on ``obs_port``
-    (default: an ephemeral port), written to ``obs_port_file``."""
+    (default: an ephemeral port), written to ``obs_port_file``. The
+    caching allocator runs with the train settings
+    (:func:`~rafiki_tpu_torch.worker.admission.use_train_allocator`)."""
     import argparse
 
     from rafiki_tpu_torch.advisor.service import AdvisorClient
@@ -701,6 +704,7 @@ def main(argv: Optional[list] = None) -> int:
                              "meta_store_path, sub_train_job_id, worker_id, "
                              "device}")
     args = parser.parse_args(argv)
+    use_train_allocator()
     with open(args.config) as f:
         cfg = json.load(f)
     with open(cfg["model_file"], "rb") as f:

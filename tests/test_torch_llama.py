@@ -176,16 +176,16 @@ def test_kv_layout_view_shares_weights(port_lm):
 def test_unported_branches_raise():
     m = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
               n_kv_heads=1, mlp_dim=16, device="cpu")
-    # the train branch is ported, model_parallel's mesh loop too; the
-    # sequence-parallel and pipelined train paths are not
+    # the train branch is ported, model_parallel's and
+    # sequence_parallel's mesh loops too; the pipelined train path is not
     assert m(torch.zeros(1, 2, dtype=torch.long), decode=False).shape == \
         (1, 2, 16)
-    LlamaLoRA(device="cpu", **{**KNOBS, "model_parallel": 2}) \
-        ._check_trainable_knobs()
-    for knob in ("sequence_parallel", "pipeline_stages"):
-        with pytest.raises(NotImplementedError, match=knob):
-            LlamaLoRA(device="cpu", **{**KNOBS, knob: 2}).train(
-                "unread.jsonl")
+    for knob in ("model_parallel", "sequence_parallel"):
+        LlamaLoRA(device="cpu", **{**KNOBS, knob: 2}) \
+            ._check_trainable_knobs()
+    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+        LlamaLoRA(device="cpu", **{**KNOBS, "pipeline_stages": 2}).train(
+            "unread.jsonl")
     # the MoE FFN is ported: its four f32 leaves replace gate/up/down
     moe = Llama(vocab_size=16, max_len=8, hidden_dim=8, depth=1, n_heads=2,
                 n_kv_heads=1, mlp_dim=16, device="cpu", n_experts=4)

@@ -202,20 +202,23 @@ def test_template_train_evaluate_and_blob_exchange_match_jax(corpus, case):
 
 
 def test_train_refuses_unported_knobs(corpus):
-    for knob, value in (("sequence_parallel", 2), ("pipeline_stages", 2)):
-        m = ll.LlamaLoRA(device="cpu", **{**KNOBS, knob: value})
-        with pytest.raises(NotImplementedError, match=knob):
-            m.train(corpus[0])
+    m = ll.LlamaLoRA(device="cpu", **{**KNOBS, "pipeline_stages": 2})
+    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+        m.train(corpus[0])
     # model_parallel trains on a mesh: on the template's one CPU device
     # JAX's halving rule gives a (1, 1) mesh, which starts from the same
-    # init as one card and takes the same steps
+    # init as one card and takes the same steps; sequence_parallel 2
+    # trains on a (1, 2) mesh of two CPU shards, the sequence split in
+    # two, and takes the same steps too
     losses = []
-    for extra in ({"model_parallel": 2}, {}):
-        ctx = TrainContext()
+    for extra, n in (({"model_parallel": 2}, 1),
+                     ({"sequence_parallel": 2}, 2), ({}, 1)):
+        ctx = TrainContext(devices=["cpu"] * n)
         ll.LlamaLoRA(device="cpu", **{**KNOBS, **extra}).train(corpus[0],
                                                                 ctx)
         losses.append(ctx.logger.get_values("loss"))
-    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    np.testing.assert_allclose(losses[0], losses[2], rtol=1e-5)
+    np.testing.assert_allclose(losses[1], losses[2], rtol=1e-5)
 
 
 def test_warm_start_and_checkpoint_hooks(corpus):

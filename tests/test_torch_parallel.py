@@ -115,6 +115,10 @@ def test_make_mesh_errors_and_layout():
                                                        "model": 4}
     with pytest.raises(ValueError, match="do not cover"):
         sub.mesh({"data": 3})
+    # any named axes, as JAX's SubMesh.mesh takes them
+    sp = sub.mesh({"data": 1, "sp": 2, "model": 2})
+    assert sp.axis_names == ("data", "sp", "model")
+    assert sp.shape == {"data": 1, "sp": 2, "model": 2}
 
 
 @pytest.mark.parametrize("n,mp,want", [(8, 2, (4, 2)), (4, 4, (1, 4)),
@@ -238,6 +242,33 @@ def test_collectives_equal_the_unsharded_computation(devices):
         assert torch.equal(gg, torch.cat(small, 1))
     with pytest.raises(ValueError, match="does not divide"):
         col.reduce_scatter(_parts(n, (3, 4 * n + 1), 3), devs, 1)
+
+
+def test_owners_share_along_named_axes_on_one_device():
+    """Positions that differ only along the shared axes and sit on one
+    device own one tensor; ``on_axis`` runs once for groups whose
+    members have the same owners."""
+    mesh = ps.make_sp_mesh(["cpu"] * 8, 2, model=2)  # (data 2, sp 2, model 2)
+    assert col.owners(mesh) == list(range(8))
+    assert col.owners(mesh, ("sp",)) == [0, 1, 0, 1, 4, 5, 4, 5]
+    leaf = col.ShardedLeaf.from_full(torch.arange(8.0).reshape(2, 4), mesh,
+                                     ("data", "model"), share=("sp",))
+    assert leaf.owner == [0, 1, 0, 1, 4, 5, 4, 5]
+    assert leaf.owned() == [0, 1, 4, 5]
+    assert all(leaf.shards[p] is leaf.shards[o]
+               for p, o in enumerate(leaf.owner))
+    calls = []
+
+    def op(xs, devs, dim):
+        calls.append(len(xs))
+        return col.all_gather(xs, devs, dim)
+
+    out = col.on_axis(mesh, "data", op, leaf.shards, 0, owner=leaf.owner)
+    assert calls == [2, 2]  # one per model position, not per (sp, model)
+    assert out[0] is out[2] and out[1] is out[3]
+    assert torch.equal(out[0], torch.tensor([[0.0, 1.0], [4.0, 5.0]]))
+    col.on_axis(mesh, "data", op, leaf.shards, 0)
+    assert calls == [2] * 6
 
 
 def test_sharded_leaf_round_trip_and_replicas():

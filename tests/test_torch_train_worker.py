@@ -633,7 +633,7 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
         t["error_class"] == "deterministic"
     assert "admission control" in t["error"]
     # knobs the train path refuses raise the same error in the estimate
-    for bad in ({"sequence_parallel": 2},):
+    for bad in ({"pipeline_stages": 2},):
         m = LlamaLoRA(device="cpu", **dict(knobs, **bad))
         with pytest.raises(NotImplementedError) as want:
             m._check_trainable_knobs()
@@ -646,6 +646,13 @@ def test_train_admission_refuses_over_the_device_limit(tmp_path,
     mesh_est = m.estimate_device_budget(1)
     assert (mesh_est["params"], mesh_est["opt"]) == (est["params"],
                                                      est["opt"])
+    # sequence_parallel trains on a (data, sp) mesh: each position holds
+    # every leaf (no spec names sp) and a slice of the sequence
+    m = LlamaLoRA(device="cpu", **dict(knobs, sequence_parallel=2))
+    sp_est = m.estimate_device_budget(2)
+    assert (sp_est["params"], sp_est["opt"]) == (est["params"],
+                                                 est["opt"])
+    assert sp_est["activations"] < est["activations"]
 
 
 def test_train_admission_keeps_a_reserve_at_the_limit(monkeypatch):
@@ -816,6 +823,27 @@ def test_main_refuses_the_obs_sidecar(tmp_path, monkeypatch):
     assert seen[0] == (free, {"ok": True}, True)
     assert seen[1][1:] == ({"ok": True}, True) and seen[2] == seen[1][0]
     assert not port_file.exists()
+
+
+def test_main_runs_the_allocator_with_the_train_settings(tmp_path,
+                                                         monkeypatch):
+    """``main`` gives the caching allocator the train settings
+    (expandable segments) before the worker touches the card; a setting
+    the environment already holds wins."""
+    from rafiki_tpu_torch.worker.admission import TRAIN_ALLOC_CONF
+
+    assert TRAIN_ALLOC_CONF == "expandable_segments:True"
+    monkeypatch.setattr(ptrain.TrainWorker, "run", lambda self: 0)
+    path, _, _ = _main_config(tmp_path, "http://127.0.0.1:1")
+    for preset, want in ((None, TRAIN_ALLOC_CONF),
+                         ("expandable_segments:False",
+                          "expandable_segments:False")):
+        if preset is None:
+            monkeypatch.delenv("PYTORCH_CUDA_ALLOC_CONF", raising=False)
+        else:
+            monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", preset)
+        assert ptrain.main(["--config", path]) == 0
+        assert os.environ["PYTORCH_CUDA_ALLOC_CONF"] == want
 
 
 @pytest.mark.slow
